@@ -1,0 +1,635 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (Hopper: the kernels are built for sm_90a) and the
+checkout around this file; exits non-zero, printing no result, without
+either. Phases, each printing JSON lines:
+
+1. device    — the card's name and power limit; build the CUDA kernels.
+2. kernels   — every ALF kernel against its plain PyTorch version on the
+               card: f32, bf16, a mixed {f32, bf16} tree and f64; n = 1,
+               1500*128+37 and the main path's 2048*64; eta in {1, 0.9}
+               (sign in {+1, -1} for the midpoint). One op call must be
+               exactly one launch.
+3. times     — CUDA-event times of each kernel, its plain version and (for
+               the midpoint) one library call, beside the bound, at the
+               main path's shape and at n = 2^25.
+4. main path — the paper's Sec 4.2 model (D=64, HIDDEN=64, 3 classes,
+               2048 images) trained 20 Adam steps with
+               solve(ALF(eta=1, backend="cuda"), ConstantSteps(4), MALI())
+               on the card; the loss must fall, every kernel must launch
+               2*4 times forward and 2*4 times backward per step, and
+               MALI's gradient must match Naive() on the reference backend.
+5. adaptive  — AdaptiveController(1e-4, 1e-5, 128) over
+               SaveAt(ts=linspace(0, 1, 5)): MALI (cuda) against Naive
+               (reference) on the card.
+6. memory    — peak device memory of a solve's forward + backward on a
+               2^20-element state at ConstantSteps(8) and (64): flat
+               (<= 1.05x) for MALI, growing for Naive.
+7. profile   — torch.profiler over 20 training steps of phase 4 on the
+               kernel and the reference backend: device busy/idle share
+               and the top device operations.
+
+The line before the last is the kernel table; the last line is
+``{"ok": true, "device": {...}}``. Any failed check raises.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+SRC = HERE / "src"
+
+D, HIDDEN, N_CLASS = 64, 64, 3          # examples/image_recognition.py
+N_TRAIN, TRAIN_STEPS, LR, N_SUB = 2048, 20, 3e-3, 4
+SLICE_N = N_TRAIN * D                   # the main path's state: 2048 x 64
+BIG_N = 1 << 25
+TAIL_N = 1500 * 128 + 37
+GRAD_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_core_gradients.py:76
+KERNEL_ULPS = 2
+TIME_PAIRS = 5
+
+# Memory rate (bytes/s) and f32 peak (FLOP/s, outside the tensor cores)
+# by card name; NVIDIA data sheets.
+CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
+         ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
+
+KERNELS = {
+    # name: (TPU kernel replaced, inputs, outputs, f32 ops per element)
+    "alf_midpoint": ("src/repro/kernels/alf_step/alf_step.py:43", 2, 1, 3),
+    "alf_update": ("src/repro/kernels/alf_step/alf_step.py:50", 3, 2, 5),
+    "alf_bwd_pre": ("src/repro/kernels/alf_step/alf_step.py:107", 4, 2, 5),
+    "alf_bwd_post": ("src/repro/kernels/alf_step/alf_step.py:118", 6, 4,
+                     12),
+}
+SOURCE = "src/repro_torch/kernels/alf_step/csrc/alf_step.cu"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def card_rates(name: str):
+    for key, bw, flops in CARDS:
+        if key in name:
+            return bw, flops
+    raise RuntimeError(f"no memory rate known for card {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# The paper's Sec 4.2 model (examples/image_recognition.py)
+# ---------------------------------------------------------------------------
+
+def make_data(n: int, seed: int):
+    """Three gaussian-blob classes with fixed means, exactly as the JAX
+    example makes them."""
+    protos = np.random.default_rng(12345).standard_normal((N_CLASS, D)) * 0.6
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, N_CLASS, n)
+    x = protos[y] + rng.standard_normal((n, D)) * 0.8
+    return x.astype(np.float32), y.astype(np.int64)
+
+
+def init_params_numpy(seed: int):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    return {
+        "f": {"w1": (0.3 * rng.standard_normal((D, HIDDEN))).astype(f32),
+              "b1": np.zeros((HIDDEN,), f32),
+              "w2": (0.3 * rng.standard_normal((HIDDEN, D))).astype(f32),
+              "b2": np.zeros((D,), f32)},
+        "norm": np.ones((D,), f32),
+        "head": (0.3 * rng.standard_normal((D, N_CLASS))).astype(f32),
+        "bh": np.zeros((N_CLASS,), f32),
+    }
+
+
+def field(fp, z, t):
+    import torch
+    h = torch.tanh(z @ fp["w1"] + fp["b1"])
+    return h @ fp["w2"] + fp["b2"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _ulp(dtype):
+    import torch
+    return {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7,
+            torch.float64: 2.0 ** -52}[dtype]
+
+
+def _plain(name, ops, trees, h, param):
+    """The plain PyTorch version of one op on the same packed buffer."""
+    import torch
+    from repro_torch.kernels.alf_step import ref
+    cd = ops._common_dtype(*trees)
+    hh = h.to(torch.promote_types(cd, torch.float32))
+    bufs = [ops._flatten(t, cd) for t in trees]
+    fn = {"alf_midpoint": ref.midpoint_ref, "alf_update": ref.update_ref,
+          "alf_bwd_pre": ref.bwd_pre_ref, "alf_bwd_post": ref.bwd_post_ref}
+    out = fn[name](*bufs, hh, param)
+    outs = out if isinstance(out, tuple) else (out,)
+    metas = {"alf_midpoint": (0,), "alf_update": (0, 1),
+             "alf_bwd_pre": (0, 2), "alf_bwd_post": (0, 1, 3, 4)}[name]
+    return tuple(ops._unflatten(o, ops._Meta(trees[i]))
+                 for o, i in zip(outs, metas))
+
+
+def _call(name, ops, trees, h, param):
+    fn = getattr(ops, name)
+    key = "sign" if name == "alf_midpoint" else "eta"
+    out = fn(*trees, h, **{key: param})
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _make_trees(kind: str, n: int, n_in: int, gen):
+    import torch
+    dev = "cuda"
+
+    def one():
+        x = torch.randn(n, device=dev, generator=gen)
+        if kind == "f32":
+            return x
+        if kind == "bf16":
+            return x.to(torch.bfloat16)
+        if kind == "f64":
+            return x.double()
+        cut = max(n // 3, 1)            # mixed tree: {f32, bf16}
+        return {"a": x[:cut].clone(),
+                "b": x[cut:].to(torch.bfloat16).view(1, -1)}
+
+    return [one() for _ in range(n_in)]
+
+
+def phase_kernels():
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch.kernels.alf_step import alf_step, ops
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h = torch.tensor(0.23, device="cuda")
+    worst = {k: 0.0 for k in KERNELS}
+    n_checks = 0
+    for name, (_, n_in, _, _) in KERNELS.items():
+        params = (1.0, -1.0) if name == "alf_midpoint" else (1.0, 0.9)
+        for kind in ("f32", "bf16", "mixed", "f64"):
+            for n in (1, TAIL_N, SLICE_N):
+                if kind == "mixed" and n == 1:
+                    continue
+                trees = _make_trees(kind, n, n_in, gen)
+                for p in params:
+                    before = alf_step.LAUNCHES[name]
+                    got = _call(name, ops, trees, h, p)
+                    require(alf_step.LAUNCHES[name] == before + 1,
+                            f"{name} {kind}: one op call must be one launch")
+                    want = _plain(name, ops, trees, h, p)
+                    torch.cuda.synchronize()
+                    for g, w in zip(pytree.tree_leaves(got),
+                                    pytree.tree_leaves(want)):
+                        require(g.dtype == w.dtype and g.shape == w.shape,
+                                f"{name} {kind}: leaf dtype/shape")
+                        err = float((g.double() - w.double()).abs().max())
+                        scale = max(1.0, float(w.double().abs().max()))
+                        tol = KERNEL_ULPS * _ulp(g.dtype) * scale
+                        require(err <= tol, f"{name} {kind} n={n} p={p}: "
+                                f"max abs err {err} > {tol}")
+                        if kind == "f32" and n == SLICE_N:
+                            worst[name] = max(worst[name], err)
+                    n_checks += 1
+    emit({"phase": "kernels", "checks": n_checks,
+          "tolerance": f"{KERNEL_ULPS} ulp of the storage dtype at the "
+                       "output's largest magnitude (>= 1)",
+          "max_abs_err_f32_slice": worst})
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: times
+# ---------------------------------------------------------------------------
+
+def _time_ms(fn, reps: int) -> float:
+    import torch
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device time per call with the host taken out: ``reps`` calls
+    captured into one CUDA graph, replayed and timed with CUDA events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def _alternate(kernel, plain, reps):
+    """kernel, plain, kernel, plain — each time the mean of its two runs."""
+    k1 = _time_ms(kernel, reps)
+    p1 = _time_ms(plain, reps)
+    k2 = _time_ms(kernel, reps)
+    p2 = _time_ms(plain, reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def phase_times(card: str):
+    import torch
+    from repro_torch.kernels.alf_step import alf_step, ref
+    bw, peak = card_rates(card)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    h = torch.tensor(0.23, device="cuda")
+    rows = {}
+    for n, reps in ((SLICE_N, 500), (BIG_N, 20)):
+        bufs = [torch.randn(n, device="cuda", generator=gen)
+                for _ in range(6)]
+        calls = {
+            "alf_midpoint": (lambda: alf_step.midpoint_call(*bufs[:2], h),
+                             lambda: ref.midpoint_ref(*bufs[:2], h, 1.0)),
+            "alf_update": (
+                lambda: alf_step.update_call(*bufs[:3], h, eta=0.9),
+                lambda: ref.update_ref(*bufs[:3], h, 0.9)),
+            "alf_bwd_pre": (
+                lambda: alf_step.bwd_pre_call(*bufs[:4], h, eta=0.9),
+                lambda: ref.bwd_pre_ref(*bufs[:4], h, 0.9)),
+            "alf_bwd_post": (
+                lambda: alf_step.bwd_post_call(*bufs, h, eta=0.9),
+                lambda: ref.bwd_post_ref(*bufs, h, 0.9)),
+        }
+        half_h = h / 2
+        for name, (kern, plain) in calls.items():
+            _, n_in, n_out, flops = KERNELS[name]
+            ms, plain_ms = _alternate(kern, plain, reps)
+            bytes_ms = (n_in + n_out) * 4 * n / bw * 1e3
+            ops_ms = flops * n / peak * 1e3
+            lib_ms = None
+            if name == "alf_midpoint":
+                lib_ms = _time_ms(
+                    lambda: torch.addcmul(bufs[0], bufs[1], half_h), reps)
+            row = {"name": name, "n": n, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations",
+                   "library_ms": lib_ms}
+            if n == SLICE_N:
+                # At this size a call costs more on the host than on the
+                # card; a CUDA graph of 100 calls shows the device's part.
+                row["graph_ms"] = _graph_ms(kern, 100)
+                row["plain_graph_ms"] = _graph_ms(plain, 100)
+                if name == "alf_midpoint":
+                    row["library_graph_ms"] = _graph_ms(
+                        lambda: torch.addcmul(bufs[0], bufs[1], half_h), 100)
+            emit({"phase": "times", **row})
+            rows[(name, n)] = row
+        del bufs
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 4-6: the port's solve() on the card
+# ---------------------------------------------------------------------------
+
+def _leaves_close(got, want, what: str):
+    import torch.utils._pytree as pytree
+    worst = 0.0
+    for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        excess = ((g - w).abs() - GRAD_TOL["rtol"] * w.abs()).max()
+        worst = max(worst, float((g - w).abs().max()))
+        require(float(excess) <= GRAD_TOL["atol"],
+                f"{what}: gradients differ beyond rtol "
+                f"{GRAD_TOL['rtol']} / atol {GRAD_TOL['atol']}")
+    return worst
+
+
+def _model_loss(params, x, y, solver, gradient, controller):
+    import torch
+    from repro_torch.core import solve
+    sol = solve(field, params["f"], x, 0.0, 1.0, solver=solver,
+                controller=controller, gradient=gradient)
+    z = sol.ys * params["norm"]
+    logits = z @ params["head"] + params["bh"]
+    return torch.nn.functional.cross_entropy(logits, y), sol.stats
+
+
+def _grads(params, x, y, solver, gradient, controller):
+    import torch
+    import torch.utils._pytree as pytree
+    leaves = pytree.tree_leaves(params)
+    loss, _ = _model_loss(params, x, y, solver, gradient, controller)
+    return pytree.tree_unflatten(list(torch.autograd.grad(loss, leaves)),
+                                 pytree.tree_flatten(params)[1])
+
+
+def _train(x, y, solver, ctrl):
+    """TRAIN_STEPS Adam steps of the Sec 4.2 model from the seeded
+    parameters; returns the losses and the wall seconds."""
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch import params_from_numpy
+    from repro_torch.core import MALI
+    params = params_from_numpy(init_params_numpy(0))
+    for p in pytree.tree_leaves(params):
+        p.requires_grad_(True)
+    opt = torch.optim.Adam(pytree.tree_leaves(params), lr=LR)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss, _ = _model_loss(params, x, y, solver, MALI(), ctrl)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [float(l) for l in losses], wall
+
+
+def phase_main_path():
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch import params_from_numpy
+    from repro_torch.core import ALF, MALI, ConstantSteps, Naive
+    from repro_torch.kernels.alf_step import alf_step, ops
+
+    x_np, y_np = make_data(N_TRAIN, seed=0)
+    x = torch.as_tensor(x_np, device="cuda")
+    y = torch.as_tensor(y_np, device="cuda")
+    params = params_from_numpy(init_params_numpy(0))
+    for p in pytree.tree_leaves(params):
+        p.requires_grad_(True)
+    ctrl = ConstantSteps(N_SUB)
+    cuda_alf, ref_alf = ALF(eta=1.0, backend="cuda"), ALF(eta=1.0)
+
+    # MALI (kernels) vs Naive (reference backend) at the first step's
+    # parameters, on the card.
+    g_mali = _grads(params, x, y, cuda_alf, MALI(), ctrl)
+    g_naive = _grads(params, x, y, ref_alf, Naive(), ctrl)
+    grad_err = _leaves_close(g_mali, g_naive, "main path MALI vs Naive")
+
+    alf_step.reset_launches()
+    ops.reset_op_calls()
+    losses, wall = _train(x, y, cuda_alf, ctrl)
+    launches = dict(alf_step.LAUNCHES)
+    op_calls = dict(ops.OP_CALLS)
+    require(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    require(losses[-1] < losses[0],
+            f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    per_step = N_SUB            # each kernel runs once per solver step
+    for name in KERNELS:
+        require(launches[name] == TRAIN_STEPS * per_step,
+                f"{name}: {launches[name]} launches in {TRAIN_STEPS} "
+                f"steps, expected {TRAIN_STEPS * per_step}")
+        require(launches[name] == op_calls[name],
+                f"{name}: launches {launches[name]} != op calls "
+                f"{op_calls[name]}")
+
+    # The same training on the reference backend (plain tensor ops), in
+    # turns with the kernel backend: the host clock is noisy here, so
+    # TIME_PAIRS pairs, alternating which backend runs first.
+    ref_losses, _ = _train(x, y, ref_alf, ctrl)
+    loss_gap = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    require(loss_gap <= 1e-4, f"kernel and reference loss traces differ by "
+            f"{loss_gap}")
+    step_ms = {"cuda": [], "reference": []}
+    order = (("reference", ref_alf), ("cuda", cuda_alf))
+    for i in range(TIME_PAIRS):
+        for name, solver in order[::1 if i % 2 == 0 else -1]:
+            _, w = _train(x, y, solver, ctrl)
+            step_ms[name].append(w / TRAIN_STEPS * 1e3)
+    emit({"phase": "main_path", "model": "paper Sec 4.2 (D=64, HIDDEN=64, "
+          "3 classes, 2048 images)", "steps": TRAIN_STEPS,
+          "first_loss": losses[0], "last_loss": losses[-1],
+          "launches": launches,
+          "forward_launches_per_step": (launches["alf_midpoint"]
+                                        + launches["alf_update"])
+          // TRAIN_STEPS,
+          "backward_launches_per_step": (launches["alf_bwd_pre"]
+                                         + launches["alf_bwd_post"])
+          // TRAIN_STEPS,
+          "mali_vs_naive_max_abs_grad_diff": grad_err,
+          "first_run_step_ms_cuda": wall / TRAIN_STEPS * 1e3,
+          "step_ms_cuda": step_ms["cuda"],
+          "step_ms_reference": step_ms["reference"],
+          "median_step_ms_cuda": float(np.median(step_ms["cuda"])),
+          "median_step_ms_reference": float(np.median(step_ms["reference"])),
+          "max_loss_gap_cuda_vs_reference": loss_gap})
+    return launches
+
+
+def phase_adaptive():
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch import params_from_numpy
+    from repro_torch.core import (ALF, MALI, AdaptiveController, Naive,
+                                  SaveAt, solve)
+    x_np, _ = make_data(N_TRAIN, seed=0)
+    fp = params_from_numpy(init_params_numpy(0)["f"])
+    ctrl = AdaptiveController(1e-4, 1e-5, 128)
+    saveat = SaveAt(ts=torch.linspace(0.0, 1.0, 5))
+    out = {}
+    for label, solver, gradient in (
+            ("mali_cuda", ALF(eta=1.0, backend="cuda"), MALI()),
+            ("naive_reference", ALF(eta=1.0), Naive())):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in fp.items()}
+        z0 = torch.as_tensor(x_np, device="cuda").requires_grad_(True)
+        sol = solve(field, p, z0, solver=solver, controller=ctrl,
+                    gradient=gradient, saveat=saveat)
+        loss = (sol.ys ** 2).mean()
+        grads = torch.autograd.grad(loss, [*pytree.tree_leaves(p), z0])
+        out[label] = (sol, grads)
+    (s_m, g_m), (s_n, g_n) = out["mali_cuda"], out["naive_reference"]
+    counts = [int(s_m.stats.n_accepted), int(s_m.stats.n_rejected)]
+    require(counts == [int(s_n.stats.n_accepted),
+                       int(s_n.stats.n_rejected)],
+            "adaptive: MALI and Naive took different step sequences")
+    require(tuple(s_m.ys.shape) == (5, N_TRAIN, D)
+            and bool(torch.isfinite(s_m.ys).all()), "adaptive: ys")
+    err = _leaves_close(g_m, g_n, "adaptive MALI vs Naive")
+    emit({"phase": "adaptive", "controller": "AdaptiveController(1e-4, "
+          "1e-5, 128)", "saveat": "linspace(0, 1, 5)",
+          "n_accepted": counts[0], "n_rejected": counts[1],
+          "mali_vs_naive_max_abs_grad_diff": err})
+
+
+def phase_memory():
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch import params_from_numpy
+    from repro_torch.core import ALF, MALI, ConstantSteps, Naive, solve
+    x_np, _ = make_data((1 << 20) // D, seed=2)
+    fp = params_from_numpy(init_params_numpy(0)["f"])
+    peaks = {}
+    for label, solver, gradient in (
+            ("mali_cuda", ALF(eta=1.0, backend="cuda"), MALI()),
+            ("naive_reference", ALF(eta=1.0), Naive())):
+        for n in (8, 64):
+            p = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in fp.items()}
+            z0 = torch.as_tensor(x_np, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            sol = solve(field, p, z0, 0.0, 1.0, solver=solver,
+                        controller=ConstantSteps(n), gradient=gradient)
+            loss = (sol.ys ** 2).mean()
+            torch.autograd.grad(loss, pytree.tree_leaves(p))
+            torch.cuda.synchronize()
+            peaks[(label, n)] = torch.cuda.max_memory_allocated() - base
+            del sol, loss
+    mali = peaks[("mali_cuda", 64)] / peaks[("mali_cuda", 8)]
+    naive = peaks[("naive_reference", 64)] / peaks[("naive_reference", 8)]
+    emit({"phase": "memory", "state_elements": 1 << 20,
+          "peak_bytes": {f"{k}_n{n}": v for (k, n), v in peaks.items()},
+          "mali_growth_8_to_64": mali, "naive_growth_8_to_64": naive})
+    require(mali <= 1.05, f"MALI peak memory grew {mali}x from 8 to 64 "
+            "steps")
+    require(naive > 2.0, f"Naive peak memory grew only {naive}x")
+
+
+def _busy_us(events) -> float:
+    """Union length of the device events' time ranges (us)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > hi:
+            busy += hi - lo
+            lo, hi = s0, e0
+        else:
+            hi = max(hi, e0)
+    return busy + hi - lo
+
+
+def phase_profile():
+    """torch.profiler over PROFILE_STEPS training steps of the main path on
+    each backend: the device's busy and idle share and the top device
+    operations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import ALF, ConstantSteps
+    x_np, y_np = make_data(N_TRAIN, seed=0)
+    x = torch.as_tensor(x_np, device="cuda")
+    y = torch.as_tensor(y_np, device="cuda")
+    out = {}
+    for backend in ("cuda", "reference"):
+        solver = ALF(eta=1.0, backend=backend)
+        _train(x, y, solver, ConstantSteps(N_SUB))          # warm
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _train(x, y, solver, ConstantSteps(N_SUB))
+        # device work only: profiler annotations (e.g. the optimizer's
+        # range) also carry the CUDA device type
+        dev = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)
+               and "#" not in e.name]
+        require(len(dev) > 0, f"profile {backend}: no device events")
+        window = (max(e.time_range.end for e in dev)
+                  - min(e.time_range.start for e in dev))
+        busy = _busy_us(dev)
+        by_name = {}
+        for e in dev:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        out[backend] = {
+            "steps": TRAIN_STEPS, "device_busy_ms": busy / 1e3,
+            "device_window_ms": window / 1e3,
+            "idle_share": 1.0 - busy / window,
+            "device_launches": len(dev),
+            "top_device_ms": [[name[:60], ms, n] for name, (ms, n) in top]}
+    emit({"phase": "profile", **out})
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    card = torch.cuda.get_device_name(0)
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build(["alf_step"])
+    emit({"phase": "device", "card": card, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": time.perf_counter() - t0})
+
+    worst = phase_kernels()
+    times = phase_times(card)
+    launches = phase_main_path()
+    phase_adaptive()
+    phase_memory()
+    phase_profile()
+
+    table = []
+    for name, (replaces, *_rest) in KERNELS.items():
+        row = times[(name, SLICE_N)]
+        table.append({"name": name, "route": "cuda", "source": SOURCE,
+                      "replaces": replaces, "launches": launches[name],
+                      "max_abs_err": worst[name], "ms": row["ms"],
+                      "plain_ms": row["plain_ms"],
+                      "bound_ms": row["bound_ms"],
+                      "bound_by": row["bound_by"],
+                      "library_ms": row["library_ms"]})
+    emit({"kernels": table})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

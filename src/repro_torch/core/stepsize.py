@@ -1,0 +1,155 @@
+"""Step-size policy objects (paper Algo 1) — the step-controller axis.
+
+* :class:`ConstantSteps` — ``n`` uniform sub-steps per observation segment
+  (the paper's large-scale fixed-h setting; every trial is accepted).
+* :class:`AdaptiveController` — the error-ratio controller of Algo 1 with
+  ``rtol``/``atol`` and a bounded ``max_steps`` trial budget per segment
+  (rejected trials still cost f-evals), warm-starting each segment at the
+  previous segment's step proposal.
+
+The numeric policy is plain tensor functions over 0-d tensors, computed on
+the state's device; the driving loop lives in
+:mod:`repro_torch.core.integrate`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, ClassVar
+
+import torch
+import torch.utils._pytree as pytree
+
+# Classic Hairer-Norsett-Wanner defaults.
+SAFETY = 0.9
+MIN_FACTOR = 0.2     # paper's DecayFactor floor
+MAX_FACTOR = 10.0    # paper's IncreaseFactor ceiling
+
+
+def error_ratio(err: Any, z0: Any, z1: Any, rtol: float,
+                atol: float) -> torch.Tensor:
+    """RMS of err scaled by atol + rtol*max(|z0|,|z1|). Accept iff <= 1.
+
+    The reduction runs over every element of the state pytree, so a
+    batch-shaped state integrates in lockstep (one shared accept/reject).
+    """
+    total = 0.0
+    count = 0
+    for e, a, b in zip(pytree.tree_leaves(err), pytree.tree_leaves(z0),
+                       pytree.tree_leaves(z1)):
+        scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
+        r = (e / scale).to(torch.float32)
+        total = total + torch.sum(r * r)
+        count += r.numel()
+    # safe sqrt: d(sqrt)/dx at exactly 0 is inf, which poisons backprop
+    # through the adaptive loop (0-cotangent * inf = NaN) — the naive
+    # method differentiates through this code path.
+    ms = total / max(count, 1)
+    pos = ms > 0
+    return (torch.sqrt(torch.where(pos, ms, torch.ones_like(ms)))
+            * torch.where(pos, 1.0, 0.0))
+
+
+def next_step_size(h: torch.Tensor, ratio: torch.Tensor,
+                   order: int) -> torch.Tensor:
+    """h * clip(safety * ratio^(-1/(p+1))). The factor is strictly
+    positive, so the sign of ``h`` (the integration direction) is kept."""
+    ratio = torch.clamp_min(ratio, 1e-10)
+    factor = SAFETY * ratio ** (-1.0 / (order + 1))
+    factor = torch.clamp(factor, MIN_FACTOR, MAX_FACTOR)
+    return h * factor
+
+
+def initial_step_size(rtol: float, atol: float,
+                      span: torch.Tensor) -> torch.Tensor:
+    """A small fraction of the span, tolerance-scaled, signed like the span
+    (a negative span — reverse time — proposes a negative step)."""
+    base = torch.abs(span) * 0.05
+    tol = torch.tensor(rtol + atol, dtype=torch.float32, device=span.device)
+    tol_scale = torch.clamp(torch.sqrt(tol), 1e-4, 1.0)
+    return torch.sign(span) * torch.maximum(base * tol_scale,
+                                            torch.abs(span) * 1e-4)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepController:
+    """Base step-size policy: the accept/reject decision (``error_ratio``:
+    <= 1 accepts) and the per-segment recorded-step bound (``step_bound``:
+    the size of the buffers the backward sweep replays)."""
+
+    adaptive: ClassVar[bool] = False
+
+    def error_ratio(self, err: Any, z0: Any, z1: Any) -> torch.Tensor:
+        raise NotImplementedError
+
+    @property
+    def step_bound(self) -> int:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstantSteps(StepController):
+    """Fixed uniform grid: ``n`` sub-steps per observation segment."""
+
+    n: int = 8
+
+    adaptive: ClassVar[bool] = False
+
+    def __post_init__(self):
+        try:
+            n = int(self.n)
+        except (TypeError, ValueError):
+            n = -1
+        if n < 1 or n != self.n:
+            raise ValueError(
+                f"ConstantSteps needs a positive integer step count, got "
+                f"n={self.n!r}")
+        object.__setattr__(self, "n", n)
+
+    def error_ratio(self, err, z0, z1) -> torch.Tensor:
+        # Every trial is accepted.
+        return torch.zeros((), device=pytree.tree_leaves(z0)[0].device)
+
+    @property
+    def step_bound(self) -> int:
+        return self.n
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveController(StepController):
+    """Paper Algo 1: accept iff the atol/rtol-scaled error RMS is <= 1,
+    shrink on reject / grow on accept with the clipped single-exponent
+    factor, under a ``max_steps`` trial budget per segment."""
+
+    rtol: float = 1e-2
+    atol: float = 1e-3
+    max_steps: int = 64
+
+    adaptive: ClassVar[bool] = True
+
+    def __post_init__(self):
+        if self.rtol < 0.0 or self.atol < 0.0:
+            raise ValueError(
+                f"tolerances must be non-negative, got rtol={self.rtol}, "
+                f"atol={self.atol}")
+        if self.rtol == 0.0 and self.atol == 0.0:
+            raise ValueError("rtol and atol cannot both be zero")
+        try:
+            m = int(self.max_steps)
+        except (TypeError, ValueError):
+            m = -1
+        if m < 1 or m != self.max_steps:
+            raise ValueError(
+                f"max_steps must be a positive integer, got {self.max_steps!r}")
+        object.__setattr__(self, "max_steps", m)
+        object.__setattr__(self, "rtol", float(self.rtol))
+        object.__setattr__(self, "atol", float(self.atol))
+
+    def error_ratio(self, err, z0, z1) -> torch.Tensor:
+        return error_ratio(err, z0, z1, self.rtol, self.atol)
+
+    @property
+    def step_bound(self) -> int:
+        return self.max_steps
+
+    def initial_step(self, span: torch.Tensor) -> torch.Tensor:
+        return initial_step_size(self.rtol, self.atol, span)

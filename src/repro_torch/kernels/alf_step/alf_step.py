@@ -1,0 +1,141 @@
+"""Launchers of the fused ALF CUDA kernels (``csrc/alf_step.cu``).
+
+Each launcher takes flat contiguous CUDA buffers of one storage dtype
+(float32, float64 or bfloat16) and the step size ``h`` as a 0-d CUDA
+tensor of the compute dtype (float32, or float64 for float64 storage). It
+checks them, allocates the outputs, launches ONE kernel on PyTorch's
+current stream, raises if the launch failed, and adds one to its count in
+:data:`LAUNCHES`. The kernel reads ``h`` through its pointer, so no launch
+syncs the host.
+
+Kernel inventory (the plain PyTorch version of each is in ref.py):
+
+  forward step      alf_midpoint, alf_update
+  MALI backward     alf_bwd_pre (inverse midpoint + f-cotangent),
+                    alf_bwd_post (inverse tail + adjoint propagation)
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+NAME = "alf_step"
+
+# Kernel launches per launcher since the last reset_launches().
+LAUNCHES: Dict[str, int] = {"alf_midpoint": 0, "alf_update": 0,
+                            "alf_bwd_pre": 0, "alf_bwd_post": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+
+_P = ctypes.c_void_p
+_ARGTYPES = {
+    "alf_midpoint": [ctypes.c_int, ctypes.c_int64, _P, _P, _P,
+                     ctypes.c_double, _P, _P],
+    "alf_update": [ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P,
+                   ctypes.c_double, _P, _P, _P],
+    "alf_bwd_pre": [ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P, _P,
+                    ctypes.c_double, _P, _P, _P],
+    "alf_bwd_post": [ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P, _P, _P,
+                     _P, ctypes.c_double, _P, _P, _P, _P, _P],
+}
+
+_FNS: Dict[str, object] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _fn(name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        from repro_torch.kernels import build
+        lib = build.load(NAME)
+        for sym, argtypes in _ARGTYPES.items():
+            f = getattr(lib, sym)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            _FNS[sym] = f
+        fn = _FNS[name]
+    return fn
+
+
+def _check(name: str, h: torch.Tensor, *bufs: torch.Tensor) -> int:
+    """Validate the buffers of one launch; returns the dtype code."""
+    b0 = bufs[0]
+    if b0.device.type != "cuda":
+        raise ValueError(f"{name}: buffers must be CUDA tensors, got "
+                         f"{b0.device}")
+    if b0.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: storage dtype {b0.dtype} is not one of "
+                        f"{tuple(_DTYPE_CODE)}")
+    for b in bufs:
+        if (b.device != b0.device or b.dtype != b0.dtype or b.dim() != 1
+                or b.numel() != b0.numel() or not b.is_contiguous()):
+            raise ValueError(f"{name}: every buffer must be a flat "
+                             "contiguous tensor of one dtype, size and "
+                             "device")
+    acc = torch.promote_types(b0.dtype, torch.float32)
+    if h.dim() != 0 or h.dtype != acc or h.device != b0.device:
+        raise ValueError(f"{name}: h must be a 0-d {acc} tensor on "
+                         f"{b0.device}, got {h.dtype} {tuple(h.shape)} on "
+                         f"{h.device}")
+    return _DTYPE_CODE[b0.dtype]
+
+
+def _launch(name: str, code: int, n: int, *args) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = _fn(name)(code, n, *args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
+    LAUNCHES[name] += 1
+
+
+def _ptrs(*tensors: torch.Tensor):
+    return [t.data_ptr() for t in tensors]
+
+
+def midpoint_call(z: torch.Tensor, v: torch.Tensor, h: torch.Tensor, *,
+                  sign: float = 1.0) -> torch.Tensor:
+    """k1 = z + sign * v * h/2."""
+    code = _check("alf_midpoint", h, z, v)
+    k1 = torch.empty_like(z)
+    _launch("alf_midpoint", code, z.numel(), *_ptrs(z, v, h), float(sign),
+            k1.data_ptr())
+    return k1
+
+
+def update_call(k1, v, u1, h, *, eta: float = 1.0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(z_out, v_out) of the forward tail."""
+    code = _check("alf_update", h, k1, v, u1)
+    z_out, v_out = torch.empty_like(k1), torch.empty_like(v)
+    _launch("alf_update", code, k1.numel(), *_ptrs(k1, v, u1, h), float(eta),
+            *_ptrs(z_out, v_out))
+    return z_out, v_out
+
+
+def bwd_pre_call(z, v, a_z, a_v, h, *, eta: float = 1.0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(k1, cot_u1) of the head of one MALI backward step."""
+    code = _check("alf_bwd_pre", h, z, v, a_z, a_v)
+    k1, cot_u1 = torch.empty_like(z), torch.empty_like(a_z)
+    _launch("alf_bwd_pre", code, z.numel(), *_ptrs(z, v, a_z, a_v, h),
+            float(eta), *_ptrs(k1, cot_u1))
+    return k1, cot_u1
+
+
+def bwd_post_call(k1, v_out, u1, a_z, a_v, dk1, h, *, eta: float = 1.0
+                  ) -> Tuple[torch.Tensor, ...]:
+    """(z_prev, v_prev, dz_prev, dv_prev) of the tail of one MALI backward
+    step."""
+    code = _check("alf_bwd_post", h, k1, v_out, u1, a_z, a_v, dk1)
+    outs = [torch.empty_like(k1) for _ in range(4)]
+    _launch("alf_bwd_post", code, k1.numel(),
+            *_ptrs(k1, v_out, u1, a_z, a_v, dk1, h), float(eta),
+            *_ptrs(*outs))
+    return tuple(outs)

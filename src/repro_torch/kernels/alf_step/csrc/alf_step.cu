@@ -1,0 +1,258 @@
+// Fused ALF state-update kernels for Hopper (sm_90a), plain C interface.
+//
+// What each function replaces (the Pallas TPU kernels of the JAX package):
+//   alf_midpoint  <- src/repro/kernels/alf_step/alf_step.py _midpoint_kernel
+//                    (:43), launched by midpoint_call (:177)
+//   alf_update    <- _update_kernel (:50), update_call (:182)
+//   alf_bwd_pre   <- _bwd_pre_kernel (:107), bwd_pre_call (:212)
+//   alf_bwd_post  <- _bwd_post_kernel (:118), bwd_post_call (:218)
+//
+// Bound: every kernel is a single elementwise pass with a handful of
+// flops per element, so it is bound by memory traffic. Bytes moved per
+// element (f32 storage) are 4 x (inputs + outputs): midpoint 2+1 -> 12 B,
+// update 3+2 -> 20 B, bwd_pre 4+2 -> 24 B, bwd_post 6+4 -> 40 B. At the
+// main path's state (2048 x 64 f32) and 3.35 TB/s (H100 SXM) that is
+// 0.47 / 0.78 / 0.94 / 1.57 us, far below a launch's own cost; at 2^25
+// elements it is 120 / 200 / 240 / 401 us.
+//
+// Design against that bound: one pass over one flat contiguous buffer
+// (the op layer packs the whole state pytree into it), each input read
+// once and each output written once, coalesced (neighbouring threads on
+// neighbouring elements), with a grid-stride loop and a masked tail. The
+// TPU's [rows, 128] lane layout and its padding to a block multiple are
+// not carried over. The step size h is read through a device pointer, so
+// an adaptive controller that computes h on the card never syncs the
+// host. Nothing is allocated here; launches go on the caller's stream and
+// return cudaGetLastError().
+//
+// Numerics: storage is float, double or bfloat16; arithmetic runs in float
+// (double for double storage) in the operation order of ref.py, and the
+// library is built with --fmad=false so no a*b+c is contracted. bf16 is
+// written with __float2bfloat16 (round to nearest even).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+enum DType { kFloat32 = 0, kFloat64 = 1, kBFloat16 = 2 };
+
+template <typename T> struct Acc { typedef float type; };
+template <> struct Acc<double> { typedef double type; };
+
+__device__ __forceinline__ float ld(const float* p, int64_t i) { return p[i]; }
+__device__ __forceinline__ double ld(const double* p, int64_t i) { return p[i]; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, int64_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void st(float* p, int64_t i, float x) { p[i] = x; }
+__device__ __forceinline__ void st(double* p, int64_t i, double x) { p[i] = x; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, int64_t i, float x) {
+  p[i] = __float2bfloat16(x);
+}
+
+constexpr int kThreads = 256;
+
+inline unsigned int n_blocks(int64_t n) {
+  int64_t b = (n + kThreads - 1) / kThreads;
+  const int64_t cap = int64_t(1) << 20;  // grid-stride beyond this
+  return static_cast<unsigned int>(b < cap ? b : cap);
+}
+
+#define GRID_STRIDE(i, n)                                                  \
+  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < (n); \
+       i += int64_t(gridDim.x) * blockDim.x)
+
+// k1 = z + sign * v * (h/2)
+template <typename T>
+__global__ void midpoint_kernel(int64_t n, const T* __restrict__ z,
+                                const T* __restrict__ v,
+                                const typename Acc<T>::type* __restrict__ h,
+                                double sign, T* __restrict__ k1) {
+  typedef typename Acc<T>::type A;
+  const A hh = *h * A(0.5);
+  const A s = static_cast<A>(sign);
+  GRID_STRIDE(i, n) {
+    const A sv = s * ld(v, i);
+    st(k1, i, ld(z, i) + sv * hh);
+  }
+}
+
+// v_out = v + 2*eta*(u1 - v);  z_out = k1 + v_out * (h/2)
+template <typename T>
+__global__ void update_kernel(int64_t n, const T* __restrict__ k1,
+                              const T* __restrict__ v,
+                              const T* __restrict__ u1,
+                              const typename Acc<T>::type* __restrict__ h,
+                              double eta, T* __restrict__ z_out,
+                              T* __restrict__ v_out) {
+  typedef typename Acc<T>::type A;
+  const A hh = *h * A(0.5);
+  const A two_eta = static_cast<A>(2.0 * eta);
+  GRID_STRIDE(i, n) {
+    const A vi = ld(v, i);
+    const A du = ld(u1, i) - vi;
+    const A vo = vi + two_eta * du;
+    st(v_out, i, vo);
+    st(z_out, i, ld(k1, i) + vo * hh);
+  }
+}
+
+// k1 = z - v * (h/2);  cot_u1 = 2*eta * (a_v + a_z * (h/2))
+template <typename T>
+__global__ void bwd_pre_kernel(int64_t n, const T* __restrict__ z,
+                               const T* __restrict__ v,
+                               const T* __restrict__ a_z,
+                               const T* __restrict__ a_v,
+                               const typename Acc<T>::type* __restrict__ h,
+                               double eta, T* __restrict__ k1,
+                               T* __restrict__ cot_u1) {
+  typedef typename Acc<T>::type A;
+  const A hh = *h * A(0.5);
+  const A two_eta = static_cast<A>(2.0 * eta);
+  GRID_STRIDE(i, n) {
+    const A vh = ld(v, i) * hh;
+    st(k1, i, ld(z, i) - vh);
+    const A azh = ld(a_z, i) * hh;
+    const A cv = ld(a_v, i) + azh;
+    st(cot_u1, i, two_eta * cv);
+  }
+}
+
+// v_prev = 2*u1 - v_out (eta == 1) or (v_out - 2*eta*u1) / (1 - 2*eta);
+// z_prev = k1 - v_prev * (h/2);  dz = a_z + dk1;
+// dv = dz * (h/2) + (1 - 2*eta) * (a_v + a_z * (h/2))
+template <typename T>
+__global__ void bwd_post_kernel(int64_t n, const T* __restrict__ k1,
+                                const T* __restrict__ v_out,
+                                const T* __restrict__ u1,
+                                const T* __restrict__ a_z,
+                                const T* __restrict__ a_v,
+                                const T* __restrict__ dk1,
+                                const typename Acc<T>::type* __restrict__ h,
+                                double eta, int exact,
+                                T* __restrict__ z_prev, T* __restrict__ v_prev,
+                                T* __restrict__ dz, T* __restrict__ dv) {
+  typedef typename Acc<T>::type A;
+  const A hh = *h * A(0.5);
+  const A two_eta = static_cast<A>(2.0 * eta);
+  const A one_m = static_cast<A>(1.0 - 2.0 * eta);
+  GRID_STRIDE(i, n) {
+    const A vo = ld(v_out, i);
+    const A u = ld(u1, i);
+    A vp;
+    if (exact) {
+      const A two_u = A(2) * u;
+      vp = two_u - vo;
+    } else {
+      const A eu = two_eta * u;
+      vp = (vo - eu) / one_m;
+    }
+    st(v_prev, i, vp);
+    const A vph = vp * hh;
+    st(z_prev, i, ld(k1, i) - vph);
+    const A az = ld(a_z, i);
+    const A ck = az + ld(dk1, i);
+    st(dz, i, ck);
+    const A azh = az * hh;
+    const A cv = ld(a_v, i) + azh;
+    const A ckh = ck * hh;
+    const A mcv = one_m * cv;
+    st(dv, i, ckh + mcv);
+  }
+}
+
+template <typename T>
+int launch_midpoint(int64_t n, const void* z, const void* v, const void* h,
+                    double sign, void* k1, cudaStream_t s) {
+  typedef typename Acc<T>::type A;
+  midpoint_kernel<T><<<n_blocks(n), kThreads, 0, s>>>(
+      n, static_cast<const T*>(z), static_cast<const T*>(v),
+      static_cast<const A*>(h), sign, static_cast<T*>(k1));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_update(int64_t n, const void* k1, const void* v, const void* u1,
+                  const void* h, double eta, void* z_out, void* v_out,
+                  cudaStream_t s) {
+  typedef typename Acc<T>::type A;
+  update_kernel<T><<<n_blocks(n), kThreads, 0, s>>>(
+      n, static_cast<const T*>(k1), static_cast<const T*>(v),
+      static_cast<const T*>(u1), static_cast<const A*>(h), eta,
+      static_cast<T*>(z_out), static_cast<T*>(v_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_pre(int64_t n, const void* z, const void* v, const void* a_z,
+                   const void* a_v, const void* h, double eta, void* k1,
+                   void* cot_u1, cudaStream_t s) {
+  typedef typename Acc<T>::type A;
+  bwd_pre_kernel<T><<<n_blocks(n), kThreads, 0, s>>>(
+      n, static_cast<const T*>(z), static_cast<const T*>(v),
+      static_cast<const T*>(a_z), static_cast<const T*>(a_v),
+      static_cast<const A*>(h), eta, static_cast<T*>(k1),
+      static_cast<T*>(cot_u1));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_post(int64_t n, const void* k1, const void* v_out,
+                    const void* u1, const void* a_z, const void* a_v,
+                    const void* dk1, const void* h, double eta, void* z_prev,
+                    void* v_prev, void* dz, void* dv, cudaStream_t s) {
+  typedef typename Acc<T>::type A;
+  bwd_post_kernel<T><<<n_blocks(n), kThreads, 0, s>>>(
+      n, static_cast<const T*>(k1), static_cast<const T*>(v_out),
+      static_cast<const T*>(u1), static_cast<const T*>(a_z),
+      static_cast<const T*>(a_v), static_cast<const T*>(dk1),
+      static_cast<const A*>(h), eta, eta == 1.0 ? 1 : 0,
+      static_cast<T*>(z_prev), static_cast<T*>(v_prev), static_cast<T*>(dz),
+      static_cast<T*>(dv));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+#define DISPATCH(dtype, fn, ...)                                      \
+  switch (dtype) {                                                    \
+    case kFloat32: return fn<float>(__VA_ARGS__);                     \
+    case kFloat64: return fn<double>(__VA_ARGS__);                    \
+    case kBFloat16: return fn<__nv_bfloat16>(__VA_ARGS__);            \
+    default: return static_cast<int>(cudaErrorInvalidValue);          \
+  }
+
+extern "C" {
+
+int alf_midpoint(int dtype, int64_t n, const void* z, const void* v,
+                 const void* h, double sign, void* k1, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH(dtype, launch_midpoint, n, z, v, h, sign, k1, s)
+}
+
+int alf_update(int dtype, int64_t n, const void* k1, const void* v,
+               const void* u1, const void* h, double eta, void* z_out,
+               void* v_out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH(dtype, launch_update, n, k1, v, u1, h, eta, z_out, v_out, s)
+}
+
+int alf_bwd_pre(int dtype, int64_t n, const void* z, const void* v,
+                const void* a_z, const void* a_v, const void* h, double eta,
+                void* k1, void* cot_u1, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH(dtype, launch_bwd_pre, n, z, v, a_z, a_v, h, eta, k1, cot_u1, s)
+}
+
+int alf_bwd_post(int dtype, int64_t n, const void* k1, const void* v_out,
+                 const void* u1, const void* a_z, const void* a_v,
+                 const void* dk1, const void* h, double eta, void* z_prev,
+                 void* v_prev, void* dz, void* dv, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH(dtype, launch_bwd_post, n, k1, v_out, u1, a_z, a_v, dk1, h, eta,
+           z_prev, v_prev, dz, dv, s)
+}
+
+}  // extern "C"

@@ -1,0 +1,41 @@
+"""Reverse-rule registry for the port's kernel ops.
+
+Every public op in ``kernels/*/ops.py`` either has a reverse rule
+(a ``torch.autograd.Function`` whose backward is itself a kernel) or is
+listed here in ``NO_REVERSE_RULE`` with the reason it is forward-only.
+
+:func:`repro_torch.core.naive.check_direct_backprop` reads this registry:
+a gradient method that backpropagates directly through the recorded
+solver steps looks up every op the solver's step launches
+(``Solver.kernel_step_ops``) and refuses any op listed here, quoting the
+reason, instead of differentiating through a launch autograd cannot see.
+
+This module imports nothing, so ``repro_torch.core`` can read it freely.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+_FWD_REASON = ("no reverse rule yet: the reverse-rule kernels "
+               "`midpoint_vjp`/`update_vjp` land with the direct-backprop "
+               "slice")
+
+# "<kernel package>.<op name>" -> why the op is forward-only.
+NO_REVERSE_RULE = {
+    "alf_step.alf_midpoint": _FWD_REASON,
+    "alf_step.alf_update": _FWD_REASON,
+    "alf_step.alf_bwd_pre":
+        "fused head of one MALI backward step (inverse midpoint + f-eval "
+        "cotangent); runs inside MALI's autograd.Function backward and is "
+        "never itself differentiated",
+    "alf_step.alf_bwd_post":
+        "fused tail of one MALI backward step (inverse tail + adjoint "
+        "propagation); runs inside MALI's autograd.Function backward and "
+        "is never itself differentiated",
+}
+
+
+def no_reverse_reason(qualname: str) -> Optional[str]:
+    """The reason ``qualname`` ("package.op") is forward-only, else None."""
+    return NO_REVERSE_RULE.get(qualname)
+

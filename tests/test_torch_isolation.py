@@ -1,0 +1,66 @@
+"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package ``repro``, and importing the port pulls
+neither into the process."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0], node.lineno
+
+
+def test_port_has_files_to_scan():
+    assert len(PORT_FILES) >= 10
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_repro_import(path):
+    bad = [(name, line) for name, line in _imported_roots(path)
+           if name in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core\n"
+        "import repro_torch.kernels.alf_step.ops\n"
+        "import repro_torch.kernels.registry\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code],
+                         cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"),
+                                        "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_kernel_build_module_is_not_imported_eagerly():
+    """The CPU hosts that run the tests have no nvcc: importing the package
+    must not import (or run) the kernel builder."""
+    code = ("import sys, repro_torch.core, repro_torch.kernels.alf_step.ops\n"
+            "sys.exit(1 if 'repro_torch.kernels.build' in sys.modules "
+            "else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
