@@ -11,11 +11,13 @@ either. Phases, each printing JSON lines:
 2. kernels   — every ALF kernel against its plain PyTorch version on the
                card: f32, bf16, a mixed {f32, bf16} tree and f64; n = 1,
                1500*128+37 and the main path's 2048*64; eta in {1, 0.9}
-               (sign in {+1, -1} for the midpoint). One op call must be
-               exactly one launch.
-3. times     — CUDA-event times of each kernel, its plain version and (for
-               the midpoint) one library call, beside the bound, at the
-               main path's shape and at n = 2^25.
+               (sign in {+1, -1} for the midpoint and its VJP). The two
+               VJP kernels run as the backward of alf_midpoint /
+               alf_update under torch.autograd.grad. One op call (or one
+               backward) must be exactly one launch.
+3. times     — CUDA-event times of each kernel, its plain version and
+               (where one exists) one library call, beside the bound, at
+               the main path's shape and at n = 2^25.
 4. main path — the paper's Sec 4.2 model (D=64, HIDDEN=64, 3 classes,
                2048 images) trained 20 Adam steps with
                solve(ALF(eta=1, backend="cuda"), ConstantSteps(4), MALI())
@@ -25,10 +27,21 @@ either. Phases, each printing JSON lines:
 5. adaptive  — AdaptiveController(1e-4, 1e-5, 128) over
                SaveAt(ts=linspace(0, 1, 5)): MALI (cuda) against Naive
                (reference) on the card.
-6. memory    — peak device memory of a solve's forward + backward on a
+6. direct   — direct backprop through the kernels at the Sec 4.2
+   backprop    model's full width: Naive() x ALF(backend="cuda") trained
+               20 steps (gradients against Naive on the reference backend
+               and fused MALI on cuda, loss trace against phase 4's, 4+4
+               forward and 4+4 VJP launches per step); MALI(fused_bwd=False)
+               x cuda (the inverse kernels and the replay through the
+               reverse rules) against fused MALI; Naive x cuda against
+               MALI x cuda under AdaptiveController over
+               SaveAt(ts=linspace(0, 1, 5)) (h's cotangent); SaveAt(steps)
+               and SaveAt(dense) x cuda against the reference backend;
+               Naive step time on cuda and on the reference backend.
+7. memory    — peak device memory of a solve's forward + backward on a
                2^20-element state at ConstantSteps(8) and (64): flat
-               (<= 1.05x) for MALI, growing for Naive.
-7. profile   — torch.profiler over 20 training steps of phase 4 on the
+               (<= 1.05x) for MALI, growing for Naive on either backend.
+8. profile   — torch.profiler over 20 training steps of phase 4 on the
                kernel and the reference backend: device busy/idle share
                and the top device operations.
 
@@ -56,20 +69,29 @@ TAIL_N = 1500 * 128 + 37
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_core_gradients.py:76
 KERNEL_ULPS = 2
 TIME_PAIRS = 5
+NAIVE_TIME_PAIRS = 3
+UNFUSED_STEPS = 3
 
 # Memory rate (bytes/s) and f32 peak (FLOP/s, outside the tensor cores)
 # by card name; NVIDIA data sheets.
 CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
          ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
 
+TPU_SRC = "src/repro/kernels/alf_step/alf_step.py"
 KERNELS = {
     # name: (TPU kernel replaced, inputs, outputs, f32 ops per element)
-    "alf_midpoint": ("src/repro/kernels/alf_step/alf_step.py:43", 2, 1, 3),
-    "alf_update": ("src/repro/kernels/alf_step/alf_step.py:50", 3, 2, 5),
-    "alf_bwd_pre": ("src/repro/kernels/alf_step/alf_step.py:107", 4, 2, 5),
-    "alf_bwd_post": ("src/repro/kernels/alf_step/alf_step.py:118", 6, 4,
-                     12),
+    "alf_midpoint": (f"{TPU_SRC}:43", 2, 1, 3),
+    "alf_update": (f"{TPU_SRC}:50", 3, 2, 5),
+    "alf_bwd_pre": (f"{TPU_SRC}:107", 4, 2, 5),
+    "alf_bwd_post": (f"{TPU_SRC}:118", 6, 4, 12),
+    "alf_midpoint_vjp": (f"{TPU_SRC}:91", 1, 1, 2),
+    "alf_update_vjp": (f"{TPU_SRC}:97", 2, 2, 4),
+    "alf_inverse": (f"{TPU_SRC}:75", 3, 2, 7),
+    "alf_inverse_update": (f"{TPU_SRC}:61", 3, 2, 5),
 }
+VJPS = ("alf_midpoint_vjp", "alf_update_vjp")
+# Why a kernel has no one-call PyTorch yardstick (library_ms null).
+NO_LIBRARY = "none: no single PyTorch call writes its {} outputs"
 SOURCE = "src/repro_torch/kernels/alf_step/csrc/alf_step.cu"
 
 
@@ -134,27 +156,59 @@ def _ulp(dtype):
 
 
 def _plain(name, ops, trees, h, param):
-    """The plain PyTorch version of one op on the same packed buffer."""
+    """The plain PyTorch version of one op on the same packed buffer. For
+    a VJP kernel ``trees`` are the forward inputs followed by the output
+    cotangents, and the result is the cotangents of the inputs it
+    writes."""
     import torch
     from repro_torch.kernels.alf_step import ref
-    cd = ops._common_dtype(*trees)
+    fn, ins, metas = {
+        "alf_midpoint": (ref.midpoint_ref, (0, 1), (0,)),
+        "alf_update": (ref.update_ref, (0, 1, 2), (0, 1)),
+        "alf_bwd_pre": (ref.bwd_pre_ref, (0, 1, 2, 3), (0, 2)),
+        "alf_bwd_post": (ref.bwd_post_ref, tuple(range(6)), (0, 1, 3, 4)),
+        "alf_inverse": (ref.inverse_ref, (0, 1, 2), (0, 1)),
+        "alf_inverse_update": (ref.inverse_update_ref, (0, 1, 2), (0, 1)),
+        "alf_midpoint_vjp": (ref.midpoint_vjp_ref, (2,), (1,)),
+        "alf_update_vjp": (ref.update_vjp_ref, (3, 4), (1, 2)),
+    }[name]
+    fwd = trees[:2] if name == "alf_midpoint_vjp" else trees[:3]
+    cd = ops._common_dtype(*(fwd if name in VJPS else trees))
     hh = h.to(torch.promote_types(cd, torch.float32))
-    bufs = [ops._flatten(t, cd) for t in trees]
-    fn = {"alf_midpoint": ref.midpoint_ref, "alf_update": ref.update_ref,
-          "alf_bwd_pre": ref.bwd_pre_ref, "alf_bwd_post": ref.bwd_post_ref}
-    out = fn[name](*bufs, hh, param)
+    bufs = [ops._flatten(trees[i], cd) for i in ins]
+    out = fn(*bufs, hh, param)
     outs = out if isinstance(out, tuple) else (out,)
-    metas = {"alf_midpoint": (0,), "alf_update": (0, 1),
-             "alf_bwd_pre": (0, 2), "alf_bwd_post": (0, 1, 3, 4)}[name]
     return tuple(ops._unflatten(o, ops._Meta(trees[i]))
                  for o, i in zip(outs, metas))
 
 
 def _call(name, ops, trees, h, param):
-    fn = getattr(ops, name)
-    key = "sign" if name == "alf_midpoint" else "eta"
-    out = fn(*trees, h, **{key: param})
-    return out if isinstance(out, tuple) else (out,)
+    """One op call (for a VJP kernel: the forward op, then one backward
+    through it with the given cotangents)."""
+    import torch
+    import torch.utils._pytree as pytree
+    key = "sign" if name in ("alf_midpoint", "alf_midpoint_vjp") else "eta"
+    if name not in VJPS:
+        out = getattr(ops, name)(*trees, h, **{key: param})
+        return out if isinstance(out, tuple) else (out,)
+    fwd_name, n_fwd, wrt = {"alf_midpoint_vjp": ("alf_midpoint", 2, (1,)),
+                            "alf_update_vjp": ("alf_update", 3, (1, 2))}[name]
+    fwd = [pytree.tree_map(lambda x: x.detach().requires_grad_(True), t)
+           for t in trees[:n_fwd]]
+    out = getattr(ops, fwd_name)(*fwd, h, **{key: param})
+    outs = out if isinstance(out, tuple) else (out,)
+    inputs = [l for i in wrt for l in pytree.tree_leaves(fwd[i])]
+    grads = torch.autograd.grad(
+        [l for o in outs for l in pytree.tree_leaves(o)], inputs,
+        grad_outputs=[l for t in trees[n_fwd:]
+                      for l in pytree.tree_leaves(t)])
+    res, at = [], 0
+    for i in wrt:
+        spec = pytree.tree_structure(fwd[i])
+        k = spec.num_leaves
+        res.append(pytree.tree_unflatten(list(grads[at:at + k]), spec))
+        at += k
+    return tuple(res)
 
 
 def _make_trees(kind: str, n: int, n_in: int, gen):
@@ -183,14 +237,19 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     h = torch.tensor(0.23, device="cuda")
     worst = {k: 0.0 for k in KERNELS}
-    n_checks = 0
+    checks = {k: 0 for k in KERNELS}
     for name, (_, n_in, _, _) in KERNELS.items():
-        params = (1.0, -1.0) if name == "alf_midpoint" else (1.0, 0.9)
+        params = ((1.0, -1.0) if name in ("alf_midpoint", "alf_midpoint_vjp")
+                  else (1.0, 0.9))
+        # a VJP kernel's trees: its forward op's inputs, then the
+        # cotangents of that op's outputs
+        n_trees = {"alf_midpoint_vjp": 3, "alf_update_vjp": 5}.get(name,
+                                                                   n_in)
         for kind in ("f32", "bf16", "mixed", "f64"):
             for n in (1, TAIL_N, SLICE_N):
                 if kind == "mixed" and n == 1:
                     continue
-                trees = _make_trees(kind, n, n_in, gen)
+                trees = _make_trees(kind, n, n_trees, gen)
                 for p in params:
                     before = alf_step.LAUNCHES[name]
                     got = _call(name, ops, trees, h, p)
@@ -209,12 +268,12 @@ def phase_kernels():
                                 f"max abs err {err} > {tol}")
                         if kind == "f32" and n == SLICE_N:
                             worst[name] = max(worst[name], err)
-                    n_checks += 1
-    emit({"phase": "kernels", "checks": n_checks,
+                    checks[name] += 1
+    emit({"phase": "kernels", "checks": checks,
           "tolerance": f"{KERNEL_ULPS} ulp of the storage dtype at the "
                        "output's largest magnitude (>= 1)",
           "max_abs_err_f32_slice": worst})
-    return worst
+    return worst, checks
 
 
 # ---------------------------------------------------------------------------
@@ -293,30 +352,47 @@ def phase_times(card: str):
             "alf_bwd_post": (
                 lambda: alf_step.bwd_post_call(*bufs, h, eta=0.9),
                 lambda: ref.bwd_post_ref(*bufs, h, 0.9)),
+            "alf_midpoint_vjp": (
+                lambda: alf_step.midpoint_vjp_call(bufs[0], h, sign=-1.0),
+                lambda: ref.midpoint_vjp_ref(bufs[0], h, -1.0)),
+            "alf_update_vjp": (
+                lambda: alf_step.update_vjp_call(*bufs[:2], h, eta=0.9),
+                lambda: ref.update_vjp_ref(*bufs[:2], h, 0.9)),
+            "alf_inverse": (
+                lambda: alf_step.inverse_call(*bufs[:3], h, eta=0.9),
+                lambda: ref.inverse_ref(*bufs[:3], h, 0.9)),
+            "alf_inverse_update": (
+                lambda: alf_step.inverse_update_call(*bufs[:3], h, eta=0.9),
+                lambda: ref.inverse_update_ref(*bufs[:3], h, 0.9)),
         }
-        half_h = h / 2
+        # The one PyTorch call computing the same function, where one
+        # exists (precomputed 0-d factors, as the kernels read h once).
+        half_h, neg_half_h = h / 2, -h / 2
+        library = {
+            "alf_midpoint": ("torch.addcmul", lambda: torch.addcmul(
+                bufs[0], bufs[1], half_h)),
+            "alf_midpoint_vjp": ("torch.mul", lambda: torch.mul(
+                bufs[0], neg_half_h)),
+        }
         for name, (kern, plain) in calls.items():
             _, n_in, n_out, flops = KERNELS[name]
             ms, plain_ms = _alternate(kern, plain, reps)
             bytes_ms = (n_in + n_out) * 4 * n / bw * 1e3
             ops_ms = flops * n / peak * 1e3
-            lib_ms = None
-            if name == "alf_midpoint":
-                lib_ms = _time_ms(
-                    lambda: torch.addcmul(bufs[0], bufs[1], half_h), reps)
+            label, lib = library.get(name, (NO_LIBRARY.format(n_out), None))
             row = {"name": name, "n": n, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": "bytes" if bytes_ms >= ops_ms
                    else "operations",
-                   "library_ms": lib_ms}
+                   "library_ms": None if lib is None else _time_ms(lib, reps),
+                   "library": label}
             if n == SLICE_N:
                 # At this size a call costs more on the host than on the
                 # card; a CUDA graph of 100 calls shows the device's part.
                 row["graph_ms"] = _graph_ms(kern, 100)
                 row["plain_graph_ms"] = _graph_ms(plain, 100)
-                if name == "alf_midpoint":
-                    row["library_graph_ms"] = _graph_ms(
-                        lambda: torch.addcmul(bufs[0], bufs[1], half_h), 100)
+                if lib is not None:
+                    row["library_graph_ms"] = _graph_ms(lib, 100)
             emit({"phase": "times", **row})
             rows[(name, n)] = row
         del bufs
@@ -325,7 +401,7 @@ def phase_times(card: str):
 
 
 # ---------------------------------------------------------------------------
-# Phases 4-6: the port's solve() on the card
+# Phases 4-7: the port's solve() on the card
 # ---------------------------------------------------------------------------
 
 def _leaves_close(got, want, what: str):
@@ -338,6 +414,28 @@ def _leaves_close(got, want, what: str):
                 f"{what}: gradients differ beyond rtol "
                 f"{GRAD_TOL['rtol']} / atol {GRAD_TOL['atol']}")
     return worst
+
+
+def _counted(what: str, run, steps: int, per_step: dict):
+    """Run ``run()`` with every launch and op-call count set to 0 just
+    before and read just after; each kernel must have launched exactly
+    ``per_step[name] * steps`` times (0 when not named), once per op call.
+    Returns (launches, run's result)."""
+    from repro_torch.kernels.alf_step import alf_step, ops
+    alf_step.reset_launches()
+    ops.reset_op_calls()
+    out = run()
+    launches = dict(alf_step.LAUNCHES)
+    op_calls = dict(ops.OP_CALLS)
+    for name in KERNELS:
+        want = per_step.get(name, 0) * steps
+        require(launches[name] == want,
+                f"{what}: {name} launched {launches[name]} times in "
+                f"{steps} steps, expected {want}")
+        require(launches[name] == op_calls[name],
+                f"{what}: {name} launches {launches[name]} != op calls "
+                f"{op_calls[name]}")
+    return launches, out
 
 
 def _model_loss(params, x, y, solver, gradient, controller):
@@ -359,13 +457,15 @@ def _grads(params, x, y, solver, gradient, controller):
                                  pytree.tree_flatten(params)[1])
 
 
-def _train(x, y, solver, ctrl):
-    """TRAIN_STEPS Adam steps of the Sec 4.2 model from the seeded
-    parameters; returns the losses and the wall seconds."""
+def _train(x, y, solver, ctrl, gradient=None, steps=TRAIN_STEPS):
+    """``steps`` Adam steps of the Sec 4.2 model from the seeded
+    parameters (MALI unless another gradient is given); returns the losses
+    and the wall seconds."""
     import torch
     import torch.utils._pytree as pytree
     from repro_torch import params_from_numpy
     from repro_torch.core import MALI
+    gradient = MALI() if gradient is None else gradient
     params = params_from_numpy(init_params_numpy(0))
     for p in pytree.tree_leaves(params):
         p.requires_grad_(True)
@@ -373,9 +473,9 @@ def _train(x, y, solver, ctrl):
     losses = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         opt.zero_grad(set_to_none=True)
-        loss, _ = _model_loss(params, x, y, solver, MALI(), ctrl)
+        loss, _ = _model_loss(params, x, y, solver, gradient, ctrl)
         loss.backward()
         opt.step()
         losses.append(loss.detach())
@@ -389,7 +489,6 @@ def phase_main_path():
     import torch.utils._pytree as pytree
     from repro_torch import params_from_numpy
     from repro_torch.core import ALF, MALI, ConstantSteps, Naive
-    from repro_torch.kernels.alf_step import alf_step, ops
 
     x_np, y_np = make_data(N_TRAIN, seed=0)
     x = torch.as_tensor(x_np, device="cuda")
@@ -406,22 +505,13 @@ def phase_main_path():
     g_naive = _grads(params, x, y, ref_alf, Naive(), ctrl)
     grad_err = _leaves_close(g_mali, g_naive, "main path MALI vs Naive")
 
-    alf_step.reset_launches()
-    ops.reset_op_calls()
-    losses, wall = _train(x, y, cuda_alf, ctrl)
-    launches = dict(alf_step.LAUNCHES)
-    op_calls = dict(ops.OP_CALLS)
+    launches, (losses, wall) = _counted(
+        "main path", lambda: _train(x, y, cuda_alf, ctrl), TRAIN_STEPS,
+        {"alf_midpoint": N_SUB, "alf_update": N_SUB, "alf_bwd_pre": N_SUB,
+         "alf_bwd_post": N_SUB})
     require(all(np.isfinite(losses)), f"non-finite losses {losses}")
     require(losses[-1] < losses[0],
             f"loss did not fall: {losses[0]} -> {losses[-1]}")
-    per_step = N_SUB            # each kernel runs once per solver step
-    for name in KERNELS:
-        require(launches[name] == TRAIN_STEPS * per_step,
-                f"{name}: {launches[name]} launches in {TRAIN_STEPS} "
-                f"steps, expected {TRAIN_STEPS * per_step}")
-        require(launches[name] == op_calls[name],
-                f"{name}: launches {launches[name]} != op calls "
-                f"{op_calls[name]}")
 
     # The same training on the reference backend (plain tensor ops), in
     # turns with the kernel backend: the host clock is noisy here, so
@@ -430,12 +520,7 @@ def phase_main_path():
     loss_gap = max(abs(a - b) for a, b in zip(losses, ref_losses))
     require(loss_gap <= 1e-4, f"kernel and reference loss traces differ by "
             f"{loss_gap}")
-    step_ms = {"cuda": [], "reference": []}
-    order = (("reference", ref_alf), ("cuda", cuda_alf))
-    for i in range(TIME_PAIRS):
-        for name, solver in order[::1 if i % 2 == 0 else -1]:
-            _, w = _train(x, y, solver, ctrl)
-            step_ms[name].append(w / TRAIN_STEPS * 1e3)
+    step_ms = _step_times(x, y, ctrl, MALI(), TIME_PAIRS)
     emit({"phase": "main_path", "model": "paper Sec 4.2 (D=64, HIDDEN=64, "
           "3 classes, 2048 images)", "steps": TRAIN_STEPS,
           "first_loss": losses[0], "last_loss": losses[-1],
@@ -453,7 +538,22 @@ def phase_main_path():
           "median_step_ms_cuda": float(np.median(step_ms["cuda"])),
           "median_step_ms_reference": float(np.median(step_ms["reference"])),
           "max_loss_gap_cuda_vs_reference": loss_gap})
-    return launches
+    return launches, losses
+
+
+def _step_times(x, y, ctrl, gradient, pairs: int):
+    """ms per training step on each ALF backend, ``pairs`` runs of
+    TRAIN_STEPS steps each, alternating which backend runs first (the
+    host clock is noisy here)."""
+    from repro_torch.core import ALF
+    step_ms = {"cuda": [], "reference": []}
+    order = (("reference", ALF(eta=1.0)), ("cuda", ALF(eta=1.0,
+                                                       backend="cuda")))
+    for i in range(pairs):
+        for name, solver in order[::1 if i % 2 == 0 else -1]:
+            _, w = _train(x, y, solver, ctrl, gradient)
+            step_ms[name].append(w / TRAIN_STEPS * 1e3)
+    return step_ms
 
 
 def phase_adaptive():
@@ -492,6 +592,128 @@ def phase_adaptive():
           "mali_vs_naive_max_abs_grad_diff": err})
 
 
+def _solve_grads(p, z0, solver, gradient, ctrl, saveat=None, t1=1.0,
+                 readout=None):
+    """A solve from fresh leaves of ``p`` and ``z0``; returns the solution
+    and d(mean(readout(sol)^2))/d(params, z0)."""
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch.core import solve
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    z0 = z0.detach().clone().requires_grad_(True)
+    sol = solve(field, p, z0, 0.0, t1, solver=solver, controller=ctrl,
+                gradient=gradient, saveat=saveat)
+    out = sol.ys if readout is None else readout(sol)
+    grads = torch.autograd.grad((out ** 2).mean(),
+                                [*pytree.tree_leaves(p), z0])
+    return sol, grads
+
+
+def phase_direct_backprop(mali_losses):
+    """Direct backprop through the kernels on the Sec 4.2 model at full
+    width: Naive and unfused MALI on the cuda backend, h's cotangent under
+    adaptive control, the per-step and dense outputs, Naive's step time."""
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch import params_from_numpy
+    from repro_torch.core import (ALF, MALI, AdaptiveController,
+                                  ConstantSteps, Naive, SaveAt)
+    x_np, y_np = make_data(N_TRAIN, seed=0)
+    x = torch.as_tensor(x_np, device="cuda")
+    y = torch.as_tensor(y_np, device="cuda")
+    params = params_from_numpy(init_params_numpy(0))
+    for p in pytree.tree_leaves(params):
+        p.requires_grad_(True)
+    ctrl = ConstantSteps(N_SUB)
+    cuda_alf, ref_alf = ALF(eta=1.0, backend="cuda"), ALF(eta=1.0)
+    out = {}
+
+    # (a) Naive x cuda: gradients against Naive on the reference backend
+    # and fused MALI on cuda; 20 Adam steps against phase 4's MALI trace.
+    g_naive = _grads(params, x, y, cuda_alf, Naive(), ctrl)
+    out["naive_cuda_vs_naive_reference"] = _leaves_close(
+        g_naive, _grads(params, x, y, ref_alf, Naive(), ctrl),
+        "Naive cuda vs Naive reference")
+    g_mali = _grads(params, x, y, cuda_alf, MALI(), ctrl)
+    out["naive_cuda_vs_mali_cuda"] = _leaves_close(
+        g_naive, g_mali, "Naive cuda vs MALI cuda")
+    naive_launches, (losses, _) = _counted(
+        "Naive x cuda", lambda: _train(x, y, cuda_alf, ctrl, Naive()),
+        TRAIN_STEPS, {"alf_midpoint": N_SUB, "alf_update": N_SUB,
+                      "alf_midpoint_vjp": N_SUB, "alf_update_vjp": N_SUB})
+    gap = max(abs(a - b) for a, b in zip(losses, mali_losses))
+    require(gap <= 1e-4, f"Naive x cuda loss trace differs from MALI's by "
+            f"{gap}")
+    out.update(naive_first_loss=losses[0], naive_last_loss=losses[-1],
+               naive_vs_mali_max_loss_gap=gap)
+
+    # (b) MALI(fused_bwd=False) x cuda: psi^-1 through the inverse kernels
+    # and the step replayed through the reverse rules.
+    unfused = MALI(fused_bwd=False)
+    out["unfused_mali_cuda_vs_mali_cuda"] = _leaves_close(
+        _grads(params, x, y, cuda_alf, unfused, ctrl), g_mali,
+        "unfused MALI cuda vs fused MALI cuda")
+    unfused_launches, _ = _counted(
+        "MALI(fused_bwd=False) x cuda",
+        lambda: _train(x, y, cuda_alf, ctrl, unfused, steps=UNFUSED_STEPS),
+        UNFUSED_STEPS,
+        {"alf_midpoint": 3 * N_SUB, "alf_update": 2 * N_SUB,
+         "alf_inverse": N_SUB, "alf_midpoint_vjp": N_SUB,
+         "alf_update_vjp": N_SUB})
+
+    # (c) adaptive control: Naive differentiates through the step sizes
+    # (h's cotangent), MALI holds the step sequence fixed.
+    fp = params_from_numpy(init_params_numpy(0)["f"])
+    z0 = torch.as_tensor(x_np, device="cuda")
+    adaptive = AdaptiveController(1e-4, 1e-5, 128)
+    grid = SaveAt(ts=torch.linspace(0.0, 1.0, 5))
+    s_n, g_n = _solve_grads(fp, z0, cuda_alf, Naive(), adaptive, grid)
+    s_m, g_m = _solve_grads(fp, z0, cuda_alf, MALI(), adaptive, grid)
+    counts = [int(s_n.stats.n_accepted), int(s_n.stats.n_rejected)]
+    require(counts == [int(s_m.stats.n_accepted),
+                       int(s_m.stats.n_rejected)],
+            "adaptive: Naive and MALI took different step sequences")
+    out.update(adaptive_n_accepted=counts[0], adaptive_n_rejected=counts[1],
+               adaptive_naive_cuda_vs_mali_cuda=_leaves_close(
+                   g_n, g_m, "adaptive Naive cuda vs MALI cuda"))
+
+    # (d) per-step and dense output over the one span [0, 1], cuda against
+    # the reference backend.
+    span_ctrl = AdaptiveController(1e-3, 1e-4, 256)
+    for mode, saveat, readout in (
+            ("steps", SaveAt(steps=True), None),
+            ("dense", SaveAt(dense=True), lambda sol: sol.evaluate(0.37))):
+        s_c, g_c = _solve_grads(fp, z0, cuda_alf, Naive(), span_ctrl, saveat,
+                                readout=readout)
+        s_r, g_r = _solve_grads(fp, z0, ref_alf, Naive(), span_ctrl, saveat,
+                                readout=readout)
+        y_c = s_c.ys if readout is None else readout(s_c)
+        y_r = s_r.ys if readout is None else readout(s_r)
+        require(bool(torch.isfinite(y_c).all()), f"{mode}: non-finite ys")
+        require(int(s_c.num_steps) == int(s_r.num_steps)
+                and bool(s_c.stats.span_complete),
+                f"{mode}: step counts differ or span incomplete")
+        out[f"{mode}_num_steps"] = int(s_c.num_steps)
+        out[f"{mode}_ys_cuda_vs_reference"] = _leaves_close(
+            y_c.detach(), y_r.detach(), f"{mode} ys")
+        out[f"{mode}_grad_cuda_vs_reference"] = _leaves_close(
+            g_c, g_r, f"{mode} gradients")
+
+    # (e) step time of (a) on each backend.
+    step_ms = _step_times(x, y, ctrl, Naive(), NAIVE_TIME_PAIRS)
+    emit({"phase": "direct_backprop", **out,
+          "naive_launches": naive_launches,
+          "unfused_mali_launches": unfused_launches,
+          "unfused_mali_steps": UNFUSED_STEPS,
+          "naive_step_ms_cuda": step_ms["cuda"],
+          "naive_step_ms_reference": step_ms["reference"],
+          "median_naive_step_ms_cuda": float(np.median(step_ms["cuda"])),
+          "median_naive_step_ms_reference": float(
+              np.median(step_ms["reference"]))})
+    return {**naive_launches,
+            "alf_inverse": unfused_launches["alf_inverse"]}
+
+
 def phase_memory():
     import torch
     import torch.utils._pytree as pytree
@@ -502,7 +724,8 @@ def phase_memory():
     peaks = {}
     for label, solver, gradient in (
             ("mali_cuda", ALF(eta=1.0, backend="cuda"), MALI()),
-            ("naive_reference", ALF(eta=1.0), Naive())):
+            ("naive_reference", ALF(eta=1.0), Naive()),
+            ("naive_cuda", ALF(eta=1.0, backend="cuda"), Naive())):
         for n in (8, 64):
             p = {k: v.detach().clone().requires_grad_(True)
                  for k, v in fp.items()}
@@ -517,14 +740,17 @@ def phase_memory():
             torch.cuda.synchronize()
             peaks[(label, n)] = torch.cuda.max_memory_allocated() - base
             del sol, loss
-    mali = peaks[("mali_cuda", 64)] / peaks[("mali_cuda", 8)]
-    naive = peaks[("naive_reference", 64)] / peaks[("naive_reference", 8)]
+    growth = {k: peaks[(k, 64)] / peaks[(k, 8)]
+              for k in ("mali_cuda", "naive_reference", "naive_cuda")}
     emit({"phase": "memory", "state_elements": 1 << 20,
           "peak_bytes": {f"{k}_n{n}": v for (k, n), v in peaks.items()},
-          "mali_growth_8_to_64": mali, "naive_growth_8_to_64": naive})
-    require(mali <= 1.05, f"MALI peak memory grew {mali}x from 8 to 64 "
-            "steps")
-    require(naive > 2.0, f"Naive peak memory grew only {naive}x")
+          "mali_growth_8_to_64": growth["mali_cuda"],
+          "naive_growth_8_to_64": growth["naive_reference"],
+          "naive_cuda_growth_8_to_64": growth["naive_cuda"]})
+    require(growth["mali_cuda"] <= 1.05, f"MALI peak memory grew "
+            f"{growth['mali_cuda']}x from 8 to 64 steps")
+    for k in ("naive_reference", "naive_cuda"):
+        require(growth[k] > 2.0, f"{k} peak memory grew only {growth[k]}x")
 
 
 def _busy_us(events) -> float:
@@ -608,10 +834,16 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0})
 
-    worst = phase_kernels()
+    worst, checks = phase_kernels()
     times = phase_times(card)
-    launches = phase_main_path()
+    launches, mali_losses = phase_main_path()
     phase_adaptive()
+    # Each kernel's launches come from the path that runs it; the two
+    # VJP kernels' and alf_inverse's from the direct-backprop phase.
+    # alf_inverse_update runs on no path (no caller in either package).
+    direct = phase_direct_backprop(mali_losses)
+    for name in (*VJPS, "alf_inverse"):
+        launches[name] = direct[name]
     phase_memory()
     phase_profile()
 
@@ -620,6 +852,7 @@ def main() -> int:
         row = times[(name, SLICE_N)]
         table.append({"name": name, "route": "cuda", "source": SOURCE,
                       "replaces": replaces, "launches": launches[name],
+                      "checks": checks[name],
                       "max_abs_err": worst[name], "ms": row["ms"],
                       "plain_ms": row["plain_ms"],
                       "bound_ms": row["bound_ms"],

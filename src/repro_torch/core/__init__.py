@@ -1,10 +1,12 @@
-"""The MALI integrator on PyTorch: ``solve()`` with ALF, MALI and Naive.
+"""The MALI integrator on PyTorch: ``solve()`` with ALF, MALI and Naive,
+and per-step and dense output.
 
 Module names follow the JAX package (``repro.core``) so each counterpart
 is easy to find.
 """
 from .alf import (BACKENDS, alf_inverse, alf_step, alf_step_with_error,
                   check_eta, init_velocity)
+from .dense import DenseInterpolation, hermite_coefficients
 from .interface import (GradientMethod, RunStats, SaveAt, Solution, Stats,
                         state_nbytes)
 from .mali import MALI
@@ -18,5 +20,6 @@ __all__ = [
     "MALI", "Naive", "check_direct_backprop", "ALF", "Solver", "get_solver",
     "ConstantSteps", "AdaptiveController", "StepController", "BACKENDS",
     "alf_step", "alf_inverse", "alf_step_with_error", "init_velocity",
-    "check_eta", "state_nbytes",
+    "check_eta", "state_nbytes", "DenseInterpolation",
+    "hermite_coefficients",
 ]

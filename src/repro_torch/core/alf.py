@@ -101,7 +101,8 @@ def alf_step(
         z_out = k1 + v_out * h/2
 
     ``backend='cuda'`` runs the elementwise algebra around the ``f``
-    evaluation as two fused kernel launches (forward only in this slice).
+    evaluation as two fused kernel launches; both ops carry reverse rules
+    (themselves kernels), so autograd differentiates through the step.
     """
     step = _cuda_step if backend == "cuda" else _reference_step
     z_out, v_out, _ = step(f, params, z, v, t, h, eta)
@@ -123,15 +124,19 @@ def alf_inverse(
     Rebuilds the step *input* (z, v) at time ``t_out - h`` from the step
     output; the midpoint ``k1`` is recovered algebraically, so ``f`` is
     re-evaluated at (numerically) the same point as in the forward step.
-    Reference backend only: the fused inverse kernels land with the
-    direct-backprop slice.
+
+    ``backend='cuda'`` is two launches around ``f``: the midpoint kernel
+    (``sign=-1``) for f's argument, then the one-pass ``alf_inverse``
+    kernel for the whole (z_in, v_in) rebuild. Forward-only: it runs inside
+    MALI's backward, which is never differentiated.
     """
-    if backend != "reference":
-        raise NotImplementedError(
-            "alf_inverse runs on the reference backend only; its fused "
-            "`inverse`/`inverse_update` kernels land with the "
-            "direct-backprop slice (ROADMAP queue 1)")
     s1 = t_out - h / 2
+    if backend == "cuda":
+        from repro_torch.kernels.alf_step.ops import alf_inverse as inverse_op
+        from repro_torch.kernels.alf_step.ops import alf_midpoint
+        k1 = alf_midpoint(z_out, v_out, h, sign=-1.0)
+        u1 = f(params, k1, s1)
+        return inverse_op(z_out, v_out, u1, h, eta=eta)
     k1 = _tm(lambda zi, vi: zi - vi * (h / 2), z_out, v_out)
     u1 = f(params, k1, s1)
     if eta == 1.0:

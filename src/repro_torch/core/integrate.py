@@ -129,6 +129,9 @@ class GridResult(NamedTuple):
     n_accepted: torch.Tensor    # (T-1,) int32 accepted steps per segment
     n_trials: torch.Tensor      # int32 total trials (= accepted + rejected)
     completed: torch.Tensor     # bool: every segment reached its end time
+    # (T-1, bound, ...) accepted-step start states, zero past each
+    # segment's accepted count (record_states=True only).
+    state_traj: Optional[Pytree] = None
 
 
 class AdaptiveResult(NamedTuple):
@@ -139,6 +142,7 @@ class AdaptiveResult(NamedTuple):
     n_evals: torch.Tensor       # int32 trial count
     h_final: torch.Tensor       # controller's step proposal at exit
     done: torch.Tensor          # bool: reached t1 within budget
+    state_traj: Optional[Pytree] = None  # (max_steps, ...) start states
 
 
 def integrate_adaptive(
@@ -152,10 +156,14 @@ def integrate_adaptive(
     atol: float,
     max_steps: int,
     h0: Optional[torch.Tensor] = None,
+    record_states: bool = False,
 ) -> AdaptiveResult:
     """Bounded accept/reject loop over one span, direction-agnostic: ``h``
     and ``remaining`` carry the span's sign and every magnitude comparison
-    goes through abs."""
+    goes through abs. ``record_states`` also returns the start state of
+    every accepted step in a (max_steps, ...) buffer, zero past the
+    accepted count — the JAX scan's buffer, built here once after the loop
+    from the trials' start states (autograd differentiates through it)."""
     dev = t0.device
     t0 = t0.to(TIME_DTYPE)
     t1 = t1.to(TIME_DTYPE)
@@ -167,6 +175,7 @@ def integrate_adaptive(
     done = torch.zeros((), dtype=torch.bool, device=dev)
     n_acc = torch.zeros((), dtype=torch.int32, device=dev)
     n_ev = torch.zeros((), dtype=torch.int32, device=dev)
+    starts, accepts = [], []
 
     for _ in range(max_steps):
         if bool(done):
@@ -178,12 +187,16 @@ def integrate_adaptive(
         state_next, ratio = trial(state, t, h_eff)
         accept = (ratio <= 1.0) & ~done
         n_ev = n_ev + torch.where(done, 0, 1).to(torch.int32)
+        if record_states:
+            starts.append(state)
+            accepts.append(accept)
 
-        # Record the accepted step's (start time, step size).
+        # Record the accepted step's (start time, step size). Both stay
+        # differentiable, as in the JAX scan: a dense interpolant built on
+        # them depends on the step sizes, which depend on the state.
         idx = (n_acc.long().view(1),)
-        ts_buf.index_put_(idx, torch.where(accept, t.detach(), ts_buf[idx]))
-        hs_buf.index_put_(idx, torch.where(accept, h_eff.detach(),
-                                           hs_buf[idx]))
+        ts_buf.index_put_(idx, torch.where(accept, t, ts_buf[idx]))
+        hs_buf.index_put_(idx, torch.where(accept, h_eff, hs_buf[idx]))
 
         new_t = torch.where(accept, torch.where(is_last, t1, t + h_eff), t)
         state = tree_where(accept, state_next, state)
@@ -193,38 +206,65 @@ def integrate_adaptive(
         t = new_t
         n_acc = n_acc + accept.to(torch.int32)
 
+    traj = (_accepted_rows(starts, accepts, n_acc, max_steps)
+            if record_states else None)
     return AdaptiveResult(state, ts_buf, hs_buf, n_acc, n_ev, h,
-                          done | (t0 == t1))
+                          done | (t0 == t1), traj)
+
+
+def _accepted_rows(starts: List[Pytree], accepts: List[torch.Tensor],
+                   n_acc: torch.Tensor, bound: int) -> Pytree:
+    """The (bound, ...) buffer of accepted trials' start states, in order,
+    zero past ``n_acc``: a stable sort puts the accepted trials first, on
+    the device."""
+    order = torch.argsort((~torch.stack(accepts)).to(torch.int8),
+                          stable=True)
+    live = torch.arange(len(starts), device=n_acc.device) < n_acc
+
+    def per_leaf(*rows):
+        picked = torch.stack(rows)[order]
+        mask = live.reshape((-1,) + (1,) * (picked.dim() - 1))
+        picked = torch.where(mask, picked, torch.zeros_like(picked))
+        pad = picked.new_zeros((bound - len(rows),) + picked.shape[1:])
+        return torch.cat([picked, pad])
+
+    return _tm(per_leaf, *starts)
 
 
 def _constant_grid(trial: TrialFn, state0: Pytree, ts: torch.Tensor,
-                   n: int) -> GridResult:
+                   n: int, record_states: bool) -> GridResult:
     """ConstantSteps path of :func:`integrate_grid`: a plain per-segment
     sub-grid (every trial accepted), with the same bookkeeping as the
     adaptive path so the backward sweep is controller-agnostic."""
     n_seg = ts.shape[0] - 1
     state = state0
     states = [state0]
-    seg_ts, seg_hs = [], []
+    seg_ts, seg_hs, seg_starts = [], [], []
     for k in range(n_seg):
         step_ts, h = fixed_grid_times(ts[k], ts[k + 1], n)
+        starts = []
         for i in range(n):
+            if record_states:
+                starts.append(state)
             state, _ = trial(state, step_ts[i], h)
         states.append(state)
         seg_ts.append(step_ts.detach())
         seg_hs.append(h.detach().expand(n))
+        if record_states:
+            seg_starts.append(stack_states(starts))
     dev = ts.device
     return GridResult(
         state, stack_states(states), torch.stack(seg_ts),
         torch.stack(seg_hs),
         torch.full((n_seg,), n, dtype=torch.int32, device=dev),
         torch.tensor(n_seg * n, dtype=torch.int32, device=dev),
-        torch.ones((), dtype=torch.bool, device=dev))
+        torch.ones((), dtype=torch.bool, device=dev),
+        stack_states(seg_starts) if record_states else None)
 
 
 def _adaptive_grid(trial: TrialFn, state0: Pytree, ts: torch.Tensor,
-                   controller: AdaptiveController,
-                   order: int) -> GridResult:
+                   controller: AdaptiveController, order: int,
+                   record_states: bool) -> GridResult:
     """AdaptiveController path of :func:`integrate_grid`: per-segment
     bounded accept/reject loops, the step proposal warm-started across
     segment boundaries."""
@@ -232,7 +272,7 @@ def _adaptive_grid(trial: TrialFn, state0: Pytree, ts: torch.Tensor,
     h_prev = controller.initial_step(ts[1] - ts[0])
     state = state0
     states = [state0]
-    seg_ts, seg_hs, seg_acc, seg_done = [], [], [], []
+    seg_ts, seg_hs, seg_acc, seg_done, seg_starts = [], [], [], [], []
     n_ev = torch.zeros((), dtype=torch.int32, device=ts.device)
     for k in range(n_seg):
         span = ts[k + 1] - ts[k]
@@ -240,17 +280,20 @@ def _adaptive_grid(trial: TrialFn, state0: Pytree, ts: torch.Tensor,
                                               torch.abs(span))
         out = integrate_adaptive(trial, state, ts[k], ts[k + 1], order=order,
                                  rtol=controller.rtol, atol=controller.atol,
-                                 max_steps=controller.max_steps, h0=h0)
+                                 max_steps=controller.max_steps, h0=h0,
+                                 record_states=record_states)
         state, h_prev = out.state, out.h_final
         states.append(state)
         seg_ts.append(out.ts)
         seg_hs.append(out.hs)
         seg_acc.append(out.n_accepted)
         seg_done.append(out.done)
+        seg_starts.append(out.state_traj)
         n_ev = n_ev + out.n_evals
     return GridResult(state, stack_states(states), torch.stack(seg_ts),
                       torch.stack(seg_hs), torch.stack(seg_acc), n_ev,
-                      torch.stack(seg_done).all())
+                      torch.stack(seg_done).all(),
+                      stack_states(seg_starts) if record_states else None)
 
 
 def integrate_grid(
@@ -260,13 +303,17 @@ def integrate_grid(
     *,
     controller: StepController,
     order: int,
+    record_states: bool = False,
 ) -> GridResult:
     """THE grid driver: integrate across an observation grid ``ts`` (shape
     (T,)) under the given :class:`StepController`. The recorded per-segment
     (t_i, h_i) bookkeeping keeps the backward residual set at
-    O(T * step_bound) scalars + O(T * N_z) states."""
+    O(T * step_bound) scalars + O(T * N_z) states. ``record_states`` adds
+    the per-accepted-step start states (``GridResult.state_traj``), what
+    the per-step and dense outputs are built from."""
     if isinstance(controller, ConstantSteps):
-        return _constant_grid(trial, state0, ts, controller.n)
+        return _constant_grid(trial, state0, ts, controller.n, record_states)
     if isinstance(controller, AdaptiveController):
-        return _adaptive_grid(trial, state0, ts, controller, order)
+        return _adaptive_grid(trial, state0, ts, controller, order,
+                              record_states)
     raise TypeError(f"unknown step controller {controller!r}")

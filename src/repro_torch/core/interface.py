@@ -17,6 +17,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 
+from .dense import DenseInterpolation
+
 Pytree = Any
 
 
@@ -51,23 +53,77 @@ class Stats(NamedTuple):
     n_fevals: torch.Tensor     # int32
     n_segments: int            # observation segments (T - 1)
     residual_bytes: int        # analytic residual-memory estimate
+    # Span-recording solves (SaveAt(steps=True)/dense=True) set this: False
+    # when the AdaptiveController's max_steps budget ran out before t1, so
+    # the record (and any interpolant over it) covers only a prefix of the
+    # span. None where not tracked.
+    span_complete: Optional[torch.Tensor] = None   # bool
 
 
 class Solution(NamedTuple):
     """Result of :func:`repro_torch.core.solve.solve`: ``ys``/``ts`` are the
-    end state and scalar ``t1`` (default) or the (T, ...) trajectory over
-    ``SaveAt.ts`` (``ys[0] == z0``)."""
+    end state and scalar ``t1`` (default), the (T, ...) trajectory over
+    ``SaveAt.ts`` (``ys[0] == z0``), or the padded per-step record of
+    ``SaveAt(steps=True)``, whose live rows :attr:`num_steps` /
+    :attr:`step_mask` give. With ``SaveAt(dense=True)`` the solution is
+    callable in time: :meth:`evaluate` interpolates the state anywhere in
+    the span off per-step cubic-Hermite coefficients."""
     ys: Pytree
     ts: torch.Tensor
     stats: Stats
+    # Dense-output record (SaveAt(dense=True)); None otherwise.
+    interpolation: Optional[DenseInterpolation] = None
+    # Live rows of the padded SaveAt(steps=True) buffer; None otherwise.
+    n_live: Optional[torch.Tensor] = None
+
+    @property
+    def num_steps(self) -> torch.Tensor:
+        """Accepted solver steps of the recorded trajectory; for
+        ``SaveAt(steps=True)`` the live rows are ``0 .. num_steps``
+        inclusive (the step-start states plus the final state)."""
+        if self.n_live is not None:
+            return self.n_live - 1
+        return self.stats.n_accepted
+
+    @property
+    def step_mask(self) -> torch.Tensor:
+        """Boolean mask over the rows of ``ts``/``ys``: all True for the
+        exact-shape modes, True only for rows ``< n_live`` of the padded
+        ``SaveAt(steps=True)`` buffer."""
+        ts = torch.as_tensor(self.ts)
+        if ts.dim() == 0:
+            return torch.ones((), dtype=torch.bool, device=ts.device)
+        if self.n_live is None:
+            return torch.ones(ts.shape[0], dtype=torch.bool,
+                              device=ts.device)
+        return torch.arange(ts.shape[0], device=ts.device) < self.n_live
+
+    def evaluate(self, t) -> Pytree:
+        """Dense-output interpolation at query time(s) ``t`` (a scalar
+        gives one state, a (Q,) tensor a leading Q axis), clamped into the
+        span. Needs ``SaveAt(dense=True)``; differentiable with respect to
+        params and z0 by direct backprop through the recorded steps."""
+        if self.interpolation is None:
+            raise ValueError(
+                "Solution.evaluate(t) needs dense output: pass "
+                "saveat=SaveAt(dense=True) to solve() to record the "
+                "per-step interpolation coefficients")
+        return self.interpolation.evaluate(t)
+
+    def __call__(self, t) -> Pytree:
+        """A dense Solution is callable in time: ``sol(t)`` is
+        ``sol.evaluate(t)``."""
+        return self.evaluate(t)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class SaveAt:
-    """What to save: ``ts=<1-D grid>`` for the trajectory at every
-    requested timepoint (ascending or descending), otherwise only the
-    final state ``z(t1)``. ``steps``/``dense`` exist for parity with the
-    JAX package; ``solve`` refuses them until their slice lands."""
+    """What to save, one mode per solve: ``ts=<1-D grid>`` for the
+    trajectory at every requested timepoint (ascending or descending);
+    ``steps=True`` for every accepted step's start state plus the final
+    state, as a padded buffer; ``dense=True`` for per-step cubic-Hermite
+    coefficients behind ``Solution.evaluate(t)``; otherwise only the final
+    state ``z(t1)``."""
     ts: Optional[Any] = None
     steps: bool = False
     dense: bool = False

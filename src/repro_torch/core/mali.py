@@ -53,7 +53,9 @@ def _step_backward(cfg: MaliConfig, params, z_i, v_i, t_start, h, a_z, a_v):
     """One reverse step: rebuild the step input via psi^-1 and backprop
     psi, fused (3 f-eval-equivalents) or via the reference two-pass.
     ``backend='cuda'`` runs the fused step's elementwise algebra as one
-    kernel launch on each side of the f linearization."""
+    kernel launch on each side of the f linearization; the two-pass path
+    launches the inverse kernels and replays the step through the forward
+    kernels' reverse rules."""
     if cfg.fused_bwd:
         fused = (_cuda_fused_inverse_and_vjp if cfg.backend == "cuda"
                  else _fused_inverse_and_vjp)
@@ -62,15 +64,18 @@ def _step_backward(cfg: MaliConfig, params, z_i, v_i, t_start, h, a_z, a_v):
     z_prev, v_prev = alf_inverse(cfg.f, params, z_i, v_i, t_start + h, h,
                                  cfg.eta, cfg.backend)
     dp, dz, dv = _local_step_vjp(cfg.f, cfg.eta, params, z_prev, v_prev,
-                                 t_start, h, a_z, a_v)
+                                 t_start, h, a_z, a_v, cfg.backend)
     return z_prev, v_prev, dz, dv, dp
 
 
-def _local_step_vjp(f, eta, params, z_prev, v_prev, t_prev, h, a_z, a_v):
+def _local_step_vjp(f, eta, params, z_prev, v_prev, t_prev, h, a_z, a_v,
+                    backend="reference"):
     """VJP of one ALF step at the rebuilt input state (the reference path:
-    replays psi under ``torch.func.vjp``; the oracle of the fused path)."""
+    replays psi under ``torch.func.vjp``; the oracle of the fused path).
+    With ``backend='cuda'`` the replayed step launches the kernels and the
+    VJP runs through their reverse rules, as Naive's backward does."""
     def step_fn(p, z, v):
-        return alf_step(f, p, z, v, t_prev, h, eta)
+        return alf_step(f, p, z, v, t_prev, h, eta, backend)
 
     _, vjp_fn = vjp(step_fn, params, z_prev, v_prev)
     return vjp_fn((a_z, a_v))  # (dL/dparams, dL/dz_prev, dL/dv_prev)
@@ -241,12 +246,6 @@ class MALI(GradientMethod):
                 "MALI is defined for the ALF solver only (paper Sec 3); got "
                 f"solver {getattr(solver, 'name', solver)!r}. Pass "
                 "solver=ALF(eta=...) or use gradient=Naive().")
-        if not self.fused_bwd and solver.backend == "cuda":
-            raise NotImplementedError(
-                "MALI(fused_bwd=False) with ALF(backend='cuda') needs the "
-                "`inverse` and reverse-rule kernels of the direct-backprop "
-                "slice (ROADMAP queue 1); use fused_bwd=True or the "
-                "reference backend")
 
     def integrate(self, f, params, z0, ts, solver, controller):
         cfg = MaliConfig(f, solver.eta, controller, self.fused_bwd,

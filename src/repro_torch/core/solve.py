@@ -14,10 +14,11 @@ policies; ``solve`` exposes those axes as independent objects::
     sol.ys      # (16, ...) trajectory
     sol.stats   # accepted/rejected steps, f-evals, residual footprint
 
-The solve computes on the device of ``z0`` and ``params``. This slice
+The solve computes on the device of ``z0`` and ``params``. The port
 covers ALF x {MALI, Naive} x {ConstantSteps, AdaptiveController} x
-{end state, ``SaveAt(ts=)``}, forward and reverse time; the other axes of
-the JAX package raise ``NotImplementedError`` naming their ROADMAP item.
+{end state, ``SaveAt(ts=)``, ``SaveAt(steps=True)``, ``SaveAt(dense=True)``},
+forward and reverse time, on either ALF backend; the other axes of the JAX
+package raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,11 +27,17 @@ from typing import Any, Callable, Optional
 import torch
 import torch.utils._pytree as pytree
 
-from .integrate import as_time_grid, scalar_time_grid, validate_span
-from .interface import GradientMethod, RunStats, SaveAt, Solution, Stats
+from .dense import build_interpolation
+from .integrate import (as_time_grid, integrate_grid, scalar_time_grid,
+                        validate_span)
+from .interface import (GradientMethod, RunStats, SaveAt, Solution, Stats,
+                        make_run_stats)
 from .mali import MALI
-from .solvers import Solver, get_solver
+from .naive import Naive, check_direct_backprop
+from .solvers import ALF, Solver, get_solver
 from .stepsize import AdaptiveController, StepController
+
+_tm = pytree.tree_map
 
 Pytree = Any
 Dynamics = Callable[[Pytree, Pytree, torch.Tensor], Pytree]
@@ -49,6 +56,68 @@ def _build_stats(rstats: RunStats, gradient: GradientMethod, z0: Pytree,
     )
 
 
+def _record_span(f, params, z0, t0, t1, solver, controller):
+    """One state-recording integration over the single [t0, t1] segment,
+    the shared forward of SaveAt(steps=True) and SaveAt(dense=True), in
+    either time direction."""
+    grid = scalar_time_grid(t0, t1, pytree.tree_leaves(z0)[0].device)
+    state0 = solver.init_state(f, params, z0, grid[0])
+    trial = solver.trial_fn(f, params, controller)
+    res = integrate_grid(trial, state0, grid, controller=controller,
+                         order=solver.order, record_states=True)
+    return grid, res
+
+
+def _span_stats(res, z0, grid, solver, controller, extra_evals=0) -> Stats:
+    """Stats of a recorded span: its residuals are the recorded buffer
+    itself, Naive's footprint, whatever gradient method was passed."""
+    init_evals = (1 if isinstance(solver, ALF) else 0) + extra_evals
+    rstats = make_run_stats(res.n_accepted, res.n_trials, solver.stages,
+                            init_evals)
+    stats = _build_stats(rstats, Naive(), z0, grid, solver, controller)
+    return stats._replace(span_complete=res.completed)
+
+
+def _solve_dense(f, params, z0, t0, t1, solver, controller) -> Solution:
+    """SaveAt(steps=True): every accepted step of the single [t0, t1]
+    segment. Per-step output pins each intermediate state, so gradients
+    flow by direct backprop through the recorded sequence, whatever
+    gradient method was passed."""
+    check_direct_backprop(solver, "SaveAt(steps=True)")
+    grid, res = _record_span(f, params, z0, t0, t1, solver, controller)
+    n_acc = res.n_accepted[0]
+    at = n_acc.long().reshape(1)
+    starts = solver.output(_tm(lambda b: b[0], res.state_traj))
+    final = solver.output(res.state)
+    # One padded buffer: rows 0..n_acc-1 are step-start states, row n_acc
+    # the final state, later rows zero.
+    ys = _tm(lambda b, fin: torch.cat([b, torch.zeros_like(b[:1])])
+             .index_put((at,), fin.unsqueeze(0)), starts, final)
+    ts_out = torch.cat([res.ts[0], torch.zeros_like(res.ts[0][:1])])
+    ts_out = ts_out.index_put((at,), grid[-1].reshape(1))
+    return Solution(ys=ys, ts=ts_out,
+                    stats=_span_stats(res, z0, grid, solver, controller),
+                    n_live=n_acc + 1)
+
+
+def _solve_dense_interp(f, params, z0, t0, t1, solver,
+                        controller) -> Solution:
+    """SaveAt(dense=True): record the span and fit the per-step
+    cubic-Hermite interpolant behind ``Solution.evaluate(t)``; gradients
+    flow through ``ys`` and through interpolated values by direct backprop
+    through the recorded sequence."""
+    check_direct_backprop(solver, "SaveAt(dense=True)")
+    grid, res = _record_span(f, params, z0, t0, t1, solver, controller)
+    states = _tm(lambda b: b[0], res.state_traj)
+    interp = build_interpolation(solver, f, params, states, res.state,
+                                 res.ts[0], res.hs[0], res.n_accepted[0],
+                                 grid[0], grid[-1])
+    stats = _span_stats(res, z0, grid, solver, controller,
+                        solver.interpolant_fevals(controller.step_bound))
+    return Solution(ys=solver.output(res.state), ts=grid[-1], stats=stats,
+                    interpolation=interp)
+
+
 def _refuse_later_axes(saveat: SaveAt, batching, event,
                        diff_bounds: bool) -> None:
     later = []
@@ -56,9 +125,6 @@ def _refuse_later_axes(saveat: SaveAt, batching, event,
         later.append("batching= (ROADMAP queue 1, Batching)")
     if event is not None:
         later.append("event= (ROADMAP queue 1, time as an axis: events)")
-    if saveat.steps or saveat.dense:
-        later.append("SaveAt(steps=True)/SaveAt(dense=True) (ROADMAP queue "
-                     "1, direct-backprop slice: dense output)")
     if diff_bounds:
         later.append("diff_bounds=True (ROADMAP queue 1, time as an axis: "
                      "diff_bounds)")
@@ -81,7 +147,12 @@ def solve(f: Dynamics, params: Pytree, z0: Pytree, t0=0.0, t1=1.0, *,
     configuration: ``gradient=MALI()``, its ``ALF()`` solver and
     ``AdaptiveController(rtol=1e-2, atol=1e-3, max_steps=64)``.
     Differentiate any loss of ``sol.ys`` with autograd and the gradient
-    method's backward applies.
+    method's backward applies. ``SaveAt(steps=True)`` returns every
+    accepted step's start state plus the final state as a padded buffer
+    (``sol.num_steps``, ``sol.step_mask``); ``SaveAt(dense=True)`` makes
+    ``sol.evaluate(t)`` interpolate anywhere in the span. Both pin every
+    step's state, so their gradients are direct backprop through the
+    recorded steps, whatever ``gradient`` says.
     """
     gradient = MALI() if gradient is None else gradient
     if not isinstance(gradient, GradientMethod):
@@ -96,6 +167,10 @@ def solve(f: Dynamics, params: Pytree, z0: Pytree, t0=0.0, t1=1.0, *,
     _refuse_later_axes(saveat, batching, event, diff_bounds)
 
     gradient.validate(solver, controller)
+    if saveat.steps or saveat.dense:
+        validate_span(t0, t1)
+        dense = _solve_dense if saveat.steps else _solve_dense_interp
+        return dense(f, params, z0, t0, t1, solver, controller)
     device = pytree.tree_leaves(z0)[0].device
     trajectory = saveat.ts is not None
     if trajectory:

@@ -13,6 +13,7 @@ import torch
 
 from .alf import (alf_step, alf_step_with_error, check_backend, check_eta,
                   init_velocity)
+from .dense import pad_dead_rows, shift_to_step_ends
 
 Pytree = Any
 Dynamics = Callable[[Pytree, Pytree, torch.Tensor], Pytree]
@@ -52,6 +53,31 @@ class Solver:
         solver if any of them is forward-only."""
         return ()
 
+    def interpolant(self, f: Dynamics, params: Pytree, states: Pytree,
+                    state_end: Pytree, ts: torch.Tensor, hs: torch.Tensor,
+                    n_live: torch.Tensor):
+        """Per-step endpoint data ``(y0, d0, y1, d1)`` for dense output.
+
+        ``states`` is the recorded (bound, ...) buffer of accepted-step
+        start solver states, ``state_end`` the final solver state,
+        ``ts``/``hs`` the signed step times and sizes (rows past
+        ``n_live`` are padding, backfilled with the end state so ``f``
+        never sees the zeros). The default re-evaluates ``f`` at both step
+        endpoints, batched over the whole buffer with ``torch.func.vmap``;
+        solvers whose state carries a velocity (:class:`ALF`) read the
+        slope off it instead."""
+        from torch.func import vmap
+        ends = shift_to_step_ends(states, state_end, n_live)
+        y0 = self.output(pad_dead_rows(states, state_end, n_live))
+        y1 = self.output(pad_dead_rows(ends, state_end, n_live))
+        eval_f = vmap(lambda z, t: f(params, z, t))
+        return y0, eval_f(y0, ts), y1, eval_f(y1, ts + hs)
+
+    def interpolant_fevals(self, bound: int) -> int:
+        """Dynamics evaluations :meth:`interpolant` spends over ``bound``
+        recorded rows (two batched passes by default)."""
+        return 2 * bound
+
 
 @dataclasses.dataclass(frozen=True)
 class ALF(Solver):
@@ -62,7 +88,11 @@ class ALF(Solver):
 
     ``backend='cuda'`` runs the step's elementwise state algebra through
     the fused :mod:`repro_torch.kernels.alf_step` kernels (one flat pass
-    over the whole state pytree per op) instead of per-leaf tensor ops."""
+    over the whole state pytree per op) instead of per-leaf tensor ops.
+    The step's ops carry reverse rules (kernels too), so every gradient
+    consumer accepts this backend: MALI's backward launches the fused
+    backward or the inverse kernels, and direct backprop (``Naive``,
+    ``SaveAt(steps|dense)``) differentiates through the launches."""
 
     eta: float = 1.0
     backend: str = "reference"
@@ -105,6 +135,18 @@ class ALF(Solver):
         if self.backend != "cuda":
             return ()
         return ("alf_step.alf_midpoint", "alf_step.alf_update")
+
+    def interpolant(self, f, params, states, state_end, ts, hs, n_live):
+        """ALF dense output from the velocity pair: the augmented state
+        tracks ``v ~ dz/dt`` at every node, so the Hermite slopes come off
+        the recorded ``(z, v)`` with zero extra ``f`` evaluations."""
+        ends = shift_to_step_ends(states, state_end, n_live)
+        z0s, v0s = pad_dead_rows(states, state_end, n_live)
+        z1s, v1s = pad_dead_rows(ends, state_end, n_live)
+        return z0s, v0s, z1s, v1s
+
+    def interpolant_fevals(self, bound: int) -> int:
+        return 0
 
 
 SOLVERS = {"alf": ALF()}

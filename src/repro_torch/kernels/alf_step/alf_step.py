@@ -11,6 +11,10 @@ syncs the host.
 Kernel inventory (the plain PyTorch version of each is in ref.py):
 
   forward step      alf_midpoint, alf_update
+  direct backprop   alf_midpoint_vjp, alf_update_vjp — the reverse rules
+                    of the forward step's ops
+  psi^-1            alf_inverse (full, re-derives k1),
+                    alf_inverse_update (tail, given k1)
   MALI backward     alf_bwd_pre (inverse midpoint + f-cotangent),
                     alf_bwd_post (inverse tail + adjoint propagation)
 """
@@ -24,21 +28,26 @@ import torch
 NAME = "alf_step"
 
 # Kernel launches per launcher since the last reset_launches().
-LAUNCHES: Dict[str, int] = {"alf_midpoint": 0, "alf_update": 0,
-                            "alf_bwd_pre": 0, "alf_bwd_post": 0}
+LAUNCHES: Dict[str, int] = {
+    "alf_midpoint": 0, "alf_update": 0, "alf_bwd_pre": 0, "alf_bwd_post": 0,
+    "alf_midpoint_vjp": 0, "alf_update_vjp": 0, "alf_inverse": 0,
+    "alf_inverse_update": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 _P = ctypes.c_void_p
+_D = ctypes.c_double
+_HEAD = [ctypes.c_int, ctypes.c_int64]      # dtype code, element count
+# (input pointers, h pointer, sign/eta, output pointers, stream) per symbol
 _ARGTYPES = {
-    "alf_midpoint": [ctypes.c_int, ctypes.c_int64, _P, _P, _P,
-                     ctypes.c_double, _P, _P],
-    "alf_update": [ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P,
-                   ctypes.c_double, _P, _P, _P],
-    "alf_bwd_pre": [ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P, _P,
-                    ctypes.c_double, _P, _P, _P],
-    "alf_bwd_post": [ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P, _P, _P,
-                     _P, ctypes.c_double, _P, _P, _P, _P, _P],
+    "alf_midpoint": _HEAD + [_P, _P, _P, _D, _P, _P],
+    "alf_update": _HEAD + [_P, _P, _P, _P, _D, _P, _P, _P],
+    "alf_bwd_pre": _HEAD + [_P, _P, _P, _P, _P, _D, _P, _P, _P],
+    "alf_bwd_post": _HEAD + [_P] * 7 + [_D] + [_P] * 5,
+    "alf_midpoint_vjp": _HEAD + [_P, _P, _D, _P, _P],
+    "alf_update_vjp": _HEAD + [_P, _P, _P, _D, _P, _P, _P],
+    "alf_inverse": _HEAD + [_P, _P, _P, _P, _D, _P, _P, _P],
+    "alf_inverse_update": _HEAD + [_P, _P, _P, _P, _D, _P, _P, _P],
 }
 
 _FNS: Dict[str, object] = {}
@@ -139,3 +148,43 @@ def bwd_post_call(k1, v_out, u1, a_z, a_v, dk1, h, *, eta: float = 1.0
             *_ptrs(k1, v_out, u1, a_z, a_v, dk1, h), float(eta),
             *_ptrs(*outs))
     return tuple(outs)
+
+
+def midpoint_vjp_call(g: torch.Tensor, h: torch.Tensor, *,
+                      sign: float = 1.0) -> torch.Tensor:
+    """v_bar = sign * g * h/2, the midpoint's v-cotangent."""
+    code = _check("alf_midpoint_vjp", h, g)
+    v_bar = torch.empty_like(g)
+    _launch("alf_midpoint_vjp", code, g.numel(), *_ptrs(g, h), float(sign),
+            v_bar.data_ptr())
+    return v_bar
+
+
+def update_vjp_call(g_z, g_v, h, *, eta: float = 1.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(v_bar, u1_bar) cotangents of the forward tail."""
+    code = _check("alf_update_vjp", h, g_z, g_v)
+    v_bar, u1_bar = torch.empty_like(g_v), torch.empty_like(g_v)
+    _launch("alf_update_vjp", code, g_z.numel(), *_ptrs(g_z, g_v, h),
+            float(eta), *_ptrs(v_bar, u1_bar))
+    return v_bar, u1_bar
+
+
+def inverse_call(z_out, v_out, u1, h, *, eta: float = 1.0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(z_in, v_in) of the full psi^-1, re-deriving the midpoint."""
+    code = _check("alf_inverse", h, z_out, v_out, u1)
+    z_in, v_in = torch.empty_like(z_out), torch.empty_like(v_out)
+    _launch("alf_inverse", code, z_out.numel(), *_ptrs(z_out, v_out, u1, h),
+            float(eta), *_ptrs(z_in, v_in))
+    return z_in, v_in
+
+
+def inverse_update_call(k1, v_out, u1, h, *, eta: float = 1.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(z_in, v_in) of psi^-1's tail, given the midpoint k1."""
+    code = _check("alf_inverse_update", h, k1, v_out, u1)
+    z_in, v_in = torch.empty_like(k1), torch.empty_like(v_out)
+    _launch("alf_inverse_update", code, k1.numel(),
+            *_ptrs(k1, v_out, u1, h), float(eta), *_ptrs(z_in, v_in))
+    return z_in, v_in

@@ -6,6 +6,11 @@
 //   alf_update    <- _update_kernel (:50), update_call (:182)
 //   alf_bwd_pre   <- _bwd_pre_kernel (:107), bwd_pre_call (:212)
 //   alf_bwd_post  <- _bwd_post_kernel (:118), bwd_post_call (:218)
+//   alf_midpoint_vjp <- _midpoint_vjp_kernel (:91), midpoint_vjp_call (:200)
+//   alf_update_vjp   <- _update_vjp_kernel (:97), update_vjp_call (:206)
+//   alf_inverse      <- _inverse_kernel (:75), inverse_call (:194)
+//   alf_inverse_update <- _inverse_update_kernel (:61),
+//                         inverse_update_call (:188)
 //
 // Bound: every kernel is a single elementwise pass with a handful of
 // flops per element, so it is bound by memory traffic. Bytes moved per
@@ -13,7 +18,10 @@
 // update 3+2 -> 20 B, bwd_pre 4+2 -> 24 B, bwd_post 6+4 -> 40 B. At the
 // main path's state (2048 x 64 f32) and 3.35 TB/s (H100 SXM) that is
 // 0.47 / 0.78 / 0.94 / 1.57 us, far below a launch's own cost; at 2^25
-// elements it is 120 / 200 / 240 / 401 us.
+// elements it is 120 / 200 / 240 / 401 us. The direct-backprop and
+// inverse kernels: midpoint_vjp 1+1 -> 8 B, update_vjp 2+2 -> 16 B,
+// inverse 3+2 -> 20 B, inverse_update 3+2 -> 20 B; 0.31 / 0.63 / 0.78 /
+// 0.78 us at 2048 x 64 and 80 / 160 / 200 / 200 us at 2^25.
 //
 // Design against that bound: one pass over one flat contiguous buffer
 // (the op layer packs the whole state pytree into it), each input read
@@ -63,6 +71,18 @@ inline unsigned int n_blocks(int64_t n) {
 #define GRID_STRIDE(i, n)                                                  \
   for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < (n); \
        i += int64_t(gridDim.x) * blockDim.x)
+
+// psi^-1's velocity: 2*u1 - v_out (eta == 1) or (v_out - 2*eta*u1)/(1-2*eta)
+template <typename A>
+__device__ __forceinline__ A inverse_velocity(A vo, A u, A two_eta, A one_m,
+                                              int exact) {
+  if (exact) {
+    const A two_u = A(2) * u;
+    return two_u - vo;
+  }
+  const A eu = two_eta * u;
+  return (vo - eu) / one_m;
+}
 
 // k1 = z + sign * v * (h/2)
 template <typename T>
@@ -139,16 +159,8 @@ __global__ void bwd_post_kernel(int64_t n, const T* __restrict__ k1,
   const A two_eta = static_cast<A>(2.0 * eta);
   const A one_m = static_cast<A>(1.0 - 2.0 * eta);
   GRID_STRIDE(i, n) {
-    const A vo = ld(v_out, i);
-    const A u = ld(u1, i);
-    A vp;
-    if (exact) {
-      const A two_u = A(2) * u;
-      vp = two_u - vo;
-    } else {
-      const A eu = two_eta * u;
-      vp = (vo - eu) / one_m;
-    }
+    const A vp = inverse_velocity(ld(v_out, i), ld(u1, i), two_eta, one_m,
+                                  exact);
     st(v_prev, i, vp);
     const A vph = vp * hh;
     st(z_prev, i, ld(k1, i) - vph);
@@ -160,6 +172,85 @@ __global__ void bwd_post_kernel(int64_t n, const T* __restrict__ k1,
     const A ckh = ck * hh;
     const A mcv = one_m * cv;
     st(dv, i, ckh + mcv);
+  }
+}
+
+// v_in = inverse_velocity(v_out, u1);  z_in = k1 - v_in * (h/2)
+template <typename T>
+__global__ void inverse_update_kernel(int64_t n, const T* __restrict__ k1,
+                                      const T* __restrict__ v_out,
+                                      const T* __restrict__ u1,
+                                      const typename Acc<T>::type* __restrict__ h,
+                                      double eta, int exact,
+                                      T* __restrict__ z_in,
+                                      T* __restrict__ v_in) {
+  typedef typename Acc<T>::type A;
+  const A hh = *h * A(0.5);
+  const A two_eta = static_cast<A>(2.0 * eta);
+  const A one_m = static_cast<A>(1.0 - 2.0 * eta);
+  GRID_STRIDE(i, n) {
+    const A vi = inverse_velocity(ld(v_out, i), ld(u1, i), two_eta, one_m,
+                                  exact);
+    st(v_in, i, vi);
+    const A vih = vi * hh;
+    st(z_in, i, ld(k1, i) - vih);
+  }
+}
+
+// k1 = z_out - v_out * (h/2);  v_in = inverse_velocity(v_out, u1);
+// z_in = k1 - v_in * (h/2)
+template <typename T>
+__global__ void inverse_kernel(int64_t n, const T* __restrict__ z_out,
+                               const T* __restrict__ v_out,
+                               const T* __restrict__ u1,
+                               const typename Acc<T>::type* __restrict__ h,
+                               double eta, int exact, T* __restrict__ z_in,
+                               T* __restrict__ v_in) {
+  typedef typename Acc<T>::type A;
+  const A hh = *h * A(0.5);
+  const A two_eta = static_cast<A>(2.0 * eta);
+  const A one_m = static_cast<A>(1.0 - 2.0 * eta);
+  GRID_STRIDE(i, n) {
+    const A vo = ld(v_out, i);
+    const A voh = vo * hh;
+    const A k = ld(z_out, i) - voh;
+    const A vi = inverse_velocity(vo, ld(u1, i), two_eta, one_m, exact);
+    st(v_in, i, vi);
+    const A vih = vi * hh;
+    st(z_in, i, k - vih);
+  }
+}
+
+// v_bar = sign * g * (h/2)
+template <typename T>
+__global__ void midpoint_vjp_kernel(int64_t n, const T* __restrict__ g,
+                                    const typename Acc<T>::type* __restrict__ h,
+                                    double sign, T* __restrict__ v_bar) {
+  typedef typename Acc<T>::type A;
+  const A hh = *h * A(0.5);
+  const A s = static_cast<A>(sign);
+  GRID_STRIDE(i, n) {
+    const A sg = s * ld(g, i);
+    st(v_bar, i, sg * hh);
+  }
+}
+
+// c = g_v + g_z * (h/2);  v_bar = (1 - 2*eta) * c;  u1_bar = 2*eta * c
+template <typename T>
+__global__ void update_vjp_kernel(int64_t n, const T* __restrict__ g_z,
+                                  const T* __restrict__ g_v,
+                                  const typename Acc<T>::type* __restrict__ h,
+                                  double eta, T* __restrict__ v_bar,
+                                  T* __restrict__ u1_bar) {
+  typedef typename Acc<T>::type A;
+  const A hh = *h * A(0.5);
+  const A two_eta = static_cast<A>(2.0 * eta);
+  const A one_m = static_cast<A>(1.0 - 2.0 * eta);
+  GRID_STRIDE(i, n) {
+    const A gzh = ld(g_z, i) * hh;
+    const A c = ld(g_v, i) + gzh;
+    st(v_bar, i, one_m * c);
+    st(u1_bar, i, two_eta * c);
   }
 }
 
@@ -214,6 +305,52 @@ int launch_bwd_post(int64_t n, const void* k1, const void* v_out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_inverse(int64_t n, const void* z_out, const void* v_out,
+                   const void* u1, const void* h, double eta, void* z_in,
+                   void* v_in, cudaStream_t s) {
+  typedef typename Acc<T>::type A;
+  inverse_kernel<T><<<n_blocks(n), kThreads, 0, s>>>(
+      n, static_cast<const T*>(z_out), static_cast<const T*>(v_out),
+      static_cast<const T*>(u1), static_cast<const A*>(h), eta,
+      eta == 1.0 ? 1 : 0, static_cast<T*>(z_in), static_cast<T*>(v_in));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_inverse_update(int64_t n, const void* k1, const void* v_out,
+                          const void* u1, const void* h, double eta,
+                          void* z_in, void* v_in, cudaStream_t s) {
+  typedef typename Acc<T>::type A;
+  inverse_update_kernel<T><<<n_blocks(n), kThreads, 0, s>>>(
+      n, static_cast<const T*>(k1), static_cast<const T*>(v_out),
+      static_cast<const T*>(u1), static_cast<const A*>(h), eta,
+      eta == 1.0 ? 1 : 0, static_cast<T*>(z_in), static_cast<T*>(v_in));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_midpoint_vjp(int64_t n, const void* g, const void* h, double sign,
+                        void* v_bar, cudaStream_t s) {
+  typedef typename Acc<T>::type A;
+  midpoint_vjp_kernel<T><<<n_blocks(n), kThreads, 0, s>>>(
+      n, static_cast<const T*>(g), static_cast<const A*>(h), sign,
+      static_cast<T*>(v_bar));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_update_vjp(int64_t n, const void* g_z, const void* g_v,
+                      const void* h, double eta, void* v_bar, void* u1_bar,
+                      cudaStream_t s) {
+  typedef typename Acc<T>::type A;
+  update_vjp_kernel<T><<<n_blocks(n), kThreads, 0, s>>>(
+      n, static_cast<const T*>(g_z), static_cast<const T*>(g_v),
+      static_cast<const A*>(h), eta, static_cast<T*>(v_bar),
+      static_cast<T*>(u1_bar));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #define DISPATCH(dtype, fn, ...)                                      \
@@ -253,6 +390,35 @@ int alf_bwd_post(int dtype, int64_t n, const void* k1, const void* v_out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   DISPATCH(dtype, launch_bwd_post, n, k1, v_out, u1, a_z, a_v, dk1, h, eta,
            z_prev, v_prev, dz, dv, s)
+}
+
+int alf_inverse(int dtype, int64_t n, const void* z_out, const void* v_out,
+                const void* u1, const void* h, double eta, void* z_in,
+                void* v_in, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH(dtype, launch_inverse, n, z_out, v_out, u1, h, eta, z_in, v_in,
+           s)
+}
+
+int alf_inverse_update(int dtype, int64_t n, const void* k1,
+                       const void* v_out, const void* u1, const void* h,
+                       double eta, void* z_in, void* v_in, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH(dtype, launch_inverse_update, n, k1, v_out, u1, h, eta, z_in,
+           v_in, s)
+}
+
+int alf_midpoint_vjp(int dtype, int64_t n, const void* g, const void* h,
+                     double sign, void* v_bar, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH(dtype, launch_midpoint_vjp, n, g, h, sign, v_bar, s)
+}
+
+int alf_update_vjp(int dtype, int64_t n, const void* g_z, const void* g_v,
+                   const void* h, double eta, void* v_bar, void* u1_bar,
+                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH(dtype, launch_update_vjp, n, g_z, g_v, h, eta, v_bar, u1_bar, s)
 }
 
 }  // extern "C"

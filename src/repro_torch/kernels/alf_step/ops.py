@@ -13,9 +13,18 @@ same packed buffer. The step size ``h`` rides as a 0-d tensor of at least
 float32 (float64 for float64 states) on the state's device and is never
 read on the host.
 
-None of these ops is differentiable through: autograd through the forward
-ops needs the reverse-rule kernels of a later slice, see
-:mod:`repro_torch.kernels.registry`.
+Reverse rules: the ops a forward integration launches (``alf_midpoint``,
+``alf_update``) are ``torch.autograd.Function``s over the packed flat
+buffers and ``h``, so direct backprop (``Naive()``, ``SaveAt(steps|dense)``,
+the unfused MALI replay under ``torch.func.vjp``) works through the launch.
+The step is linear in the state, so each backward is one more kernel
+launch (``midpoint_vjp`` / ``update_vjp``), the identity cotangents, and
+the reduction ``h_bar`` (plain torch, only when ``h`` needs a gradient, as
+under an adaptive controller). The packing around the Functions is plain
+autograd, which casts each leaf's cotangent back to that leaf's dtype. The
+backward-sweep ops (``alf_inverse``, ``alf_inverse_update``,
+``alf_bwd_pre``, ``alf_bwd_post``) run only inside MALI's backward and are
+forward-only, see :mod:`repro_torch.kernels.registry`.
 """
 from __future__ import annotations
 
@@ -23,14 +32,19 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.utils._pytree as pytree
+from torch.autograd.function import once_differentiable
 
 from . import alf_step, ref
 
 Pytree = Any
 
-# Op calls per op since the last reset_op_calls(), on any device.
-OP_CALLS: Dict[str, int] = {"alf_midpoint": 0, "alf_update": 0,
-                            "alf_bwd_pre": 0, "alf_bwd_post": 0}
+# Calls per op since the last reset_op_calls(), on any device. The two
+# reverse rules count where the backward of alf_midpoint / alf_update runs
+# its kernel (or, on the CPU, its plain version).
+OP_CALLS: Dict[str, int] = {
+    "alf_midpoint": 0, "alf_update": 0, "alf_bwd_pre": 0, "alf_bwd_post": 0,
+    "alf_midpoint_vjp": 0, "alf_update_vjp": 0, "alf_inverse": 0,
+    "alf_inverse_update": 0}
 
 
 def reset_op_calls() -> None:
@@ -48,8 +62,8 @@ def _common_dtype(*trees) -> torch.dtype:
 
 def _as_h(h, cdtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """The step size as a 0-d tensor of at least f32 (f64 for f64 states)
-    on the state's device. A tensor is converted on the device; a Python
-    number is uploaded once."""
+    on the state's device. A tensor is converted on the device (and stays
+    differentiable); a Python number is uploaded once."""
     hd = torch.promote_types(cdtype, torch.float32)
     return torch.as_tensor(h, dtype=hd, device=device).reshape(())
 
@@ -93,33 +107,148 @@ def _on_cuda(name: str, dev: torch.device) -> bool:
     raise ValueError(f"{name}: no kernel or plain version for device {dev}")
 
 
+def _unwrapped(t: torch.Tensor) -> torch.Tensor:
+    """The plain tensor under ``torch.func``'s wrappers. When a reverse
+    rule runs from a ``torch.func.vjp`` pullback (the unfused MALI replay),
+    its saved tensors arrive wrapped at the transform's level, and a
+    wrapper has no data pointer to hand a kernel."""
+    while torch._C._functorch.is_functorch_wrapped_tensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t
+
+
+def _h_cotangent(h: torch.Tensor, coeff: float, a: torch.Tensor,
+                 g: torch.Tensor) -> torch.Tensor:
+    """h_bar = coeff * <a, g> over the packed buffers, reduced at h's
+    dtype."""
+    return torch.sum(a.to(h.dtype) * g.to(h.dtype)) * coeff
+
+
+class _Midpoint(torch.autograd.Function):
+    """k1 = z + sign*v*h/2 over packed buffers. Reverse rule:
+    z_bar = g, v_bar = sign*g*h/2 (one midpoint_vjp launch),
+    h_bar = (sign/2) * <v, g>."""
+
+    @staticmethod
+    def forward(zf, vf, h, sign):
+        if _on_cuda("alf_midpoint", zf.device):
+            return alf_step.midpoint_call(zf, vf, h, sign=sign)
+        return ref.midpoint_ref(zf, vf, h, sign)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, vf, h, sign = inputs
+        ctx.sign = sign
+        # v only feeds h_bar: keep it alive only when h needs a gradient
+        ctx.save_for_backward(vf if ctx.needs_input_grad[2] else None, h)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        vf, h = ctx.saved_tensors
+        g, h = _unwrapped(g).contiguous(), _unwrapped(h)
+        v_bar = h_bar = None
+        if ctx.needs_input_grad[1]:
+            OP_CALLS["alf_midpoint_vjp"] += 1
+            if _on_cuda("alf_midpoint_vjp", g.device):
+                v_bar = alf_step.midpoint_vjp_call(g, h, sign=ctx.sign)
+            else:
+                v_bar = ref.midpoint_vjp_ref(g, h, ctx.sign)
+        if ctx.needs_input_grad[2]:
+            h_bar = _h_cotangent(h, 0.5 * ctx.sign, vf, g)
+        return g, v_bar, h_bar, None
+
+
+class _Update(torch.autograd.Function):
+    """(z_out, v_out) of the forward tail over packed buffers. Reverse
+    rule, with c = g_v + (h/2)*g_z: k1_bar = g_z, v_bar = (1-2*eta)*c,
+    u1_bar = 2*eta*c (one update_vjp launch), h_bar = <v_out, g_z>/2."""
+
+    @staticmethod
+    def forward(kf, vf, uf, h, eta):
+        if _on_cuda("alf_update", kf.device):
+            return alf_step.update_call(kf, vf, uf, h, eta=eta)
+        return ref.update_ref(kf, vf, uf, h, eta)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.eta = inputs[4]
+        # v_out only feeds h_bar: keep it alive only when h needs a gradient
+        ctx.save_for_backward(output[1] if ctx.needs_input_grad[3] else None,
+                              inputs[3])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_z, g_v):
+        v_out, h = ctx.saved_tensors
+        h = _unwrapped(h)
+        g_z, g_v = _unwrapped(g_z).contiguous(), _unwrapped(g_v).contiguous()
+        v_bar = u1_bar = h_bar = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            OP_CALLS["alf_update_vjp"] += 1
+            if _on_cuda("alf_update_vjp", g_z.device):
+                v_bar, u1_bar = alf_step.update_vjp_call(g_z, g_v, h,
+                                                         eta=ctx.eta)
+            else:
+                v_bar, u1_bar = ref.update_vjp_ref(g_z, g_v, h, ctx.eta)
+        if ctx.needs_input_grad[3]:
+            h_bar = _h_cotangent(h, 0.5, v_out, g_z)
+        return g_z, v_bar, u1_bar, h_bar, None
+
+
 def alf_midpoint(z: Pytree, v: Pytree, h, *, sign: float = 1.0) -> Pytree:
-    """k1 = z + sign*v*h/2 over a pytree state, in one launch."""
+    """k1 = z + sign*v*h/2 over a pytree state, in one launch.
+    Differentiable in z, v and h."""
     OP_CALLS["alf_midpoint"] += 1
     cd = _common_dtype(z, v)
-    dev = _device(z)
-    hh = _as_h(h, cd, dev)
-    zf, vf = _flatten(z, cd), _flatten(v, cd)
-    if _on_cuda("alf_midpoint", dev):
-        k1 = alf_step.midpoint_call(zf, vf, hh, sign=sign)
-    else:
-        k1 = ref.midpoint_ref(zf, vf, hh, sign)
+    hh = _as_h(h, cd, _device(z))
+    k1 = _Midpoint.apply(_flatten(z, cd), _flatten(v, cd), hh, float(sign))
     return _unflatten(k1, _Meta(z))
 
 
 def alf_update(k1: Pytree, v: Pytree, u1: Pytree, h, *,
                eta: float = 1.0) -> Tuple[Pytree, Pytree]:
-    """Forward tail (z_out, v_out) in one launch."""
+    """Forward tail (z_out, v_out) in one launch. Differentiable in k1, v,
+    u1 and h."""
     OP_CALLS["alf_update"] += 1
     cd = _common_dtype(k1, v, u1)
+    hh = _as_h(h, cd, _device(k1))
+    zo, vo = _Update.apply(_flatten(k1, cd), _flatten(v, cd),
+                           _flatten(u1, cd), hh, float(eta))
+    return _unflatten(zo, _Meta(k1)), _unflatten(vo, _Meta(v))
+
+
+def alf_inverse(z_out: Pytree, v_out: Pytree, u1: Pytree, h, *,
+                eta: float = 1.0) -> Tuple[Pytree, Pytree]:
+    """Full psi^-1 in one launch: (z_in, v_in) from the step output, given
+    u1 = f(k1, s1); the midpoint k1 = z_out - v_out*h/2 is re-derived
+    inside the kernel rather than read back."""
+    OP_CALLS["alf_inverse"] += 1
+    cd = _common_dtype(z_out, v_out, u1)
+    dev = _device(z_out)
+    hh = _as_h(h, cd, dev)
+    bufs = [_flatten(t, cd) for t in (z_out, v_out, u1)]
+    if _on_cuda("alf_inverse", dev):
+        zi, vi = alf_step.inverse_call(*bufs, hh, eta=eta)
+    else:
+        zi, vi = ref.inverse_ref(*bufs, hh, eta)
+    return _unflatten(zi, _Meta(z_out)), _unflatten(vi, _Meta(v_out))
+
+
+def alf_inverse_update(k1: Pytree, v_out: Pytree, u1: Pytree, h, *,
+                       eta: float = 1.0) -> Tuple[Pytree, Pytree]:
+    """psi^-1's tail (z_in, v_in) given the recovered midpoint k1, in one
+    launch."""
+    OP_CALLS["alf_inverse_update"] += 1
+    cd = _common_dtype(k1, v_out, u1)
     dev = _device(k1)
     hh = _as_h(h, cd, dev)
-    kf, vf, uf = _flatten(k1, cd), _flatten(v, cd), _flatten(u1, cd)
-    if _on_cuda("alf_update", dev):
-        zo, vo = alf_step.update_call(kf, vf, uf, hh, eta=eta)
+    bufs = [_flatten(t, cd) for t in (k1, v_out, u1)]
+    if _on_cuda("alf_inverse_update", dev):
+        zi, vi = alf_step.inverse_update_call(*bufs, hh, eta=eta)
     else:
-        zo, vo = ref.update_ref(kf, vf, uf, hh, eta)
-    return _unflatten(zo, _Meta(k1)), _unflatten(vo, _Meta(v))
+        zi, vi = ref.inverse_update_ref(*bufs, hh, eta)
+    return _unflatten(zi, _Meta(k1)), _unflatten(vi, _Meta(v_out))
 
 
 def alf_bwd_pre(z_i: Pytree, v_i: Pytree, a_z: Pytree, a_v: Pytree, h, *,

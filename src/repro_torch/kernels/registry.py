@@ -16,14 +16,17 @@ from __future__ import annotations
 
 from typing import Optional
 
-_FWD_REASON = ("no reverse rule yet: the reverse-rule kernels "
-               "`midpoint_vjp`/`update_vjp` land with the direct-backprop "
-               "slice")
-
-# "<kernel package>.<op name>" -> why the op is forward-only.
+# "<kernel package>.<op name>" -> why the op is forward-only. The forward
+# step's ops (alf_midpoint, alf_update) are absent: their reverse rules are
+# the midpoint_vjp / update_vjp kernels.
 NO_REVERSE_RULE = {
-    "alf_step.alf_midpoint": _FWD_REASON,
-    "alf_step.alf_update": _FWD_REASON,
+    "alf_step.alf_inverse":
+        "full psi^-1 reconstruction; runs only inside MALI's unfused "
+        "backward (autograd.Function backward), which is never itself "
+        "differentiated",
+    "alf_step.alf_inverse_update":
+        "psi^-1 tail given the recovered midpoint; a backward-sweep op "
+        "like alf_inverse, never itself differentiated",
     "alf_step.alf_bwd_pre":
         "fused head of one MALI backward step (inverse midpoint + f-eval "
         "cotangent); runs inside MALI's autograd.Function backward and is "

@@ -1,6 +1,8 @@
 """The port's fused ALF ops (``repro_torch.kernels.alf_step.ops``) on CPU
 tensors against the JAX package's ops on the Pallas path in interpret
-mode (``use_pallas=True``, as tests/test_kernels.py runs them).
+mode (``use_pallas=True``, as tests/test_kernels.py runs them), and the
+plain versions of the two reverse-rule kernels against the JAX Pallas
+kernels on the packed buffer.
 
 The same numpy inputs feed both. On CPU tensors the port's ops run the
 plain version over the packed buffer; the CUDA kernels are held against
@@ -108,6 +110,56 @@ def test_bwd_post_matches_jax(state, dt, eta):
     _check(got, want, dt)
 
 
+@pytest.mark.parametrize("state", list(STATES))
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("eta", [1.0, 0.8])
+@pytest.mark.parametrize("op", ["alf_inverse", "alf_inverse_update"])
+def test_inverse_ops_match_jax(op, state, dt, eta):
+    trees = _np_trees(STATES[state], 3, seed=8)
+    got, want = _run(op, trees, dt, -0.29, eta=eta)
+    _check(got, want, dt)
+
+
+def _vjp_pair(name, trees_np, dt, h, param):
+    """A reverse-rule kernel's plain version (the port's, on the packed
+    buffer) and the JAX Pallas kernel (interpret mode, on the [rows, 128]
+    buffer), on the same cotangent trees."""
+    from repro.kernels.alf_step import alf_step as jk
+    cd = TORCH_DT[dt]
+    tbufs = [tops._flatten(_to_torch(t, dt), cd) for t in trees_np]
+    jbufs = [jops._flatten(_to_jax(t, dt), JAX_DT[dt]) for t in trees_np]
+    n = jbufs[0][3]
+    if name == "midpoint_vjp":
+        got = (tref.midpoint_vjp_ref(tbufs[0], torch.tensor(h), param),)
+        want = (jk.midpoint_vjp_call(jbufs[0][0], jnp.float32(h),
+                                     sign=param),)
+    else:
+        got = tref.update_vjp_ref(tbufs[0], tbufs[1], torch.tensor(h), param)
+        want = jk.update_vjp_call(jbufs[0][0], jbufs[1][0], jnp.float32(h),
+                                  eta=param)
+    for g, w in zip(got, want):
+        assert g.dtype == cd and g.shape == (n,)
+        np.testing.assert_allclose(
+            g.float().numpy(), np.asarray(w, np.float32).reshape(-1)[:n],
+            **TOL[dt])
+
+
+@pytest.mark.parametrize("state", list(STATES))
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_midpoint_vjp_matches_jax(state, dt, sign):
+    _vjp_pair("midpoint_vjp", _np_trees(STATES[state], 1, seed=9), dt, 0.23,
+              sign)
+
+
+@pytest.mark.parametrize("state", list(STATES))
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("eta", [1.0, 0.8])
+def test_update_vjp_matches_jax(state, dt, eta):
+    _vjp_pair("update_vjp", _np_trees(STATES[state], 2, seed=10), dt, -0.31,
+              eta)
+
+
 def test_mixed_dtype_tree_restores_leaf_dtypes():
     """A {f32, bf16} tree packs at the promoted f32 and every output leaf
     comes back in its own dtype, as in the JAX package."""
@@ -127,7 +179,9 @@ def test_mixed_dtype_tree_restores_leaf_dtypes():
     for op, kw, n in (("alf_midpoint", {"sign": 1.0}, 2),
                       ("alf_update", {"eta": 0.9}, 3),
                       ("alf_bwd_pre", {"eta": 0.9}, 4),
-                      ("alf_bwd_post", {"eta": 0.9}, 6)):
+                      ("alf_bwd_post", {"eta": 0.9}, 6),
+                      ("alf_inverse", {"eta": 0.9}, 3),
+                      ("alf_inverse_update", {"eta": 0.9}, 3)):
         got = getattr(tops, op)(*[tt(t) for t in trees[:n]],
                                 torch.tensor(0.2), **kw)
         want = getattr(jops, op)(*[jt(t) for t in trees[:n]],
@@ -164,6 +218,10 @@ def test_float64_state_stays_float64():
              jops.alf_bwd_pre(*j[:4], hj, eta=0.8, use_pallas=True)),
             (tops.alf_bwd_post(*t, h, eta=0.8),
              jops.alf_bwd_post(*j, hj, eta=0.8, use_pallas=True)),
+            (tops.alf_inverse(*t[:3], h, eta=0.8),
+             jops.alf_inverse(*j[:3], hj, eta=0.8, use_pallas=True)),
+            (tops.alf_inverse_update(*t[:3], h, eta=0.8),
+             jops.alf_inverse_update(*j[:3], hj, eta=0.8, use_pallas=True)),
         ]
         for got, want in pairs:
             for g, w in zip(pytree.tree_leaves(got),
@@ -210,8 +268,12 @@ def test_op_calls_count_and_cpu_launches_nothing():
     tops.alf_update(k1, z, z, h, eta=0.9)
     tops.alf_bwd_pre(z, z, z, z, h)
     tops.alf_bwd_post(z, z, z, z, z, z, h)
+    tops.alf_inverse(z, z, z, h)
+    tops.alf_inverse_update(z, z, z, h, eta=0.9)
     assert tops.OP_CALLS == {"alf_midpoint": 1, "alf_update": 1,
-                             "alf_bwd_pre": 1, "alf_bwd_post": 1}
+                             "alf_bwd_pre": 1, "alf_bwd_post": 1,
+                             "alf_midpoint_vjp": 0, "alf_update_vjp": 0,
+                             "alf_inverse": 1, "alf_inverse_update": 1}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
     assert pytree.tree_structure(k1) == pytree.tree_structure(z)
 
@@ -230,6 +292,12 @@ def test_launchers_refuse_cpu_buffers():
         kernels.midpoint_call(z, z, torch.tensor(0.1))
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.bwd_post_call(z, z, z, z, z, z, torch.tensor(0.1))
+    for call, n in ((kernels.midpoint_vjp_call, 1),
+                    (kernels.update_vjp_call, 2),
+                    (kernels.inverse_call, 3),
+                    (kernels.inverse_update_call, 3)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call(*[z] * n, torch.tensor(0.1))
 
 
 def test_plain_versions_round_once_at_the_write():
@@ -243,7 +311,11 @@ def test_plain_versions_round_once_at_the_write():
     for fn, n, kw in ((tref.midpoint_ref, 2, (-1.0,)),
                       (tref.update_ref, 3, (0.9,)),
                       (tref.bwd_pre_ref, 4, (0.9,)),
-                      (tref.bwd_post_ref, 6, (0.9,))):
+                      (tref.bwd_post_ref, 6, (0.9,)),
+                      (tref.inverse_ref, 3, (0.9,)),
+                      (tref.inverse_update_ref, 3, (0.9,)),
+                      (tref.midpoint_vjp_ref, 1, (-1.0,)),
+                      (tref.update_vjp_ref, 2, (0.9,))):
         got = fn(*xs[:n], h, *kw)
         want = fn(*up[:n], h, *kw)
         got = got if isinstance(got, tuple) else (got,)

@@ -4,7 +4,8 @@ a norm and a linear head — in both packages, at D=16 and batch 64.
 
 The JAX side runs ALF on its reference backend and on its Pallas backend
 (interpret mode); the port runs the matching ``reference`` and ``cuda``
-backends on CPU tensors. Loss and gradients agree within rtol 1e-5 /
+backends on CPU tensors, with MALI and with Naive (direct backprop through
+the kernel ops). Loss and gradients agree within rtol 1e-5 /
 atol 1e-6, and a few Adam steps (the example's own update) keep the two
 loss traces together.
 """
@@ -118,6 +119,20 @@ def test_model_loss_and_gradients_match_jax(jax_backend):
     np.testing.assert_allclose(lt.item(), float(lj), rtol=RTOL)
     grads = torch.utils._pytree.tree_map(lambda t: t.grad, p)
     _assert_tree_close(grads, gj)
+
+
+def test_model_naive_cuda_matches_jax_naive_pallas():
+    """Direct backprop through the kernel ops on the model: Naive x
+    ALF('cuda') in the port against Naive x ALF('pallas') in JAX."""
+    x, y = _data()
+    lj, gj = jax.value_and_grad(loss_jax)(_jax_params(_params()),
+                                          jnp.asarray(x), jnp.asarray(y),
+                                          "pallas", J.Naive())
+    p = _torch_params(_params())
+    lt = loss_torch(p, torch.tensor(x), torch.tensor(y), "cuda", T.Naive())
+    lt.backward()
+    np.testing.assert_allclose(lt.item(), float(lj), rtol=RTOL)
+    _assert_tree_close(torch.utils._pytree.tree_map(lambda t: t.grad, p), gj)
 
 
 @pytest.mark.parametrize("backend", ["reference", "cuda"])

@@ -267,11 +267,14 @@ def test_op_calls_two_per_forward_and_two_per_backward_step():
                   controller=T.ConstantSteps(n), gradient=T.MALI(),
                   saveat=T.SaveAt(ts=ts))
     steps = n * (len(ts) - 1)
+    rest = {"alf_midpoint_vjp": 0, "alf_update_vjp": 0, "alf_inverse": 0,
+            "alf_inverse_update": 0}
     assert tops.OP_CALLS == {"alf_midpoint": steps, "alf_update": steps,
-                             "alf_bwd_pre": 0, "alf_bwd_post": 0}
+                             "alf_bwd_pre": 0, "alf_bwd_post": 0, **rest}
     torch.sum(sol.ys ** 2).backward()
     assert tops.OP_CALLS == {"alf_midpoint": steps, "alf_update": steps,
-                             "alf_bwd_pre": steps, "alf_bwd_post": steps}
+                             "alf_bwd_pre": steps, "alf_bwd_post": steps,
+                             **rest}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
 
 
@@ -319,6 +322,15 @@ def test_naive_saved_bytes_grow_with_steps():
     assert b64 > 10 * m64
 
 
+def test_naive_cuda_backend_saves_no_more_than_reference():
+    """The reverse rules save h, and the state only where h needs a
+    gradient: under ConstantSteps Naive on the cuda backend keeps no more
+    bytes alive for backward than autograd through the plain step."""
+    for n in (8, 64):
+        assert (_saved_bytes(T.Naive(), n, "cuda")
+                <= _saved_bytes(T.Naive(), n, "reference"))
+
+
 # ---------------------------------------------------------------------------
 # Axes of the JAX package that later slices port
 # ---------------------------------------------------------------------------
@@ -332,34 +344,13 @@ def _plain_solve(**kw):
 @pytest.mark.parametrize("kw,match", [
     (dict(batching=object()), "batching"),
     (dict(event=object()), "event"),
-    (dict(saveat=T.SaveAt(steps=True)), "steps=True"),
-    (dict(saveat=T.SaveAt(dense=True)), "dense=True"),
     (dict(diff_bounds=True), "diff_bounds"),
     (dict(solver="rk4"), "Runge-Kutta"),
     (dict(solver="dopri5", gradient=T.Naive()), "Runge-Kutta"),
-    (dict(solver=T.ALF(backend="cuda"), gradient=T.MALI(fused_bwd=False)),
-     "direct-backprop slice"),
-], ids=["batching", "event", "steps", "dense", "diff_bounds", "rk4",
-        "dopri5", "unfused_cuda"])
+], ids=["batching", "event", "diff_bounds", "rk4", "dopri5"])
 def test_unported_axes_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         _plain_solve(**kw)
-
-
-def test_naive_refuses_cuda_backend_with_registry_reason():
-    with pytest.raises(ValueError, match="midpoint_vjp"):
-        _plain_solve(solver=T.ALF(backend="cuda"), gradient=T.Naive())
-    with pytest.raises(ValueError, match="NO_REVERSE_RULE"):
-        T.check_direct_backprop(T.ALF(backend="cuda"), "Naive()")
-    T.check_direct_backprop(T.ALF(), "Naive()")  # reference: no raise
-
-
-def test_alf_inverse_is_reference_only():
-    p = params_from_numpy(_np_params(), device="cpu")
-    z = torch.tensor(_np_z0())
-    with pytest.raises(NotImplementedError, match="direct-backprop"):
-        T.alf_inverse(f_torch, p, z, z, torch.tensor(1.0),
-                      torch.tensor(0.1), backend="cuda")
 
 
 @pytest.mark.parametrize("bad", [
