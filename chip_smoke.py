@@ -44,9 +44,28 @@ either. Phases, each printing JSON lines:
 8. profile   — torch.profiler over 20 training steps of phase 4 on the
                kernel and the reference backend: device busy/idle share
                and the top device operations.
+9. lm_kernels — the RMSNorm and flash-attention kernels against their
+               plain versions on the card. RMSNorm: f32 and bf16, rows in
+               {1, 4, 65536, 4099}, d in {128, 2048, 2304}. Flash: the
+               seven FA_CASES of tests/test_kernels.py, ragged and d=16 /
+               d=256 cases, a strided (transposed) operand and qwen3-1.7b's
+               prefill shape, f32 and bf16.
+10. lm_times  — each of the two kernels at qwen3-1.7b's prefill shapes:
+               CUDA-event ms, ms in a CUDA graph, its bound, its plain
+               version's ms and one library call's ms
+               (torch.nn.functional.rms_norm, scaled_dot_product_attention).
+11. lm_serve  — the port's serve() for qwen3-1.7b at full width (bf16,
+               DEFAULT_ODE, seeded random weights): batch 4, prompt 1024,
+               32 greedy decode steps, with exact launch counts (per
+               prefill 84 flash, 337 RMSNorm, 224 ALF; per decode step 0,
+               337, 224), no host sync inside prefill or a decode step,
+               the kernel path against backend="reference"
+               (bf16 and f32), prefill(p+1) against prefill(p) + decode,
+               peak memory and a device profile of prefill and decode.
 
-The line before the last is the kernel table; the last line is
-``{"ok": true, "device": {...}}``. Any failed check raises.
+Every phase runs on every call. The line before the last is the kernel
+table; the last line is ``{"ok": true, "device": {...}}``. Any failed
+check raises.
 """
 from __future__ import annotations
 
@@ -72,10 +91,11 @@ TIME_PAIRS = 5
 NAIVE_TIME_PAIRS = 3
 UNFUSED_STEPS = 3
 
-# Memory rate (bytes/s) and f32 peak (FLOP/s, outside the tensor cores)
-# by card name; NVIDIA data sheets.
-CARDS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
+# Memory rate (bytes/s), f32 peak (FLOP/s, outside the tensor cores) and
+# dense bf16 tensor-core peak by card name; NVIDIA data sheets.
+CARDS = (("H200", 4.8e12, 67e12, 989e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H100 PCIe", 2.0e12, 51e12, 756e12),
+         ("H100", 3.35e12, 67e12, 989e12))
 
 TPU_SRC = "src/repro/kernels/alf_step/alf_step.py"
 KERNELS = {
@@ -94,6 +114,63 @@ VJPS = ("alf_midpoint_vjp", "alf_update_vjp")
 NO_LIBRARY = "none: no single PyTorch call writes its {} outputs"
 SOURCE = "src/repro_torch/kernels/alf_step/csrc/alf_step.cu"
 
+# The LM serving slice: qwen3-1.7b at full width.
+LM_ARCH = "qwen3-1.7b"
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 1024, 32
+LM_KERNELS = {
+    # name: (TPU kernel replaced, CUDA source)
+    "rmsnorm": ("src/repro/kernels/rmsnorm/rmsnorm.py:19",
+                "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"),
+    "flash_attention": (
+        "src/repro/kernels/flash_attention/flash_attention.py:31",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
+}
+# Launches per prefill and per decode step of qwen3-1.7b under DEFAULT_ODE
+# (n_steps=2: 3 f-evals per residual branch): 28 layers x 3 attention
+# evals; 28 x (3 x (mixer norm + q-norm + k-norm) + 3 mlp norms) + the
+# final norm; 28 layers x 2 branches x 2 steps, one midpoint and one
+# update each.
+LM_PER_PREFILL = {"flash_attention": 84, "rmsnorm": 337,
+                  "alf_midpoint": 112, "alf_update": 112}
+LM_PER_DECODE = {"flash_attention": 0, "rmsnorm": 337,
+                 "alf_midpoint": 112, "alf_update": 112}
+RN_ROWS = (1, 4, 4096 * 16, 4099)
+RN_DIMS = (128, 2048, 2304)
+# elementwise |got - want| <= atol + rtol * |want|. f32: rsqrtf and the
+# warp's summation order against torch's, ~1e-7 relative; bf16: one
+# rounding of the f32 result may land one bf16 ulp (2^-7 relative) apart.
+RN_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2.0 ** -7, 0.0)}
+# (B, Sq, Sk, H, KV, d, causal, window, softcap): the seven FA_CASES of
+# tests/test_kernels.py:260, then ragged lengths (not multiples of the
+# kernel's 64-row tiles), d=16 (the smoke configs) and d=256 (gemma2),
+# fewer queries than keys, and qwen3-1.7b's prefill.
+FA_CASES = (
+    (1, 128, 128, 4, 4, 64, True, 0, 0.0),      # MHA causal
+    (2, 128, 128, 4, 2, 64, True, 0, 0.0),      # GQA 2:1
+    (1, 256, 256, 8, 1, 64, True, 0, 0.0),      # MQA (granite kv=1)
+    (1, 128, 128, 4, 4, 64, False, 0, 0.0),     # bidirectional
+    (1, 256, 256, 4, 2, 64, True, 128, 0.0),    # sliding window (gemma2)
+    (1, 128, 128, 4, 2, 64, True, 0, 50.0),     # softcap (gemma2)
+    (2, 384, 384, 4, 2, 128, True, 256, 30.0),  # window+softcap, d=128
+    (2, 200, 200, 4, 2, 64, True, 0, 0.0),      # ragged causal GQA
+    (2, 37, 37, 4, 2, 16, True, 8, 50.0),       # smoke-config head size
+    (1, 300, 300, 8, 4, 256, True, 100, 50.0),  # gemma2 head size, ragged
+    (1, 100, 333, 4, 2, 128, False, 0, 0.0),    # Sq < Sk, KV tail masked
+    (LM_BATCH, LM_PROMPT, LM_PROMPT, 16, 8, 128, True, 0, 0.0),  # qwen3
+)
+# elementwise |got - want| <= atol + rtol * |want|. f32: the Pallas bar
+# of tests/test_kernels.py:287. bf16: the kernel and the plain version
+# both compute in f32 and round once, so they may land one bf16 ulp
+# (at most 2^-7 relative) apart; atol covers f32 summation order near 0.
+FA_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2.0 ** -7, 1e-5)}
+# The library yardstick multiplies P.V in bf16, as the Pallas kernel does:
+# held to the Pallas bf16 bar of tests/test_kernels.py:287.
+FA_LIB_TOL = (3e-2, 3e-2)
+# Whole-model logit agreement, max |a - b| / max |b|: the kernel path
+# against the plain path, and prefill(p+1) against prefill(p) + decode.
+# f32: summation orders only; bf16: roundings of 28 layers x 3 f-evals.
+LM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -105,9 +182,10 @@ def require(cond: bool, msg: str) -> None:
 
 
 def card_rates(name: str):
-    for key, bw, flops in CARDS:
+    """(memory bytes/s, f32 FLOP/s, bf16 tensor-core FLOP/s) of a card."""
+    for key, *rates in CARDS:
         if key in name:
-            return bw, flops
+            return rates
     raise RuntimeError(f"no memory rate known for card {name!r}")
 
 
@@ -333,7 +411,7 @@ def _alternate(kernel, plain, reps):
 def phase_times(card: str):
     import torch
     from repro_torch.kernels.alf_step import alf_step, ref
-    bw, peak = card_rates(card)
+    bw, peak, _ = card_rates(card)
     gen = torch.Generator(device="cuda").manual_seed(1)
     h = torch.tensor(0.23, device="cuda")
     rows = {}
@@ -766,12 +844,76 @@ def _busy_us(events) -> float:
     return busy + hi - lo
 
 
+def _device_profile(run):
+    """torch.profiler over ``run()``: device busy/idle share, the top
+    device operations, and the host's wall time of ``run()`` beside the
+    host self-time of its CPU events by op (PyTorch ops and CUDA runtime
+    calls); what is left is Python between the ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")
+           and not getattr(e, "is_user_annotation", False)
+           and "#" not in e.name]
+    require(len(dev) > 0, "profile: no device events")
+    window = (max(e.time_range.end for e in dev)
+              - min(e.time_range.start for e in dev))
+    busy = _busy_us(dev)
+    by_name = {}
+    for e in dev:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    host = [(a.key, a.self_cpu_time_total / 1e3, a.count)
+            for a in prof.key_averages()
+            if a.key != "cudaDeviceSynchronize"]
+    in_ops = sum(ms for _, ms, _ in host)
+    top_host = sorted(host, key=lambda r: -r[1])[:10]
+    return {"device_busy_ms": busy / 1e3, "device_window_ms": window / 1e3,
+            "idle_share": 1.0 - busy / window, "device_launches": len(dev),
+            "top_device_ms": [[name[:60], ms, n] for name, (ms, n) in top],
+            "host_ms": host_ms, "host_self_in_ops_ms": in_ops,
+            "host_outside_ops_ms": host_ms - in_ops,
+            "top_host_self_ms": [[k[:60], ms, n] for k, ms, n in top_host]}
+
+
+def _host_profile(run, top: int = 12):
+    """cProfile over ``run()`` (ended by a device sync): the host's self
+    time by Python source file and by function, the costs that the
+    profiler's op events cannot name (tree maps, argument marshalling,
+    Python between launches)."""
+    import cProfile
+    import pstats
+    import torch
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats      # (file, line, fn) -> (cc, nc, tt, ..)
+    by_file, by_fn = {}, []
+    for (path, line, fn), (_cc, nc, tt, _ct, _callers) in stats.items():
+        where = "/".join(Path(path).parts[-2:]) if path != "~" else "~"
+        by_file[where] = by_file.get(where, 0.0) + tt * 1e3
+        by_fn.append((f"{where}:{line}:{fn}"[:80], tt * 1e3, nc))
+    return {"total_ms": sum(by_file.values()),
+            "by_file_ms": sorted(([k, v] for k, v in by_file.items()),
+                                 key=lambda r: -r[1])[:top],
+            "by_function_ms": [list(r) for r in
+                               sorted(by_fn, key=lambda r: -r[1])[:top]]}
+
+
 def phase_profile():
-    """torch.profiler over PROFILE_STEPS training steps of the main path on
+    """torch.profiler over TRAIN_STEPS training steps of the main path on
     each backend: the device's busy and idle share and the top device
     operations."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import ALF, ConstantSteps
     x_np, y_np = make_data(N_TRAIN, seed=0)
     x = torch.as_tensor(x_np, device="cuda")
@@ -780,31 +922,361 @@ def phase_profile():
     for backend in ("cuda", "reference"):
         solver = ALF(eta=1.0, backend=backend)
         _train(x, y, solver, ConstantSteps(N_SUB))          # warm
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _train(x, y, solver, ConstantSteps(N_SUB))
-        # device work only: profiler annotations (e.g. the optimizer's
-        # range) also carry the CUDA device type
-        dev = [e for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and not getattr(e, "is_user_annotation", False)
-               and "#" not in e.name]
-        require(len(dev) > 0, f"profile {backend}: no device events")
-        window = (max(e.time_range.end for e in dev)
-                  - min(e.time_range.start for e in dev))
-        busy = _busy_us(dev)
-        by_name = {}
-        for e in dev:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-        out[backend] = {
-            "steps": TRAIN_STEPS, "device_busy_ms": busy / 1e3,
-            "device_window_ms": window / 1e3,
-            "idle_share": 1.0 - busy / window,
-            "device_launches": len(dev),
-            "top_device_ms": [[name[:60], ms, n] for name, (ms, n) in top]}
+        out[backend] = {"steps": TRAIN_STEPS, **_device_profile(
+            lambda: _train(x, y, solver, ConstantSteps(N_SUB)))}
     emit({"phase": "profile", **out})
+
+
+# ---------------------------------------------------------------------------
+# Phases 9-11: the LM serving slice (qwen3-1.7b)
+# ---------------------------------------------------------------------------
+
+def _close(got, want, rtol: float, atol: float, what: str) -> float:
+    """Require finite values with |got - want| <= atol + rtol * |want|
+    elementwise; returns the max abs difference."""
+    import torch
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{what}: shape/dtype {tuple(got.shape)} {got.dtype} vs "
+            f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.double(), want.double()
+    require(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    diff = (g - w).abs()
+    excess = float((diff - rtol * w.abs()).max())
+    require(excess <= atol, f"{what}: differs beyond rtol {rtol} / atol "
+            f"{atol} (max abs diff {float(diff.max())})")
+    return float(diff.max())
+
+
+def phase_lm_kernels():
+    """RMSNorm and flash attention against their plain versions."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.rmsnorm import ref as rn_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm as rn_k
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    checks = {"rmsnorm": 0, "flash_attention": 0}
+    worst = {"rmsnorm": {}, "flash_attention": {}}
+
+    def randn(*shape, dtype, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen,
+                                    device="cuda")).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        rtol, atol = RN_TOL[key]
+        for rows in RN_ROWS:
+            for d in RN_DIMS:
+                x = randn(rows, d, dtype=dtype, scale=3.0)
+                scale = (1.0 + randn(d, dtype=torch.float32, scale=0.1)
+                         ).to(dtype)
+                before = rn_k.LAUNCHES["rmsnorm"]
+                got = rn_ops.rmsnorm(x, scale)
+                require(rn_k.LAUNCHES["rmsnorm"] == before + 1,
+                        "rmsnorm: one op call must be one launch")
+                want = rn_ref.rmsnorm_ref(x, scale)
+                torch.cuda.synchronize()
+                err = _close(got, want, rtol, atol,
+                             f"rmsnorm {key} rows={rows} d={d}")
+                worst["rmsnorm"][key] = max(worst["rmsnorm"].get(key, 0.0),
+                                            err)
+                checks["rmsnorm"] += 1
+        del x, got, want
+        rtol, atol = FA_TOL[key]
+        for case in FA_CASES:
+            b, sq, sk, h, kv, d, causal, window, cap = case
+            q = randn(b, sq, h, d, dtype=dtype)
+            k = randn(b, sk, kv, d, dtype=dtype)
+            v = randn(b, sk, kv, d, dtype=dtype)
+            kw = dict(causal=causal, window=window, softcap=cap)
+            before = fa_k.LAUNCHES["flash_attention"]
+            got = fa_ops.flash_attention(q, k, v, **kw)
+            require(fa_k.LAUNCHES["flash_attention"] == before + 1,
+                    "flash_attention: one op call must be one launch")
+            want = fa_ref.attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = _close(got, want, rtol, atol,
+                         f"flash_attention {key} {case}")
+            worst["flash_attention"][key] = max(
+                worst["flash_attention"].get(key, 0.0), err)
+            checks["flash_attention"] += 1
+        # operands by strides: q, k, v as transposed views of
+        # [B, H, S, d] buffers (the head dim still contiguous)
+        b, s, h, kv, d = 2, 130, 4, 2, 64
+        q = randn(b, h, s, d, dtype=dtype).transpose(1, 2)
+        k = randn(b, kv, s, d, dtype=dtype).transpose(1, 2)
+        v = randn(b, kv, s, d, dtype=dtype).transpose(1, 2)
+        got = fa_ops.flash_attention(q, k, v, causal=True, window=0,
+                                     softcap=0.0)
+        want = fa_ref.attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        _close(got, want, rtol, atol, f"flash_attention {key} strided")
+        checks["flash_attention"] += 1
+    emit({"phase": "lm_kernels", "checks": checks,
+          "max_abs_err": worst,
+          "tolerance": {"rmsnorm": RN_TOL, "flash_attention": FA_TOL,
+                        "rule": "|got - want| <= atol + rtol * |want| "
+                                "elementwise, want = the plain version"}})
+    return worst, checks
+
+
+def phase_lm_times(card: str):
+    """The two kernels at qwen3-1.7b's prefill shapes against their bound,
+    their plain versions and one library call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ref as rn_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm as rn_k
+    bw, f32_peak, bf16_peak = card_rates(card)
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16 = torch.bfloat16
+    rows = {}
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf16)
+
+    tokens = LM_BATCH * LM_PROMPT
+    for label, (n, d) in (
+            ("rmsnorm", (tokens, cfg.d_model)),                # d_model norm
+            ("rmsnorm_qk", (tokens * cfg.n_heads, cfg.d_head))):  # q-norm
+        x, scale = rand(n, d), rand(d)
+        kern = lambda: rn_k.rmsnorm_call(x, scale)            # noqa: E731
+        plain = lambda: rn_ref.rmsnorm_ref(x, scale)          # noqa: E731
+        lib = lambda: F.rms_norm(x, (d,), scale, 1e-6)        # noqa: E731
+        ms, plain_ms = _alternate(kern, plain, 200)
+        bytes_ms = (2 * n * d + d) * 2 / bw * 1e3
+        ops_ms = 4 * n * d / f32_peak * 1e3
+        rows[label] = {
+            "name": label, "shape": [n, d], "dtype": "bfloat16",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": _time_ms(lib, 200),
+            "library": "torch.nn.functional.rms_norm",
+            "graph_ms": _graph_ms(kern, 100),
+            "plain_graph_ms": _graph_ms(plain, 100),
+            "library_graph_ms": _graph_ms(lib, 100),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        emit({"phase": "lm_times", **rows[label]})
+        del x
+    b, s, h, kv, d = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.d_head
+    q, k, v = rand(b, s, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
+    # the library's own [B, H, S, d] layout, made outside the timed call
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kern = lambda: fa_k.flash_attention_call(q, k, v, causal=True)  # noqa
+    plain = lambda: fa_ref.attention_ref(q, k, v, causal=True)      # noqa
+    lib = lambda: F.scaled_dot_product_attention(                   # noqa
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    # the yardstick computes the same function
+    _close(lib().transpose(1, 2), plain(), *FA_LIB_TOL,
+           "scaled_dot_product_attention against the plain version")
+    ms, plain_ms = _alternate(kern, plain, 10)
+    pairs = b * h * s * (s + 1) // 2          # unmasked (query, key) pairs
+    ops_ms = 4 * pairs * d / bf16_peak * 1e3
+    bytes_ms = (2 * b * s * h * d + 2 * b * s * kv * d) * 2 / bw * 1e3
+    rows["flash_attention"] = {
+        "name": "flash_attention", "shape": [b, s, h, kv, d],
+        "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+        "library_ms": _time_ms(lib, 10),
+        "library": "scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True)",
+        "graph_ms": _graph_ms(kern, 10),
+        "plain_graph_ms": _graph_ms(plain, 5),
+        "flops": 4 * pairs * d, "tflops_per_s": 4 * pairs * d / ms / 1e9,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit({"phase": "lm_times", **rows["flash_attention"]})
+    return rows
+
+
+def _lm_modules():
+    """(launcher, op) modules of the LM path's three kernel packages."""
+    from repro_torch.kernels.alf_step import alf_step
+    from repro_torch.kernels.alf_step import ops as alf_ops
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.rmsnorm import rmsnorm as rn_k
+    return ((alf_step, alf_ops), (fa_k, fa_ops), (rn_k, rn_ops))
+
+
+def _lm_reset():
+    for launcher, ops in _lm_modules():
+        launcher.reset_launches()
+        ops.reset_op_calls()
+
+
+def _lm_counts():
+    """(launches, op calls) of the LM path's kernels since _lm_reset()."""
+    launches, calls = {}, {}
+    for launcher, ops in _lm_modules():
+        launches.update(launcher.LAUNCHES)
+        calls.update(ops.OP_CALLS)
+    return launches, calls
+
+
+def _lm_check_counts(what: str, per: dict, times: int = 1,
+                     plus: dict = None):
+    """Every LM-path kernel launched exactly per[name] * times (+ plus)
+    times since _lm_reset(), once per op call; every other kernel 0."""
+    launches, calls = _lm_counts()
+    for name, n in launches.items():
+        want = per.get(name, 0) * times + (plus or {}).get(name, 0)
+        require(n == want, f"{what}: {name} launched {n} times, expected "
+                f"{want}")
+        require(n == calls[name], f"{what}: {name} launches {n} != op calls "
+                f"{calls[name]}")
+    return launches
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max())
+
+
+def _lm_compare(dtype, batch: int, prompt: int, n_decode: int):
+    """qwen3-1.7b at full width in ``dtype``: the kernel path against the
+    plain path (prefill logits and teacher-forced decode logits), and
+    prefill(p+1) against prefill(p) + decode(token p), on both paths."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import DEFAULT_ODE, get_config
+    from repro_torch.models import decode_step, init_lm, init_serve_state
+    from repro_torch.models import prefill
+    name = str(dtype).split(".")[-1]
+    cfg = dataclasses.replace(get_config(LM_ARCH, DEFAULT_ODE),
+                              param_dtype=name, compute_dtype=name)
+    params = init_lm(torch.Generator(device="cuda").manual_seed(1), cfg)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (batch, prompt + n_decode)),
+                           device="cuda")
+    out, logits = {}, {}
+    for backend in ("cuda", "reference"):
+        state = init_serve_state(cfg, batch, prompt + n_decode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, state = prefill(params, cfg, {"tokens": toks[:, :prompt]}, state,
+                            backend=backend)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        steps = [lg]
+        for i in range(n_decode):
+            lg, state = decode_step(params, cfg,
+                                    toks[:, prompt + i:prompt + i + 1],
+                                    state, backend=backend)
+            steps.append(lg)
+        torch.cuda.synchronize()
+        out[f"prefill_ms_{backend}"] = (t1 - t0) * 1e3
+        out[f"decode_ms_per_step_{backend}"] = ((time.perf_counter() - t1)
+                                                * 1e3 / n_decode)
+        logits[backend] = torch.cat(steps, 1)          # [B, 1 + n, V]
+        # prefill over prompt + 1 tokens: its last logits are decode
+        # step 0's (the token at position `prompt` fed after prefill)
+        state = init_serve_state(cfg, batch, prompt + 1)
+        lg1, _ = prefill(params, cfg, {"tokens": toks[:, :prompt + 1]},
+                         state, backend=backend)
+        out[f"self_consistency_{backend}"] = _rel(lg1[:, 0],
+                                                  logits[backend][:, 1])
+        del state
+    out["kernel_vs_plain_prefill"] = _rel(logits["cuda"][:, 0],
+                                          logits["reference"][:, 0])
+    out["kernel_vs_plain_decode"] = _rel(logits["cuda"][:, 1:],
+                                         logits["reference"][:, 1:])
+    out["greedy_agreement"] = float(
+        (logits["cuda"].argmax(-1) == logits["reference"].argmax(-1))
+        .float().mean())
+    tol = LM_TOL[name]
+    for key in ("kernel_vs_plain_prefill", "kernel_vs_plain_decode",
+                "self_consistency_cuda", "self_consistency_reference"):
+        require(out[key] <= tol, f"lm {name} {key}: {out[key]} > {tol}")
+    require(all(bool(torch.isfinite(t).all()) for t in logits.values()),
+            f"lm {name}: non-finite logits")
+    del params
+    torch.cuda.empty_cache()
+    return {"dtype": name, "batch": batch, "prompt": prompt,
+            "decode_steps": n_decode, "tolerance": tol, **out}
+
+
+def phase_lm_serve(card: str, smi: str):
+    """The port's serve() for qwen3-1.7b at full width on the card."""
+    import torch
+    from repro_torch.configs import DEFAULT_ODE, get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_lm, init_serve_state
+    from repro_torch.models import prefill
+    kw = dict(smoke=False, ode=True, prompt_len=LM_PROMPT,
+              batch=LM_BATCH, seed=0)
+    serve(LM_ARCH, decode_tokens=2, **kw)          # warm: cuBLAS, kernels
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _lm_reset()
+    result = serve(LM_ARCH, decode_tokens=LM_DECODE, **kw)
+    launches = _lm_check_counts(
+        "lm_serve (one prefill + 32 decode steps)", LM_PER_DECODE,
+        LM_DECODE, plus=LM_PER_PREFILL)
+    peak = torch.cuda.max_memory_allocated()
+    require(result.tokens.shape == (LM_BATCH, LM_DECODE)
+            and int(result.tokens.min()) >= 0, "lm_serve: tokens")
+
+    # per prefill and per decode step, counted apart, and a profile of each
+    cfg = get_config(LM_ARCH, DEFAULT_ODE)
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 8)), device="cuda")
+    state = init_serve_state(cfg, LM_BATCH, LM_PROMPT + 8)
+    torch.cuda.synchronize()
+    # neither entry point may sync the host with the card (a sync, such as
+    # a blocking host-to-device copy, raises in this mode)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _lm_reset()
+        logits, state = prefill(params, cfg,
+                                {"tokens": toks[:, :LM_PROMPT]}, state)
+        _lm_check_counts("one prefill", LM_PER_PREFILL)
+        _lm_reset()
+        logits, state = decode_step(params, cfg,
+                                    toks[:, LM_PROMPT:LM_PROMPT + 1], state)
+        _lm_check_counts("one decode step", LM_PER_DECODE)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    state = init_serve_state(cfg, LM_BATCH, LM_PROMPT + 8)
+    prof_prefill = _device_profile(lambda: prefill(
+        params, cfg, {"tokens": toks[:, :LM_PROMPT]}, state))
+
+    def decode4():
+        st = state._replace(pos=LM_PROMPT)
+        for i in range(LM_PROMPT, LM_PROMPT + 4):
+            _, st = decode_step(params, cfg, toks[:, i:i + 1], st)
+
+    prof_decode = _device_profile(decode4)
+    host_decode = _host_profile(decode4)
+    del params, state
+    torch.cuda.empty_cache()
+
+    compare = [_lm_compare(torch.bfloat16, LM_BATCH, LM_PROMPT, 8),
+               _lm_compare(torch.float32, 2, 256, 4)]
+    emit({"phase": "lm_serve", "arch": LM_ARCH, "card": card,
+          "nvidia_smi": smi, "batch": LM_BATCH, "prompt": LM_PROMPT,
+          "decode_tokens": LM_DECODE, "dtype": "bfloat16",
+          "ode": "DEFAULT_ODE (per_block, MALI/ALF, n_steps=2)",
+          "prefill_ms": result.prefill_ms, "decode_ms": result.decode_ms,
+          "decode_ms_per_step": result.decode_ms / LM_DECODE,
+          "prefill_tok_s": result.prefill_tok_s,
+          "decode_tok_s": result.decode_tok_s,
+          "peak_memory_bytes": peak, "launches": launches,
+          "per_prefill": LM_PER_PREFILL, "per_decode_step": LM_PER_DECODE,
+          "sample": result.tokens[0][:8].tolist(),
+          "profile_prefill": prof_prefill, "profile_decode_4_steps":
+          prof_decode, "host_profile_decode_4_steps": host_decode,
+          "compare": compare})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -829,7 +1301,7 @@ def main() -> int:
     card = torch.cuda.get_device_name(0)
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.build(["alf_step"])
+    build.build(["alf_step", "rmsnorm", "flash_attention"])   # in parallel
     emit({"phase": "device", "card": card, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0})
@@ -846,15 +1318,33 @@ def main() -> int:
         launches[name] = direct[name]
     phase_memory()
     phase_profile()
+    lm_worst, lm_checks = phase_lm_kernels()
+    lm_times = phase_lm_times(card)
+    lm_launches = phase_lm_serve(card, smi)
 
     table = []
     for name, (replaces, *_rest) in KERNELS.items():
         row = times[(name, SLICE_N)]
         table.append({"name": name, "route": "cuda", "source": SOURCE,
                       "replaces": replaces, "launches": launches[name],
+                      # the ALF kernels' launches on the LM path, beside
+                      # their own path's
+                      "launches_lm_serve": lm_launches[name],
                       "checks": checks[name],
                       "max_abs_err": worst[name], "ms": row["ms"],
                       "plain_ms": row["plain_ms"],
+                      "bound_ms": row["bound_ms"],
+                      "bound_by": row["bound_by"],
+                      "library_ms": row["library_ms"]})
+    for name, (replaces, source) in LM_KERNELS.items():
+        row = lm_times[name]
+        table.append({"name": name, "route": "cuda", "source": source,
+                      "replaces": replaces,
+                      "launches": lm_launches[name],
+                      "launches_lm_serve": lm_launches[name],
+                      "checks": lm_checks[name],
+                      "max_abs_err": lm_worst[name]["bfloat16"],
+                      "ms": row["ms"], "plain_ms": row["plain_ms"],
                       "bound_ms": row["bound_ms"],
                       "bound_by": row["bound_by"],
                       "library_ms": row["library_ms"]})

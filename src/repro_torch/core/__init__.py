@@ -11,6 +11,7 @@ from .interface import (GradientMethod, RunStats, SaveAt, Solution, Stats,
                         state_nbytes)
 from .mali import MALI
 from .naive import Naive, check_direct_backprop
+from .ode_block import OdeSettings
 from .solve import solve
 from .solvers import ALF, Solver, get_solver
 from .stepsize import AdaptiveController, ConstantSteps, StepController
@@ -21,5 +22,5 @@ __all__ = [
     "ConstantSteps", "AdaptiveController", "StepController", "BACKENDS",
     "alf_step", "alf_inverse", "alf_step_with_error", "init_velocity",
     "check_eta", "state_nbytes", "DenseInterpolation",
-    "hermite_coefficients",
+    "hermite_coefficients", "OdeSettings",
 ]

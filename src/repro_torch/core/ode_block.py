@@ -1,0 +1,129 @@
+"""Integrator settings carried by model configs: :class:`OdeSettings`.
+
+The flat, hashable record the LM configs carry (``configs.ModelConfig.ode``)
+and ``as_objects()`` lowers to the composable Solver / StepController /
+GradientMethod / SaveAt objects :func:`repro_torch.core.solve.solve` takes.
+Field names, defaults and checks are the JAX package's
+(``repro.core.ode_block.OdeSettings``), with two differences of the port:
+the JAX ``backend="pallas"`` is the port's ``"cuda"`` (both names are
+accepted), and the parts that land with a later slice raise
+``NotImplementedError`` in ``as_objects()`` naming their ROADMAP item: the
+ACA and Backsolve gradients and the Runge-Kutta solvers (slice (b)),
+``batch_axis`` (slice (c)). The ``ODEBlock`` wrapper also waits for slice
+(b).
+
+The LM serve path reads only ``mode``, ``n_steps``, ``eta`` and ``t1``: it
+unrolls the ALF steps explicitly (``models/transformer.py::layer_serve``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from .alf import check_eta
+from .interface import SaveAt
+from .mali import MALI
+from .naive import Naive
+from .solvers import _LATER, ALF, get_solver
+from .stepsize import AdaptiveController, ConstantSteps
+
+_METHODS = ("mali", "naive", "aca", "adjoint")
+_SOLVERS = ("alf",) + _LATER
+# the JAX package's backend names -> the port's ALF backends
+_BACKEND = {"reference": "reference", "pallas": "cuda", "cuda": "cuda"}
+_SLICE_B = "the RK/ACA/Backsolve slice, ROADMAP queue 1 (b)"
+
+
+@dataclasses.dataclass(frozen=True)
+class OdeSettings:
+    """Integrator settings carried by model configs (hashable/static).
+
+    ``t0``/``t1`` bound the integration span; ``t0 > t1`` expresses a
+    reverse-time block.
+    """
+    mode: str = "off"          # 'off' | 'per_block'
+    method: str = "mali"       # gradient method
+    solver: str = "alf"
+    n_steps: int = 2           # 0 = adaptive
+    t0: float = 0.0            # span start (t0 > t1 = reverse-time block)
+    t1: float = 1.0
+    eta: float = 1.0           # ALF damping
+    rtol: float = 1e-2
+    atol: float = 1e-3
+    max_steps: int = 32
+    fused_bwd: bool = True     # share psi^-1's f-eval with the local VJP
+    obs_times: Optional[Tuple[float, ...]] = None  # observation grid ts
+    backend: str = "reference"  # 'reference' | 'cuda' ('pallas' = 'cuda')
+    batch_axis: Optional[str] = None  # Sharded() batching: slice (c)
+
+    def validate(self) -> "OdeSettings":
+        if self.mode not in ("off", "per_block"):
+            raise ValueError(f"bad ode.mode {self.mode!r}")
+        if self.method not in _METHODS:
+            raise ValueError(f"bad ode.method {self.method!r}; "
+                             f"choose from {_METHODS}")
+        if self.solver not in _SOLVERS:
+            raise ValueError(f"bad ode.solver {self.solver!r}; "
+                             f"choose from {sorted(_SOLVERS)}")
+        if self.method == "mali" and self.solver != "alf":
+            raise ValueError("MALI requires the ALF solver")
+        if self.n_steps < 0:
+            raise ValueError(f"ode.n_steps must be >= 0 (0 = adaptive), "
+                             f"got {self.n_steps}")
+        if self.max_steps < 1:
+            raise ValueError(f"ode.max_steps must be >= 1, "
+                             f"got {self.max_steps}")
+        if self.rtol < 0.0 or self.atol < 0.0:
+            raise ValueError(f"ode tolerances must be non-negative, got "
+                             f"rtol={self.rtol}, atol={self.atol}")
+        if not math.isfinite(self.t0):
+            raise ValueError(f"ode.t0 must be finite, got {self.t0}")
+        if not math.isfinite(self.t1):
+            raise ValueError(f"ode.t1 must be finite, got {self.t1}")
+        if self.t0 == self.t1:
+            raise ValueError(
+                f"ode.t0 == ode.t1 == {self.t1} is an empty integration "
+                "span; use t1 > t0 for a forward block or t0 > t1 for a "
+                "reverse-time block")
+        if self.solver == "alf":
+            check_eta(self.eta)
+        if self.obs_times is not None and len(self.obs_times) < 2:
+            raise ValueError("obs_times needs at least 2 timepoints")
+        if self.backend not in _BACKEND:
+            raise ValueError(f"bad ode.backend {self.backend!r}; "
+                             f"choose from {sorted(_BACKEND)}")
+        if _BACKEND[self.backend] == "cuda" and self.solver != "alf":
+            raise ValueError(f"ode.backend={self.backend!r} requires the ALF "
+                             "solver (the fused step kernels are "
+                             "ALF-specific)")
+        if self.batch_axis is not None and self.obs_times is not None:
+            raise ValueError("ode.batch_axis with obs_times is unsupported: "
+                             "batched trajectories are (B, T, ...) while the "
+                             "block contract is time-leading (T, ...)")
+        return self
+
+    def as_objects(self):
+        """Lower to (solver, controller, gradient, saveat) for solve()."""
+        self.validate()
+        if self.batch_axis is not None:
+            raise NotImplementedError(
+                "ode.batch_axis (Sharded batching) is not ported yet: it "
+                "lands with the serving-engine slice, ROADMAP queue 1 (c)")
+        if self.method in ("aca", "adjoint"):
+            raise NotImplementedError(
+                f"ode.method={self.method!r} is not ported yet: it lands "
+                f"with {_SLICE_B}")
+        solver = (ALF(eta=self.eta, backend=_BACKEND[self.backend])
+                  if self.solver == "alf" else get_solver(self.solver))
+        controller = (ConstantSteps(self.n_steps) if self.n_steps > 0 else
+                      AdaptiveController(self.rtol, self.atol,
+                                         self.max_steps))
+        gradient = (MALI(fused_bwd=self.fused_bwd) if self.method == "mali"
+                    else Naive())
+        saveat = (SaveAt() if self.obs_times is None else
+                  SaveAt(ts=torch.tensor(self.obs_times,
+                                         dtype=torch.float32)))
+        return solver, controller, gradient, saveat

@@ -34,6 +34,8 @@ import torch
 import torch.utils._pytree as pytree
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels import on_cuda as _on_cuda
+
 from . import alf_step, ref
 
 Pytree = Any
@@ -97,14 +99,6 @@ def _unflatten(flat: torch.Tensor, meta: _Meta) -> Pytree:
 
 def _device(tree: Pytree) -> torch.device:
     return pytree.tree_leaves(tree)[0].device
-
-
-def _on_cuda(name: str, dev: torch.device) -> bool:
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"{name}: no kernel or plain version for device {dev}")
 
 
 def _unwrapped(t: torch.Tensor) -> torch.Tensor:

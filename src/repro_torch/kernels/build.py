@@ -27,7 +27,10 @@ BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 KERNELS_DIR = Path(__file__).resolve().parent
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+# Per-source additions: the ALF kernels repeat their plain version's
+# operation order bit for bit, so no a*b+c may be contracted there.
+EXTRA_FLAGS = {"alf_step": ("--fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -49,10 +52,15 @@ def source_path(name: str) -> Path:
     return KERNELS_DIR / name / "csrc" / f"{name}.cu"
 
 
+def nvcc_flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = source_path(name)
     key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + " ".join(nvcc_flags(name)).encode()
+                         ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}" / f"lib{name}.so"
 
 
@@ -65,7 +73,8 @@ def _start(name: str):
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source_path(name))]
+    cmd = [nvcc_path(), *nvcc_flags(name), "-o", tmp,
+           str(source_path(name))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     return out, tmp, proc

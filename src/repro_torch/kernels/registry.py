@@ -35,6 +35,12 @@ NO_REVERSE_RULE = {
         "fused tail of one MALI backward step (inverse tail + adjoint "
         "propagation); runs inside MALI's autograd.Function backward and "
         "is never itself differentiated",
+    "flash_attention.flash_attention":
+        "serving path only; training (with the FA2 backward) is a later "
+        "slice",
+    "rmsnorm.rmsnorm":
+        "serving path only; training (with the FA2 backward) is a later "
+        "slice",
 }
 
 

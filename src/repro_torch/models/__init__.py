@@ -1,0 +1,8 @@
+"""Model substrate, serve path: attention blocks + the continuous-depth
+LM (prefill / decode)."""
+from .lm import (ServeState, decode_step, init_lm, init_serve_state,
+                 prefill)
+from .transformer import init_blocks, init_cache, n_cache_slots
+
+__all__ = ["init_lm", "prefill", "decode_step", "init_serve_state",
+           "ServeState", "init_blocks", "init_cache", "n_cache_slots"]

@@ -1,0 +1,112 @@
+"""Full language model, serve path: embeddings -> blocks -> head, with the
+prefill / decode entry points the launcher drives.
+
+The port of the serve parts of the JAX package's ``repro.models.lm``
+(the loss and training path come with the training slice).
+``input_mode='embeds'`` is the stub modality frontend of the [audio]/[vlm]
+archs: the model consumes precomputed frame/patch embeddings instead of
+token ids.
+
+``prefill`` and ``decode_step`` take ``backend``: ``"cuda"`` (default)
+sends RMSNorm, prompt attention and the ALF state updates through the
+port's kernel ops (the hand-written kernels on the card, their plain
+versions on the CPU); ``"reference"`` runs the plain versions on any
+device, the yardstick the kernel path is held against on the card. Both
+run without autograd; the cache in ``state`` is written in place.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+
+from .common import embed_init, rmsnorm, rmsnorm_init, softcap, torch_dtype
+from .transformer import blocks_serve, init_blocks, init_cache
+
+Pytree = Any
+
+
+def init_lm(generator: torch.Generator, cfg: ModelConfig,
+            device=None) -> Pytree:
+    """Seeded random weights in the JAX package's tree layout, on
+    ``device`` (default: the CUDA card); ``generator`` must live on that
+    device. Raises ``NotImplementedError`` for layer kinds not ported
+    yet."""
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg.param_dtype)
+    params = {
+        "embed": embed_init(generator, (cfg.vocab_size, cfg.d_model), dt,
+                            dev),
+        "blocks": init_blocks(generator, cfg, dev),
+        "final_norm": rmsnorm_init(cfg.d_model, dt, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = embed_init(generator, (cfg.d_model, cfg.vocab_size),
+                                    dt, dev)
+    return params
+
+
+def _head_matrix(params: Pytree, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["head"]
+
+
+def _embed(params: Pytree, cfg: ModelConfig, batch: Pytree) -> torch.Tensor:
+    cdt = torch_dtype(cfg.compute_dtype)
+    if cfg.input_mode == "embeds":
+        return batch["embeds"].to(cdt)
+    return params["embed"][batch["tokens"]].to(cdt)
+
+
+def _logits(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
+            backend: str) -> torch.Tensor:
+    h = rmsnorm(params["final_norm"], x, backend=backend)
+    logits = (h @ _head_matrix(params, cfg)).float()
+    return softcap(logits, cfg.final_softcap)
+
+
+class ServeState(NamedTuple):
+    cache: Pytree
+    pos: int   # next write position
+
+
+def init_serve_state(cfg: ModelConfig, batch: int, s_max: int,
+                     device=None) -> ServeState:
+    return ServeState(init_cache(cfg, batch, s_max, resolve_device(device)),
+                      0)
+
+
+@torch.no_grad()
+def prefill(params: Pytree, cfg: ModelConfig, batch: Pytree,
+            state: ServeState, backend: str = "cuda"
+            ) -> Tuple[torch.Tensor, ServeState]:
+    """Process the prompt; returns last-position logits [B, 1, V] (f32)
+    and the state with the filled cache."""
+    x = _embed(params, cfg, batch)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    x, cache = blocks_serve(params["blocks"], cfg, x, state.cache,
+                            positions, "prefill", backend)
+    return _logits(params, cfg, x[:, -1:], backend), ServeState(cache, s)
+
+
+@torch.no_grad()
+def decode_step(params: Pytree, cfg: ModelConfig,
+                tokens_or_embeds: torch.Tensor, state: ServeState,
+                backend: str = "cuda") -> Tuple[torch.Tensor, ServeState]:
+    """One decode step. tokens [B, 1] int (or [B, 1, D] embeds); returns
+    logits [B, 1, V] (f32)."""
+    cdt = torch_dtype(cfg.compute_dtype)
+    if cfg.input_mode == "embeds" and tokens_or_embeds.dim() == 3:
+        x = tokens_or_embeds.to(cdt)
+    else:
+        x = params["embed"][tokens_or_embeds].to(cdt)
+    x, cache = blocks_serve(params["blocks"], cfg, x, state.cache,
+                            state.pos, "decode", backend)
+    return (_logits(params, cfg, x, backend),
+            ServeState(cache, state.pos + 1))

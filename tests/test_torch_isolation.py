@@ -26,6 +26,13 @@ def _imported_roots(path: Path):
 
 def test_port_has_files_to_scan():
     assert len(PORT_FILES) >= 10
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for new in ("src/repro_torch/models/transformer.py",
+                "src/repro_torch/kernels/flash_attention/ops.py",
+                "src/repro_torch/kernels/rmsnorm/ops.py",
+                "src/repro_torch/configs/qwen3_1_7b.py",
+                "src/repro_torch/launch/serve.py"):
+        assert new in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -42,6 +49,10 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch, repro_torch.core\n"
         "import repro_torch.kernels.alf_step.ops\n"
         "import repro_torch.kernels.registry\n"
+        "import repro_torch.kernels.rmsnorm.ops\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -57,6 +68,7 @@ def test_kernel_build_module_is_not_imported_eagerly():
     """The CPU hosts that run the tests have no nvcc: importing the package
     must not import (or run) the kernel builder."""
     code = ("import sys, repro_torch.core, repro_torch.kernels.alf_step.ops\n"
+            "import repro_torch.models, repro_torch.launch.serve\n"
             "sys.exit(1 if 'repro_torch.kernels.build' in sys.modules "
             "else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
