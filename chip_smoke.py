@@ -44,16 +44,20 @@ either. Phases, each printing JSON lines:
 8. profile   — torch.profiler over 20 training steps of phase 4 on the
                kernel and the reference backend: device busy/idle share
                and the top device operations.
-9. lm_kernels — the RMSNorm and flash-attention kernels against their
-               plain versions on the card. RMSNorm: f32 and bf16, rows in
-               {1, 4, 65536, 4099}, d in {128, 2048, 2304}. Flash: the
-               seven FA_CASES of tests/test_kernels.py, ragged and d=16 /
-               d=256 cases, a strided (transposed) operand and qwen3-1.7b's
-               prefill shape, f32 and bf16.
-10. lm_times  — each of the two kernels at qwen3-1.7b's prefill shapes:
-               CUDA-event ms, ms in a CUDA graph, its bound, its plain
-               version's ms and one library call's ms
-               (torch.nn.functional.rms_norm, scaled_dot_product_attention).
+9. lm_kernels — the RMSNorm, flash-attention and selective-scan kernels
+               against their plain versions on the card. RMSNorm: f32 and
+               bf16, rows in {1, 4, 65536, 4099}, d in {128, 2048, 2304}.
+               Flash: the seven FA_CASES of tests/test_kernels.py, ragged
+               and d=16 / d=256 cases, a strided (transposed) operand and
+               qwen3-1.7b's prefill shape, f32 and bf16. Scan: the four
+               MS_CASES of tests/test_kernels.py, S = 1, ragged DI (200,
+               8192 + 37), a given h0, strided operands and Jamba's
+               prefill shape, f32 and bf16 inputs.
+10. lm_times  — each of the three kernels at its model's prefill shapes
+               (qwen3-1.7b; the scan at jamba-v0.1-52b's): CUDA-event ms,
+               ms in a CUDA graph, its bound, its plain version's ms and
+               one library call's ms (torch.nn.functional.rms_norm,
+               scaled_dot_product_attention; none for the scan).
 11. lm_serve  — the port's serve() for qwen3-1.7b at full width (bf16,
                DEFAULT_ODE, seeded random weights): batch 4, prompt 1024,
                32 greedy decode steps, with exact launch counts (per
@@ -62,6 +66,18 @@ either. Phases, each printing JSON lines:
                the kernel path against backend="reference"
                (bf16 and f32), prefill(p+1) against prefill(p) + decode,
                peak memory and a device profile of prefill and decode.
+12. ssm_serve — the port's serve() for jamba-v0.1-52b at full width, 2 of
+               its 4 periods (16 of 32 layers, the only cut: 4 periods
+               are ~104 GB of bf16 weights), bf16, DEFAULT_ODE, batch 4,
+               prompt 1024, 16 greedy decode steps: exact launch counts
+               (per prefill 42 scan, 6 flash, 97 RMSNorm, 64 + 64 ALF; per
+               decode step 0, 0, 97, 64 + 64), no host sync inside prefill
+               or a decode step, init peak memory <= 1.25x the weights,
+               the kernel path against backend="reference" (bf16 at 2
+               periods; f32 at 1 period, batch 2, prompt 256) on the rows
+               whose MoE routes agree, prefill(p+1) against prefill(p) +
+               decode on the rows whose routes agree and whose decode step
+               dropped none, peak memory and device profiles.
 
 Every phase runs on every call. The line before the last is the kernel
 table; the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -124,6 +140,9 @@ LM_KERNELS = {
     "flash_attention": (
         "src/repro/kernels/flash_attention/flash_attention.py:31",
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
+    "selective_scan": (
+        "src/repro/kernels/mamba_scan/mamba_scan.py:36",
+        "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"),
 }
 # Launches per prefill and per decode step of qwen3-1.7b under DEFAULT_ODE
 # (n_steps=2: 3 f-evals per residual branch): 28 layers x 3 attention
@@ -170,6 +189,44 @@ FA_LIB_TOL = (3e-2, 3e-2)
 # against the plain path, and prefill(p+1) against prefill(p) + decode.
 # f32: summation orders only; bf16: roundings of 28 layers x 3 f-evals.
 LM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# (Bt, S, DI, ST): the four MS_CASES of tests/test_kernels.py:337, one
+# step, DI ragged against the kernel's 128-channel blocks, and Jamba's
+# prefill (d_inner 8192, d_state 16, 4 x 1024 tokens).
+MS_CASES = (
+    (1, 16, 128, 16), (2, 33, 256, 16), (1, 8, 200, 8), (2, 64, 512, 4),
+    (2, 1, 300, 16), (1, 50, 8192 + 37, 16), (4, 1024, 8192, 16))
+# elementwise |got - want| <= atol + rtol * |want|, f32 and bf16 inputs
+# alike (both sides compute in f32): h is bit-equal (same operation order,
+# --fmad=false); y's ST-term sum runs in another order (the kernel
+# sequentially, torch by its reduction): on an H100 the largest difference
+# is 1.9e-5 at |y| ~ 230, inside rtol 1e-5 at that magnitude.
+MS_TOL = (1e-5, 1e-5)
+
+# The Jamba/SSM serving slice: jamba-v0.1-52b at full width, 2 of its 4
+# periods (16 of 32 layers).
+SSM_ARCH = "jamba-v0.1-52b"
+SSM_PERIODS = 2
+SSM_BATCH, SSM_PROMPT, SSM_DECODE = 4, 1024, 16
+# Launches per prefill and per decode step under DEFAULT_ODE (3 f-evals
+# per residual branch): 14 Mamba layers x 3 scans; 2 attention layers x 3
+# flash calls; 16 layers x 2 branches x 3 norms + the final norm; 16
+# layers x 2 branches x 2 steps, one midpoint and one update each.
+SSM_PER_PREFILL = {"selective_scan": 42, "flash_attention": 6,
+                   "rmsnorm": 97, "alf_midpoint": 64, "alf_update": 64}
+SSM_PER_DECODE = {"selective_scan": 0, "flash_attention": 0, "rmsnorm": 97,
+                  "alf_midpoint": 64, "alf_update": 64}
+# init must not hold a period twice (stacking finished periods would)
+INIT_PEAK_RATIO = 1.25
+# bf16 whole-model comparisons of the Jamba cut: at most this factor times
+# the model's own noise floor (the plain path with the embedding moved by
+# one bf16 rounding), since a router near-tie flips routes and the model
+# carries a one-rounding change to O(1): on an H100 the plain path moved
+# so differs from itself in ~59% of routes and by ~1.4 in its logits
+FLOOR_FACTOR = 3.0
+# layer by layer from the same input, each layer's kernel and plain
+# outputs are compared on the tokens whose routes agree in the layer; at
+# least this share of tokens must be compared
+LAYER_TOKEN_SHARE = 0.9
 
 
 def emit(obj) -> None:
@@ -947,8 +1004,73 @@ def _close(got, want, rtol: float, atol: float, what: str) -> float:
     return float(diff.max())
 
 
+def _scan_inputs(gen, bt, s, di, st, dtype, delta_dtype=None):
+    """delta, u, A, B, C as tests/test_kernels.py makes them: delta =
+    softplus(normal), A = -exp(0.3 normal) (f32), the rest normal."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    delta = torch.nn.functional.softplus(randn(bt, s, di)).to(
+        delta_dtype or dtype)
+    a = -torch.exp(0.3 * randn(di, st))
+    return (delta, randn(bt, s, di).to(dtype), a,
+            randn(bt, s, st).to(dtype), randn(bt, s, st).to(dtype))
+
+
+def _scan_checks(gen, worst, what):
+    """The scan kernel against its plain version: MS_CASES, a given h0 and
+    strided operands, f32 and bf16 inputs; one op call must be one
+    launch. Returns the number of checks."""
+    import torch
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms_k
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+    rtol, atol = MS_TOL
+    n = 0
+
+    def check(args, label, key):
+        before = ms_k.LAUNCHES["selective_scan"]
+        got = ms_ops.selective_scan(*args)
+        require(ms_k.LAUNCHES["selective_scan"] == before + 1,
+                "selective_scan: one op call must be one launch")
+        want = ms_ref.selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        for g, w, part in zip(got, want, ("y", "h")):
+            err = _close(g, w, rtol, atol, f"selective_scan {label} {part}")
+            worst[key] = max(worst.get(key, 0.0), err)
+            worst[f"{key}_{part}"] = max(worst.get(f"{key}_{part}", 0.0),
+                                         err)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        for case in MS_CASES:
+            check(_scan_inputs(gen, *case, dtype), f"{key} {case}", key)
+            n += 1
+        # the chunked-prefill invariant's input: a given state h0
+        bt, s, di, st = 2, 40, 384, 16
+        args = _scan_inputs(gen, bt, s, di, st, dtype)
+        h0 = torch.randn(bt, di, st, generator=gen, device="cuda")
+        check((*args, h0), f"{key} h0", key)
+        # B, C as slices of one projection (the Mamba prefill's layout),
+        # delta and u as transposed views
+        delta, u, a, b, c = args
+        proj = torch.cat([torch.randn(bt, s, 7, generator=gen,
+                                      device="cuda").to(dtype), b, c], -1)
+        strided = (delta.transpose(1, 2).contiguous().transpose(1, 2),
+                   u.transpose(1, 2).contiguous().transpose(1, 2), a,
+                   proj[..., 7:7 + st], proj[..., 7 + st:])
+        require(not any(t.is_contiguous() for t in strided[:2]
+                        + strided[3:]), f"{what}: strided operands")
+        check(strided, f"{key} strided", key)
+        n += 2
+    return n
+
+
 def phase_lm_kernels():
-    """RMSNorm and flash attention against their plain versions."""
+    """RMSNorm, flash attention and the selective scan against their plain
+    versions."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as fa_k
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -957,8 +1079,8 @@ def phase_lm_kernels():
     from repro_torch.kernels.rmsnorm import ref as rn_ref
     from repro_torch.kernels.rmsnorm import rmsnorm as rn_k
     gen = torch.Generator(device="cuda").manual_seed(3)
-    checks = {"rmsnorm": 0, "flash_attention": 0}
-    worst = {"rmsnorm": {}, "flash_attention": {}}
+    checks = {"rmsnorm": 0, "flash_attention": 0, "selective_scan": 0}
+    worst = {"rmsnorm": {}, "flash_attention": {}, "selective_scan": {}}
 
     def randn(*shape, dtype, scale=1.0):
         return (scale * torch.randn(*shape, generator=gen,
@@ -1014,9 +1136,12 @@ def phase_lm_kernels():
         torch.cuda.synchronize()
         _close(got, want, rtol, atol, f"flash_attention {key} strided")
         checks["flash_attention"] += 1
+    checks["selective_scan"] = _scan_checks(gen, worst["selective_scan"],
+                                            "selective_scan")
     emit({"phase": "lm_kernels", "checks": checks,
           "max_abs_err": worst,
           "tolerance": {"rmsnorm": RN_TOL, "flash_attention": FA_TOL,
+                        "selective_scan": MS_TOL,
                         "rule": "|got - want| <= atol + rtol * |want| "
                                 "elementwise, want = the plain version"}})
     return worst, checks
@@ -1091,18 +1216,62 @@ def phase_lm_times(card: str):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     emit({"phase": "lm_times", **rows["flash_attention"]})
+    del q, k, v, qt, kt, vt
+    rows["selective_scan"] = _scan_times(gen, bw, f32_peak)
+    emit({"phase": "lm_times", **rows["selective_scan"]})
     return rows
 
 
+def _scan_times(gen, bw: float, f32_peak: float):
+    """The scan kernel at Jamba's prefill shape with the model's dtypes
+    (delta f32, u/B/C bf16, A and h0 f32) against its bound and its plain
+    version (a Python loop over S)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms_k
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+    cfg = get_config(SSM_ARCH)
+    bt, s = SSM_BATCH, SSM_PROMPT
+    di, st = cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+    delta, u, a, b, c = _scan_inputs(gen, bt, s, di, st, torch.bfloat16,
+                                     torch.float32)
+    h0 = torch.zeros(bt, di, st, device="cuda")
+    kern = lambda: ms_k.selective_scan_call(delta, u, a, b, c, h0)  # noqa
+    plain = lambda: ms_ref.selective_scan_ref(delta, u, a, b, c, h0)  # noqa
+    ms, plain_ms = _alternate(kern, plain, 4)
+    n = bt * s * di
+    # each input read once, each output written once
+    moved = (n * (delta.element_size() + u.element_size() + 4)
+             + 2 * bt * s * st * b.element_size() + di * st * 4
+             + 2 * bt * di * st * 4)
+    # per (b, t, i, s): delta*A, exp, dA*h, du*B, +, h*C, + (exp counted
+    # as one f32 operation); per (b, t, i): delta*u
+    ops = 7 * n * st + n
+    bytes_ms, ops_ms = moved / bw * 1e3, ops / f32_peak * 1e3
+    return {"name": "selective_scan", "shape": [bt, s, di, st],
+            "dtype": "delta f32, u/B/C bfloat16", "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no single PyTorch call computes a selective "
+                       "scan",
+            "graph_ms": _graph_ms(kern, 20),
+            "plain_graph_ms": _graph_ms(plain, 1),
+            "bytes": moved, "operations": ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def _lm_modules():
-    """(launcher, op) modules of the LM path's three kernel packages."""
+    """(launcher, op) modules of the LM paths' four kernel packages."""
     from repro_torch.kernels.alf_step import alf_step
     from repro_torch.kernels.alf_step import ops as alf_ops
     from repro_torch.kernels.flash_attention import flash_attention as fa_k
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms_k
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rmsnorm import rmsnorm as rn_k
-    return ((alf_step, alf_ops), (fa_k, fa_ops), (rn_k, rn_ops))
+    return ((alf_step, alf_ops), (fa_k, fa_ops), (rn_k, rn_ops),
+            (ms_k, ms_ops))
 
 
 def _lm_reset():
@@ -1139,26 +1308,15 @@ def _rel(a, b) -> float:
                  / b.double().abs().max())
 
 
-def _lm_compare(dtype, batch: int, prompt: int, n_decode: int):
-    """qwen3-1.7b at full width in ``dtype``: the kernel path against the
-    plain path (prefill logits and teacher-forced decode logits), and
-    prefill(p+1) against prefill(p) + decode(token p), on both paths."""
-    import dataclasses
+def _serve_run(params, cfg, toks, prompt: int, n_decode: int,
+               backend: str):
+    """prefill + n_decode teacher-forced decode steps: (logits [B, 1 + n,
+    V], the MoE routes of every call, prefill ms, decode ms per step)."""
     import torch
-    from repro_torch.configs import DEFAULT_ODE, get_config
-    from repro_torch.models import decode_step, init_lm, init_serve_state
-    from repro_torch.models import prefill
-    name = str(dtype).split(".")[-1]
-    cfg = dataclasses.replace(get_config(LM_ARCH, DEFAULT_ODE),
-                              param_dtype=name, compute_dtype=name)
-    params = init_lm(torch.Generator(device="cuda").manual_seed(1), cfg)
-    rng = np.random.default_rng(1)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                        (batch, prompt + n_decode)),
-                           device="cuda")
-    out, logits = {}, {}
-    for backend in ("cuda", "reference"):
-        state = init_serve_state(cfg, batch, prompt + n_decode)
+    from repro_torch.models import decode_step, init_serve_state, prefill
+    from repro_torch.models.moe import recording_routes
+    state = init_serve_state(cfg, toks.shape[0], prompt + n_decode)
+    with recording_routes() as log:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lg, state = prefill(params, cfg, {"tokens": toks[:, :prompt]}, state,
@@ -1172,18 +1330,39 @@ def _lm_compare(dtype, batch: int, prompt: int, n_decode: int):
                                     state, backend=backend)
             steps.append(lg)
         torch.cuda.synchronize()
-        out[f"prefill_ms_{backend}"] = (t1 - t0) * 1e3
-        out[f"decode_ms_per_step_{backend}"] = ((time.perf_counter() - t1)
-                                                * 1e3 / n_decode)
-        logits[backend] = torch.cat(steps, 1)          # [B, 1 + n, V]
+    return (torch.cat(steps, 1), list(log), (t1 - t0) * 1e3,
+            (time.perf_counter() - t1) * 1e3 / n_decode)
+
+
+def _lm_compare(dtype, batch: int, prompt: int, n_decode: int):
+    """qwen3-1.7b at full width in ``dtype``: the kernel path against the
+    plain path (prefill logits and teacher-forced decode logits), and
+    prefill(p+1) against prefill(p) + decode(token p), on both paths."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import DEFAULT_ODE, get_config
+    from repro_torch.models import init_lm, init_serve_state, prefill
+    name = str(dtype).split(".")[-1]
+    cfg = dataclasses.replace(get_config(LM_ARCH, DEFAULT_ODE),
+                              param_dtype=name, compute_dtype=name)
+    params = init_lm(torch.Generator(device="cuda").manual_seed(1), cfg)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (batch, prompt + n_decode)),
+                           device="cuda")
+    out, logits = {}, {}
+    for backend in ("cuda", "reference"):
+        logits[backend], _, pre_ms, dec_ms = _serve_run(
+            params, cfg, toks, prompt, n_decode, backend)
+        out[f"prefill_ms_{backend}"] = pre_ms
+        out[f"decode_ms_per_step_{backend}"] = dec_ms
         # prefill over prompt + 1 tokens: its last logits are decode
         # step 0's (the token at position `prompt` fed after prefill)
-        state = init_serve_state(cfg, batch, prompt + 1)
         lg1, _ = prefill(params, cfg, {"tokens": toks[:, :prompt + 1]},
-                         state, backend=backend)
+                         init_serve_state(cfg, batch, prompt + 1),
+                         backend=backend)
         out[f"self_consistency_{backend}"] = _rel(lg1[:, 0],
                                                   logits[backend][:, 1])
-        del state
     out["kernel_vs_plain_prefill"] = _rel(logits["cuda"][:, 0],
                                           logits["reference"][:, 0])
     out["kernel_vs_plain_decode"] = _rel(logits["cuda"][:, 1:],
@@ -1280,6 +1459,331 @@ def phase_lm_serve(card: str, smi: str):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the Jamba/SSM serving slice (jamba-v0.1-52b, 2 of 4 periods)
+# ---------------------------------------------------------------------------
+
+def _ssm_config(dtype_name: str = "bfloat16", periods: int = SSM_PERIODS):
+    """jamba-v0.1-52b at its published widths under DEFAULT_ODE, cut to
+    ``periods`` of its 4 periods."""
+    import dataclasses
+    from repro_torch.configs import DEFAULT_ODE, get_config
+    return dataclasses.replace(get_config(SSM_ARCH, DEFAULT_ODE),
+                               n_periods=periods, param_dtype=dtype_name,
+                               compute_dtype=dtype_name)
+
+
+def _same_routes(a, b, batch: int):
+    """Two runs' MoE routes (moe.Routes, call by call; the tokens of a call
+    in batch-major order): the count of (token, choice) routes that differ
+    (as sets per token), the count compared, and per batch row whether
+    every route of the row agreed."""
+    import torch
+    require(len(a) == len(b), f"routes: {len(a)} vs {len(b)} MoE calls")
+    agree = torch.ones(batch, dtype=torch.bool, device="cuda")
+    differ, total = 0, 0
+    for ra, rb in zip(a, b):
+        require(ra.idx.shape == rb.idx.shape, "routes: shapes differ")
+        d = ra.idx.sort(-1).values != rb.idx.sort(-1).values
+        differ += int(d.sum())
+        total += d.numel()
+        agree &= ~d.reshape(batch, -1).any(-1)
+    return differ, total, agree.cpu()
+
+
+def _rows_rel(a, b, rows) -> float:
+    """max |a - b| / max |b| over the batch rows ``rows`` (None: none)."""
+    if not bool(rows.any()):
+        return None
+    return _rel(a[rows.to(a.device)], b[rows.to(b.device)])
+
+
+def _moved(params, dtype):
+    """``params`` with the embedding moved by one rounding of ``dtype``
+    (relative 2^-8 in bf16, 1e-7 in f32): the plain path run on it
+    measures how far the model itself carries a rounding."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    e = params["embed"]
+    eps = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-7
+    noise = torch.randn(e.shape, generator=gen, device="cuda")
+    return {**params, "embed": (e.float() * (1 + eps * noise)).to(e.dtype)}
+
+
+def _ssm_layers(params, cfg, toks, prompt: int):
+    """Layer by layer from the same input (the plain path's output of the
+    layer before): each layer's prefill on the kernel path against the
+    plain path, on the tokens whose MoE routes agree in every f-eval of
+    the layer. Returns one [period, index, mixer, mlp, rel, share of
+    tokens compared, share of routes differing] row per layer."""
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch.models import transformer
+    from repro_torch.models.moe import recording_routes
+    batch = toks.shape[0]
+    x = params["embed"][toks[:, :prompt]]
+    pos = torch.arange(prompt, dtype=torch.int32,
+                       device="cuda")[None].expand(batch, prompt)
+    rows = []
+    for p in range(cfg.n_periods):
+        pp = pytree.tree_map(lambda a: a[p], params["blocks"]["period"])
+        for j, spec in enumerate(cfg.period):
+            ys, logs = {}, {}
+            for backend in ("cuda", "reference"):
+                cache = transformer.init_layer_cache(cfg, spec, batch, prompt,
+                                                     "cuda")
+                with recording_routes() as log:
+                    ys[backend], _ = transformer.layer_serve(
+                        pp[f"sub{j}"], cfg, spec, x, cache, pos, "prefill",
+                        backend)
+                logs[backend] = list(log)
+            same = torch.ones(batch * prompt, dtype=torch.bool, device="cuda")
+            differ, total = 0, 0
+            for a, b in zip(logs["cuda"], logs["reference"]):
+                d = a.idx.sort(-1).values != b.idx.sort(-1).values
+                same &= ~d.any(-1)
+                differ, total = differ + int(d.sum()), total + d.numel()
+            got = ys["cuda"].reshape(batch * prompt, -1)[same]
+            want = ys["reference"].reshape(batch * prompt, -1)[same]
+            rows.append([p, j, spec.mixer, spec.mlp,
+                         _rel(got, want) if got.numel() else float("inf"),
+                         float(same.float().mean()),
+                         differ / total if total else 0.0])
+            x = ys["reference"]
+    return rows
+
+
+def _ssm_compare(dtype, periods: int, batch: int, prompt: int,
+                 n_decode: int):
+    """jamba-v0.1-52b at full width, ``periods`` periods, in ``dtype``:
+
+    - the kernel path against the plain path (prefill and teacher-forced
+      decode logits) on the batch rows whose MoE routes agree in every
+      call, and on all rows against the model's own noise floor (the
+      plain path with the embedding moved by one rounding);
+    - the kernel path run twice: bit-equal;
+    - prefill(p+1) against prefill(p) + decode(token p) on both paths, on
+      the rows whose routes agree between the two and whose decode step
+      dropped no route;
+    - layer by layer from the same input (``_ssm_layers``).
+
+    In f32 no route may differ and every comparison is held to LM_TOL; in
+    bf16 a near-tie of the router flips routes and this model carries a
+    one-rounding change to O(1) (PERF.md), so all-row comparisons
+    are held to max(LM_TOL, FLOOR_FACTOR x the floor) and the share of
+    differing routes to FLOOR_FACTOR x the plain path's own share."""
+    import torch
+    from repro_torch.models import init_lm, init_serve_state, prefill
+    from repro_torch.models.moe import recording_routes
+    name = str(dtype).split(".")[-1]
+    cfg = _ssm_config(name, periods)
+    params = init_lm(torch.Generator(device="cuda").manual_seed(1), cfg)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (batch, prompt + n_decode)), device="cuda")
+    per_call = sum(spec.mlp == "moe" for spec in cfg.layers()) * (
+        cfg.ode.n_steps + 1)                # MoE calls per forward
+    out, logits, routes = {}, {}, {}
+    for label, backend, p in (("cuda", "cuda", params),
+                              ("reference", "reference", params),
+                              ("cuda_again", "cuda", params),
+                              ("reference_moved", "reference",
+                               _moved(params, dtype))):
+        logits[label], routes[label], pre_ms, dec_ms = _serve_run(
+            p, cfg, toks, prompt, n_decode, backend)
+        if label in ("cuda", "reference"):
+            out[f"prefill_ms_{backend}"] = pre_ms
+            out[f"decode_ms_per_step_{backend}"] = dec_ms
+    require(torch.equal(logits["cuda"], logits["cuda_again"])
+            and _same_routes(routes["cuda"], routes["cuda_again"],
+                             batch)[0] == 0,
+            f"ssm {name}: two runs of the kernel path differ")
+
+    # prefill over prompt + 1 tokens: its last logits are decode step 0's
+    for backend in ("cuda", "reference"):
+        with recording_routes() as longer:
+            lg1, _ = prefill(params, cfg, {"tokens": toks[:, :prompt + 1]},
+                             init_serve_state(cfg, batch, prompt + 1),
+                             backend=backend)
+        log = routes[backend]
+        ok = torch.ones(batch, dtype=torch.bool, device="cuda")
+        dropped = 0
+        for p_r, d_r, l_r in zip(log[:per_call], log[per_call:2 * per_call],
+                                 longer):
+            k = p_r.idx.shape[-1]
+            lidx = l_r.idx.reshape(batch, prompt + 1, k).sort(-1).values
+            pidx = p_r.idx.reshape(batch, prompt, k).sort(-1).values
+            didx = d_r.idx.reshape(batch, k).sort(-1).values
+            ok &= (lidx[:, :prompt] == pidx).all(-1).all(-1)
+            ok &= (lidx[:, prompt] == didx).all(-1)
+            ok &= d_r.kept.reshape(batch, k).all(-1)
+            dropped += int((~d_r.kept).sum())
+        ok = ok.cpu()
+        out[f"self_consistency_{backend}"] = _rows_rel(
+            lg1[:, 0], logits[backend][:, 1], ok)
+        out[f"self_consistency_rows_{backend}"] = int(ok.sum())
+        out[f"self_consistency_all_rows_{backend}"] = _rel(
+            lg1[:, 0], logits[backend][:, 1])
+        out[f"decode_step0_dropped_routes_{backend}"] = dropped
+
+    differ, total, agree = _same_routes(routes["cuda"], routes["reference"],
+                                        batch)
+    floor_differ, _, _ = _same_routes(routes["reference_moved"],
+                                      routes["reference"], batch)
+    ref, moved = logits["reference"], logits["reference_moved"]
+    out.update(routes_compared=total, routes_differing=differ,
+               route_diff_share=differ / total,
+               floor_route_diff_share=floor_differ / total,
+               rows_with_agreeing_routes=int(agree.sum()))
+    out["kernel_vs_plain_prefill"] = _rows_rel(
+        logits["cuda"][:, 0], ref[:, 0], agree)
+    out["kernel_vs_plain_decode"] = _rows_rel(
+        logits["cuda"][:, 1:], ref[:, 1:], agree)
+    out["kernel_vs_plain_prefill_all_rows"] = _rel(logits["cuda"][:, 0],
+                                                   ref[:, 0])
+    out["kernel_vs_plain_decode_all_rows"] = _rel(logits["cuda"][:, 1:],
+                                                  ref[:, 1:])
+    out["floor_prefill"] = _rel(moved[:, 0], ref[:, 0])
+    out["floor_decode"] = _rel(moved[:, 1:], ref[:, 1:])
+    out["greedy_agreement"] = float(
+        (logits["cuda"].argmax(-1) == ref.argmax(-1)).float().mean())
+    out["layers"] = _ssm_layers(params, cfg, toks, prompt)
+
+    tol = LM_TOL[name]
+    require(all(bool(torch.isfinite(t).all()) for t in logits.values()),
+            f"ssm {name}: non-finite logits")
+    for key in ("kernel_vs_plain_prefill", "kernel_vs_plain_decode",
+                "self_consistency_cuda", "self_consistency_reference"):
+        require(out[key] is None or out[key] <= tol,
+                f"ssm {name} {key}: {out[key]} > {tol}")
+    for _, _, _, _, err, share, _ in out["layers"]:
+        require(err <= tol and share >= LAYER_TOKEN_SHARE,
+                f"ssm {name} layer by layer: {out['layers']}")
+    if name == "float32":
+        # no route may flip and every comparison has rows to compare
+        require(differ == 0 and out["self_consistency_rows_cuda"] == batch
+                and out["self_consistency_rows_reference"] == batch,
+                f"ssm {name}: routes differ or a decode route was dropped")
+    else:
+        for key, floor in (
+                ("kernel_vs_plain_prefill_all_rows", out["floor_prefill"]),
+                ("kernel_vs_plain_decode_all_rows", out["floor_decode"]),
+                ("self_consistency_all_rows_cuda", out["floor_decode"]),
+                ("self_consistency_all_rows_reference",
+                 out["floor_decode"])):
+            limit = max(tol, FLOOR_FACTOR * floor)
+            require(out[key] <= limit, f"ssm {name} {key}: {out[key]} > "
+                    f"{limit} (floor {floor})")
+        limit = FLOOR_FACTOR * out["floor_route_diff_share"]
+        require(out["route_diff_share"] <= limit,
+                f"ssm {name}: route share {out['route_diff_share']} > "
+                f"{limit}")
+    del params
+    torch.cuda.empty_cache()
+    return {"dtype": name, "periods": periods, "batch": batch,
+            "prompt": prompt, "decode_steps": n_decode, "tolerance": tol,
+            "floor_factor": FLOOR_FACTOR, **out}
+
+
+def phase_ssm_serve(card: str, smi: str):
+    """The port's serve() for jamba-v0.1-52b at full width (2 of 4
+    periods) on the card."""
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_lm, init_serve_state
+    from repro_torch.models import prefill
+    cfg = _ssm_config()
+    kw = dict(ode=True, prompt_len=SSM_PROMPT, batch=SSM_BATCH, seed=0)
+    t0 = time.perf_counter()
+    serve(cfg, decode_tokens=2, **kw)          # warm: cuBLAS, kernels
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _lm_reset()
+    result = serve(cfg, decode_tokens=SSM_DECODE, **kw)
+    launches = _lm_check_counts(
+        f"ssm_serve (one prefill + {SSM_DECODE} decode steps)",
+        SSM_PER_DECODE, SSM_DECODE, plus=SSM_PER_PREFILL)
+    run_peak = torch.cuda.max_memory_allocated()
+    require(result.tokens.shape == (SSM_BATCH, SSM_DECODE)
+            and int(result.tokens.min()) >= 0, "ssm_serve: tokens")
+    torch.cuda.empty_cache()
+
+    # init's peak beside the weights it made
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    weights = sum(t.numel() * t.element_size()
+                  for t in pytree.tree_leaves(params))
+    require(init_peak <= INIT_PEAK_RATIO * weights,
+            f"ssm_serve: init peaked at {init_peak} bytes for {weights} "
+            f"bytes of weights (> {INIT_PEAK_RATIO}x)")
+
+    # per prefill and per decode step, counted apart, with no host sync
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT + 8)), device="cuda")
+    state = init_serve_state(cfg, SSM_BATCH, SSM_PROMPT + 8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _lm_reset()
+        _, state = prefill(params, cfg, {"tokens": toks[:, :SSM_PROMPT]},
+                           state)
+        _lm_check_counts("one Jamba prefill", SSM_PER_PREFILL)
+        _lm_reset()
+        _, state = decode_step(params, cfg,
+                               toks[:, SSM_PROMPT:SSM_PROMPT + 1], state)
+        _lm_check_counts("one Jamba decode step", SSM_PER_DECODE)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    prof_prefill = _device_profile(lambda: prefill(
+        params, cfg, {"tokens": toks[:, :SSM_PROMPT]}, state))
+
+    def decode4():
+        st = state._replace(pos=SSM_PROMPT)
+        for i in range(SSM_PROMPT, SSM_PROMPT + 4):
+            _, st = decode_step(params, cfg, toks[:, i:i + 1], st)
+
+    prof_decode = _device_profile(decode4)
+    host_decode = _host_profile(decode4)
+    del params, state
+    torch.cuda.empty_cache()
+
+    # bf16 at the served depth; f32 (twice the bytes) at one period
+    compare = [_ssm_compare(torch.bfloat16, SSM_PERIODS, SSM_BATCH,
+                            SSM_PROMPT, 4),
+               _ssm_compare(torch.float32, 1, 2, 256, 4)]
+    emit({"phase": "ssm_serve", "arch": SSM_ARCH, "card": card,
+          "nvidia_smi": smi, "periods": SSM_PERIODS,
+          "reduced": f"depth: {SSM_PERIODS} of 4 periods "
+                     f"({8 * SSM_PERIODS} of 32 layers); widths as "
+                     "published",
+          "batch": SSM_BATCH, "prompt": SSM_PROMPT,
+          "decode_tokens": SSM_DECODE, "dtype": "bfloat16",
+          "ode": "DEFAULT_ODE (per_block, MALI/ALF, n_steps=2)",
+          "warm_serve_s": warm_s,
+          "prefill_ms": result.prefill_ms, "decode_ms": result.decode_ms,
+          "decode_ms_per_step": result.decode_ms / SSM_DECODE,
+          "prefill_tok_s": result.prefill_tok_s,
+          "decode_tok_s": result.decode_tok_s,
+          "weights_bytes": weights, "init_s": init_s,
+          "init_peak_bytes": init_peak,
+          "init_peak_ratio": init_peak / weights,
+          "peak_memory_bytes": run_peak, "launches": launches,
+          "per_prefill": SSM_PER_PREFILL, "per_decode_step": SSM_PER_DECODE,
+          "sample": result.tokens[0][:8].tolist(),
+          "profile_prefill": prof_prefill, "profile_decode_4_steps":
+          prof_decode, "host_profile_decode_4_steps": host_decode,
+          "compare": compare})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1299,9 +1803,9 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     card = torch.cuda.get_device_name(0)
-    from repro_torch.kernels import build
+    from repro_torch.kernels import PACKAGES, build
     t0 = time.perf_counter()
-    build.build(["alf_step", "rmsnorm", "flash_attention"])   # in parallel
+    build.build(PACKAGES)                      # one nvcc each, in parallel
     emit({"phase": "device", "card": card, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0})
@@ -1321,15 +1825,17 @@ def main() -> int:
     lm_worst, lm_checks = phase_lm_kernels()
     lm_times = phase_lm_times(card)
     lm_launches = phase_lm_serve(card, smi)
+    ssm_launches = phase_ssm_serve(card, smi)
 
     table = []
     for name, (replaces, *_rest) in KERNELS.items():
         row = times[(name, SLICE_N)]
         table.append({"name": name, "route": "cuda", "source": SOURCE,
                       "replaces": replaces, "launches": launches[name],
-                      # the ALF kernels' launches on the LM path, beside
-                      # their own path's
+                      # the ALF kernels' launches on the LM paths,
+                      # beside their own path's
                       "launches_lm_serve": lm_launches[name],
+                      "launches_ssm_serve": ssm_launches[name],
                       "checks": checks[name],
                       "max_abs_err": worst[name], "ms": row["ms"],
                       "plain_ms": row["plain_ms"],
@@ -1338,10 +1844,14 @@ def main() -> int:
                       "library_ms": row["library_ms"]})
     for name, (replaces, source) in LM_KERNELS.items():
         row = lm_times[name]
+        # each kernel's launches from its own path: the scan's from the
+        # Jamba serve run, RMSNorm's and flash's from qwen3-1.7b's
+        own = ssm_launches if name == "selective_scan" else lm_launches
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces,
-                      "launches": lm_launches[name],
+                      "launches": own[name],
                       "launches_lm_serve": lm_launches[name],
+                      "launches_ssm_serve": ssm_launches[name],
                       "checks": lm_checks[name],
                       "max_abs_err": lm_worst[name]["bfloat16"],
                       "ms": row["ms"], "plain_ms": row["plain_ms"],

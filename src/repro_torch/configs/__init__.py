@@ -3,7 +3,7 @@
 The same ten configs as the JAX package's ``repro.configs``, in data files
 of their own. Every config loads; ``models.init_lm`` raises
 ``NotImplementedError`` on the layer kinds the port has not ported yet
-(MoE, Mamba, xLSTM), naming their ROADMAP item.
+(the xLSTM mixers), naming their ROADMAP item.
 """
 from __future__ import annotations
 

@@ -5,6 +5,9 @@ from __future__ import annotations
 
 import torch
 
+# The kernel packages, each with its CUDA source in <package>/csrc/.
+PACKAGES = ("alf_step", "rmsnorm", "flash_attention", "mamba_scan")
+
 
 def on_cuda(name: str, device: torch.device) -> bool:
     """Dispatch of every op by the device of its tensors: True on a CUDA

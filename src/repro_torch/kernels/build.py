@@ -28,9 +28,10 @@ KERNELS_DIR = Path(__file__).resolve().parent
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-# Per-source additions: the ALF kernels repeat their plain version's
-# operation order bit for bit, so no a*b+c may be contracted there.
-EXTRA_FLAGS = {"alf_step": ("--fmad=false",)}
+# Per-source additions: the ALF kernels and the selective scan's state
+# update repeat their plain version's operation order bit for bit, so no
+# a*b+c may be contracted there.
+EXTRA_FLAGS = {"alf_step": ("--fmad=false",), "mamba_scan": ("--fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

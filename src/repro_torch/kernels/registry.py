@@ -41,6 +41,10 @@ NO_REVERSE_RULE = {
     "rmsnorm.rmsnorm":
         "serving path only; training (with the FA2 backward) is a later "
         "slice",
+    "mamba_scan.selective_scan":
+        "serving path only; as in the JAX package, training (a later "
+        "slice) scans with the plain version, which autograd "
+        "differentiates",
 }
 
 

@@ -20,12 +20,13 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.configs import DEFAULT_ODE, get_config, smoke_config
+from repro_torch.configs import (DEFAULT_ODE, ModelConfig, get_config,
+                                 smoke_config)
 from repro_torch.core.ode_block import OdeSettings
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, init_lm, prefill
@@ -59,13 +60,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(arch: str, *, smoke: bool = True, ode: bool = True,
-          prompt_len: int = 32, decode_tokens: int = 16, batch: int = 4,
-          seed: int = 0, device=None) -> ServeResult:
+def serve(arch: Union[str, ModelConfig], *, smoke: bool = True,
+          ode: bool = True, prompt_len: int = 32, decode_tokens: int = 16,
+          batch: int = 4, seed: int = 0, device=None) -> ServeResult:
     """Prefill a seeded random prompt, then decode greedily; returns the
-    tokens and the timings."""
+    tokens and the timings. ``arch`` is an arch name (its smoke or full
+    config, per ``smoke``) or a ``ModelConfig`` served as given (a depth
+    cut, say; ``smoke`` is then not read)."""
     settings = DEFAULT_ODE if ode else OdeSettings(mode="off")
-    cfg = smoke_config(arch, settings) if smoke else get_config(arch, settings)
+    if isinstance(arch, ModelConfig):
+        cfg = arch.with_ode(settings).validate()
+    elif smoke:
+        cfg = smoke_config(arch, settings)
+    else:
+        cfg = get_config(arch, settings)
     dev = resolve_device(device)
     s_max = prompt_len + decode_tokens
     rng = np.random.default_rng(seed)

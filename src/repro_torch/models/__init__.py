@@ -1,5 +1,5 @@
-"""Model substrate, serve path: attention blocks + the continuous-depth
-LM (prefill / decode)."""
+"""Model substrate, serve path: attention, Mamba and MoE blocks + the
+continuous-depth LM (prefill / decode)."""
 from .lm import (ServeState, decode_step, init_lm, init_serve_state,
                  prefill)
 from .transformer import init_blocks, init_cache, n_cache_slots

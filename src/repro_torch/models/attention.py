@@ -36,27 +36,29 @@ from repro_torch.core.alf import check_backend
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-from .common import (apply_rope, dense_init, rmsnorm, rmsnorm_init, softcap,
-                     torch_dtype)
+from .common import (apply_rope, dense_inits, rmsnorm, rmsnorm_inits,
+                     softcap, torch_dtype)
 
 Pytree = Any
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps softmax NaN-free on fully-masked rows
 
 
-def init_attention(generator: torch.Generator, cfg: ModelConfig,
-                   device) -> Pytree:
+def attention_inits(generator: torch.Generator, cfg: ModelConfig,
+                    device) -> Pytree:
+    """Leaf initializers (``common.materialize``) of one attention
+    mixer."""
     dt = torch_dtype(cfg.param_dtype)
     d, h, k_, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     params = {
-        "wq": dense_init(generator, (d, h * dh), dt, device),
-        "wk": dense_init(generator, (d, k_ * dh), dt, device),
-        "wv": dense_init(generator, (d, k_ * dh), dt, device),
-        "wo": dense_init(generator, (h * dh, d), dt, device, fan_in=h * dh),
+        "wq": dense_inits(generator, (d, h * dh), dt, device),
+        "wk": dense_inits(generator, (d, k_ * dh), dt, device),
+        "wv": dense_inits(generator, (d, k_ * dh), dt, device),
+        "wo": dense_inits(generator, (h * dh, d), dt, device, fan_in=h * dh),
     }
     if cfg.qk_norm:
-        params["q_norm"] = rmsnorm_init(dh, dt, device)
-        params["k_norm"] = rmsnorm_init(dh, dt, device)
+        params["q_norm"] = rmsnorm_inits(dh, dt, device)
+        params["k_norm"] = rmsnorm_inits(dh, dt, device)
     return params
 
 

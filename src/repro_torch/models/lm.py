@@ -8,11 +8,12 @@ archs: the model consumes precomputed frame/patch embeddings instead of
 token ids.
 
 ``prefill`` and ``decode_step`` take ``backend``: ``"cuda"`` (default)
-sends RMSNorm, prompt attention and the ALF state updates through the
-port's kernel ops (the hand-written kernels on the card, their plain
-versions on the CPU); ``"reference"`` runs the plain versions on any
-device, the yardstick the kernel path is held against on the card. Both
-run without autograd; the cache in ``state`` is written in place.
+sends RMSNorm, prompt attention, the Mamba prompt scan and the ALF state
+updates through the port's kernel ops (the hand-written kernels on the
+card, their plain versions on the CPU); ``"reference"`` runs the plain
+versions on any device, the yardstick the kernel path is held against on
+the card. Both run without autograd; the cache in ``state`` is written in
+place.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
-from .common import embed_init, rmsnorm, rmsnorm_init, softcap, torch_dtype
+from .common import (embed_init, materialize, rmsnorm, rmsnorm_inits,
+                     softcap, torch_dtype)
 from .transformer import blocks_serve, init_blocks, init_cache
 
 Pytree = Any
@@ -41,7 +43,7 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig,
         "embed": embed_init(generator, (cfg.vocab_size, cfg.d_model), dt,
                             dev),
         "blocks": init_blocks(generator, cfg, dev),
-        "final_norm": rmsnorm_init(cfg.d_model, dt, dev),
+        "final_norm": materialize(rmsnorm_inits(cfg.d_model, dt, dev)),
     }
     if not cfg.tie_embeddings:
         params["head"] = embed_init(generator, (cfg.d_model, cfg.vocab_size),

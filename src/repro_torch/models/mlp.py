@@ -9,19 +9,20 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-from .common import dense_init, silu, torch_dtype
+from .common import dense_inits, silu, torch_dtype
 
 Pytree = Any
 
 
-def init_mlp(generator: torch.Generator, cfg: ModelConfig, d_ff: int,
-             device) -> Pytree:
+def mlp_inits(generator: torch.Generator, cfg: ModelConfig, d_ff: int,
+              device) -> Pytree:
+    """Leaf initializers (``common.materialize``) of one gated MLP."""
     dt = torch_dtype(cfg.param_dtype)
     d = cfg.d_model
     return {
-        "w_gate": dense_init(generator, (d, d_ff), dt, device),
-        "w_up": dense_init(generator, (d, d_ff), dt, device),
-        "w_down": dense_init(generator, (d_ff, d), dt, device, fan_in=d_ff),
+        "w_gate": dense_inits(generator, (d, d_ff), dt, device),
+        "w_up": dense_inits(generator, (d, d_ff), dt, device),
+        "w_down": dense_inits(generator, (d_ff, d), dt, device, fan_in=d_ff),
     }
 
 

@@ -1,31 +1,31 @@
-"""Block assembly, serve path: stacked periods x (mixer, mlp) residual
-branches, with the paper's continuous-depth mode.
+"""Block assembly, serve path: (prelude, stacked periods) x (mixer, mlp)
+residual branches, with the paper's continuous-depth mode.
 
 The port of the serve parts of the JAX package's
 ``repro.models.transformer``. Each residual branch is either the discrete
 ``x + f(norm(x))`` (``ode.mode == 'off'``) or the Neural-ODE
 ``x <- z(T), dz/dt = f_branch(z)`` integrated by ``ode.n_steps`` explicit
-ALF steps (forward only), with the KV cache threaded through every f-eval:
-each eval index is a cache "virtual layer" slot. The ALF state algebra
-between the f-evals (``midpoint`` then ``update``, in float32) runs
-through the fused ALF ops (``kernels/alf_step``), so the card launches the
-ALF kernels inside every continuous-depth block.
+ALF steps (forward only), with the KV or SSM cache threaded through every
+f-eval: each eval index is a cache "virtual layer" slot. The ALF state
+algebra between the f-evals (``midpoint`` then ``update``, in float32)
+runs through the fused ALF ops (``kernels/alf_step``), so the card
+launches the ALF kernels inside every continuous-depth block.
 
-Parameters and caches keep the JAX package's layout — the period's
-parameters and caches stacked on a leading ``n_periods`` axis — so weights
-convert leaf for leaf; the port loops over that axis in Python where the
-JAX package scans. Caches are updated in place.
+Mixers: attention (``attention.py``) and Mamba (``ssm.py``); MLPs: dense
+(``mlp.py``), MoE (``moe.py``, at the serve-time capacity) or none.
+Parameters and caches keep the JAX package's layout — the prelude's
+layers unstacked in a list, the period's parameters and caches stacked on
+a leading ``n_periods`` axis — so weights convert leaf for leaf; the port
+loops over that axis in Python where the JAX package scans. Caches are
+updated in place.
 
-Only attention mixers and dense (or no) MLPs in the stacked period are
-ported. The other layer kinds, and a prelude of unstacked layers (only
-deepseek-moe-16b has one), raise ``NotImplementedError`` naming the ROADMAP
-item they land with.
-The training path (``layer_train``/``blocks_train``) comes with the
-training slice.
+The xLSTM mixers raise ``NotImplementedError`` naming the ROADMAP item
+they land with. The training path (``layer_train``/``blocks_train``)
+comes with the training slice.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -35,36 +35,32 @@ from repro_torch.core.alf import check_backend
 from repro_torch.kernels.alf_step import ops as alf_ops
 from repro_torch.kernels.alf_step import ref as alf_ref
 
-from .attention import (KVCache, attention_decode, attention_prefill,
-                        init_attention)
-from .common import rmsnorm, rmsnorm_init, torch_dtype
-from .mlp import apply_mlp, init_mlp
+from .attention import (KVCache, attention_decode, attention_inits,
+                        attention_prefill)
+from .common import materialize, rmsnorm, rmsnorm_inits, torch_dtype
+from .mlp import apply_mlp, mlp_inits
+from .moe import apply_moe, moe_inits
+from .ssm import (MambaCache, apply_mamba_decode, apply_mamba_prefill,
+                  mamba_inits)
 
 Pytree = Any
 
 # Layer kinds of the JAX package that land with a later slice.
 _LATER = {
-    "mamba": "the Jamba/SSM serving slice (ROADMAP queue 1)",
-    "moe": "the Jamba/SSM serving slice, which ports models/moe.py "
-           "(ROADMAP queue 1)",
     "mlstm": "the xLSTM slice (ROADMAP queue 1)",
     "slstm": "the xLSTM slice (ROADMAP queue 1)",
 }
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config with a layer kind or a
-    prelude this port does not have yet."""
+    """Raise ``NotImplementedError`` for a config with a layer kind this
+    port does not have yet."""
     for spec in cfg.prelude + cfg.period:
         for kind in (spec.mixer, spec.mlp):
             if kind in _LATER:
                 raise NotImplementedError(
                     f"{cfg.name}: {kind!r} layers are not ported yet; they "
                     f"land with {_LATER[kind]}")
-    if cfg.prelude:
-        raise NotImplementedError(
-            f"{cfg.name}: prelude layers are not ported yet; they land with "
-            f"{_LATER['moe']}")
 
 
 def n_cache_slots(cfg: ModelConfig) -> int:
@@ -74,29 +70,64 @@ def n_cache_slots(cfg: ModelConfig) -> int:
     return cfg.ode.n_steps + 1
 
 
-def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
-               device) -> Pytree:
+_MIXER_INITS = {
+    "attn": attention_inits,
+    "mamba": mamba_inits,
+}
+
+
+def layer_inits(generator: torch.Generator, cfg: ModelConfig,
+                spec: LayerSpec, device,
+                dense_d_ff: Optional[int] = None) -> Pytree:
+    """Leaf initializers (``common.materialize``) of one layer."""
     dt = torch_dtype(cfg.param_dtype)
     params = {
-        "mixer_norm": rmsnorm_init(cfg.d_model, dt, device),
-        "mixer": init_attention(generator, cfg, device),
+        "mixer_norm": rmsnorm_inits(cfg.d_model, dt, device),
+        "mixer": _MIXER_INITS[spec.mixer](generator, cfg, device),
     }
     if spec.mlp == "dense":
-        params["mlp_norm"] = rmsnorm_init(cfg.d_model, dt, device)
-        params["mlp"] = init_mlp(generator, cfg, cfg.d_ff, device)
+        params["mlp_norm"] = rmsnorm_inits(cfg.d_model, dt, device)
+        params["mlp"] = mlp_inits(generator, cfg, dense_d_ff or cfg.d_ff,
+                                  device)
+    elif spec.mlp == "moe":
+        params["mlp_norm"] = rmsnorm_inits(cfg.d_model, dt, device)
+        params["mlp"] = moe_inits(generator, cfg, device)
     return params
+
+
+def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+               device, dense_d_ff: Optional[int] = None) -> Pytree:
+    return materialize(layer_inits(generator, cfg, spec, device, dense_d_ff))
 
 
 def init_blocks(generator: torch.Generator, cfg: ModelConfig,
                 device) -> Pytree:
+    """The prelude's layers, then the period's, each leaf allocated once
+    as [n_periods, ...] and filled period by period as it is drawn: init
+    holds the weights plus one leaf's draw temporaries (stacking finished
+    periods would hold the weights twice)."""
     check_supported(cfg)
     params: Pytree = {}
+    if cfg.prelude:
+        params["prelude"] = [
+            init_layer(generator, cfg, spec, device,
+                       dense_d_ff=cfg.prelude_d_ff or None)
+            for spec in cfg.prelude]
     if cfg.period:
-        periods = [{f"sub{j}": init_layer(generator, cfg, spec, device)
-                    for j, spec in enumerate(cfg.period)}
-                   for _ in range(cfg.n_periods)]
-        params["period"] = pytree.tree_map(lambda *xs: torch.stack(xs),
-                                           *periods)
+        stacked, tree = None, None
+        for p in range(cfg.n_periods):
+            inits, tree = pytree.tree_flatten(
+                {f"sub{j}": layer_inits(generator, cfg, spec, device)
+                 for j, spec in enumerate(cfg.period)})
+            if stacked is None:
+                stacked = [None] * len(inits)
+            for i, make in enumerate(inits):
+                leaf = make()
+                if stacked[i] is None:
+                    stacked[i] = leaf.new_empty((cfg.n_periods, *leaf.shape))
+                stacked[i][p].copy_(leaf)
+                del leaf
+        params["period"] = pytree.tree_unflatten(stacked, tree)
     return params
 
 
@@ -105,33 +136,45 @@ def init_blocks(generator: torch.Generator, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
-                     s_max: int, device) -> KVCache:
-    return KVCache.init(cfg, n_cache_slots(cfg), batch, s_max, device)
+                     s_max: int, device) -> Pytree:
+    slots = n_cache_slots(cfg)
+    if spec.mixer == "attn":
+        return KVCache.init(cfg, slots, batch, s_max, device)
+    return MambaCache.init(cfg, slots, batch, device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> Pytree:
     check_supported(cfg)
     cache: Pytree = {}
+    if cfg.prelude:
+        cache["prelude"] = [init_layer_cache(cfg, spec, batch, s_max, device)
+                            for spec in cfg.prelude]
     if cfg.period:
-        slots = n_cache_slots(cfg)
-        dt = torch_dtype(cfg.compute_dtype)
-        shape = (cfg.n_periods, slots, batch, s_max, cfg.n_kv_heads,
-                 cfg.d_head)
-        cache["period"] = {
-            f"sub{j}": KVCache(torch.zeros(shape, dtype=dt, device=device),
-                               torch.zeros(shape, dtype=dt, device=device))
-            for j in range(len(cfg.period))}
+        proto = {f"sub{j}": init_layer_cache(cfg, spec, batch, s_max, device)
+                 for j, spec in enumerate(cfg.period)}
+        # tiled from one period's caches (not zeros), as the JAX package
+        # does, so a non-zero initial state would carry over
+        cache["period"] = pytree.tree_map(
+            lambda t: t[None].repeat(cfg.n_periods, *(1,) * t.dim()), proto)
     return cache
 
 
 def _mixer_serve(params, cfg, spec, z, cache, slot, pos_info, kind,
                  backend):
     """Dispatch one mixer f-eval with cache read/write at `slot`."""
+    if spec.mixer == "attn":
+        if kind == "prefill":
+            return attention_prefill(params, cfg, spec, z, pos_info, cache,
+                                     slot, backend)
+        return attention_decode(params, cfg, spec, z, pos_info, cache, slot,
+                                backend)
     if kind == "prefill":
-        return attention_prefill(params, cfg, spec, z, pos_info, cache, slot,
-                                 backend)
-    return attention_decode(params, cfg, spec, z, pos_info, cache, slot,
-                            backend)
+        y, (conv_state, ssm_state) = apply_mamba_prefill(
+            params, cfg, z, return_state=True, backend=backend)
+        cache.conv[slot] = conv_state
+        cache.ssm[slot] = ssm_state
+        return y, cache
+    return apply_mamba_decode(params, cfg, z, cache, slot)
 
 
 def _alf_unroll(f, x: torch.Tensor, n: int, eta: float, h: torch.Tensor,
@@ -153,8 +196,8 @@ def _alf_unroll(f, x: torch.Tensor, n: int, eta: float, h: torch.Tensor,
 
 
 def layer_serve(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
-                x: torch.Tensor, cache: KVCache, pos_info, kind: str,
-                backend: str = "cuda") -> Tuple[torch.Tensor, KVCache]:
+                x: torch.Tensor, cache: Pytree, pos_info, kind: str,
+                backend: str = "cuda") -> Tuple[torch.Tensor, Pytree]:
     """One layer, serve mode. pos_info: positions [B,S] (prefill) or int
     pos (decode). The cache is written in place and returned."""
     check_backend(backend)
@@ -169,6 +212,8 @@ def layer_serve(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
 
     def mlp_eval(z, _slot=None):
         zn = rmsnorm(params["mlp_norm"], z.to(cdt), backend=backend)
+        if spec.mlp == "moe":
+            return apply_moe(params["mlp"], cfg, zn, eval_mode=True).float()
         return apply_mlp(params["mlp"], zn).float()
 
     if ode.mode == "off":
@@ -190,6 +235,9 @@ def layer_serve(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
 def blocks_serve(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
                  cache: Pytree, pos_info, kind: str, backend: str = "cuda"
                  ) -> Tuple[torch.Tensor, Pytree]:
+    for i, spec in enumerate(cfg.prelude):
+        x, _ = layer_serve(params["prelude"][i], cfg, spec, x,
+                           cache["prelude"][i], pos_info, kind, backend)
     for p in range(cfg.n_periods if cfg.period else 0):
         pp = pytree.tree_map(lambda a: a[p], params["period"])
         cc = pytree.tree_map(lambda a: a[p], cache["period"])   # views

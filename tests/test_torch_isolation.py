@@ -31,7 +31,10 @@ def test_port_has_files_to_scan():
                 "src/repro_torch/kernels/flash_attention/ops.py",
                 "src/repro_torch/kernels/rmsnorm/ops.py",
                 "src/repro_torch/configs/qwen3_1_7b.py",
-                "src/repro_torch/launch/serve.py"):
+                "src/repro_torch/launch/serve.py",
+                "src/repro_torch/models/ssm.py",
+                "src/repro_torch/models/moe.py",
+                "src/repro_torch/kernels/mamba_scan/ops.py"):
         assert new in names
 
 
@@ -51,6 +54,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.registry\n"
         "import repro_torch.kernels.rmsnorm.ops\n"
         "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.mamba_scan.ops\n"
         "import repro_torch.configs, repro_torch.models\n"
         "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
