@@ -46,18 +46,24 @@ either. Phases, each printing JSON lines:
                and the top device operations.
 9. lm_kernels — the RMSNorm, flash-attention and selective-scan kernels
                against their plain versions on the card. RMSNorm: f32 and
-               bf16, rows in {1, 4, 65536, 4099}, d in {128, 2048, 2304}.
-               Flash: the seven FA_CASES of tests/test_kernels.py, ragged
-               and d=16 / d=256 cases, a strided (transposed) operand and
-               qwen3-1.7b's prefill shape, f32 and bf16. Scan: the four
-               MS_CASES of tests/test_kernels.py, S = 1, ragged DI (200,
-               8192 + 37), a given h0, strided operands and Jamba's
-               prefill shape, f32 and bf16 inputs.
+               bf16, rows in {1, 4, 65536, 4099}, d every config's d_model
+               and q/k-norm d_head (128, 768, 2048, 2304, 4096, 6144,
+               8192) and 16, 64, 100, 2050 (the scalar kernel's widths):
+               88 cases. Flash: the seven FA_CASES of tests/test_kernels.py,
+               ragged and d=16 / d=256 cases, one query over 1024 keys,
+               129 rows (one past a 128-row tile), MQA H16/KV1 at d=128,
+               S=1024 causal at d=256, a strided (transposed) operand, q
+               off a 16-byte boundary (bf16 must raise: TMA) and
+               qwen3-1.7b's prefill shape, f32 and bf16: 36 cases. Scan:
+               the four MS_CASES of tests/test_kernels.py, S = 1, ragged
+               DI (200, 8192 + 37), a given h0, strided operands and
+               Jamba's prefill shape, f32 and bf16 inputs: 18 cases.
 10. lm_times  — each of the three kernels at its model's prefill shapes
                (qwen3-1.7b; the scan at jamba-v0.1-52b's): CUDA-event ms,
                ms in a CUDA graph, its bound, its plain version's ms and
-               one library call's ms (torch.nn.functional.rms_norm,
-               scaled_dot_product_attention; none for the scan).
+               one library call's ms, also in a graph
+               (torch.nn.functional.rms_norm, scaled_dot_product_attention;
+               none for the scan), and flash's TFLOP/s from graph times.
 11. lm_serve  — the port's serve() for qwen3-1.7b at full width (bf16,
                DEFAULT_ODE, seeded random weights): batch 4, prompt 1024,
                32 greedy decode steps, with exact launch counts (per
@@ -154,7 +160,11 @@ LM_PER_PREFILL = {"flash_attention": 84, "rmsnorm": 337,
 LM_PER_DECODE = {"flash_attention": 0, "rmsnorm": 337,
                  "alf_midpoint": 112, "alf_update": 112}
 RN_ROWS = (1, 4, 4096 * 16, 4099)
-RN_DIMS = (128, 2048, 2304)
+# widths beside every config's own (d_model, and d_head where q/k are
+# normed; _rn_dims): the smoke configs' d_model 64 and d_head 16, 100 (16
+# bytes a vector in f32, not in bf16: the scalar kernel) and 2050 (no
+# 16-byte vector in either dtype)
+RN_EXTRA_DIMS = (16, 64, 100, 2050)
 # elementwise |got - want| <= atol + rtol * |want|. f32: rsqrtf and the
 # warp's summation order against torch's, ~1e-7 relative; bf16: one
 # rounding of the f32 result may land one bf16 ulp (2^-7 relative) apart.
@@ -175,12 +185,22 @@ FA_CASES = (
     (2, 37, 37, 4, 2, 16, True, 8, 50.0),       # smoke-config head size
     (1, 300, 300, 8, 4, 256, True, 100, 50.0),  # gemma2 head size, ragged
     (1, 100, 333, 4, 2, 128, False, 0, 0.0),    # Sq < Sk, KV tail masked
+    (2, 1, 1024, 16, 8, 128, False, 0, 0.0),    # one query over 8 kv tiles
+    (2, 129, 129, 4, 2, 128, True, 0, 0.0),     # one row past a 128-row tile
+    (1, 512, 512, 16, 1, 128, True, 0, 0.0),    # MQA H16/KV1 at d=128
+    (1, 1024, 1024, 8, 4, 256, True, 0, 0.0),   # gemma2 heads, S=1024, d=256
     (LM_BATCH, LM_PROMPT, LM_PROMPT, 16, 8, 128, True, 0, 0.0),  # qwen3
 )
 # elementwise |got - want| <= atol + rtol * |want|. f32: the Pallas bar
 # of tests/test_kernels.py:287. bf16: the kernel and the plain version
 # both compute in f32 and round once, so they may land one bf16 ulp
 # (at most 2^-7 relative) apart; atol covers f32 summation order near 0.
+# The bf16 kernel multiplies P.V on the tensor cores as P_hi + P_lo (two
+# bf16 roundings: |P - P_hi - P_lo| <= 2^-16 P), so its output moves by
+# at most 2^-16 max|v| from the f32 product and typically by far less
+# (averaged over many keys): inside this atol on every case here, so the
+# bar is unchanged (tests/test_torch_lm_kernels.py holds the split's
+# arithmetic to it on the CPU).
 FA_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2.0 ** -7, 1e-5)}
 # The library yardstick multiplies P.V in bf16, as the Pallas kernel does:
 # held to the Pallas bf16 bar of tests/test_kernels.py:287.
@@ -1068,6 +1088,17 @@ def _scan_checks(gen, worst, what):
     return n
 
 
+def _rn_dims():
+    """Every config's d_model and q/k-norm d_head, and RN_EXTRA_DIMS."""
+    from repro_torch.configs import ARCHS
+    dims = set(RN_EXTRA_DIMS)
+    for cfg in ARCHS.values():
+        dims.add(cfg.d_model)
+        if cfg.qk_norm:
+            dims.add(cfg.d_head)
+    return sorted(dims)
+
+
 def phase_lm_kernels():
     """RMSNorm, flash attention and the selective scan against their plain
     versions."""
@@ -1090,7 +1121,7 @@ def phase_lm_kernels():
         key = str(dtype).split(".")[-1]
         rtol, atol = RN_TOL[key]
         for rows in RN_ROWS:
-            for d in RN_DIMS:
+            for d in _rn_dims():
                 x = randn(rows, d, dtype=dtype, scale=3.0)
                 scale = (1.0 + randn(d, dtype=torch.float32, scale=0.1)
                          ).to(dtype)
@@ -1135,6 +1166,29 @@ def phase_lm_kernels():
         want = fa_ref.attention_ref(q, k, v, causal=True)
         torch.cuda.synchronize()
         _close(got, want, rtol, atol, f"flash_attention {key} strided")
+        checks["flash_attention"] += 1
+        # q at a base 2 bytes past a 16-byte boundary: the f32 kernel reads
+        # it; the bf16 kernel's TMA cannot, and its launcher must raise
+        # (no copy is made)
+        buf = randn(b * s * h * d + 1, dtype=dtype)
+        q = buf[1:].view(b, s, h, d)
+        k = randn(b, s, kv, d, dtype=dtype)
+        v = randn(b, s, kv, d, dtype=dtype)
+        before = fa_k.LAUNCHES["flash_attention"]
+        if dtype == torch.bfloat16:
+            try:
+                fa_ops.flash_attention(q, k, v, causal=True)
+                raised = False
+            except ValueError as e:
+                raised = "16-byte" in str(e)
+            require(raised and fa_k.LAUNCHES["flash_attention"] == before,
+                    "flash_attention: a bf16 q off a 16-byte boundary must "
+                    "raise before launching")
+        else:
+            got = fa_ops.flash_attention(q, k, v, causal=True)
+            want = fa_ref.attention_ref(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            _close(got, want, rtol, atol, f"flash_attention {key} unaligned")
         checks["flash_attention"] += 1
     checks["selective_scan"] = _scan_checks(gen, worst["selective_scan"],
                                             "selective_scan")
@@ -1212,10 +1266,16 @@ def phase_lm_times(card: str):
                    "enable_gqa=True)",
         "graph_ms": _graph_ms(kern, 10),
         "plain_graph_ms": _graph_ms(plain, 5),
-        "flops": 4 * pairs * d, "tflops_per_s": 4 * pairs * d / ms / 1e9,
+        "library_graph_ms": _graph_ms(lib, 10),
+        "flops": 4 * pairs * d,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    emit({"phase": "lm_times", **rows["flash_attention"]})
+    fa = rows["flash_attention"]
+    # useful operations (the masked half of the scores not counted) per
+    # second of device time
+    fa["tflops_per_s"] = fa["flops"] / fa["graph_ms"] / 1e9
+    fa["library_tflops_per_s"] = fa["flops"] / fa["library_graph_ms"] / 1e9
+    emit({"phase": "lm_times", **fa})
     del q, k, v, qt, kt, vt
     rows["selective_scan"] = _scan_times(gen, bw, f32_peak)
     emit({"phase": "lm_times", **rows["selective_scan"]})
@@ -1857,7 +1917,9 @@ def main() -> int:
                       "ms": row["ms"], "plain_ms": row["plain_ms"],
                       "bound_ms": row["bound_ms"],
                       "bound_by": row["bound_by"],
-                      "library_ms": row["library_ms"]})
+                      "library_ms": row["library_ms"],
+                      "graph_ms": row["graph_ms"],
+                      "library_graph_ms": row.get("library_graph_ms")})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

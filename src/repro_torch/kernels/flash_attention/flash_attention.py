@@ -4,10 +4,12 @@
 ``k, v [B, Sk, K, d]`` of one dtype (float32 or bfloat16), ``H % K == 0``,
 ``d`` in {16, 32, 64, 128, 256}, each with its last (head) dimension
 contiguous; the batch, sequence and head strides go to the kernel as they
-are, so no operand is copied. It allocates the output ``[B, Sq, H, d]``,
-launches ONE kernel on PyTorch's current stream, raises if the launch
-failed, and adds one to :data:`LAUNCHES`. The plain version is
-``ref.attention_ref``.
+are, so no operand is copied. bfloat16 runs the tensor-core kernel, whose
+TMA loads need q, k and v at 16-byte aligned addresses with strides of
+multiples of 8 elements (the launcher raises otherwise); float32 runs the
+CUDA-core kernel. It allocates the output ``[B, Sq, H, d]``, launches ONE
+kernel on PyTorch's current stream, raises if the launch failed, and adds
+one to :data:`LAUNCHES`. The plain version is ``ref.attention_ref``.
 """
 from __future__ import annotations
 
@@ -28,6 +30,10 @@ _P = ctypes.c_void_p
 _ARGTYPES = ([_I] * 7 + [_P] * 4 + [ctypes.c_int64] * 12
              + [ctypes.c_float, _I, _I, ctypes.c_float, _P])
 
+# the C function's code for a TMA descriptor it could not build:
+# _ENCODE_ERROR + the driver's CUresult
+_ENCODE_ERROR = 10000
+
 _FN = []
 
 
@@ -44,6 +50,25 @@ def _fn():
         f.restype = ctypes.c_int
         _FN.append(f)
     return _FN[0]
+
+
+def _strides(t: torch.Tensor, d: int) -> list:
+    """(batch, sequence, head) strides in elements; a dimension of size 1
+    is never stepped, so it gets the head dim's extent d (a multiple of 8
+    elements, as a TMA descriptor asks of every stride)."""
+    return [st if n > 1 else d for n, st in zip(t.shape[:3], t.stride()[:3])]
+
+
+def _check_tma_alignment(t: torch.Tensor, name: str, d: int) -> None:
+    """The bf16 kernel's TMA loads read t at a 16-byte aligned base with
+    16-byte multiples as strides; raise rather than copy."""
+    if t.data_ptr() % 16 or any((s * t.element_size()) % 16
+                                for s in _strides(t, d)):
+        raise ValueError(
+            f"flash_attention: bfloat16 {name} must start at a 16-byte "
+            f"aligned address with strides of multiples of 8 elements "
+            f"(TMA), got address {t.data_ptr():#x} and strides "
+            f"{tuple(t.stride())}")
 
 
 def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,17 +103,25 @@ def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1:
             raise ValueError("flash_attention: the head dim of q, k, v must "
                              "be contiguous")
+    if q.dtype == torch.bfloat16:
+        for t, name in ((q, "q"), (k, "k"), (v, "v")):
+            _check_tma_alignment(t, name, d)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0 or h == 0:
         return out
     if sk == 0:
         raise ValueError("flash_attention: no keys (Sk == 0)")
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    strides = [s for t in (q, k, v, out) for s in _strides(t, d)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _fn()(_DTYPE_CODE[q.dtype], d, b, h, h // kh, sq, sk, q.data_ptr(),
                k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
                float(d ** -0.5), int(bool(causal)), int(window),
                float(softcap), stream)
+    if rc >= _ENCODE_ERROR:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed "
+                           f"with CUresult {rc - _ENCODE_ERROR} (q "
+                           f"{tuple(q.shape)} strides {tuple(q.stride())}, k "
+                           f"{tuple(k.shape)} strides {tuple(k.stride())})")
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {rc} (q {tuple(q.shape)}, k "

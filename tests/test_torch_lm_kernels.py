@@ -20,7 +20,9 @@ in f32 and round once at the end, and an f32 difference at the last bit
 may flip that rounding.
 """
 import dataclasses
+import importlib.util
 import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +43,18 @@ from repro_torch.kernels.rmsnorm import ref as rn_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rn_kernel
 
 torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SMOKE = _load("chip_smoke", ROOT / "chip_smoke.py")
 
 TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 JAX_DT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -173,6 +187,104 @@ def test_flash_plain_reads_strided_operands():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 tensor-core kernel's arithmetic (split P), on the CPU
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's flash cases that fit this host: at most 2^28
+# multiply-adds per product (its larger ones run only on the card)
+SPLIT_CASES = [c for c in SMOKE.FA_CASES
+               if c[0] * c[1] * c[2] * c[3] * c[5] <= 2 ** 28]
+
+
+def _split_p_attention(q, k, v, *, causal, window, softcap, split):
+    """What the bf16 kernel computes, in plain torch: scores in f32 (the
+    tensor cores' bf16 products are exact in the f32 sum), softcap and
+    mask as ``ref.attention_ref``, P = exp(S - m) and its row sum l in f32,
+    then P rounded to bf16 as P_hi (and, with ``split``, P_lo =
+    bf16(P - P_hi) beside it) for (P_hi + P_lo).V in f32, divided by
+    max(l, 1e-30) and rounded once to bf16."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kh, h // kh, d).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (d ** -0.5)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos, kpos = torch.arange(sq), torch.arange(sk)
+    keep = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        keep &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        keep &= kpos[None, :] > qpos[:, None] - window
+    s = s.masked_fill(~keep, fa_ref.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    denom = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    p_hi = p.to(torch.bfloat16).float()
+    pv = p_hi + (p - p_hi).to(torch.bfloat16).float() if split else p_hi
+    o = torch.einsum("bkgqs,bskd->bqkgd", pv / denom, v.float())
+    return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def _excess(got, want, rtol):
+    """max(|got - want| - rtol |want|): the least atol the pair needs."""
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() - rtol * w.abs()).max())
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_flash_split_p_meets_the_bf16_bar(case):
+    """P as bf16 hi + lo (~16 bits) keeps the bf16 kernel within
+    chip_smoke.py's FA_TOL["bfloat16"] of the plain version."""
+    rtol, atol = SMOKE.FA_TOL["bfloat16"]
+    (_, tq), (_, tk), (_, tv) = _qkv(case, "bf16")
+    kw = dict(causal=case[6], window=case[7], softcap=case[8])
+    got = _split_p_attention(tq, tk, tv, split=True, **kw)
+    want = fa_ref.attention_ref(tq, tk, tv, **kw)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(
+        got.float()).all())
+    assert _excess(got, want, rtol) <= atol
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_flash_single_bf16_p_fails_the_bf16_bar(case):
+    """One bf16 rounding of P (as SDPA multiplies P.V) moves outputs by
+    ~2^-9 relative: beyond FA_TOL["bfloat16"]'s atol, hence the split."""
+    rtol, atol = SMOKE.FA_TOL["bfloat16"]
+    (_, tq), (_, tk), (_, tv) = _qkv(case, "bf16")
+    kw = dict(causal=case[6], window=case[7], softcap=case[8])
+    got = _split_p_attention(tq, tk, tv, split=False, **kw)
+    want = fa_ref.attention_ref(tq, tk, tv, **kw)
+    assert _excess(got, want, rtol) > atol
+
+
+def test_flash_split_cases_cover_the_new_tile_edges():
+    """The CPU cases include the 128-row tiles' edges chip_smoke.py adds:
+    one query over 1024 keys and 129 rows."""
+    shapes = {c[:3] for c in SPLIT_CASES}
+    assert (2, 1, 1024) in shapes and (2, 129, 129) in shapes
+    assert len(SPLIT_CASES) >= 12
+
+
+def test_flash_launcher_checks_tma_alignment():
+    """The bf16 kernel's TMA loads need 16-byte aligned bases and strides;
+    the launcher raises on anything else instead of copying."""
+    fa_kernel._check_tma_alignment(
+        torch.empty(2, 8, 4, 64, dtype=torch.bfloat16), "q", 64)
+    # a transposed view and a size-1 head dim are fine
+    fa_kernel._check_tma_alignment(torch.empty(
+        2, 4, 8, 64, dtype=torch.bfloat16).transpose(1, 2), "q", 64)
+    fa_kernel._check_tma_alignment(
+        torch.empty(2, 8, 1, 16, dtype=torch.bfloat16), "k", 16)
+    buf = torch.empty(2 * 8 * 4 * 64 + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_kernel._check_tma_alignment(buf[1:].view(2, 8, 4, 64), "q", 64)
+    wide = torch.empty(2, 8, 4, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_kernel._check_tma_alignment(wide, "v", 64)
+    assert fa_kernel._strides(
+        torch.empty(1, 8, 1, 32, dtype=torch.bfloat16), 32) == [32, 32, 32]
+
+
+# ---------------------------------------------------------------------------
 # dispatch, launch counts, registry, build
 # ---------------------------------------------------------------------------
 
@@ -218,6 +330,21 @@ def test_registry_lists_the_serving_ops_as_forward_only(op):
     assert reason is not None and "serving path only" in reason
 
 
+# what each source must hold beyond its note: RMSNorm's 16-byte vectors
+# with the row in registers and the scalar kernel kept for the widths
+# they cannot take; flash's wgmma products, TMA loads by mbarrier, the
+# descriptor built through the runtime's driver entry point (no -lcuda),
+# the register rebalancing, and the f32 CUDA-core kernel
+SOURCE_PARTS = {
+    "rmsnorm": ("rmsnorm_vec_kernel", "uint4",
+                "__global__ void rmsnorm_kernel"),
+    "flash_attention": ("wgmma.mma_async.sync.aligned",
+                        "cp.async.bulk.tensor.4d", "mbarrier.try_wait.parity",
+                        "cuTensorMapEncodeTiled", "__grid_constant__",
+                        "setmaxnreg", "flash_tc_kernel", "flash_fwd_kernel"),
+}
+
+
 @pytest.mark.parametrize("name,tpu_ref", [
     ("rmsnorm", "src/repro/kernels/rmsnorm/rmsnorm.py _rmsnorm_kernel (:19)"),
     ("flash_attention",
@@ -230,6 +357,8 @@ def test_cuda_source_is_hand_written_and_names_the_tpu_kernel(name, tpu_ref):
     assert " ".join(tpu_ref.split()) in " ".join(head.split())
     assert "Bound:" in head and "Design" in head
     assert "cudaGetLastError()" in text
+    for part in SOURCE_PARTS[name]:
+        assert part in text
     for banned in ("cublas", "cudnn", "scaled_dot_product", "torch/"):
         assert banned not in text.lower()
     py = "".join(p.read_text() for p in src.parents[1].glob("*.py"))
@@ -245,7 +374,10 @@ def test_nvcc_flags_per_source():
     for name in ("rmsnorm", "flash_attention"):
         flags = build.nvcc_flags(name)
         assert "--fmad=false" not in flags
+        # wgmma and setmaxnreg exist only for the "a" target
         assert "arch=compute_90a,code=sm_90a" in flags
+        # the TMA descriptor comes through cudaGetDriverEntryPoint
+        assert not any(f.startswith("-l") for f in flags)
     paths = {build.library_path(n) for n in
              ("alf_step", "rmsnorm", "flash_attention")}
     assert len(paths) == 3
