@@ -14,10 +14,17 @@ either. Phases, each printing JSON lines:
                (sign in {+1, -1} for the midpoint and its VJP). The two
                VJP kernels run as the backward of alf_midpoint /
                alf_update under torch.autograd.grad. One op call (or one
-               backward) must be exactly one launch.
+               backward) must be exactly one launch. alf_midpoint_vjp,
+               which moves 16-byte vectors, also on g 0-3 elements past a
+               16-byte boundary (and, through its C entry, the output
+               1-3 past one) at n = 1500*128+37 and 2048*64, f32, bf16
+               and f64.
 3. times     — CUDA-event times of each kernel, its plain version and
                (where one exists) one library call, beside the bound, at
-               the main path's shape and at n = 2^25.
+               the main path's shape and at n = 2^25; a kernel with a
+               library call is timed against it in turns (kernel,
+               library, kernel, library), and at 2^25 also in a CUDA
+               graph.
 4. main path — the paper's Sec 4.2 model (D=64, HIDDEN=64, 3 classes,
                2048 images) trained 20 Adam steps with
                solve(ALF(eta=1, backend="cuda"), ConstantSteps(4), MALI())
@@ -56,14 +63,19 @@ either. Phases, each printing JSON lines:
                off a 16-byte boundary (bf16 must raise: TMA) and
                qwen3-1.7b's prefill shape, f32 and bf16: 36 cases. Scan:
                the four MS_CASES of tests/test_kernels.py, S = 1, ragged
-               DI (200, 8192 + 37), a given h0, strided operands and
-               Jamba's prefill shape, f32 and bf16 inputs: 18 cases.
+               DI (200, 8192 + 37), ST 1, 2, 4 and 32 at the lane groups'
+               edges, a given h0, strided operands and Jamba's prefill
+               shape, f32 and bf16 inputs: 28 cases; y within MS_TOL and
+               h bit for bit.
 10. lm_times  — each of the three kernels at its model's prefill shapes
                (qwen3-1.7b; the scan at jamba-v0.1-52b's): CUDA-event ms,
                ms in a CUDA graph, its bound, its plain version's ms and
                one library call's ms, also in a graph
                (torch.nn.functional.rms_norm, scaled_dot_product_attention;
                none for the scan), and flash's TFLOP/s from graph times.
+               The scan's bound has three terms: bytes, f32 operations,
+               and its expf on the MUFU unit (16 a clock per SM at the
+               card's maximum SM clock).
 11. lm_serve  — the port's serve() for qwen3-1.7b at full width (bf16,
                DEFAULT_ODE, seeded random weights): batch 4, prompt 1024,
                32 greedy decode steps, with exact launch counts (per
@@ -210,11 +222,16 @@ FA_LIB_TOL = (3e-2, 3e-2)
 # f32: summation orders only; bf16: roundings of 28 layers x 3 f-evals.
 LM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # (Bt, S, DI, ST): the four MS_CASES of tests/test_kernels.py:337, one
-# step, DI ragged against the kernel's 128-channel blocks, and Jamba's
-# prefill (d_inner 8192, d_state 16, 4 x 1024 tokens).
+# step, DI ragged against the kernel's blocks, Jamba's prefill (d_inner
+# 8192, d_state 16, 4 x 1024 tokens), and the lane groups' edges: ST 1, 2
+# and 4 (one lane per channel, 128 channels a block), ST 32 (4 lanes, 32
+# channels a block), each with DI off its block and S off the 16-step
+# chunk, ST 32 also with DI off a 4-channel vector.
 MS_CASES = (
     (1, 16, 128, 16), (2, 33, 256, 16), (1, 8, 200, 8), (2, 64, 512, 4),
-    (2, 1, 300, 16), (1, 50, 8192 + 37, 16), (4, 1024, 8192, 16))
+    (2, 1, 300, 16), (1, 50, 8192 + 37, 16), (4, 1024, 8192, 16),
+    (2, 37, 130, 1), (1, 19, 70, 2), (1, 23, 132, 4), (2, 45, 100, 32),
+    (1, 29, 8192 + 37, 32))
 # elementwise |got - want| <= atol + rtol * |want|, f32 and bf16 inputs
 # alike (both sides compute in f32): h is bit-equal (same operation order,
 # --fmad=false); y's ST-term sum runs in another order (the kernel
@@ -388,7 +405,7 @@ def _make_trees(kind: str, n: int, n_in: int, gen):
 def phase_kernels():
     import torch
     import torch.utils._pytree as pytree
-    from repro_torch.kernels.alf_step import alf_step, ops
+    from repro_torch.kernels.alf_step import alf_step, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     h = torch.tensor(0.23, device="cuda")
     worst = {k: 0.0 for k in KERNELS}
@@ -424,6 +441,43 @@ def phase_kernels():
                         if kind == "f32" and n == SLICE_N:
                             worst[name] = max(worst[name], err)
                     checks[name] += 1
+    # alf_midpoint_vjp moves 16-byte vectors: g on a 16-byte boundary and
+    # 1, 2 and 3 elements past one (the output is fresh, so g is then read
+    # element by element, or by vectors again for f64 at 2), at TAIL_N
+    # (a tail of whole elements) and the main path's size; and, through
+    # the library's C entry, the output 1-3 elements past a boundary (its
+    # head written element by element), g alongside
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        hd = h.to(torch.promote_types(dtype, torch.float32))
+        for n in (TAIL_N, SLICE_N):
+            for off in (0, 1, 2, 3):
+                buf = torch.randn(n + 3, device="cuda", generator=gen).to(
+                    dtype)
+                g = buf[off:off + n]
+                for out_off in ((None, 1, 2, 3) if off else (None,)):
+                    before = alf_step.LAUNCHES["alf_midpoint_vjp"]
+                    if out_off is None:
+                        got = alf_step.midpoint_vjp_call(g, hd, sign=-1.0)
+                        require(alf_step.LAUNCHES["alf_midpoint_vjp"]
+                                == before + 1, "alf_midpoint_vjp: one call "
+                                "must be one launch")
+                    else:
+                        got = torch.empty(n + 3, device="cuda",
+                                          dtype=dtype)[out_off:out_off + n]
+                        rc = alf_step._fn("alf_midpoint_vjp")(
+                            alf_step._DTYPE_CODE[dtype], n, g.data_ptr(),
+                            hd.data_ptr(), -1.0, got.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+                        require(rc == 0, f"alf_midpoint_vjp: CUDA error {rc}")
+                    want = ref.midpoint_vjp_ref(g, hd, -1.0)
+                    torch.cuda.synchronize()
+                    err = float((got.double() - want.double()).abs().max())
+                    tol = KERNEL_ULPS * _ulp(dtype) * max(
+                        1.0, float(want.double().abs().max()))
+                    require(err <= tol, f"alf_midpoint_vjp {dtype} n={n} "
+                            f"g offset {off} out offset {out_off}: max abs "
+                            f"err {err} > {tol}")
+                    checks["alf_midpoint_vjp"] += 1
     emit({"phase": "kernels", "checks": checks,
           "tolerance": f"{KERNEL_ULPS} ulp of the storage dtype at the "
                        "output's largest magnitude (>= 1)",
@@ -538,9 +592,17 @@ def phase_times(card: str):
             row = {"name": name, "n": n, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": "bytes" if bytes_ms >= ops_ms
-                   else "operations",
-                   "library_ms": None if lib is None else _time_ms(lib, reps),
-                   "library": label}
+                   else "operations", "library_ms": None, "library": label}
+            if lib is not None:
+                # kernel, library, kernel, library: the two compared in
+                # turns, in one run
+                row["ms_beside_library"], row["library_ms"] = _alternate(
+                    kern, lib, reps)
+                row["to_library"] = (row["ms_beside_library"]
+                                     / row["library_ms"])
+                if n == BIG_N:
+                    row["graph_ms"] = _graph_ms(kern, reps)
+                    row["library_graph_ms"] = _graph_ms(lib, reps)
             if n == SLICE_N:
                 # At this size a call costs more on the host than on the
                 # card; a CUDA graph of 100 calls shows the device's part.
@@ -1062,6 +1124,10 @@ def _scan_checks(gen, worst, what):
             worst[key] = max(worst.get(key, 0.0), err)
             worst[f"{key}_{part}"] = max(worst.get(f"{key}_{part}", 0.0),
                                          err)
+        # h repeats the plain version's operations in its order
+        require(worst[f"{key}_h"] == 0.0,
+                f"selective_scan {label}: h differs from the plain version "
+                f"by {worst[f'{key}_h']}, not bit for bit")
 
     for dtype in (torch.float32, torch.bfloat16):
         key = str(dtype).split(".")[-1]
@@ -1308,6 +1374,15 @@ def _scan_times(gen, bw: float, f32_peak: float):
     # as one f32 operation); per (b, t, i): delta*u
     ops = 7 * n * st + n
     bytes_ms, ops_ms = moved / bw * 1e3, ops / f32_peak * 1e3
+    # each expf is one MUFU ex2, and the MUFU unit retires 16 a clock per
+    # SM: at the card's maximum SM clock that is a floor of its own
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    mufu_ms = n * st / (sms * 16 * mhz * 1e6) * 1e3
+    terms = {"bytes": bytes_ms, "operations": ops_ms, "mufu": mufu_ms}
     return {"name": "selective_scan", "shape": [bt, s, di, st],
             "dtype": "delta f32, u/B/C bfloat16", "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
@@ -1315,9 +1390,11 @@ def _scan_times(gen, bw: float, f32_peak: float):
                        "scan",
             "graph_ms": _graph_ms(kern, 20),
             "plain_graph_ms": _graph_ms(plain, 1),
-            "bytes": moved, "operations": ops,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "bytes": moved, "operations": ops, "expf": n * st,
+            "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+            "mufu_ms": mufu_ms, "sms": sms, "max_sm_mhz": mhz,
+            "bound_ms": max(terms.values()),
+            "bound_by": max(terms, key=terms.get)}
 
 
 def _lm_modules():
@@ -1916,7 +1993,10 @@ def main() -> int:
                       "max_abs_err": lm_worst[name]["bfloat16"],
                       "ms": row["ms"], "plain_ms": row["plain_ms"],
                       "bound_ms": row["bound_ms"],
-                      "bound_by": row["bound_by"],
+                      # the MUFU's expf count as operations of their type
+                      "bound_by": ("bytes" if row["bound_by"] == "bytes"
+                                   else "operations"),
+                      "bound_term": row["bound_by"],
                       "library_ms": row["library_ms"],
                       "graph_ms": row["graph_ms"],
                       "library_graph_ms": row.get("library_graph_ms")})

@@ -19,7 +19,9 @@ final state h both compared:
   tests/test_kernels.py holds that kernel to, 2e-4 / 2e-4 in f32 and
   3e-2 / 3e-2 with bf16 inputs.
 """
+import importlib.util
 import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,18 @@ from repro_torch.kernels.mamba_scan import ops as ms_ops
 from repro_torch.kernels.mamba_scan import ref as ms_ref
 
 torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SMOKE = _load("chip_smoke", ROOT / "chip_smoke.py")
 
 TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 JAX_DT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -170,6 +184,96 @@ def test_scan_reads_strided_operands():
 
 
 # ---------------------------------------------------------------------------
+# the CUDA kernel's arithmetic (states split across a lane group), on the CPU
+# ---------------------------------------------------------------------------
+
+# states each lane of the kernel holds (kLaneStates in csrc/mamba_scan.cu)
+LANE_STATES = 8
+# this file's MS_CASES and chip_smoke.py's scan cases that fit this host:
+# at most 2^16 states per step
+LANE_CASES = MS_CASES + [c for c in SMOKE.MS_CASES
+                         if c[0] * c[2] * c[3] <= 2 ** 16
+                         and c not in MS_CASES]
+
+
+def _kernel_lanes(st):
+    """Lanes per (batch, channel) in the kernel: ST / kLaneStates above
+    kLaneStates states, else one."""
+    return st // LANE_STATES if st > LANE_STATES else 1
+
+
+def _lane_group_scan(delta, u, A, B, C, lanes):
+    """What the kernel computes, in plain torch: h as ``ref.py`` updates it
+    (elementwise, the same operations in the same order), and y per step
+    as the kernel sums it: each of ``lanes`` lanes takes ST / lanes
+    consecutive states and forms its partial sum of h * C with fmaf from
+    0 (emulated: the product is exact in f64, the f64 sum is rounded to
+    f32; a double rounding can differ from fmaf's single one by an ulp),
+    then the group adds its partials as a halving tree, lanes (l,
+    l + lanes/2) first, as the reduce-scatter over __shfl_xor_sync
+    does."""
+    bt, s, di = delta.shape
+    st = A.shape[1]
+    per = st // lanes
+    d, uf = delta.float(), u.float()
+    a, bm, cm = A.float(), B.float(), C.float()
+    h = torch.zeros((bt, di, st), dtype=torch.float32)
+    y = torch.empty((bt, s, di), dtype=torch.float32)
+    for t in range(s):
+        dt = d[:, t]
+        dA_t = torch.exp(dt[..., None] * a)
+        dBu_t = (dt * uf[:, t])[..., None] * bm[:, t, None, :]
+        h = dA_t * h + dBu_t
+        hc = h.double().reshape(bt, di, lanes, per)
+        cc = cm[:, t].double().reshape(bt, 1, lanes, per)
+        part = torch.zeros((bt, di, lanes), dtype=torch.float32)
+        for k in range(per):
+            part = (part.double() + hc[..., k] * cc[..., k]).float()
+        while part.shape[-1] > 1:
+            half = part.shape[-1] // 2
+            part = part[..., :half] + part[..., half:]
+        y[:, t] = part[..., 0]
+    return y, h
+
+
+def test_lane_rule_matches_the_cuda_source():
+    text = build.source_path("mamba_scan").read_text()
+    found = re.search(r"constexpr int kLaneStates = (\d+);", text)
+    assert found and int(found.group(1)) == LANE_STATES
+    assert [_kernel_lanes(st) for st in ms_kernel.STATE_DIMS] == [
+        1, 1, 1, 1, 2, 4]
+
+
+def test_lane_cases_cover_the_lane_groups_edges():
+    """Every state size the kernel is built for, one and several lanes a
+    channel, DI off the blocks (128 channels at one lane, 32 at four) and
+    S off the 16-step chunk."""
+    assert {c[3] for c in LANE_CASES} == set(ms_kernel.STATE_DIMS)
+    assert any(c[2] % 128 and _kernel_lanes(c[3]) == 1 for c in LANE_CASES)
+    assert any(c[2] % 32 and _kernel_lanes(c[3]) == 4 for c in LANE_CASES)
+    assert any(c[1] % 16 for c in LANE_CASES)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", LANE_CASES, ids=str)
+def test_lane_group_scan_meets_the_scan_bar(case, dt):
+    """The kernel's split of the states over 1, 2 or 4 lanes keeps y
+    within chip_smoke.py's MS_TOL of the plain version and h bit-equal to
+    it."""
+    lanes = _kernel_lanes(case[3])
+    rtol, atol = SMOKE.MS_TOL
+    td, tu, ta, tb, tc = (torch.tensor(x).to(TORCH_DT[d]) for x, d in
+                          zip(_inputs(case, seed=21), _dtypes(dt)))
+    y, h = _lane_group_scan(td, tu, ta, tb, tc, lanes)
+    want_y, want_h = ms_ref.selective_scan_ref(td, tu, ta, tb, tc)
+    assert torch.equal(h, want_h)
+    assert bool(torch.isfinite(y).all())
+    excess = ((y.double() - want_y.double()).abs()
+              - rtol * want_y.double().abs())
+    assert float(excess.max()) <= atol
+
+
+# ---------------------------------------------------------------------------
 # dispatch, launch counts, registry, build
 # ---------------------------------------------------------------------------
 
@@ -219,6 +323,11 @@ def test_cuda_source_is_hand_written_and_names_the_tpu_kernel():
     for banned in ("cublas", "cudnn", "cub/", "thrust", "__expf",
                    "torch/"):
         assert banned not in text.lower()
+    # the design: states split over a lane group whose partial sums of y
+    # are reduced by warp shuffles, and a double buffer of staged chunks
+    for part in ("kLaneStates", "__shfl_xor_sync(", "reduce_scatter",
+                 "s_delta[2][kChunk]", "s_b[2][kChunk]", "buf ^= 1"):
+        assert part in text
     py = "".join(p.read_text() for p in src.parents[1].glob("*.py"))
     assert "torch.compile" not in py
 
