@@ -14,17 +14,24 @@ either. Phases, each printing JSON lines:
                (sign in {+1, -1} for the midpoint and its VJP). The two
                VJP kernels run as the backward of alf_midpoint /
                alf_update under torch.autograd.grad. One op call (or one
-               backward) must be exactly one launch. alf_midpoint_vjp,
-               which moves 16-byte vectors, also on g 0-3 elements past a
-               16-byte boundary (and, through its C entry, the output
-               1-3 past one) at n = 1500*128+37 and 2048*64, f32, bf16
-               and f64.
+               backward) must be exactly one launch. The three kernels
+               that move 16-byte vectors (alf_midpoint, alf_update,
+               alf_midpoint_vjp) also with each input 0-3 elements past a
+               16-byte boundary, one input at a time and all together,
+               and (through the C entry) the outputs 1-3 past one, f32,
+               bf16 and f64 at n = 1, 1500*128+37 and 2048*64; the
+               update's C entry must refuse outputs at two phases.
 3. times     — CUDA-event times of each kernel, its plain version and
                (where one exists) one library call, beside the bound, at
-               the main path's shape and at n = 2^25; a kernel with a
-               library call is timed against it in turns (kernel,
-               library, kernel, library), and at 2^25 also in a CUDA
-               graph.
+               the main path's shape and at n = 2^25, the forward pair
+               also at the LM paths' f32 ALF states (qwen3-1.7b 2^23,
+               Jamba 2^24); a kernel with a library call is timed against
+               it in turns (kernel, library, kernel, library); CUDA-graph
+               times at 2048*64 and, for the forward pair and the kernels
+               with a library call, at every size. The host's cost per
+               call at 2048*64 (events minus graph) of the forward
+               launchers and of their ops under no_grad and through
+               their autograd.Function.
 4. main path — the paper's Sec 4.2 model (D=64, HIDDEN=64, 3 classes,
                2048 images) trained 20 Adam steps with
                solve(ALF(eta=1, backend="cuda"), ConstantSteps(4), MALI())
@@ -78,24 +85,34 @@ either. Phases, each printing JSON lines:
                card's maximum SM clock).
 11. lm_serve  — the port's serve() for qwen3-1.7b at full width (bf16,
                DEFAULT_ODE, seeded random weights): batch 4, prompt 1024,
-               32 greedy decode steps, with exact launch counts (per
-               prefill 84 flash, 337 RMSNorm, 224 ALF; per decode step 0,
-               337, 224), no host sync inside prefill or a decode step,
-               the kernel path against backend="reference"
-               (bf16 and f32), prefill(p+1) against prefill(p) + decode,
-               peak memory and a device profile of prefill and decode.
+               32 greedy decode steps through the decode graph (one eager
+               warm-up step and one captured, then replays), with exact
+               launch counts (per prefill 84 flash, 337 RMSNorm, 224 ALF;
+               per decode step 0, 337, 224, counted at the eager step and
+               at the capture; a replay calls no wrapper), no host sync
+               inside prefill, a decode step, the capture or a replay,
+               the graph's greedy tokens equal to an eager decode loop's
+               and to serve()'s and its logits within LM_TOL, decode ms
+               per step graphed (at most half the eager) and eager, the
+               kernel path against backend="reference" (bf16 and f32,
+               eager), prefill(p+1) against prefill(p) + decode, peak
+               memory and device profiles of prefill, 4 eager decode steps
+               and 4 replays.
 12. ssm_serve — the port's serve() for jamba-v0.1-52b at full width, 2 of
                its 4 periods (16 of 32 layers, the only cut: 4 periods
                are ~104 GB of bf16 weights), bf16, DEFAULT_ODE, batch 4,
-               prompt 1024, 16 greedy decode steps: exact launch counts
-               (per prefill 42 scan, 6 flash, 97 RMSNorm, 64 + 64 ALF; per
-               decode step 0, 0, 97, 64 + 64), no host sync inside prefill
-               or a decode step, init peak memory <= 1.25x the weights,
-               the kernel path against backend="reference" (bf16 at 2
-               periods; f32 at 1 period, batch 2, prompt 256) on the rows
-               whose MoE routes agree, prefill(p+1) against prefill(p) +
-               decode on the rows whose routes agree and whose decode step
-               dropped none, peak memory and device profiles.
+               prompt 1024, 16 greedy decode steps through the decode
+               graph: exact launch counts (per prefill 42 scan, 6 flash,
+               97 RMSNorm, 64 + 64 ALF; per decode step 0, 0, 97, 64 + 64,
+               counted as in phase 11), no host sync, the graph against
+               eager decode and serve() as in phase 11, init peak memory
+               <= 1.25x the weights, the kernel path against
+               backend="reference" (bf16 at 2 periods; f32 at 1 period,
+               batch 2, prompt 256; eager, as these read the MoE routes)
+               on the rows whose MoE routes agree, prefill(p+1) against
+               prefill(p) + decode on the rows whose routes agree and
+               whose decode step dropped none, peak memory and device
+               profiles.
 
 Every phase runs on every call. The line before the last is the kernel
 table; the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -119,6 +136,9 @@ N_TRAIN, TRAIN_STEPS, LR, N_SUB = 2048, 20, 3e-3, 4
 SLICE_N = N_TRAIN * D                   # the main path's state: 2048 x 64
 BIG_N = 1 << 25
 TAIL_N = 1500 * 128 + 37
+# The f32 ALF state of the LM paths' prefill (batch 4 x 1024 tokens x
+# d_model): qwen3-1.7b and jamba-v0.1-52b
+QWEN_ALF_N, JAMBA_ALF_N = 4 * 1024 * 2048, 4 * 1024 * 4096
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_core_gradients.py:76
 KERNEL_ULPS = 2
 TIME_PAIRS = 5
@@ -144,6 +164,7 @@ KERNELS = {
     "alf_inverse_update": (f"{TPU_SRC}:61", 3, 2, 5),
 }
 VJPS = ("alf_midpoint_vjp", "alf_update_vjp")
+FORWARD = ("alf_midpoint", "alf_update")
 # Why a kernel has no one-call PyTorch yardstick (library_ms null).
 NO_LIBRARY = "none: no single PyTorch call writes its {} outputs"
 SOURCE = "src/repro_torch/kernels/alf_step/csrc/alf_step.cu"
@@ -221,6 +242,11 @@ FA_LIB_TOL = (3e-2, 3e-2)
 # against the plain path, and prefill(p+1) against prefill(p) + decode.
 # f32: summation orders only; bf16: roundings of 28 layers x 3 f-evals.
 LM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# A graphed decode step must take less than the eager step and at most
+# half of it or, where the device's own work per step comes near half the
+# eager step (Jamba: its skinny GEMMs read the weights), at most this
+# factor times that work
+GRAPH_TO_BUSY = 1.5
 # (Bt, S, DI, ST): the four MS_CASES of tests/test_kernels.py:337, one
 # step, DI ragged against the kernel's blocks, Jamba's prefill (d_inner
 # 8192, d_state 16, 4 x 1024 tokens), and the lane groups' edges: ST 1, 2
@@ -345,13 +371,12 @@ def _plain(name, ops, trees, h, param):
         "alf_update_vjp": (ref.update_vjp_ref, (3, 4), (1, 2)),
     }[name]
     fwd = trees[:2] if name == "alf_midpoint_vjp" else trees[:3]
-    cd = ops._common_dtype(*(fwd if name in VJPS else trees))
+    _, cd = ops._trees(*(fwd if name in VJPS else trees))
     hh = h.to(torch.promote_types(cd, torch.float32))
     bufs = [ops._flatten(trees[i], cd) for i in ins]
     out = fn(*bufs, hh, param)
     outs = out if isinstance(out, tuple) else (out,)
-    return tuple(ops._unflatten(o, ops._Meta(trees[i]))
-                 for o, i in zip(outs, metas))
+    return tuple(ops._Tree(trees[i]).unpack(o) for o, i in zip(outs, metas))
 
 
 def _call(name, ops, trees, h, param):
@@ -441,43 +466,77 @@ def phase_kernels():
                         if kind == "f32" and n == SLICE_N:
                             worst[name] = max(worst[name], err)
                     checks[name] += 1
-    # alf_midpoint_vjp moves 16-byte vectors: g on a 16-byte boundary and
-    # 1, 2 and 3 elements past one (the output is fresh, so g is then read
-    # element by element, or by vectors again for f64 at 2), at TAIL_N
-    # (a tail of whole elements) and the main path's size; and, through
-    # the library's C entry, the output 1-3 elements past a boundary (its
-    # head written element by element), g alongside
-    for dtype in (torch.float32, torch.bfloat16, torch.float64):
-        hd = h.to(torch.promote_types(dtype, torch.float32))
-        for n in (TAIL_N, SLICE_N):
-            for off in (0, 1, 2, 3):
-                buf = torch.randn(n + 3, device="cuda", generator=gen).to(
-                    dtype)
-                g = buf[off:off + n]
-                for out_off in ((None, 1, 2, 3) if off else (None,)):
-                    before = alf_step.LAUNCHES["alf_midpoint_vjp"]
-                    if out_off is None:
-                        got = alf_step.midpoint_vjp_call(g, hd, sign=-1.0)
-                        require(alf_step.LAUNCHES["alf_midpoint_vjp"]
-                                == before + 1, "alf_midpoint_vjp: one call "
-                                "must be one launch")
-                    else:
-                        got = torch.empty(n + 3, device="cuda",
-                                          dtype=dtype)[out_off:out_off + n]
-                        rc = alf_step._fn("alf_midpoint_vjp")(
-                            alf_step._DTYPE_CODE[dtype], n, g.data_ptr(),
-                            hd.data_ptr(), -1.0, got.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream)
-                        require(rc == 0, f"alf_midpoint_vjp: CUDA error {rc}")
-                    want = ref.midpoint_vjp_ref(g, hd, -1.0)
-                    torch.cuda.synchronize()
-                    err = float((got.double() - want.double()).abs().max())
-                    tol = KERNEL_ULPS * _ulp(dtype) * max(
-                        1.0, float(want.double().abs().max()))
-                    require(err <= tol, f"alf_midpoint_vjp {dtype} n={n} "
-                            f"g offset {off} out offset {out_off}: max abs "
-                            f"err {err} > {tol}")
-                    checks["alf_midpoint_vjp"] += 1
+    # The three vector kernels (16-byte vectors): each input on a 16-byte
+    # boundary and 1, 2 and 3 elements past one, one input at a time and
+    # all together (an input off the outputs' phase is read element by
+    # element, or by vectors again for f64 at 2); the outputs fresh (on a
+    # boundary) and, through the library's C entry, 1-3 elements past one
+    # (their head written element by element); f32, bf16 and f64 at n = 1,
+    # TAIL_N (a tail of whole elements) and the main path's size
+    vec_kernels = {
+        # name: (launcher, inputs, outputs, plain version, keyword, value)
+        "alf_midpoint": (alf_step.midpoint_call, 2, 1, ref.midpoint_ref,
+                         "sign", -1.0),
+        "alf_update": (alf_step.update_call, 3, 2, ref.update_ref, "eta",
+                       0.9),
+        "alf_midpoint_vjp": (alf_step.midpoint_vjp_call, 1, 1,
+                             ref.midpoint_vjp_ref, "sign", -1.0),
+    }
+    for name, (launcher, n_in, n_out, plain, key, p) in vec_kernels.items():
+        patterns = [(0,) * n_in]
+        for off in (1, 2, 3):
+            patterns += [tuple(off if i == j else 0 for i in range(n_in))
+                         for j in range(n_in)]
+            if n_in > 1:
+                patterns.append((off,) * n_in)
+        for dtype in (torch.float32, torch.bfloat16, torch.float64):
+            hd = h.to(torch.promote_types(dtype, torch.float32))
+            for n in (1, TAIL_N, SLICE_N):
+                for offs in patterns:
+                    ins = [torch.randn(n + 3, device="cuda", generator=gen)
+                           .to(dtype)[o:o + n] for o in offs]
+                    want = plain(*ins, hd, p)
+                    want = want if isinstance(want, tuple) else (want,)
+                    for out_off in (None, 1, 2, 3):
+                        before = alf_step.LAUNCHES[name]
+                        if out_off is None:
+                            got = launcher(*ins, hd, **{key: p})
+                            got = got if isinstance(got, tuple) else (got,)
+                            require(alf_step.LAUNCHES[name] == before + 1,
+                                    f"{name}: one call must be one launch")
+                        else:
+                            got = tuple(
+                                torch.empty(n + 3, device="cuda",
+                                            dtype=dtype)[out_off:out_off + n]
+                                for _ in range(n_out))
+                            rc = alf_step._fn(name)(
+                                alf_step._DTYPE_CODE[dtype], n,
+                                *[x.data_ptr() for x in ins], hd.data_ptr(),
+                                p, *[x.data_ptr() for x in got],
+                                torch.cuda.current_stream().cuda_stream)
+                            require(rc == 0, f"{name}: CUDA error {rc}")
+                        torch.cuda.synchronize()
+                        for g, w in zip(got, want):
+                            err = float((g.double() - w.double()).abs()
+                                        .max())
+                            tol = KERNEL_ULPS * _ulp(dtype) * max(
+                                1.0, float(w.double().abs().max()))
+                            require(err <= tol, f"{name} {dtype} n={n} "
+                                    f"input offsets {offs} output offset "
+                                    f"{out_off}: max abs err {err} > {tol}")
+                        checks[name] += 1
+    # alf_update's two outputs share one 16-byte phase: the C entry
+    # refuses outputs at two phases (cudaErrorMisalignedAddress), before
+    # any launch
+    buf = torch.zeros(SLICE_N + 8, device="cuda")
+    x = buf[:SLICE_N]
+    rc = alf_step._fn("alf_update")(
+        0, SLICE_N, x.data_ptr(), x.data_ptr(), x.data_ptr(), h.data_ptr(),
+        0.9, buf[4:].data_ptr(), buf[5:].data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    require(rc == 716, f"alf_update: outputs at two 16-byte phases gave "
+            f"{rc}, expected 716 (cudaErrorMisalignedAddress)")
+    checks["alf_update"] += 1
     emit({"phase": "kernels", "checks": checks,
           "tolerance": f"{KERNEL_ULPS} ulp of the storage dtype at the "
                        "output's largest magnitude (>= 1)",
@@ -539,6 +598,37 @@ def _alternate(kernel, plain, reps):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _op_host_cost(h):
+    """Host cost per call of the forward ALF ops at SLICE_N, f32: CUDA
+    events over back-to-back calls (host launch cost included) minus the
+    same calls' device time in a CUDA graph, for the raw launcher, the op
+    on its grad-free path (under no_grad) and the op through its
+    autograd.Function (an input requiring a gradient)."""
+    import torch
+    from repro_torch.kernels.alf_step import alf_step, ops
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    z, v, u = (torch.randn(SLICE_N, device="cuda", generator=gen)
+               for _ in range(3))
+    zg = z.clone().requires_grad_(True)
+    calls = {
+        "alf_midpoint": (lambda: alf_step.midpoint_call(z, v, h),
+                         lambda: ops.alf_midpoint(z, v, h),
+                         lambda: ops.alf_midpoint(zg, v, h)),
+        "alf_update": (lambda: alf_step.update_call(z, v, u, h),
+                       lambda: ops.alf_update(z, v, u, h),
+                       lambda: ops.alf_update(zg, v, u, h)),
+    }
+    out = {}
+    for name, fns in calls.items():
+        for label, fn, grad in zip(("launcher", "op_no_grad", "op_function"),
+                                   fns, (False, False, True)):
+            with torch.set_grad_enabled(grad):
+                ev, gr = _time_ms(fn, 500), _graph_ms(fn, 100)
+            out[f"{name}_{label}"] = {"events_ms": ev, "graph_ms": gr,
+                                      "host_ms": ev - gr}
+    return out
+
+
 def phase_times(card: str):
     import torch
     from repro_torch.kernels.alf_step import alf_step, ref
@@ -546,7 +636,12 @@ def phase_times(card: str):
     gen = torch.Generator(device="cuda").manual_seed(1)
     h = torch.tensor(0.23, device="cuda")
     rows = {}
-    for n, reps in ((SLICE_N, 500), (BIG_N, 20)):
+    # every kernel at the main path's size and at 2^25; the forward pair
+    # also at the LM paths' ALF state sizes, with graph times at each
+    sizes = ((SLICE_N, 500, tuple(KERNELS)),
+             (QWEN_ALF_N, 40, FORWARD), (JAMBA_ALF_N, 30, FORWARD),
+             (BIG_N, 20, tuple(KERNELS)))
+    for n, reps, names in sizes:
         bufs = [torch.randn(n, device="cuda", generator=gen)
                 for _ in range(6)]
         calls = {
@@ -583,7 +678,8 @@ def phase_times(card: str):
             "alf_midpoint_vjp": ("torch.mul", lambda: torch.mul(
                 bufs[0], neg_half_h)),
         }
-        for name, (kern, plain) in calls.items():
+        for name in names:
+            kern, plain = calls[name]
             _, n_in, n_out, flops = KERNELS[name]
             ms, plain_ms = _alternate(kern, plain, reps)
             bytes_ms = (n_in + n_out) * 4 * n / bw * 1e3
@@ -600,20 +696,24 @@ def phase_times(card: str):
                     kern, lib, reps)
                 row["to_library"] = (row["ms_beside_library"]
                                      / row["library_ms"])
-                if n == BIG_N:
-                    row["graph_ms"] = _graph_ms(kern, reps)
-                    row["library_graph_ms"] = _graph_ms(lib, reps)
             if n == SLICE_N:
                 # At this size a call costs more on the host than on the
-                # card; a CUDA graph of 100 calls shows the device's part.
+                # card; a CUDA graph of 100 calls shows the device's part,
+                # and events minus graph the host's cost per call.
                 row["graph_ms"] = _graph_ms(kern, 100)
+                row["host_ms_per_call"] = ms - row["graph_ms"]
                 row["plain_graph_ms"] = _graph_ms(plain, 100)
                 if lib is not None:
                     row["library_graph_ms"] = _graph_ms(lib, 100)
+            elif lib is not None or name in FORWARD:
+                row["graph_ms"] = _graph_ms(kern, reps)
+                if lib is not None:
+                    row["library_graph_ms"] = _graph_ms(lib, reps)
             emit({"phase": "times", **row})
             rows[(name, n)] = row
         del bufs
         torch.cuda.empty_cache()
+    emit({"phase": "times", "op_host_cost_slice": _op_host_cost(h)})
     return rows
 
 
@@ -1519,11 +1619,122 @@ def _lm_compare(dtype, batch: int, prompt: int, n_decode: int):
             "decode_steps": n_decode, "tolerance": tol, **out}
 
 
+def _no_sync(fn):
+    """``fn()`` under set_sync_debug_mode("error"): any host sync raises."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _counted_steps(params, cfg, toks, prompt: int, per_prefill: dict,
+                   per_decode: dict, what: str):
+    """With no host sync: one prefill, one eager decode step, the decode
+    graph's first call (an eager warm-up step and the capture of the next)
+    and one replay, each with its launches counted apart: per_prefill,
+    per_decode, 2 x per_decode and none (a replay calls no wrapper).
+    Returns the graph step and its state, for more replays (``toks``
+    holds prompt + 8 positions; 4 are used)."""
+    import torch
+    from repro_torch.launch.serve import make_decode_step
+    from repro_torch.models import decode_step, init_serve_state, prefill
+    state = init_serve_state(cfg, toks.shape[0], prompt + 8)
+    step = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    _lm_reset()
+    _, state = _no_sync(lambda: prefill(params, cfg,
+                                        {"tokens": toks[:, :prompt]}, state))
+    _lm_check_counts(f"one {what} prefill", per_prefill)
+    for i, (label, fn, times) in enumerate((
+            ("eager decode step", lambda t, st: decode_step(
+                params, cfg, t, st), 1),
+            ("decode graph's warm-up step + capture", lambda t, st: step(
+                params, t, st), 2),
+            ("decode graph replay", lambda t, st: step(params, t, st), 0))):
+        _lm_reset()
+        _, state = _no_sync(lambda: fn(toks[:, prompt + i:prompt + i + 1],
+                                       state))
+        _lm_check_counts(f"one {what} {label}", per_decode, times)
+    return step, state
+
+
+def _graph_vs_eager(params, cfg, prompt, n_decode: int, serve_tokens,
+                    busy_ms: float):
+    """Greedy decode of ``n_decode`` tokens from one prefill of ``prompt``,
+    eagerly (decode_step) and through make_decode_step, with no host sync
+    inside a step: the graph's tokens must equal the eager loop's and
+    serve()'s (``serve_tokens``, from the same weights and prompt), its
+    logits be within LM_TOL of the eager ones, and its ms per step (steps
+    2..n, host clock ending in a sync) below the eager ms per step and at
+    most half of it or within GRAPH_TO_BUSY of the device's own work per
+    step (``busy_ms``, from a profile of replays), which half the eager
+    step may lie below. The first step (for the graph: the eager warm-up
+    and the capture) is timed apart."""
+    import torch
+    from repro_torch.launch.serve import make_decode_step
+    from repro_torch.models import decode_step, init_serve_state, prefill
+    name = str(cfg.compute_dtype)
+    batch, prompt_len = next(iter(prompt.values())).shape[:2]
+    runs = {}
+    for mode in ("eager", "graph"):
+        state = init_serve_state(cfg, batch, prompt_len + n_decode)
+        logits, state = prefill(params, cfg, prompt, state)
+        step = (make_decode_step(cfg) if mode == "graph" else
+                lambda p, t, st: decode_step(p, cfg, t, st))
+        box = {"tok": torch.argmax(logits[:, -1], -1)[:, None],
+               "state": state, "toks": [], "logits": []}
+
+        def steps(k):
+            for _ in range(k):
+                lg, box["state"] = step(params, box["tok"], box["state"])
+                box["tok"] = torch.argmax(lg[:, -1], -1)[:, None]
+                box["toks"].append(box["tok"][:, 0])
+                box["logits"].append(lg)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _no_sync(lambda: steps(1))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _no_sync(lambda: steps(n_decode - 1))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        runs[mode] = (torch.stack(box["toks"], 1), torch.cat(box["logits"],
+                                                             1),
+                      (t1 - t0) * 1e3, (t2 - t1) * 1e3 / (n_decode - 1))
+        del box, state, step
+    (te, le, fe, me), (tg, lg, fg, mg) = runs["eager"], runs["graph"]
+    out = {"decode_steps": n_decode, "eager_first_step_ms": fe,
+           "eager_ms_per_step": me, "graph_first_step_ms": fg,
+           "graph_ms_per_step": mg, "graph_to_eager": mg / me,
+           "device_busy_ms_per_step": busy_ms,
+           "graph_to_device_busy": mg / busy_ms,
+           "graph_vs_eager_logits": _rel(lg, le),
+           "graph_vs_eager_logits_max_abs": float(
+               (lg.double() - le.double()).abs().max()),
+           "tokens_equal": bool(torch.equal(tg, te)),
+           "serve_tokens_equal": bool(torch.equal(
+               tg.cpu(), torch.as_tensor(serve_tokens)))}
+    require(out["tokens_equal"] and out["serve_tokens_equal"],
+            f"decode graph: greedy tokens differ from eager decode or "
+            f"serve(): {out}")
+    require(out["graph_vs_eager_logits"] <= LM_TOL[name],
+            f"decode graph vs eager logits {out['graph_vs_eager_logits']} "
+            f"> {LM_TOL[name]}")
+    require(mg < me and (mg <= 0.5 * me or mg <= GRAPH_TO_BUSY * busy_ms),
+            f"decode graph: {mg} ms per step against the eager {me}: not "
+            f"faster, or more than half of it and more than "
+            f"{GRAPH_TO_BUSY}x the device's own {busy_ms} ms")
+    return out
+
+
 def phase_lm_serve(card: str, smi: str):
     """The port's serve() for qwen3-1.7b at full width on the card."""
     import torch
     from repro_torch.configs import DEFAULT_ODE, get_config
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import serve, serve_prompt
     from repro_torch.models import decode_step, init_lm, init_serve_state
     from repro_torch.models import prefill
     kw = dict(smoke=False, ode=True, prompt_len=LM_PROMPT,
@@ -1534,46 +1745,45 @@ def phase_lm_serve(card: str, smi: str):
     torch.cuda.reset_peak_memory_stats()
     _lm_reset()
     result = serve(LM_ARCH, decode_tokens=LM_DECODE, **kw)
+    # the wrappers launch in prefill, in the decode graph's eager warm-up
+    # step and in its capture; the replays call no wrapper
     launches = _lm_check_counts(
-        "lm_serve (one prefill + 32 decode steps)", LM_PER_DECODE,
-        LM_DECODE, plus=LM_PER_PREFILL)
+        f"lm_serve (one prefill + {LM_DECODE} decode steps: one eager, one "
+        "captured, replays)", LM_PER_DECODE, 2, plus=LM_PER_PREFILL)
     peak = torch.cuda.max_memory_allocated()
     require(result.tokens.shape == (LM_BATCH, LM_DECODE)
             and int(result.tokens.min()) >= 0, "lm_serve: tokens")
 
-    # per prefill and per decode step, counted apart, and a profile of each
+    # per prefill, eager decode step, capture and replay, counted apart,
+    # with no host sync; the graph against eager decode; profiles
     cfg = get_config(LM_ARCH, DEFAULT_ODE)
     params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 8)), device="cuda")
-    state = init_serve_state(cfg, LM_BATCH, LM_PROMPT + 8)
-    torch.cuda.synchronize()
-    # neither entry point may sync the host with the card (a sync, such as
-    # a blocking host-to-device copy, raises in this mode)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        _lm_reset()
-        logits, state = prefill(params, cfg,
-                                {"tokens": toks[:, :LM_PROMPT]}, state)
-        _lm_check_counts("one prefill", LM_PER_PREFILL)
-        _lm_reset()
-        logits, state = decode_step(params, cfg,
-                                    toks[:, LM_PROMPT:LM_PROMPT + 1], state)
-        _lm_check_counts("one decode step", LM_PER_DECODE)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    step, gstate = _counted_steps(params, cfg, toks, LM_PROMPT,
+                                  LM_PER_PREFILL, LM_PER_DECODE, "qwen3")
     state = init_serve_state(cfg, LM_BATCH, LM_PROMPT + 8)
     prof_prefill = _device_profile(lambda: prefill(
         params, cfg, {"tokens": toks[:, :LM_PROMPT]}, state))
 
     def decode4():
-        st = state._replace(pos=LM_PROMPT)
+        st = state._replace(pos=torch.full((), LM_PROMPT, dtype=torch.int32,
+                                           device="cuda"))
         for i in range(LM_PROMPT, LM_PROMPT + 4):
             _, st = decode_step(params, cfg, toks[:, i:i + 1], st)
 
+    def replay4():
+        st = gstate
+        for i in range(LM_PROMPT + 3, LM_PROMPT + 7):
+            _, st = step(params, toks[:, i:i + 1], st)
+
     prof_decode = _device_profile(decode4)
     host_decode = _host_profile(decode4)
-    del params, state
+    prof_replay = _device_profile(replay4)
+    graph = _graph_vs_eager(params, cfg, serve_prompt(
+        cfg, LM_BATCH, LM_PROMPT, 0, "cuda"), LM_DECODE, result.tokens,
+        prof_replay["device_busy_ms"] / 4)
+    del params, state, step, gstate
     torch.cuda.empty_cache()
 
     compare = [_lm_compare(torch.bfloat16, LM_BATCH, LM_PROMPT, 8),
@@ -1589,8 +1799,10 @@ def phase_lm_serve(card: str, smi: str):
           "peak_memory_bytes": peak, "launches": launches,
           "per_prefill": LM_PER_PREFILL, "per_decode_step": LM_PER_DECODE,
           "sample": result.tokens[0][:8].tolist(),
+          "graph_vs_eager": graph,
           "profile_prefill": prof_prefill, "profile_decode_4_steps":
           prof_decode, "host_profile_decode_4_steps": host_decode,
+          "profile_decode_4_replays": prof_replay,
           "compare": compare})
     return launches
 
@@ -1825,7 +2037,7 @@ def phase_ssm_serve(card: str, smi: str):
     periods) on the card."""
     import torch
     import torch.utils._pytree as pytree
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import serve, serve_prompt
     from repro_torch.models import decode_step, init_lm, init_serve_state
     from repro_torch.models import prefill
     cfg = _ssm_config()
@@ -1838,9 +2050,11 @@ def phase_ssm_serve(card: str, smi: str):
     torch.cuda.reset_peak_memory_stats()
     _lm_reset()
     result = serve(cfg, decode_tokens=SSM_DECODE, **kw)
+    # the wrappers launch in prefill, in the decode graph's eager warm-up
+    # step and in its capture; the replays call no wrapper
     launches = _lm_check_counts(
-        f"ssm_serve (one prefill + {SSM_DECODE} decode steps)",
-        SSM_PER_DECODE, SSM_DECODE, plus=SSM_PER_PREFILL)
+        f"ssm_serve (one prefill + {SSM_DECODE} decode steps: one eager, "
+        "one captured, replays)", SSM_PER_DECODE, 2, plus=SSM_PER_PREFILL)
     run_peak = torch.cuda.max_memory_allocated()
     require(result.tokens.shape == (SSM_BATCH, SSM_DECODE)
             and int(result.tokens.min()) >= 0, "ssm_serve: tokens")
@@ -1861,34 +2075,36 @@ def phase_ssm_serve(card: str, smi: str):
             f"ssm_serve: init peaked at {init_peak} bytes for {weights} "
             f"bytes of weights (> {INIT_PEAK_RATIO}x)")
 
-    # per prefill and per decode step, counted apart, with no host sync
+    # per prefill, eager decode step, capture and replay, counted apart,
+    # with no host sync; the graph against eager decode (serve()'s weights
+    # are these: init_lm from seed 0); profiles. The comparisons that read
+    # recording_routes() (_ssm_compare) decode eagerly.
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT + 8)), device="cuda")
+    step, gstate = _counted_steps(params, cfg, toks, SSM_PROMPT,
+                                  SSM_PER_PREFILL, SSM_PER_DECODE, "Jamba")
     state = init_serve_state(cfg, SSM_BATCH, SSM_PROMPT + 8)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        _lm_reset()
-        _, state = prefill(params, cfg, {"tokens": toks[:, :SSM_PROMPT]},
-                           state)
-        _lm_check_counts("one Jamba prefill", SSM_PER_PREFILL)
-        _lm_reset()
-        _, state = decode_step(params, cfg,
-                               toks[:, SSM_PROMPT:SSM_PROMPT + 1], state)
-        _lm_check_counts("one Jamba decode step", SSM_PER_DECODE)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
     prof_prefill = _device_profile(lambda: prefill(
         params, cfg, {"tokens": toks[:, :SSM_PROMPT]}, state))
 
     def decode4():
-        st = state._replace(pos=SSM_PROMPT)
+        st = state._replace(pos=torch.full((), SSM_PROMPT, dtype=torch.int32,
+                                           device="cuda"))
         for i in range(SSM_PROMPT, SSM_PROMPT + 4):
             _, st = decode_step(params, cfg, toks[:, i:i + 1], st)
 
+    def replay4():
+        st = gstate
+        for i in range(SSM_PROMPT + 3, SSM_PROMPT + 7):
+            _, st = step(params, toks[:, i:i + 1], st)
+
     prof_decode = _device_profile(decode4)
     host_decode = _host_profile(decode4)
-    del params, state
+    prof_replay = _device_profile(replay4)
+    graph = _graph_vs_eager(params, cfg, serve_prompt(
+        cfg, SSM_BATCH, SSM_PROMPT, 0, "cuda"), SSM_DECODE, result.tokens,
+        prof_replay["device_busy_ms"] / 4)
+    del params, state, step, gstate
     torch.cuda.empty_cache()
 
     # bf16 at the served depth; f32 (twice the bytes) at one period
@@ -1914,8 +2130,10 @@ def phase_ssm_serve(card: str, smi: str):
           "peak_memory_bytes": run_peak, "launches": launches,
           "per_prefill": SSM_PER_PREFILL, "per_decode_step": SSM_PER_DECODE,
           "sample": result.tokens[0][:8].tolist(),
+          "graph_vs_eager": graph,
           "profile_prefill": prof_prefill, "profile_decode_4_steps":
           prof_decode, "host_profile_decode_4_steps": host_decode,
+          "profile_decode_4_replays": prof_replay,
           "compare": compare})
     return launches
 

@@ -4,7 +4,8 @@ Each launcher takes flat contiguous CUDA buffers of one storage dtype
 (float32, float64 or bfloat16) and the step size ``h`` as a 0-d CUDA
 tensor of the compute dtype (float32, or float64 for float64 storage). It
 checks them, allocates the outputs, launches ONE kernel on PyTorch's
-current stream, raises if the launch failed, and adds one to its count in
+current stream (a capturing stream too: the launch then goes into the
+CUDA graph), raises if the launch failed, and adds one to its count in
 :data:`LAUNCHES`. The kernel reads ``h`` through its pointer, so no launch
 syncs the host.
 
@@ -72,31 +73,46 @@ def _fn(name: str):
     return fn
 
 
-def _check(name: str, h: torch.Tensor, *bufs: torch.Tensor) -> int:
-    """Validate the buffers of one launch; returns the dtype code."""
+# The compute dtype of h for each storage dtype.
+_H_DTYPE = {torch.float32: torch.float32, torch.float64: torch.float64,
+            torch.bfloat16: torch.float32}
+
+
+def _check(name: str, h: torch.Tensor, *bufs: torch.Tensor):
+    """Validate the buffers of one launch: one CUDA device, one supported
+    dtype, one size, flat and contiguous, and h a 0-d tensor of the
+    compute dtype on that device (the kernel reads every buffer over n
+    elements and h at its dtype's width). Returns (dtype code, device
+    index, n)."""
     b0 = bufs[0]
-    if b0.device.type != "cuda":
+    if not b0.is_cuda:
         raise ValueError(f"{name}: buffers must be CUDA tensors, got "
                          f"{b0.device}")
-    if b0.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name}: storage dtype {b0.dtype} is not one of "
+    dt = b0.dtype
+    code = _DTYPE_CODE.get(dt)
+    if code is None:
+        raise TypeError(f"{name}: storage dtype {dt} is not one of "
                         f"{tuple(_DTYPE_CODE)}")
+    dev, n = b0.get_device(), b0.numel()
     for b in bufs:
-        if (b.device != b0.device or b.dtype != b0.dtype or b.dim() != 1
-                or b.numel() != b0.numel() or not b.is_contiguous()):
+        if (b.dtype != dt or b.get_device() != dev or b.dim() != 1
+                or b.numel() != n or not b.is_contiguous()):
             raise ValueError(f"{name}: every buffer must be a flat "
                              "contiguous tensor of one dtype, size and "
                              "device")
-    acc = torch.promote_types(b0.dtype, torch.float32)
-    if h.dim() != 0 or h.dtype != acc or h.device != b0.device:
-        raise ValueError(f"{name}: h must be a 0-d {acc} tensor on "
+    hd = _H_DTYPE[dt]
+    if h.dim() != 0 or h.dtype != hd or h.get_device() != dev:
+        raise ValueError(f"{name}: h must be a 0-d {hd} tensor on "
                          f"{b0.device}, got {h.dtype} {tuple(h.shape)} on "
                          f"{h.device}")
-    return _DTYPE_CODE[b0.dtype]
+    return code, dev, n
 
 
-def _launch(name: str, code: int, n: int, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
+def _launch(name: str, checked, *args) -> None:
+    """One launch on the device's current stream (a raw handle: no Python
+    stream object per call) over the n elements of ``checked``."""
+    code, dev, n = checked
+    stream = torch._C._cuda_getCurrentRawStream(dev)
     rc = _fn(name)(code, n, *args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
@@ -104,37 +120,38 @@ def _launch(name: str, code: int, n: int, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _ptrs(*tensors: torch.Tensor):
-    return [t.data_ptr() for t in tensors]
-
-
 def midpoint_call(z: torch.Tensor, v: torch.Tensor, h: torch.Tensor, *,
                   sign: float = 1.0) -> torch.Tensor:
     """k1 = z + sign * v * h/2."""
-    code = _check("alf_midpoint", h, z, v)
+    checked = _check("alf_midpoint", h, z, v)
     k1 = torch.empty_like(z)
-    _launch("alf_midpoint", code, z.numel(), *_ptrs(z, v, h), float(sign),
-            k1.data_ptr())
+    _launch("alf_midpoint", checked, z.data_ptr(), v.data_ptr(),
+            h.data_ptr(), float(sign), k1.data_ptr())
     return k1
 
 
 def update_call(k1, v, u1, h, *, eta: float = 1.0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(z_out, v_out) of the forward tail."""
-    code = _check("alf_update", h, k1, v, u1)
+    checked = _check("alf_update", h, k1, v, u1)
     z_out, v_out = torch.empty_like(k1), torch.empty_like(v)
-    _launch("alf_update", code, k1.numel(), *_ptrs(k1, v, u1, h), float(eta),
-            *_ptrs(z_out, v_out))
+    _launch("alf_update", checked, k1.data_ptr(), v.data_ptr(),
+            u1.data_ptr(), h.data_ptr(), float(eta), z_out.data_ptr(),
+            v_out.data_ptr())
     return z_out, v_out
+
+
+def _ptrs(*tensors: torch.Tensor):
+    return [t.data_ptr() for t in tensors]
 
 
 def bwd_pre_call(z, v, a_z, a_v, h, *, eta: float = 1.0
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(k1, cot_u1) of the head of one MALI backward step."""
-    code = _check("alf_bwd_pre", h, z, v, a_z, a_v)
+    checked = _check("alf_bwd_pre", h, z, v, a_z, a_v)
     k1, cot_u1 = torch.empty_like(z), torch.empty_like(a_z)
-    _launch("alf_bwd_pre", code, z.numel(), *_ptrs(z, v, a_z, a_v, h),
-            float(eta), *_ptrs(k1, cot_u1))
+    _launch("alf_bwd_pre", checked, *_ptrs(z, v, a_z, a_v, h), float(eta),
+            *_ptrs(k1, cot_u1))
     return k1, cot_u1
 
 
@@ -142,49 +159,48 @@ def bwd_post_call(k1, v_out, u1, a_z, a_v, dk1, h, *, eta: float = 1.0
                   ) -> Tuple[torch.Tensor, ...]:
     """(z_prev, v_prev, dz_prev, dv_prev) of the tail of one MALI backward
     step."""
-    code = _check("alf_bwd_post", h, k1, v_out, u1, a_z, a_v, dk1)
+    checked = _check("alf_bwd_post", h, k1, v_out, u1, a_z, a_v, dk1)
     outs = [torch.empty_like(k1) for _ in range(4)]
-    _launch("alf_bwd_post", code, k1.numel(),
-            *_ptrs(k1, v_out, u1, a_z, a_v, dk1, h), float(eta),
-            *_ptrs(*outs))
+    _launch("alf_bwd_post", checked, *_ptrs(k1, v_out, u1, a_z, a_v, dk1, h),
+            float(eta), *_ptrs(*outs))
     return tuple(outs)
 
 
 def midpoint_vjp_call(g: torch.Tensor, h: torch.Tensor, *,
                       sign: float = 1.0) -> torch.Tensor:
     """v_bar = sign * g * h/2, the midpoint's v-cotangent."""
-    code = _check("alf_midpoint_vjp", h, g)
+    checked = _check("alf_midpoint_vjp", h, g)
     v_bar = torch.empty_like(g)
-    _launch("alf_midpoint_vjp", code, g.numel(), *_ptrs(g, h), float(sign),
-            v_bar.data_ptr())
+    _launch("alf_midpoint_vjp", checked, g.data_ptr(), h.data_ptr(),
+            float(sign), v_bar.data_ptr())
     return v_bar
 
 
 def update_vjp_call(g_z, g_v, h, *, eta: float = 1.0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(v_bar, u1_bar) cotangents of the forward tail."""
-    code = _check("alf_update_vjp", h, g_z, g_v)
+    checked = _check("alf_update_vjp", h, g_z, g_v)
     v_bar, u1_bar = torch.empty_like(g_v), torch.empty_like(g_v)
-    _launch("alf_update_vjp", code, g_z.numel(), *_ptrs(g_z, g_v, h),
-            float(eta), *_ptrs(v_bar, u1_bar))
+    _launch("alf_update_vjp", checked, *_ptrs(g_z, g_v, h), float(eta),
+            *_ptrs(v_bar, u1_bar))
     return v_bar, u1_bar
 
 
 def inverse_call(z_out, v_out, u1, h, *, eta: float = 1.0
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(z_in, v_in) of the full psi^-1, re-deriving the midpoint."""
-    code = _check("alf_inverse", h, z_out, v_out, u1)
+    checked = _check("alf_inverse", h, z_out, v_out, u1)
     z_in, v_in = torch.empty_like(z_out), torch.empty_like(v_out)
-    _launch("alf_inverse", code, z_out.numel(), *_ptrs(z_out, v_out, u1, h),
-            float(eta), *_ptrs(z_in, v_in))
+    _launch("alf_inverse", checked, *_ptrs(z_out, v_out, u1, h), float(eta),
+            *_ptrs(z_in, v_in))
     return z_in, v_in
 
 
 def inverse_update_call(k1, v_out, u1, h, *, eta: float = 1.0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(z_in, v_in) of psi^-1's tail, given the midpoint k1."""
-    code = _check("alf_inverse_update", h, k1, v_out, u1)
+    checked = _check("alf_inverse_update", h, k1, v_out, u1)
     z_in, v_in = torch.empty_like(k1), torch.empty_like(v_out)
-    _launch("alf_inverse_update", code, k1.numel(),
-            *_ptrs(k1, v_out, u1, h), float(eta), *_ptrs(z_in, v_in))
+    _launch("alf_inverse_update", checked, *_ptrs(k1, v_out, u1, h),
+            float(eta), *_ptrs(z_in, v_in))
     return z_in, v_in

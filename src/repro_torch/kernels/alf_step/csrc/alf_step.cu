@@ -21,23 +21,37 @@
 // elements it is 120 / 200 / 240 / 401 us. The direct-backprop and
 // inverse kernels: midpoint_vjp 1+1 -> 8 B, update_vjp 2+2 -> 16 B,
 // inverse 3+2 -> 20 B, inverse_update 3+2 -> 20 B; 0.31 / 0.63 / 0.78 /
-// 0.78 us at 2048 x 64 and 80 / 160 / 200 / 200 us at 2^25.
+// 0.78 us at 2048 x 64 and 80 / 160 / 200 / 200 us at 2^25. The forward
+// pair at the LM paths' f32 ALF states (qwen3-1.7b 4 x 1024 x 2048 =
+// 8,388,608 elements; jamba-v0.1-52b 4 x 1024 x 4096 = 16,777,216):
+// midpoint 30 / 60 us, update 50 / 100 us. The one PyTorch call each is
+// held against: torch.addcmul(z, v, sign*h/2) for the midpoint and
+// torch.mul(g, sign*h/2) for its VJP; none for the update (two outputs).
 //
-// Design against that bound: one pass over one flat contiguous buffer
-// (the op layer packs the whole state pytree into it), each input read
-// once and each output written once, coalesced (neighbouring threads on
-// neighbouring elements), with a grid-stride loop and a masked tail. The
-// TPU's [rows, 128] lane layout and its padding to a block multiple are
-// not carried over. alf_midpoint_vjp, a scaled copy with a single input,
-// moves 16-byte vectors instead (4 float, 8 bfloat16 or 2 double), up to
-// four in flight per thread, on a grid of at most 8 blocks per SM; the elements before
-// the output's first 16-byte boundary and after its last whole vector go
-// one by one, and an input at another offset from a 16-byte boundary than
-// the output is read element by element (nothing is copied to align it).
-// The step size h is read through a device pointer, so
-// an adaptive controller that computes h on the card never syncs the
-// host. Nothing is allocated here; launches go on the caller's stream and
-// return cudaGetLastError().
+// Design against that bound. The forward pair (alf_midpoint, alf_update)
+// and alf_midpoint_vjp, the three kernels on the paths that launch most,
+// are one vector kernel (vec_kernel) over an elementwise functor: 16-byte
+// vectors (4 float, 8 bfloat16 or 2 double), up to kVecUnroll in flight
+// per thread, on a grid of at most kVecBlocksPerSm blocks per SM and one
+// vector a thread on small buffers. The outputs are fresh buffers and
+// share one offset from a 16-byte boundary (the launch refuses outputs
+// that do not); the elements before their first boundary and after their
+// last whole vector go one by one, by the grid's first threads. Each
+// input is read by vectors where it sits at the outputs' offset from a
+// 16-byte boundary, else element by element (nothing is copied to align
+// it). That choice is made per input by a template bit mask, one
+// instantiation per mask (2, 4 and 8 for one, two and three inputs), so
+// the aligned case, the op layer's, runs straight-line code with no
+// per-element test; a runtime flag would cost nothing in divergence
+// (it is uniform) but would keep both load paths in every kernel. The
+// other kernels are one pass over one flat contiguous buffer, coalesced,
+// with a grid-stride loop and a masked tail. The TPU's [rows, 128] lane
+// layout and its padding to a block multiple are not carried over; the op
+// layer packs the whole state pytree into one buffer. The step size h is
+// read through a device pointer, so an adaptive controller that computes
+// h on the card never syncs the host. Nothing is allocated here; each
+// call is one launch on the caller's stream and returns
+// cudaGetLastError().
 //
 // Numerics: storage is float, double or bfloat16; arithmetic runs in float
 // (double for double storage) in the operation order of ref.py, and the
@@ -74,16 +88,9 @@ inline unsigned int n_blocks(int64_t n) {
   return static_cast<unsigned int>(b < cap ? b : cap);
 }
 
-// The vectorised kernel's grid: a few blocks per SM, grid-stride beyond.
+// The vector kernel's grid: a few blocks per SM, grid-stride beyond.
 constexpr int kVecUnroll = 4;      // 16-byte vectors in flight per thread
 constexpr int kVecBlocksPerSm = 8;
-
-inline int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 1;
-}
 
 #define GRID_STRIDE(i, n)                                                  \
   for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < (n); \
@@ -101,40 +108,54 @@ __device__ __forceinline__ A inverse_velocity(A vo, A u, A two_eta, A one_m,
   return (vo - eu) / one_m;
 }
 
+// The elementwise functions of the vector kernel: kIn inputs to kOut
+// outputs per element, in the compute dtype A, built once per thread from
+// h and the call's sign or eta.
+
 // k1 = z + sign * v * (h/2)
 template <typename T>
-__global__ void midpoint_kernel(int64_t n, const T* __restrict__ z,
-                                const T* __restrict__ v,
-                                const typename Acc<T>::type* __restrict__ h,
-                                double sign, T* __restrict__ k1) {
+struct MidpointOp {
   typedef typename Acc<T>::type A;
-  const A hh = *h * A(0.5);
-  const A s = static_cast<A>(sign);
-  GRID_STRIDE(i, n) {
-    const A sv = s * ld(v, i);
-    st(k1, i, ld(z, i) + sv * hh);
+  static constexpr int kIn = 2, kOut = 1;   // (z, v) -> k1
+  A s, hh;
+  __device__ MidpointOp(A h, double sign)
+      : s(static_cast<A>(sign)), hh(h * A(0.5)) {}
+  __device__ __forceinline__ void operator()(const A* x, A* y) const {
+    const A sv = s * x[1];
+    y[0] = x[0] + sv * hh;
   }
-}
+};
 
 // v_out = v + 2*eta*(u1 - v);  z_out = k1 + v_out * (h/2)
 template <typename T>
-__global__ void update_kernel(int64_t n, const T* __restrict__ k1,
-                              const T* __restrict__ v,
-                              const T* __restrict__ u1,
-                              const typename Acc<T>::type* __restrict__ h,
-                              double eta, T* __restrict__ z_out,
-                              T* __restrict__ v_out) {
+struct UpdateOp {
   typedef typename Acc<T>::type A;
-  const A hh = *h * A(0.5);
-  const A two_eta = static_cast<A>(2.0 * eta);
-  GRID_STRIDE(i, n) {
-    const A vi = ld(v, i);
-    const A du = ld(u1, i) - vi;
+  static constexpr int kIn = 3, kOut = 2;   // (k1, v, u1) -> (z_out, v_out)
+  A hh, two_eta;
+  __device__ UpdateOp(A h, double eta)
+      : hh(h * A(0.5)), two_eta(static_cast<A>(2.0 * eta)) {}
+  __device__ __forceinline__ void operator()(const A* x, A* y) const {
+    const A vi = x[1];
+    const A du = x[2] - vi;
     const A vo = vi + two_eta * du;
-    st(v_out, i, vo);
-    st(z_out, i, ld(k1, i) + vo * hh);
+    y[1] = vo;
+    y[0] = x[0] + vo * hh;
   }
-}
+};
+
+// v_bar = sign * g * (h/2)
+template <typename T>
+struct MidpointVjpOp {
+  typedef typename Acc<T>::type A;
+  static constexpr int kIn = 1, kOut = 1;   // g -> v_bar
+  A s, hh;
+  __device__ MidpointVjpOp(A h, double sign)
+      : s(static_cast<A>(sign)), hh(h * A(0.5)) {}
+  __device__ __forceinline__ void operator()(const A* x, A* y) const {
+    const A sg = s * x[0];
+    y[0] = sg * hh;
+  }
+};
 
 // k1 = z - v * (h/2);  cot_u1 = 2*eta * (a_v + a_z * (h/2))
 template <typename T>
@@ -238,60 +259,93 @@ __global__ void inverse_kernel(int64_t n, const T* __restrict__ z_out,
   }
 }
 
-// v_bar = sign * g * (h/2), by 16-byte vectors of V elements: v_bar's
-// first `head` elements (up to its first 16-byte boundary) and its last
-// (n - head) % V are written one by one, by the grid's first threads; the
-// vectors between go through a grid-stride loop, one vector per thread on
-// a small buffer and kVecUnroll in flight per thread once the grid is
-// capped at kVecBlocksPerSm blocks per SM. g is read by vectors when it
-// sits at v_bar's offset from a 16-byte boundary (kVecIn), else element by
-// element.
-template <typename T, bool kVecIn>
-__global__ void __launch_bounds__(kThreads)
-    midpoint_vjp_kernel(int64_t n, int64_t head, const T* __restrict__ g,
-                        const typename Acc<T>::type* __restrict__ h,
-                        double sign, T* __restrict__ v_bar) {
-  typedef typename Acc<T>::type A;
+template <typename T, int N> struct In { const T* p[N]; };
+template <typename T, int N> struct Out { T* p[N]; };
+
+// One 16-byte vector (V elements) of an input at vector index j: one
+// 16-byte load where the input sits at the outputs' 16-byte offset (vec),
+// else V element loads. vec is a compile-time constant once the callers'
+// loops over inputs are unrolled.
+template <typename T>
+__device__ __forceinline__ uint4 ld_vec(const T* __restrict__ p, int64_t j,
+                                        bool vec) {
   constexpr int V = 16 / sizeof(T);
-  const A hh = *h * A(0.5);
-  const A s = static_cast<A>(sign);
+  uint4 x;
+  if (vec) {
+    x = reinterpret_cast<const uint4*>(p)[j];
+  } else {
+    T* e = reinterpret_cast<T*>(&x);
+#pragma unroll
+    for (int c = 0; c < V; ++c) e[c] = p[j * V + c];
+  }
+  return x;
+}
+
+// y = Op(x) elementwise over n elements, by 16-byte vectors of V elements:
+// the outputs' first `head` elements (up to their first 16-byte boundary)
+// and their last (n - head) % V are written one by one, by the grid's
+// first threads; the vectors between go through a grid-stride loop, one
+// vector per thread on a small buffer and kVecUnroll in flight per thread
+// once the grid is capped at kVecBlocksPerSm blocks per SM. Input i is
+// read by vectors when bit i of kVecMask is set (it sits at the outputs'
+// offset from a 16-byte boundary), else element by element.
+template <template <typename> class OpT, typename T, int kVecMask>
+__global__ void __launch_bounds__(kThreads)
+    vec_kernel(int64_t n, int64_t head, In<T, OpT<T>::kIn> in,
+               Out<T, OpT<T>::kOut> out,
+               const typename Acc<T>::type* __restrict__ h, double param) {
+  typedef OpT<T> Op;
+  typedef typename Op::A A;
+  constexpr int NI = Op::kIn, NO = Op::kOut, V = 16 / sizeof(T);
+  const Op op(*h, param);
   const int64_t nv = (n - head) / V;
   const int64_t body_end = head + nv * V;
   const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t edge = t < head ? t : body_end + (t - head);
   if (edge < n && (t < head || edge >= body_end)) {
-    const A sg = s * ld(g, edge);
-    st(v_bar, edge, sg * hh);
+    A x[NI], y[NO];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) x[i] = ld(in.p[i], edge);
+    op(x, y);
+#pragma unroll
+    for (int o = 0; o < NO; ++o) st(out.p[o], edge, y[o]);
   }
-  const T* gv = g + head;
-  T* ov = v_bar + head;
+  const T* iv[NI];
+  T* ov[NO];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) iv[i] = in.p[i] + head;
+#pragma unroll
+  for (int o = 0; o < NO; ++o) ov[o] = out.p[o] + head;
   const int64_t threads = int64_t(gridDim.x) * blockDim.x;
   for (int64_t j0 = t; j0 < nv; j0 += threads * kVecUnroll) {
-    uint4 x[kVecUnroll];
+    uint4 r[kVecUnroll][NI];
 #pragma unroll
     for (int k = 0; k < kVecUnroll; ++k) {
       const int64_t j = j0 + k * threads;
       if (j < nv) {
-        if (kVecIn) {
-          x[k] = reinterpret_cast<const uint4*>(gv)[j];
-        } else {
-          T* e = reinterpret_cast<T*>(&x[k]);
 #pragma unroll
-          for (int c = 0; c < V; ++c) e[c] = gv[j * V + c];
-        }
+        for (int i = 0; i < NI; ++i)
+          r[k][i] = ld_vec(iv[i], j, (kVecMask >> i) & 1);
       }
     }
 #pragma unroll
     for (int k = 0; k < kVecUnroll; ++k) {
       const int64_t j = j0 + k * threads;
       if (j < nv) {
-        T* e = reinterpret_cast<T*>(&x[k]);
+        uint4 w[NO];
 #pragma unroll
         for (int c = 0; c < V; ++c) {
-          const A sg = s * ld(e, c);
-          st(e, c, sg * hh);
+          A x[NI], y[NO];
+#pragma unroll
+          for (int i = 0; i < NI; ++i)
+            x[i] = ld(reinterpret_cast<const T*>(&r[k][i]), c);
+          op(x, y);
+#pragma unroll
+          for (int o = 0; o < NO; ++o)
+            st(reinterpret_cast<T*>(&w[o]), c, y[o]);
         }
-        reinterpret_cast<uint4*>(ov)[j] = x[k];
+#pragma unroll
+        for (int o = 0; o < NO; ++o) reinterpret_cast<uint4*>(ov[o])[j] = w[o];
       }
     }
   }
@@ -316,26 +370,86 @@ __global__ void update_vjp_kernel(int64_t n, const T* __restrict__ g_z,
   }
 }
 
+// The cached SM count of the current device (the vector kernels' grid).
+inline int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (cached[dev] == 0) {
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cached[dev] = sms > 0 ? sms : 1;
+  }
+  return cached[dev];
+}
+
+// Launch vec_kernel<OpT, T, mask> for the runtime mask, by recursion over
+// the 2^kIn instantiations.
+template <template <typename> class OpT, typename T, int M>
+void launch_mask(int mask, unsigned int grid, cudaStream_t s, int64_t n,
+                 int64_t head, const In<T, OpT<T>::kIn>& in,
+                 const Out<T, OpT<T>::kOut>& out,
+                 const typename Acc<T>::type* h, double param) {
+  if constexpr (M + 1 < (1 << OpT<T>::kIn)) {
+    if (mask != M) {
+      launch_mask<OpT, T, M + 1>(mask, grid, s, n, head, in, out, h, param);
+      return;
+    }
+  }
+  vec_kernel<OpT, T, M><<<grid, kThreads, 0, s>>>(n, head, in, out, h,
+                                                   param);
+}
+
+// One vector-kernel launch: the outputs' shared 16-byte offset sets the
+// head, each input's own offset its bit of the mask.
+template <template <typename> class OpT, typename T>
+int launch_vec(int64_t n, const void* const* ins, void* const* outs,
+               const void* h, double param, cudaStream_t s) {
+  typedef typename Acc<T>::type A;
+  constexpr int NI = OpT<T>::kIn, NO = OpT<T>::kOut;
+  constexpr int64_t V = 16 / sizeof(T);
+  const uintptr_t out0 = reinterpret_cast<uintptr_t>(outs[0]);
+  In<T, NI> in;
+  Out<T, NO> out;
+  int mask = 0;
+  for (int i = 0; i < NI; ++i) {
+    in.p[i] = static_cast<const T*>(ins[i]);
+    if (((reinterpret_cast<uintptr_t>(ins[i]) ^ out0) & 15) == 0)
+      mask |= 1 << i;
+  }
+  for (int o = 0; o < NO; ++o) {
+    if (((reinterpret_cast<uintptr_t>(outs[o]) ^ out0) & 15) != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    out.p[o] = static_cast<T*>(outs[o]);
+  }
+  int64_t head = int64_t((16 - (out0 & 15)) & 15) / int64_t(sizeof(T));
+  head = head < n ? head : n;
+  const int64_t nv = (n - head) / V;
+  int64_t blocks = (nv + kThreads - 1) / kThreads;
+  const int64_t cap = int64_t(kVecBlocksPerSm) * sm_count();
+  blocks = blocks < cap ? blocks : cap;
+  blocks = blocks > 0 ? blocks : 1;  // the edges, and one launch per call
+  launch_mask<OpT, T, 0>(mask, static_cast<unsigned int>(blocks), s, n, head,
+                         in, out, static_cast<const A*>(h), param);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_midpoint(int64_t n, const void* z, const void* v, const void* h,
                     double sign, void* k1, cudaStream_t s) {
-  typedef typename Acc<T>::type A;
-  midpoint_kernel<T><<<n_blocks(n), kThreads, 0, s>>>(
-      n, static_cast<const T*>(z), static_cast<const T*>(v),
-      static_cast<const A*>(h), sign, static_cast<T*>(k1));
-  return static_cast<int>(cudaGetLastError());
+  const void* ins[2] = {z, v};
+  void* outs[1] = {k1};
+  return launch_vec<MidpointOp, T>(n, ins, outs, h, sign, s);
 }
 
 template <typename T>
 int launch_update(int64_t n, const void* k1, const void* v, const void* u1,
                   const void* h, double eta, void* z_out, void* v_out,
                   cudaStream_t s) {
-  typedef typename Acc<T>::type A;
-  update_kernel<T><<<n_blocks(n), kThreads, 0, s>>>(
-      n, static_cast<const T*>(k1), static_cast<const T*>(v),
-      static_cast<const T*>(u1), static_cast<const A*>(h), eta,
-      static_cast<T*>(z_out), static_cast<T*>(v_out));
-  return static_cast<int>(cudaGetLastError());
+  const void* ins[3] = {k1, v, u1};
+  void* outs[2] = {z_out, v_out};
+  return launch_vec<UpdateOp, T>(n, ins, outs, h, eta, s);
 }
 
 template <typename T>
@@ -394,28 +508,9 @@ int launch_inverse_update(int64_t n, const void* k1, const void* v_out,
 template <typename T>
 int launch_midpoint_vjp(int64_t n, const void* g, const void* h, double sign,
                         void* v_bar, cudaStream_t s) {
-  typedef typename Acc<T>::type A;
-  constexpr int64_t V = 16 / sizeof(T);
-  const uintptr_t out = reinterpret_cast<uintptr_t>(v_bar);
-  const uintptr_t in = reinterpret_cast<uintptr_t>(g);
-  int64_t head = int64_t((16 - (out & 15)) & 15) / int64_t(sizeof(T));
-  head = head < n ? head : n;
-  const int64_t nv = (n - head) / V;
-  int64_t blocks = (nv + kThreads - 1) / kThreads;
-  const int64_t cap = int64_t(kVecBlocksPerSm) * sm_count();
-  blocks = blocks < cap ? blocks : cap;
-  blocks = blocks > 0 ? blocks : 1;  // the edges, and one launch per call
-  const unsigned int grid = static_cast<unsigned int>(blocks);
-  if (((in ^ out) & 15) == 0) {
-    midpoint_vjp_kernel<T, true><<<grid, kThreads, 0, s>>>(
-        n, head, static_cast<const T*>(g), static_cast<const A*>(h), sign,
-        static_cast<T*>(v_bar));
-  } else {
-    midpoint_vjp_kernel<T, false><<<grid, kThreads, 0, s>>>(
-        n, head, static_cast<const T*>(g), static_cast<const A*>(h), sign,
-        static_cast<T*>(v_bar));
-  }
-  return static_cast<int>(cudaGetLastError());
+  const void* ins[1] = {g};
+  void* outs[1] = {v_bar};
+  return launch_vec<MidpointVjpOp, T>(n, ins, outs, h, sign, s);
 }
 
 template <typename T>

@@ -11,7 +11,15 @@ Dispatch is by device: CUDA tensors launch the kernel (or raise — there is
 no fallback), CPU tensors take the plain version of ``ref.py`` over the
 same packed buffer. The step size ``h`` rides as a 0-d tensor of at least
 float32 (float64 for float64 states) on the state's device and is never
-read on the host.
+read on the host. Each tree is flattened once per call; a bare tensor is
+not flattened at all.
+
+Grad-free path: when autograd is off (``lm.prefill``/``decode_step`` and
+MALI's forward run under ``torch.no_grad()``) or no input needs a
+gradient, ``alf_midpoint`` and ``alf_update`` call the launcher (on the
+CPU, the plain version) directly on the packed buffers, with no
+``autograd.Function`` around it: the same launch and the same bits, for a
+fraction of the host's time.
 
 Reverse rules: the ops a forward integration launches (``alf_midpoint``,
 ``alf_update``) are ``torch.autograd.Function``s over the packed flat
@@ -28,7 +36,7 @@ forward-only, see :mod:`repro_torch.kernels.registry`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -54,12 +62,53 @@ def reset_op_calls() -> None:
         OP_CALLS[k] = 0
 
 
-def _common_dtype(*trees) -> torch.dtype:
-    leaves = [l for t in trees for l in pytree.tree_leaves(t)]
-    dt = leaves[0].dtype
-    for l in leaves[1:]:
-        dt = torch.promote_types(dt, l.dtype)
-    return dt
+class _Tree:
+    """A tree flattened once: its leaves and its structure (None for a
+    bare tensor), what ``pack`` reads and ``unpack`` restores."""
+
+    __slots__ = ("leaves", "spec")
+
+    def __init__(self, tree: Pytree):
+        if isinstance(tree, torch.Tensor):
+            self.leaves, self.spec = [tree], None
+        else:
+            self.leaves, self.spec = pytree.tree_flatten(tree)
+
+    def pack(self, dtype: torch.dtype) -> torch.Tensor:
+        """The leaves as one flat contiguous buffer of ``dtype``; a single
+        leaf of that dtype as a view where it is contiguous."""
+        leaves = self.leaves
+        if len(leaves) == 1 and leaves[0].dtype == dtype:
+            return leaves[0].reshape(-1).contiguous()
+        return torch.cat([l.reshape(-1).to(dtype) for l in leaves])
+
+    def unpack(self, flat: torch.Tensor) -> Pytree:
+        """``flat`` split back into leaves of this tree's shapes and
+        dtypes."""
+        leaves = self.leaves
+        if self.spec is None:
+            return flat.reshape(leaves[0].shape).to(leaves[0].dtype)
+        parts = (torch.split(flat, [l.numel() for l in leaves])
+                 if len(leaves) > 1 else [flat])
+        return pytree.tree_unflatten(
+            [p.reshape(l.shape).to(l.dtype) for p, l in zip(parts, leaves)],
+            self.spec)
+
+
+def _trees(*trees: Pytree):
+    """The flattened trees and their common dtype (``torch.result_type``
+    across the leaves: a bf16 tree stays bf16, float64 stays float64)."""
+    ts = [_Tree(t) for t in trees]
+    dt = ts[0].leaves[0].dtype
+    for t in ts:
+        for l in t.leaves:
+            if l.dtype != dt:
+                dt = torch.promote_types(dt, l.dtype)
+    return ts, dt
+
+
+def _flatten(tree: Pytree, dtype: torch.dtype) -> torch.Tensor:
+    return _Tree(tree).pack(dtype)
 
 
 def _as_h(h, cdtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -67,38 +116,17 @@ def _as_h(h, cdtype: torch.dtype, device: torch.device) -> torch.Tensor:
     on the state's device. A tensor is converted on the device (and stays
     differentiable); a Python number is uploaded once."""
     hd = torch.promote_types(cdtype, torch.float32)
+    if (isinstance(h, torch.Tensor) and h.dtype == hd and h.dim() == 0
+            and h.device == device):
+        return h
     return torch.as_tensor(h, dtype=hd, device=device).reshape(())
 
 
-class _Meta:
-    """Structure, shapes and dtypes of a tree: what _unflatten restores."""
-
-    __slots__ = ("spec", "shapes", "dtypes", "sizes")
-
-    def __init__(self, tree: Pytree):
-        leaves, self.spec = pytree.tree_flatten(tree)
-        self.shapes = [l.shape for l in leaves]
-        self.dtypes = [l.dtype for l in leaves]
-        self.sizes = [l.numel() for l in leaves]
-
-
-def _flatten(tree: Pytree, dtype: torch.dtype) -> torch.Tensor:
-    leaves = pytree.tree_leaves(tree)
-    if len(leaves) == 1 and leaves[0].dtype == dtype:
-        return leaves[0].reshape(-1).contiguous()
-    return torch.cat([l.reshape(-1).to(dtype) for l in leaves])
-
-
-def _unflatten(flat: torch.Tensor, meta: _Meta) -> Pytree:
-    parts = torch.split(flat, meta.sizes) if len(meta.sizes) > 1 else [flat]
-    leaves: List[torch.Tensor] = [
-        p.reshape(s).to(d)
-        for p, s, d in zip(parts, meta.shapes, meta.dtypes)]
-    return pytree.tree_unflatten(leaves, meta.spec)
-
-
-def _device(tree: Pytree) -> torch.device:
-    return pytree.tree_leaves(tree)[0].device
+def _grad_free(*bufs: torch.Tensor) -> bool:
+    """True when no gradient can flow through the op: autograd is off, or
+    no packed input (nor h) requires one."""
+    return not (torch.is_grad_enabled()
+                and any(b.requires_grad for b in bufs))
 
 
 def _unwrapped(t: torch.Tensor) -> torch.Tensor:
@@ -118,6 +146,18 @@ def _h_cotangent(h: torch.Tensor, coeff: float, a: torch.Tensor,
     return torch.sum(a.to(h.dtype) * g.to(h.dtype)) * coeff
 
 
+def _midpoint(zf, vf, h, sign):
+    if _on_cuda("alf_midpoint", zf.device):
+        return alf_step.midpoint_call(zf, vf, h, sign=sign)
+    return ref.midpoint_ref(zf, vf, h, sign)
+
+
+def _update(kf, vf, uf, h, eta):
+    if _on_cuda("alf_update", kf.device):
+        return alf_step.update_call(kf, vf, uf, h, eta=eta)
+    return ref.update_ref(kf, vf, uf, h, eta)
+
+
 class _Midpoint(torch.autograd.Function):
     """k1 = z + sign*v*h/2 over packed buffers. Reverse rule:
     z_bar = g, v_bar = sign*g*h/2 (one midpoint_vjp launch),
@@ -125,9 +165,7 @@ class _Midpoint(torch.autograd.Function):
 
     @staticmethod
     def forward(zf, vf, h, sign):
-        if _on_cuda("alf_midpoint", zf.device):
-            return alf_step.midpoint_call(zf, vf, h, sign=sign)
-        return ref.midpoint_ref(zf, vf, h, sign)
+        return _midpoint(zf, vf, h, sign)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -160,9 +198,7 @@ class _Update(torch.autograd.Function):
 
     @staticmethod
     def forward(kf, vf, uf, h, eta):
-        if _on_cuda("alf_update", kf.device):
-            return alf_step.update_call(kf, vf, uf, h, eta=eta)
-        return ref.update_ref(kf, vf, uf, h, eta)
+        return _update(kf, vf, uf, h, eta)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -194,10 +230,12 @@ def alf_midpoint(z: Pytree, v: Pytree, h, *, sign: float = 1.0) -> Pytree:
     """k1 = z + sign*v*h/2 over a pytree state, in one launch.
     Differentiable in z, v and h."""
     OP_CALLS["alf_midpoint"] += 1
-    cd = _common_dtype(z, v)
-    hh = _as_h(h, cd, _device(z))
-    k1 = _Midpoint.apply(_flatten(z, cd), _flatten(v, cd), hh, float(sign))
-    return _unflatten(k1, _Meta(z))
+    (zt, vt), cd = _trees(z, v)
+    hh = _as_h(h, cd, zt.leaves[0].device)
+    zf, vf = zt.pack(cd), vt.pack(cd)
+    if _grad_free(zf, vf, hh):
+        return zt.unpack(_midpoint(zf, vf, hh, float(sign)))
+    return zt.unpack(_Midpoint.apply(zf, vf, hh, float(sign)))
 
 
 def alf_update(k1: Pytree, v: Pytree, u1: Pytree, h, *,
@@ -205,11 +243,14 @@ def alf_update(k1: Pytree, v: Pytree, u1: Pytree, h, *,
     """Forward tail (z_out, v_out) in one launch. Differentiable in k1, v,
     u1 and h."""
     OP_CALLS["alf_update"] += 1
-    cd = _common_dtype(k1, v, u1)
-    hh = _as_h(h, cd, _device(k1))
-    zo, vo = _Update.apply(_flatten(k1, cd), _flatten(v, cd),
-                           _flatten(u1, cd), hh, float(eta))
-    return _unflatten(zo, _Meta(k1)), _unflatten(vo, _Meta(v))
+    (kt, vt, ut), cd = _trees(k1, v, u1)
+    hh = _as_h(h, cd, kt.leaves[0].device)
+    bufs = (kt.pack(cd), vt.pack(cd), ut.pack(cd), hh)
+    if _grad_free(*bufs):
+        zo, vo = _update(*bufs, float(eta))
+    else:
+        zo, vo = _Update.apply(*bufs, float(eta))
+    return kt.unpack(zo), vt.unpack(vo)
 
 
 def alf_inverse(z_out: Pytree, v_out: Pytree, u1: Pytree, h, *,
@@ -218,15 +259,15 @@ def alf_inverse(z_out: Pytree, v_out: Pytree, u1: Pytree, h, *,
     u1 = f(k1, s1); the midpoint k1 = z_out - v_out*h/2 is re-derived
     inside the kernel rather than read back."""
     OP_CALLS["alf_inverse"] += 1
-    cd = _common_dtype(z_out, v_out, u1)
-    dev = _device(z_out)
+    ts, cd = _trees(z_out, v_out, u1)
+    dev = ts[0].leaves[0].device
     hh = _as_h(h, cd, dev)
-    bufs = [_flatten(t, cd) for t in (z_out, v_out, u1)]
+    bufs = [t.pack(cd) for t in ts]
     if _on_cuda("alf_inverse", dev):
         zi, vi = alf_step.inverse_call(*bufs, hh, eta=eta)
     else:
         zi, vi = ref.inverse_ref(*bufs, hh, eta)
-    return _unflatten(zi, _Meta(z_out)), _unflatten(vi, _Meta(v_out))
+    return ts[0].unpack(zi), ts[1].unpack(vi)
 
 
 def alf_inverse_update(k1: Pytree, v_out: Pytree, u1: Pytree, h, *,
@@ -234,15 +275,15 @@ def alf_inverse_update(k1: Pytree, v_out: Pytree, u1: Pytree, h, *,
     """psi^-1's tail (z_in, v_in) given the recovered midpoint k1, in one
     launch."""
     OP_CALLS["alf_inverse_update"] += 1
-    cd = _common_dtype(k1, v_out, u1)
-    dev = _device(k1)
+    ts, cd = _trees(k1, v_out, u1)
+    dev = ts[0].leaves[0].device
     hh = _as_h(h, cd, dev)
-    bufs = [_flatten(t, cd) for t in (k1, v_out, u1)]
+    bufs = [t.pack(cd) for t in ts]
     if _on_cuda("alf_inverse_update", dev):
         zi, vi = alf_step.inverse_update_call(*bufs, hh, eta=eta)
     else:
         zi, vi = ref.inverse_update_ref(*bufs, hh, eta)
-    return _unflatten(zi, _Meta(k1)), _unflatten(vi, _Meta(v_out))
+    return ts[0].unpack(zi), ts[1].unpack(vi)
 
 
 def alf_bwd_pre(z_i: Pytree, v_i: Pytree, a_z: Pytree, a_v: Pytree, h, *,
@@ -251,15 +292,15 @@ def alf_bwd_pre(z_i: Pytree, v_i: Pytree, a_z: Pytree, a_v: Pytree, h, *,
     k1 = z_i - v_i*h/2 and the f-eval cotangent
     cot_u1 = 2*eta*(a_v + (h/2)*a_z), in one launch."""
     OP_CALLS["alf_bwd_pre"] += 1
-    cd = _common_dtype(z_i, v_i, a_z, a_v)
-    dev = _device(z_i)
+    ts, cd = _trees(z_i, v_i, a_z, a_v)
+    dev = ts[0].leaves[0].device
     hh = _as_h(h, cd, dev)
-    bufs = [_flatten(t, cd) for t in (z_i, v_i, a_z, a_v)]
+    bufs = [t.pack(cd) for t in ts]
     if _on_cuda("alf_bwd_pre", dev):
         k1, cu = alf_step.bwd_pre_call(*bufs, hh, eta=eta)
     else:
         k1, cu = ref.bwd_pre_ref(*bufs, hh, eta)
-    return _unflatten(k1, _Meta(z_i)), _unflatten(cu, _Meta(a_z))
+    return ts[0].unpack(k1), ts[2].unpack(cu)
 
 
 def alf_bwd_post(k1: Pytree, v_out: Pytree, u1: Pytree, a_z: Pytree,
@@ -268,13 +309,13 @@ def alf_bwd_post(k1: Pytree, v_out: Pytree, u1: Pytree, a_z: Pytree,
     """Fused tail of one MALI backward step, given dk1 = vjp_f(cot_u1):
     (z_prev, v_prev, dz_prev, dv_prev), in one launch."""
     OP_CALLS["alf_bwd_post"] += 1
-    cd = _common_dtype(k1, v_out, u1, a_z, a_v, dk1)
-    dev = _device(k1)
+    ts, cd = _trees(k1, v_out, u1, a_z, a_v, dk1)
+    dev = ts[0].leaves[0].device
     hh = _as_h(h, cd, dev)
-    bufs = [_flatten(t, cd) for t in (k1, v_out, u1, a_z, a_v, dk1)]
+    bufs = [t.pack(cd) for t in ts]
     if _on_cuda("alf_bwd_post", dev):
         zp, vp, dz, dv = alf_step.bwd_post_call(*bufs, hh, eta=eta)
     else:
         zp, vp, dz, dv = ref.bwd_post_ref(*bufs, hh, eta)
-    return (_unflatten(zp, _Meta(k1)), _unflatten(vp, _Meta(v_out)),
-            _unflatten(dz, _Meta(a_z)), _unflatten(dv, _Meta(a_v)))
+    return (ts[0].unpack(zp), ts[1].unpack(vp), ts[3].unpack(dz),
+            ts[4].unpack(dv))

@@ -13,6 +13,12 @@ is seeded random tokens. Prints per-phase timings and tokens/s. The device
 defaults to the CUDA card (``--device cpu`` runs the plain versions of the
 kernels on the CPU).
 
+Prefill runs eagerly. Decode goes through :func:`make_decode_step`, the
+port's counterpart of the JAX package's jitted decode step: on the card
+its first call runs one eager step and captures a CUDA graph of the next,
+and every later step replays that graph; on the CPU each step runs
+eagerly (the kernel ops take their plain versions there).
+
 The ODE serving loop (``--mode ode``) lands with the serving-engine slice
 (ROADMAP queue 1 (c)) and raises ``NotImplementedError`` here.
 """
@@ -24,12 +30,14 @@ from typing import NamedTuple, Union
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.configs import (DEFAULT_ODE, ModelConfig, get_config,
                                  smoke_config)
 from repro_torch.core.ode_block import OdeSettings
 from repro_torch.device import resolve_device
-from repro_torch.models import decode_step, init_lm, prefill
+from repro_torch.kernels import on_cuda
+from repro_torch.models import decode_step, init_lm, moe, prefill
 from repro_torch.models.lm import ServeState, init_serve_state
 
 MODE_DEFAULT_BATCH = {"lm": 4, "ode": 64}
@@ -41,10 +49,102 @@ def make_prefill_step(cfg):
     return prefill_step
 
 
+class DecodeGraph:
+    """One CUDA graph of ``decode_step(..., backend="cuda")``, bound to one
+    ``ServeState`` (its cache tensors and its ``pos`` tensor) and one
+    params tree.
+
+    The first call runs one eager step on a side stream (the warm-up a
+    capture needs: it loads the kernels and makes cuBLAS's workspace for
+    that stream) and returns its result, whose ``pos`` is a new tensor.
+    It then captures, on the same stream and into the graph's own memory
+    pool, the step that follows for the state it returns: the token is
+    read from a static input, the cache is written at ``pos`` and ``pos``
+    advances by one inside the graph. Every later call copies the token
+    into the static input and replays the graph on the current stream; it
+    returns a copy of the logits and the same state, its ``pos`` advanced
+    in place.
+
+    Raises on a call with another state's or another params' tensors or
+    another token shape, on a capture while ``moe.recording_routes()`` is
+    open (the graph would record the routes once, at capture), and on any
+    capture or replay error. The kernel wrappers count their launches at
+    the warm-up and at the capture; a replay calls no wrapper."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.graph = None
+
+    @staticmethod
+    def _bound(params, state: ServeState):
+        return (tuple(t.data_ptr() for t in pytree.tree_leaves(state.cache)),
+                tuple(t.data_ptr() for t in pytree.tree_leaves(params)))
+
+    def __call__(self, params, tokens: torch.Tensor, state: ServeState):
+        if self.graph is None:
+            return self._warm_up_and_capture(params, tokens, state)
+        if (state.pos is not self.pos
+                or self._bound(params, state) != self.bound):
+            raise ValueError("decode graph: called with another ServeState "
+                             "or params than the ones it was captured for")
+        if tokens.shape != self.tokens.shape:
+            raise ValueError(f"decode graph: tokens of shape "
+                             f"{tuple(tokens.shape)}, captured for "
+                             f"{tuple(self.tokens.shape)}")
+        self.tokens.copy_(tokens)
+        self.graph.replay()
+        return self.logits.clone(), state
+
+    def _warm_up_and_capture(self, params, tokens, state):
+        if moe.routes_recording():
+            raise RuntimeError("decode graph: cannot capture while "
+                               "moe.recording_routes() is open (the routes "
+                               "would be recorded once, at capture)")
+        current = torch.cuda.current_stream(tokens.device)
+        side = torch.cuda.Stream(tokens.device)
+        side.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            logits, state = decode_step(params, self.cfg, tokens, state)
+            static_tokens = tokens.clone()
+            graph.capture_begin()
+            try:
+                out, nxt = decode_step(params, self.cfg, static_tokens,
+                                       state)
+                state.pos.copy_(nxt.pos)
+            finally:
+                graph.capture_end()
+        current.wait_stream(side)
+        logits.record_stream(current)
+        self.graph, self.tokens, self.logits = graph, static_tokens, out
+        self.pos, self.bound = state.pos, self._bound(params, state)
+        return logits, state
+
+
 def make_decode_step(cfg):
+    """The decode step ``serve`` runs, dispatched by the state's device: on
+    the card a :class:`DecodeGraph` (captured at the first call, replayed
+    after), on the CPU ``decode_step`` itself, eagerly."""
+    graph = DecodeGraph(cfg)
+
     def serve_step(params, tokens, state: ServeState):
+        if on_cuda("decode_step", state.pos.device):
+            return graph(params, tokens, state)
         return decode_step(params, cfg, tokens, state)
     return serve_step
+
+
+def serve_prompt(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
+                 device) -> dict:
+    """The seeded random prompt ``serve`` prefills (its weights are
+    ``init_lm`` from a generator seeded with the same ``seed``)."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "embeds":
+        return {"embeds": torch.as_tensor(rng.standard_normal(
+            (batch, prompt_len, cfg.d_model)).astype(np.float32),
+            device=device)}
+    return {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len)), device=device)}
 
 
 class ServeResult(NamedTuple):
@@ -76,19 +176,12 @@ def serve(arch: Union[str, ModelConfig], *, smoke: bool = True,
         cfg = get_config(arch, settings)
     dev = resolve_device(device)
     s_max = prompt_len + decode_tokens
-    rng = np.random.default_rng(seed)
 
     params = init_lm(torch.Generator(device=dev).manual_seed(seed), cfg, dev)
+    prompt = serve_prompt(cfg, batch, prompt_len, seed, dev)
     state = init_serve_state(cfg, batch, s_max, dev)
     prefill_fn = make_prefill_step(cfg)
     decode_fn = make_decode_step(cfg)
-
-    if cfg.input_mode == "embeds":
-        prompt = {"embeds": torch.as_tensor(rng.standard_normal(
-            (batch, prompt_len, cfg.d_model)).astype(np.float32), device=dev)}
-    else:
-        prompt = {"tokens": torch.as_tensor(rng.integers(
-            0, cfg.vocab_size, (batch, prompt_len)), device=dev)}
 
     _sync(dev)
     t0 = time.perf_counter()

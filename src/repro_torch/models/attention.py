@@ -141,16 +141,19 @@ def attention_prefill(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
 
 
 def attention_decode(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
-                     x: torch.Tensor, pos: int, cache: KVCache, slot: int,
-                     backend: str = "cuda") -> Tuple[torch.Tensor, KVCache]:
-    """One-token decode: x [B, 1, D]; pos the current position (int).
-    Writes K/V at ``cache[slot, :, pos]`` in place."""
+                     x: torch.Tensor, pos: torch.Tensor, cache: KVCache,
+                     slot: int, backend: str = "cuda"
+                     ) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode: x [B, 1, D]; pos the current position, a 0-d int
+    tensor on x's device (never read on the host). Writes K/V at
+    ``cache[slot, :, pos]`` in place."""
     check_backend(backend)
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    positions = pos.reshape(1, 1).expand(b, 1)
     q, k, v = _project_qkv(params, cfg, x, positions, backend)
-    cache.k[slot, :, pos:pos + 1] = k
-    cache.v[slot, :, pos:pos + 1] = v
+    at = pos.reshape(1).long()
+    cache.k[slot].index_copy_(1, at, k)
+    cache.v[slot].index_copy_(1, at, v)
     k_all, v_all = cache.k[slot], cache.v[slot]
     k_pos = torch.arange(k_all.shape[1], dtype=torch.int32, device=x.device)
     bias = _mask_bias(positions[0], k_pos, _window(cfg, spec))   # [1, S]

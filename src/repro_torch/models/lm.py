@@ -13,7 +13,9 @@ updates through the port's kernel ops (the hand-written kernels on the
 card, their plain versions on the CPU); ``"reference"`` runs the plain
 versions on any device, the yardstick the kernel path is held against on
 the card. Both run without autograd; the cache in ``state`` is written in
-place.
+place. ``ServeState.pos`` is a 0-d int32 tensor on the cache's device, as
+in the JAX package, and no host reads it, so a decode step can be
+captured in a CUDA graph and replayed (``launch.serve.make_decode_step``).
 """
 from __future__ import annotations
 
@@ -73,13 +75,19 @@ def _logits(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
 
 class ServeState(NamedTuple):
     cache: Pytree
-    pos: int   # next write position
+    pos: torch.Tensor   # next write position, 0-d int32 on the device
+
+
+def _position(value: int, device) -> torch.Tensor:
+    """A 0-d int32 position on ``device``, made by a fill kernel (no
+    host-to-device copy, no sync)."""
+    return torch.full((), value, dtype=torch.int32, device=device)
 
 
 def init_serve_state(cfg: ModelConfig, batch: int, s_max: int,
                      device=None) -> ServeState:
-    return ServeState(init_cache(cfg, batch, s_max, resolve_device(device)),
-                      0)
+    dev = resolve_device(device)
+    return ServeState(init_cache(cfg, batch, s_max, dev), _position(0, dev))
 
 
 @torch.no_grad()
@@ -94,7 +102,8 @@ def prefill(params: Pytree, cfg: ModelConfig, batch: Pytree,
                              device=x.device)[None].expand(b, s)
     x, cache = blocks_serve(params["blocks"], cfg, x, state.cache,
                             positions, "prefill", backend)
-    return _logits(params, cfg, x[:, -1:], backend), ServeState(cache, s)
+    return (_logits(params, cfg, x[:, -1:], backend),
+            ServeState(cache, _position(s, x.device)))
 
 
 @torch.no_grad()

@@ -42,6 +42,11 @@ class Routes(NamedTuple):
 _ROUTE_LOGS: List[List[Routes]] = []
 
 
+def routes_recording() -> bool:
+    """Whether a :func:`recording_routes` block is open."""
+    return bool(_ROUTE_LOGS)
+
+
 @contextlib.contextmanager
 def recording_routes() -> Iterator[List[Routes]]:
     """Collect the :class:`Routes` of every apply_moe call inside the

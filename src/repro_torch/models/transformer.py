@@ -198,8 +198,9 @@ def _alf_unroll(f, x: torch.Tensor, n: int, eta: float, h: torch.Tensor,
 def layer_serve(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
                 x: torch.Tensor, cache: Pytree, pos_info, kind: str,
                 backend: str = "cuda") -> Tuple[torch.Tensor, Pytree]:
-    """One layer, serve mode. pos_info: positions [B,S] (prefill) or int
-    pos (decode). The cache is written in place and returned."""
+    """One layer, serve mode. pos_info: positions [B,S] (prefill) or the
+    0-d int32 pos tensor (decode). The cache is written in place and
+    returned."""
     check_backend(backend)
     ode = cfg.ode
     cdt = torch_dtype(cfg.compute_dtype)

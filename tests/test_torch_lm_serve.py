@@ -275,8 +275,9 @@ def test_attention_prefill_and_decode_match_jax(arch):
                                         jnp.asarray(x[:, p:p + 1]),
                                         jnp.int32(p), jc, 1)
         ty, tc = tattn.attention_decode(tl["mixer"], tcfg, spec,
-                                        torch.tensor(x[:, p:p + 1]), p, tc,
-                                        1)
+                                        torch.tensor(x[:, p:p + 1]),
+                                        torch.tensor(p, dtype=torch.int32),
+                                        tc, 1)
         _assert_close(ty, jy, "f32", f"decode output {i}")
     for a, b in ((tc.k, jc.k), (tc.v, jc.v)):
         _assert_close(a, b, "f32", "cache")
@@ -303,7 +304,8 @@ def test_layer_serve_matches_jax(arch, ode_on):
     jy, jc = jtf.layer_serve(jl, jcfg, spec, jnp.asarray(x[:, :1]), jc,
                              jnp.int32(PROMPT), "decode")
     ty, tc = ttf.layer_serve(tl, tcfg, spec, torch.tensor(x[:, :1]), tc,
-                             PROMPT, "decode")
+                             torch.tensor(PROMPT, dtype=torch.int32),
+                             "decode")
     _assert_close(ty, jy, "f32", "layer_serve decode")
     _assert_close(tc.v, jc.v, "f32", "layer_serve cache v")
 
