@@ -10,7 +10,9 @@ either. Phases, each printing JSON lines:
 1. device    — the card's name and power limit; build the CUDA kernels.
 2. kernels   — every ALF kernel against its plain PyTorch version on the
                card: f32, bf16, a mixed {f32, bf16} tree and f64; n = 1,
-               1500*128+37 and the main path's 2048*64; eta in {1, 0.9}
+               1500*128+37, the main path's 2048*64 and Backsolve's
+               packed augmented state on it (2*2048*64 + 2*64*64 + 128
+               = 270,464); eta in {1, 0.9}
                (sign in {+1, -1} for the midpoint and its VJP). The two
                VJP kernels run as the backward of alf_midpoint /
                alf_update under torch.autograd.grad. One op call (or one
@@ -113,6 +115,32 @@ either. Phases, each printing JSON lines:
                prefill(p) + decode on the rows whose routes agree and
                whose decode step dropped none, peak memory and device
                profiles.
+13. methods   — the rest of the solver surface, through the port's entry
+               points: (a) Thm 2.1 — dL/da of -a*z (a=8, ALF(eta=0.9),
+               ConstantSteps(128)): MALI on cuda within 1e-4 of Naive on
+               the reference backend, Backsolve on cuda drifting (> 1e-3
+               and > 100x MALI's error) and within 1e-5 of Backsolve on
+               the reference backend; (b) the Sec 4.2 model trained 20
+               Adam steps through odeint(method=...) with MALI (ALF cuda),
+               ACA (heun_euler), Backsolve (ALF cuda; and dopri5 under
+               AdaptiveController(1e-4, 1e-5, 128)) and Naive
+               (heun_euler): the loss falls, exact launch counts (Backsolve
+               on ALF cuda 4+4 alf_midpoint/alf_update forward and 4+4 in
+               the reverse augmented solve per step, none of the others;
+               the Runge-Kutta runs none), no host sync in a fixed-step
+               forward + backward, ACA's first-step gradient within 1e-5
+               of Naive's on the same tableau, Backsolve's on ALF cuda
+               within 1e-5 of its own on the reference backend (the
+               forward pair over the packed (z, a, g_params) state at
+               full width), ms per step in turns and
+               each method's device busy/idle share (torch.profiler);
+               (c) peak memory on phase 7's 2^20-element state at
+               ConstantSteps(8) and (64): MALI and Backsolve <= 1.05x,
+               ACA > 2x and below Naive (heun_euler) at 64 steps, MALI
+               below ACA; (d) diff_bounds: dL/dt0 and dL/dt1 of each
+               method on the Sec 4.2 field against the analytic values
+               (1e-5), methods on one discretization within 1e-5 of each
+               other, across discretizations within 5e-3.
 
 Every phase runs on every call. The line before the last is the kernel
 table; the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -139,6 +167,9 @@ TAIL_N = 1500 * 128 + 37
 # The f32 ALF state of the LM paths' prefill (batch 4 x 1024 tokens x
 # d_model): qwen3-1.7b and jamba-v0.1-52b
 QWEN_ALF_N, JAMBA_ALF_N = 4 * 1024 * 2048, 4 * 1024 * 4096
+# Backsolve's augmented state (z, a, {w1, b1, w2, b2}) on the main path,
+# packed into one buffer by the ALF ops: 270,464 f32
+BACKSOLVE_AUG_N = 2 * SLICE_N + 2 * D * HIDDEN + HIDDEN + D
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_core_gradients.py:76
 KERNEL_ULPS = 2
 TIME_PAIRS = 5
@@ -443,7 +474,7 @@ def phase_kernels():
         n_trees = {"alf_midpoint_vjp": 3, "alf_update_vjp": 5}.get(name,
                                                                    n_in)
         for kind in ("f32", "bf16", "mixed", "f64"):
-            for n in (1, TAIL_N, SLICE_N):
+            for n in (1, TAIL_N, SLICE_N, BACKSOLVE_AUG_N):
                 if kind == "mixed" and n == 1:
                     continue
                 trees = _make_trees(kind, n, n_trees, gen)
@@ -774,15 +805,20 @@ def _grads(params, x, y, solver, gradient, controller):
                                  pytree.tree_flatten(params)[1])
 
 
-def _train(x, y, solver, ctrl, gradient=None, steps=TRAIN_STEPS):
+def _train(x, y, solver, ctrl, gradient=None, steps=TRAIN_STEPS,
+           loss_fn=None):
     """``steps`` Adam steps of the Sec 4.2 model from the seeded
-    parameters (MALI unless another gradient is given); returns the losses
-    and the wall seconds."""
+    parameters (MALI unless another gradient is given, or
+    ``loss_fn(params)`` in place of the solve); returns the losses and the
+    wall seconds."""
     import torch
     import torch.utils._pytree as pytree
     from repro_torch import params_from_numpy
     from repro_torch.core import MALI
     gradient = MALI() if gradient is None else gradient
+    if loss_fn is None:
+        def loss_fn(params):
+            return _model_loss(params, x, y, solver, gradient, ctrl)[0]
     params = params_from_numpy(init_params_numpy(0))
     for p in pytree.tree_leaves(params):
         p.requires_grad_(True)
@@ -792,7 +828,7 @@ def _train(x, y, solver, ctrl, gradient=None, steps=TRAIN_STEPS):
     t0 = time.perf_counter()
     for _ in range(steps):
         opt.zero_grad(set_to_none=True)
-        loss, _ = _model_loss(params, x, y, solver, gradient, ctrl)
+        loss = loss_fn(params)
         loss.backward()
         opt.step()
         losses.append(loss.detach())
@@ -2139,6 +2175,316 @@ def phase_ssm_serve(card: str, smi: str):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the rest of the solver surface (Runge-Kutta tableaus, ACA,
+# Backsolve, diff_bounds, the odeint front door) on the card
+# ---------------------------------------------------------------------------
+
+# The methods of (b): (label, odeint kwargs, ALF launches per training
+# step). ConstantSteps(4) unless noted. Backsolve on ALF(cuda) launches
+# 4 + 4 in the forward solve and 4 + 4 in the reverse augmented solve,
+# both grad-free; the Runge-Kutta runs launch no kernel.
+METHOD_RUNS = (
+    ("mali_alf_cuda", dict(method="mali", n_steps=N_SUB),
+     {"alf_midpoint": N_SUB, "alf_update": N_SUB, "alf_bwd_pre": N_SUB,
+      "alf_bwd_post": N_SUB}),
+    ("aca_heun_euler", dict(method="aca", solver="heun_euler",
+                            n_steps=N_SUB), {}),
+    ("adjoint_alf_cuda", dict(method="adjoint", n_steps=N_SUB),
+     {"alf_midpoint": 2 * N_SUB, "alf_update": 2 * N_SUB}),
+    ("adjoint_dopri5_adaptive", dict(method="adjoint", solver="dopri5",
+                                     n_steps=0, rtol=1e-4, atol=1e-5,
+                                     max_steps=128), {}),
+    ("naive_heun_euler", dict(method="naive", solver="heun_euler",
+                              n_steps=N_SUB), {}),
+)
+THM21_A, THM21_ETA, THM21_STEPS = 8.0, 0.9, 128
+SAME_DISCRETIZATION_RTOL = 1e-5
+# dL/dt0 across discretizations at 32 steps (tests/test_diff_bounds.py)
+CROSS_METHOD_RTOL = 5e-3
+DB_STEPS = 32
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want| over matching leaves (worst leaf)."""
+    import torch.utils._pytree as pytree
+    worst = 0.0
+    for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        worst = max(worst, float((g - w).abs().max() / w.abs().max()))
+    return worst
+
+
+def _odeint_kwargs(kw: dict) -> dict:
+    """odeint kwargs with the ALF solver on the kernels (ALF is the
+    default of MALI and the solver given to Backsolve here)."""
+    from repro_torch.core import ALF
+    if kw.get("solver") is None and kw["method"] in ("mali", "adjoint"):
+        return {**kw, "solver": ALF(eta=1.0, backend="cuda")}
+    return kw
+
+
+def _odeint_loss(kw: dict, x, y):
+    import torch
+    from repro_torch.core import odeint
+
+    def loss_fn(params):
+        z = odeint(field, params["f"], x, 0.0, 1.0, **_odeint_kwargs(kw))
+        logits = (z * params["norm"]) @ params["head"] + params["bh"]
+        return torch.nn.functional.cross_entropy(logits, y)
+
+    return loss_fn
+
+
+def _thm21():
+    """(a) Thm 2.1 on the card: stiff decay a=8, ALF(eta=0.9), 128 steps;
+    Naive on the reference backend is the oracle."""
+    import torch
+    from repro_torch.core import (ALF, MALI, Backsolve, ConstantSteps,
+                                  Naive, solve)
+
+    def grad(gradient, backend):
+        a = torch.full((), THM21_A, device="cuda", requires_grad=True)
+        sol = solve(lambda p, z, t: -p["a"] * z, {"a": a},
+                    torch.ones(3, device="cuda"), 0.0, 1.0,
+                    solver=ALF(eta=THM21_ETA, backend=backend),
+                    controller=ConstantSteps(THM21_STEPS), gradient=gradient)
+        (g,) = torch.autograd.grad(torch.sum(sol.ys), [a])
+        return float(g)
+
+    g_naive = grad(Naive(), "reference")
+    g_mali = grad(MALI(), "cuda")
+    g_back = grad(Backsolve(), "cuda")
+    g_back_ref = grad(Backsolve(), "reference")
+    rel_mali = abs(g_mali - g_naive) / abs(g_naive)
+    rel_back = abs(g_back - g_naive) / abs(g_naive)
+    back_vs_ref = abs(g_back - g_back_ref) / abs(g_back_ref)
+    require(rel_mali < 1e-4, f"Thm 2.1: MALI rel {rel_mali} >= 1e-4")
+    require(rel_back > 1e-3, f"Thm 2.1: Backsolve rel {rel_back} <= 1e-3")
+    require(rel_back > 100 * rel_mali,
+            f"Thm 2.1: Backsolve {rel_back} not > 100x MALI {rel_mali}")
+    require(back_vs_ref <= 1e-5, f"Thm 2.1: Backsolve cuda vs reference "
+            f"{back_vs_ref} > 1e-5")
+    return {"grad_naive_reference": g_naive, "grad_mali_cuda": g_mali,
+            "grad_backsolve_cuda": g_back,
+            "grad_backsolve_reference": g_back_ref,
+            "rel_mali": rel_mali, "rel_backsolve": rel_back,
+            "backsolve_cuda_vs_reference": back_vs_ref}
+
+
+def _method_runs(x, y):
+    """(b) 20 Adam steps of the Sec 4.2 model through odeint(method=...)
+    for each of METHOD_RUNS: the loss falls, exact launch counts, no host
+    sync in a fixed-step step; ACA's first-step gradient equals Naive's on
+    the same tableau, and Backsolve's on the kernels equals its own on the
+    plain versions; ms per step, each method timed in turns."""
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch import params_from_numpy
+    out, launches = {}, {}
+    params = params_from_numpy(init_params_numpy(0))
+    for p in pytree.tree_leaves(params):
+        p.requires_grad_(True)
+    leaves = pytree.tree_leaves(params)
+    first = {}
+    for label, kw, per in METHOD_RUNS:
+        loss_fn = _odeint_loss(kw, x, y)
+        first[label] = torch.autograd.grad(loss_fn(params), leaves)
+        if kw.get("n_steps", 0) > 0:
+            # one fixed-step forward + backward with every host sync an
+            # error
+            _no_sync(lambda: loss_fn(params).backward())
+        counts, (losses, _) = _counted(
+            f"odeint({label})",
+            lambda: _train(x, y, None, None, loss_fn=loss_fn), TRAIN_STEPS,
+            per)
+        require(all(np.isfinite(losses)), f"{label}: non-finite losses")
+        require(losses[-1] < losses[0],
+                f"{label}: loss did not fall: {losses[0]} -> {losses[-1]}")
+        launches[label] = counts
+        out[label] = {"first_loss": losses[0], "last_loss": losses[-1]}
+    aca_vs_naive = _rel_err(first["aca_heun_euler"],
+                            first["naive_heun_euler"])
+    require(aca_vs_naive <= SAME_DISCRETIZATION_RTOL,
+            f"ACA vs Naive (heun_euler) first-step gradients: rel "
+            f"{aca_vs_naive}")
+    # Backsolve's reverse solve runs the forward pair over the packed
+    # (z, a, g_params) state: hold the kernels' gradient against the same
+    # run on the plain versions (ALF backend "reference")
+    from repro_torch.core import ALF
+    kw = next(k for lab, k, _ in METHOD_RUNS if lab == "adjoint_alf_cuda")
+    ref_loss = _odeint_loss({**kw, "solver": ALF(eta=1.0,
+                                                 backend="reference")}, x, y)
+    backsolve_vs_ref = _rel_err(first["adjoint_alf_cuda"],
+                                torch.autograd.grad(ref_loss(params), leaves))
+    require(backsolve_vs_ref <= SAME_DISCRETIZATION_RTOL,
+            f"Backsolve first-step gradients, ALF cuda vs reference: rel "
+            f"{backsolve_vs_ref}")
+    step_ms = {label: [] for label, _, _ in METHOD_RUNS}
+    for i in range(2):
+        for label, kw, _ in METHOD_RUNS[::1 if i % 2 == 0 else -1]:
+            _, wall = _train(x, y, None, None,
+                             loss_fn=_odeint_loss(kw, x, y))
+            step_ms[label].append(wall / TRAIN_STEPS * 1e3)
+    for label, kw, _ in METHOD_RUNS:
+        out[label]["step_ms"] = step_ms[label]
+        out[label]["median_step_ms"] = float(np.median(step_ms[label]))
+        prof = _device_profile(lambda: _train(
+            x, y, None, None, loss_fn=_odeint_loss(kw, x, y)))
+        out[label]["profile"] = {k: prof[k] for k in (
+            "device_busy_ms", "device_window_ms", "idle_share",
+            "device_launches", "host_ms")}
+    # The adaptive run's forward accounting at the seeded parameters (its
+    # reverse augmented solve runs its own accept/reject loop).
+    from repro_torch.core import AdaptiveController, Backsolve, Dopri5, solve
+    sol = solve(field, params["f"], x, 0.0, 1.0, solver=Dopri5(),
+                controller=AdaptiveController(1e-4, 1e-5, 128),
+                gradient=Backsolve())
+    out["adjoint_dopri5_adaptive"]["forward_stats"] = {
+        k: int(getattr(sol.stats, k))
+        for k in ("n_accepted", "n_rejected", "n_fevals")}
+    return out, launches, {
+        "aca_vs_naive_heun_euler_first_grad_rel": aca_vs_naive,
+        "backsolve_cuda_vs_reference_first_grad_rel": backsolve_vs_ref}
+
+
+def _method_memory():
+    """(c) Peak device memory of a forward + backward on phase 7's
+    2^20-element state at ConstantSteps(8) and (64)."""
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch import params_from_numpy
+    from repro_torch.core import (ACA, ALF, MALI, Backsolve, ConstantSteps,
+                                  HeunEuler, Naive, solve)
+    x_np, _ = make_data((1 << 20) // D, seed=2)
+    fp = params_from_numpy(init_params_numpy(0)["f"])
+    cuda_alf = ALF(eta=1.0, backend="cuda")
+    peaks = {}
+    for label, solver, gradient in (
+            ("mali_cuda", cuda_alf, MALI()),
+            ("aca_heun_euler", HeunEuler(), ACA()),
+            ("naive_heun_euler", HeunEuler(), Naive()),
+            ("backsolve_cuda", cuda_alf, Backsolve())):
+        for n in (8, 64):
+            p = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in fp.items()}
+            z0 = torch.as_tensor(x_np, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            sol = solve(field, p, z0, 0.0, 1.0, solver=solver,
+                        controller=ConstantSteps(n), gradient=gradient)
+            loss = (sol.ys ** 2).mean()
+            torch.autograd.grad(loss, pytree.tree_leaves(p))
+            torch.cuda.synchronize()
+            peaks[(label, n)] = torch.cuda.max_memory_allocated() - base
+            del sol, loss
+    growth = {k: peaks[(k, 64)] / peaks[(k, 8)]
+              for k in ("mali_cuda", "aca_heun_euler", "naive_heun_euler",
+                        "backsolve_cuda")}
+    require(growth["backsolve_cuda"] <= 1.05, f"Backsolve peak memory grew "
+            f"{growth['backsolve_cuda']}x from 8 to 64 steps")
+    require(growth["mali_cuda"] <= 1.05, f"MALI peak memory grew "
+            f"{growth['mali_cuda']}x from 8 to 64 steps")
+    require(growth["aca_heun_euler"] > 2.0, f"ACA peak memory grew only "
+            f"{growth['aca_heun_euler']}x from 8 to 64 steps")
+    require(peaks[("aca_heun_euler", 64)] < peaks[("naive_heun_euler", 64)],
+            "ACA's peak at 64 steps is not below Naive's (heun_euler)")
+    require(peaks[("mali_cuda", 64)] < peaks[("aca_heun_euler", 64)],
+            "MALI's peak at 64 steps is not below ACA's")
+    return ({f"{k}_n{n}": v for (k, n), v in peaks.items()},
+            {f"{k}_growth_8_to_64": v for k, v in growth.items()})
+
+
+def _method_bounds(x_np):
+    """(d) diff_bounds on the card: each method's dL/dt1 and dL/dt0 on the
+    Sec 4.2 field against bounds_cotangents' analytic values; methods on
+    one discretization agree within 1e-5, across discretizations within
+    the JAX package's 5e-3."""
+    import torch
+    from repro_torch import params_from_numpy
+    from repro_torch.core import (ACA, ALF, MALI, Backsolve, ConstantSteps,
+                                  HeunEuler, Naive, solve)
+    from repro_torch.core.interface import tree_vdot
+    fp = params_from_numpy(init_params_numpy(0)["f"])
+    z0_np = torch.as_tensor(x_np, device="cuda")
+    ctrl = ConstantSteps(DB_STEPS)
+    cuda_alf = ALF(eta=1.0, backend="cuda")
+    runs = {"mali_cuda": (MALI(), cuda_alf),
+            "naive_cuda": (Naive(), cuda_alf),
+            "aca_heun_euler": (ACA(), HeunEuler()),
+            "naive_heun_euler": (Naive(), HeunEuler()),
+            "backsolve_cuda": (Backsolve(), cuda_alf)}
+    out = {}
+    for label, (gradient, solver) in runs.items():
+        t0 = torch.zeros((), device="cuda", requires_grad=True)
+        t1 = torch.ones((), device="cuda", requires_grad=True)
+        z0 = z0_np.clone().requires_grad_(True)
+        sol = solve(field, fp, z0, t0, t1, solver=solver, controller=ctrl,
+                    gradient=gradient, diff_bounds=True)
+        g_t0, g_t1, g_z0 = torch.autograd.grad((sol.ys ** 2).mean(),
+                                               [t0, t1, z0])
+        z_end = sol.ys.detach()
+        want_t1 = tree_vdot(2.0 * z_end / z_end.numel(),
+                            field(fp, z_end, t1.detach()))
+        want_t0 = -tree_vdot(g_z0, field(fp, z0_np, t0.detach()))
+        r1 = abs(float(g_t1) - float(want_t1)) / abs(float(want_t1))
+        r0 = abs(float(g_t0) - float(want_t0)) / abs(float(want_t0))
+        require(r1 <= SAME_DISCRETIZATION_RTOL and
+                r0 <= SAME_DISCRETIZATION_RTOL,
+                f"diff_bounds {label}: against the analytic values rel "
+                f"{r0} (t0), {r1} (t1)")
+        out[label] = {"dL_dt0": float(g_t0), "dL_dt1": float(g_t1),
+                      "rel_vs_analytic_t0": r0, "rel_vs_analytic_t1": r1}
+
+    def rel(a, b, key):
+        return abs(out[a][key] - out[b][key]) / abs(out[b][key])
+
+    agree = {}
+    for a, b, keys in (
+            ("mali_cuda", "naive_cuda", ("dL_dt0", "dL_dt1")),
+            ("aca_heun_euler", "naive_heun_euler", ("dL_dt0", "dL_dt1")),
+            ("backsolve_cuda", "naive_cuda", ("dL_dt1",))):
+        for key in keys:
+            agree[f"{a}_vs_{b}_{key}"] = r = rel(a, b, key)
+            require(r <= SAME_DISCRETIZATION_RTOL,
+                    f"diff_bounds: {a} vs {b} {key} rel {r}")
+    for label in out:
+        for key in ("dL_dt0", "dL_dt1"):
+            agree[f"{label}_vs_naive_cuda_{key}"] = r = rel(
+                label, "naive_cuda", key)
+            require(r <= CROSS_METHOD_RTOL,
+                    f"diff_bounds: {label} vs naive_cuda {key} rel {r}")
+    return out, agree
+
+
+def phase_methods(card: str, smi: str):
+    """Phase 13: Thm 2.1, the four methods through odeint on the Sec 4.2
+    model, their peak memory from 8 to 64 steps, and diff_bounds."""
+    import warnings
+
+    import torch
+    torch.cuda.empty_cache()
+    x_np, y_np = make_data(N_TRAIN, seed=0)
+    x = torch.as_tensor(x_np, device="cuda")
+    y = torch.as_tensor(y_np, device="cuda")
+    thm21 = _thm21()
+    with warnings.catch_warnings():
+        # odeint() is the legacy facade and says so on every call
+        warnings.simplefilter("ignore", DeprecationWarning)
+        runs, launches, first_grads = _method_runs(x, y)
+    peaks, growth = _method_memory()
+    bounds, agree = _method_bounds(x_np)
+    emit({"phase": "methods", "card": card, "nvidia_smi": smi,
+          "thm21": thm21, "model": "paper Sec 4.2 (D=64, HIDDEN=64, 3 "
+          "classes, 2048 images)", "steps": TRAIN_STEPS, "runs": runs,
+          "launches": launches,
+          **first_grads,
+          "memory_state_elements": 1 << 20, "peak_bytes": peaks, **growth,
+          "diff_bounds_steps": DB_STEPS, "diff_bounds": bounds,
+          "diff_bounds_agreement": agree})
+    return launches["adjoint_alf_cuda"]
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2181,6 +2527,7 @@ def main() -> int:
     lm_times = phase_lm_times(card)
     lm_launches = phase_lm_serve(card, smi)
     ssm_launches = phase_ssm_serve(card, smi)
+    backsolve_launches = phase_methods(card, smi)
 
     table = []
     for name, (replaces, *_rest) in KERNELS.items():
@@ -2191,6 +2538,8 @@ def main() -> int:
                       # beside their own path's
                       "launches_lm_serve": lm_launches[name],
                       "launches_ssm_serve": ssm_launches[name],
+                      # and on Backsolve's path (phase 13)
+                      "launches_backsolve": backsolve_launches[name],
                       "checks": checks[name],
                       "max_abs_err": worst[name], "ms": row["ms"],
                       "plain_ms": row["plain_ms"],

@@ -19,6 +19,12 @@ and its iterations after ``done`` are the identity, this loop stops a
 segment once ``done`` — one host read per trial — so the recorded buffers,
 counters and results are the same. Plain autograd differentiates through
 the loop (the Naive method); MALI runs it under ``no_grad``.
+
+:func:`integrate_span` is the single-interval ``t0 -> t1`` variant:
+Backsolve's forward segments and its reverse-time augmented solve.
+
+A fixed-step run reads nothing on the host and uploads nothing from it:
+Python-number bounds become device tensors by a fill, not a copy.
 """
 from __future__ import annotations
 
@@ -74,16 +80,38 @@ def as_time_grid(ts, device=None) -> torch.Tensor:
 
 def validate_span(t0, t1) -> None:
     """Reject an empty span (``t1 < t0`` is legal: reverse time)."""
-    if float(t0) == float(t1):
+    t0, t1 = (float(t.detach()) if isinstance(t, torch.Tensor) else float(t)
+              for t in (t0, t1))
+    if t0 == t1:
         raise ValueError(
-            f"empty integration span: t0 == t1 == {float(t0)}; pass t1 > t0 "
+            f"empty integration span: t0 == t1 == {t0}; pass t1 > t0 "
             "for a forward solve or t1 < t0 for a reverse-time solve")
 
 
+def _time_scalar(t, device) -> torch.Tensor:
+    if isinstance(t, torch.Tensor):
+        return t.to(device=device, dtype=TIME_DTYPE).reshape(())
+    # A fill on the device: the same float32 value as an upload, without
+    # the blocking host-to-device copy.
+    return torch.full((), float(t), dtype=TIME_DTYPE, device=device)
+
+
 def scalar_time_grid(t0, t1, device=None) -> torch.Tensor:
-    """The length-1 observation grid [t0, t1] of the end-state path."""
-    return torch.stack([torch.as_tensor(t0, dtype=TIME_DTYPE, device=device),
-                        torch.as_tensor(t1, dtype=TIME_DTYPE, device=device)])
+    """The length-1 observation grid [t0, t1] of the end-state path. A
+    tensor bound stays differentiable (``solve(..., diff_bounds=True)``)."""
+    return torch.stack([_time_scalar(t0, device), _time_scalar(t1, device)])
+
+
+def grid_run(run: Callable[[torch.Tensor], Pytree], z0: Pytree, t0, t1,
+             ts) -> Pytree:
+    """The grid convention of the legacy ``odeint_*`` facades: with
+    ``ts``, ``run(grid)``'s (T, ...) trajectory on that grid; without,
+    z(t1) from ``run`` on the length-1 grid [t0, t1]. The grid lies on
+    z0's device."""
+    device = pytree.tree_leaves(z0)[0].device
+    if ts is None:
+        return tree_row(run(scalar_time_grid(t0, t1, device)), -1)
+    return run(as_time_grid(ts, device))
 
 
 def fixed_grid_times(t0: torch.Tensor, t1: torch.Tensor, n_steps: int):
@@ -91,6 +119,18 @@ def fixed_grid_times(t0: torch.Tensor, t1: torch.Tensor, n_steps: int):
     h = (t1 - t0) / n_steps
     ts = t0 + h * torch.arange(n_steps, dtype=TIME_DTYPE, device=t0.device)
     return ts, h
+
+
+def segment_pairs(ts: torch.Tensor) -> torch.Tensor:
+    """(T-1, 2) tensor of consecutive (ts[k], ts[k+1]) segment bounds."""
+    return torch.stack([ts[:-1], ts[1:]], -1)
+
+
+def prepend_row(state0: Pytree, tail: Pytree) -> Pytree:
+    """Stack ``state0`` in front of a (T-1, ...) segment-end trajectory,
+    giving the (T, ...) observation trajectory with ``traj[0] == state0``."""
+    return _tm(lambda s0, tl: torch.cat([s0.unsqueeze(0), tl], 0), state0,
+               tail)
 
 
 def reverse_segment_sweep(seg_fn: Callable, carry0: Tuple, g: Pytree,
@@ -109,14 +149,20 @@ def reverse_segment_sweep(seg_fn: Callable, carry0: Tuple, g: Pytree,
 
 
 def reverse_masked_scan(body: Callable, carry0: Pytree, ts: torch.Tensor,
-                        hs: torch.Tensor, n_accepted: int) -> Pytree:
+                        hs: torch.Tensor, n_accepted: int,
+                        extras: Optional[Pytree] = None) -> Pytree:
     """Apply ``body(carry, t_i, h_i)`` for i = n_accepted-1 .. 0 over the
-    recorded buffers. The JAX scan visits all ``max_steps`` slots with
-    identity pass-through past ``n_accepted``; this visits the live slots
-    only, which gives the same carry."""
+    recorded buffers; with ``extras`` the body is called as
+    ``body(carry, t_i, h_i, extras_i)`` with row i of every extras leaf
+    (ACA's checkpointed states). The JAX scan visits all ``max_steps``
+    slots with identity pass-through past ``n_accepted``; this visits the
+    live slots only, which gives the same carry."""
     carry = carry0
     for i in range(n_accepted - 1, -1, -1):
-        carry = body(carry, ts[i], hs[i])
+        if extras is None:
+            carry = body(carry, ts[i], hs[i])
+        else:
+            carry = body(carry, ts[i], hs[i], tree_row(extras, i))
     return carry
 
 
@@ -132,6 +178,13 @@ class GridResult(NamedTuple):
     # (T-1, bound, ...) accepted-step start states, zero past each
     # segment's accepted count (record_states=True only).
     state_traj: Optional[Pytree] = None
+
+
+class SpanResult(NamedTuple):
+    """Bookkeeping of one t0 -> t1 integration."""
+    state: Pytree
+    n_accepted: torch.Tensor    # int32
+    n_trials: torch.Tensor      # int32
 
 
 class AdaptiveResult(NamedTuple):
@@ -157,13 +210,17 @@ def integrate_adaptive(
     max_steps: int,
     h0: Optional[torch.Tensor] = None,
     record_states: bool = False,
+    record_buf: Optional[Pytree] = None,
 ) -> AdaptiveResult:
     """Bounded accept/reject loop over one span, direction-agnostic: ``h``
     and ``remaining`` carry the span's sign and every magnitude comparison
     goes through abs. ``record_states`` also returns the start state of
     every accepted step in a (max_steps, ...) buffer, zero past the
-    accepted count — the JAX scan's buffer, built here once after the loop
-    from the trials' start states (autograd differentiates through it)."""
+    accepted count — the JAX scan's buffer. Given a zero ``record_buf``
+    (grad-free only) the loop writes that buffer in place, one row per
+    accepted trial, as the scan does; otherwise it is built once after the
+    loop from the trials' start states (autograd differentiates through
+    it)."""
     dev = t0.device
     t0 = t0.to(TIME_DTYPE)
     t1 = t1.to(TIME_DTYPE)
@@ -187,7 +244,12 @@ def integrate_adaptive(
         state_next, ratio = trial(state, t, h_eff)
         accept = (ratio <= 1.0) & ~done
         n_ev = n_ev + torch.where(done, 0, 1).to(torch.int32)
-        if record_states:
+        if record_buf is not None:
+            _tm(lambda b, s: b.index_put_(
+                (n_acc.long().view(1),),
+                torch.where(accept, s.unsqueeze(0),
+                            b[n_acc.long().view(1)])), record_buf, state)
+        elif record_states:
             starts.append(state)
             accepts.append(accept)
 
@@ -206,8 +268,9 @@ def integrate_adaptive(
         t = new_t
         n_acc = n_acc + accept.to(torch.int32)
 
-    traj = (_accepted_rows(starts, accepts, n_acc, max_steps)
-            if record_states else None)
+    traj = record_buf
+    if traj is None and record_states:
+        traj = _accepted_rows(starts, accepts, n_acc, max_steps)
     return AdaptiveResult(state, ts_buf, hs_buf, n_acc, n_ev, h,
                           done | (t0 == t1), traj)
 
@@ -231,6 +294,24 @@ def _accepted_rows(starts: List[Pytree], accepts: List[torch.Tensor],
     return _tm(per_leaf, *starts)
 
 
+def _record_buffer(state0: Pytree, n_seg: int, bound: int,
+                   record_states: bool) -> Optional[Pytree]:
+    """Grad-free recording (ACA's forward): one zero (n_seg, bound, ...)
+    buffer written in place, one state per step as the JAX scan writes
+    its buffer, instead of states stacked into copies (two to three states
+    per step at the peak).
+
+    None under autograd (Naive with ``SaveAt(steps|dense)``), which then
+    records through the stacked list. Both give the same values and
+    gradients, but each in-place write into one buffer adds a
+    ``CopySlices`` node whose backward copies the whole buffer's
+    gradient, so a backward over N recorded steps copies O(N^2) states,
+    where the stacked record's backward copies O(N)."""
+    if not record_states or torch.is_grad_enabled():
+        return None
+    return _tm(lambda x: x.new_zeros((n_seg, bound) + x.shape), state0)
+
+
 def _constant_grid(trial: TrialFn, state0: Pytree, ts: torch.Tensor,
                    n: int, record_states: bool) -> GridResult:
     """ConstantSteps path of :func:`integrate_grid`: a plain per-segment
@@ -240,26 +321,30 @@ def _constant_grid(trial: TrialFn, state0: Pytree, ts: torch.Tensor,
     state = state0
     states = [state0]
     seg_ts, seg_hs, seg_starts = [], [], []
+    record = _record_buffer(state0, n_seg, n, record_states)
     for k in range(n_seg):
         step_ts, h = fixed_grid_times(ts[k], ts[k + 1], n)
         starts = []
         for i in range(n):
-            if record_states:
+            if record is not None:
+                _tm(lambda b, s: b[k, i].copy_(s), record, state)
+            elif record_states:
                 starts.append(state)
             state, _ = trial(state, step_ts[i], h)
         states.append(state)
         seg_ts.append(step_ts.detach())
         seg_hs.append(h.detach().expand(n))
-        if record_states:
+        if record is None and record_states:
             seg_starts.append(stack_states(starts))
     dev = ts.device
     return GridResult(
         state, stack_states(states), torch.stack(seg_ts),
         torch.stack(seg_hs),
         torch.full((n_seg,), n, dtype=torch.int32, device=dev),
-        torch.tensor(n_seg * n, dtype=torch.int32, device=dev),
+        torch.full((), n_seg * n, dtype=torch.int32, device=dev),
         torch.ones((), dtype=torch.bool, device=dev),
-        stack_states(seg_starts) if record_states else None)
+        record if record is not None or not record_states
+        else stack_states(seg_starts))
 
 
 def _adaptive_grid(trial: TrialFn, state0: Pytree, ts: torch.Tensor,
@@ -274,14 +359,18 @@ def _adaptive_grid(trial: TrialFn, state0: Pytree, ts: torch.Tensor,
     states = [state0]
     seg_ts, seg_hs, seg_acc, seg_done, seg_starts = [], [], [], [], []
     n_ev = torch.zeros((), dtype=torch.int32, device=ts.device)
+    record = _record_buffer(state0, n_seg, controller.max_steps,
+                            record_states)
     for k in range(n_seg):
         span = ts[k + 1] - ts[k]
         h0 = torch.sign(span) * torch.minimum(torch.abs(h_prev),
                                               torch.abs(span))
-        out = integrate_adaptive(trial, state, ts[k], ts[k + 1], order=order,
-                                 rtol=controller.rtol, atol=controller.atol,
-                                 max_steps=controller.max_steps, h0=h0,
-                                 record_states=record_states)
+        out = integrate_adaptive(
+            trial, state, ts[k], ts[k + 1], order=order,
+            rtol=controller.rtol, atol=controller.atol,
+            max_steps=controller.max_steps, h0=h0,
+            record_states=record_states,
+            record_buf=None if record is None else tree_row(record, k))
         state, h_prev = out.state, out.h_final
         states.append(state)
         seg_ts.append(out.ts)
@@ -293,7 +382,8 @@ def _adaptive_grid(trial: TrialFn, state0: Pytree, ts: torch.Tensor,
     return GridResult(state, stack_states(states), torch.stack(seg_ts),
                       torch.stack(seg_hs), torch.stack(seg_acc), n_ev,
                       torch.stack(seg_done).all(),
-                      stack_states(seg_starts) if record_states else None)
+                      record if record is not None or not record_states
+                      else stack_states(seg_starts))
 
 
 def integrate_grid(
@@ -316,4 +406,33 @@ def integrate_grid(
     if isinstance(controller, AdaptiveController):
         return _adaptive_grid(trial, state0, ts, controller, order,
                               record_states)
+    raise TypeError(f"unknown step controller {controller!r}")
+
+
+def integrate_span(
+    trial: TrialFn,
+    state0: Pytree,
+    t0: torch.Tensor,
+    t1: torch.Tensor,
+    *,
+    controller: StepController,
+    order: int,
+) -> SpanResult:
+    """Single-interval ``t0 -> t1`` driver (Backsolve's forward segments
+    and reverse-time augmented solve), sign-agnostic like the grid
+    driver; the adaptive branch starts from the controller's initial
+    proposal for the span."""
+    t0, t1 = t0.to(TIME_DTYPE), t1.to(TIME_DTYPE)
+    if isinstance(controller, ConstantSteps):
+        ts, h = fixed_grid_times(t0, t1, controller.n)
+        state = state0
+        for i in range(controller.n):
+            state, _ = trial(state, ts[i], h)
+        n = torch.full((), controller.n, dtype=torch.int32, device=t0.device)
+        return SpanResult(state, n, n)
+    if isinstance(controller, AdaptiveController):
+        out = integrate_adaptive(trial, state0, t0, t1, order=order,
+                                 rtol=controller.rtol, atol=controller.atol,
+                                 max_steps=controller.max_steps)
+        return SpanResult(out.state, out.n_accepted, out.n_evals)
     raise TypeError(f"unknown step controller {controller!r}")

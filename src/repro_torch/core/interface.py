@@ -8,11 +8,15 @@
   pass emits.
 * :class:`Stats` / :class:`Solution` / :class:`SaveAt` — the user-facing
   result types of :func:`repro_torch.core.solve.solve`.
+* :func:`grid_vjp` — the ``torch.autograd.Function`` wiring the
+  memory-efficient methods share (where the JAX package gives each its
+  own ``custom_vjp``), and :func:`bounds_cotangents`, the analytic
+  ``dL/dts`` of ``solve(..., diff_bounds=True)``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -137,14 +141,107 @@ class SaveAt:
                              f"steps=True or dense=True, not {picked}")
 
 
+_tm = pytree.tree_map
+
+
+def tree_vdot(a: Pytree, b: Pytree) -> torch.Tensor:
+    """Scalar inner product over matching pytrees (the adjoint-state dot
+    products the boundary cotangents are built from)."""
+    pairs = zip(pytree.tree_leaves(a), pytree.tree_leaves(b))
+    acc = None
+    for x, y in pairs:
+        d = torch.sum(x * y)
+        acc = d if acc is None else acc + d
+    return acc
+
+
+def bounds_cotangents(f, params: Pytree, z_traj: Pytree, ts: torch.Tensor,
+                      g_traj: Pytree, a_t0: Pytree) -> torch.Tensor:
+    """The analytic observation-time cotangents of an ODE solve
+    (``solve(..., diff_bounds=True)``; torchdiffeq/diffrax convention)::
+
+        dL/dt_k = +<g_k, f(z_k, t_k)>          k = 1 .. T-1
+        dL/dt_0 = -<a(t0), f(z0, t0)>
+
+    where ``a(t0)`` is the swept adjoint at ``t0``: the method's total
+    ``dL/dz0`` minus the ``traj[0] == z0`` identity-row cotangent ``g_0``.
+    One ``f`` evaluation per observation row (a loop over the T-1 rows
+    where the JAX package vmaps ``f``)."""
+    rows = [-tree_vdot(a_t0, f(params, _tm(lambda b: b[0], z_traj), ts[0]))]
+    for k in range(1, ts.shape[0]):
+        z_k = _tm(lambda b: b[k], z_traj)
+        rows.append(tree_vdot(_tm(lambda b: b[k], g_traj),
+                              f(params, z_k, ts[k])))
+    return torch.stack(rows).to(ts.dtype)
+
+
+class _GridVJP(torch.autograd.Function):
+    """One observation-grid integration with a hand-written backward.
+
+    ``fwd(params, z0, ts) -> (traj, RunStats, residuals)`` runs under
+    ``no_grad``; the tensors of ``residuals`` (a pytree) are what is saved
+    for the backward pass, through ``save_for_backward`` (so saved-tensor
+    hooks see them). ``bwd(residuals, g_traj) -> (g_params, g_z0, g_ts)``
+    runs with grad mode off; ``g_ts`` may be None (no dL/dts). Params and
+    z0 enter as flattened leaves; the outputs are the (T, ...) trajectory
+    leaves followed by the three RunStats counters (non-differentiable).
+    """
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, ts, p_spec, z_spec, n_p: int, *leaves):
+        params = pytree.tree_unflatten(list(leaves[:n_p]), p_spec)
+        z0 = pytree.tree_unflatten(list(leaves[n_p:]), z_spec)
+        traj, stats, residuals = fwd(params, z0, ts)
+        z_leaves = pytree.tree_leaves(traj)
+        r_leaves, r_spec = pytree.tree_flatten(residuals)
+        ctx.bwd, ctx.specs = bwd, (z_spec, r_spec)
+        ctx.ts_like = (ts.shape, ts.dtype, ts.device)
+        ctx.save_for_backward(*r_leaves)
+        ctx.mark_non_differentiable(*stats)
+        return (*z_leaves, *stats)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        z_spec, r_spec = ctx.specs
+        residuals = pytree.tree_unflatten(list(ctx.saved_tensors), r_spec)
+        n_z = len(grads) - len(RunStats._fields)
+        z_like = pytree.tree_leaves(residuals[0])
+        g_traj = pytree.tree_unflatten(
+            [torch.zeros_like(z) if g is None else g
+             for g, z in zip(grads[:n_z], z_like)], z_spec)
+        g_params, g_z0, g_ts = ctx.bwd(residuals, g_traj)
+        if g_ts is None and ctx.needs_input_grad[2]:
+            shape, dtype, device = ctx.ts_like
+            g_ts = torch.zeros(shape, dtype=dtype, device=device)
+        return (None, None, g_ts, None, None, None,
+                *pytree.tree_leaves(g_params), *pytree.tree_leaves(g_z0))
+
+
+def grid_vjp(fwd: Callable, bwd: Callable, params: Pytree, z0: Pytree,
+             ts: torch.Tensor) -> Tuple[Pytree, RunStats]:
+    """Run ``fwd`` / ``bwd`` (see :class:`_GridVJP`) as one autograd node
+    over ``(params, z0, ts)``. ``residuals[0]`` must be the trajectory
+    tree (its leaves give the shapes of absent cotangents). Returns
+    ``(traj, RunStats)``."""
+    p_leaves, p_spec = pytree.tree_flatten(params)
+    z_leaves, z_spec = pytree.tree_flatten(z0)
+    out = _GridVJP.apply(fwd, bwd, ts, p_spec, z_spec, len(p_leaves),
+                         *p_leaves, *z_leaves)
+    n_z = len(z_leaves)
+    return (pytree.tree_unflatten(list(out[:n_z]), z_spec),
+            RunStats(*out[n_z:]))
+
+
 class GradientMethod:
     """Base of the gradient-estimation axis (paper Table 1 rows).
 
     Subclasses are frozen dataclasses implementing ``default_solver()``,
     ``validate(solver, controller)`` (reject incompatible axes with an
     actionable error before integrating), ``integrate(f, params, z0, ts,
-    solver, controller)`` -> ``(traj, RunStats)`` with ``traj`` of leading
-    axis T = len(ts), and ``residual_bytes(z0, n_obs, solver, controller)``.
+    solver, controller, diff_bounds)`` -> ``(traj, RunStats)`` with
+    ``traj`` of leading axis T = len(ts), and ``residual_bytes(z0, n_obs,
+    solver, controller)``. With ``diff_bounds=True`` the backward emits the
+    analytic :func:`bounds_cotangents` for ``ts`` (zeros otherwise).
     """
 
     name: str = "?"
@@ -159,7 +256,8 @@ class GradientMethod:
                 "use ConstantSteps(n) with it or pick an embedded pair")
 
     def integrate(self, f, params, z0: Pytree, ts: torch.Tensor, solver,
-                  controller) -> Tuple[Pytree, RunStats]:
+                  controller,
+                  diff_bounds: bool = False) -> Tuple[Pytree, RunStats]:
         raise NotImplementedError
 
     def residual_bytes(self, z0: Pytree, n_obs: int, solver,

@@ -14,9 +14,14 @@ adjoint state a(t) and dL/dtheta — the discretized Eq. (2)/(3) of the
 paper. The trajectory cotangent g[k] enters a(t) as the sweep crosses
 observation k. Rejected trials of the step-size search are not replayed.
 
-Gradients with respect to the observation times are not produced in this
-slice (``diff_bounds`` lands later); the step counters are outputs marked
-non-differentiable.
+Gradients with respect to the observation times are zeros by default;
+with ``diff_bounds=True`` the backward emits the analytic boundary
+cotangents ``dL/dt_k = <g_k, f(z_k, t_k)>`` / ``dL/dt_0 = -<a(t0),
+f(z0, t0)>`` (:func:`~repro_torch.core.interface.bounds_cotangents`). The
+step counters are outputs marked non-differentiable.
+
+:func:`odeint_mali` and :func:`mali_forward_stats` are the legacy kwargs
+facades of the JAX package.
 """
 from __future__ import annotations
 
@@ -27,13 +32,15 @@ import torch
 import torch.utils._pytree as pytree
 from torch.func import vjp
 
-from .alf import (alf_inverse, alf_step, init_velocity, tree_add,
-                  tree_zeros_like)
-from .integrate import (integrate_grid, reverse_masked_scan,
-                        reverse_segment_sweep, tree_row)
-from .interface import GradientMethod, RunStats, make_run_stats, state_nbytes
+from .alf import (alf_inverse, alf_step, check_eta, init_velocity,
+                  tree_add, tree_sub, tree_zeros_like)
+from .integrate import (grid_run, integrate_grid, reverse_masked_scan,
+                        reverse_segment_sweep, scalar_time_grid, tree_row)
+from .interface import (GradientMethod, bounds_cotangents, grid_vjp,
+                        make_run_stats, state_nbytes)
 from .solvers import ALF
-from .stepsize import ConstantSteps, StepController
+from .stepsize import (AdaptiveController, ConstantSteps, StepController,
+                       controller_from_kwargs)
 
 _tm = pytree.tree_map
 
@@ -47,6 +54,7 @@ class MaliConfig(NamedTuple):
     controller: StepController
     fused_bwd: bool = True      # share the inverse's f-eval with the VJP
     backend: str = "reference"  # step algebra: plain tensors or kernels
+    diff_bounds: bool = False   # emit analytic dL/dts boundary cotangents
 
 
 def _step_backward(cfg: MaliConfig, params, z_i, v_i, t_start, h, a_z, a_v):
@@ -149,44 +157,22 @@ def _mali_forward(cfg: MaliConfig, params, z0, ts):
                           order=solver.order)
 
 
-class _MaliGrid(torch.autograd.Function):
-    """Params and z0 enter as flattened leaves; the outputs are the
-    (T, ...) trajectory leaves of z followed by the three RunStats
-    counters."""
+def _mali_grid(cfg: MaliConfig, params, z0, ts):
+    """The MALI autograd node over (params, z0, ts); returns
+    ``(z_traj, RunStats)``."""
 
-    @staticmethod
-    def forward(ctx, cfg: MaliConfig, ts, p_spec, z_spec, n_p: int,
-                *leaves):
-        p_leaves, z0_leaves = list(leaves[:n_p]), list(leaves[n_p:])
-        params = pytree.tree_unflatten(p_leaves, p_spec)
-        z0 = pytree.tree_unflatten(z0_leaves, z_spec)
+    def fwd(params, z0, ts):
         res = _mali_forward(cfg, params, z0, ts)
         z_traj, v_traj = res.traj
-        z_leaves = pytree.tree_leaves(z_traj)
-        v_leaves, v_spec = pytree.tree_flatten(v_traj)
         stats = make_run_stats(res.n_accepted, res.n_trials, 1, 1)
-        ctx.cfg = cfg
-        ctx.specs = (p_spec, z_spec, v_spec)
-        ctx.counts = (n_p, len(z_leaves))
-        ctx.save_for_backward(ts, res.ts, res.hs, res.n_accepted, *p_leaves,
-                              *z_leaves, *v_leaves)
-        ctx.mark_non_differentiable(*stats)
-        return (*z_leaves, *stats)
+        # Residuals: the per-observation (z_k, v_k) pairs — O(T * N_z),
+        # constant in the step count — the recorded (t_i, h_i), ts and
+        # the params.
+        return z_traj, stats, (z_traj, v_traj, params, ts, res.ts, res.hs,
+                               res.n_accepted)
 
-    @staticmethod
-    def backward(ctx, *grads):
-        cfg = ctx.cfg
-        p_spec, z_spec, v_spec = ctx.specs
-        n_p, n_z = ctx.counts
-        ts, seg_ts, seg_hs, seg_acc, *rest = ctx.saved_tensors
-        p_leaves, z_leaves, v_leaves = (rest[:n_p], rest[n_p:n_p + n_z],
-                                        rest[n_p + n_z:])
-        params = pytree.tree_unflatten(list(p_leaves), p_spec)
-        z_traj = pytree.tree_unflatten(list(z_leaves), z_spec)
-        v_traj = pytree.tree_unflatten(list(v_leaves), v_spec)
-        g_traj = pytree.tree_unflatten(
-            [torch.zeros_like(z) if g is None else g
-             for g, z in zip(grads[:n_z], z_leaves)], z_spec)
+    def bwd(residuals, g_traj):
+        z_traj, v_traj, params, ts, seg_ts, seg_hs, seg_acc = residuals
         n_seg = ts.shape[0] - 1
         if isinstance(cfg.controller, ConstantSteps):
             n_live = [cfg.controller.n] * n_seg
@@ -218,8 +204,15 @@ class _MaliGrid(torch.autograd.Function):
                                                    n_seg)
         g_params, a_z = _close_v0_vjp(cfg.f, params, z0, ts[0], a_z, a_v,
                                       g_params)
-        return (None, None, None, None, None,
-                *pytree.tree_leaves(g_params), *pytree.tree_leaves(a_z))
+        g_ts = None
+        if cfg.diff_bounds:
+            # a(t0) is the flow-swept adjoint: total dL/dz0 minus the
+            # traj[0] == z0 identity-row cotangent.
+            a_t0 = tree_sub(a_z, tree_row(g_traj, 0))
+            g_ts = bounds_cotangents(cfg.f, params, z_traj, ts, g_traj, a_t0)
+        return g_params, a_z, g_ts
+
+    return grid_vjp(fwd, bwd, params, z0, ts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,17 +240,45 @@ class MALI(GradientMethod):
                 f"solver {getattr(solver, 'name', solver)!r}. Pass "
                 "solver=ALF(eta=...) or use gradient=Naive().")
 
-    def integrate(self, f, params, z0, ts, solver, controller):
+    def integrate(self, f, params, z0, ts, solver, controller,
+                  diff_bounds: bool = False):
         cfg = MaliConfig(f, solver.eta, controller, self.fused_bwd,
-                         solver.backend)
-        p_leaves, p_spec = pytree.tree_flatten(params)
-        z_leaves, z_spec = pytree.tree_flatten(z0)
-        out = _MaliGrid.apply(cfg, ts, p_spec, z_spec, len(p_leaves),
-                              *p_leaves, *z_leaves)
-        n_z = len(z_leaves)
-        traj = pytree.tree_unflatten(list(out[:n_z]), z_spec)
-        return traj, RunStats(*out[n_z:])
+                         solver.backend, diff_bounds)
+        return _mali_grid(cfg, params, z0, ts)
 
     def residual_bytes(self, z0, n_obs, solver, controller) -> int:
         # The per-observation (z_k, v_k) pairs — constant in step count.
         return 2 * n_obs * state_nbytes(z0)
+
+
+def odeint_mali(f: Dynamics, params: Pytree, z0: Pytree,
+                t0=0.0, t1=1.0, *, ts=None, n_steps: int = 0,
+                eta: float = 1.0, rtol: float = 1e-2, atol: float = 1e-3,
+                max_steps: int = 64, fused_bwd: bool = True) -> Pytree:
+    """Integrate dz/dt = f(params, z, t) with MALI gradients (legacy
+    kwargs facade). Without ``ts``: z(t1) over [t0, t1]; with ``ts``
+    (T >= 2 points): the (T, ...) trajectory, ``traj[0] == z0``.
+    ``n_steps > 0`` selects ``ConstantSteps``, ``n_steps == 0``
+    ``AdaptiveController(rtol, atol, max_steps)``."""
+    check_eta(eta)
+    cfg = MaliConfig(f, float(eta),
+                     controller_from_kwargs(n_steps, rtol, atol, max_steps),
+                     bool(fused_bwd))
+    return grid_run(lambda grid: _mali_grid(cfg, params, z0, grid)[0], z0,
+                    t0, t1, ts)
+
+
+def mali_forward_stats(f: Dynamics, params: Pytree, z0: Pytree, t0=0.0,
+                       t1=1.0, *, eta: float = 1.0, rtol: float = 1e-2,
+                       atol: float = 1e-3, max_steps: int = 64):
+    """Adaptive forward only, returning (zT, n_accepted, n_evals) for the
+    paper's m / N_t accounting. Superseded by ``Solution.stats`` (where
+    n_evals = n_accepted + n_rejected)."""
+    check_eta(eta)
+    cfg = MaliConfig(f, float(eta),
+                     AdaptiveController(float(rtol), float(atol),
+                                        int(max_steps)))
+    grid = scalar_time_grid(t0, t1, pytree.tree_leaves(z0)[0].device)
+    with torch.no_grad():
+        res = _mali_forward(cfg, params, z0, grid)
+    return res.state[0], torch.sum(res.n_accepted), res.n_trials

@@ -1,16 +1,17 @@
-"""Integrator settings carried by model configs: :class:`OdeSettings`.
+"""ODEBlock: the paper's technique as a composable network module.
 
-The flat, hashable record the LM configs carry (``configs.ModelConfig.ode``)
-and ``as_objects()`` lowers to the composable Solver / StepController /
-GradientMethod / SaveAt objects :func:`repro_torch.core.solve.solve` takes.
-Field names, defaults and checks are the JAX package's
-(``repro.core.ode_block.OdeSettings``), with two differences of the port:
-the JAX ``backend="pallas"`` is the port's ``"cuda"`` (both names are
-accepted), and the parts that land with a later slice raise
-``NotImplementedError`` in ``as_objects()`` naming their ROADMAP item: the
-ACA and Backsolve gradients and the Runge-Kutta solvers (slice (b)),
-``batch_axis`` (slice (c)). The ``ODEBlock`` wrapper also waits for slice
-(b).
+A residual block ``y = x + g(x)`` is the one-step Euler discretization of
+``dz/dt = g(z, t)``; an ODEBlock replaces it with a continuous
+integration ``y = z(T), z(0) = x`` (paper Sec 4.2). :class:`OdeSettings`
+is the flat, hashable record model configs carry
+(``configs.ModelConfig.ode``); ``as_objects()`` lowers it to the Solver /
+StepController / GradientMethod / SaveAt objects
+:func:`repro_torch.core.solve.solve` takes, every method and solver name
+of the JAX package included. Field names, defaults and checks are the JAX
+package's (``repro.core.ode_block.OdeSettings``), with two differences of
+the port: the JAX ``backend="pallas"`` is the port's ``"cuda"`` (both
+names are accepted), and ``batch_axis`` (Sharded batching) raises
+``NotImplementedError`` in ``as_objects()`` naming its ROADMAP item.
 
 The LM serve path reads only ``mode``, ``n_steps``, ``eta`` and ``t1``: it
 unrolls the ALF steps explicitly (``models/transformer.py::layer_serve``).
@@ -19,22 +20,25 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from .aca import ACA
+from .adjoint import Backsolve
 from .alf import check_eta
 from .interface import SaveAt
 from .mali import MALI
 from .naive import Naive
-from .solvers import _LATER, ALF, get_solver
+from .solve import solve
+from .solvers import ALF, SOLVERS, get_solver
 from .stepsize import AdaptiveController, ConstantSteps
 
+Pytree = Any
+
 _METHODS = ("mali", "naive", "aca", "adjoint")
-_SOLVERS = ("alf",) + _LATER
 # the JAX package's backend names -> the port's ALF backends
 _BACKEND = {"reference": "reference", "pallas": "cuda", "cuda": "cuda"}
-_SLICE_B = "the RK/ACA/Backsolve slice, ROADMAP queue 1 (b)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,9 +69,9 @@ class OdeSettings:
         if self.method not in _METHODS:
             raise ValueError(f"bad ode.method {self.method!r}; "
                              f"choose from {_METHODS}")
-        if self.solver not in _SOLVERS:
+        if self.solver not in SOLVERS:
             raise ValueError(f"bad ode.solver {self.solver!r}; "
-                             f"choose from {sorted(_SOLVERS)}")
+                             f"choose from {sorted(SOLVERS)}")
         if self.method == "mali" and self.solver != "alf":
             raise ValueError("MALI requires the ALF solver")
         if self.n_steps < 0:
@@ -112,18 +116,30 @@ class OdeSettings:
             raise NotImplementedError(
                 "ode.batch_axis (Sharded batching) is not ported yet: it "
                 "lands with the serving-engine slice, ROADMAP queue 1 (c)")
-        if self.method in ("aca", "adjoint"):
-            raise NotImplementedError(
-                f"ode.method={self.method!r} is not ported yet: it lands "
-                f"with {_SLICE_B}")
         solver = (ALF(eta=self.eta, backend=_BACKEND[self.backend])
                   if self.solver == "alf" else get_solver(self.solver))
         controller = (ConstantSteps(self.n_steps) if self.n_steps > 0 else
                       AdaptiveController(self.rtol, self.atol,
                                          self.max_steps))
-        gradient = (MALI(fused_bwd=self.fused_bwd) if self.method == "mali"
-                    else Naive())
+        gradient = {"mali": MALI(fused_bwd=self.fused_bwd),
+                    "naive": Naive(), "aca": ACA(),
+                    "adjoint": Backsolve()}[self.method]
         saveat = (SaveAt() if self.obs_times is None else
                   SaveAt(ts=torch.tensor(self.obs_times,
                                          dtype=torch.float32)))
         return solver, controller, gradient, saveat
+
+
+def ode_block(dynamics: Callable[[Pytree, Pytree, Any], Pytree],
+              settings: OdeSettings) -> Callable[[Pytree, Pytree], Pytree]:
+    """Wrap ``dynamics(params, z, t)`` into ``apply(params, x)``: ``z(t1)``
+    integrated from ``settings.t0`` (``t0 > t1`` runs the block in reverse
+    time), or the trajectory over ``settings.obs_times``."""
+    solver, controller, gradient, saveat = settings.as_objects()
+
+    def apply(params: Pytree, x: Pytree) -> Pytree:
+        return solve(dynamics, params, x, settings.t0, settings.t1,
+                     solver=solver, controller=controller, gradient=gradient,
+                     saveat=saveat).ys
+
+    return apply

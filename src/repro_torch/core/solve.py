@@ -3,22 +3,25 @@
 The paper's Table 1 is a matrix of gradient methods x solvers x step-size
 policies; ``solve`` exposes those axes as independent objects::
 
-    from repro_torch.core import (solve, SaveAt, ALF, ConstantSteps,
-                                  AdaptiveController, MALI, Naive)
+    from repro_torch.core import (solve, SaveAt, ALF, Dopri5,
+                                  ConstantSteps, AdaptiveController,
+                                  MALI, Naive, ACA, Backsolve)
 
     sol = solve(f, params, z0, 0.0, 1.0,
                 solver=ALF(eta=1.0, backend="cuda"),
                 controller=ConstantSteps(8),      # or AdaptiveController(...)
-                gradient=MALI(),                  # or Naive()
+                gradient=MALI(),          # or Naive()/ACA()/Backsolve()
                 saveat=SaveAt(ts=torch.linspace(0., 1., 16)))
     sol.ys      # (16, ...) trajectory
     sol.stats   # accepted/rejected steps, f-evals, residual footprint
 
 The solve computes on the device of ``z0`` and ``params``. The port
-covers ALF x {MALI, Naive} x {ConstantSteps, AdaptiveController} x
-{end state, ``SaveAt(ts=)``, ``SaveAt(steps=True)``, ``SaveAt(dense=True)``},
-forward and reverse time, on either ALF backend; the other axes of the JAX
-package raise ``NotImplementedError`` naming their ROADMAP item.
+covers every solver of the registry (ALF on either backend, the
+Runge-Kutta tableaus) x {MALI, Naive, ACA, Backsolve} x {ConstantSteps,
+AdaptiveController} x {end state, ``SaveAt(ts=)``, ``SaveAt(steps=True)``,
+``SaveAt(dense=True)``}, forward and reverse time, with or without
+``diff_bounds``; ``batching=`` and ``event=`` raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from .integrate import (as_time_grid, integrate_grid, scalar_time_grid,
                         validate_span)
 from .interface import (GradientMethod, RunStats, SaveAt, Solution, Stats,
                         make_run_stats)
+from .aca import ACA
+from .adjoint import Adjoint, Backsolve
 from .mali import MALI
 from .naive import Naive, check_direct_backprop
 from .solvers import ALF, Solver, get_solver
@@ -118,16 +123,12 @@ def _solve_dense_interp(f, params, z0, t0, t1, solver,
                     interpolation=interp)
 
 
-def _refuse_later_axes(saveat: SaveAt, batching, event,
-                       diff_bounds: bool) -> None:
+def _refuse_later_axes(batching, event) -> None:
     later = []
     if batching is not None:
         later.append("batching= (ROADMAP queue 1, Batching)")
     if event is not None:
         later.append("event= (ROADMAP queue 1, time as an axis: events)")
-    if diff_bounds:
-        later.append("diff_bounds=True (ROADMAP queue 1, time as an axis: "
-                     "diff_bounds)")
     if later:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(later))
@@ -164,9 +165,15 @@ def solve(f: Dynamics, params: Pytree, z0: Pytree, t0=0.0, t1=1.0, *,
             f"controller must be a StepController (ConstantSteps or "
             f"AdaptiveController), got {controller!r}")
     saveat = SaveAt() if saveat is None else saveat
-    _refuse_later_axes(saveat, batching, event, diff_bounds)
+    _refuse_later_axes(batching, event)
 
     gradient.validate(solver, controller)
+    if diff_bounds and (saveat.steps or saveat.dense):
+        raise ValueError(
+            "diff_bounds=True needs a fixed observation grid; "
+            "SaveAt(steps=True)/SaveAt(dense=True) output is indexed by "
+            "accepted steps, which carry no boundary cotangents — use "
+            "the default end state or SaveAt(ts=grid)")
     if saveat.steps or saveat.dense:
         validate_span(t0, t1)
         dense = _solve_dense if saveat.steps else _solve_dense_interp
@@ -179,7 +186,7 @@ def solve(f: Dynamics, params: Pytree, z0: Pytree, t0=0.0, t1=1.0, *,
         validate_span(t0, t1)
         grid = scalar_time_grid(t0, t1, device)
     traj, rstats = gradient.integrate(f, params, z0, grid, solver,
-                                      controller)
+                                      controller, diff_bounds)
     stats = _build_stats(rstats, gradient, z0, grid, solver, controller)
     if trajectory:
         return Solution(ys=traj, ts=grid, stats=stats)
@@ -187,4 +194,6 @@ def solve(f: Dynamics, params: Pytree, z0: Pytree, t0=0.0, t1=1.0, *,
                     stats=stats)
 
 
-__all__ = ["solve", "Solution", "SaveAt", "Stats", "GradientMethod"]
+__all__ = ["solve", "Solution", "SaveAt", "Stats", "GradientMethod",
+           "MALI", "Naive", "ACA", "Backsolve", "Adjoint", "ALF",
+           "AdaptiveController"]

@@ -1,15 +1,27 @@
 """Solver objects (the ``psi`` step functions of paper Algo 1) + registry.
 
-This slice ports the :class:`Solver` interface and :class:`ALF`, the
-Asynchronous Leapfrog solver MALI is defined on. The Runge-Kutta tableaus
-of the JAX package come with a later slice; ``get_solver`` names it.
+* :class:`Solver` — the interface every solver implements: how to build
+  the integrator state from ``z0`` (plain ``z`` for Runge-Kutta, the
+  augmented ``(z, v)`` pair for ALF), how to advance it one (trial) step,
+  and how to read ``z`` back out of it.
+* :class:`RungeKutta` — a solver backed by a :class:`ButcherTableau`
+  (order / FSAL / embedded-error metadata live on the tableau). Its
+  stages are plain PyTorch, as the JAX package's are plain ``jnp``.
+* :class:`ALF` — the Asynchronous Leapfrog solver of the paper (Algo 2/3).
+
+Tableaus: Euler, Heun2 (Heun-Euler with its embedded Euler error — the
+solver ACA used in the paper), explicit midpoint, Bogacki-Shampine 3(2)
+("RK23"), classic RK4 and Dormand-Prince 5(4) ("Dopri5"), with the JAX
+package's coefficients as the same Python floats, summed in the same
+order, so the port's steps match it to rounding.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from .alf import (alf_step, alf_step_with_error, check_backend, check_eta,
                   init_velocity)
@@ -20,6 +32,103 @@ Dynamics = Callable[[Pytree, Pytree, torch.Tensor], Pytree]
 # trial(state, t, h) -> (state_next, err_ratio); err_ratio <= 1 accepts.
 TrialFn = Callable[[Pytree, torch.Tensor, torch.Tensor],
                    Tuple[Pytree, torch.Tensor]]
+
+_tm = pytree.tree_map
+
+
+def _weighted_sum(terms: Sequence[Tuple[float, Pytree]]) -> Optional[Pytree]:
+    """sum(c_i * tree_i) left to right, skipping zero coefficients; None
+    if all are zero."""
+    terms = [(c, k) for (c, k) in terms if c != 0.0]
+    if not terms:
+        return None
+    acc = _tm(lambda x: terms[0][0] * x, terms[0][1])
+    for c, k in terms[1:]:
+        acc = _tm(lambda a, x: a + c * x, acc, k)
+    return acc
+
+
+@dataclasses.dataclass(frozen=True)
+class ButcherTableau:
+    name: str
+    order: int
+    c: Tuple[float, ...]
+    a: Tuple[Tuple[float, ...], ...]
+    b: Tuple[float, ...]
+    b_err: Optional[Tuple[float, ...]] = None  # b - b_hat (error weights)
+    fsal: bool = False
+
+    def step(self, f: Dynamics, params: Pytree, z: Pytree, t: torch.Tensor,
+             h: torch.Tensor,
+             with_error: bool = True) -> Tuple[Pytree, Optional[Pytree]]:
+        """One step ``z -> z + h * sum(b_i k_i)`` and, when the tableau
+        has error weights and ``with_error``, the embedded error estimate
+        ``h * sum(b_err_i k_i)`` (else None)."""
+        ks = []
+        for i, ci in enumerate(self.c):
+            incr = _weighted_sum(list(zip(self.a[i], ks)))
+            zi = z if incr is None else _tm(lambda zz, dd: zz + h * dd, z,
+                                            incr)
+            ks.append(f(params, zi, t + ci * h))
+        upd = _weighted_sum(list(zip(self.b, ks)))
+        z_next = _tm(lambda zz, dd: zz + h * dd, z, upd)
+        err = None
+        if with_error and self.b_err is not None:
+            e = _weighted_sum(list(zip(self.b_err, ks)))
+            err = _tm(lambda x: h * x, e)
+        return z_next, err
+
+
+EULER = ButcherTableau("euler", 1, c=(0.0,), a=((),), b=(1.0,))
+
+# Heun's 2nd-order with embedded Euler -> the "Heun-Euler" adaptive pair.
+HEUN2 = ButcherTableau(
+    "heun2", 2,
+    c=(0.0, 1.0), a=((), (1.0,)), b=(0.5, 0.5),
+    b_err=(-0.5, 0.5),  # (heun - euler) weights
+)
+
+MIDPOINT = ButcherTableau(
+    "midpoint", 2, c=(0.0, 0.5), a=((), (0.5,)), b=(0.0, 1.0),
+)
+
+# Bogacki-Shampine 3(2) — torchdiffeq's "bosh3" / scipy "RK23".
+BOSH3 = ButcherTableau(
+    "bosh3", 3,
+    c=(0.0, 0.5, 0.75, 1.0),
+    a=((), (0.5,), (0.0, 0.75), (2 / 9, 1 / 3, 4 / 9)),
+    b=(2 / 9, 1 / 3, 4 / 9, 0.0),
+    b_err=(2 / 9 - 7 / 24, 1 / 3 - 0.25, 4 / 9 - 1 / 3, -0.125),
+    fsal=True,
+)
+
+RK4 = ButcherTableau(
+    "rk4", 4,
+    c=(0.0, 0.5, 0.5, 1.0),
+    a=((), (0.5,), (0.0, 0.5), (0.0, 0.0, 1.0)),
+    b=(1 / 6, 1 / 3, 1 / 3, 1 / 6),
+)
+
+# Dormand-Prince 5(4) — torchdiffeq default "dopri5".
+_DP_B = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
+_DP_BH = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200,
+          187 / 2100, 1 / 40)
+DOPRI5 = ButcherTableau(
+    "dopri5", 5,
+    c=(0.0, 0.2, 0.3, 0.8, 8 / 9, 1.0, 1.0),
+    a=(
+        (),
+        (0.2,),
+        (3 / 40, 9 / 40),
+        (44 / 45, -56 / 15, 32 / 9),
+        (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+        (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+        _DP_B[:-1] + (0.0,),
+    ),
+    b=_DP_B,
+    b_err=tuple(b - bh for b, bh in zip(_DP_B, _DP_BH)),
+    fsal=True,
+)
 
 
 class Solver:
@@ -77,6 +186,45 @@ class Solver:
         """Dynamics evaluations :meth:`interpolant` spends over ``bound``
         recorded rows (two batched passes by default)."""
         return 2 * bound
+
+
+@dataclasses.dataclass(frozen=True)
+class RungeKutta(Solver):
+    """A Runge-Kutta solver defined by its Butcher tableau. Its step is
+    plain PyTorch (no kernel op), so ``kernel_step_ops()`` is ()."""
+
+    tableau: ButcherTableau = EULER
+
+    @property
+    def name(self) -> str:
+        return self.tableau.name
+
+    @property
+    def order(self) -> int:
+        return self.tableau.order
+
+    @property
+    def stages(self) -> int:
+        return len(self.tableau.c)
+
+    @property
+    def has_error_estimate(self) -> bool:
+        return self.tableau.b_err is not None
+
+    @property
+    def fsal(self) -> bool:
+        return self.tableau.fsal
+
+    def trial_fn(self, f: Dynamics, params: Pytree, controller) -> TrialFn:
+        # Under ConstantSteps every trial is accepted: skip the (unused)
+        # error estimate.
+        with_error = controller.adaptive
+
+        def trial(z, t, h):
+            z1, err = self.tableau.step(f, params, z, t, h, with_error)
+            return z1, controller.error_ratio(err, z, z1)
+
+        return trial
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,11 +297,42 @@ class ALF(Solver):
         return 0
 
 
-SOLVERS = {"alf": ALF()}
+def Euler() -> RungeKutta:
+    return RungeKutta(EULER)
 
-# Solver names of the JAX package that land with a later slice.
-_LATER = ("euler", "heun2", "heun_euler", "midpoint", "bosh3", "rk23", "rk2",
-          "rk4", "dopri5")
+
+def HeunEuler() -> RungeKutta:
+    return RungeKutta(HEUN2)
+
+
+def Midpoint() -> RungeKutta:
+    return RungeKutta(MIDPOINT)
+
+
+def Bosh3() -> RungeKutta:
+    return RungeKutta(BOSH3)
+
+
+def Rk4() -> RungeKutta:
+    return RungeKutta(RK4)
+
+
+def Dopri5() -> RungeKutta:
+    return RungeKutta(DOPRI5)
+
+
+SOLVERS = {
+    "euler": RungeKutta(EULER),
+    "heun2": RungeKutta(HEUN2),
+    "heun_euler": RungeKutta(HEUN2),
+    "midpoint": RungeKutta(MIDPOINT),
+    "bosh3": RungeKutta(BOSH3),
+    "rk23": RungeKutta(BOSH3),
+    "rk2": RungeKutta(HEUN2),
+    "rk4": RungeKutta(RK4),
+    "dopri5": RungeKutta(DOPRI5),
+    "alf": ALF(),
+}
 
 
 def get_solver(name) -> Solver:
@@ -161,10 +340,6 @@ def get_solver(name) -> Solver:
     string names in the registry."""
     if isinstance(name, Solver):
         return name
-    if name in _LATER:
-        raise NotImplementedError(
-            f"solver {name!r} is not ported yet: the Runge-Kutta solvers "
-            "land with the RK/ACA/Backsolve slice (ROADMAP queue 1)")
     try:
         return SOLVERS[name]
     except KeyError:

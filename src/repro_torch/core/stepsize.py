@@ -145,6 +145,10 @@ class AdaptiveController(StepController):
         object.__setattr__(self, "atol", float(self.atol))
 
     def error_ratio(self, err, z0, z1) -> torch.Tensor:
+        if err is None:
+            raise ValueError(
+                "adaptive step control needs a solver with an embedded "
+                "error estimate; use ConstantSteps with this solver")
         return error_ratio(err, z0, z1, self.rtol, self.atol)
 
     @property
@@ -153,3 +157,15 @@ class AdaptiveController(StepController):
 
     def initial_step(self, span: torch.Tensor) -> torch.Tensor:
         return initial_step_size(self.rtol, self.atol, span)
+
+
+def controller_from_kwargs(n_steps: int, rtol: float, atol: float,
+                           max_steps: int) -> StepController:
+    """Map the legacy kwargs convention (n_steps > 0 fixed, == 0 adaptive)
+    to a StepController — shared by every legacy odeint facade."""
+    if n_steps < 0:
+        raise ValueError(f"n_steps must be >= 0 (0 selects adaptive control),"
+                         f" got {n_steps}")
+    if n_steps > 0:
+        return ConstantSteps(int(n_steps))
+    return AdaptiveController(float(rtol), float(atol), int(max_steps))

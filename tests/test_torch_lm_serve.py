@@ -184,16 +184,6 @@ def test_ode_settings_as_objects():
     assert saveat.ts.tolist() == [0.0, 0.5, 1.0]
 
 
-@pytest.mark.parametrize("settings,match", [
-    (dict(method="aca"), "RK/ACA/Backsolve slice"),
-    (dict(method="adjoint"), "RK/ACA/Backsolve slice"),
-    (dict(method="naive", solver="rk4"), "RK/ACA/Backsolve slice"),
-])
-def test_ode_settings_later_slices_raise(settings, match):
-    with pytest.raises(NotImplementedError, match=match):
-        OdeSettings(**settings).as_objects()
-
-
 def test_ode_settings_batch_axis_is_a_later_slice():
     with pytest.raises(NotImplementedError, match=r"queue 1 \(c\)"):
         OdeSettings(batch_axis="data").as_objects()
