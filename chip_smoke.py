@@ -141,6 +141,31 @@ either. Phases, each printing JSON lines:
                method on the Sec 4.2 field against the analytic values
                (1e-5), methods on one discretization within 1e-5 of each
                other, across discretizations within 5e-3.
+14. cnf       — the image CNF of examples/cnf_image.py (paper Sec 4.4)
+               at its widths: DIM 784, mlp_vfield hidden 64 depth 2,
+               Hutchinson (Rademacher), ALF(eta=1, cuda), ConstantSteps(8),
+               MALI, cnf_loss(kinetic_reg=0.05), Lockstep, 20 Adam steps
+               at 1e-3 on the port's dequantized make_image_batch, at
+               batch 16 and 1024 (1,607,680 f32 packed into one buffer per
+               ALF op): losses and bits/dim finite and the loss falling;
+               exact launch counts (8 + 8 + 8 + 8 ALF per step, 8 + 8 per
+               sample() call, 8 + 8 + 8 + 8 forward and VJP per Naive
+               gradient); the first step's and the trained parameters'
+               loss and gradient on the kernel backend within 1e-5 of the
+               reference backend (same probe), Naive (ALF cuda) against
+               MALI within rtol 2e-4 / atol 2e-5; no host sync in a
+               training step; peak memory of grad(cnf_loss) at batch 1024
+               from 8 to 64 steps, MALI <= 1.05x, Naive > 2x; sample() at
+               batch 16 in reverse time, its flow path over a descending
+               grid and the log_prob of the samples. Events: -a z (a = 8),
+               Event(z[0] - 0.5, direction=-1): event_time within 1e-3 of
+               ln 2 / a and its IFT gradient within 2e-2 of -t*/a for MALI
+               and Naive (ALF cuda), ACA (heun_euler) and Backsolve
+               (dopri5) under ConstantSteps(128) and AdaptiveController,
+               ALF cuda within 1e-6 of the reference backend, and a
+               detection pass whose bisection calls no dynamics and syncs
+               no host. ms per step on each backend in turns and the
+               device's busy share over 20 profiled steps at each batch.
 
 Every phase runs on every call. The line before the last is the kernel
 table; the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -170,6 +195,11 @@ QWEN_ALF_N, JAMBA_ALF_N = 4 * 1024 * 2048, 4 * 1024 * 4096
 # Backsolve's augmented state (z, a, {w1, b1, w2, b2}) on the main path,
 # packed into one buffer by the ALF ops: 270,464 f32
 BACKSOLVE_AUG_N = 2 * SLICE_N + 2 * D * HIDDEN + HIDDEN + D
+# The image CNF (phase 14; examples/cnf_image.py) at the example's
+# default batch and at a real state; its augmented state (z, logdet,
+# kinetic, probe), packed into one buffer: 25,120 and 1,607,680 f32
+CNF_DIM, CNF_BATCHES = 28 * 28, (16, 1024)
+CNF_PACKED_N = tuple(b * (2 * CNF_DIM + 2) for b in CNF_BATCHES)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_core_gradients.py:76
 KERNEL_ULPS = 2
 TIME_PAIRS = 5
@@ -474,7 +504,7 @@ def phase_kernels():
         n_trees = {"alf_midpoint_vjp": 3, "alf_update_vjp": 5}.get(name,
                                                                    n_in)
         for kind in ("f32", "bf16", "mixed", "f64"):
-            for n in (1, TAIL_N, SLICE_N, BACKSOLVE_AUG_N):
+            for n in (1, TAIL_N, SLICE_N, BACKSOLVE_AUG_N, *CNF_PACKED_N):
                 if kind == "mixed" and n == 1:
                     continue
                 trees = _make_trees(kind, n, n_trees, gen)
@@ -2204,12 +2234,19 @@ CROSS_METHOD_RTOL = 5e-3
 DB_STEPS = 32
 
 
-def _rel_err(got, want) -> float:
-    """max |got - want| / max |want| over matching leaves (worst leaf)."""
+def _rel_err(got, want, zero_atol: float = 0.0) -> float:
+    """max |got - want| / max |want| over matching leaves (worst leaf). A
+    leaf whose reference is all zero has no scale: it counts 0 when
+    max |got - want| <= zero_atol and inf (a failure at any relative
+    limit) otherwise."""
     import torch.utils._pytree as pytree
     worst = 0.0
     for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
-        worst = max(worst, float((g - w).abs().max() / w.abs().max()))
+        diff, scale = float((g - w).abs().max()), float(w.abs().max())
+        if scale > 0:
+            worst = max(worst, diff / scale)
+        elif diff > zero_atol:
+            worst = float("inf")
     return worst
 
 
@@ -2485,6 +2522,407 @@ def phase_methods(card: str, smi: str):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the image CNF (paper Sec 4.4; examples/cnf_image.py) and events
+# ---------------------------------------------------------------------------
+
+CNF_HIDDEN, CNF_DEPTH = 64, 2   # examples/cnf_image.py; CNF_DIM above
+CNF_STEPS, CNF_N_SUB, CNF_LR, CNF_KINETIC = 20, 8, 1e-3, 0.05
+CNF_MEMORY_STEPS = (8, 64)
+# kernel backend against the reference backend, same probe: max |a - b| /
+# max |b| per leaf; a leaf that is all zero on the reference backend must
+# be all zero on the kernel backend too (_rel_err's zero_atol)
+CNF_REL, CNF_ZERO_ATOL = 1e-5, 0.0
+# launches per MALI training step (8 forward steps: one midpoint and one
+# update each; 8 fused backward steps: one bwd_pre and one bwd_post
+# each), per Naive gradient (the two reverse rules per forward op) and
+# per sample() call (the forward pair only)
+CNF_PER_STEP = {"alf_midpoint": CNF_N_SUB, "alf_update": CNF_N_SUB,
+                "alf_bwd_pre": CNF_N_SUB, "alf_bwd_post": CNF_N_SUB}
+CNF_PER_NAIVE = {"alf_midpoint": CNF_N_SUB, "alf_update": CNF_N_SUB,
+                 "alf_midpoint_vjp": CNF_N_SUB, "alf_update_vjp": CNF_N_SUB}
+CNF_PER_SAMPLE = {"alf_midpoint": CNF_N_SUB, "alf_update": CNF_N_SUB}
+# Events: dz/dt = -a z, z0 = 1, the first coordinate falling through 0.5
+# at t* = ln 2 / a; dt*/da = -t*/a. Bars of tests/test_reverse_time.py.
+EV_A, EV_T1 = 8.0, 1.0
+EV_TIME_ATOL, EV_GRAD_RTOL = 1e-3, 2e-2
+EV_KERNEL_REL = 1e-6
+
+
+def _cnf_data(batch: int):
+    """CNF_STEPS dequantized image batches on the card: the port's
+    make_image_batch plus uniform noise inside each 1/256 bin."""
+    import torch
+    from repro_torch.data import DataConfig, make_image_batch
+    dcfg = DataConfig(seed=0, global_batch=batch)
+    rng = np.random.default_rng(0)
+    out = []
+    for step in range(CNF_STEPS):
+        img = make_image_batch(dcfg, step)["image"]
+        x = (img + rng.uniform(0, 1.0 / 256.0, img.shape)).astype(np.float32)
+        out.append(torch.as_tensor(x, device="cuda"))
+    return out
+
+
+def _cnf_params():
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch.models import init_mlp_vfield
+    params = init_mlp_vfield(torch.Generator(device="cuda").manual_seed(0),
+                             CNF_DIM, hidden=CNF_HIDDEN, depth=CNF_DEPTH,
+                             device="cuda")
+    for leaf in pytree.tree_leaves(params):
+        leaf.requires_grad_(True)
+    return params
+
+
+def _cnf_probe(step: int):
+    import torch
+    return torch.Generator(device="cuda").manual_seed(1000 + step)
+
+
+def _cnf_loss(params, x, gen, backend="cuda", gradient=None,
+              n_sub=CNF_N_SUB):
+    """cnf_loss(log_prob) of the image CNF: Hutchinson (Rademacher), ALF,
+    ConstantSteps(n_sub), MALI unless another gradient is given,
+    Lockstep batching."""
+    from repro_torch.cnf import CNF, Hutchinson, cnf_loss
+    from repro_torch.core import ALF, MALI, ConstantSteps, Lockstep
+    from repro_torch.models import mlp_vfield
+    flow = CNF(mlp_vfield, CNF_DIM, estimator=Hutchinson())
+    res = flow.log_prob(params, x, gen,
+                        solver=ALF(eta=1.0, backend=backend),
+                        controller=ConstantSteps(n_sub),
+                        gradient=MALI() if gradient is None else gradient,
+                        batching=Lockstep())
+    return cnf_loss(res, kinetic_reg=CNF_KINETIC), res
+
+
+def _cnf_grads(params, x, step, **kw):
+    import torch
+    import torch.utils._pytree as pytree
+    loss, _ = _cnf_loss(params, x, _cnf_probe(step), **kw)
+    grads = torch.autograd.grad(loss, pytree.tree_leaves(params))
+    return loss.detach(), grads
+
+
+def _cnf_train(xs, backend="cuda"):
+    """CNF_STEPS Adam steps from the seeded parameters; returns the losses,
+    bits/dim, wall seconds and the trained parameters."""
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch.cnf import bits_per_dim
+    params = _cnf_params()
+    opt = torch.optim.Adam(pytree.tree_leaves(params), lr=CNF_LR)
+    losses, bpds = [], []
+    gens = [_cnf_probe(i) for i in range(CNF_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(CNF_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss, res = _cnf_loss(params, xs[i], gens[i], backend)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+        bpds.append(bits_per_dim(res, CNF_DIM).detach())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([float(v) for v in losses], [float(v) for v in bpds], wall,
+            params)
+
+
+def _cnf_memory(x):
+    """Peak device memory above the pre-forward baseline of
+    grad(cnf_loss) at CNF_MEMORY_STEPS, MALI and Naive (ALF cuda), after
+    one unmeasured gradient (the first call's one-time allocations, such
+    as cuBLAS's workspace, would otherwise count in the first peak). Each
+    configuration is measured twice in a row and the growth is taken
+    from the second readings, so that a one-time allocation in the first
+    measured configuration cannot inflate the baseline; both readings
+    are returned."""
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch.core import MALI, Naive
+    params = _cnf_params()
+    torch.autograd.grad(_cnf_loss(params, x, _cnf_probe(0))[0],
+                        pytree.tree_leaves(params))
+    readings = {}
+    for label, gradient in (("mali_cuda", MALI()), ("naive_cuda", Naive())):
+        for n in CNF_MEMORY_STEPS:
+            for _ in range(2):
+                params = _cnf_params()
+                gen = _cnf_probe(0)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                loss, _ = _cnf_loss(params, x, gen, gradient=gradient,
+                                    n_sub=n)
+                torch.autograd.grad(loss, pytree.tree_leaves(params))
+                torch.cuda.synchronize()
+                readings.setdefault((label, n), []).append(
+                    torch.cuda.max_memory_allocated() - base)
+                del loss
+    peaks = {k: v[-1] for k, v in readings.items()}
+    lo, hi = CNF_MEMORY_STEPS
+    growth = {k: peaks[(k, hi)] / peaks[(k, lo)]
+              for k in ("mali_cuda", "naive_cuda")}
+    require(growth["mali_cuda"] <= 1.05, f"CNF: MALI peak memory grew "
+            f"{growth['mali_cuda']}x from {lo} to {hi} steps")
+    require(growth["naive_cuda"] > 2.0, f"CNF: Naive peak memory grew only "
+            f"{growth['naive_cuda']}x")
+    return ({f"{k}_n{n}": v for (k, n), v in readings.items()},
+            {f"{k}_growth_{lo}_to_{hi}": v for k, v in growth.items()})
+
+
+def _cnf_sample(params):
+    """sample() at batch 16 in reverse time, counted; the flow path over a
+    descending grid; the log_prob of the samples finite."""
+    import torch
+    from repro_torch.cnf import CNF, Hutchinson
+    from repro_torch.core import ALF, MALI, ConstantSteps, SaveAt
+    from repro_torch.models import mlp_vfield
+    flow = CNF(mlp_vfield, CNF_DIM, estimator=Hutchinson())
+    kw = dict(solver=ALF(eta=1.0, backend="cuda"),
+              controller=ConstantSteps(CNF_N_SUB), gradient=MALI())
+    n = CNF_BATCHES[0]
+    with torch.no_grad():
+        launches, sol = _counted(
+            "CNF sample()", lambda: flow.sample(params, _cnf_probe(7), n,
+                                                **kw), 1, CNF_PER_SAMPLE)
+        path = flow.sample(params, _cnf_probe(7), n,
+                           saveat=SaveAt(ts=torch.linspace(1.0, 0.0, 3)),
+                           **kw)
+        back = flow.log_prob(params, sol.ys[0], _cnf_probe(8), **kw)
+    xs = sol.ys[0]
+    base = torch.randn((n, CNF_DIM), generator=_cnf_probe(7), device="cuda")
+    require(tuple(xs.shape) == (n, CNF_DIM)
+            and bool(torch.isfinite(xs).all()), "CNF sample(): samples")
+    require(tuple(path.ys[0].shape) == (3, n, CNF_DIM)
+            and torch.equal(path.ys[0][0], base)
+            and bool(torch.isfinite(path.ys[0]).all()),
+            "CNF sample(): flow path")
+    require(bool(torch.isfinite(back.logp).all()),
+            "CNF sample(): log_prob of the samples not finite")
+    return launches, {"shape": list(xs.shape),
+                      "path_shape": list(path.ys[0].shape),
+                      "round_trip_mean_logp": float(back.logp.mean())}
+
+
+def _cnf_times(xs_by_batch):
+    """ms per training step on each ALF backend, 2 runs of CNF_STEPS each
+    in turns (the first backend alternating), and the device's busy share
+    over CNF_STEPS profiled kernel-backend steps."""
+    out = {}
+    for batch, xs in xs_by_batch.items():
+        step_ms = {"cuda": [], "reference": []}
+        order = ("reference", "cuda")
+        for i in range(2):
+            for backend in order[::1 if i % 2 == 0 else -1]:
+                _, _, wall, _ = _cnf_train(xs, backend)
+                step_ms[backend].append(wall / CNF_STEPS * 1e3)
+        prof = _device_profile(lambda: _cnf_train(xs, "cuda"))
+        out[batch] = {
+            "step_ms_cuda": step_ms["cuda"],
+            "step_ms_reference": step_ms["reference"],
+            "median_step_ms_cuda": float(np.median(step_ms["cuda"])),
+            "median_step_ms_reference": float(
+                np.median(step_ms["reference"])),
+            "profile_cuda": {k: prof[k] for k in (
+                "device_busy_ms", "device_window_ms", "idle_share",
+                "device_launches", "host_ms", "top_device_ms")}}
+    return out
+
+
+def _decay(p, z, t):
+    return -p["a"] * z
+
+
+def _event_cond(z, t):
+    return z[0] - 0.5
+
+
+def _event_solve(gradient, solver, controller):
+    """The event solve of -a z from fresh leaves; returns event_time,
+    d event_time / da, the end state and the solution."""
+    import torch
+    from repro_torch.core import Event, solve
+    a = torch.full((), EV_A, device="cuda", requires_grad=True)
+    sol = solve(_decay, {"a": a}, torch.ones(3, device="cuda"), 0.0, EV_T1,
+                solver=solver, controller=controller, gradient=gradient,
+                event=Event(_event_cond, direction=-1))
+    (g,) = torch.autograd.grad(sol.stats.event_time, [a])
+    return sol.stats.event_time.detach(), g, sol.ys.detach(), sol
+
+
+def _events():
+    """Events on the card: event_time and its IFT gradient for the four
+    methods under ConstantSteps(128) and AdaptiveController, the kernel
+    backend against the reference backend, and a detection pass whose
+    bisection calls no dynamics and reads nothing on the host."""
+    import math
+
+    import torch
+    from repro_torch.core import (ACA, ALF, MALI, AdaptiveController,
+                                  Backsolve, ConstantSteps, Dopri5,
+                                  HeunEuler, Naive)
+    from repro_torch.core.dense import locate_event
+    from repro_torch.core.solve import _record_span, _span_interpolation
+    t_star = math.log(2.0) / EV_A
+    g_star = -t_star / EV_A
+    cuda_alf, ref_alf = ALF(eta=1.0, backend="cuda"), ALF(eta=1.0)
+    methods = {"mali_alf_cuda": (MALI(), cuda_alf),
+               "naive_alf_cuda": (Naive(), cuda_alf),
+               "aca_heun_euler": (ACA(), HeunEuler()),
+               "backsolve_dopri5": (Backsolve(), Dopri5())}
+    reference = {"mali_alf_cuda": (MALI(), ref_alf),
+                 "naive_alf_cuda": (Naive(), ref_alf)}
+    controllers = {"constant_128": ConstantSteps(128),
+                   "adaptive": AdaptiveController(1e-4, 1e-5, 256)}
+    out = {}
+    for cname, ctrl in controllers.items():
+        for label, (gradient, solver) in methods.items():
+            t_ev, g, ys, sol = _event_solve(gradient, solver, ctrl)
+            row = {"event_time": float(t_ev), "dt_da": float(g),
+                   "time_err": abs(float(t_ev) - t_star),
+                   "grad_rel_err": abs(float(g) - g_star) / abs(g_star),
+                   "n_fevals": int(sol.stats.n_fevals)}
+            require(bool(sol.stats.event_fired),
+                    f"event {label} {cname}: did not fire")
+            require(row["time_err"] <= EV_TIME_ATOL,
+                    f"event {label} {cname}: event_time {row['event_time']}"
+                    f" vs ln2/a {t_star}")
+            require(row["grad_rel_err"] <= EV_GRAD_RTOL,
+                    f"event {label} {cname}: dt*/da {row['dt_da']} vs "
+                    f"-t*/a {g_star}")
+            if label in reference:
+                t_r, g_r, ys_r, _ = _event_solve(*reference[label], ctrl)
+                row["kernel_vs_reference"] = rel = max(
+                    _rel_err(t_ev, t_r), _rel_err(ys, ys_r), _rel_err(g, g_r))
+                require(rel <= EV_KERNEL_REL,
+                        f"event {label} {cname}: kernel vs reference rel "
+                        f"{rel}")
+            out[f"{label}_{cname}"] = row
+    # The detection pass: the bisection evaluates the interpolant only.
+    calls = {"f": 0, "cond": 0}
+
+    def f(p, z, t):
+        calls["f"] += 1
+        return -p["a"] * z
+
+    def cond(z, t):
+        calls["cond"] += 1
+        return z[0] - 0.5
+
+    p = {"a": torch.full((), EV_A, device="cuda")}
+    with torch.no_grad():
+        grid, res = _record_span(f, p, torch.ones(3, device="cuda"), 0.0,
+                                 EV_T1, cuda_alf, ConstantSteps(128))
+        interp = _span_interpolation(f, p, cuda_alf, grid, res)
+        before = calls["f"]
+        t_ev, fired = _no_sync(lambda: locate_event(interp, cond, -1, 32,
+                                                    grid[-1]))
+    require(calls["f"] == before, "locate_event called the dynamics")
+    require(calls["cond"] == 2 + 32, f"locate_event called cond_fn "
+            f"{calls['cond']} times, expected 34")
+    require(bool(fired) and abs(float(t_ev) - t_star) <= EV_TIME_ATOL,
+            "locate_event on the card")
+    out["locate_event"] = {"f_calls_in_bisection": calls["f"] - before,
+                           "cond_calls": calls["cond"],
+                           "event_time": float(t_ev)}
+    return out
+
+
+def phase_cnf(card: str, smi: str):
+    """Phase 14: the image CNF trained on the card through the ALF
+    kernels at both batches, kernel against reference (MALI and Naive)
+    and Naive against MALI, exact launch counts, no host sync, peak
+    memory from 8 to 64 steps, sample(), events, and times.
+
+    The first-step comparison is nearly trivial: the output layer starts
+    at zero, so f is 0, the ALF kernels see v = 0 and the inner layers'
+    gradients are exactly 0 on both backends (held exactly, by
+    CNF_ZERO_ATOL); only the output layer's gradient carries weight
+    there. The comparisons at the trained parameters are the ones that
+    hold the kernels on a moving state."""
+    import torch
+    from repro_torch.core import Naive
+    torch.cuda.empty_cache()
+    xs_by_batch = {b: _cnf_data(b) for b in CNF_BATCHES}
+    out = {}
+    launches = None
+    for batch, xs in xs_by_batch.items():
+        row = {}
+        counts, (losses, bpds, wall, trained) = _counted(
+            f"CNF training at batch {batch}", lambda: _cnf_train(xs),
+            CNF_STEPS, CNF_PER_STEP)
+        if batch == CNF_BATCHES[-1]:
+            launches = counts
+        require(all(np.isfinite(losses)) and all(np.isfinite(bpds)),
+                f"CNF batch {batch}: non-finite losses {losses}")
+        require(losses[-1] < losses[0], f"CNF batch {batch}: loss did not "
+                f"fall: {losses[0]} -> {losses[-1]}")
+        row.update(first_loss=losses[0], last_loss=losses[-1],
+                   first_bits_per_dim=bpds[0], last_bits_per_dim=bpds[-1],
+                   losses=losses, bits_per_dim=bpds,
+                   first_run_step_ms=wall / CNF_STEPS * 1e3)
+        # The first step's loss and gradients, and the trained parameters',
+        # on the kernel backend against the reference backend (same probe)
+        init = _cnf_params()
+        for label, params in (("first_step", init), ("trained", trained)):
+            l_k, g_k = _cnf_grads(params, xs[0], 0)
+            l_r, g_r = _cnf_grads(params, xs[0], 0, backend="reference")
+            rel = max(_rel_err(l_k, l_r, CNF_ZERO_ATOL),
+                      _rel_err(g_k, g_r, CNF_ZERO_ATOL))
+            require(rel <= CNF_REL, f"CNF batch {batch} {label}: kernel vs "
+                    f"reference rel {rel}")
+            row[f"{label}_kernel_vs_reference_rel"] = rel
+        # Naive (ALF cuda) at the trained parameters, counted, against
+        # Naive on the reference backend (this holds alf_midpoint_vjp and
+        # alf_update_vjp at the packed CNF state) and against MALI
+        n_counts, (l_n, g_n) = _counted(
+            f"CNF Naive gradient at batch {batch}",
+            lambda: _cnf_grads(trained, xs[0], 0, gradient=Naive()), 1,
+            CNF_PER_NAIVE)
+        l_nr, g_nr = _cnf_grads(trained, xs[0], 0, gradient=Naive(),
+                                backend="reference")
+        rel = max(_rel_err(l_n, l_nr, CNF_ZERO_ATOL),
+                  _rel_err(g_n, g_nr, CNF_ZERO_ATOL))
+        require(rel <= CNF_REL, f"CNF batch {batch} Naive: kernel vs "
+                f"reference rel {rel}")
+        row["naive_kernel_vs_reference_rel"] = rel
+        _, g_m = _cnf_grads(trained, xs[0], 0)
+        row["naive_vs_mali_max_abs_grad_diff"] = _leaves_close(
+            g_n, g_m, f"CNF batch {batch} Naive vs MALI")
+        # One fixed-step training step with every host sync an error
+        gen = _cnf_probe(0)
+        torch.cuda.synchronize()
+        _no_sync(lambda: _cnf_loss(trained, xs[0], gen)[0].backward())
+        row["no_host_sync_step"] = True
+        row["launches_per_step"] = {k: v // CNF_STEPS
+                                    for k, v in counts.items() if v}
+        row["naive_launches_per_gradient"] = {k: v for k, v in
+                                              n_counts.items() if v}
+        out[f"batch_{batch}"] = row
+        del trained, init
+    peaks, growth = _cnf_memory(xs_by_batch[CNF_BATCHES[-1]][0])
+    sample_launches, sample = _cnf_sample(_cnf_params())
+    events = _events()
+    times = _cnf_times(xs_by_batch)
+    emit({"phase": "cnf", "card": card, "nvidia_smi": smi,
+          "model": f"examples/cnf_image.py: DIM {CNF_DIM}, mlp_vfield "
+          f"hidden {CNF_HIDDEN} depth {CNF_DEPTH}, Hutchinson, ALF(eta=1, "
+          f"cuda), ConstantSteps({CNF_N_SUB}), MALI, cnf_loss(kinetic_reg="
+          f"{CNF_KINETIC}), Adam {CNF_LR}, Lockstep",
+          "steps": CNF_STEPS,
+          "packed_state_elements": dict(zip(CNF_BATCHES, CNF_PACKED_N)),
+          **out, "peak_bytes_batch_1024": peaks, **growth,
+          "sample": sample, "sample_launches": {
+              k: v for k, v in sample_launches.items() if v},
+          "events": events, "times": {f"batch_{b}": t
+                                      for b, t in times.items()}})
+    return launches, sample_launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2528,6 +2966,7 @@ def main() -> int:
     lm_launches = phase_lm_serve(card, smi)
     ssm_launches = phase_ssm_serve(card, smi)
     backsolve_launches = phase_methods(card, smi)
+    cnf_launches, cnf_sample_launches = phase_cnf(card, smi)
 
     table = []
     for name, (replaces, *_rest) in KERNELS.items():
@@ -2540,6 +2979,10 @@ def main() -> int:
                       "launches_ssm_serve": ssm_launches[name],
                       # and on Backsolve's path (phase 13)
                       "launches_backsolve": backsolve_launches[name],
+                      # and on the CNF's (phase 14): 20 training steps at
+                      # batch 1024, and one sample() call
+                      "launches_cnf": cnf_launches[name],
+                      "launches_cnf_sample": cnf_sample_launches[name],
                       "checks": checks[name],
                       "max_abs_err": worst[name], "ms": row["ms"],
                       "plain_ms": row["plain_ms"],

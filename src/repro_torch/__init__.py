@@ -2,8 +2,10 @@
 
 A port of the JAX package ``repro`` that imports nothing of it. Entry
 points compute on the CUDA card unless the caller passes a CPU device.
-``repro_torch.core`` is ``solve()`` with ALF, MALI and Naive;
-``repro_torch.models`` serves the continuous-depth LM (prefill + decode).
+``repro_torch.core`` is ``solve()`` with every solver, controller and
+gradient method, events and Lockstep batching; ``repro_torch.cnf`` the
+continuous normalizing flows; ``repro_torch.models`` serves the
+continuous-depth LM (prefill + decode).
 The fused ALF state updates, RMSNorm and prompt attention run as
 hand-written CUDA kernels (``repro_torch.kernels``), built with ``nvcc``
 at first use.

@@ -10,7 +10,8 @@ from typing import Any
 
 import numpy as np
 import torch
-import torch.utils._pytree as pytree
+
+from repro_torch import tree_util as pytree
 
 from .device import resolve_device
 

@@ -1,7 +1,8 @@
 """The MALI integrator on PyTorch: the composable ``solve()`` with every
 solver (ALF and the Runge-Kutta tableaus), controller and gradient method
 (MALI, Naive, ACA, Backsolve) of the JAX package, per-step and dense
-output, ``diff_bounds``, and the legacy string-keyed ``odeint`` facade.
+output, ``diff_bounds``, terminating events, ``Lockstep`` batching, and
+the legacy string-keyed ``odeint`` facade.
 
 Module names follow the JAX package (``repro.core``) so each counterpart
 is easy to find.
@@ -16,8 +17,9 @@ from .api import (METHODS, mali_forward_stats, odeint, odeint_aca,
 from .dense import DenseInterpolation, hermite_coefficients
 from .integrate import as_time_grid, integrate_grid, integrate_span, \
     validate_span
-from .interface import (GradientMethod, RunStats, SaveAt, Solution, Stats,
-                        state_nbytes)
+from .interface import (Batching, Event, GradientMethod, Lockstep,
+                        PerSample, RunStats, SaveAt, Sharded, Solution, Stats,
+                        batch_size, state_nbytes)
 from .mali import MALI
 from .naive import Naive, check_direct_backprop
 from .ode_block import OdeSettings, ode_block
@@ -34,6 +36,7 @@ __all__ = [
     # composable API
     "solve", "Solution", "SaveAt", "Stats", "RunStats", "GradientMethod",
     "DenseInterpolation", "hermite_coefficients",
+    "Event", "Batching", "Lockstep", "PerSample", "Sharded", "batch_size",
     "MALI", "Naive", "ACA", "Backsolve", "Adjoint", "check_direct_backprop",
     "Solver", "RungeKutta", "ALF", "ButcherTableau",
     "Euler", "HeunEuler", "Midpoint", "Bosh3", "Rk4", "Dopri5",

@@ -23,7 +23,7 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
-from torch.func import vjp
+from repro_torch.tree_util import vjp
 
 from .alf import tree_add, tree_sub, tree_zeros_like
 from .integrate import (grid_run, integrate_grid, reverse_masked_scan,

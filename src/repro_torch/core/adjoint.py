@@ -27,8 +27,9 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
-import torch.utils._pytree as pytree
-from torch.func import vjp
+
+from repro_torch import tree_util as pytree
+from repro_torch.tree_util import vjp
 
 from .alf import tree_add, tree_sub, tree_zeros_like
 from .integrate import (grid_run, integrate_span, prepend_row,

@@ -6,7 +6,7 @@ The ALF step psi_h maps the augmented state ``(z, v)`` — ``v`` tracks
 property MALI exploits to rebuild the forward trajectory in the backward
 pass at O(1) memory in the number of steps.
 
-All functions are pytree-generic in ``z``/``v`` (``torch.utils._pytree``).
+All functions are pytree-generic in ``z``/``v`` (``repro_torch.tree_util``).
 ``eta`` is the damping coefficient of Appendix A.5 (``eta=1`` = plain
 ALF); ``eta == 0.5`` makes the damped step non-invertible and is rejected.
 
@@ -21,7 +21,8 @@ from __future__ import annotations
 from typing import Any, Callable, Tuple
 
 import torch
-import torch.utils._pytree as pytree
+
+from repro_torch import tree_util as pytree
 
 Pytree = Any
 Dynamics = Callable[[Pytree, Pytree, torch.Tensor], Pytree]

@@ -8,6 +8,9 @@ delegates here. Where the endpoint data comes from is the solver's
 business (:meth:`repro_torch.core.solvers.Solver.interpolant`): ALF reads
 the slope off the tracked velocity ``v`` at no extra ``f`` evaluation.
 
+:func:`locate_event` finds a terminating event's crossing on the same
+interpolant.
+
 Direction: the step search runs in ``sign(t_end - t_start)``-reflected
 coordinates, so a reverse-time solve (negative step sizes) interpolates
 like a forward one. Everything is plain tensor code, so autograd
@@ -15,10 +18,12 @@ differentiates an interpolated value back through the recorded states.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
-import torch.utils._pytree as pytree
+
+from repro_torch import tree_util as pytree
+from repro_torch.tree_util import vmap
 
 _tm = pytree.tree_map
 
@@ -162,3 +167,71 @@ def pad_dead_rows(buf: Pytree, fill: Pytree, n_live: torch.Tensor) -> Pytree:
         return torch.where(_rows_like(live, b), b, e.unsqueeze(0))
 
     return _tm(per_leaf, buf, fill)
+
+
+# ---------------------------------------------------------------------------
+# Event location
+# ---------------------------------------------------------------------------
+
+def locate_event(interp: DenseInterpolation, cond_fn: Callable,
+                 direction: int, max_bisections: int,
+                 t_fallback) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Find the first root of ``cond_fn(z(t), t)`` along the interpolant.
+
+    ``cond_fn`` is evaluated once at every recorded step node (batched)
+    and once at the span end; the first live sign change, filtered by
+    ``direction`` (+1 rising only, -1 falling only, 0 either), is picked
+    on the device, then ``max_bisections`` bisection iterations on the
+    dense interpolant refine it inside its step: polynomial arithmetic, no
+    dynamics evaluation and no host read. Returns ``(t_event, fired)`` as
+    device tensors; without a crossing ``t_event == t_fallback`` and
+    ``fired`` is False. Nothing here is differentiated: the caller freezes
+    ``t_event``.
+    """
+    bound = interp.t0s.shape[0]
+    live = torch.arange(bound, device=interp.t0s.device) < interp.num_steps
+    node_t0 = interp.t0s
+    node_t1 = interp.t0s + interp.hs
+
+    def cond(z, t):
+        return torch.as_tensor(cond_fn(z, t))
+
+    def cond_at(tq):
+        return cond(interp.evaluate(tq), tq)
+
+    g0 = vmap(cond)(interp.evaluate(node_t0), node_t0)
+    # Step i's end node is step i+1's start node (the interpolant is C0
+    # there), so g0 shifted by one gives every step's end value but the
+    # last live step's: the span end, evaluated once.
+    g_end = cond_at(interp.t_end)
+    last = torch.clamp_min(interp.num_steps.long() - 1, 0).reshape(1)
+    g1 = torch.cat([g0[1:], g0[:1]]).index_put((last,), g_end.reshape(1))
+
+    rising = (g0 < 0) & (g1 >= 0)
+    falling = (g0 > 0) & (g1 <= 0)
+    if direction > 0:
+        crossed = rising
+    elif direction < 0:
+        crossed = falling
+    else:
+        crossed = rising | falling
+    crossed = crossed & live
+
+    fired = torch.any(crossed)
+    # the first live crossing, as a (1,) index: a 0-d index tensor would
+    # be read on the host
+    j = torch.argmax(crossed.to(torch.int8)).reshape(1)
+
+    t_lo, t_hi, g_lo = (b[j].reshape(()) for b in (node_t0, node_t1, g0))
+    for _ in range(max_bisections):
+        mid = 0.5 * (t_lo + t_hi)
+        g_mid = cond_at(mid)
+        same = torch.sign(g_mid) == torch.sign(g_lo)
+        t_lo, t_hi, g_lo = (torch.where(same, mid, t_lo),
+                            torch.where(same, t_hi, mid),
+                            torch.where(same, g_mid, g_lo))
+    t_event = 0.5 * (t_lo + t_hi)
+    t_event = torch.where(fired, t_event,
+                          torch.as_tensor(t_fallback, dtype=t_event.dtype,
+                                          device=t_event.device))
+    return t_event, fired

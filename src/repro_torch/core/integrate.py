@@ -32,7 +32,8 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.utils._pytree as pytree
+
+from repro_torch import tree_util as pytree
 
 from .stepsize import (AdaptiveController, ConstantSteps, StepController,
                        initial_step_size, next_step_size)

@@ -8,6 +8,12 @@
   pass emits.
 * :class:`Stats` / :class:`Solution` / :class:`SaveAt` — the user-facing
   result types of :func:`repro_torch.core.solve.solve`.
+* :class:`Event` — a terminating event (stop at a sign change of
+  ``cond_fn(z, t)``, bisection-refined on the dense interpolant).
+* :class:`Batching` — the batching axis over a leading batch dimension:
+  :class:`Lockstep` (the whole batch is one ODE system, one shared
+  controller decision per trial). :class:`PerSample` and
+  :class:`Sharded` are named here so that ``solve`` can refuse them.
 * :func:`grid_vjp` — the ``torch.autograd.Function`` wiring the
   memory-efficient methods share (where the JAX package gives each its
   own ``custom_vjp``), and :func:`bounds_cotangents`, the analytic
@@ -19,7 +25,8 @@ import dataclasses
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
-import torch.utils._pytree as pytree
+
+from repro_torch import tree_util as pytree
 
 from .dense import DenseInterpolation
 
@@ -57,6 +64,16 @@ class Stats(NamedTuple):
     n_fevals: torch.Tensor     # int32
     n_segments: int            # observation segments (T - 1)
     residual_bytes: int        # analytic residual-memory estimate
+    # Batched solves (solve(..., batching=...)) set per_sample: (B,) rows,
+    # one per batch sample; the scalar counters then hold the per-row
+    # totals (a Lockstep batch reports B x the shared counts). None for
+    # unbatched solves.
+    per_sample: Optional["RunStats"] = None
+    # Event solves (solve(..., event=Event(...))) set these two: did the
+    # event end the span, and at what (bisection-refined) time (t1 when it
+    # did not fire). None on other solves.
+    event_fired: Optional[torch.Tensor] = None   # bool
+    event_time: Optional[torch.Tensor] = None
     # Span-recording solves (SaveAt(steps=True)/dense=True) set this: False
     # when the AdaptiveController's max_steps budget ran out before t1, so
     # the record (and any interpolant over it) covers only a prefix of the
@@ -139,6 +156,115 @@ class SaveAt:
         if len(picked) > 1:
             raise ValueError("SaveAt: pass only one of ts=<grid>, "
                              f"steps=True or dense=True, not {picked}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Event:
+    """Terminating event: stop the solve at a sign change of
+    ``cond_fn(z, t)`` (a scalar event function).
+
+    A detection pass integrates the whole ``[t0, t1]`` span on detached
+    inputs, finds the first crossing among the recorded step nodes
+    (filtered by ``direction``: 0 any, +1 rising only, -1 falling only),
+    refines it by ``max_bisections`` bisections on the dense cubic-Hermite
+    interpolant (no dynamics evaluation), then re-solves ``[t0, t_event]``
+    with the chosen gradient method. Gradients flow through that
+    frozen-``t_event`` re-solve for all four methods, and
+    ``Solution.stats.event_time`` is differentiable through the implicit
+    function theorem. Without a crossing the solve runs to ``t1`` and
+    ``event_time == t1``. Under an
+    :class:`~repro_torch.core.stepsize.AdaptiveController` the detection
+    pass is one segment, so ``max_steps`` must cover the whole span.
+
+    Example::
+
+        ev = Event(lambda z, t: z[0] - 0.5, direction=+1)
+        sol = solve(f, params, z0, 0.0, 10.0, event=ev)
+        sol.ys                      # z(t_event)
+        sol.stats.event_time        # the crossing time
+
+    Equality is field-based, ``cond_fn`` by identity.
+    """
+    cond_fn: Callable[[Pytree, torch.Tensor], torch.Tensor]
+    direction: int = 0
+    max_bisections: int = 32
+
+    def __post_init__(self):
+        if not callable(self.cond_fn):
+            raise TypeError(f"Event.cond_fn must be callable (z, t) -> "
+                            f"scalar, got {self.cond_fn!r}")
+        if self.direction not in (-1, 0, 1):
+            raise ValueError(f"Event.direction must be -1, 0 or +1, got "
+                             f"{self.direction!r}")
+        if not isinstance(self.max_bisections, int) or self.max_bisections < 1:
+            raise ValueError(f"Event.max_bisections must be a positive "
+                             f"integer, got {self.max_bisections!r}")
+
+
+class Batching:
+    """Base of the batching axis: how one ``solve`` treats the leading
+    batch dimension of ``z0``. Batched solves return ``ys`` batch-first:
+    ``(B, ...)`` for the end state, ``(B, T, ...)`` for a
+    ``SaveAt(ts=grid)`` trajectory."""
+
+    name: str = "?"
+
+
+@dataclasses.dataclass(frozen=True)
+class Lockstep(Batching):
+    """The whole batch is one ODE system: the adaptive controller's error
+    norm reduces over every sample, so there is one shared accept/reject
+    decision per trial. What an unbatched ``solve`` over a batch-shaped
+    ``z0`` does, made explicit."""
+
+    name = "lockstep"
+
+
+@dataclasses.dataclass(frozen=True)
+class PerSample(Batching):
+    """Per-sample adaptive control (each sample with its own ``(t, h,
+    done)``). Not ported yet: ``solve`` refuses it."""
+
+    name = "per_sample"
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharded(Batching):
+    """The batch sharded over a device axis, ``inner`` batching on each
+    shard. Not ported yet: ``solve`` refuses it."""
+
+    axis: str = "data"
+    inner: Batching = dataclasses.field(default_factory=Lockstep)
+
+    name = "sharded"
+
+    def __post_init__(self):
+        if isinstance(self.inner, Sharded):
+            raise ValueError("Sharded(inner=Sharded(...)) does not nest; "
+                             "pick Lockstep() or PerSample() for inner")
+
+
+def batch_size(z0: Pytree) -> int:
+    """The leading-axis batch size of a batched state tree. Every leaf
+    must carry the same batch axis in front."""
+    sizes = {}
+    for key, leaf in pytree.tree_leaves_with_keys(z0):
+        key = key or "<root>"
+        if leaf.dim() == 0:
+            raise ValueError(
+                f"batched solve: z0 leaf {key} is a scalar — every leaf "
+                "must have the batch axis as its leading dimension (add "
+                "one with z[:, None]... or drop batching=)")
+        sizes[key] = leaf.shape[0]
+    if not sizes:
+        raise ValueError("batched solve needs a non-empty z0 pytree")
+    if len(set(sizes.values())) != 1:
+        detail = ", ".join(f"{k}: {v}" for k, v in sizes.items())
+        raise ValueError(
+            "batched solve: inconsistent leading (batch) axis across z0 "
+            f"leaves — {detail}. All leaves must share the same batch "
+            "size; non-batched per-sample constants belong in params.")
+    return next(iter(sizes.values()))
 
 
 _tm = pytree.tree_map

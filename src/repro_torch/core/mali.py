@@ -29,8 +29,9 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
-import torch.utils._pytree as pytree
-from torch.func import vjp
+
+from repro_torch import tree_util as pytree
+from repro_torch.tree_util import vjp
 
 from .alf import (alf_inverse, alf_step, check_eta, init_velocity,
                   tree_add, tree_sub, tree_zeros_like)

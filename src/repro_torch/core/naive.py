@@ -20,7 +20,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.utils._pytree as pytree
+
+from repro_torch import tree_util as pytree
 
 from .alf import tree_sub
 from .integrate import grid_run, integrate_grid, tree_row

@@ -115,7 +115,8 @@ class OdeSettings:
         if self.batch_axis is not None:
             raise NotImplementedError(
                 "ode.batch_axis (Sharded batching) is not ported yet: it "
-                "lands with the serving-engine slice, ROADMAP queue 1 (c)")
+                "lands with PerSample and Sharded, ROADMAP queue 1 item 4, "
+                "before the serving-engine slice, queue 1 (c)")
         solver = (ALF(eta=self.eta, backend=_BACKEND[self.backend])
                   if self.solver == "alf" else get_solver(self.solver))
         controller = (ConstantSteps(self.n_steps) if self.n_steps > 0 else

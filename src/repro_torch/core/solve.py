@@ -20,7 +20,8 @@ covers every solver of the registry (ALF on either backend, the
 Runge-Kutta tableaus) x {MALI, Naive, ACA, Backsolve} x {ConstantSteps,
 AdaptiveController} x {end state, ``SaveAt(ts=)``, ``SaveAt(steps=True)``,
 ``SaveAt(dense=True)``}, forward and reverse time, with or without
-``diff_bounds``; ``batching=`` and ``event=`` raise
+``diff_bounds``, terminating events (``event=``) and ``Lockstep()``
+batching; ``PerSample()`` and ``Sharded()`` batching raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -28,13 +29,16 @@ from __future__ import annotations
 from typing import Any, Callable, Optional
 
 import torch
-import torch.utils._pytree as pytree
 
-from .dense import build_interpolation
+from repro_torch import tree_util as pytree
+from repro_torch.tree_util import vjp
+
+from .dense import build_interpolation, locate_event
 from .integrate import (as_time_grid, integrate_grid, scalar_time_grid,
                         validate_span)
-from .interface import (GradientMethod, RunStats, SaveAt, Solution, Stats,
-                        make_run_stats)
+from .interface import (Batching, Event, GradientMethod, Lockstep,
+                        PerSample, RunStats, SaveAt, Sharded, Solution,
+                        Stats, batch_size, make_run_stats, tree_vdot)
 from .aca import ACA
 from .adjoint import Adjoint, Backsolve
 from .mali import MALI
@@ -63,8 +67,8 @@ def _build_stats(rstats: RunStats, gradient: GradientMethod, z0: Pytree,
 
 def _record_span(f, params, z0, t0, t1, solver, controller):
     """One state-recording integration over the single [t0, t1] segment,
-    the shared forward of SaveAt(steps=True) and SaveAt(dense=True), in
-    either time direction."""
+    the shared forward of SaveAt(steps=True), SaveAt(dense=True) and the
+    event detection pass, in either time direction."""
     grid = scalar_time_grid(t0, t1, pytree.tree_leaves(z0)[0].device)
     state0 = solver.init_state(f, params, z0, grid[0])
     trial = solver.trial_fn(f, params, controller)
@@ -81,6 +85,14 @@ def _span_stats(res, z0, grid, solver, controller, extra_evals=0) -> Stats:
                             init_evals)
     stats = _build_stats(rstats, Naive(), z0, grid, solver, controller)
     return stats._replace(span_complete=res.completed)
+
+
+def _span_interpolation(f, params, solver, grid, res):
+    """Fit the dense cubic-Hermite record of one recorded span."""
+    states = _tm(lambda b: b[0], res.state_traj)
+    return build_interpolation(solver, f, params, states, res.state,
+                               res.ts[0], res.hs[0], res.n_accepted[0],
+                               grid[0], grid[-1])
 
 
 def _solve_dense(f, params, z0, t0, t1, solver, controller) -> Solution:
@@ -113,25 +125,184 @@ def _solve_dense_interp(f, params, z0, t0, t1, solver,
     through the recorded sequence."""
     check_direct_backprop(solver, "SaveAt(dense=True)")
     grid, res = _record_span(f, params, z0, t0, t1, solver, controller)
-    states = _tm(lambda b: b[0], res.state_traj)
-    interp = build_interpolation(solver, f, params, states, res.state,
-                                 res.ts[0], res.hs[0], res.n_accepted[0],
-                                 grid[0], grid[-1])
+    interp = _span_interpolation(f, params, solver, grid, res)
     stats = _span_stats(res, z0, grid, solver, controller,
                         solver.interpolant_fevals(controller.step_bound))
     return Solution(ys=solver.output(res.state), ts=grid[-1], stats=stats,
                     interpolation=interp)
 
 
-def _refuse_later_axes(batching, event) -> None:
-    later = []
-    if batching is not None:
-        later.append("batching= (ROADMAP queue 1, Batching)")
-    if event is not None:
-        later.append("event= (ROADMAP queue 1, time as an axis: events)")
-    if later:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(later))
+def _detach(tree: Pytree) -> Pytree:
+    return _tm(lambda x: x.detach(), tree)
+
+
+def _ift_event_time(f, params, event: Event, z_ev, t_event, fired):
+    """The event time, differentiable through the implicit function
+    theorem.
+
+    The detection pass runs on detached inputs, so ``t_event`` carries no
+    gradient. The crossing is defined by ``c(z(t*; theta), t*) = 0``, so
+
+        dt*/dtheta = -<c_z, dz(t*)/dtheta> / (<c_z, f(z*, t*)> + c_t).
+
+    Written as a value-preserving correction,
+    ``t* - (c(z_ev, t*) - sg(c)) / sg(cdot)``: the subtraction is zero in
+    value, and its backward routes the re-solve's differentiable ``z_ev``
+    into the IFT quotient. ``fired`` gates the correction (an event-free
+    span keeps a plain span end with no gradient), and ``|cdot| > 1e-12``
+    guards the division."""
+    cval = torch.as_tensor(event.cond_fn(z_ev, t_event))
+    z_sg = _detach(z_ev)
+    c_sg, pull = vjp(lambda z, t: torch.as_tensor(event.cond_fn(z, t)),
+                     z_sg, t_event)
+    c_z, c_t = pull(torch.ones_like(c_sg))
+    with torch.no_grad():
+        cdot = tree_vdot(c_z, f(params, z_sg, t_event)) + c_t
+    safe = torch.where(torch.abs(cdot) > 1e-12, cdot, torch.ones_like(cdot))
+    corr = (cval - cval.detach()) / safe
+    return t_event - torch.where(fired, corr, torch.zeros_like(corr))
+
+
+def _solve_event(f, params, z0, t0, t1, solver, controller, gradient,
+                 saveat, event: Event, diff_bounds: bool) -> Solution:
+    """Terminating-event solve: record the full span on detached inputs,
+    locate and refine the first crossing of ``event.cond_fn`` on the
+    interpolant, then re-solve ``[t0, t_event]`` with the chosen gradient
+    method (``t_event`` a constant of the re-solve, so every method
+    differentiates it as a plain solve). ``Stats.event_time`` is made
+    differentiable afterwards by :func:`_ift_event_time`."""
+    if saveat.steps or saveat.dense:
+        raise ValueError(
+            "SaveAt(steps=True)/SaveAt(dense=True) with event= is not "
+            "supported: the per-step record would mix pre- and post-event "
+            "steps of the detection pass; use SaveAt(ts=grid) (post-event "
+            "rows hold the terminal state) or the default end state")
+    device = pytree.tree_leaves(z0)[0].device
+    trajectory = saveat.ts is not None
+    if trajectory:
+        user_grid = as_time_grid(saveat.ts, device)
+        t0, t1 = user_grid[0], user_grid[-1]
+
+    # Detection pass: never differentiated, and its bisection evaluates
+    # the interpolant, never the dynamics.
+    with torch.no_grad():
+        grid, res = _record_span(f, params, z0, t0, t1, solver, controller)
+        interp = _span_interpolation(f, params, solver, grid, res)
+        t_event, fired = locate_event(interp, event.cond_fn,
+                                      event.direction, event.max_bisections,
+                                      grid[-1])
+
+    # The differentiable re-solve over the event-terminated span. A grid
+    # is clamped at t_event (sign-aware): every post-event segment has
+    # length zero, so those rows hold the terminal state and time.
+    if trajectory:
+        clamped = torch.where(user_grid[-1] >= user_grid[0],
+                              torch.minimum(user_grid, t_event),
+                              torch.maximum(user_grid, t_event))
+        traj, rstats = gradient.integrate(f, params, z0, clamped, solver,
+                                          controller, diff_bounds)
+        ys, ts_out, grid_out = traj, clamped, clamped
+        z_ev = _tm(lambda b: b[-1], traj)
+    else:
+        # t0 from a fresh grid: it keeps its gradient (diff_bounds)
+        start = scalar_time_grid(t0, t1, device)[0]
+        grid_out = torch.stack([start, t_event.to(start.dtype)])
+        traj, rstats = gradient.integrate(f, params, z0, grid_out, solver,
+                                          controller, diff_bounds)
+        ys, ts_out = _tm(lambda b: b[-1], traj), grid_out[-1]
+        z_ev = ys
+    t_event = _ift_event_time(f, params, event, z_ev, t_event, fired)
+
+    # The accounting is the re-solve's plus the detection pass's.
+    det = _span_stats(res, z0, grid, solver, controller,
+                      solver.interpolant_fevals(controller.step_bound))
+    n_obs = int(grid_out.shape[0])
+    stats = Stats(
+        n_accepted=rstats.n_accepted + det.n_accepted,
+        n_rejected=rstats.n_rejected + det.n_rejected,
+        n_fevals=rstats.n_fevals + det.n_fevals,
+        n_segments=n_obs - 1,
+        residual_bytes=gradient.residual_bytes(z0, n_obs, solver,
+                                               controller),
+        event_fired=fired, event_time=t_event,
+        span_complete=res.completed)
+    return Solution(ys=ys, ts=ts_out, stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# Batched solves (the Batching axis)
+# ---------------------------------------------------------------------------
+
+def _broadcast_rows(rstats: RunStats, nb: int) -> RunStats:
+    """Lockstep per-row counters: every row takes the shared step sequence
+    and is evaluated on every shared trial, so each row's counters are the
+    batch system's."""
+    return RunStats(*(torch.broadcast_to(c.detach(), (nb,))
+                      for c in rstats))
+
+
+def _batched_stats(per: RunStats, n_segments: int, residual_bytes: int,
+                   span_complete=None) -> Stats:
+    """Stats of a batched solve: ``per_sample`` keeps the (B,) rows, the
+    scalar counters hold their totals."""
+    return Stats(
+        n_accepted=torch.sum(per.n_accepted).to(torch.int32),
+        n_rejected=torch.sum(per.n_rejected).to(torch.int32),
+        n_fevals=torch.sum(per.n_fevals).to(torch.int32),
+        n_segments=n_segments, residual_bytes=residual_bytes,
+        per_sample=per, span_complete=span_complete)
+
+
+def _batch_first(traj: Pytree) -> Pytree:
+    """(T, B, ...) -> the batch-first (B, T, ...) of every batched
+    mode."""
+    return _tm(lambda b: torch.movedim(b, 0, 1), traj)
+
+
+def _solve_batched(f, params, z0, t0, t1, solver, controller, gradient,
+                   saveat, diff_bounds: bool) -> Solution:
+    """A ``Lockstep()`` solve, one shared controller decision per trial:
+    the unbatched machinery on the batched state (the batch one
+    concatenated system), with batch-first ``ys`` and per-row
+    counters."""
+    nb = batch_size(z0)
+    if saveat.steps or saveat.dense:
+        # The shared step sequence keeps per-step output rectangular.
+        if saveat.steps:
+            sol = _solve_dense(f, params, z0, t0, t1, solver, controller)
+            ys = _batch_first(sol.ys)
+        else:
+            # the interpolant carries the batch axis inside each
+            # coefficient leaf: evaluate(t) gives (B, ...) per query
+            sol = _solve_dense_interp(f, params, z0, t0, t1, solver,
+                                      controller)
+            ys = sol.ys
+        per = _broadcast_rows(RunStats(sol.stats.n_accepted,
+                                       sol.stats.n_rejected,
+                                       sol.stats.n_fevals), nb)
+        stats = _batched_stats(per, sol.stats.n_segments,
+                               sol.stats.residual_bytes,
+                               sol.stats.span_complete)
+        return Solution(ys=ys, ts=sol.ts, stats=stats,
+                        interpolation=sol.interpolation, n_live=sol.n_live)
+    grid = _time_grid(saveat, t0, t1, z0)
+    traj, rstats = gradient.integrate(f, params, z0, grid, solver,
+                                      controller, diff_bounds)
+    n_obs = int(grid.shape[0])
+    stats = _batched_stats(_broadcast_rows(rstats, nb), n_obs - 1,
+                           gradient.residual_bytes(z0, n_obs, solver,
+                                                   controller))
+    if saveat.ts is not None:
+        return Solution(ys=_batch_first(traj), ts=grid, stats=stats)
+    return Solution(ys=_tm(lambda b: b[-1], traj), ts=grid[-1], stats=stats)
+
+
+def _time_grid(saveat: SaveAt, t0, t1, z0) -> torch.Tensor:
+    """The observation grid on z0's device: ``SaveAt.ts``, or [t0, t1]."""
+    device = pytree.tree_leaves(z0)[0].device
+    if saveat.ts is not None:
+        return as_time_grid(saveat.ts, device)
+    return scalar_time_grid(t0, t1, device)
 
 
 def solve(f: Dynamics, params: Pytree, z0: Pytree, t0=0.0, t1=1.0, *,
@@ -139,7 +310,8 @@ def solve(f: Dynamics, params: Pytree, z0: Pytree, t0=0.0, t1=1.0, *,
           controller: Optional[StepController] = None,
           gradient: Optional[GradientMethod] = None,
           saveat: Optional[SaveAt] = None,
-          batching=None, event=None,
+          batching: Optional[Batching] = None,
+          event: Optional[Event] = None,
           diff_bounds: bool = False) -> Solution:
     """Integrate ``dz/dt = f(params, z, t)`` and return a :class:`Solution`.
 
@@ -154,6 +326,16 @@ def solve(f: Dynamics, params: Pytree, z0: Pytree, t0=0.0, t1=1.0, *,
     ``sol.evaluate(t)`` interpolate anywhere in the span. Both pin every
     step's state, so their gradients are direct backprop through the
     recorded steps, whatever ``gradient`` says.
+
+    ``event=Event(cond_fn, ...)`` stops the solve at the first sign change
+    of ``cond_fn(z, t)`` (:class:`~repro_torch.core.interface.Event`):
+    ``sol.stats.event_fired`` / ``event_time`` record it, and on a
+    ``SaveAt(ts=grid)`` the post-event rows hold the terminal state.
+    ``batching=Lockstep()`` makes the leading axis of every ``z0`` leaf a
+    batch axis integrated as one system: ``ys`` batch-first, ``(B, ...)``
+    or ``(B, T, ...)``, and ``stats.per_sample`` per-row counters.
+    ``diff_bounds=True`` gives ``t0``/``t1`` (and every ``SaveAt.ts``
+    entry) their analytic cotangents.
     """
     gradient = MALI() if gradient is None else gradient
     if not isinstance(gradient, GradientMethod):
@@ -165,35 +347,62 @@ def solve(f: Dynamics, params: Pytree, z0: Pytree, t0=0.0, t1=1.0, *,
             f"controller must be a StepController (ConstantSteps or "
             f"AdaptiveController), got {controller!r}")
     saveat = SaveAt() if saveat is None else saveat
-    _refuse_later_axes(batching, event)
 
     gradient.validate(solver, controller)
-    if diff_bounds and (saveat.steps or saveat.dense):
-        raise ValueError(
-            "diff_bounds=True needs a fixed observation grid; "
-            "SaveAt(steps=True)/SaveAt(dense=True) output is indexed by "
-            "accepted steps, which carry no boundary cotangents — use "
-            "the default end state or SaveAt(ts=grid)")
-    if saveat.steps or saveat.dense:
+    if saveat.ts is None:
         validate_span(t0, t1)
+    if diff_bounds:
+        if saveat.steps or saveat.dense:
+            raise ValueError(
+                "diff_bounds=True needs a fixed observation grid; "
+                "SaveAt(steps=True)/SaveAt(dense=True) output is indexed by "
+                "accepted steps, which carry no boundary cotangents — use "
+                "the default end state or SaveAt(ts=grid)")
+        if isinstance(batching, Sharded):
+            raise ValueError(
+                "diff_bounds=True with Sharded() batching is not supported: "
+                "the observation grid is a closed-over constant inside "
+                "shard_map, so its cotangents cannot cross the mesh axis — "
+                "use Lockstep()/PerSample(), or vmap sharded solves with "
+                "static bounds")
+
+    if event is not None:
+        if not isinstance(event, Event):
+            raise TypeError(f"event must be an Event, got {event!r}")
+        if batching is not None:
+            raise ValueError(
+                "event= with batching= is not supported: per-sample event "
+                "times are ragged; vmap single event solves, or solve the "
+                "batch without an event and post-process")
+        return _solve_event(f, params, z0, t0, t1, solver, controller,
+                            gradient, saveat, event, diff_bounds)
+
+    if batching is not None:
+        if not isinstance(batching, Batching):
+            raise TypeError(
+                f"batching must be a Batching (Lockstep, PerSample or "
+                f"Sharded), got {batching!r}")
+        if not isinstance(batching, Lockstep):
+            raise NotImplementedError(
+                f"{type(batching).__name__}() batching is not ported yet "
+                "(ROADMAP queue 1 item 4: PerSample + Sharded + "
+                "ode.batch_axis); use Lockstep()")
+        return _solve_batched(f, params, z0, t0, t1, solver, controller,
+                              gradient, saveat, diff_bounds)
+
+    if saveat.steps or saveat.dense:
         dense = _solve_dense if saveat.steps else _solve_dense_interp
         return dense(f, params, z0, t0, t1, solver, controller)
-    device = pytree.tree_leaves(z0)[0].device
-    trajectory = saveat.ts is not None
-    if trajectory:
-        grid = as_time_grid(saveat.ts, device)
-    else:
-        validate_span(t0, t1)
-        grid = scalar_time_grid(t0, t1, device)
+    grid = _time_grid(saveat, t0, t1, z0)
     traj, rstats = gradient.integrate(f, params, z0, grid, solver,
                                       controller, diff_bounds)
     stats = _build_stats(rstats, gradient, z0, grid, solver, controller)
-    if trajectory:
+    if saveat.ts is not None:
         return Solution(ys=traj, ts=grid, stats=stats)
-    return Solution(ys=pytree.tree_map(lambda b: b[-1], traj), ts=grid[-1],
-                    stats=stats)
+    return Solution(ys=_tm(lambda b: b[-1], traj), ts=grid[-1], stats=stats)
 
 
-__all__ = ["solve", "Solution", "SaveAt", "Stats", "GradientMethod",
+__all__ = ["solve", "Solution", "SaveAt", "Stats", "Event", "GradientMethod",
+           "Batching", "Lockstep", "PerSample", "Sharded",
            "MALI", "Naive", "ACA", "Backsolve", "Adjoint", "ALF",
            "AdaptiveController"]

@@ -21,7 +21,8 @@ import dataclasses
 from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
-import torch.utils._pytree as pytree
+
+from repro_torch import tree_util as pytree
 
 from .alf import (alf_step, alf_step_with_error, check_backend, check_eta,
                   init_velocity)
@@ -175,7 +176,7 @@ class Solver:
         endpoints, batched over the whole buffer with ``torch.func.vmap``;
         solvers whose state carries a velocity (:class:`ALF`) read the
         slope off it instead."""
-        from torch.func import vmap
+        from repro_torch.tree_util import vmap
         ends = shift_to_step_ends(states, state_end, n_live)
         y0 = self.output(pad_dead_rows(states, state_end, n_live))
         y1 = self.output(pad_dead_rows(ends, state_end, n_live))

@@ -17,7 +17,8 @@ import dataclasses
 from typing import Any, ClassVar
 
 import torch
-import torch.utils._pytree as pytree
+
+from repro_torch import tree_util as pytree
 
 # Classic Hairer-Norsett-Wanner defaults.
 SAFETY = 0.9

@@ -39,9 +39,9 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.utils._pytree as pytree
 from torch.autograd.function import once_differentiable
 
+from repro_torch import tree_util as pytree
 from repro_torch.kernels import on_cuda as _on_cuda
 
 from . import alf_step, ref

@@ -342,9 +342,9 @@ def _plain_solve(**kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(batching=object()), "batching"),
-    (dict(event=object()), "event"),
-], ids=["batching", "event"])
+    (dict(batching=T.PerSample()), r"PerSample.*ROADMAP queue 1 item 4"),
+    (dict(batching=T.Sharded()), r"Sharded.*ROADMAP queue 1 item 4"),
+], ids=["batching", "sharded"])
 def test_unported_axes_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         _plain_solve(**kw)
