@@ -21,8 +21,9 @@ either. Phases, each printing JSON lines:
                alf_midpoint_vjp) also with each input 0-3 elements past a
                16-byte boundary, one input at a time and all together,
                and (through the C entry) the outputs 1-3 past one, f32,
-               bf16 and f64 at n = 1, 1500*128+37 and 2048*64; the
-               update's C entry must refuse outputs at two phases.
+               bf16 and f64 at n = 1, 1500*128+37 and 2048*64, and with
+               a per-row h at 3 x 37 and 2048 x 64; the update's C entry
+               must refuse outputs at two phases.
 3. times     — CUDA-event times of each kernel, its plain version and
                (where one exists) one library call, beside the bound, at
                the main path's shape and at n = 2^25, the forward pair
@@ -166,6 +167,35 @@ either. Phases, each printing JSON lines:
                detection pass whose bisection calls no dynamics and syncs
                no host. ms per step on each backend in turns and the
                device's busy share over 20 profiled steps at each batch.
+15. per_sample — PerSample and Sharded batching on the card: (a)
+               benchmarks/batched_throughput.py's stiffness mix (B 16,
+               lam log-spaced over [0.5, 50], ALF(eta=0.9, cuda),
+               AdaptiveController(1e-3, 1e-4, 512), MALI): per-row
+               counters, values and gradients equal to 16 single-row
+               solves, total f-evals against Lockstep, the reference
+               backend, Naive and unfused MALI (the per-row VJP and
+               inverse kernels); (b) the image CNF at phase 14's widths
+               and trained weights under PerSample with
+               AdaptiveController(1e-2, 1e-3, 256), batch 1024 and 16:
+               kernel vs reference backend (loss, logp, gradients within
+               1e-5, counters equal), four rows (the fastest and the
+               slowest among them) against their own single-row solves,
+               exactly one host read and one midpoint + one update launch
+               per trial (PerSample and Lockstep), ms per step and the
+               device's idle share, the spread of accepted steps; (c)
+               MALI's peak memory at batch 1024 from the base tolerances
+               to the first tighter pair with >= 4x the accepted steps a
+               row (<= 1.05x, two readings each); (d) Sharded(inner=
+               Lockstep()) and Sharded(inner=PerSample()) on a one-rank
+               mesh bit-equal to their inner batching. The per-row
+               launches of (a) and of (b)'s gradients are counted from 0
+               (the kernels line's launches_per_sample).
+
+Phase 2 also holds the eight kernels with a per-row (B,) h, each row
+its own (kernels_rows: B x D in ROW_CASES, f32, bf16, mixed, f64, one
+launch of the per-row instantiation a call), and phase 3 times each
+per-row instantiation beside its scalar one in turns at 2^25 (1024
+rows) and 1024 x 1570 (times_rows).
 
 Every phase runs on every call. The line before the last is the kernel
 table; the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -199,7 +229,13 @@ BACKSOLVE_AUG_N = 2 * SLICE_N + 2 * D * HIDDEN + HIDDEN + D
 # default batch and at a real state; its augmented state (z, logdet,
 # kinetic, probe), packed into one buffer: 25,120 and 1,607,680 f32
 CNF_DIM, CNF_BATCHES = 28 * 28, (16, 1024)
-CNF_PACKED_N = tuple(b * (2 * CNF_DIM + 2) for b in CNF_BATCHES)
+CNF_ROW = 2 * CNF_DIM + 2
+CNF_PACKED_N = tuple(b * CNF_ROW for b in CNF_BATCHES)
+# Per-row h (PerSample batching): (B rows, D elements a row). D = 1, 2
+# and 37 (odd) put row boundaries inside 16-byte vectors; the CNF's row
+# (1570) at its two batches; the main path's 2048 x 64.
+ROW_CASES = ((1, CNF_ROW), (3, 1), (3, 2), (3, 37), (16, CNF_ROW),
+             (16, 2), (1024, 1), (1024, 37), (1024, CNF_ROW), (N_TRAIN, D))
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_core_gradients.py:76
 KERNEL_ULPS = 2
 TIME_PAIRS = 5
@@ -434,10 +470,12 @@ def _plain(name, ops, trees, h, param):
     fwd = trees[:2] if name == "alf_midpoint_vjp" else trees[:3]
     _, cd = ops._trees(*(fwd if name in VJPS else trees))
     hh = h.to(torch.promote_types(cd, torch.float32))
-    bufs = [ops._flatten(trees[i], cd) for i in ins]
-    out = fn(*bufs, hh, param)
+    rows = h.shape[0] if h.dim() else 0     # a per-row (B,) h
+    bufs = [ops._flatten(trees[i], cd, rows) for i in ins]
+    out = ops._plain(fn, hh, *bufs, param=param)
     outs = out if isinstance(out, tuple) else (out,)
-    return tuple(ops._Tree(trees[i]).unpack(o) for o, i in zip(outs, metas))
+    return tuple(ops._Tree(trees[i]).unpack(o, rows)
+                 for o, i in zip(outs, metas))
 
 
 def _call(name, ops, trees, h, param):
@@ -488,9 +526,88 @@ def _make_trees(kind: str, n: int, n_in: int, gen):
     return [one() for _ in range(n_in)]
 
 
+def _make_row_trees(kind: str, b: int, d: int, n_in: int, gen):
+    """Trees of B rows of d elements each (the batch axis in front of
+    every leaf), for a per-row h."""
+    import torch
+    dev = "cuda"
+
+    def one():
+        x = torch.randn(b, d, device=dev, generator=gen)
+        if kind == "f32":
+            return x
+        if kind == "bf16":
+            return x.to(torch.bfloat16)
+        if kind == "f64":
+            return x.double()
+        cut = max(d // 3, 1)            # mixed tree: {f32, bf16} per row
+        return {"a": x[:, :cut].clone(),
+                "b": x[:, cut:].to(torch.bfloat16).reshape(b, 1, -1)}
+
+    return [one() for _ in range(n_in)]
+
+
+def _leaves_within_ulps(got, want, what: str) -> float:
+    import torch.utils._pytree as pytree
+    worst = 0.0
+    for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        require(g.dtype == w.dtype and g.shape == w.shape,
+                f"{what}: leaf dtype/shape")
+        err = float((g.double() - w.double()).abs().max())
+        scale = max(1.0, float(w.double().abs().max()))
+        tol = KERNEL_ULPS * _ulp(g.dtype) * scale
+        require(err <= tol, f"{what}: max abs err {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_kernels_rows():
+    """All eight ALF kernels with a per-row (B,) h against their plain
+    versions, each row its own h (a row that read another row's h would
+    be off by far more than the tolerance): f32, bf16, a mixed {f32,
+    bf16} row and f64, over ROW_CASES; each call must be one launch of
+    the per-row instantiation. Returns (worst f32 error at 1024 x 1570,
+    checks) per kernel."""
+    import torch
+    from repro_torch.kernels.alf_step import alf_step, ops
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {k: 0.0 for k in KERNELS}
+    checks = {k: 0 for k in KERNELS}
+    for name, (_, n_in, _, _) in KERNELS.items():
+        params = ((1.0, -1.0) if name in ("alf_midpoint", "alf_midpoint_vjp")
+                  else (1.0, 0.9))
+        n_trees = {"alf_midpoint_vjp": 3, "alf_update_vjp": 5}.get(name,
+                                                                   n_in)
+        for kind in ("f32", "bf16", "mixed", "f64"):
+            for b, d in ROW_CASES:
+                if kind == "mixed" and d == 1:
+                    continue
+                trees = _make_row_trees(kind, b, d, n_trees, gen)
+                h = (torch.rand(b, device="cuda", generator=gen) - 0.5) * 0.8
+                for p in params:
+                    before = alf_step.LAUNCHES[name]
+                    before_rows = alf_step.ROW_LAUNCHES[name]
+                    got = _call(name, ops, trees, h, p)
+                    require(alf_step.LAUNCHES[name] == before + 1
+                            and alf_step.ROW_LAUNCHES[name]
+                            == before_rows + 1,
+                            f"{name} {kind} rows: one op call must be one "
+                            "per-row launch")
+                    want = _plain(name, ops, trees, h, p)
+                    torch.cuda.synchronize()
+                    err = _leaves_within_ulps(
+                        got, want, f"{name} {kind} B={b} D={d} p={p} rows")
+                    if kind == "f32" and (b, d) == (1024, CNF_ROW):
+                        worst[name] = max(worst[name], err)
+                    checks[name] += 1
+    emit({"phase": "kernels_rows", "checks": checks,
+          "cases": [list(c) for c in ROW_CASES],
+          "max_abs_err_f32_1024x1570": worst})
+    return worst, checks
+
+
 def phase_kernels():
     import torch
-    import torch.utils._pytree as pytree
     from repro_torch.kernels.alf_step import alf_step, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     h = torch.tensor(0.23, device="cuda")
@@ -515,17 +632,10 @@ def phase_kernels():
                             f"{name} {kind}: one op call must be one launch")
                     want = _plain(name, ops, trees, h, p)
                     torch.cuda.synchronize()
-                    for g, w in zip(pytree.tree_leaves(got),
-                                    pytree.tree_leaves(want)):
-                        require(g.dtype == w.dtype and g.shape == w.shape,
-                                f"{name} {kind}: leaf dtype/shape")
-                        err = float((g.double() - w.double()).abs().max())
-                        scale = max(1.0, float(w.double().abs().max()))
-                        tol = KERNEL_ULPS * _ulp(g.dtype) * scale
-                        require(err <= tol, f"{name} {kind} n={n} p={p}: "
-                                f"max abs err {err} > {tol}")
-                        if kind == "f32" and n == SLICE_N:
-                            worst[name] = max(worst[name], err)
+                    err = _leaves_within_ulps(got, want,
+                                              f"{name} {kind} n={n} p={p}")
+                    if kind == "f32" and n == SLICE_N:
+                        worst[name] = max(worst[name], err)
                     checks[name] += 1
     # The three vector kernels (16-byte vectors): each input on a 16-byte
     # boundary and 1, 2 and 3 elements past one, one input at a time and
@@ -533,7 +643,8 @@ def phase_kernels():
     # element, or by vectors again for f64 at 2); the outputs fresh (on a
     # boundary) and, through the library's C entry, 1-3 elements past one
     # (their head written element by element); f32, bf16 and f64 at n = 1,
-    # TAIL_N (a tail of whole elements) and the main path's size
+    # TAIL_N (a tail of whole elements) and the main path's size, and with
+    # a per-row h at 3 x 37 and 2048 x 64
     vec_kernels = {
         # name: (launcher, inputs, outputs, plain version, keyword, value)
         "alf_midpoint": (alf_step.midpoint_call, 2, 1, ref.midpoint_ref,
@@ -552,16 +663,24 @@ def phase_kernels():
                 patterns.append((off,) * n_in)
         for dtype in (torch.float32, torch.bfloat16, torch.float64):
             hd = h.to(torch.promote_types(dtype, torch.float32))
-            for n in (1, TAIL_N, SLICE_N):
+            # (n, h, row length): the scalar h at three sizes, and a
+            # per-row h over 3 rows of 37 (rows end inside vectors) and
+            # the main path's 2048 x 64, each row its own h
+            cases = [(n, hd, 0) for n in (1, TAIL_N, SLICE_N)]
+            for b, d in ((3, 37), (N_TRAIN, D)):
+                h_rows = (torch.rand(b, device="cuda", generator=gen)
+                          - 0.5) * 0.8
+                cases.append((b * d, h_rows.to(hd.dtype), d))
+            for n, hh, row in cases:
                 for offs in patterns:
                     ins = [torch.randn(n + 3, device="cuda", generator=gen)
                            .to(dtype)[o:o + n] for o in offs]
-                    want = plain(*ins, hd, p)
+                    want = ops._plain(plain, hh, *ins, param=p)
                     want = want if isinstance(want, tuple) else (want,)
                     for out_off in (None, 1, 2, 3):
                         before = alf_step.LAUNCHES[name]
                         if out_off is None:
-                            got = launcher(*ins, hd, **{key: p})
+                            got = launcher(*ins, hh, **{key: p})
                             got = got if isinstance(got, tuple) else (got,)
                             require(alf_step.LAUNCHES[name] == before + 1,
                                     f"{name}: one call must be one launch")
@@ -572,8 +691,8 @@ def phase_kernels():
                                 for _ in range(n_out))
                             rc = alf_step._fn(name)(
                                 alf_step._DTYPE_CODE[dtype], n,
-                                *[x.data_ptr() for x in ins], hd.data_ptr(),
-                                p, *[x.data_ptr() for x in got],
+                                *[x.data_ptr() for x in ins], hh.data_ptr(),
+                                row, p, *[x.data_ptr() for x in got],
                                 torch.cuda.current_stream().cuda_stream)
                             require(rc == 0, f"{name}: CUDA error {rc}")
                         torch.cuda.synchronize()
@@ -583,8 +702,9 @@ def phase_kernels():
                             tol = KERNEL_ULPS * _ulp(dtype) * max(
                                 1.0, float(w.double().abs().max()))
                             require(err <= tol, f"{name} {dtype} n={n} "
-                                    f"input offsets {offs} output offset "
-                                    f"{out_off}: max abs err {err} > {tol}")
+                                    f"row {row} input offsets {offs} output "
+                                    f"offset {out_off}: max abs err {err} > "
+                                    f"{tol}")
                         checks[name] += 1
     # alf_update's two outputs share one 16-byte phase: the C entry
     # refuses outputs at two phases (cudaErrorMisalignedAddress), before
@@ -593,7 +713,7 @@ def phase_kernels():
     x = buf[:SLICE_N]
     rc = alf_step._fn("alf_update")(
         0, SLICE_N, x.data_ptr(), x.data_ptr(), x.data_ptr(), h.data_ptr(),
-        0.9, buf[4:].data_ptr(), buf[5:].data_ptr(),
+        0, 0.9, buf[4:].data_ptr(), buf[5:].data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     require(rc == 716, f"alf_update: outputs at two 16-byte phases gave "
             f"{rc}, expected 716 (cudaErrorMisalignedAddress)")
@@ -690,9 +810,76 @@ def _op_host_cost(h):
     return out
 
 
+def _kernel_calls(bufs, h):
+    """(kernel, plain version) of each ALF kernel on flat buffers, with a
+    0-d or a per-row (B,) h."""
+    from repro_torch.kernels.alf_step import alf_step, ops, ref
+
+    def plain(fn, k, param):
+        return lambda: ops._plain(fn, h, *bufs[:k], param=param)
+
+    return {
+        "alf_midpoint": (lambda: alf_step.midpoint_call(*bufs[:2], h),
+                         plain(ref.midpoint_ref, 2, 1.0)),
+        "alf_update": (
+            lambda: alf_step.update_call(*bufs[:3], h, eta=0.9),
+            plain(ref.update_ref, 3, 0.9)),
+        "alf_bwd_pre": (
+            lambda: alf_step.bwd_pre_call(*bufs[:4], h, eta=0.9),
+            plain(ref.bwd_pre_ref, 4, 0.9)),
+        "alf_bwd_post": (
+            lambda: alf_step.bwd_post_call(*bufs, h, eta=0.9),
+            plain(ref.bwd_post_ref, 6, 0.9)),
+        "alf_midpoint_vjp": (
+            lambda: alf_step.midpoint_vjp_call(bufs[0], h, sign=-1.0),
+            plain(ref.midpoint_vjp_ref, 1, -1.0)),
+        "alf_update_vjp": (
+            lambda: alf_step.update_vjp_call(*bufs[:2], h, eta=0.9),
+            plain(ref.update_vjp_ref, 2, 0.9)),
+        "alf_inverse": (
+            lambda: alf_step.inverse_call(*bufs[:3], h, eta=0.9),
+            plain(ref.inverse_ref, 3, 0.9)),
+        "alf_inverse_update": (
+            lambda: alf_step.inverse_update_call(*bufs[:3], h, eta=0.9),
+            plain(ref.inverse_update_ref, 3, 0.9)),
+    }
+
+
+def _row_times(bw: float, peak: float):
+    """Each ALF kernel's per-row instantiation beside its scalar one on
+    the same buffers, in turns (scalar, per-row, scalar, per-row), at
+    2^25 elements as 1024 rows and at the CNF's 1024 x 1570; CUDA-event
+    and graph ms of both, and the per-row call's bound (its h adds B
+    reads of 4 bytes)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h = torch.tensor(0.23, device="cuda")
+    out = {}
+    for b, d, reps in ((1024, BIG_N // 1024, 20), (1024, CNF_ROW, 200)):
+        n = b * d
+        bufs = [torch.randn(n, device="cuda", generator=gen)
+                for _ in range(6)]
+        h_rows = 0.1 + 0.2 * torch.rand(b, device="cuda", generator=gen)
+        scalar, per_row = _kernel_calls(bufs, h), _kernel_calls(bufs, h_rows)
+        for name, (_, n_in, n_out, flops) in KERNELS.items():
+            ms, row_ms = _alternate(scalar[name][0], per_row[name][0], reps)
+            bytes_ms = ((n_in + n_out) * 4 * n + 4 * b) / bw * 1e3
+            row = {"name": name, "rows": b, "row_len": d, "n": n,
+                   "scalar_ms": ms, "per_row_ms": row_ms,
+                   "per_row_to_scalar": row_ms / ms,
+                   "scalar_graph_ms": _graph_ms(scalar[name][0], reps),
+                   "per_row_graph_ms": _graph_ms(per_row[name][0], reps),
+                   "per_row_bound_ms": max(bytes_ms,
+                                           flops * n / peak * 1e3)}
+            emit({"phase": "times_rows", **row})
+            out[(name, n)] = row
+        del bufs
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_times(card: str):
     import torch
-    from repro_torch.kernels.alf_step import alf_step, ref
     bw, peak, _ = card_rates(card)
     gen = torch.Generator(device="cuda").manual_seed(1)
     h = torch.tensor(0.23, device="cuda")
@@ -705,31 +892,7 @@ def phase_times(card: str):
     for n, reps, names in sizes:
         bufs = [torch.randn(n, device="cuda", generator=gen)
                 for _ in range(6)]
-        calls = {
-            "alf_midpoint": (lambda: alf_step.midpoint_call(*bufs[:2], h),
-                             lambda: ref.midpoint_ref(*bufs[:2], h, 1.0)),
-            "alf_update": (
-                lambda: alf_step.update_call(*bufs[:3], h, eta=0.9),
-                lambda: ref.update_ref(*bufs[:3], h, 0.9)),
-            "alf_bwd_pre": (
-                lambda: alf_step.bwd_pre_call(*bufs[:4], h, eta=0.9),
-                lambda: ref.bwd_pre_ref(*bufs[:4], h, 0.9)),
-            "alf_bwd_post": (
-                lambda: alf_step.bwd_post_call(*bufs, h, eta=0.9),
-                lambda: ref.bwd_post_ref(*bufs, h, 0.9)),
-            "alf_midpoint_vjp": (
-                lambda: alf_step.midpoint_vjp_call(bufs[0], h, sign=-1.0),
-                lambda: ref.midpoint_vjp_ref(bufs[0], h, -1.0)),
-            "alf_update_vjp": (
-                lambda: alf_step.update_vjp_call(*bufs[:2], h, eta=0.9),
-                lambda: ref.update_vjp_ref(*bufs[:2], h, 0.9)),
-            "alf_inverse": (
-                lambda: alf_step.inverse_call(*bufs[:3], h, eta=0.9),
-                lambda: ref.inverse_ref(*bufs[:3], h, 0.9)),
-            "alf_inverse_update": (
-                lambda: alf_step.inverse_update_call(*bufs[:3], h, eta=0.9),
-                lambda: ref.inverse_update_ref(*bufs[:3], h, 0.9)),
-        }
+        calls = _kernel_calls(bufs, h)
         # The one PyTorch call computing the same function, where one
         # exists (precomputed 0-d factors, as the kernels read h once).
         half_h, neg_half_h = h / 2, -h / 2
@@ -775,7 +938,7 @@ def phase_times(card: str):
         del bufs
         torch.cuda.empty_cache()
     emit({"phase": "times", "op_host_cost_slice": _op_host_cost(h)})
-    return rows
+    return rows, _row_times(bw, peak)
 
 
 # ---------------------------------------------------------------------------
@@ -2848,6 +3011,7 @@ def phase_cnf(card: str, smi: str):
     torch.cuda.empty_cache()
     xs_by_batch = {b: _cnf_data(b) for b in CNF_BATCHES}
     out = {}
+    trained_by_batch = {}
     launches = None
     for batch, xs in xs_by_batch.items():
         row = {}
@@ -2902,7 +3066,8 @@ def phase_cnf(card: str, smi: str):
         row["naive_launches_per_gradient"] = {k: v for k, v in
                                               n_counts.items() if v}
         out[f"batch_{batch}"] = row
-        del trained, init
+        trained_by_batch[batch] = trained
+        del init
     peaks, growth = _cnf_memory(xs_by_batch[CNF_BATCHES[-1]][0])
     sample_launches, sample = _cnf_sample(_cnf_params())
     events = _events()
@@ -2919,7 +3084,395 @@ def phase_cnf(card: str, smi: str):
               k: v for k, v in sample_launches.items() if v},
           "events": events, "times": {f"batch_{b}": t
                                       for b, t in times.items()}})
-    return launches, sample_launches
+    return launches, sample_launches, trained_by_batch, xs_by_batch
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: per-sample batching (PerSample, Sharded) on the card
+# ---------------------------------------------------------------------------
+
+# (a) benchmarks/batched_throughput.py's stiffness mix: dz/dt = -lam z,
+# lam log-spaced over [0.5, 50], the damped ALF of Appendix A.5
+PS_BATCH, PS_LAM = 16, (0.5, 50.0)
+PS_ETA, PS_CTRL = 0.9, (1e-3, 1e-4, 512)
+# (b, c) the image CNF under PerSample with an adaptive controller: the
+# base tolerances, the tighter ones tried for (c) (the first with >= 4x
+# the base's mean accepted steps a row is measured), one max_steps
+CNF_PS_TOL = (1e-2, 1e-3)
+CNF_PS_TIGHT = ((1e-3, 1e-4), (1e-4, 1e-5), (1e-5, 1e-6), (1e-6, 1e-7))
+CNF_PS_MAX = 256
+CNF_PS_STEPS = 3          # timed PerSample training steps a batch
+CNF_PS_PROFILED = 2       # profiled PerSample training steps a batch
+CNF_PS_ROWS = 4           # rows held to their own single-row solves
+
+
+def _stiff_f(p, z, t):
+    import torch
+    return {"lam": torch.zeros_like(z["lam"]), "y": -z["lam"] * z["y"]}
+
+
+def _stiff_batch():
+    import torch
+    lam = torch.logspace(np.log10(PS_LAM[0]), np.log10(PS_LAM[1]),
+                         PS_BATCH, device="cuda")
+    return {"lam": lam[:, None], "y": torch.ones(PS_BATCH, 1,
+                                                 device="cuda")}
+
+
+def _stiff_solve(z0, batching, gradient=None, backend="cuda"):
+    """The stiffness mix's solve from fresh leaves of z0 and its
+    d(sum y^2)/d(y0)."""
+    import torch
+    from repro_torch.core import ALF, MALI, AdaptiveController, solve
+    z = {k: v.detach().clone().requires_grad_(True) for k, v in z0.items()}
+    sol = solve(_stiff_f, {}, z, 0.0, 1.0,
+                solver=ALF(eta=PS_ETA, backend=backend),
+                controller=AdaptiveController(*PS_CTRL),
+                gradient=MALI() if gradient is None else gradient,
+                batching=batching)
+    (g,) = torch.autograd.grad((sol.ys["y"] ** 2).sum(), [z["y"]])
+    return sol._replace(ys={k: v.detach() for k, v in sol.ys.items()}), g
+
+
+def _per_sample_stiff():
+    """(a): PerSample's per-row counters equal 16 stacked single-row
+    solves; total f-evals against Lockstep; Naive and unfused MALI (the
+    per-row VJP and inverse kernels) against fused MALI."""
+    import torch
+    from repro_torch.core import MALI, Lockstep, Naive, PerSample
+    z0 = _stiff_batch()
+    sol, g = _stiff_solve(z0, PerSample())
+    per = sol.stats.per_sample
+    row_rel = 0.0
+    for i in range(PS_BATCH):
+        single, g_i = _stiff_solve({k: v[i] for k, v in z0.items()}, None)
+        got = [int(c[i]) for c in per]
+        want = [int(single.stats.n_accepted), int(single.stats.n_rejected),
+                int(single.stats.n_fevals)]
+        require(got == want, f"per_sample (a) row {i}: counters {got} vs "
+                f"its single-row solve's {want}")
+        row_rel = max(row_rel, _rel_err(sol.ys["y"][i], single.ys["y"]),
+                      _rel_err(g[i], g_i))
+    require(row_rel <= CNF_REL, f"per_sample (a): values or gradients "
+            f"{row_rel} from the single-row solves'")
+    lock, _ = _stiff_solve(z0, Lockstep())
+    naive, g_n = _stiff_solve(z0, PerSample(), Naive())
+    unfused, g_u = _stiff_solve(z0, PerSample(), MALI(fused_bwd=False))
+    ref, g_r = _stiff_solve(z0, PerSample(), backend="reference")
+    require(torch.equal(ref.stats.per_sample.n_accepted, per.n_accepted),
+            "per_sample (a): kernel and reference backends took different "
+            "steps")
+    rel = {"kernel_vs_reference": max(_rel_err(sol.ys, ref.ys),
+                                      _rel_err(g, g_r)),
+           "naive_vs_mali": _rel_err(g_n, g),
+           "unfused_vs_fused_mali": _rel_err(g_u, g)}
+    require(rel["kernel_vs_reference"] <= CNF_REL
+            and rel["naive_vs_mali"] <= GRAD_TOL["rtol"]
+            and rel["unfused_vs_fused_mali"] <= GRAD_TOL["rtol"],
+            f"per_sample (a): {rel}")
+    ratio = int(lock.stats.n_fevals) / int(sol.stats.n_fevals)
+    require(ratio > 1.0, f"per_sample (a): Lockstep/PerSample f-evals "
+            f"{ratio} <= 1")
+    return {"per_row_accepted": per.n_accepted.tolist(),
+            "per_row_rejected": per.n_rejected.tolist(),
+            "fevals_per_sample": int(sol.stats.n_fevals),
+            "fevals_lockstep": int(lock.stats.n_fevals),
+            "fevals_lockstep_over_per_sample": ratio,
+            "rows_vs_single_rel": row_rel, **rel}
+
+
+def _cnf_ps_loss(params, x, gen, tol=CNF_PS_TOL, backend="cuda",
+                 batching="per_sample", estimator=None):
+    """cnf_loss(log_prob) of the image CNF under PerSample (or the given
+    batching; None: one unbatched sample) with AdaptiveController(*tol,
+    CNF_PS_MAX)."""
+    from repro_torch.cnf import CNF, Hutchinson, cnf_loss
+    from repro_torch.core import ALF, MALI, AdaptiveController, PerSample
+    from repro_torch.models import mlp_vfield
+    flow = CNF(mlp_vfield, CNF_DIM,
+               estimator=Hutchinson() if estimator is None else estimator)
+    res = flow.log_prob(params, x, gen, solver=ALF(eta=1.0, backend=backend),
+                        controller=AdaptiveController(*tol, CNF_PS_MAX),
+                        gradient=MALI(),
+                        batching=PerSample() if batching == "per_sample"
+                        else batching)
+    return cnf_loss(res, kinetic_reg=CNF_KINETIC), res
+
+
+def _cnf_ps_grads(params, x, **kw):
+    import torch
+    import torch.utils._pytree as pytree
+    loss, res = _cnf_ps_loss(params, x, _cnf_probe(0), **kw)
+    grads = torch.autograd.grad(loss, pytree.tree_leaves(params))
+    return loss.detach(), res, grads
+
+
+def _fixed_probe(probe):
+    """A Hutchinson estimator that hands ``probe`` to the solve, so a
+    row's single-row solve sees the row of the batch's probe."""
+    import dataclasses
+    from typing import Any
+
+    from repro_torch.cnf import Hutchinson
+
+    @dataclasses.dataclass(frozen=True, eq=False)
+    class _Given(Hutchinson):
+        given: Any = None
+
+        def init_noise(self, generator, x):
+            return self.given
+
+    return _Given(given=probe)
+
+
+def _count_syncs(fn):
+    """fn() with every host sync reported; returns (result, syncs, where:
+    the count of syncs by file:line of the Python code that made them)."""
+    import collections
+    import warnings
+
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        caught.clear()      # the notice the mode switch itself gives
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    where = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
+    return out, len(syncs), dict(where)
+
+
+def _cnf_ps_batch(params, xs):
+    """(b) at one batch: kernel vs reference backend, rows vs their
+    single-row solves, host reads and ALF launches per trial (PerSample
+    and Lockstep), ms per training step and the device's idle share, the
+    spread of accepted steps over rows."""
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch.core import Lockstep
+    from repro_torch.kernels.alf_step import alf_step
+    x = xs[0]
+    l_k, res_k, g_k = _cnf_ps_grads(params, x)
+    l_r, res_r, g_r = _cnf_ps_grads(params, x, backend="reference")
+    per, per_r = res_k.solution.stats.per_sample, res_r.solution.stats.\
+        per_sample
+    for c_k, c_r in zip(per, per_r):
+        require(torch.equal(c_k, c_r), "per_sample (b): kernel and "
+                "reference backends' per-row counters differ")
+    rel = max(_rel_err(l_k, l_r, CNF_ZERO_ATOL),
+              _rel_err(res_k.logp.detach(), res_r.logp.detach(),
+                       CNF_ZERO_ATOL),
+              _rel_err(g_k, g_r, CNF_ZERO_ATOL))
+    require(rel <= CNF_REL, f"per_sample (b): kernel vs reference rel {rel}")
+    # the fastest and the slowest rows and two more, each against its own
+    # single-row solve with the same probe row
+    acc = per.n_accepted
+    picks = sorted({int(torch.argmin(acc)), int(torch.argmax(acc)), 1,
+                    x.shape[0] // 2})[:CNF_PS_ROWS]
+    from repro_torch.cnf import Hutchinson
+    probe = Hutchinson().init_noise(_cnf_probe(0), x)   # the batch's probe
+    row_rel = {}
+    with torch.no_grad():
+        for i in picks:
+            _, single = _cnf_ps_loss(params, x[i], None, batching=None,
+                                     estimator=_fixed_probe(probe[i]))
+            row_rel[i] = _rel_err(single.logp, res_k.logp[i].detach())
+            got = [int(c[i]) for c in per]
+            st = single.solution.stats
+            want = [int(st.n_accepted), int(st.n_rejected),
+                    int(st.n_fevals)]
+            require(got == want, f"per_sample (b) row {i}: counters {got} "
+                    f"vs its single-row solve's {want}")
+            require(row_rel[i] <= CNF_REL, f"per_sample (b) row {i}: logp "
+                    f"rel {row_rel[i]} vs its single-row solve")
+        # host reads and ALF launches of a forward: one read a trial; a
+        # trial is one midpoint and one update, as a Lockstep trial is
+        trials = {}
+        for label, batching in (("per_sample", "per_sample"),
+                                ("lockstep", Lockstep())):
+            gen = _cnf_probe(0)
+            alf_step.reset_launches()
+            torch.cuda.synchronize()
+            (_, res), syncs, where = _count_syncs(lambda: _cnf_ps_loss(
+                params, x, gen, batching=batching))
+            torch.cuda.synchronize()
+            n_trials = int((res.solution.stats.per_sample.n_accepted
+                            + res.solution.stats.per_sample.n_rejected)
+                           .max())
+            trials[label] = {
+                "trials": n_trials, "host_reads": syncs,
+                "midpoint_launches": alf_step.LAUNCHES["alf_midpoint"],
+                "update_launches": alf_step.LAUNCHES["alf_update"],
+                "per_row_launches": sum(alf_step.ROW_LAUNCHES.values()),
+                "host_reads_at": where}
+            require(syncs == n_trials, f"per_sample (b) {label}: {syncs} "
+                    f"host reads in {n_trials} trials, at {where}")
+            require(alf_step.LAUNCHES["alf_midpoint"] == n_trials
+                    and alf_step.LAUNCHES["alf_update"] == n_trials,
+                    f"per_sample (b) {label}: ALF launches per trial "
+                    f"{trials[label]}")
+    # ms per PerSample training step (Adam on a copy of the weights), and
+    # the device's idle share over profiled steps
+    def train(steps):
+        p = pytree.tree_map(lambda l: l.detach().clone().requires_grad_(True),
+                            params)
+        opt = torch.optim.Adam(pytree.tree_leaves(p), lr=CNF_LR)
+        for i in range(steps):
+            opt.zero_grad(set_to_none=True)
+            loss, _ = _cnf_ps_loss(p, xs[i], _cnf_probe(i))
+            loss.backward()
+            opt.step()
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    train(CNF_PS_STEPS)
+    step_ms = (time.perf_counter() - t0) / CNF_PS_STEPS * 1e3
+    prof = _device_profile(lambda: train(CNF_PS_PROFILED))
+    accf = acc.double()
+    return {"loss": float(l_k), "kernel_vs_reference_rel": rel,
+            "rows_vs_single_rel": row_rel, "trials": trials,
+            "step_ms": step_ms, "profiled_steps": CNF_PS_PROFILED,
+            "profile": {k: prof[k] for k in (
+                "device_busy_ms", "device_window_ms", "idle_share",
+                "device_launches", "host_ms", "top_device_ms")},
+            "accepted_min": int(acc.min()), "accepted_max": int(acc.max()),
+            "accepted_mean": float(accf.mean()),
+            "accepted_std": float(accf.std()) if acc.numel() > 1 else 0.0}
+
+
+def _cnf_ps_memory(params, x):
+    """(c) MALI's peak memory under PerSample at batch 1024: the base
+    tolerances against the first tighter pair with >= 4x the mean
+    accepted steps a row, one max_steps; each read twice, the growth
+    from the second readings."""
+    import torch
+    import torch.utils._pytree as pytree
+    with torch.no_grad():
+        base_acc = float(_cnf_ps_loss(params, x, _cnf_probe(0))[1].solution
+                         .stats.per_sample.n_accepted.double().mean())
+        tight, tight_acc = None, 0.0
+        for tol in CNF_PS_TIGHT:
+            st = _cnf_ps_loss(params, x, _cnf_probe(0), tol=tol)[1]\
+                .solution.stats
+            tight_acc = float(st.per_sample.n_accepted.double().mean())
+            require(bool(st.per_sample.n_accepted.max() < CNF_PS_MAX),
+                    f"per_sample (c): tolerances {tol} exhaust max_steps")
+            if tight_acc >= 4.0 * base_acc:
+                tight = tol
+                break
+    require(tight is not None, f"per_sample (c): no tolerance pair gave 4x "
+            f"the base's {base_acc} accepted steps a row")
+    readings = {}
+    for label, tol in (("base", CNF_PS_TOL), ("tight", tight)):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loss, _ = _cnf_ps_loss(params, x, _cnf_probe(0), tol=tol)
+            torch.autograd.grad(loss, pytree.tree_leaves(params))
+            torch.cuda.synchronize()
+            readings.setdefault(label, []).append(
+                torch.cuda.max_memory_allocated() - base)
+            del loss
+    growth = readings["tight"][-1] / readings["base"][-1]
+    require(growth <= 1.05, f"per_sample (c): MALI peak memory grew "
+            f"{growth}x at {tight_acc / base_acc}x the steps")
+    return {"base_tol": list(CNF_PS_TOL), "tight_tol": list(tight),
+            "mean_accepted_base": base_acc, "mean_accepted_tight": tight_acc,
+            "step_ratio": tight_acc / base_acc, "peak_bytes": readings,
+            "peak_growth": growth}
+
+
+def _sharded_w1(params, x):
+    """(d) Sharded(axis='data', inner=Lockstep()) (examples/cnf_image.py's
+    batching) and inner=PerSample() on a one-rank mesh on the card: bit
+    equal to the inner batching, values and gradients."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import Lockstep, PerSample, Sharded
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {}
+    mesh = make_host_mesh()
+    try:
+        for label, inner in (("lockstep", Lockstep()),
+                             ("per_sample", PerSample())):
+            l_i, res_i, g_i = _cnf_ps_grads(params, x, batching=inner)
+            with mesh:
+                l_s, res_s, g_s = _cnf_ps_grads(
+                    params, x, batching=Sharded(axis="data", inner=inner))
+            same = (torch.equal(l_i, l_s)
+                    and torch.equal(res_i.logp, res_s.logp)
+                    and all(torch.equal(a, b) for a, b in zip(g_i, g_s))
+                    and all(torch.equal(a, b) for a, b in zip(
+                        res_i.solution.stats.per_sample,
+                        res_s.solution.stats.per_sample)))
+            require(same, f"per_sample (d): Sharded(inner={label}) at W=1 "
+                    "is not bit-equal to its inner batching")
+            out[label] = {"bit_equal": True, "loss": float(l_s)}
+        out["mesh"] = repr(mesh)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_per_sample(card: str, smi: str, trained, xs_by_batch):
+    """Phase 15: PerSample and Sharded on the card, full width: (a) the
+    stiffness mix, (b) the image CNF at batch 1024 and 16 on phase 14's
+    trained weights, (c) MALI's memory under PerSample, (d) Sharded at
+    one rank. The per-row ALF launches of (a) and (b)'s gradients are
+    counted from 0."""
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch.kernels.alf_step import alf_step, ops
+    t0 = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    params = {b: pytree.tree_map(lambda l: l.detach().clone()
+                                 .requires_grad_(True), trained[b])
+              for b in CNF_BATCHES}
+    alf_step.reset_launches()
+    ops.reset_op_calls()
+    stiff = _per_sample_stiff()
+    lap("a")
+    for b in CNF_BATCHES[::-1]:
+        _cnf_ps_grads(params[b], xs_by_batch[b][0])
+    launches = dict(alf_step.ROW_LAUNCHES)
+    lap("counted_gradients")
+    for name in KERNELS:
+        if name != "alf_inverse_update":
+            require(launches[name] > 0, f"per_sample: {name} launched no "
+                    "per-row call on the PerSample paths")
+    cnf = {}
+    for b in CNF_BATCHES[::-1]:
+        cnf[f"batch_{b}"] = _cnf_ps_batch(params[b], xs_by_batch[b])
+        lap(f"b_batch_{b}")
+    memory = _cnf_ps_memory(params[CNF_BATCHES[-1]],
+                            xs_by_batch[CNF_BATCHES[-1]][0])
+    lap("c")
+    sharded = _sharded_w1(params[CNF_BATCHES[0]],
+                          xs_by_batch[CNF_BATCHES[0]][0])
+    torch.cuda.synchronize()
+    lap("d")
+    emit({"phase": "per_sample", "card": card, "nvidia_smi": smi,
+          "stiffness_mix": {"batch": PS_BATCH, "lam": list(PS_LAM),
+                            "eta": PS_ETA, "controller": list(PS_CTRL),
+                            **stiff},
+          "cnf": {"model": f"examples/cnf_image.py widths (DIM {CNF_DIM}, "
+                  f"hidden {CNF_HIDDEN} depth {CNF_DEPTH}), Hutchinson, "
+                  f"ALF cuda, MALI, PerSample, AdaptiveController"
+                  f"{CNF_PS_TOL + (CNF_PS_MAX,)}, phase 14's trained "
+                  "weights", **cnf},
+          "memory_batch_1024": memory, "sharded_w1": sharded,
+          "per_row_launches": {k: v for k, v in launches.items() if v},
+          "part_s": parts, "phase_s": time.perf_counter() - t0})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2950,7 +3503,8 @@ def main() -> int:
           "build_s": time.perf_counter() - t0})
 
     worst, checks = phase_kernels()
-    times = phase_times(card)
+    row_worst, row_checks = phase_kernels_rows()
+    times, row_times = phase_times(card)
     launches, mali_losses = phase_main_path()
     phase_adaptive()
     # Each kernel's launches come from the path that runs it; the two
@@ -2966,11 +3520,13 @@ def main() -> int:
     lm_launches = phase_lm_serve(card, smi)
     ssm_launches = phase_ssm_serve(card, smi)
     backsolve_launches = phase_methods(card, smi)
-    cnf_launches, cnf_sample_launches = phase_cnf(card, smi)
+    cnf_launches, cnf_sample_launches, trained, xs = phase_cnf(card, smi)
+    ps_launches = phase_per_sample(card, smi, trained, xs)
 
     table = []
     for name, (replaces, *_rest) in KERNELS.items():
         row = times[(name, SLICE_N)]
+        rrow = row_times[(name, BIG_N)]
         table.append({"name": name, "route": "cuda", "source": SOURCE,
                       "replaces": replaces, "launches": launches[name],
                       # the ALF kernels' launches on the LM paths,
@@ -2988,7 +3544,17 @@ def main() -> int:
                       "plain_ms": row["plain_ms"],
                       "bound_ms": row["bound_ms"],
                       "bound_by": row["bound_by"],
-                      "library_ms": row["library_ms"]})
+                      "library_ms": row["library_ms"],
+                      # the per-row h instantiation (PerSample): at 2^25
+                      # as 1024 rows, beside the scalar one in turns
+                      "per_row_ms": rrow["per_row_ms"],
+                      "per_row_graph_ms": rrow["per_row_graph_ms"],
+                      "per_row_bound_ms": rrow["per_row_bound_ms"],
+                      "per_row_scalar_ms": rrow["scalar_ms"],
+                      "per_row_checks": row_checks[name],
+                      "per_row_max_abs_err": row_worst[name],
+                      # per-row launches on the PerSample paths (phase 15)
+                      "launches_per_sample": ps_launches[name]})
     for name, (replaces, source) in LM_KERNELS.items():
         row = lm_times[name]
         # each kernel's launches from its own path: the scan's from the

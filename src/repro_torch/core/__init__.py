@@ -1,8 +1,9 @@
 """The MALI integrator on PyTorch: the composable ``solve()`` with every
 solver (ALF and the Runge-Kutta tableaus), controller and gradient method
 (MALI, Naive, ACA, Backsolve) of the JAX package, per-step and dense
-output, ``diff_bounds``, terminating events, ``Lockstep`` batching, and
-the legacy string-keyed ``odeint`` facade.
+output, ``diff_bounds``, terminating events, the ``Lockstep``,
+``PerSample`` and ``Sharded`` batching modes, and the legacy string-keyed
+``odeint`` facade.
 
 Module names follow the JAX package (``repro.core``) so each counterpart
 is easy to find.

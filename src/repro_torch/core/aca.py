@@ -15,7 +15,9 @@ the backward replays the recorded steps of each segment either way. The
 replay script is signed: a reverse-time solve replays its negative h_i.
 
 :class:`ACA` accepts any Runge-Kutta solver (the ALF solver belongs to
-MALI). Its steps are plain PyTorch: ACA launches no kernel.
+MALI). Its steps are plain PyTorch: ACA launches no kernel. Under
+``PerSample`` each row checkpoints and replays its own accepted steps;
+the sweep masks a row past its own count as MALI's does.
 """
 from __future__ import annotations
 
@@ -26,12 +28,13 @@ import torch
 from repro_torch.tree_util import vjp
 
 from .alf import tree_add, tree_sub, tree_zeros_like
-from .integrate import (grid_run, integrate_grid, reverse_masked_scan,
-                        reverse_segment_sweep, tree_row)
+from .integrate import (grid_run, integrate_grid, keep_rows, mask_rows,
+                        reverse_masked_scan, reverse_segment_sweep,
+                        sweep_counts, tree_row)
 from .interface import (GradientMethod, bounds_cotangents, grid_vjp,
-                        make_run_stats, state_nbytes)
+                        make_run_stats, per_sample, state_nbytes)
 from .solvers import HeunEuler, RungeKutta, get_solver
-from .stepsize import ConstantSteps, StepController, controller_from_kwargs
+from .stepsize import StepController, controller_from_kwargs
 
 Pytree = Any
 Dynamics = Callable[[Pytree, Pytree, torch.Tensor], Pytree]
@@ -42,6 +45,7 @@ class AcaConfig(NamedTuple):
     solver: RungeKutta
     controller: StepController
     diff_bounds: bool = False  # emit analytic dL/dts boundary cotangents
+    rows: int = 0              # B: per-row control, f the per-sample map
 
 
 def _aca_grid(cfg: AcaConfig, params, z0, ts):
@@ -51,7 +55,8 @@ def _aca_grid(cfg: AcaConfig, params, z0, ts):
     def fwd(params, z0, ts):
         trial = cfg.solver.trial_fn(cfg.f, params, cfg.controller)
         res = integrate_grid(trial, z0, ts, controller=cfg.controller,
-                             order=cfg.solver.order, record_states=True)
+                             order=cfg.solver.order, record_states=True,
+                             rows=cfg.rows)
         stats = make_run_stats(res.n_accepted, res.n_trials,
                                cfg.solver.stages)
         # Residuals: the checkpointed per-step start states (the paper's
@@ -64,24 +69,23 @@ def _aca_grid(cfg: AcaConfig, params, z0, ts):
         z_traj, params, ts, seg_ts, seg_hs, seg_acc, seg_ckpts = residuals
         tableau = cfg.solver.tableau
         n_seg = ts.shape[0] - 1
-        if isinstance(cfg.controller, ConstantSteps):
-            n_live = [cfg.controller.n] * n_seg
-        else:
-            n_live = seg_acc.tolist()   # one host read per backward
+        plan = sweep_counts(cfg.controller, seg_acc)
 
-        def step_body(carry, t, h, z_i):
+        def step_body(carry, t, h, z_i, live):
             a_z, g_p = carry
             _, vjp_fn = vjp(lambda p, z: tableau.step(cfg.f, p, z, t, h,
                                                       False)[0], params, z_i)
-            dp, dz = vjp_fn(a_z)
-            return (dz, tree_add(g_p, dp))
+            dp, dz = vjp_fn(mask_rows(live, a_z))
+            return (keep_rows(live, dz, a_z), tree_add(g_p, dp))
 
         def seg(carry, g_k1, k):
             a_z, g_p = carry
             a_z = tree_add(a_z, g_k1)
+            n_steps, row_counts = plan[k]
             return reverse_masked_scan(step_body, (a_z, g_p), seg_ts[k],
-                                       seg_hs[k], n_live[k],
-                                       extras=tree_row(seg_ckpts, k))
+                                       seg_hs[k], n_steps,
+                                       extras=tree_row(seg_ckpts, k),
+                                       row_counts=row_counts)
 
         carry0 = (tree_zeros_like(tree_row(g_traj, 0)),
                   tree_zeros_like(params))
@@ -114,9 +118,10 @@ class ACA(GradientMethod):
         super().validate(solver, controller)
 
     def integrate(self, f, params, z0, ts, solver, controller,
-                  diff_bounds: bool = False):
-        return _aca_grid(AcaConfig(f, solver, controller, diff_bounds),
-                         params, z0, ts)
+                  diff_bounds: bool = False, rows: int = 0):
+        cfg = AcaConfig(per_sample(f) if rows else f, solver, controller,
+                        diff_bounds, rows)
+        return _aca_grid(cfg, params, z0, ts)
 
     def residual_bytes(self, z0, n_obs, solver, controller) -> int:
         # Checkpointed step-start states per segment + the observation traj.

@@ -20,6 +20,12 @@ forward and of the augmented solve is one ``alf_midpoint`` and one
 ``alf_update`` launch over the whole state tree (``(z, a, g_params)`` in
 the backward), through the ops' grad-free path. Only the VJP of ``f``
 inside the augmented dynamics builds a graph, one step at a time.
+
+Under ``PerSample`` (``rows`` = B) both solves run per row, and the
+augmented dynamics are themselves mapped per sample, so each row carries
+its own parameter cotangent ``g`` (a (B, ...) leaf per parameter) through
+its own adaptive reverse solve, as ``jax.vmap`` of the JAX package's
+backward does; the rows' ``g`` are summed at the end.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from .integrate import (grid_run, integrate_span, prepend_row,
                         reverse_segment_sweep, segment_pairs, stack_states,
                         tree_row)
 from .interface import (GradientMethod, bounds_cotangents, grid_vjp,
-                        make_run_stats, state_nbytes)
+                        make_run_stats, per_sample, state_nbytes)
 from .solvers import ALF, Dopri5, Solver, get_solver
 from .stepsize import StepController, controller_from_kwargs
 
@@ -51,6 +57,7 @@ class AdjointConfig(NamedTuple):
     solver: Solver
     controller: StepController
     diff_bounds: bool = False  # emit analytic dL/dts boundary cotangents
+    rows: int = 0              # B: per-row control, f called per sample
 
 
 def _integrate(cfg: AdjointConfig, dyn: Dynamics, params: Pytree,
@@ -60,7 +67,7 @@ def _integrate(cfg: AdjointConfig, dyn: Dynamics, params: Pytree,
     state = cfg.solver.init_state(dyn, params, state0, t0)
     trial = cfg.solver.trial_fn(dyn, params, cfg.controller)
     out = integrate_span(trial, state, t0, t1, controller=cfg.controller,
-                         order=cfg.solver.order)
+                         order=cfg.solver.order, rows=cfg.rows)
     return cfg.solver.output(out.state), out.n_accepted, out.n_trials
 
 
@@ -68,26 +75,32 @@ def _adjoint_grid(cfg: AdjointConfig, params, z0, ts):
     """The Backsolve autograd node over (params, z0, ts); returns
     ``(z_traj, RunStats)``."""
 
+    f = per_sample(cfg.f) if cfg.rows else cfg.f
+
     def fwd(params, z0, ts):
-        z, n_acc, n_tr, tail = z0, 0, 0, []
+        z, n_acc, n_tr, tail = z0, [], 0, []
         for pair in segment_pairs(ts):
-            z, a, t = _integrate(cfg, cfg.f, params, z, pair[0], pair[1])
-            n_acc, n_tr = n_acc + a, n_tr + t
+            z, a, t = _integrate(cfg, f, params, z, pair[0], pair[1])
+            n_acc.append(a)
+            n_tr = n_tr + t
             tail.append(z)
         z_traj = prepend_row(z0, stack_states(tail))
         # ALF re-initialises v0 = f(z, t) at every observation segment.
         init_evals = (ts.shape[0] - 1) if isinstance(cfg.solver, ALF) else 0
-        stats = make_run_stats(n_acc, n_tr, cfg.solver.stages, init_evals)
+        stats = make_run_stats(torch.stack(n_acc), n_tr, cfg.solver.stages,
+                               init_evals)
         return z_traj, stats, (z_traj, params, ts)   # O(T) residuals
 
     def bwd(residuals, g_traj):
         z_traj, params, ts = residuals
 
-        def aug_dyn(p, aug, t):
+        def aug_one(p, aug, t):
             z, a, _g = aug
             f_val, vjp_fn = vjp(lambda pp, zz: cfg.f(pp, zz, t), p, z)
             dp, dz = vjp_fn(a)
             return (f_val, _tm(torch.neg, dz), _tm(torch.neg, dp))
+
+        aug_dyn = per_sample(aug_one) if cfg.rows else aug_one
 
         def seg(carry, g_k1, k):
             a_z, g_p = carry
@@ -99,14 +112,18 @@ def _adjoint_grid(cfg: AdjointConfig, params, z0, ts):
                                               ts[k + 1], ts[k])
             return (a_z, g_p)
 
-        carry0 = (tree_zeros_like(tree_row(g_traj, 0)),
-                  tree_zeros_like(params))
+        # per row: each row's own parameter cotangent, summed at the end
+        g0 = (_tm(lambda x: x.new_zeros((cfg.rows,) + x.shape), params)
+              if cfg.rows else tree_zeros_like(params))
+        carry0 = (tree_zeros_like(tree_row(g_traj, 0)), g0)
         a_z, g_params = reverse_segment_sweep(seg, carry0, g_traj,
                                               ts.shape[0] - 1)
+        if cfg.rows:
+            g_params = _tm(lambda g: g.sum(0), g_params)
         g_ts = None
         if cfg.diff_bounds:
             a_t0 = tree_sub(a_z, tree_row(g_traj, 0))
-            g_ts = bounds_cotangents(cfg.f, params, z_traj, ts, g_traj, a_t0)
+            g_ts = bounds_cotangents(f, params, z_traj, ts, g_traj, a_t0)
         return g_params, a_z, g_ts
 
     return grid_vjp(fwd, bwd, params, z0, ts)
@@ -127,9 +144,9 @@ class Backsolve(GradientMethod):
         return Dopri5()
 
     def integrate(self, f, params, z0, ts, solver, controller,
-                  diff_bounds: bool = False):
-        return _adjoint_grid(AdjointConfig(f, solver, controller, diff_bounds),
-                             params, z0, ts)
+                  diff_bounds: bool = False, rows: int = 0):
+        return _adjoint_grid(AdjointConfig(f, solver, controller, diff_bounds,
+                                           rows), params, z0, ts)
 
     def residual_bytes(self, z0, n_obs, solver, controller) -> int:
         # Only the per-observation states survive to the backward pass.

@@ -15,6 +15,11 @@ Dynamics signature used across the package::
     f(params, z, t) -> dz/dt        # same pytree structure as z
 
 ``params`` is a dict of tensors, ``t`` a 0-d float32 tensor.
+
+Under ``PerSample`` batching ``t`` and ``h`` are (B,) tensors, one step
+per row of a state whose leaves carry the batch axis in front: ``h``
+enters each leaf's algebra through :func:`~repro_torch.tree_util.rows_like`
+and ``f`` is the per-sample map of the user's field.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Any, Callable, Tuple
 import torch
 
 from repro_torch import tree_util as pytree
+from repro_torch.tree_util import rows_like
 
 Pytree = Any
 Dynamics = Callable[[Pytree, Pytree, torch.Tensor], Pytree]
@@ -66,10 +72,10 @@ def check_backend(backend: str) -> None:
 
 def _reference_step(f, params, z, v, t, h, eta):
     s1 = t + h / 2
-    k1 = _tm(lambda zi, vi: zi + vi * (h / 2), z, v)
+    k1 = _tm(lambda zi, vi: zi + vi * (rows_like(h, zi) / 2), z, v)
     u1 = f(params, k1, s1)
     v_out = _tm(lambda vi, ui: vi + 2.0 * eta * (ui - vi), v, u1)
-    z_out = _tm(lambda ki, vo: ki + vo * (h / 2), k1, v_out)
+    z_out = _tm(lambda ki, vo: ki + vo * (rows_like(h, ki) / 2), k1, v_out)
     return z_out, v_out, u1
 
 
@@ -138,14 +144,14 @@ def alf_inverse(
         k1 = alf_midpoint(z_out, v_out, h, sign=-1.0)
         u1 = f(params, k1, s1)
         return inverse_op(z_out, v_out, u1, h, eta=eta)
-    k1 = _tm(lambda zi, vi: zi - vi * (h / 2), z_out, v_out)
+    k1 = _tm(lambda zi, vi: zi - vi * (rows_like(h, zi) / 2), z_out, v_out)
     u1 = f(params, k1, s1)
     if eta == 1.0:
         v_in = _tm(lambda ui, vo: 2.0 * ui - vo, u1, v_out)
     else:
         inv = 1.0 / (1.0 - 2.0 * eta)
         v_in = _tm(lambda vo, ui: (vo - 2.0 * eta * ui) * inv, v_out, u1)
-    z_in = _tm(lambda ki, vi: ki - vi * (h / 2), k1, v_in)
+    z_in = _tm(lambda ki, vi: ki - vi * (rows_like(h, ki) / 2), k1, v_in)
     return z_in, v_in
 
 
@@ -164,7 +170,7 @@ def alf_step_with_error(
     first-order Euler-with-v prediction ``z + h*v``."""
     step = _cuda_step if backend == "cuda" else _reference_step
     z_out, v_out, u1 = step(f, params, z, v, t, h, eta)
-    err = _tm(lambda ui, vi: h * (ui - vi), u1, v)
+    err = _tm(lambda ui, vi: rows_like(h, ui) * (ui - vi), u1, v)
     return z_out, v_out, err
 
 

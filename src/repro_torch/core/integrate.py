@@ -16,12 +16,24 @@ package's bounded scan: every update is a ``torch.where`` on the accept
 predicate and the ``(t_i, h_i)`` buffers take index writes at the accepted
 count, all on the device. Where the JAX scan runs all ``max_steps`` trials
 and its iterations after ``done`` are the identity, this loop stops a
-segment once ``done`` — one host read per trial — so the recorded buffers,
-counters and results are the same. Plain autograd differentiates through
-the loop (the Naive method); MALI runs it under ``no_grad``.
+segment once ``done`` — one host read per trial, after it — so the
+recorded buffers, counters and results are the same. Plain autograd
+differentiates through the loop (the Naive method); MALI runs it under
+``no_grad``.
 
 :func:`integrate_span` is the single-interval ``t0 -> t1`` variant:
 Backsolve's forward segments and its reverse-time augmented solve.
+
+Per-row control (``PerSample`` batching, ``rows=B``): the explicit form
+of what ``jax.vmap`` makes of the JAX package's masked scan. ``t``,
+``h``, ``done`` and the counters are (B,) tensors, the recorded
+``(t_i, h_i)`` buffers (max_steps, B), and the trial gets the (B,) ``t``
+and ``h`` and returns one error ratio per row; every row accepts or
+rejects on its own, and a finished row rides along as a no-op, its state,
+time and step frozen by ``torch.where`` and its trial count stopped. The
+loop still reads the host once per trial, on ``done.all()``. Under
+``ConstantSteps`` every row takes the same steps, so ``t`` and ``h`` stay
+0-d (as under ``jax.vmap``, where they do not depend on the state).
 
 A fixed-step run reads nothing on the host and uploads nothing from it:
 Python-number bounds become device tensors by a fill, not a copy.
@@ -34,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree_util as pytree
+from repro_torch.tree_util import rows_like
 
 from .stepsize import (AdaptiveController, ConstantSteps, StepController,
                        initial_step_size, next_step_size)
@@ -48,7 +61,9 @@ TIME_DTYPE = torch.float32
 
 
 def tree_where(pred: torch.Tensor, a: Pytree, b: Pytree) -> Pytree:
-    return _tm(lambda x, y: torch.where(pred, x, y), a, b)
+    """``a`` where ``pred`` holds, else ``b``; a (B,) ``pred`` selects
+    rows of leaves with the batch axis in front."""
+    return _tm(lambda x, y: torch.where(rows_like(pred, x), x, y), a, b)
 
 
 def tree_row(traj: Pytree, k: int) -> Pytree:
@@ -151,20 +166,61 @@ def reverse_segment_sweep(seg_fn: Callable, carry0: Tuple, g: Pytree,
 
 def reverse_masked_scan(body: Callable, carry0: Pytree, ts: torch.Tensor,
                         hs: torch.Tensor, n_accepted: int,
-                        extras: Optional[Pytree] = None) -> Pytree:
-    """Apply ``body(carry, t_i, h_i)`` for i = n_accepted-1 .. 0 over the
-    recorded buffers; with ``extras`` the body is called as
-    ``body(carry, t_i, h_i, extras_i)`` with row i of every extras leaf
-    (ACA's checkpointed states). The JAX scan visits all ``max_steps``
-    slots with identity pass-through past ``n_accepted``; this visits the
-    live slots only, which gives the same carry."""
+                        extras: Optional[Pytree] = None,
+                        row_counts: Optional[torch.Tensor] = None
+                        ) -> Pytree:
+    """Apply ``body(carry, t_i, h_i, live)`` for i = n_accepted-1 .. 0
+    over the recorded buffers; with ``extras`` the body is called as
+    ``body(carry, t_i, h_i, extras_i, live)`` with row i of every extras
+    leaf (ACA's checkpointed states). The JAX scan visits all
+    ``max_steps`` slots with identity pass-through past ``n_accepted``;
+    this visits the live slots only, which gives the same carry.
+
+    Per-row buffers (``PerSample``): ``row_counts`` (B,) holds each row's
+    accepted count and ``n_accepted`` its largest; ``live`` is then the
+    (B,) mask ``i < row_counts``, and the body passes a dead row's carry
+    through unchanged and hands its f-VJP a zero cotangent. Otherwise
+    ``live`` is None: every visited slot is live."""
     carry = carry0
     for i in range(n_accepted - 1, -1, -1):
+        live = None if row_counts is None else i < row_counts
         if extras is None:
-            carry = body(carry, ts[i], hs[i])
+            carry = body(carry, ts[i], hs[i], live)
         else:
-            carry = body(carry, ts[i], hs[i], tree_row(extras, i))
+            carry = body(carry, ts[i], hs[i], tree_row(extras, i), live)
     return carry
+
+
+def sweep_counts(controller: StepController, seg_acc: torch.Tensor):
+    """The reverse sweep's plan over the T-1 segments: for each, the
+    number of slots to visit and the per-row counts (None when every row
+    has them all). ConstantSteps needs no host read; an adaptive run
+    reads its accepted counts once per backward, and a per-row run
+    sweeps each segment over its rows' largest count."""
+    n_seg = seg_acc.shape[0]
+    if isinstance(controller, ConstantSteps):
+        return [(controller.n, None)] * n_seg
+    counts = seg_acc.tolist()             # one host read per backward
+    if seg_acc.dim() == 1:
+        return [(c, None) for c in counts]
+    return [(max(c), seg_acc[k]) for k, c in enumerate(counts)]
+
+
+def mask_rows(live: Optional[torch.Tensor], tree: Pytree) -> Pytree:
+    """``tree`` with the rows where ``live`` is False set to zero (the
+    cotangent a padding slot hands its f-VJP); ``tree`` itself when
+    ``live`` is None."""
+    if live is None:
+        return tree
+    return _tm(lambda x: torch.where(rows_like(live, x), x,
+                                     torch.zeros_like(x)), tree)
+
+
+def keep_rows(live: Optional[torch.Tensor], new: Pytree,
+              old: Pytree) -> Pytree:
+    """``new`` on the live rows, ``old`` on the dead ones (all of ``new``
+    when ``live`` is None)."""
+    return new if live is None else tree_where(live, new, old)
 
 
 class GridResult(NamedTuple):
@@ -221,23 +277,27 @@ def integrate_adaptive(
     (grad-free only) the loop writes that buffer in place, one row per
     accepted trial, as the scan does; otherwise it is built once after the
     loop from the trials' start states (autograd differentiates through
-    it)."""
+    it; one trajectory only).
+
+    A (B,) ``h0`` runs the loop per row (``PerSample``): every buffer
+    gains a trailing B axis, each row writes its own next slot, and the
+    loop ends when every row is done."""
     dev = t0.device
     t0 = t0.to(TIME_DTYPE)
     t1 = t1.to(TIME_DTYPE)
     h = (initial_step_size(rtol, atol, t1 - t0) if h0 is None
          else h0.to(TIME_DTYPE))
-    ts_buf = torch.zeros((max_steps,), dtype=TIME_DTYPE, device=dev)
-    hs_buf = torch.zeros((max_steps,), dtype=TIME_DTYPE, device=dev)
-    state, t = state0, t0
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    n_acc = torch.zeros((), dtype=torch.int32, device=dev)
-    n_ev = torch.zeros((), dtype=torch.int32, device=dev)
+    shape = h.shape                      # () or (B,)
+    ts_buf = torch.zeros((max_steps,) + shape, dtype=TIME_DTYPE, device=dev)
+    hs_buf = torch.zeros((max_steps,) + shape, dtype=TIME_DTYPE, device=dev)
+    state, t = state0, (t0.expand(shape) if shape else t0)
+    done = torch.zeros(shape, dtype=torch.bool, device=dev)
+    n_acc = torch.zeros(shape, dtype=torch.int32, device=dev)
+    n_ev = torch.zeros(shape, dtype=torch.int32, device=dev)
+    cols = torch.arange(shape[0], device=dev) if shape else None
     starts, accepts = [], []
 
     for _ in range(max_steps):
-        if bool(done):
-            break
         remaining = t1 - t
         is_last = torch.abs(h) >= torch.abs(remaining)
         h_eff = torch.where(is_last, remaining, h)
@@ -245,11 +305,13 @@ def integrate_adaptive(
         state_next, ratio = trial(state, t, h_eff)
         accept = (ratio <= 1.0) & ~done
         n_ev = n_ev + torch.where(done, 0, 1).to(torch.int32)
+        # Each row's next free slot: (slot,) for one trajectory, (slot_b,
+        # b) per row.
+        idx = ((n_acc.long().view(1),) if cols is None
+               else (n_acc.long(), cols))
         if record_buf is not None:
-            _tm(lambda b, s: b.index_put_(
-                (n_acc.long().view(1),),
-                torch.where(accept, s.unsqueeze(0),
-                            b[n_acc.long().view(1)])), record_buf, state)
+            _tm(lambda b, s: _write_slot(b, idx, accept, s), record_buf,
+                state)
         elif record_states:
             starts.append(state)
             accepts.append(accept)
@@ -257,7 +319,6 @@ def integrate_adaptive(
         # Record the accepted step's (start time, step size). Both stay
         # differentiable, as in the JAX scan: a dense interpolant built on
         # them depends on the step sizes, which depend on the state.
-        idx = (n_acc.long().view(1),)
         ts_buf.index_put_(idx, torch.where(accept, t, ts_buf[idx]))
         hs_buf.index_put_(idx, torch.where(accept, h_eff, hs_buf[idx]))
 
@@ -268,12 +329,23 @@ def integrate_adaptive(
         done = done | (accept & is_last)
         t = new_t
         n_acc = n_acc + accept.to(torch.int32)
+        # the loop's one host read a trial
+        if bool(done.all() if shape else done):
+            break
 
     traj = record_buf
     if traj is None and record_states:
         traj = _accepted_rows(starts, accepts, n_acc, max_steps)
     return AdaptiveResult(state, ts_buf, hs_buf, n_acc, n_ev, h,
                           done | (t0 == t1), traj)
+
+
+def _write_slot(buf: torch.Tensor, idx, accept: torch.Tensor,
+                x: torch.Tensor) -> None:
+    """Write ``x`` into ``buf`` at ``idx`` where ``accept`` holds."""
+    cur = buf[idx]
+    buf.index_put_(idx, torch.where(rows_like(accept, cur),
+                                    x.reshape(cur.shape), cur))
 
 
 def _accepted_rows(starts: List[Pytree], accepts: List[torch.Tensor],
@@ -350,12 +422,14 @@ def _constant_grid(trial: TrialFn, state0: Pytree, ts: torch.Tensor,
 
 def _adaptive_grid(trial: TrialFn, state0: Pytree, ts: torch.Tensor,
                    controller: AdaptiveController, order: int,
-                   record_states: bool) -> GridResult:
+                   record_states: bool, rows: int = 0) -> GridResult:
     """AdaptiveController path of :func:`integrate_grid`: per-segment
     bounded accept/reject loops, the step proposal warm-started across
-    segment boundaries."""
+    segment boundaries (each row's own under ``rows``)."""
     n_seg = ts.shape[0] - 1
     h_prev = controller.initial_step(ts[1] - ts[0])
+    if rows:
+        h_prev = h_prev.expand(rows)
     state = state0
     states = [state0]
     seg_ts, seg_hs, seg_acc, seg_done, seg_starts = [], [], [], [], []
@@ -382,7 +456,7 @@ def _adaptive_grid(trial: TrialFn, state0: Pytree, ts: torch.Tensor,
         n_ev = n_ev + out.n_evals
     return GridResult(state, stack_states(states), torch.stack(seg_ts),
                       torch.stack(seg_hs), torch.stack(seg_acc), n_ev,
-                      torch.stack(seg_done).all(),
+                      torch.stack(seg_done).all(0),
                       record if record is not None or not record_states
                       else stack_states(seg_starts))
 
@@ -395,18 +469,22 @@ def integrate_grid(
     controller: StepController,
     order: int,
     record_states: bool = False,
+    rows: int = 0,
 ) -> GridResult:
     """THE grid driver: integrate across an observation grid ``ts`` (shape
     (T,)) under the given :class:`StepController`. The recorded per-segment
     (t_i, h_i) bookkeeping keeps the backward residual set at
     O(T * step_bound) scalars + O(T * N_z) states. ``record_states`` adds
     the per-accepted-step start states (``GridResult.state_traj``), what
-    the per-step and dense outputs are built from."""
+    the per-step and dense outputs are built from. ``rows`` = B > 0 runs
+    an adaptive controller per row (``PerSample``): the step buffers are
+    then (T-1, bound, B), the accepted counts (T-1, B) and the trial
+    count (B,)."""
     if isinstance(controller, ConstantSteps):
         return _constant_grid(trial, state0, ts, controller.n, record_states)
     if isinstance(controller, AdaptiveController):
         return _adaptive_grid(trial, state0, ts, controller, order,
-                              record_states)
+                              record_states, rows)
     raise TypeError(f"unknown step controller {controller!r}")
 
 
@@ -418,11 +496,12 @@ def integrate_span(
     *,
     controller: StepController,
     order: int,
+    rows: int = 0,
 ) -> SpanResult:
     """Single-interval ``t0 -> t1`` driver (Backsolve's forward segments
     and reverse-time augmented solve), sign-agnostic like the grid
     driver; the adaptive branch starts from the controller's initial
-    proposal for the span."""
+    proposal for the span, per row under ``rows`` = B > 0."""
     t0, t1 = t0.to(TIME_DTYPE), t1.to(TIME_DTYPE)
     if isinstance(controller, ConstantSteps):
         ts, h = fixed_grid_times(t0, t1, controller.n)
@@ -432,8 +511,10 @@ def integrate_span(
         n = torch.full((), controller.n, dtype=torch.int32, device=t0.device)
         return SpanResult(state, n, n)
     if isinstance(controller, AdaptiveController):
+        h0 = (controller.initial_step(t1 - t0).expand(rows) if rows
+              else None)
         out = integrate_adaptive(trial, state0, t0, t1, order=order,
                                  rtol=controller.rtol, atol=controller.atol,
-                                 max_steps=controller.max_steps)
+                                 max_steps=controller.max_steps, h0=h0)
         return SpanResult(out.state, out.n_accepted, out.n_evals)
     raise TypeError(f"unknown step controller {controller!r}")

@@ -12,8 +12,10 @@
   ``cond_fn(z, t)``, bisection-refined on the dense interpolant).
 * :class:`Batching` — the batching axis over a leading batch dimension:
   :class:`Lockstep` (the whole batch is one ODE system, one shared
-  controller decision per trial). :class:`PerSample` and
-  :class:`Sharded` are named here so that ``solve`` can refuse them.
+  controller decision per trial), :class:`PerSample` (each row its own
+  controller; :meth:`GradientMethod.integrate_batched`, with ``f`` called
+  per sample through :func:`per_sample`) and :class:`Sharded` (the rows
+  split over a ``torch.distributed`` device-mesh axis).
 * :func:`grid_vjp` — the ``torch.autograd.Function`` wiring the
   memory-efficient methods share (where the JAX package gives each its
   own ``custom_vjp``), and :func:`bounds_cotangents`, the analytic
@@ -22,6 +24,7 @@
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -43,10 +46,11 @@ class RunStats(NamedTuple):
 
 def make_run_stats(n_accepted: torch.Tensor, n_trials: torch.Tensor,
                    stages: int, init_evals: int = 0) -> RunStats:
-    """Fold raw driver counters into :class:`RunStats`. ``n_accepted`` may
-    be per-segment (summed here); ``stages`` is the solver's f-evals per
-    trial; ``init_evals`` covers ALF's ``v0 = f(z0, t0)``."""
-    n_acc = torch.sum(n_accepted).to(torch.int32)
+    """Fold raw driver counters into :class:`RunStats`. ``n_accepted`` is
+    per segment, (T-1,) or (T-1, B) per row, and summed over the segments
+    here; ``stages`` is the solver's f-evals per trial; ``init_evals``
+    covers ALF's ``v0 = f(z0, t0)``, once per row."""
+    n_acc = torch.sum(n_accepted, 0).to(torch.int32)
     n_tr = n_trials.to(torch.int32)
     return RunStats(n_acc, n_tr - n_acc, n_tr * stages + init_evals)
 
@@ -205,9 +209,13 @@ class Batching:
     """Base of the batching axis: how one ``solve`` treats the leading
     batch dimension of ``z0``. Batched solves return ``ys`` batch-first:
     ``(B, ...)`` for the end state, ``(B, T, ...)`` for a
-    ``SaveAt(ts=grid)`` trajectory."""
+    ``SaveAt(ts=grid)`` trajectory, whatever the mode."""
 
     name: str = "?"
+
+    def validate(self, controller, saveat) -> None:
+        """Reject or flag incompatible axes before integrating
+        (overridden)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,16 +230,46 @@ class Lockstep(Batching):
 
 @dataclasses.dataclass(frozen=True)
 class PerSample(Batching):
-    """Per-sample adaptive control (each sample with its own ``(t, h,
-    done)``). Not ported yet: ``solve`` refuses it."""
+    """Per-sample adaptive control: each row carries its own ``(t, h,
+    done)`` through the per-row driver (:mod:`repro_torch.core.integrate`)
+    and accepts or rejects on its own error norm; a finished row rides
+    along as a no-op, its trials uncounted. ``f`` is called per sample,
+    with that row's scalar ``t`` (:func:`per_sample`), while the ALF
+    kernels act on the whole batch with a per-row step size. Each gradient
+    method's backward replays every row's own ``(t_i, h_i)``. Fewer total
+    f-evals than :class:`Lockstep` on stiffness-heterogeneous batches."""
 
     name = "per_sample"
+
+    def validate(self, controller, saveat) -> None:
+        if saveat is not None and (saveat.steps or saveat.dense):
+            mode = "steps=True" if saveat.steps else "dense=True"
+            raise ValueError(
+                f"SaveAt({mode}) under PerSample() batching is ragged "
+                "(each sample accepts a different number of steps); use "
+                "SaveAt(ts=grid) for a shared observation grid, or "
+                "Lockstep() for a shared step sequence")
+        if controller is not None and not controller.adaptive:
+            warnings.warn(
+                "PerSample() with a fixed-step controller degenerates to "
+                "Lockstep(): every sample takes the identical step "
+                "sequence, so there is no per-row accept/reject to "
+                "exploit. Use AdaptiveController(...) or Lockstep().",
+                UserWarning, stacklevel=3)
 
 
 @dataclasses.dataclass(frozen=True)
 class Sharded(Batching):
-    """The batch sharded over a device axis, ``inner`` batching on each
-    shard. Not ported yet: ``solve`` refuses it."""
+    """Shard the batch over a ``torch.distributed`` device-mesh axis, one
+    slice of the rows per rank along ``axis``, each applying ``inner``
+    batching (:class:`Lockstep` or :class:`PerSample`) to its rows. Needs
+    an active mesh (``with make_host_mesh():``, see
+    :mod:`repro_torch.launch.mesh`) whose dimension names include
+    ``axis``, and a batch size divisible by that dimension's size.
+    ``z0`` and ``params`` are replicated; ``ys`` and
+    ``stats.per_sample`` hold the whole batch on every rank, and the
+    backward all-reduces the ``params`` and ``z0`` cotangents, so values
+    and gradients are the unsharded ``inner`` solve's on every rank."""
 
     axis: str = "data"
     inner: Batching = dataclasses.field(default_factory=Lockstep)
@@ -242,6 +280,16 @@ class Sharded(Batching):
         if isinstance(self.inner, Sharded):
             raise ValueError("Sharded(inner=Sharded(...)) does not nest; "
                              "pick Lockstep() or PerSample() for inner")
+
+    def validate(self, controller, saveat) -> None:
+        if saveat is not None and (saveat.steps or saveat.dense):
+            mode = "steps=True" if saveat.steps else "dense=True"
+            raise ValueError(
+                f"SaveAt({mode}) under Sharded() batching is ragged "
+                "across shards (each shard's controller accepts its own "
+                "step count); use SaveAt(ts=grid) or an unsharded "
+                "Lockstep() solve")
+        self.inner.validate(controller, saveat)
 
 
 def batch_size(z0: Pytree) -> int:
@@ -268,6 +316,25 @@ def batch_size(z0: Pytree) -> int:
 
 
 _tm = pytree.tree_map
+
+
+def per_sample(f: Callable) -> Callable:
+    """``f(params, z, t)`` written for one sample, as a map over a batch:
+    ``torch.func.vmap`` over the leading axis of every leaf of ``z`` and,
+    when ``t`` is (B,), over ``t`` (each row its own time); ``params``
+    and a 0-d ``t`` are shared. This is how ``jax.vmap`` calls ``f``
+    under the JAX package's ``PerSample``."""
+    def rows_f(params, z, t):
+        t_dim = 0 if t.dim() else None
+        return pytree.vmap(f, in_dims=(None, 0, t_dim))(params, z, t)
+
+    return rows_f
+
+
+def batch_first(traj: Pytree) -> Pytree:
+    """(T, B, ...) -> the batch-first (B, T, ...) of every batched
+    mode."""
+    return _tm(lambda b: torch.movedim(b, 0, 1), traj)
 
 
 def tree_vdot(a: Pytree, b: Pytree) -> torch.Tensor:
@@ -364,10 +431,12 @@ class GradientMethod:
     Subclasses are frozen dataclasses implementing ``default_solver()``,
     ``validate(solver, controller)`` (reject incompatible axes with an
     actionable error before integrating), ``integrate(f, params, z0, ts,
-    solver, controller, diff_bounds)`` -> ``(traj, RunStats)`` with
+    solver, controller, diff_bounds, rows)`` -> ``(traj, RunStats)`` with
     ``traj`` of leading axis T = len(ts), and ``residual_bytes(z0, n_obs,
     solver, controller)``. With ``diff_bounds=True`` the backward emits the
     analytic :func:`bounds_cotangents` for ``ts`` (zeros otherwise).
+    ``rows`` = B > 0 integrates the B rows of ``z0`` independently (the
+    :meth:`integrate_batched` driver).
     """
 
     name: str = "?"
@@ -382,9 +451,26 @@ class GradientMethod:
                 "use ConstantSteps(n) with it or pick an embedded pair")
 
     def integrate(self, f, params, z0: Pytree, ts: torch.Tensor, solver,
-                  controller,
-                  diff_bounds: bool = False) -> Tuple[Pytree, RunStats]:
+                  controller, diff_bounds: bool = False,
+                  rows: int = 0) -> Tuple[Pytree, RunStats]:
         raise NotImplementedError
+
+    def integrate_batched(self, f, params, z0: Pytree, ts: torch.Tensor,
+                          solver, controller, diff_bounds: bool = False
+                          ) -> Tuple[Pytree, RunStats]:
+        """The PerSample driver: the explicit form of the JAX package's
+        ``jax.vmap`` of :meth:`integrate` over the leading axis of ``z0``.
+        Each row carries its own ``(t, h, done)`` and replay buffers,
+        ``f`` is called per sample (:func:`per_sample`), and the backward
+        replays each row's own step script. Returns ``(traj, RunStats)``
+        with leading axis B (traj ``(B, T, ...)``, counters ``(B,)``).
+        ``params`` and ``ts`` are shared by the rows, so their cotangents
+        (``ts``'s with ``diff_bounds=True``) sum over the rows."""
+        nb = batch_size(z0)
+        traj, stats = self.integrate(f, params, z0, ts, solver, controller,
+                                     diff_bounds, rows=nb)
+        # a fixed-step run counts once for every row
+        return batch_first(traj), RunStats(*(c.expand(nb) for c in stats))
 
     def residual_bytes(self, z0: Pytree, n_obs: int, solver,
                        controller) -> int:

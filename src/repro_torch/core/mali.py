@@ -14,6 +14,13 @@ adjoint state a(t) and dL/dtheta — the discretized Eq. (2)/(3) of the
 paper. The trajectory cotangent g[k] enters a(t) as the sweep crosses
 observation k. Rejected trials of the step-size search are not replayed.
 
+Per-row batching (``integrate_batched``, ``PerSample``): the forward
+runs each row's own adaptive control, and the backward sweeps every
+segment over its rows' largest accepted count, a row past its own count
+passing its carry through unchanged and handing the f-VJP a zero
+cotangent, so padding adds exactly nothing to the gradients; each row's
+psi^-1 reconstruction replays that row's own (t_i, h_i).
+
 Gradients with respect to the observation times are zeros by default;
 with ``diff_bounds=True`` the backward emits the analytic boundary
 cotangents ``dL/dt_k = <g_k, f(z_k, t_k)>`` / ``dL/dt_0 = -<a(t0),
@@ -31,16 +38,17 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch import tree_util as pytree
-from repro_torch.tree_util import vjp
+from repro_torch.tree_util import rows_like, vjp
 
 from .alf import (alf_inverse, alf_step, check_eta, init_velocity,
                   tree_add, tree_sub, tree_zeros_like)
-from .integrate import (grid_run, integrate_grid, reverse_masked_scan,
-                        reverse_segment_sweep, scalar_time_grid, tree_row)
+from .integrate import (grid_run, integrate_grid, keep_rows, mask_rows,
+                        reverse_masked_scan, reverse_segment_sweep,
+                        scalar_time_grid, sweep_counts, tree_row)
 from .interface import (GradientMethod, bounds_cotangents, grid_vjp,
-                        make_run_stats, state_nbytes)
+                        make_run_stats, per_sample, state_nbytes)
 from .solvers import ALF
-from .stepsize import (AdaptiveController, ConstantSteps, StepController,
+from .stepsize import (AdaptiveController, StepController,
                        controller_from_kwargs)
 
 _tm = pytree.tree_map
@@ -56,24 +64,28 @@ class MaliConfig(NamedTuple):
     fused_bwd: bool = True      # share the inverse's f-eval with the VJP
     backend: str = "reference"  # step algebra: plain tensors or kernels
     diff_bounds: bool = False   # emit analytic dL/dts boundary cotangents
+    rows: int = 0               # B: per-row control, f the per-sample map
 
 
-def _step_backward(cfg: MaliConfig, params, z_i, v_i, t_start, h, a_z, a_v):
+def _step_backward(cfg: MaliConfig, params, z_i, v_i, t_start, h, a_z, a_v,
+                   live=None):
     """One reverse step: rebuild the step input via psi^-1 and backprop
     psi, fused (3 f-eval-equivalents) or via the reference two-pass.
     ``backend='cuda'`` runs the fused step's elementwise algebra as one
     kernel launch on each side of the f linearization; the two-pass path
     launches the inverse kernels and replays the step through the forward
-    kernels' reverse rules."""
+    kernels' reverse rules. A (B,) ``live`` zeroes the f-VJP's cotangent
+    on the dead rows (:func:`~repro_torch.core.integrate.mask_rows`)."""
     if cfg.fused_bwd:
         fused = (_cuda_fused_inverse_and_vjp if cfg.backend == "cuda"
                  else _fused_inverse_and_vjp)
         return fused(cfg.f, cfg.eta, params, z_i, v_i, t_start + h, h,
-                     a_z, a_v)
+                     a_z, a_v, live)
     z_prev, v_prev = alf_inverse(cfg.f, params, z_i, v_i, t_start + h, h,
                                  cfg.eta, cfg.backend)
     dp, dz, dv = _local_step_vjp(cfg.f, cfg.eta, params, z_prev, v_prev,
-                                 t_start, h, a_z, a_v, cfg.backend)
+                                 t_start, h, *mask_rows(live, (a_z, a_v)),
+                                 cfg.backend)
     return z_prev, v_prev, dz, dv, dp
 
 
@@ -90,7 +102,8 @@ def _local_step_vjp(f, eta, params, z_prev, v_prev, t_prev, h, a_z, a_v,
     return vjp_fn((a_z, a_v))  # (dL/dparams, dL/dz_prev, dL/dv_prev)
 
 
-def _cuda_fused_inverse_and_vjp(f, eta, params, z_i, v_i, t_i, h, a_z, a_v):
+def _cuda_fused_inverse_and_vjp(f, eta, params, z_i, v_i, t_i, h, a_z, a_v,
+                                live=None):
     """The fused backward step of :func:`_fused_inverse_and_vjp` with its
     elementwise algebra as TWO kernel launches: ``alf_bwd_pre`` emits the
     inverse midpoint k1 and the f-eval cotangent
@@ -102,13 +115,14 @@ def _cuda_fused_inverse_and_vjp(f, eta, params, z_i, v_i, t_i, h, a_z, a_v):
     s1 = t_i - h / 2
     k1, cot_u1 = alf_bwd_pre(z_i, v_i, a_z, a_v, h, eta=eta)
     u1, vjp_f = vjp(lambda p, kk: f(p, kk, s1), params, k1)
-    dparams, dk1 = vjp_f(cot_u1)
+    dparams, dk1 = vjp_f(mask_rows(live, cot_u1))
     z_prev, v_prev, dz_prev, dv_prev = alf_bwd_post(
         k1, v_i, u1, a_z, a_v, dk1, h, eta=eta)
     return z_prev, v_prev, dz_prev, dv_prev, dparams
 
 
-def _fused_inverse_and_vjp(f, eta, params, z_i, v_i, t_i, h, a_z, a_v):
+def _fused_inverse_and_vjp(f, eta, params, z_i, v_i, t_i, h, a_z, a_v,
+                           live=None):
     """One backward step of Algo 4 with the inverse's f-eval SHARED with
     the local VJP: the inverse evaluates u1 = f(k1, s1) at
     k1 = z_i - v_i*h/2, exactly where the local VJP of psi needs the
@@ -121,23 +135,27 @@ def _fused_inverse_and_vjp(f, eta, params, z_i, v_i, t_i, h, a_z, a_v):
         dz_prev  = a_z + dk1
         dv_prev  = (h/2)*dz_prev + (1-2*eta)*cot_vout
 
-    Returns (z_prev, v_prev, dz_prev, dv_prev, dparams).
+    Returns (z_prev, v_prev, dz_prev, dv_prev, dparams). A (B,) ``h``
+    (one step per row) broadcasts against each leaf's batch axis; a (B,)
+    ``live`` zeroes cot_u1 on the dead rows.
     """
     s1 = t_i - h / 2
-    k1 = _tm(lambda zi, vi: zi - vi * (h / 2), z_i, v_i)
+    k1 = _tm(lambda zi, vi: zi - vi * (rows_like(h, zi) / 2), z_i, v_i)
     u1, vjp_f = vjp(lambda p, kk: f(p, kk, s1), params, k1)
     if eta == 1.0:
         v_prev = _tm(lambda ui, vo: 2.0 * ui - vo, u1, v_i)
     else:
         inv = 1.0 / (1.0 - 2.0 * eta)
         v_prev = _tm(lambda vo, ui: (vo - 2.0 * eta * ui) * inv, v_i, u1)
-    z_prev = _tm(lambda ki, vp: ki - vp * (h / 2), k1, v_prev)
-    cot_vout = _tm(lambda av, az: av + (h / 2) * az, a_v, a_z)
+    z_prev = _tm(lambda ki, vp: ki - vp * (rows_like(h, ki) / 2), k1,
+                 v_prev)
+    cot_vout = _tm(lambda av, az: av + (rows_like(h, av) / 2) * az, a_v,
+                   a_z)
     cot_u1 = _tm(lambda c: 2.0 * eta * c, cot_vout)
-    dparams, dk1 = vjp_f(cot_u1)
+    dparams, dk1 = vjp_f(mask_rows(live, cot_u1))
     cot_k1 = _tm(torch.add, a_z, dk1)
-    dv_prev = _tm(lambda ck, cv: (h / 2) * ck + (1.0 - 2.0 * eta) * cv,
-                  cot_k1, cot_vout)
+    dv_prev = _tm(lambda ck, cv: (rows_like(h, ck) / 2) * ck
+                  + (1.0 - 2.0 * eta) * cv, cot_k1, cot_vout)
     return z_prev, v_prev, cot_k1, dv_prev, dparams
 
 
@@ -155,7 +173,7 @@ def _mali_forward(cfg: MaliConfig, params, z0, ts):
     solver = ALF(cfg.eta, cfg.backend)
     trial = solver.trial_fn(cfg.f, params, cfg.controller)
     return integrate_grid(trial, (z0, v0), ts, controller=cfg.controller,
-                          order=solver.order)
+                          order=solver.order, rows=cfg.rows)
 
 
 def _mali_grid(cfg: MaliConfig, params, z0, ts):
@@ -175,16 +193,14 @@ def _mali_grid(cfg: MaliConfig, params, z0, ts):
     def bwd(residuals, g_traj):
         z_traj, v_traj, params, ts, seg_ts, seg_hs, seg_acc = residuals
         n_seg = ts.shape[0] - 1
-        if isinstance(cfg.controller, ConstantSteps):
-            n_live = [cfg.controller.n] * n_seg
-        else:
-            n_live = seg_acc.tolist()   # one host read per backward
+        plan = sweep_counts(cfg.controller, seg_acc)
 
-        def step_body(c, t_start, h):
+        def step_body(c, t_start, h, live):
             z_i, v_i, az, av, gp = c
-            z_prev, v_prev, dz, dv, dp = _step_backward(
-                cfg, params, z_i, v_i, t_start, h, az, av)
-            return (z_prev, v_prev, dz, dv, tree_add(gp, dp))
+            new = _step_backward(cfg, params, z_i, v_i, t_start, h, az, av,
+                                 live)
+            kept = keep_rows(live, new[:4], c[:4])
+            return (*kept, tree_add(gp, new[4]))
 
         def seg(carry, g_k1, k):
             a_z, a_v, g_p = carry
@@ -194,8 +210,10 @@ def _mali_grid(cfg: MaliConfig, params, z0, ts):
             a_z = tree_add(a_z, g_k1)
             carry_k = (tree_row(z_traj, k + 1), tree_row(v_traj, k + 1),
                        a_z, a_v, g_p)
+            n_steps, row_counts = plan[k]
             _, _, a_z, a_v, g_p = reverse_masked_scan(
-                step_body, carry_k, seg_ts[k], seg_hs[k], n_live[k])
+                step_body, carry_k, seg_ts[k], seg_hs[k], n_steps,
+                row_counts=row_counts)
             return (a_z, a_v, g_p)
 
         z0 = tree_row(z_traj, 0)
@@ -242,9 +260,10 @@ class MALI(GradientMethod):
                 "solver=ALF(eta=...) or use gradient=Naive().")
 
     def integrate(self, f, params, z0, ts, solver, controller,
-                  diff_bounds: bool = False):
-        cfg = MaliConfig(f, solver.eta, controller, self.fused_bwd,
-                         solver.backend, diff_bounds)
+                  diff_bounds: bool = False, rows: int = 0):
+        cfg = MaliConfig(per_sample(f) if rows else f, solver.eta,
+                         controller, self.fused_bwd, solver.backend,
+                         diff_bounds, rows)
         return _mali_grid(cfg, params, z0, ts)
 
     def residual_bytes(self, z0, n_obs, solver, controller) -> int:

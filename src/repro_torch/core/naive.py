@@ -7,6 +7,10 @@ N_z*N_f*N_t*m). Naive-through-ALF on the reference backend is the gradient
 oracle for MALI: both run the identical forward, so they agree to float
 precision.
 
+Under ``PerSample`` (``rows`` = B) the loop is the per-row driver and
+autograd differentiates through its ``torch.where`` masks, so a finished
+row's padding trials get zero cotangents, as under ``jax.vmap``.
+
 ``diff_bounds=True`` wraps the run in an autograd node that substitutes
 the analytic observation-time cotangents
 (:func:`~repro_torch.core.interface.bounds_cotangents`) for the discrete
@@ -26,30 +30,33 @@ from repro_torch import tree_util as pytree
 from .alf import tree_sub
 from .integrate import grid_run, integrate_grid, tree_row
 from .interface import (GradientMethod, bounds_cotangents, grid_vjp,
-                        make_run_stats, state_nbytes)
+                        make_run_stats, per_sample, state_nbytes)
 from .solvers import ALF, Solver, get_solver
 from .stepsize import controller_from_kwargs
 
 
-def _naive_run(f, params, z0, ts, solver: Solver, controller):
+def _naive_run(f, params, z0, ts, solver: Solver, controller,
+               rows: int = 0):
     state0 = solver.init_state(f, params, z0, ts[0])
     trial = solver.trial_fn(f, params, controller)
     res = integrate_grid(trial, state0, ts, controller=controller,
-                         order=solver.order)
+                         order=solver.order, rows=rows)
     init_evals = 1 if isinstance(solver, ALF) else 0
     return (solver.output(res.traj),
             make_run_stats(res.n_accepted, res.n_trials, solver.stages,
                            init_evals))
 
 
-def _naive_grid_db(f, params, z0, ts, solver: Solver, controller):
+def _naive_grid_db(f, params, z0, ts, solver: Solver, controller,
+                   rows: int = 0):
     """Naive integration with analytic observation-time cotangents: the
     forward is :func:`_naive_run`; the backward re-runs it under autograd
     with ``ts`` detached for the params/z0 cotangents and adds
     :func:`bounds_cotangents` for ``ts``."""
 
     def fwd(params, z0, ts):
-        traj, stats = _naive_run(f, params, z0, ts, solver, controller)
+        traj, stats = _naive_run(f, params, z0, ts, solver, controller,
+                                 rows)
         return traj, stats, (traj, params, z0, ts)
 
     def bwd(residuals, g_traj):
@@ -62,7 +69,7 @@ def _naive_grid_db(f, params, z0, ts, solver: Solver, controller):
             traj, _ = _naive_run(
                 f, pytree.tree_unflatten(inputs[:len(p_leaves)], p_spec),
                 pytree.tree_unflatten(inputs[len(p_leaves):], z_spec),
-                ts.detach(), solver, controller)
+                ts.detach(), solver, controller, rows)
             grads = torch.autograd.grad(pytree.tree_leaves(traj), inputs,
                                         pytree.tree_leaves(g_traj),
                                         allow_unused=True)
@@ -112,9 +119,10 @@ class Naive(GradientMethod):
         check_direct_backprop(solver, "Naive()")
 
     def integrate(self, f, params, z0, ts, solver, controller,
-                  diff_bounds: bool = False):
+                  diff_bounds: bool = False, rows: int = 0):
         run = _naive_grid_db if diff_bounds else _naive_run
-        return run(f, params, z0, ts, solver, controller)
+        return run(per_sample(f) if rows else f, params, z0, ts, solver,
+                   controller, rows)
 
     def residual_bytes(self, z0, n_obs, solver, controller) -> int:
         # Autograd keeps every trial step's intermediates alive — grows

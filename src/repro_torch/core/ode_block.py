@@ -10,8 +10,8 @@ StepController / GradientMethod / SaveAt objects
 of the JAX package included. Field names, defaults and checks are the JAX
 package's (``repro.core.ode_block.OdeSettings``), with two differences of
 the port: the JAX ``backend="pallas"`` is the port's ``"cuda"`` (both
-names are accepted), and ``batch_axis`` (Sharded batching) raises
-``NotImplementedError`` in ``as_objects()`` naming its ROADMAP item.
+names are accepted), and :meth:`OdeSettings.batching` gives
+``Sharded(axis=batch_axis)`` over a ``torch.distributed`` device mesh.
 
 The LM serve path reads only ``mode``, ``n_steps``, ``eta`` and ``t1``: it
 unrolls the ALF steps explicitly (``models/transformer.py::layer_serve``).
@@ -27,7 +27,7 @@ import torch
 from .aca import ACA
 from .adjoint import Backsolve
 from .alf import check_eta
-from .interface import SaveAt
+from .interface import Batching, SaveAt, Sharded
 from .mali import MALI
 from .naive import Naive
 from .solve import solve
@@ -61,7 +61,7 @@ class OdeSettings:
     fused_bwd: bool = True     # share psi^-1's f-eval with the local VJP
     obs_times: Optional[Tuple[float, ...]] = None  # observation grid ts
     backend: str = "reference"  # 'reference' | 'cuda' ('pallas' = 'cuda')
-    batch_axis: Optional[str] = None  # Sharded() batching: slice (c)
+    batch_axis: Optional[str] = None  # mesh axis for Sharded() batching
 
     def validate(self) -> "OdeSettings":
         if self.mode not in ("off", "per_block"):
@@ -112,11 +112,6 @@ class OdeSettings:
     def as_objects(self):
         """Lower to (solver, controller, gradient, saveat) for solve()."""
         self.validate()
-        if self.batch_axis is not None:
-            raise NotImplementedError(
-                "ode.batch_axis (Sharded batching) is not ported yet: it "
-                "lands with PerSample and Sharded, ROADMAP queue 1 item 4, "
-                "before the serving-engine slice, queue 1 (c)")
         solver = (ALF(eta=self.eta, backend=_BACKEND[self.backend])
                   if self.solver == "alf" else get_solver(self.solver))
         controller = (ConstantSteps(self.n_steps) if self.n_steps > 0 else
@@ -129,6 +124,15 @@ class OdeSettings:
                   SaveAt(ts=torch.tensor(self.obs_times,
                                          dtype=torch.float32)))
         return solver, controller, gradient, saveat
+
+    def batching(self) -> Optional[Batching]:
+        """The Batching object of this block's solves (None: the batch
+        one system, lockstep). ``batch_axis`` names a mesh dimension: the
+        block's solve runs as a ``Sharded(axis)`` fleet over the ambient
+        ``with mesh:`` context (:mod:`repro_torch.distributed.sharding`)."""
+        if self.batch_axis is None:
+            return None
+        return Sharded(axis=self.batch_axis)
 
 
 def ode_block(dynamics: Callable[[Pytree, Pytree, Any], Pytree],

@@ -20,9 +20,10 @@ covers every solver of the registry (ALF on either backend, the
 Runge-Kutta tableaus) x {MALI, Naive, ACA, Backsolve} x {ConstantSteps,
 AdaptiveController} x {end state, ``SaveAt(ts=)``, ``SaveAt(steps=True)``,
 ``SaveAt(dense=True)``}, forward and reverse time, with or without
-``diff_bounds``, terminating events (``event=``) and ``Lockstep()``
-batching; ``PerSample()`` and ``Sharded()`` batching raise
-``NotImplementedError`` naming their ROADMAP item.
+``diff_bounds``, terminating events (``event=``) and the three batching
+modes: ``Lockstep()``, ``PerSample()`` (each row its own adaptive
+control, ``f`` called per sample) and ``Sharded()`` (the rows split over
+a ``torch.distributed`` mesh axis, ``inner`` batching on each rank).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ from .integrate import (as_time_grid, integrate_grid, scalar_time_grid,
                         validate_span)
 from .interface import (Batching, Event, GradientMethod, Lockstep,
                         PerSample, RunStats, SaveAt, Sharded, Solution,
-                        Stats, batch_size, make_run_stats, tree_vdot)
+                        Stats, batch_first, batch_size, make_run_stats,
+                        tree_vdot)
 from .aca import ACA
 from .adjoint import Adjoint, Backsolve
 from .mali import MALI
@@ -253,24 +255,85 @@ def _batched_stats(per: RunStats, n_segments: int, residual_bytes: int,
         per_sample=per, span_complete=span_complete)
 
 
-def _batch_first(traj: Pytree) -> Pytree:
-    """(T, B, ...) -> the batch-first (B, T, ...) of every batched
-    mode."""
-    return _tm(lambda b: torch.movedim(b, 0, 1), traj)
+def _solve_lockstep(f, params, z0, grid, nb, solver, controller, gradient,
+                    trajectory, diff_bounds=False):
+    """One shared controller decision per trial: the unbatched machinery
+    on the batched state (the batch one concatenated system)."""
+    traj, rstats = gradient.integrate(f, params, z0, grid, solver,
+                                      controller, diff_bounds)
+    ys = batch_first(traj) if trajectory else _tm(lambda b: b[-1], traj)
+    return ys, _broadcast_rows(rstats, nb)
+
+
+def _solve_per_sample(f, params, z0, grid, solver, controller, gradient,
+                      trajectory, diff_bounds=False):
+    """Row-independent control through the per-row driver (each sample
+    its own (t, h, done); see integrate.py)."""
+    traj, per = gradient.integrate_batched(f, params, z0, grid, solver,
+                                           controller, diff_bounds)
+    ys = traj if trajectory else _tm(lambda b: b[:, -1], traj)
+    return ys, RunStats(*(c.detach() for c in per))
+
+
+def _solve_sharded(f, params, z0, grid, nb, solver, controller, gradient,
+                   trajectory, batching: Sharded):
+    """Data parallelism over one axis of the ambient device mesh: each
+    rank solves its slice of the rows with ``batching.inner``, and the
+    whole batch is gathered back on every rank. ``z0`` and ``params`` are
+    replicated, so their cotangents are summed over the ranks (the
+    gradient of the JAX package's replicated-in, sharded-out
+    ``shard_map``)."""
+    from repro_torch.distributed.sharding import (ambient_mesh, axis_group,
+                                                  gather_rows, replicated)
+    mesh = ambient_mesh()
+    if mesh is None:
+        raise ValueError(
+            "Sharded() batching needs an active mesh context: wrap the "
+            "solve in `with mesh:` (repro_torch.launch.mesh.make_host_mesh"
+            "()), or use Lockstep()/PerSample() on a single device")
+    if batching.axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(
+            f"Sharded(axis={batching.axis!r}): the active mesh has axes "
+            f"{mesh.mesh_dim_names}; pass one of those (the production mesh "
+            "uses 'data' for batch parallelism)")
+    group, n_shards, rank = axis_group(mesh, batching.axis)
+    if nb % n_shards != 0:
+        raise ValueError(
+            f"Sharded(axis={batching.axis!r}): batch size {nb} is not "
+            f"divisible by the axis size {n_shards}; pad the batch or "
+            "pick a divisible size")
+    local = nb // n_shards
+    lo = rank * local
+    p_local = _tm(lambda x: replicated(x, group, n_shards), params)
+    z_local = _tm(lambda x: replicated(x, group, n_shards)[lo:lo + local],
+                  z0)
+    if isinstance(batching.inner, PerSample):
+        ys, per = _solve_per_sample(f, p_local, z_local, grid, solver,
+                                    controller, gradient, trajectory)
+    else:
+        ys, per = _solve_lockstep(f, p_local, z_local, grid, local, solver,
+                                  controller, gradient, trajectory)
+
+    def gather(x):
+        return gather_rows(x, group, n_shards, rank)
+
+    return _tm(gather, ys), RunStats(*(gather(c) for c in per))
 
 
 def _solve_batched(f, params, z0, t0, t1, solver, controller, gradient,
-                   saveat, diff_bounds: bool) -> Solution:
-    """A ``Lockstep()`` solve, one shared controller decision per trial:
-    the unbatched machinery on the batched state (the batch one
-    concatenated system), with batch-first ``ys`` and per-row
-    counters."""
+                   saveat, batching: Batching,
+                   diff_bounds: bool) -> Solution:
+    """A batched solve: ``ys`` batch-first and per-row counters in
+    ``stats.per_sample`` (their totals in the scalar counters), whatever
+    the mode."""
     nb = batch_size(z0)
     if saveat.steps or saveat.dense:
-        # The shared step sequence keeps per-step output rectangular.
+        # Lockstep's shared step sequence keeps per-step output
+        # rectangular; PerSample/Sharded raggedness is refused in
+        # Batching.validate.
         if saveat.steps:
             sol = _solve_dense(f, params, z0, t0, t1, solver, controller)
-            ys = _batch_first(sol.ys)
+            ys = batch_first(sol.ys)
         else:
             # the interpolant carries the batch axis inside each
             # coefficient leaf: evaluate(t) gives (B, ...) per query
@@ -286,15 +349,22 @@ def _solve_batched(f, params, z0, t0, t1, solver, controller, gradient,
         return Solution(ys=ys, ts=sol.ts, stats=stats,
                         interpolation=sol.interpolation, n_live=sol.n_live)
     grid = _time_grid(saveat, t0, t1, z0)
-    traj, rstats = gradient.integrate(f, params, z0, grid, solver,
-                                      controller, diff_bounds)
+    trajectory = saveat.ts is not None
+    if isinstance(batching, Sharded):
+        ys, per = _solve_sharded(f, params, z0, grid, nb, solver,
+                                 controller, gradient, trajectory, batching)
+    elif isinstance(batching, PerSample):
+        ys, per = _solve_per_sample(f, params, z0, grid, solver, controller,
+                                    gradient, trajectory, diff_bounds)
+    else:
+        ys, per = _solve_lockstep(f, params, z0, grid, nb, solver,
+                                  controller, gradient, trajectory,
+                                  diff_bounds)
     n_obs = int(grid.shape[0])
-    stats = _batched_stats(_broadcast_rows(rstats, nb), n_obs - 1,
+    stats = _batched_stats(per, n_obs - 1,
                            gradient.residual_bytes(z0, n_obs, solver,
                                                    controller))
-    if saveat.ts is not None:
-        return Solution(ys=_batch_first(traj), ts=grid, stats=stats)
-    return Solution(ys=_tm(lambda b: b[-1], traj), ts=grid[-1], stats=stats)
+    return Solution(ys=ys, ts=grid if trajectory else grid[-1], stats=stats)
 
 
 def _time_grid(saveat: SaveAt, t0, t1, z0) -> torch.Tensor:
@@ -331,9 +401,16 @@ def solve(f: Dynamics, params: Pytree, z0: Pytree, t0=0.0, t1=1.0, *,
     of ``cond_fn(z, t)`` (:class:`~repro_torch.core.interface.Event`):
     ``sol.stats.event_fired`` / ``event_time`` record it, and on a
     ``SaveAt(ts=grid)`` the post-event rows hold the terminal state.
-    ``batching=Lockstep()`` makes the leading axis of every ``z0`` leaf a
-    batch axis integrated as one system: ``ys`` batch-first, ``(B, ...)``
-    or ``(B, T, ...)``, and ``stats.per_sample`` per-row counters.
+    ``batching=`` makes the leading axis of every ``z0`` leaf a batch
+    axis: ``ys`` batch-first, ``(B, ...)`` or ``(B, T, ...)``, and
+    ``stats.per_sample`` per-row counters (the scalar counters their
+    totals). ``Lockstep()`` integrates the batch as one system, one
+    shared accept/reject per trial; ``PerSample()`` gives each row its
+    own adaptive control, with ``f`` called per sample (one row of
+    ``z``, that row's scalar ``t``), for fewer f-evals on a batch of
+    mixed stiffness; ``Sharded(axis, inner)`` splits the rows over a mesh
+    axis (``with repro_torch.launch.mesh.make_host_mesh():``), ``inner``
+    batching on each rank, the whole batch gathered back on every rank.
     ``diff_bounds=True`` gives ``t0``/``t1`` (and every ``SaveAt.ts``
     entry) their analytic cotangents.
     """
@@ -382,13 +459,9 @@ def solve(f: Dynamics, params: Pytree, z0: Pytree, t0=0.0, t1=1.0, *,
             raise TypeError(
                 f"batching must be a Batching (Lockstep, PerSample or "
                 f"Sharded), got {batching!r}")
-        if not isinstance(batching, Lockstep):
-            raise NotImplementedError(
-                f"{type(batching).__name__}() batching is not ported yet "
-                "(ROADMAP queue 1 item 4: PerSample + Sharded + "
-                "ode.batch_axis); use Lockstep()")
+        batching.validate(controller, saveat)
         return _solve_batched(f, params, z0, t0, t1, solver, controller,
-                              gradient, saveat, diff_bounds)
+                              gradient, saveat, batching, diff_bounds)
 
     if saveat.steps or saveat.dense:
         dense = _solve_dense if saveat.steps else _solve_dense_interp

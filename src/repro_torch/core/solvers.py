@@ -23,6 +23,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import tree_util as pytree
+from repro_torch.tree_util import rows_like
 
 from .alf import (alf_step, alf_step_with_error, check_backend, check_eta,
                   init_velocity)
@@ -64,19 +65,20 @@ class ButcherTableau:
              with_error: bool = True) -> Tuple[Pytree, Optional[Pytree]]:
         """One step ``z -> z + h * sum(b_i k_i)`` and, when the tableau
         has error weights and ``with_error``, the embedded error estimate
-        ``h * sum(b_err_i k_i)`` (else None)."""
+        ``h * sum(b_err_i k_i)`` (else None). A (B,) ``t``/``h`` (one per
+        row, ``PerSample``) broadcasts against each leaf's batch axis."""
         ks = []
         for i, ci in enumerate(self.c):
             incr = _weighted_sum(list(zip(self.a[i], ks)))
-            zi = z if incr is None else _tm(lambda zz, dd: zz + h * dd, z,
-                                            incr)
+            zi = z if incr is None else _tm(
+                lambda zz, dd: zz + rows_like(h, dd) * dd, z, incr)
             ks.append(f(params, zi, t + ci * h))
         upd = _weighted_sum(list(zip(self.b, ks)))
-        z_next = _tm(lambda zz, dd: zz + h * dd, z, upd)
+        z_next = _tm(lambda zz, dd: zz + rows_like(h, dd) * dd, z, upd)
         err = None
         if with_error and self.b_err is not None:
             e = _weighted_sum(list(zip(self.b_err, ks)))
-            err = _tm(lambda x: h * x, e)
+            err = _tm(lambda x: rows_like(h, x) * x, e)
         return z_next, err
 
 
@@ -138,7 +140,9 @@ class Solver:
     ``init_state``/``output`` mediate between the user-facing state ``z``
     and the solver's internal state (ALF augments it with the tracked
     velocity ``v``); ``trial_fn`` closes a uniform trial step
-    ``(state, t, h) -> (state_next, err_ratio)`` over a controller.
+    ``(state, t, h) -> (state_next, err_ratio)`` over a controller. A
+    (B,) ``h`` makes the trial per-row (``PerSample``): one ratio per
+    row.
     """
 
     name: str = "?"
@@ -223,7 +227,7 @@ class RungeKutta(Solver):
 
         def trial(z, t, h):
             z1, err = self.tableau.step(f, params, z, t, h, with_error)
-            return z1, controller.error_ratio(err, z, z1)
+            return z1, controller.error_ratio(err, z, z1, h.dim() > 0)
 
         return trial
 
@@ -276,7 +280,7 @@ class ALF(Solver):
             z, v = state
             z1, v1, err = alf_step_with_error(f, params, z, v, t, h,
                                               self.eta, self.backend)
-            return (z1, v1), controller.error_ratio(err, z, z1)
+            return (z1, v1), controller.error_ratio(err, z, z1, h.dim() > 0)
 
         return trial
 

@@ -26,12 +26,15 @@ MIN_FACTOR = 0.2     # paper's DecayFactor floor
 MAX_FACTOR = 10.0    # paper's IncreaseFactor ceiling
 
 
-def error_ratio(err: Any, z0: Any, z1: Any, rtol: float,
-                atol: float) -> torch.Tensor:
+def error_ratio(err: Any, z0: Any, z1: Any, rtol: float, atol: float,
+                rows: bool = False) -> torch.Tensor:
     """RMS of err scaled by atol + rtol*max(|z0|,|z1|). Accept iff <= 1.
 
     The reduction runs over every element of the state pytree, so a
     batch-shaped state integrates in lockstep (one shared accept/reject).
+    With ``rows`` (``PerSample`` batching: every leaf has the batch axis
+    in front) it runs over each row's elements across all leaves and
+    gives a (B,) ratio, one accept/reject per row.
     """
     total = 0.0
     count = 0
@@ -39,8 +42,12 @@ def error_ratio(err: Any, z0: Any, z1: Any, rtol: float,
                        pytree.tree_leaves(z1)):
         scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
         r = (e / scale).to(torch.float32)
-        total = total + torch.sum(r * r)
-        count += r.numel()
+        if rows:
+            total = total + torch.sum((r * r).reshape(r.shape[0], -1), 1)
+            count += r[0].numel()
+        else:
+            total = total + torch.sum(r * r)
+            count += r.numel()
     # safe sqrt: d(sqrt)/dx at exactly 0 is inf, which poisons backprop
     # through the adaptive loop (0-cotangent * inf = NaN) — the naive
     # method differentiates through this code path.
@@ -65,7 +72,8 @@ def initial_step_size(rtol: float, atol: float,
     """A small fraction of the span, tolerance-scaled, signed like the span
     (a negative span — reverse time — proposes a negative step)."""
     base = torch.abs(span) * 0.05
-    tol = torch.tensor(rtol + atol, dtype=torch.float32, device=span.device)
+    # a fill on the device: no host-to-device copy, so no sync
+    tol = torch.full((), rtol + atol, dtype=torch.float32, device=span.device)
     tol_scale = torch.clamp(torch.sqrt(tol), 1e-4, 1.0)
     return torch.sign(span) * torch.maximum(base * tol_scale,
                                             torch.abs(span) * 1e-4)
@@ -79,7 +87,8 @@ class StepController:
 
     adaptive: ClassVar[bool] = False
 
-    def error_ratio(self, err: Any, z0: Any, z1: Any) -> torch.Tensor:
+    def error_ratio(self, err: Any, z0: Any, z1: Any,
+                    rows: bool = False) -> torch.Tensor:
         raise NotImplementedError
 
     @property
@@ -106,7 +115,7 @@ class ConstantSteps(StepController):
                 f"n={self.n!r}")
         object.__setattr__(self, "n", n)
 
-    def error_ratio(self, err, z0, z1) -> torch.Tensor:
+    def error_ratio(self, err, z0, z1, rows=False) -> torch.Tensor:
         # Every trial is accepted.
         return torch.zeros((), device=pytree.tree_leaves(z0)[0].device)
 
@@ -145,12 +154,12 @@ class AdaptiveController(StepController):
         object.__setattr__(self, "rtol", float(self.rtol))
         object.__setattr__(self, "atol", float(self.atol))
 
-    def error_ratio(self, err, z0, z1) -> torch.Tensor:
+    def error_ratio(self, err, z0, z1, rows=False) -> torch.Tensor:
         if err is None:
             raise ValueError(
                 "adaptive step control needs a solver with an embedded "
                 "error estimate; use ConstantSteps with this solver")
-        return error_ratio(err, z0, z1, self.rtol, self.atol)
+        return error_ratio(err, z0, z1, self.rtol, self.atol, rows)
 
     @property
     def step_bound(self) -> int:

@@ -9,10 +9,19 @@ as a ``reshape(-1)`` view, without a copy.
 
 Dispatch is by device: CUDA tensors launch the kernel (or raise — there is
 no fallback), CPU tensors take the plain version of ``ref.py`` over the
-same packed buffer. The step size ``h`` rides as a 0-d tensor of at least
+same packed buffer. The step size ``h`` rides as a tensor of at least
 float32 (float64 for float64 states) on the state's device and is never
 read on the host. Each tree is flattened once per call; a bare tensor is
 not flattened at all.
+
+Per-row step size (``PerSample`` batching): ``h`` of shape (B,) gives
+row b of the batch the step ``h[b]``. Every leaf then carries the batch
+axis in front, and the tree packs row-major,
+``cat([leaf.reshape(B, -1) for leaf], 1).reshape(-1)``, so the row length
+D is one number and element e takes ``h[e // D]``; a single contiguous
+(B, ...) leaf still packs without a copy. Still one launch per op call,
+for the whole batch. The plain versions see the packed buffer as (B, D)
+beside h as (B, 1), and the reverse rules reduce ``h_bar`` per row.
 
 Grad-free path: when autograd is off (``lm.prefill``/``decode_step`` and
 MALI's forward run under ``torch.no_grad()``) or no input needs a
@@ -74,22 +83,39 @@ class _Tree:
         else:
             self.leaves, self.spec = pytree.tree_flatten(tree)
 
-    def pack(self, dtype: torch.dtype) -> torch.Tensor:
-        """The leaves as one flat contiguous buffer of ``dtype``; a single
-        leaf of that dtype as a view where it is contiguous."""
+    def pack(self, dtype: torch.dtype, rows: int = 0) -> torch.Tensor:
+        """The leaves as one flat contiguous buffer of ``dtype``, leaf
+        after leaf, or with ``rows`` = B > 0 row after row (row b holds
+        row b of every leaf); a single leaf of that dtype as a view where
+        it is contiguous."""
         leaves = self.leaves
+        if rows:
+            for l in leaves:
+                if l.dim() == 0 or l.shape[0] != rows:
+                    raise ValueError(
+                        f"a per-row h of {rows} rows needs the batch axis "
+                        f"in front of every leaf, got a leaf of shape "
+                        f"{tuple(l.shape)}")
         if len(leaves) == 1 and leaves[0].dtype == dtype:
             return leaves[0].reshape(-1).contiguous()
+        if rows:
+            return torch.cat([l.reshape(rows, -1).to(dtype)
+                              for l in leaves], 1).reshape(-1)
         return torch.cat([l.reshape(-1).to(dtype) for l in leaves])
 
-    def unpack(self, flat: torch.Tensor) -> Pytree:
-        """``flat`` split back into leaves of this tree's shapes and
-        dtypes."""
+    def unpack(self, flat: torch.Tensor, rows: int = 0) -> Pytree:
+        """``flat`` (packed as :meth:`pack` with the same ``rows``) split
+        back into leaves of this tree's shapes and dtypes."""
         leaves = self.leaves
         if self.spec is None:
             return flat.reshape(leaves[0].shape).to(leaves[0].dtype)
-        parts = (torch.split(flat, [l.numel() for l in leaves])
-                 if len(leaves) > 1 else [flat])
+        if len(leaves) == 1:
+            parts = [flat]
+        elif rows:
+            parts = torch.split(flat.view(rows, -1),
+                                [l.numel() // rows for l in leaves], 1)
+        else:
+            parts = torch.split(flat, [l.numel() for l in leaves])
         return pytree.tree_unflatten(
             [p.reshape(l.shape).to(l.dtype) for p, l in zip(parts, leaves)],
             self.spec)
@@ -107,19 +133,39 @@ def _trees(*trees: Pytree):
     return ts, dt
 
 
-def _flatten(tree: Pytree, dtype: torch.dtype) -> torch.Tensor:
-    return _Tree(tree).pack(dtype)
+def _flatten(tree: Pytree, dtype: torch.dtype, rows: int = 0
+             ) -> torch.Tensor:
+    return _Tree(tree).pack(dtype, rows)
 
 
 def _as_h(h, cdtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The step size as a 0-d tensor of at least f32 (f64 for f64 states)
-    on the state's device. A tensor is converted on the device (and stays
-    differentiable); a Python number is uploaded once."""
+    """The step size as a 0-d or (B,) tensor of at least f32 (f64 for f64
+    states) on the state's device. A tensor is converted on the device
+    (and stays differentiable); a Python number is uploaded once."""
     hd = torch.promote_types(cdtype, torch.float32)
+    if isinstance(h, torch.Tensor) and h.dim() == 1:
+        return h.to(device=device, dtype=hd).contiguous()
     if (isinstance(h, torch.Tensor) and h.dtype == hd and h.dim() == 0
             and h.device == device):
         return h
     return torch.as_tensor(h, dtype=hd, device=device).reshape(())
+
+
+def _rows(h: torch.Tensor) -> int:
+    """B for a per-row (B,) h, 0 for a scalar one."""
+    return h.shape[0] if h.dim() else 0
+
+
+def _plain(fn, h: torch.Tensor, *bufs: torch.Tensor, param: float):
+    """A plain version of ``ref.py`` over packed buffers: as they are
+    beside a scalar h, as (B, D) beside a (B,) h viewed as (B, 1)."""
+    if not h.dim():
+        return fn(*bufs, h, param)
+    b = h.shape[0]
+    out = fn(*(x.view(b, -1) for x in bufs), h.view(b, 1), param)
+    if isinstance(out, tuple):
+        return tuple(o.reshape(-1) for o in out)
+    return out.reshape(-1)
 
 
 def _grad_free(*bufs: torch.Tensor) -> bool:
@@ -142,20 +188,24 @@ def _unwrapped(t: torch.Tensor) -> torch.Tensor:
 def _h_cotangent(h: torch.Tensor, coeff: float, a: torch.Tensor,
                  g: torch.Tensor) -> torch.Tensor:
     """h_bar = coeff * <a, g> over the packed buffers, reduced at h's
-    dtype."""
-    return torch.sum(a.to(h.dtype) * g.to(h.dtype)) * coeff
+    dtype: over the whole buffer for a scalar h, row by row for a (B,)
+    h."""
+    prod = a.to(h.dtype) * g.to(h.dtype)
+    if h.dim():
+        return prod.view(h.shape[0], -1).sum(1) * coeff
+    return torch.sum(prod) * coeff
 
 
 def _midpoint(zf, vf, h, sign):
     if _on_cuda("alf_midpoint", zf.device):
         return alf_step.midpoint_call(zf, vf, h, sign=sign)
-    return ref.midpoint_ref(zf, vf, h, sign)
+    return _plain(ref.midpoint_ref, h, zf, vf, param=sign)
 
 
 def _update(kf, vf, uf, h, eta):
     if _on_cuda("alf_update", kf.device):
         return alf_step.update_call(kf, vf, uf, h, eta=eta)
-    return ref.update_ref(kf, vf, uf, h, eta)
+    return _plain(ref.update_ref, h, kf, vf, uf, param=eta)
 
 
 class _Midpoint(torch.autograd.Function):
@@ -185,7 +235,7 @@ class _Midpoint(torch.autograd.Function):
             if _on_cuda("alf_midpoint_vjp", g.device):
                 v_bar = alf_step.midpoint_vjp_call(g, h, sign=ctx.sign)
             else:
-                v_bar = ref.midpoint_vjp_ref(g, h, ctx.sign)
+                v_bar = _plain(ref.midpoint_vjp_ref, h, g, param=ctx.sign)
         if ctx.needs_input_grad[2]:
             h_bar = _h_cotangent(h, 0.5 * ctx.sign, vf, g)
         return g, v_bar, h_bar, None
@@ -220,7 +270,8 @@ class _Update(torch.autograd.Function):
                 v_bar, u1_bar = alf_step.update_vjp_call(g_z, g_v, h,
                                                          eta=ctx.eta)
             else:
-                v_bar, u1_bar = ref.update_vjp_ref(g_z, g_v, h, ctx.eta)
+                v_bar, u1_bar = _plain(ref.update_vjp_ref, h, g_z, g_v,
+                                       param=ctx.eta)
         if ctx.needs_input_grad[3]:
             h_bar = _h_cotangent(h, 0.5, v_out, g_z)
         return g_z, v_bar, u1_bar, h_bar, None
@@ -232,10 +283,11 @@ def alf_midpoint(z: Pytree, v: Pytree, h, *, sign: float = 1.0) -> Pytree:
     OP_CALLS["alf_midpoint"] += 1
     (zt, vt), cd = _trees(z, v)
     hh = _as_h(h, cd, zt.leaves[0].device)
-    zf, vf = zt.pack(cd), vt.pack(cd)
+    b = _rows(hh)
+    zf, vf = zt.pack(cd, b), vt.pack(cd, b)
     if _grad_free(zf, vf, hh):
-        return zt.unpack(_midpoint(zf, vf, hh, float(sign)))
-    return zt.unpack(_Midpoint.apply(zf, vf, hh, float(sign)))
+        return zt.unpack(_midpoint(zf, vf, hh, float(sign)), b)
+    return zt.unpack(_Midpoint.apply(zf, vf, hh, float(sign)), b)
 
 
 def alf_update(k1: Pytree, v: Pytree, u1: Pytree, h, *,
@@ -245,12 +297,31 @@ def alf_update(k1: Pytree, v: Pytree, u1: Pytree, h, *,
     OP_CALLS["alf_update"] += 1
     (kt, vt, ut), cd = _trees(k1, v, u1)
     hh = _as_h(h, cd, kt.leaves[0].device)
-    bufs = (kt.pack(cd), vt.pack(cd), ut.pack(cd), hh)
+    b = _rows(hh)
+    bufs = (kt.pack(cd, b), vt.pack(cd, b), ut.pack(cd, b), hh)
     if _grad_free(*bufs):
         zo, vo = _update(*bufs, float(eta))
     else:
         zo, vo = _Update.apply(*bufs, float(eta))
-    return kt.unpack(zo), vt.unpack(vo)
+    return kt.unpack(zo, b), vt.unpack(vo, b)
+
+
+def _forward_only(name: str, launcher, plain, trees, h, eta: float):
+    """One call of a forward-only op (the backward-sweep kernels): pack
+    the trees (row by row for a (B,) h), launch on CUDA or run the plain
+    version on the CPU. Returns the flattened trees, the packed outputs
+    and the rows they were packed with."""
+    OP_CALLS[name] += 1
+    ts, cd = _trees(*trees)
+    dev = ts[0].leaves[0].device
+    hh = _as_h(h, cd, dev)
+    b = _rows(hh)
+    bufs = [t.pack(cd, b) for t in ts]
+    if _on_cuda(name, dev):
+        out = launcher(*bufs, hh, eta=eta)
+    else:
+        out = _plain(plain, hh, *bufs, param=eta)
+    return ts, out, b
 
 
 def alf_inverse(z_out: Pytree, v_out: Pytree, u1: Pytree, h, *,
@@ -258,32 +329,19 @@ def alf_inverse(z_out: Pytree, v_out: Pytree, u1: Pytree, h, *,
     """Full psi^-1 in one launch: (z_in, v_in) from the step output, given
     u1 = f(k1, s1); the midpoint k1 = z_out - v_out*h/2 is re-derived
     inside the kernel rather than read back."""
-    OP_CALLS["alf_inverse"] += 1
-    ts, cd = _trees(z_out, v_out, u1)
-    dev = ts[0].leaves[0].device
-    hh = _as_h(h, cd, dev)
-    bufs = [t.pack(cd) for t in ts]
-    if _on_cuda("alf_inverse", dev):
-        zi, vi = alf_step.inverse_call(*bufs, hh, eta=eta)
-    else:
-        zi, vi = ref.inverse_ref(*bufs, hh, eta)
-    return ts[0].unpack(zi), ts[1].unpack(vi)
+    ts, outs, b = _forward_only("alf_inverse", alf_step.inverse_call,
+                                ref.inverse_ref, (z_out, v_out, u1), h, eta)
+    return ts[0].unpack(outs[0], b), ts[1].unpack(outs[1], b)
 
 
 def alf_inverse_update(k1: Pytree, v_out: Pytree, u1: Pytree, h, *,
                        eta: float = 1.0) -> Tuple[Pytree, Pytree]:
     """psi^-1's tail (z_in, v_in) given the recovered midpoint k1, in one
     launch."""
-    OP_CALLS["alf_inverse_update"] += 1
-    ts, cd = _trees(k1, v_out, u1)
-    dev = ts[0].leaves[0].device
-    hh = _as_h(h, cd, dev)
-    bufs = [t.pack(cd) for t in ts]
-    if _on_cuda("alf_inverse_update", dev):
-        zi, vi = alf_step.inverse_update_call(*bufs, hh, eta=eta)
-    else:
-        zi, vi = ref.inverse_update_ref(*bufs, hh, eta)
-    return ts[0].unpack(zi), ts[1].unpack(vi)
+    ts, outs, b = _forward_only(
+        "alf_inverse_update", alf_step.inverse_update_call,
+        ref.inverse_update_ref, (k1, v_out, u1), h, eta)
+    return ts[0].unpack(outs[0], b), ts[1].unpack(outs[1], b)
 
 
 def alf_bwd_pre(z_i: Pytree, v_i: Pytree, a_z: Pytree, a_v: Pytree, h, *,
@@ -291,16 +349,10 @@ def alf_bwd_pre(z_i: Pytree, v_i: Pytree, a_z: Pytree, a_v: Pytree, h, *,
     """Fused head of one MALI backward step: the inverse's midpoint
     k1 = z_i - v_i*h/2 and the f-eval cotangent
     cot_u1 = 2*eta*(a_v + (h/2)*a_z), in one launch."""
-    OP_CALLS["alf_bwd_pre"] += 1
-    ts, cd = _trees(z_i, v_i, a_z, a_v)
-    dev = ts[0].leaves[0].device
-    hh = _as_h(h, cd, dev)
-    bufs = [t.pack(cd) for t in ts]
-    if _on_cuda("alf_bwd_pre", dev):
-        k1, cu = alf_step.bwd_pre_call(*bufs, hh, eta=eta)
-    else:
-        k1, cu = ref.bwd_pre_ref(*bufs, hh, eta)
-    return ts[0].unpack(k1), ts[2].unpack(cu)
+    ts, outs, b = _forward_only("alf_bwd_pre", alf_step.bwd_pre_call,
+                                ref.bwd_pre_ref, (z_i, v_i, a_z, a_v), h,
+                                eta)
+    return ts[0].unpack(outs[0], b), ts[2].unpack(outs[1], b)
 
 
 def alf_bwd_post(k1: Pytree, v_out: Pytree, u1: Pytree, a_z: Pytree,
@@ -308,14 +360,8 @@ def alf_bwd_post(k1: Pytree, v_out: Pytree, u1: Pytree, a_z: Pytree,
                  ) -> Tuple[Pytree, Pytree, Pytree, Pytree]:
     """Fused tail of one MALI backward step, given dk1 = vjp_f(cot_u1):
     (z_prev, v_prev, dz_prev, dv_prev), in one launch."""
-    OP_CALLS["alf_bwd_post"] += 1
-    ts, cd = _trees(k1, v_out, u1, a_z, a_v, dk1)
-    dev = ts[0].leaves[0].device
-    hh = _as_h(h, cd, dev)
-    bufs = [t.pack(cd) for t in ts]
-    if _on_cuda("alf_bwd_post", dev):
-        zp, vp, dz, dv = alf_step.bwd_post_call(*bufs, hh, eta=eta)
-    else:
-        zp, vp, dz, dv = ref.bwd_post_ref(*bufs, hh, eta)
-    return (ts[0].unpack(zp), ts[1].unpack(vp), ts[3].unpack(dz),
-            ts[4].unpack(dv))
+    ts, outs, b = _forward_only("alf_bwd_post", alf_step.bwd_post_call,
+                                ref.bwd_post_ref,
+                                (k1, v_out, u1, a_z, a_v, dk1), h, eta)
+    return (ts[0].unpack(outs[0], b), ts[1].unpack(outs[1], b),
+            ts[3].unpack(outs[2], b), ts[4].unpack(outs[3], b))

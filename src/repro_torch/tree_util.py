@@ -14,7 +14,10 @@ and kernel ops flatten, map and transform trees through these helpers:
   ``torch.utils._pytree``'s, with every ``None`` kept in place and never
   passed to a mapped function or counted as a leaf;
 * :func:`vjp` / :func:`vmap` — ``torch.func``'s, over the ``None``-free
-  leaves of their arguments and results.
+  leaves of their arguments and results;
+* :func:`rows_like` — a per-row (B,) tensor shaped to broadcast against a
+  leaf with the batch axis in front (the ``PerSample`` step sizes and
+  masks).
 """
 from __future__ import annotations
 
@@ -102,13 +105,28 @@ def vjp(fn: Callable, *primals: Pytree):
     return tree_unflatten(out, out_spec), pullback
 
 
-def vmap(fn: Callable) -> Callable:
+def vmap(fn: Callable, in_dims=0) -> Callable:
     """``torch.func.vmap`` over the leading axis of every tensor of every
-    argument; ``None`` arguments and results pass through unmapped."""
+    argument; ``None`` arguments and results pass through unmapped.
+    ``in_dims`` is 0, or one entry per argument: 0 maps every tensor of
+    that argument, None passes it whole to every call."""
     def mapped(*args: Pytree):
         leaves, in_spec = tree_flatten(args)
+        dims = 0
+        if in_dims != 0:
+            dims = tuple(d for a, d in zip(args, in_dims)
+                         for _ in tree_leaves(a))
         out_specs: list = []
-        out = torch.func.vmap(_flat_fn(fn, in_spec, out_specs))(*leaves)
+        out = torch.func.vmap(_flat_fn(fn, in_spec, out_specs),
+                              in_dims=dims)(*leaves)
         return tree_unflatten(out, out_specs[-1])
 
     return mapped
+
+
+def rows_like(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``a`` as it is when 0-d; a (B,) ``a`` shaped (B, 1, ..., 1) to
+    broadcast against ``x``, a leaf with the batch axis in front."""
+    if a.dim() == 0:
+        return a
+    return a.reshape(a.shape + (1,) * (x.dim() - 1))

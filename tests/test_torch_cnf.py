@@ -2,8 +2,8 @@
 field (``repro_torch.models.vfield``) and synthetic data
 (``repro_torch.data``), against the JAX package on the CPU.
 
-Ports the cases of tests/test_cnf.py that need no ``PerSample`` batching
-(estimator algebra, fixed noise per solve, the analytic linear flow for
+Ports the cases of tests/test_cnf.py (estimator algebra, ``PerSample``
+batching, fixed noise per solve, the analytic linear flow for
 every gradient method, sampling, the losses), then holds ``log_prob``,
 its MALI gradient and ``sample`` to the JAX package with the same
 weights and the same probe, at DIM = 16 and at the image CNF's DIM = 784
@@ -229,8 +229,11 @@ def test_hutchinson_mean_approaches_exact():
 
 
 def test_per_sample_batching_and_string_estimator():
-    """The string-estimator half runs (under Lockstep, equal to the
-    unbatched solve); PerSample batching is ROADMAP queue 1 item 4."""
+    """The string estimator resolves and runs (under Lockstep, equal to
+    the unbatched solve); ``log_prob`` with ``PerSample()`` and an
+    adaptive controller (each sample's ``_aug`` takes its unbatched
+    branch under the per-row vmap) equals the JAX package's, given the
+    JAX probe, with per-row counters equal."""
     fp = _mlp_params()
     flow = TC.CNF(mlp_vfield, D, estimator="hutchinson")
     assert isinstance(flow.estimator, TC.Hutchinson)
@@ -242,9 +245,20 @@ def test_per_sample_batching_and_string_estimator():
     assert r.logp.shape == (6,)
     assert torch.equal(r.logp, plain.logp)
     assert tuple(r.solution.stats.per_sample.n_fevals.shape) == (6,)
-    with pytest.raises(NotImplementedError, match="PerSample"):
-        flow.log_prob(fp, x, torch.Generator().manual_seed(0),
-                      batching=T.PerSample(), **kw)
+
+    np_params = _np_vfield(D, 16)
+    key = jax.random.PRNGKey(0)
+    eps = np.asarray(jax.random.rademacher(key, x.shape, jnp.float32))
+    jflow, tflow = _flows(D, "hutchinson", eps)
+    want = jflow.log_prob(_jp(np_params), jnp.asarray(x.numpy()), key,
+                          batching=J.PerSample(),
+                          controller=J.AdaptiveController())
+    got = tflow.log_prob(_tp(np_params), x, batching=T.PerSample(), **kw)
+    assert got.logp.shape == (6,)
+    assert _rel(got.logp.detach(), want.logp) <= RTOL
+    for c_t, c_j in zip(got.solution.stats.per_sample,
+                        want.solution.stats.per_sample):
+        np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
 
 
 def test_diff_bounds_through_log_prob():

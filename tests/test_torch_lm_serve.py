@@ -185,8 +185,16 @@ def test_ode_settings_as_objects():
 
 
 def test_ode_settings_batch_axis_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match=r"queue 1 \(c\)"):
-        OdeSettings(batch_axis="data").as_objects()
+    """``batch_axis`` lowers as in the JAX package: ``as_objects()``
+    works and ``batching()`` is ``Sharded(axis=batch_axis)``."""
+    from repro.core import Sharded as JSharded
+    from repro.core.ode_block import OdeSettings as JOdeSettings
+    from repro_torch.core import Sharded
+    OdeSettings(batch_axis="data").as_objects()
+    assert OdeSettings(batch_axis="data").batching() == Sharded(axis="data")
+    assert JOdeSettings(batch_axis="data").batching() == JSharded(
+        axis="data")
+    assert OdeSettings().batching() is None
 
 
 @pytest.mark.parametrize("arch,kind", [("xlstm-125m", "mlstm")])

@@ -6,7 +6,8 @@ gradients are bit-equal to the unbatched solve, ``ys`` batch-first for
 every ``SaveAt`` mode, and ``stats.per_sample`` holds the shared counters
 on every row, as the JAX package's ``_broadcast_rows`` gives them; the
 scalar counters are the rows' totals. ``PerSample()`` and ``Sharded()``
-are refused with ``NotImplementedError`` naming their ROADMAP item.
+(tests/test_torch_batching.py in full) are held here to the JAX package
+on the same batch.
 Values against the JAX package: 1e-5 relative under ``ConstantSteps``,
 2e-4 relative under ``AdaptiveController`` in f32 (the non-autonomous
 field's stage times round differently between jitted XLA and eager
@@ -198,14 +199,41 @@ def test_lockstep_diff_bounds_matches_jax():
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("batching", [
-    T.PerSample(), T.Sharded(), T.Sharded(inner=T.PerSample())],
-    ids=["per_sample", "sharded", "sharded_per_sample"])
-def test_per_sample_and_sharded_raise_not_implemented(batching):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1 item 4.*PerSample.*Sharded"):
-        T.solve(_ft, {"c": torch.tensor(0.4)}, _tz0(), 0.0, 1.0,
-                gradient=T.MALI(), batching=batching)
+@pytest.mark.parametrize("case", ["per_sample", "sharded",
+                                  "sharded_per_sample"])
+def test_per_sample_and_sharded_raise_not_implemented(case):
+    """The two modes the port once refused, against the JAX package on
+    this file's batch: ``PerSample()`` (ys and per-row counters),
+    ``Sharded()`` with no mesh (the same ValueError), and
+    ``Sharded(inner=PerSample())`` on a one-process mesh (each package's
+    host mesh)."""
+    from repro.launch.mesh import make_host_mesh as jax_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    ctrl = CONTROLLERS["adaptive"]
+    jkw = dict(gradient=J.MALI(), controller=ctrl[0])
+    tkw = dict(gradient=T.MALI(), controller=ctrl[1])
+    jargs = (_fj, {"c": jnp.asarray(0.4)}, _jz0(), 0.0, 1.0)
+    targs = (_ft, {"c": torch.tensor(0.4)}, _tz0(), 0.0, 1.0)
+    if case == "sharded":
+        with pytest.raises(ValueError, match="mesh context"):
+            J.solve(*jargs, batching=J.Sharded(), **jkw)
+        with pytest.raises(ValueError, match="mesh context"):
+            T.solve(*targs, batching=T.Sharded(), **tkw)
+        return
+    if case == "per_sample":
+        want = J.solve(*jargs, batching=J.PerSample(), **jkw)
+        got = T.solve(*targs, batching=T.PerSample(), **tkw)
+    else:
+        with jax_host_mesh():
+            want = J.solve(*jargs, batching=J.Sharded(
+                inner=J.PerSample()), **jkw)
+        with make_host_mesh("cpu"):
+            got = T.solve(*targs, batching=T.Sharded(
+                inner=T.PerSample()), **tkw)
+    np.testing.assert_allclose(got.ys["y"].numpy(), np.asarray(want.ys["y"]),
+                               rtol=JAX_RTOL["adaptive"])
+    for c_t, c_j in zip(got.stats.per_sample, want.stats.per_sample):
+        np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
 
 
 @pytest.mark.parametrize("axis", ["batching", "event"])

@@ -341,13 +341,31 @@ def _plain_solve(**kw):
     return T.solve(f_torch, p, z, **kw)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(batching=T.PerSample()), r"PerSample.*ROADMAP queue 1 item 4"),
-    (dict(batching=T.Sharded()), r"Sharded.*ROADMAP queue 1 item 4"),
-], ids=["batching", "sharded"])
-def test_unported_axes_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _plain_solve(**kw)
+@pytest.mark.parametrize("case", ["batching", "sharded"])
+def test_unported_axes_raise(case):
+    """The batching axes the port once refused, on this file's MLP field:
+    ``PerSample()`` under ConstantSteps(4) warns as the JAX package does
+    and equals its ys and per-row counters; ``Sharded()`` with no active
+    mesh raises the JAX package's ValueError."""
+    p, z = _setup()
+    jp = {k: jnp.asarray(v) for k, v in _np_params().items()}
+    jkw = dict(t0=0.0, t1=1.0, controller=J.ConstantSteps(4))
+    if case == "sharded":
+        with pytest.raises(ValueError, match="mesh context"):
+            J.solve(f_jax, jp, jnp.asarray(z.numpy()),
+                    batching=J.Sharded(), **jkw)
+        with pytest.raises(ValueError, match="mesh context"):
+            _plain_solve(batching=T.Sharded())
+        return
+    with pytest.warns(UserWarning, match="degenerates to"):
+        want = J.solve(f_jax, jp, jnp.asarray(z.numpy()),
+                       batching=J.PerSample(), **jkw)
+    with pytest.warns(UserWarning, match="degenerates to"):
+        got = _plain_solve(batching=T.PerSample())
+    np.testing.assert_allclose(got.ys.detach().numpy(), np.asarray(want.ys),
+                               rtol=RTOL, atol=ATOL)
+    for c_t, c_j in zip(got.stats.per_sample, want.stats.per_sample):
+        np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
 
 
 @pytest.mark.parametrize("bad", [
