@@ -190,6 +190,35 @@ either. Phases, each printing JSON lines:
                mesh bit-equal to their inner batching. The per-row
                launches of (a) and of (b)'s gradients are counted from 0
                (the kernels line's launches_per_sample).
+16. serve     — the continuous-batching ODE serving engine
+               (repro_torch.serve), its chunk lane on the per-row ALF
+               kernels: (a) benchmarks/serve_load.py's protocol at its
+               sizes (slots 8, chunk 16, D 16, 64 requests, lam
+               log-uniform over [0.5, 200], max_steps 2048, ALF(eta=0.9),
+               the tick clock at the measured round time, Poisson at 0.75
+               of capacity, both engines) on the card and on the CPU: per
+               request f-evals, accepted steps and completion equal, end
+               states within 1e-6, rounds equal, both ratios > 1 and
+               equal within 1e-6 relative, beside the JAX package's; (b)
+               its 64 continuous-engine rows, and 8 of (d) (the 4 fastest
+               and 4 slowest), against their own solve() on the card
+               (scalar kernels, ReproducibleController; (d)'s f computed
+               as a fleet row is: a 1024-row product), counters equal,
+               within 1e-6 and 1e-5 relative; the same 8 against f's
+               one-row products, reported; (c) the dense lane's hot
+               trajectory (6 hits in 7 lookups, 0 f-evals a hit) and an
+               event on -8 z against the same event solve() (1e-6), 2
+               scalar ALF launches a trial; (d) launch/serve.py --mode ode
+               at --batch 1024 --d-state 784 --requests 4096
+               --chunk-steps 32 (its mlp_field), both engines all at once
+               and on one Poisson trace at 0.75 of the closed-loop
+               requests/s, p50/p99, solves/s, occupancy, rounds, ms a
+               round, peak memory, the device's busy share over 4 rounds,
+               host syncs over 4 rounds, and the CLI at its defaults; (e)
+               exactly 2 x chunk_steps ALF launches a round, all per-row
+               (the kernels line's launches_serve: (d)'s two serve_ode
+               runs), no host sync inside a chunk
+               (set_sync_debug_mode("error")).
 
 Phase 2 also holds the eight kernels with a per-row (B,) h, each row
 its own (kernels_rows: B x D in ROW_CASES, f32, bf16, mixed, f64, one
@@ -233,9 +262,12 @@ CNF_ROW = 2 * CNF_DIM + 2
 CNF_PACKED_N = tuple(b * CNF_ROW for b in CNF_BATCHES)
 # Per-row h (PerSample batching): (B rows, D elements a row). D = 1, 2
 # and 37 (odd) put row boundaries inside 16-byte vectors; the CNF's row
-# (1570) at its two batches; the main path's 2048 x 64.
+# (1570) at its two batches; the main path's 2048 x 64; the serve
+# engine's fleets (phase 16), a row its (y, scale) or (y, lam): 8 x 32
+# (serve_load), 64 x 64 (the CLI's defaults), 1024 x 1568 (full width).
 ROW_CASES = ((1, CNF_ROW), (3, 1), (3, 2), (3, 37), (16, CNF_ROW),
-             (16, 2), (1024, 1), (1024, 37), (1024, CNF_ROW), (N_TRAIN, D))
+             (16, 2), (1024, 1), (1024, 37), (1024, CNF_ROW), (N_TRAIN, D),
+             (8, 2 * 16), (64, 2 * 32), (1024, 2 * 784))
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_core_gradients.py:76
 KERNEL_ULPS = 2
 TIME_PAIRS = 5
@@ -566,8 +598,9 @@ def phase_kernels_rows():
     versions, each row its own h (a row that read another row's h would
     be off by far more than the tolerance): f32, bf16, a mixed {f32,
     bf16} row and f64, over ROW_CASES; each call must be one launch of
-    the per-row instantiation. Returns (worst f32 error at 1024 x 1570,
-    checks) per kernel."""
+    the per-row instantiation. Every launch holds steps of both signs and
+    rows with h exactly 0 (an empty serve slot's). Returns (worst f32
+    error at 1024 x 1570, checks) per kernel."""
     import torch
     from repro_torch.kernels.alf_step import alf_step, ops
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -583,7 +616,9 @@ def phase_kernels_rows():
                 if kind == "mixed" and d == 1:
                     continue
                 trees = _make_row_trees(kind, b, d, n_trees, gen)
-                h = (torch.rand(b, device="cuda", generator=gen) - 0.5) * 0.8
+                h = torch.rand(b, device="cuda", generator=gen) * 0.4 + 0.01
+                h[::2] *= -1.0          # both directions in one launch
+                h[1::4] = 0.0           # an empty serve slot's h
                 for p in params:
                     before = alf_step.LAUNCHES[name]
                     before_rows = alf_step.ROW_LAUNCHES[name]
@@ -3476,6 +3511,509 @@ def phase_per_sample(card: str, smi: str, trained, xs_by_batch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 16: the continuous-batching ODE serving engine (repro_torch.serve)
+# ---------------------------------------------------------------------------
+
+# (a)-(c): benchmarks/serve_load.py's protocol at its own sizes
+SV_SLOTS, SV_CHUNK, SV_D, SV_N = 8, 16, 16, 64
+SV_LAM = (float(np.log10(0.5)), float(np.log10(200.0)))
+SV_MAX_STEPS = 2048
+SV_LOAD = 0.75                # offered rate / closed-loop capacity
+SV_REPEATS = 6                # hot-trajectory repeat queries
+# The JAX package's benchmarks/serve_load.py (python -m benchmarks.run
+# --only serve_load, on a CPU). Counts and tick-clock ratios: the same on
+# any machine given the same per-request trial counts.
+SV_JAX = {"rounds": {"continuous": 176, "static": 251},
+          "fevals_per_request": 159.421875,
+          "p99_static_over_continuous": 2.19278,
+          "solves_continuous_over_static": 1.3805,
+          "occupancy": {"continuous": 0.471591, "static": 0.917331}}
+SV_ATOL, SV_RTOL = 1e-6, 1e-6     # (a), (b): end states, |d| <= a + r|x|
+SV_EVENT_TOL = 1e-6               # (c): event_time against solve()
+SV_FULL_REL = 1e-5                # (b) on (d): max |d| / max |x|
+SV_FULL_ROWS = 8                  # (b) on (d): the 4 fastest + 4 slowest
+# (d): launch/serve.py --mode ode at full width (D = the image CNF's 784)
+SV_FULL = dict(batch=1024, d_state=784, n_requests=4096, chunk_steps=32)
+SV_PROFILED = 4                   # rounds profiled and sync-counted
+
+
+def _sv_engine(cls, device: str, **kw):
+    """An engine of cls over decay_dynamics at serve_load's sizes, the
+    kernels on the card and the reference backend on the CPU."""
+    from repro_torch.core import ALF
+    from repro_torch.serve import EngineConfig, decay_dynamics
+    backend = "cuda" if device == "cuda" else "reference"
+    return cls(decay_dynamics, None,
+               config=EngineConfig(slots=SV_SLOTS, chunk_steps=SV_CHUNK,
+                                   solver=ALF(eta=0.9, backend=backend)),
+               device=device, **kw)
+
+
+def _sv_requests(seed: int, rate: float):
+    from repro_torch.serve import mixed_stiffness_requests
+    return mixed_stiffness_requests(
+        np.random.default_rng(seed), SV_N, rate=rate, d_state=SV_D,
+        lam_decades=SV_LAM, max_steps=SV_MAX_STEPS)
+
+
+def _tick_timer(tau: float):
+    """serve_load's deterministic clock: tau/2 a sample."""
+    state = {"t": 0.0}
+
+    def timer() -> float:
+        state["t"] += tau / 2.0
+        return state["t"]
+
+    return timer
+
+
+def _sv_load(device: str):
+    """serve_load's protocol on one device: a closed-loop warm-up, a timed
+    closed-loop run (tau, ms a round), capacity on the tick clock, then
+    both engines on one Poisson trace at SV_LOAD of it. On the card the
+    ALF launches of the continuous load run are counted: 2 a trial, all
+    per-row."""
+    import torch
+    from repro_torch.kernels.alf_step import alf_step
+    from repro_torch.serve import ContinuousBatchingEngine, StaticFleetEngine
+    closed = 1e9                   # ~all arrivals at t = 0
+    warm = _sv_engine(ContinuousBatchingEngine, device)
+    warm.submit(_sv_requests(0, closed))
+    warm.run()
+    timed = _sv_engine(ContinuousBatchingEngine, device)
+    timed.submit(_sv_requests(0, closed))
+    rep = timed.run()
+    tau = rep.duration_s / max(rep.rounds, 1)
+    cap = _sv_engine(ContinuousBatchingEngine, device,
+                     timer=_tick_timer(tau))
+    cap.submit(_sv_requests(0, closed))
+    mu = cap.run().solves_per_s
+    rate = SV_LOAD * mu
+    runs, launches = {}, None
+    for cls in (ContinuousBatchingEngine, StaticFleetEngine):
+        eng = _sv_engine(cls, device, timer=_tick_timer(tau))
+        reqs = _sv_requests(1, rate)
+        eng.submit(reqs)
+        alf_step.reset_launches()
+        runs[eng.name] = (eng, reqs, eng.run())
+        if device == "cuda" and launches is None:
+            launches = (dict(alf_step.LAUNCHES), dict(alf_step.ROW_LAUNCHES))
+            torch.cuda.synchronize()
+    cont, stat = runs["continuous"][2], runs["static"][2]
+    summary = {
+        "device": device, "tau_ms": tau * 1e3,
+        "closed_loop_rounds": rep.rounds, "capacity_solves_per_s": mu,
+        "rate": rate,
+        "p99_static_over_continuous": stat.p99_latency_s
+        / max(cont.p99_latency_s, 1e-12),
+        "solves_continuous_over_static": cont.solves_per_s
+        / max(stat.solves_per_s, 1e-12),
+        **{name: {k: getattr(r[2], k) for k in (
+            "rounds", "fevals_per_request", "backfill_occupancy",
+            "p50_latency_s", "p99_latency_s", "solves_per_s",
+            "n_completed")} for name, r in runs.items()}}
+    return summary, runs, launches
+
+
+def _sv_close(got: dict, want: dict, what: str) -> float:
+    """End states within SV_ATOL + SV_RTOL |want| per element; returns
+    the largest |got - want|."""
+    worst = 0.0
+    for k, w in want.items():
+        g = np.asarray(got[k], np.float64)
+        w = np.asarray(w, np.float64)
+        require(np.all(np.isfinite(g)), f"{what}: non-finite {k}")
+        d = np.abs(g - w)
+        require(bool(np.all(d <= SV_ATOL + SV_RTOL * np.abs(w))),
+                f"{what}: {k} differs by {float(d.max())}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def _sv_card_vs_cpu(card_runs, cpu_runs):
+    """(a): per request, the card's counters equal the CPU's and its end
+    state is within tolerance; rounds equal."""
+    worst = 0.0
+    for name, (ge, greqs, grep) in card_runs.items():
+        ce, creqs, crep = cpu_runs[name]
+        require(grep.rounds == crep.rounds, f"serve (a) {name}: "
+                f"{grep.rounds} rounds on the card, {crep.rounds} on the CPU")
+        grec = {r.rid: r for r in ge.records}
+        crec = {r.rid: r for r in ce.records}
+        for i, (a, b) in enumerate(zip(greqs, creqs)):
+            ra, rb = grec[a.rid], crec[b.rid]
+            got = (ra.n_fevals, ra.n_accepted, ra.completed)
+            want = (rb.n_fevals, rb.n_accepted, rb.completed)
+            require(got == want, f"serve (a) {name} request {i} (lam "
+                    f"{float(a.z0['lam'][0])}): card {got}, CPU {want}")
+            worst = max(worst, _sv_close(ge.results[a.rid],
+                                         ce.results[b.rid],
+                                         f"serve (a) {name} request {i}"))
+    return worst
+
+
+def _sv_solve(f, params, z0, cfg) -> dict:
+    """One request's own solve() on the card: scalar kernels, the
+    engine's controller."""
+    import torch
+    from repro_torch.core import ALF, ReproducibleController, solve
+    z0 = {k: torch.as_tensor(v, device="cuda") for k, v in z0.items()}
+    with torch.no_grad():
+        return solve(f, params, z0, cfg.t0, cfg.t1,
+                     solver=ALF(eta=0.9, backend="cuda"),
+                     controller=ReproducibleController(cfg.rtol, cfg.atol,
+                                                       cfg.max_steps))
+
+
+def _sv_rel(got: dict, want: dict) -> float:
+    return max(float(np.abs(np.asarray(got[k]) - w.cpu().numpy()).max()
+                     / max(float(w.abs().max()), 1e-30))
+               for k, w in want.items())
+
+
+def _sv_fleet_row(f, rows: int):
+    """``f`` for one sample computed as the engine computes a fleet row's:
+    row 0 of ``per_sample(f)`` over ``rows`` rows (the others zero). A
+    GEMM rounds a row the same whatever the other rows hold, but not as
+    the one-row product (a GEMV) does."""
+    import torch
+    from repro_torch.core.interface import per_sample
+    rows_f = per_sample(f)
+
+    def f_row(params, z, t):
+        zb = {k: torch.cat([v[None], v.new_zeros((rows - 1,) + v.shape)])
+              for k, v in z.items()}
+        out = rows_f(params, zb, t.reshape(1).expand(rows))
+        return {k: v[0] for k, v in out.items()}
+
+    return f_row
+
+
+def _sv_vs_solve(eng, reqs, f, params, what: str, rel_tol=None):
+    """(b): each request's served end state and counters against its own
+    solve() on the card (scalar kernels, the engine's controller, ``f``):
+    counters equal, states within SV_ATOL/SV_RTOL or, given rel_tol, max
+    |d| / max |x| within it. Returns the worst difference."""
+    recs = {r.rid: r for r in eng.records}
+    worst = 0.0
+    for req in reqs:
+        sol = _sv_solve(f, params, req.z0, req.config)
+        rec = recs[req.rid]
+        want = (int(sol.stats.n_fevals), int(sol.stats.n_accepted))
+        require((rec.n_fevals, rec.n_accepted) == want,
+                f"{what}: request {req.rid} served with (f-evals, accepted) "
+                f"{(rec.n_fevals, rec.n_accepted)}, solve() {want}")
+        if rel_tol is None:
+            worst = max(worst, _sv_close(
+                eng.results[req.rid],
+                {k: v.cpu().numpy() for k, v in sol.ys.items()}, what))
+            continue
+        r = _sv_rel(eng.results[req.rid], sol.ys)
+        require(r <= rel_tol, f"{what}: request {req.rid} rel {r}")
+        worst = max(worst, r)
+    return worst
+
+
+def _sv_lanes():
+    """(c): the dense lane's hot trajectory (hit rate 6/7, 0 f-evals a
+    hit) and one event request on -lam*y against the same event solve()
+    on the card; 2 scalar ALF launches a trial in both lanes."""
+    import torch
+    from repro_torch.core import ALF, Event, ReproducibleController, solve
+    from repro_torch.kernels.alf_step import alf_step
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   InterpolantCache, LRU, Request,
+                                   RequestConfig, decay_dynamics,
+                                   hot_trajectory_requests)
+
+    def scalar_launches(trials, what):
+        for name in FORWARD:
+            n, rows = alf_step.LAUNCHES[name], alf_step.ROW_LAUNCHES[name]
+            require(n == trials and rows == 0, f"serve (c) {what}: {name} "
+                    f"launched {n} times ({rows} per-row) in {trials} trials")
+
+    cache = InterpolantCache(LRU(max_entries=16))
+    eng = _sv_engine(ContinuousBatchingEngine, "cuda", cache=cache,
+                     vf_id="decay")
+    eng.submit(hot_trajectory_requests(
+        np.random.default_rng(2), n_repeats=SV_REPEATS, d_state=SV_D,
+        max_steps=SV_MAX_STEPS))
+    alf_step.reset_launches()
+    rep = eng.run()
+    hits = [r.n_fevals for r in eng.records if r.cache_hit]
+    (miss,) = [r for r in eng.records if not r.cache_hit]
+    require((rep.cache_hits, rep.cache_misses) == (SV_REPEATS, 1)
+            and hits == [0] * SV_REPEATS, f"serve (c): cache "
+            f"{rep.cache_hits}/{rep.cache_misses}, hit f-evals {hits}")
+    scalar_launches(miss.n_fevals - 1, "dense")     # less v0
+
+    lam = 8.0
+    ev = Event(lambda z, t: z["y"][0] - 0.5, direction=-1)
+    z0 = {"y": np.ones(SV_D, np.float32),
+          "lam": np.full(SV_D, lam, np.float32)}
+    cfg = RequestConfig(t1=1.0, max_steps=SV_MAX_STEPS)
+    req = Request(z0=z0, config=cfg, event=ev)
+    ev_eng = _sv_engine(ContinuousBatchingEngine, "cuda")
+    ev_eng.submit([req])
+    alf_step.reset_launches()
+    ev_eng.run()
+    (rec,) = ev_eng.records
+    scalar_launches(rec.n_fevals - 2, "event")      # less two v0s
+    with torch.no_grad():
+        single = solve(decay_dynamics, None,
+                       {k: torch.as_tensor(v, device="cuda")
+                        for k, v in z0.items()}, cfg.t0, cfg.t1,
+                       solver=ALF(eta=0.9, backend="cuda"),
+                       controller=ReproducibleController(
+                           cfg.rtol, cfg.atol, cfg.max_steps), event=ev)
+    t_served = ev_eng.event_times[req.rid]
+    t_solve = float(single.stats.event_time)
+    require(abs(t_served - t_solve) <= SV_EVENT_TOL, f"serve (c): event "
+            f"time {t_served} served, {t_solve} by solve()")
+    require(abs(t_served - np.log(2.0) / lam) < 1e-3,
+            f"serve (c): event time {t_served}, ln 2 / {lam} expected")
+    return {"cache_hits": rep.cache_hits, "cache_lookups":
+            rep.cache_hits + rep.cache_misses, "hit_fevals": hits,
+            "miss_fevals": miss.n_fevals, "event_time": t_served,
+            "event_time_solve": t_solve, "event_fevals": rec.n_fevals,
+            "event_ln2_over_lam": float(np.log(2.0) / lam)}
+
+
+def _sv_rounds(eng, n: int) -> None:
+    """n rounds of the continuous engine's loop body."""
+    for _ in range(n):
+        eng._dispatch()
+        eng._retire_rows(eng._finished_rows(), eng.now)
+        eng.scheduler.release(eng.now)
+        eng._backfill()
+
+
+def _sv_full_engine():
+    """A continuous engine on serve_ode's own field and trace at SV_FULL
+    (its seed 0, all at once), submitted."""
+    from repro_torch.core import ALF
+    from repro_torch.launch import serve as tserve
+    from repro_torch.serve import (ContinuousBatchingEngine, EngineConfig,
+                                   RequestConfig)
+    rng = np.random.default_rng(0)
+    f, params = tserve.mlp_field(rng, SV_FULL["d_state"], "cuda")
+    reqs = tserve.ode_requests(rng, SV_FULL["n_requests"],
+                               SV_FULL["d_state"],
+                               RequestConfig(t0=0.0, t1=1.0, rtol=1e-3,
+                                             atol=1e-4, max_steps=512))
+    eng = ContinuousBatchingEngine(
+        f, params, config=EngineConfig(
+            slots=SV_FULL["batch"], chunk_steps=SV_FULL["chunk_steps"],
+            solver=ALF(eta=0.9, backend="cuda")), device="cuda")
+    eng.submit(reqs)
+    return eng
+
+
+def _sv_report(rep) -> dict:
+    return {"p50_ms": rep.p50_latency_s * 1e3,
+            "p99_ms": rep.p99_latency_s * 1e3,
+            "solves_per_s": rep.solves_per_s,
+            "occupancy": rep.backfill_occupancy, "rounds": rep.rounds,
+            "ms_per_round": rep.duration_s * 1e3 / max(rep.rounds, 1),
+            "duration_s": rep.duration_s, "n_requests": rep.n_requests,
+            "n_completed": rep.n_completed,
+            "fevals_per_request": rep.fevals_per_request}
+
+
+def _sv_full_width():
+    """(d) and (e) at full width: serve_ode for both engines all at once
+    (the phase's counted main path; its continuous engine kept for peak
+    memory and (b)'s 8 rows), both engines on one Poisson trace at
+    SV_LOAD of the continuous capacity, 4 profiled and 4 sync-counted
+    rounds, no sync inside a chunk, and the CLI at its defaults."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+    import repro_torch.serve as serve_pkg
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.launch import serve as tserve
+    out = {}
+    quiet = io.StringIO()
+    made = []
+
+    class Kept(serve_pkg.ContinuousBatchingEngine):
+        """serve_ode's continuous engine, kept with its requests."""
+
+        def submit(self, requests):
+            made.append((self, list(requests)))
+            super().submit(requests)
+
+    _lm_reset()
+    closed = {}
+    serve_pkg.ENGINES["continuous"] = Kept
+    try:
+        with contextlib.redirect_stdout(quiet):
+            for name in ("continuous", "static"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                rep = tserve.serve_ode(engine=name, **SV_FULL)
+                torch.cuda.synchronize()
+                closed[name] = (rep, time.perf_counter() - t0,
+                                torch.cuda.max_memory_allocated() - base)
+    finally:
+        serve_pkg.ENGINES["continuous"] = serve_pkg.ContinuousBatchingEngine
+    launches, _ = _lm_counts()
+    rounds = sum(rep.rounds for rep, _, _ in closed.values())
+    for name, n in launches.items():
+        want = SV_FULL["chunk_steps"] * rounds if name in FORWARD else 0
+        require(n == want, f"serve (e): {name} launched {n} times in "
+                f"{rounds} rounds of {SV_FULL['chunk_steps']} trials")
+    from repro_torch.kernels.alf_step import alf_step
+    for name in FORWARD:
+        require(alf_step.ROW_LAUNCHES[name] == launches[name],
+                f"serve (e): {name}: a scalar launch in the chunk lane")
+    out["closed_loop"] = {name: {**_sv_report(rep), "wall_s": wall,
+                                 "peak_bytes": peak}
+                          for name, (rep, wall, peak) in closed.items()}
+
+    # (b) on the continuous run's rows.
+    ((eng, reqs),) = made
+    rep = closed["continuous"][0]
+    f, params = eng.f, eng.params
+    fevals = {x.rid: x.n_fevals for x in eng.records}
+    by_cost = sorted(reqs, key=lambda r: fevals[r.rid])
+    picked = by_cost[:SV_FULL_ROWS // 2] + by_cost[-SV_FULL_ROWS // 2:]
+    out["vs_solve_rel"] = _sv_vs_solve(
+        eng, picked, _sv_fleet_row(f, SV_FULL["batch"]), params,
+        "serve (b) full width", SV_FULL_REL)
+    out["vs_solve_fevals"] = [fevals[r.rid] for r in picked]
+    # The same rows against solve() with f as written (one-row products):
+    # how far the batched product's rounding carries, reported.
+    gemv = []
+    for r in picked:
+        sol = _sv_solve(f, params, r.z0, r.config)
+        rec = next(x for x in eng.records if x.rid == r.rid)
+        gemv.append({"rel": _sv_rel(eng.results[r.rid], sol.ys),
+                     "fevals": [rec.n_fevals, int(sol.stats.n_fevals)],
+                     "accepted": [rec.n_accepted,
+                                  int(sol.stats.n_accepted)]})
+    out["vs_solve_one_row_products"] = gemv
+    # Capacity in requests a second: at D = 784 most requests spend their
+    # whole trial budget (completed=False), which solves/s leaves out.
+    mu = rep.n_requests / rep.duration_s
+    out["capacity_requests_per_s"] = mu
+    out["capacity_solves_per_s"] = rep.solves_per_s
+
+    # Both engines on one Poisson trace at SV_LOAD of that capacity.
+    poisson = {}
+    with contextlib.redirect_stdout(quiet):
+        for name in ("continuous", "static"):
+            poisson[name] = _sv_report(tserve.serve_ode(
+                engine=name, rate=SV_LOAD * mu, **SV_FULL))
+    out["poisson"] = {"rate": SV_LOAD * mu, **poisson}
+
+    # Four profiled rounds, four sync-counted rounds (no sync inside a
+    # chunk: dispatch_chunk under set_sync_debug_mode("error")).
+    eng = _sv_full_engine()
+    eng.scheduler.release(0.0)
+    eng._backfill()
+    _sv_rounds(eng, 1)
+    out["profile_4_rounds"] = _device_profile(
+        lambda: _sv_rounds(eng, SV_PROFILED))
+    chunk = engine_mod.dispatch_chunk
+
+    def no_sync_chunk(*a, **kw):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return chunk(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    engine_mod.dispatch_chunk = no_sync_chunk
+    try:
+        before = eng.host_syncs
+        _, n_syncs, where = _count_syncs(lambda: _sv_rounds(eng, SV_PROFILED))
+    finally:
+        engine_mod.dispatch_chunk = chunk
+    explicit = eng.host_syncs - before
+    # The round's one sync is the explicit torch.cuda.synchronize, which
+    # the sync debug mode does not report; nothing else may sync.
+    require(n_syncs == 0 and explicit == SV_PROFILED, f"serve (e): "
+            f"{n_syncs} implicit syncs ({where}) and {explicit} explicit "
+            f"ones in {SV_PROFILED} rounds; one explicit a round expected")
+    out["syncs_4_rounds"] = {
+        "reported": n_syncs, "where": where,
+        "engine_synchronize_calls": explicit}
+
+    # The CLI at its defaults, as users call it (the card by default).
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "ode"],
+        capture_output=True, text=True, timeout=600, cwd=str(HERE),
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
+    require(cli.returncode == 0, f"serve (d): the CLI exited "
+            f"{cli.returncode}: {cli.stderr[-2000:]}")
+    require("serve[continuous]" in cli.stdout
+            and "256 completed" in cli.stdout and "device=cuda" in
+            cli.stdout, f"serve (d): CLI output {cli.stdout[-2000:]}")
+    out["cli_defaults"] = {"stdout": cli.stdout.strip().splitlines(),
+                           "wall_s": time.perf_counter() - t0}
+    return out, launches
+
+
+def phase_serve(card: str, smi: str):
+    """Phase 16: the serving engine on the card. (a) serve_load's protocol
+    on the card and on the CPU, per request equal; (b) served rows against
+    their own solve(); (c) the dense and event lanes; (d) serve_ode at
+    full width; (e) launches and syncs. Returns the ALF launches of (d)'s
+    serve_ode runs, counted from 0 (the kernels line's launches_serve)."""
+    import torch
+    t0 = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    card_sum, card_runs, (lau, rows) = _sv_load("cuda")
+    lap("a_card")
+    cont = card_runs["continuous"][2]
+    for name in FORWARD:
+        require(lau[name] == rows[name] == SV_CHUNK * cont.rounds,
+                f"serve (e): {name} launched {lau[name]} times "
+                f"({rows[name]} per-row) in {cont.rounds} rounds of "
+                f"{SV_CHUNK} trials")
+    cpu_sum, cpu_runs, _ = _sv_load("cpu")
+    lap("a_cpu")
+    a_worst = _sv_card_vs_cpu(card_runs, cpu_runs)
+    for key in ("p99_static_over_continuous",
+                "solves_continuous_over_static"):
+        g, c = card_sum[key], cpu_sum[key]
+        require(g > 1.0 and c > 1.0 and abs(g - c) <= 1e-6 * abs(c),
+                f"serve (a): {key} {g} on the card, {c} on the CPU")
+    from repro_torch.serve import decay_dynamics
+    eng, reqs, _ = card_runs["continuous"]
+    b_worst = _sv_vs_solve(eng, reqs, decay_dynamics, None, "serve (b)")
+    lap("b")
+    lanes = _sv_lanes()
+    lap("c")
+    full, launches = _sv_full_width()
+    lap("d")
+    torch.cuda.synchronize()
+    emit({"phase": "serve", "card": card, "nvidia_smi": smi,
+          "serve_load": {
+              "sizes": {"slots": SV_SLOTS, "chunk_steps": SV_CHUNK,
+                        "d_state": SV_D, "requests": SV_N,
+                        "lam": [10 ** SV_LAM[0], 10 ** SV_LAM[1]],
+                        "max_steps": SV_MAX_STEPS, "load": SV_LOAD},
+              "card": card_sum, "cpu": cpu_sum, "jax_cpu": SV_JAX,
+              "card_vs_cpu_max_abs": a_worst,
+              "launches_per_round": 2 * SV_CHUNK},
+          "vs_solve_max_abs": b_worst, "lanes": lanes,
+          "full_width": {"sizes": SV_FULL, **full},
+          "part_s": parts, "phase_s": time.perf_counter() - t0})
+    return launches
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -3502,26 +4040,50 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0})
 
+    walls = {}
+    last = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        walls[name] = now - last[0]
+        last[0] = now
+
     worst, checks = phase_kernels()
+    lap("kernels")
     row_worst, row_checks = phase_kernels_rows()
+    lap("kernels_rows")
     times, row_times = phase_times(card)
+    lap("times")
     launches, mali_losses = phase_main_path()
+    lap("main_path")
     phase_adaptive()
+    lap("adaptive")
     # Each kernel's launches come from the path that runs it; the two
     # VJP kernels' and alf_inverse's from the direct-backprop phase.
     # alf_inverse_update runs on no path (no caller in either package).
     direct = phase_direct_backprop(mali_losses)
     for name in (*VJPS, "alf_inverse"):
         launches[name] = direct[name]
+    lap("direct_backprop")
     phase_memory()
     phase_profile()
+    lap("memory_profile")
     lm_worst, lm_checks = phase_lm_kernels()
     lm_times = phase_lm_times(card)
+    lap("lm_kernels_times")
     lm_launches = phase_lm_serve(card, smi)
+    lap("lm_serve")
     ssm_launches = phase_ssm_serve(card, smi)
+    lap("ssm_serve")
     backsolve_launches = phase_methods(card, smi)
+    lap("methods")
     cnf_launches, cnf_sample_launches, trained, xs = phase_cnf(card, smi)
+    lap("cnf")
     ps_launches = phase_per_sample(card, smi, trained, xs)
+    lap("per_sample")
+    serve_launches = phase_serve(card, smi)
+    lap("serve")
+    emit({"phase": "walls", "seconds": walls})
 
     table = []
     for name, (replaces, *_rest) in KERNELS.items():
@@ -3554,7 +4116,9 @@ def main() -> int:
                       "per_row_checks": row_checks[name],
                       "per_row_max_abs_err": row_worst[name],
                       # per-row launches on the PerSample paths (phase 15)
-                      "launches_per_sample": ps_launches[name]})
+                      "launches_per_sample": ps_launches[name],
+                      # on the serving engine's chunk lane (phase 16)
+                      "launches_serve": serve_launches[name]})
     for name, (replaces, source) in LM_KERNELS.items():
         row = lm_times[name]
         # each kernel's launches from its own path: the scan's from the
@@ -3565,6 +4129,7 @@ def main() -> int:
                       "launches": own[name],
                       "launches_lm_serve": lm_launches[name],
                       "launches_ssm_serve": ssm_launches[name],
+                      "launches_serve": serve_launches[name],
                       "checks": lm_checks[name],
                       "max_abs_err": lm_worst[name]["bfloat16"],
                       "ms": row["ms"], "plain_ms": row["plain_ms"],

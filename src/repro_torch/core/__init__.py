@@ -28,7 +28,8 @@ from .solve import solve
 from .solvers import (ALF, SOLVERS, Bosh3, ButcherTableau, Dopri5, Euler,
                       HeunEuler, Midpoint, Rk4, RungeKutta, Solver,
                       get_solver)
-from .stepsize import AdaptiveController, ConstantSteps, StepController
+from .stepsize import (AdaptiveController, ConstantSteps,
+                       ReproducibleController, StepController)
 
 __all__ = [
     # ALF primitives
@@ -42,6 +43,7 @@ __all__ = [
     "Solver", "RungeKutta", "ALF", "ButcherTableau",
     "Euler", "HeunEuler", "Midpoint", "Bosh3", "Rk4", "Dopri5",
     "StepController", "ConstantSteps", "AdaptiveController",
+    "ReproducibleController",
     # legacy facade
     "odeint", "odeint_mali", "odeint_naive", "odeint_aca", "odeint_adjoint",
     "mali_forward_stats", "METHODS", "SOLVERS", "get_solver",

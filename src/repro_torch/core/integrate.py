@@ -48,8 +48,7 @@ import torch
 from repro_torch import tree_util as pytree
 from repro_torch.tree_util import rows_like
 
-from .stepsize import (AdaptiveController, ConstantSteps, StepController,
-                       initial_step_size, next_step_size)
+from .stepsize import AdaptiveController, ConstantSteps, StepController
 
 _tm = pytree.tree_map
 
@@ -262,9 +261,7 @@ def integrate_adaptive(
     t1: torch.Tensor,
     *,
     order: int,
-    rtol: float,
-    atol: float,
-    max_steps: int,
+    controller: AdaptiveController,
     h0: Optional[torch.Tensor] = None,
     record_states: bool = False,
     record_buf: Optional[Pytree] = None,
@@ -281,11 +278,14 @@ def integrate_adaptive(
 
     A (B,) ``h0`` runs the loop per row (``PerSample``): every buffer
     gains a trailing B axis, each row writes its own next slot, and the
-    loop ends when every row is done."""
+    loop ends when every row is done. ``controller`` gives the initial
+    proposal, the ``max_steps`` trial bound and the step-size policy; the
+    trial's error ratio is its own."""
     dev = t0.device
     t0 = t0.to(TIME_DTYPE)
     t1 = t1.to(TIME_DTYPE)
-    h = (initial_step_size(rtol, atol, t1 - t0) if h0 is None
+    max_steps = controller.max_steps
+    h = (controller.initial_step(t1 - t0) if h0 is None
          else h0.to(TIME_DTYPE))
     shape = h.shape                      # () or (B,)
     ts_buf = torch.zeros((max_steps,) + shape, dtype=TIME_DTYPE, device=dev)
@@ -324,7 +324,7 @@ def integrate_adaptive(
 
         new_t = torch.where(accept, torch.where(is_last, t1, t + h_eff), t)
         state = tree_where(accept, state_next, state)
-        h_next = next_step_size(h_eff, ratio, order)
+        h_next = controller.next_step(h_eff, ratio, order)
         h = torch.where(done, h, h_next)
         done = done | (accept & is_last)
         t = new_t
@@ -442,9 +442,7 @@ def _adaptive_grid(trial: TrialFn, state0: Pytree, ts: torch.Tensor,
                                               torch.abs(span))
         out = integrate_adaptive(
             trial, state, ts[k], ts[k + 1], order=order,
-            rtol=controller.rtol, atol=controller.atol,
-            max_steps=controller.max_steps, h0=h0,
-            record_states=record_states,
+            controller=controller, h0=h0, record_states=record_states,
             record_buf=None if record is None else tree_row(record, k))
         state, h_prev = out.state, out.h_final
         states.append(state)
@@ -514,7 +512,6 @@ def integrate_span(
         h0 = (controller.initial_step(t1 - t0).expand(rows) if rows
               else None)
         out = integrate_adaptive(trial, state0, t0, t1, order=order,
-                                 rtol=controller.rtol, atol=controller.atol,
-                                 max_steps=controller.max_steps, h0=h0)
+                                 controller=controller, h0=h0)
         return SpanResult(out.state, out.n_accepted, out.n_evals)
     raise TypeError(f"unknown step controller {controller!r}")

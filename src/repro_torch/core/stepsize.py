@@ -6,6 +6,18 @@
   ``rtol``/``atol`` and a bounded ``max_steps`` trial budget per segment
   (rejected trials still cost f-evals), warm-starting each segment at the
   previous segment's step proposal.
+* :class:`ReproducibleController` — the same controller with its
+  device-dependent float32 operations taken in float64 (or on the host)
+  and rounded once: the error norm (sum of squares, mean, root), the
+  step-size factor's power and the initial step's root. In float32 they
+  differ between devices and batchings (the CPU's and the card's ``pow``
+  differ on ~6% of inputs, the CPU's ``sqrt`` is not correctly rounded
+  on ~0.6%; a per-row and a whole-state sum of the same elements, or the
+  CPU's and the card's, add in other orders; the card divides by a
+  Python number as a multiply by its reciprocal), and on a stiff problem
+  an ulp in one step size changes later accept/reject decisions. Rounded
+  once, a solve takes the same steps on every device and in every
+  batching (a row of a batch, alone): the serve engine's controller.
 
 The numeric policy is plain tensor functions over 0-d tensors, computed on
 the state's device; the driving loop lives in
@@ -16,9 +28,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, ClassVar
 
+import numpy as np
 import torch
 
 from repro_torch import tree_util as pytree
+from repro_torch.tree_util import rows_like
 
 # Classic Hairer-Norsett-Wanner defaults.
 SAFETY = 0.9
@@ -26,27 +40,32 @@ MIN_FACTOR = 0.2     # paper's DecayFactor floor
 MAX_FACTOR = 10.0    # paper's IncreaseFactor ceiling
 
 
-def error_ratio(err: Any, z0: Any, z1: Any, rtol: float, atol: float,
-                rows: bool = False) -> torch.Tensor:
-    """RMS of err scaled by atol + rtol*max(|z0|,|z1|). Accept iff <= 1.
+def _tol_rows(tol, x: torch.Tensor, rows: bool):
+    """A (B,) tolerance shaped against the leaf ``x`` under ``rows``; a
+    Python number (or any tolerance off the per-row path) as it is."""
+    if rows and isinstance(tol, torch.Tensor):
+        return rows_like(tol, x)
+    return tol
 
-    The reduction runs over every element of the state pytree, so a
-    batch-shaped state integrates in lockstep (one shared accept/reject).
-    With ``rows`` (``PerSample`` batching: every leaf has the batch axis
-    in front) it runs over each row's elements across all leaves and
-    gives a (B,) ratio, one accept/reject per row.
-    """
+
+def _scaled_rms(err: Any, z0: Any, z1: Any, rtol, atol, rows: bool,
+                acc) -> torch.Tensor:
+    """:func:`error_ratio`, its squares summed in ``acc`` (None: the
+    elements' float32)."""
     total = 0.0
     count = 0
     for e, a, b in zip(pytree.tree_leaves(err), pytree.tree_leaves(z0),
                        pytree.tree_leaves(z1)):
-        scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(b))
+        scale = (_tol_rows(atol, a, rows)
+                 + _tol_rows(rtol, a, rows)
+                 * torch.maximum(torch.abs(a), torch.abs(b)))
         r = (e / scale).to(torch.float32)
         if rows:
-            total = total + torch.sum((r * r).reshape(r.shape[0], -1), 1)
+            total = total + torch.sum((r * r).reshape(r.shape[0], -1), 1,
+                                      dtype=acc)
             count += r[0].numel()
         else:
-            total = total + torch.sum(r * r)
+            total = total + torch.sum(r * r, dtype=acc)
             count += r.numel()
     # safe sqrt: d(sqrt)/dx at exactly 0 is inf, which poisons backprop
     # through the adaptive loop (0-cotangent * inf = NaN) — the naive
@@ -57,26 +76,49 @@ def error_ratio(err: Any, z0: Any, z1: Any, rtol: float, atol: float,
             * torch.where(pos, 1.0, 0.0))
 
 
+def error_ratio(err: Any, z0: Any, z1: Any, rtol, atol,
+                rows: bool = False) -> torch.Tensor:
+    """RMS of err scaled by atol + rtol*max(|z0|,|z1|). Accept iff <= 1.
+
+    The reduction runs over every element of the state pytree, so a
+    batch-shaped state integrates in lockstep (one shared accept/reject).
+    With ``rows`` (``PerSample`` batching: every leaf has the batch axis
+    in front) it runs over each row's elements across all leaves and
+    gives a (B,) ratio, one accept/reject per row; ``rtol``/``atol`` may
+    then be (B,) tensors, one tolerance pair per row (the serve engine's
+    per-request tolerances), spread over each leaf's rows.
+    """
+    return _scaled_rms(err, z0, z1, rtol, atol, rows, None)
+
+
+def _clipped_step(h: torch.Tensor, power: torch.Tensor) -> torch.Tensor:
+    factor = torch.clamp(SAFETY * power, MIN_FACTOR, MAX_FACTOR)
+    return h * factor
+
+
 def next_step_size(h: torch.Tensor, ratio: torch.Tensor,
                    order: int) -> torch.Tensor:
     """h * clip(safety * ratio^(-1/(p+1))). The factor is strictly
     positive, so the sign of ``h`` (the integration direction) is kept."""
     ratio = torch.clamp_min(ratio, 1e-10)
-    factor = SAFETY * ratio ** (-1.0 / (order + 1))
-    factor = torch.clamp(factor, MIN_FACTOR, MAX_FACTOR)
-    return h * factor
+    return _clipped_step(h, ratio ** (-1.0 / (order + 1)))
+
+
+def _bounded_step(span: torch.Tensor,
+                  tol_scale: torch.Tensor) -> torch.Tensor:
+    base = torch.abs(span) * 0.05
+    tol_scale = torch.clamp(tol_scale, 1e-4, 1.0)
+    return torch.sign(span) * torch.maximum(base * tol_scale,
+                                            torch.abs(span) * 1e-4)
 
 
 def initial_step_size(rtol: float, atol: float,
                       span: torch.Tensor) -> torch.Tensor:
     """A small fraction of the span, tolerance-scaled, signed like the span
     (a negative span — reverse time — proposes a negative step)."""
-    base = torch.abs(span) * 0.05
     # a fill on the device: no host-to-device copy, so no sync
     tol = torch.full((), rtol + atol, dtype=torch.float32, device=span.device)
-    tol_scale = torch.clamp(torch.sqrt(tol), 1e-4, 1.0)
-    return torch.sign(span) * torch.maximum(base * tol_scale,
-                                            torch.abs(span) * 1e-4)
+    return _bounded_step(span, torch.sqrt(tol))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,7 +201,21 @@ class AdaptiveController(StepController):
             raise ValueError(
                 "adaptive step control needs a solver with an embedded "
                 "error estimate; use ConstantSteps with this solver")
-        return error_ratio(err, z0, z1, self.rtol, self.atol, rows)
+        return self.norm(err, z0, z1, self.rtol, self.atol, rows)
+
+    # The policy's arithmetic, free of the instance's tolerances: the
+    # serve engine calls it with (B,) per-request ones.
+    @staticmethod
+    def norm(err, z0, z1, rtol, atol, rows: bool = False) -> torch.Tensor:
+        """The error ratio at ``rtol``/``atol`` (:func:`error_ratio`)."""
+        return error_ratio(err, z0, z1, rtol, atol, rows)
+
+    @staticmethod
+    def next_step(h: torch.Tensor, ratio: torch.Tensor,
+                  order: int) -> torch.Tensor:
+        """The step proposed after a trial of step ``h`` and error ratio
+        ``ratio`` by a method of ``order``."""
+        return next_step_size(h, ratio, order)
 
     @property
     def step_bound(self) -> int:
@@ -167,6 +223,40 @@ class AdaptiveController(StepController):
 
     def initial_step(self, span: torch.Tensor) -> torch.Tensor:
         return initial_step_size(self.rtol, self.atol, span)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReproducibleController(AdaptiveController):
+    """:class:`AdaptiveController` with its device-dependent float32
+    operations rounded once (module docstring): its accept/reject
+    decisions and step sizes are the same on the CPU and the card, and
+    for a row of a ``PerSample`` batch and the same sample alone. The
+    serve engine decides with it."""
+
+    @staticmethod
+    def norm(err, z0, z1, rtol, atol, rows: bool = False) -> torch.Tensor:
+        """The sum of squares, its mean and the root in float64, the ratio
+        rounded to float32 once."""
+        return _scaled_rms(err, z0, z1, rtol, atol, rows,
+                           torch.float64).to(torch.float32)
+
+    @staticmethod
+    def next_step(h: torch.Tensor, ratio: torch.Tensor,
+                  order: int) -> torch.Tensor:
+        """The float32 power taken in float64 and rounded once: the
+        correctly rounded power."""
+        ratio = torch.clamp_min(ratio, 1e-10)
+        # the exponent as a float32 pow takes it
+        exponent = float(np.float32(-1.0 / (order + 1)))
+        power = torch.pow(ratio.double(), exponent).to(ratio.dtype)
+        return _clipped_step(h, power)
+
+    def initial_step(self, span: torch.Tensor) -> torch.Tensor:
+        """The float32 tolerance's square root taken on the host,
+        correctly rounded."""
+        root = float(np.sqrt(np.float32(self.rtol + self.atol)))
+        return _bounded_step(span, torch.full(
+            (), root, dtype=torch.float32, device=span.device))
 
 
 def controller_from_kwargs(n_steps: int, rtol: float, atol: float,

@@ -1,5 +1,5 @@
-"""Serving entry point, LM path: batched prefill + greedy autoregressive decode
-on the card::
+"""Serving entry point. LM path (default): batched prefill + greedy
+autoregressive decode on the card::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --smoke --prompt-len 32 --decode-tokens 16 --batch 4
@@ -19,8 +19,28 @@ its first call runs one eager step and captures a CUDA graph of the next,
 and every later step replays that graph; on the CPU each step runs
 eagerly (the kernel ops take their plain versions there).
 
-The ODE serving loop (``--mode ode``) lands with the serving-engine slice
-(ROADMAP queue 1 (c)) and raises ``NotImplementedError`` here.
+ODE path (``--mode ode``) — the ``repro_torch.serve`` serving loop::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode ode --batch 64 \
+        --requests 256 --rate 100 [--ode-engine continuous|static] \
+        [--chunk-steps 32] [--seed 0] [--d-state 32] [--t1 1.0] \
+        [--rtol 1e-3 --atol 1e-4 --max-steps 512] [--device cpu]
+
+Requests (each one initial state of a shared MLP vector field, with its
+own stiffness scale) arrive as a Poisson stream (``--rate``; omit for
+all-at-once) and are served by a :class:`repro_torch.serve.
+ContinuousBatchingEngine` — ``--batch`` slots advanced in
+``--chunk-steps`` chunked re-dispatch rounds, finished rows backfilled
+from the queue between rounds. ``--ode-engine static`` runs the
+no-backfill static-fleet baseline on the same stream. On the card the
+chunk lane runs the per-row ALF kernels (``ALF(backend="cuda")``); on the
+CPU their plain versions (``backend="reference"``). Prints the
+:class:`repro_torch.serve.ServeReport`: p50/p99 latency, solves/s,
+f-evals/request, occupancy.
+
+Per-mode ``--batch`` defaults live in ``MODE_DEFAULT_BATCH`` (for ode,
+batch == engine slots). ``--production-mesh`` (the JAX package's
+multi-host GSPMD mesh) has no counterpart on one card and is refused.
 """
 from __future__ import annotations
 
@@ -41,6 +61,10 @@ from repro_torch.models import decode_step, init_lm, moe, prefill
 from repro_torch.models.lm import ServeState, init_serve_state
 
 MODE_DEFAULT_BATCH = {"lm": 4, "ode": 64}
+
+NO_PRODUCTION_MESH = (
+    "--production-mesh is the JAX package's multi-host GSPMD mesh; the "
+    "port serves on one card and has no counterpart")
 
 
 def make_prefill_step(cfg):
@@ -219,29 +243,147 @@ def serve(arch: Union[str, ModelConfig], *, smoke: bool = True,
     return result
 
 
+def mlp_field(rng: np.random.Generator, d_state: int, device=None):
+    """The serving vector field: shared two-layer MLP with per-request
+    stiffness in the state (``d scale/dt = 0``), its weights the JAX
+    package's draws from ``rng``. ``f`` is written for one sample.
+    Returns (f, params), the params on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    w1 = torch.as_tensor(rng.standard_normal((d_state, d_state)) * 0.4,
+                         dtype=torch.float32, device=dev)
+    w2 = torch.as_tensor(rng.standard_normal((d_state, d_state)) * 0.4,
+                         dtype=torch.float32, device=dev)
+    params = {"w1": w1, "w2": w2}
+
+    def f(p, z, t):
+        h = torch.tanh(z["y"] @ p["w1"])
+        return {"y": z["scale"] * (h @ p["w2"] - z["y"]),
+                "scale": torch.zeros_like(z["scale"])}
+
+    return f, params
+
+
+def ode_requests(rng: np.random.Generator, n_requests: int, d_state: int,
+                 config, rate: float = 0.0):
+    """The launcher's request stream, drawn after the field's weights:
+    Poisson stamps at ``rate`` (0: all at t = 0), then per request a
+    ``y ~ N(0, 1)^d`` and a stiffness ``scale = 10^U(0, 1)``."""
+    from repro_torch.serve import Request, poisson_arrivals
+    if rate > 0.0:
+        arrivals = poisson_arrivals(rng, rate, n_requests)
+    else:
+        arrivals = np.zeros(n_requests)
+    requests = []
+    for i in range(n_requests):
+        z0 = {"y": rng.standard_normal(d_state).astype(np.float32),
+              "scale": np.full((d_state,),
+                               10.0 ** rng.uniform(0.0, 1.0), np.float32)}
+        requests.append(Request(z0=z0, config=config,
+                                arrival=float(arrivals[i])))
+    return requests
+
+
+def serve_ode(*, batch: int = 64, d_state: int = 32, t1: float = 1.0,
+              engine: str = "continuous", chunk_steps: int = 32,
+              n_requests: int = 256, rate: float = 0.0, rtol: float = 1e-3,
+              atol: float = 1e-4, max_steps: int = 512,
+              production_mesh: bool = False, seed: int = 0, device=None):
+    """Serve a stream of Neural-ODE solve requests through the
+    ``repro_torch.serve`` engine stack.
+
+    ``batch`` engine slots advance in ``chunk_steps``-trial dispatch
+    rounds; ``engine='continuous'`` backfills retired rows from the queue
+    between rounds, ``engine='static'`` runs the no-backfill fleet
+    baseline. ``rate`` > 0 makes arrivals Poisson at that rate (requests/s
+    of serving-clock time); 0 submits everything at t=0 (closed loop).
+    Computes on ``device`` (default: the card; raises without one unless
+    given ``device="cpu"``). Returns the run's
+    :class:`repro_torch.serve.ServeReport`.
+    """
+    from repro_torch.core import ALF
+    from repro_torch.serve import (ENGINES, EngineConfig, RequestConfig,
+                                   format_report)
+
+    if engine not in ENGINES:
+        raise ValueError(f"unknown ode engine {engine!r}; "
+                         f"choose from {sorted(ENGINES)}")
+    if production_mesh:
+        raise ValueError(NO_PRODUCTION_MESH)
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    f, params = mlp_field(rng, d_state, dev)
+    config = RequestConfig(t0=0.0, t1=t1, rtol=rtol, atol=atol,
+                           max_steps=max_steps)
+    requests = ode_requests(rng, n_requests, d_state, config, rate)
+
+    print(f"ode serve: engine={engine} batch(slots)={batch} "
+          f"chunk_steps={chunk_steps} d={d_state} t1={t1} "
+          f"rtol={rtol} atol={atol} max_steps={max_steps} "
+          f"requests={n_requests} "
+          f"rate={rate if rate > 0 else 'all-at-once'} seed={seed} "
+          f"device={dev}")
+
+    backend = "cuda" if dev.type == "cuda" else "reference"
+    eng = ENGINES[engine](
+        f, params,
+        config=EngineConfig(slots=batch, chunk_steps=chunk_steps,
+                            solver=ALF(eta=0.9, backend=backend)),
+        vf_id=f"mlp-d{d_state}-seed{seed}", device=dev)
+    eng.submit(requests)
+    report = eng.run()
+    print(format_report(report))
+    return report
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--mode", default="lm", choices=["lm", "ode"],
-                    help="lm: prefill/decode serving; ode: the ODE serving "
-                         "loop (not ported yet)")
+                    help="lm: prefill/decode serving; ode: continuous-"
+                         "batching ODE serving loop")
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--decode-tokens", type=int, default=16)
     ap.add_argument("--batch", type=int, default=None,
-                    help=f"requests per step (defaults: {MODE_DEFAULT_BATCH})")
+                    help="lm: requests per step; ode: engine batch slots "
+                         f"(defaults: {MODE_DEFAULT_BATCH})")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ode", default="on", choices=["on", "off"])
+    ap.add_argument("--ode-engine", default="continuous",
+                    choices=["continuous", "static"],
+                    help="continuous: chunked backfill; static: one-shot "
+                         "fleet baseline")
+    ap.add_argument("--chunk-steps", type=int, default=32,
+                    help="adaptive trials per dispatch round (ode)")
+    ap.add_argument("--requests", type=int, default=256,
+                    help="number of ODE requests to serve")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="Poisson arrival rate in requests/s "
+                         "(0 = submit all at t=0)")
+    ap.add_argument("--d-state", type=int, default=32,
+                    help="ODE state dimension per request")
+    ap.add_argument("--t1", type=float, default=1.0,
+                    help="integration span end (ode)")
+    ap.add_argument("--rtol", type=float, default=1e-3)
+    ap.add_argument("--atol", type=float, default=1e-4)
+    ap.add_argument("--max-steps", type=int, default=512,
+                    help="per-request adaptive trial budget (ode)")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="refused: no counterpart on one card")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     a = ap.parse_args(argv)
-    if a.mode == "ode":
-        raise NotImplementedError(
-            "--mode ode (the continuous-batching ODE serving loop) is not "
-            "ported yet: it lands with the serving-engine slice, ROADMAP "
-            "queue 1 (c)")
+    if a.production_mesh:
+        raise ValueError(NO_PRODUCTION_MESH)
     batch = MODE_DEFAULT_BATCH[a.mode] if a.batch is None else a.batch
+    if a.mode == "ode":
+        serve_ode(batch=batch, d_state=a.d_state, t1=a.t1,
+                  engine=a.ode_engine, chunk_steps=a.chunk_steps,
+                  n_requests=a.requests, rate=a.rate, rtol=a.rtol,
+                  atol=a.atol, max_steps=a.max_steps, seed=a.seed,
+                  device=a.device)
+        return
     serve(a.arch, smoke=a.smoke, ode=a.ode == "on", prompt_len=a.prompt_len,
           decode_tokens=a.decode_tokens, batch=batch, seed=a.seed,
           device=a.device)

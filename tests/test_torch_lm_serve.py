@@ -512,9 +512,35 @@ def test_serve_defaults_to_the_card():
         tserve.serve("qwen3-1.7b", prompt_len=4, decode_tokens=1)
 
 
-def test_main_mode_ode_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match=r"queue 1 \(c\)"):
-        tserve.main(["--mode", "ode"])
+@pytest.mark.parametrize("engine", ["continuous", "static"])
+def test_main_mode_ode_runs_on_the_cpu(engine):
+    """``python -m repro_torch.launch.serve --mode ode --device cpu`` as
+    users call it, with tests/test_serve.py's TestServeCLI arguments."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "ode",
+         "--ode-engine", engine, "--batch", "2", "--requests", "5",
+         "--d-state", "4", "--chunk-steps", "8", "--rate", "500", "--seed",
+         "3", "--t1", "0.5", "--rtol", "1e-3", "--atol", "1e-4",
+         "--max-steps", "128", "--device", "cpu"],
+        capture_output=True, text=True, env=env, cwd=root, timeout=120,
+        check=True).stdout
+    assert "batch(slots)=2" in out
+    assert "t1=0.5" in out and "seed=3" in out
+    assert f"engine={engine}" in out and f"serve[{engine}]" in out
+    assert "5 completed" in out
+
+
+def test_serve_ode_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tserve.serve_ode(batch=2, d_state=4, n_requests=2)
 
 
 def test_main_lm_flags(capsys):
