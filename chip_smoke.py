@@ -204,21 +204,45 @@ either. Phases, each printing JSON lines:
                and 4 slowest), against their own solve() on the card
                (scalar kernels, ReproducibleController; (d)'s f computed
                as a fleet row is: a 1024-row product), counters equal,
-               within 1e-6 and 1e-5 relative; the same 8 against f's
-               one-row products, reported; (c) the dense lane's hot
+               within 1e-6 and 1e-5 relative; (c) the dense lane's hot
                trajectory (6 hits in 7 lookups, 0 f-evals a hit) and an
                event on -8 z against the same event solve() (1e-6), 2
                scalar ALF launches a trial; (d) launch/serve.py --mode ode
                at --batch 1024 --d-state 784 --requests 4096
-               --chunk-steps 32 (its mlp_field), both engines all at once
-               and on one Poisson trace at 0.75 of the closed-loop
-               requests/s, p50/p99, solves/s, occupancy, rounds, ms a
+               --chunk-steps 32 (its mlp_field), both engines all at
+               once: p50/p99, solves/s, occupancy, rounds, ms a
                round, peak memory, the device's busy share over 4 rounds,
                host syncs over 4 rounds, and the CLI at its defaults; (e)
                exactly 2 x chunk_steps ALF launches a round, all per-row
                (the kernels line's launches_serve: (d)'s two serve_ode
                runs), no host sync inside a chunk
-               (set_sync_debug_mode("error")).
+               (set_sync_debug_mode("error")). Its Poisson runs at full
+               width and the same 8 rows against f's one-row products
+               were cut to keep the script near 800 s.
+17. lm_train  — continuous-depth LM training (repro_torch.train): (a)
+               qwen3-1.7b at full width (28 layers, d 2048, vocab 151936,
+               bf16, seeded weights), each residual branch a MALI solve on
+               ALF(backend="cuda") with ConstantSteps(2), batch 2 x 4096
+               (the FA2 attention path), 3 Trainer steps: losses finite,
+               the loss on batch 0 falls, exactly 112 launches of each of
+               alf_midpoint, alf_update, alf_bwd_pre and alf_bwd_post per
+               step and none of the other seven kernels, no host sync in
+               train_step, ms a step, peak memory, f-evals a step and the
+               device's busy share and top ops over 2 profiled steps; (b)
+               one step's loss and gradients with backend="cuda" against
+               "reference": at full width in bf16 within max(3e-2, 3x the
+               reference's own one-rounding floor), on 2 of the 28 layers
+               at S 1024 in f32 within 1e-5, and MALI (cuda) against
+               Naive (reference) within rtol 2e-4 / atol 2e-5; (c) the
+               peak memory of one train_step from 2 to 8 ALF steps: MALI
+               at (a)'s shape <= 1.05x, Naive (2 layers, S 1024, f32,
+               batch 8) > 2x; (d) the gemma2 (S 2304: window, softcaps
+               and the FA2 backward), jamba and deepseek smoke configs one
+               step each, kernel against reference within 1e-5 in f32,
+               and a Trainer run with a checkpoint every 2 steps and a
+               failure injected at step 3 whose resumed loss trace is
+               bit-equal to the clean one; (e) python -m
+               repro_torch.launch.train --steps 4 prints final_step=4.
 
 Phase 2 also holds the eight kernels with a per-row (B,) h, each row
 its own (kernels_rows: B x D in ROW_CASES, f32, bf16, mixed, f64, one
@@ -3823,9 +3847,8 @@ def _sv_report(rep) -> dict:
 def _sv_full_width():
     """(d) and (e) at full width: serve_ode for both engines all at once
     (the phase's counted main path; its continuous engine kept for peak
-    memory and (b)'s 8 rows), both engines on one Poisson trace at
-    SV_LOAD of the continuous capacity, 4 profiled and 4 sync-counted
-    rounds, no sync inside a chunk, and the CLI at its defaults."""
+    memory and (b)'s 8 rows), 4 profiled and 4 sync-counted rounds, no
+    sync inside a chunk, and the CLI at its defaults."""
     import contextlib
     import io
     import os
@@ -3886,30 +3909,10 @@ def _sv_full_width():
         eng, picked, _sv_fleet_row(f, SV_FULL["batch"]), params,
         "serve (b) full width", SV_FULL_REL)
     out["vs_solve_fevals"] = [fevals[r.rid] for r in picked]
-    # The same rows against solve() with f as written (one-row products):
-    # how far the batched product's rounding carries, reported.
-    gemv = []
-    for r in picked:
-        sol = _sv_solve(f, params, r.z0, r.config)
-        rec = next(x for x in eng.records if x.rid == r.rid)
-        gemv.append({"rel": _sv_rel(eng.results[r.rid], sol.ys),
-                     "fevals": [rec.n_fevals, int(sol.stats.n_fevals)],
-                     "accepted": [rec.n_accepted,
-                                  int(sol.stats.n_accepted)]})
-    out["vs_solve_one_row_products"] = gemv
     # Capacity in requests a second: at D = 784 most requests spend their
     # whole trial budget (completed=False), which solves/s leaves out.
-    mu = rep.n_requests / rep.duration_s
-    out["capacity_requests_per_s"] = mu
+    out["capacity_requests_per_s"] = rep.n_requests / rep.duration_s
     out["capacity_solves_per_s"] = rep.solves_per_s
-
-    # Both engines on one Poisson trace at SV_LOAD of that capacity.
-    poisson = {}
-    with contextlib.redirect_stdout(quiet):
-        for name in ("continuous", "static"):
-            poisson[name] = _sv_report(tserve.serve_ode(
-                engine=name, rate=SV_LOAD * mu, **SV_FULL))
-    out["poisson"] = {"rate": SV_LOAD * mu, **poisson}
 
     # Four profiled rounds, four sync-counted rounds (no sync inside a
     # chunk: dispatch_chunk under set_sync_debug_mode("error")).
@@ -4015,6 +4018,419 @@ def phase_serve(card: str, smi: str):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 17: continuous-depth LM training (qwen3-1.7b at full width)
+# ---------------------------------------------------------------------------
+
+# (a): qwen3-1.7b at its published widths, bf16, each residual branch a
+# MALI solve (ConstantSteps(2)) on ALF(backend="cuda"), batch 2 x 4096
+# (the JAX package's train_4k length: the FA2 path, an ALF state of 2^24
+# f32), 3 Trainer steps
+LT_BATCH, LT_SEQ, LT_STEPS, LT_PROFILED = 2, 4096, 3, 2
+# per step: 28 layers x 2 branches x 2 ALF steps, one launch of each
+# kernel a step forward (midpoint, update) and backward (bwd_pre, bwd_post)
+LT_PER_STEP = {"alf_midpoint": 112, "alf_update": 112, "alf_bwd_pre": 112,
+               "alf_bwd_post": 112}
+# (b), (c): the 2-of-28-layer cuts, S 1024, f32
+LT_CUT_LAYERS, LT_CUT_SEQ = 2, 1024
+LT_BF16_TOL = 3e-2            # bf16 kernel vs reference (or 3x the floor)
+LT_F32_TOL = 1e-5             # f32 kernel vs reference, relative
+LT_MEM_STEPS = (2, 8)
+LT_NAIVE_MEM_BATCH = 8        # Naive's activations must outweigh the state
+# (d): smoke configs, one step each, f32; gemma2 past the direct limit
+LT_SMOKE = (("gemma2-2b", 2, 2304), ("jamba-v0.1-52b", 2, 64),
+            ("deepseek-moe-16b", 2, 64))
+
+
+def _lt_config(backend: str = "cuda", n_steps: int = 2,
+               method: str = "mali", layers: int = 0, dtype: str = "",
+               arch: str = LM_ARCH, smoke: bool = False):
+    """``arch`` with every residual branch an ALF solve (``method``,
+    ConstantSteps(n_steps), ``backend``), optionally cut to ``layers``
+    periods and cast to ``dtype``."""
+    import dataclasses
+    from repro_torch.configs import OdeSettings, get_config, smoke_config
+    ode = OdeSettings(mode="per_block", method=method, solver="alf",
+                      n_steps=n_steps, backend=backend)
+    cfg = (smoke_config if smoke else get_config)(arch, ode)
+    changes = {}
+    if layers:
+        changes["n_periods"] = layers
+    if dtype:
+        changes.update(param_dtype=dtype, compute_dtype=dtype)
+    return dataclasses.replace(cfg, **changes)
+
+
+def _lt_batch(cfg, batch: int, seq: int, step: int = 0):
+    from repro_torch.data import DataConfig, batch_to_device, make_batch
+    return batch_to_device(make_batch(
+        cfg, DataConfig(seed=0, global_batch=batch, seq_len=seq), step),
+        "cuda")
+
+
+def _lt_grads(params, cfg, batch):
+    from repro_torch import tree_util
+    from repro_torch.train import loss_and_grads
+    loss, stats, grads = loss_and_grads(params, batch, cfg=cfg)
+    return loss, [int(c) for c in stats], tree_util.tree_leaves(grads)
+
+
+def _lt_full_width():
+    """(a): 3 Trainer steps of qwen3-1.7b at full width; returns (the
+    trainer, batch 0, per-step launches, the results)."""
+    import torch
+    from repro_torch.models import lm_loss
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import MemoryEmitter, Trainer, TrainerConfig
+    tc = TrainerConfig(arch=LM_ARCH, smoke=False, steps=LT_STEPS,
+                       global_batch=LT_BATCH, seq_len=LT_SEQ,
+                       log_every=100, emit="memory")
+    snaps = []
+    # the optimizer's own defaults (warmup over 100 steps): the rule the
+    # Trainer derives from 3 steps warms up over 1, and at this width the
+    # loss on batch 0 then ends above where it started (PERF.md)
+    trainer = Trainer(tc, emitter=MemoryEmitter(),
+                      step_hook=lambda step: snaps.append(
+                          _lm_counts()[0]),
+                      opt_cfg=OptimizerConfig())
+    require(trainer.cfg.ode.backend == "cuda" and trainer.cfg.d_model == 2048
+            and trainer.cfg.n_layers == 28, "lm_train: not the full config")
+    _lm_reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    require(trainer.train() == LT_STEPS, "lm_train: the run did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snaps.append(_lm_counts()[0])
+    per_step = [{k: snaps[i + 1][k] - snaps[i][k] for k in snaps[i]}
+                for i in range(LT_STEPS)]
+    for i, counts in enumerate(per_step):
+        for name, n in counts.items():
+            want = LT_PER_STEP.get(name, 0)
+            require(n == want, f"lm_train step {i}: {name} launched {n} "
+                    f"times, expected {want}")
+    _, calls = _lm_counts()
+    for name in LT_PER_STEP:
+        require(calls[name] == LT_STEPS * LT_PER_STEP[name],
+                f"lm_train: {name} op calls {calls[name]}")
+    recs = [trainer.records[s] for s in range(LT_STEPS)]
+    require(all(np.isfinite(r.loss) for r in recs),
+            f"lm_train: non-finite loss {[r.loss for r in recs]}")
+    batch0 = trainer.batch(0)
+    with torch.no_grad():
+        after = float(lm_loss(trainer.state.params, trainer.cfg, batch0))
+    require(np.isfinite(after) and after < recs[0].loss,
+            f"lm_train: loss on batch 0 {recs[0].loss} -> {after}")
+    return trainer, batch0, per_step, {
+        "config": {"arch": LM_ARCH, "d_model": trainer.cfg.d_model,
+                   "layers": trainer.cfg.n_layers,
+                   "vocab": trainer.cfg.vocab_size, "dtype": "bfloat16",
+                   "batch": LT_BATCH, "seq_len": LT_SEQ,
+                   "ode": "MALI, ALF(cuda), ConstantSteps(2)",
+                   "optimizer": "AdamW, peak 3e-4, warmup 100"},
+        "losses": [r.loss for r in recs], "loss_batch0_after": after,
+        "lr": [r.lr for r in recs], "grad_norm": [r.grad_norm for r in recs],
+        "step_ms": [r.wall_s * 1e3 for r in recs], "run_s": wall,
+        "fevals_per_step": recs[0].fevals,
+        "accepted_per_step": recs[0].accepted,
+        "residual_bytes": recs[0].residual_bytes,
+        "kernel_launches_first_step": recs[0].kernel_launches,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_step": per_step[0]}
+
+
+def _kernel_profile(run, top: int = 8):
+    """torch.profiler with device activity only over ``run()``, read from
+    the raw kineto events: the device's busy and idle share and the top
+    device operations. ``_device_profile``'s Python event tree takes
+    minutes at a training step's ~10^5 kernels and ~10^6 host ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if str(e.device_type()).endswith("CUDA")
+           and not e.is_user_annotation() and "#" not in e.name()]
+    require(len(dev) > 0, "profile: no device events")
+    spans = sorted((e.start_ns(), e.end_ns()) for e in dev)
+    busy, (lo, hi) = 0, spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > hi:
+            busy += hi - lo
+            lo, hi = s0, e0
+        else:
+            hi = max(hi, e0)
+    busy += hi - lo
+    window = spans[-1][1] - spans[0][0]
+    by_name = {}
+    for e in dev:
+        ns, n = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e6,
+            "device_window_ms": window / 1e6,
+            "idle_share": 1.0 - busy / window, "device_launches": len(dev),
+            "top_device_ms": [[name[:60], ns / 1e6, n]
+                              for name, (ns, n) in ranked]}
+
+
+def _lt_step_profile(trainer, batch0):
+    """No host sync in train_step, and the device profile of
+    LT_PROFILED steps."""
+    import torch
+    from repro_torch.train import train_step
+    st = trainer.state
+    batches = [batch0] + [trainer.batch(i) for i in range(1, LT_PROFILED)]
+
+    def steps(n):
+        # each step from the trained state, its result dropped at once:
+        # two states beside it would not fit with its activations
+        for i in range(n):
+            train_step(st.params, st.opt, None, batches[i], cfg=trainer.cfg,
+                       opt_cfg=trainer.opt_cfg)
+
+    _, syncs, where = _count_syncs(lambda: steps(1))
+    require(syncs == 0, f"lm_train: train_step synced the host {syncs} "
+            f"times: {where}")
+    torch.cuda.synchronize()
+    prof = _kernel_profile(lambda: steps(LT_PROFILED))
+    prof["device_ms_per_step"] = prof["device_busy_ms"] / LT_PROFILED
+    return {"host_syncs_in_train_step": syncs, "profile": prof}
+
+
+def _lt_peak(params, opt, cfg, opt_cfg, batch) -> int:
+    """Peak device bytes over one train_step beyond those allocated
+    before it."""
+    import torch
+    from repro_torch.train import train_step
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = train_step(params, opt, None, batch, cfg=cfg, opt_cfg=opt_cfg)
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _lt_memory_mali(trainer, batch0):
+    """(c), MALI: the peak over one train_step at (a)'s shape, 2 and 8
+    ALF steps a branch."""
+    st = trainer.state
+    mali = {n: _lt_peak(st.params, st.opt, _lt_config("cuda", n),
+                        trainer.opt_cfg, batch0) for n in LT_MEM_STEPS}
+    lo, hi = LT_MEM_STEPS
+    ratio = mali[hi] / mali[lo]
+    require(ratio <= 1.05, f"lm_train (c): MALI's peak grows {ratio}x from "
+            f"{lo} to {hi} steps")
+    return {"mali_bytes": mali, "mali_ratio": ratio}
+
+
+def _lt_memory_naive():
+    """(c), Naive: the peak over one train_step on the 2-layer f32 cut at
+    batch LT_NAIVE_MEM_BATCH, 2 and 8 ALF steps a branch (the optimizer
+    state of the 151936-token vocabulary is most of the cut's weights, so
+    the batch is what makes the stored steps count)."""
+    import torch
+    from repro_torch.models import init_lm
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    cut = _lt_config("reference", 2, "naive", LT_CUT_LAYERS, "float32")
+    params = init_lm(torch.Generator(device="cuda").manual_seed(3), cut)
+    opt_cfg = OptimizerConfig()
+    opt = init_opt_state(opt_cfg, params)
+    batch = _lt_batch(cut, LT_NAIVE_MEM_BATCH, LT_CUT_SEQ)
+    naive = {n: _lt_peak(params, opt, _lt_config(
+        "reference", n, "naive", LT_CUT_LAYERS, "float32"), opt_cfg, batch)
+        for n in LT_MEM_STEPS}
+    lo, hi = LT_MEM_STEPS
+    ratio = naive[hi] / naive[lo]
+    require(ratio > 2.0, f"lm_train (c): Naive's peak grows only {ratio}x "
+            f"from {lo} to {hi} steps")
+    return {"naive_bytes": naive, "naive_ratio": ratio,
+            "naive_cut": {"layers": LT_CUT_LAYERS, "seq_len": LT_CUT_SEQ,
+                          "batch": LT_NAIVE_MEM_BATCH, "dtype": "float32"}}
+
+
+def _lt_kernel_vs_reference(params, batch0):
+    """(b): one step's loss and gradients with backend="cuda" against
+    backend="reference": at full width in bf16 (to max(LT_BF16_TOL, 3x the
+    reference's one-rounding floor) per gradient leaf), and on the f32
+    2-layer cut (LT_F32_TOL; MALI on cuda against Naive on the reference
+    backend at GRAD_TOL)."""
+    import torch
+    from repro_torch.models import init_lm
+    out = {}
+    runs = {}
+    for label, backend, p in (("cuda", "cuda", params),
+                              ("reference", "reference", params),
+                              ("reference_moved", "reference",
+                               _moved(params, torch.bfloat16))):
+        runs[label] = _lt_grads(p, _lt_config(backend), batch0)
+    ref_loss, ref_stats, ref_g = runs["reference"]
+    loss_err = _rel(runs["cuda"][0], ref_loss)
+    loss_floor = _rel(runs["reference_moved"][0], ref_loss)
+    require(loss_err <= max(LT_BF16_TOL, FLOOR_FACTOR * loss_floor),
+            f"lm_train (b) bf16 loss: {loss_err} (floor {loss_floor})")
+    require(runs["cuda"][1] == ref_stats, "lm_train (b): counters differ")
+    worst = []
+    for a, b, m in zip(runs["cuda"][2], ref_g, runs["reference_moved"][2]):
+        err, floor = _rel(a, b), _rel(m, b)
+        require(err <= max(LT_BF16_TOL, FLOOR_FACTOR * floor),
+                f"lm_train (b) bf16 grad: {err} (floor {floor})")
+        worst.append((err, floor))
+    out["bf16_full_width"] = {
+        "loss_rel": loss_err, "loss_floor": loss_floor,
+        "grad_rel_max": max(e for e, _ in worst),
+        "grad_floor_min": min(f for _, f in worst),
+        "grad_leaves": len(worst)}
+    del runs
+    torch.cuda.empty_cache()
+
+    cut = _lt_config("cuda", layers=LT_CUT_LAYERS, dtype="float32")
+    p32 = init_lm(torch.Generator(device="cuda").manual_seed(2), cut)
+    batch = _lt_batch(cut, LT_BATCH, LT_CUT_SEQ)
+    got = {label: _lt_grads(p32, _lt_config(backend, 2, method,
+                                            LT_CUT_LAYERS, "float32"), batch)
+           for label, backend, method in (
+               ("mali_cuda", "cuda", "mali"),
+               ("mali_reference", "reference", "mali"),
+               ("naive_reference", "reference", "naive"))}
+    k_loss = _rel(got["mali_cuda"][0], got["mali_reference"][0])
+    k_grad = max(_rel(a, b) for a, b in zip(got["mali_cuda"][2],
+                                            got["mali_reference"][2]))
+    require(k_loss <= LT_F32_TOL and k_grad <= LT_F32_TOL,
+            f"lm_train (b) f32 kernel vs reference: loss {k_loss}, grads "
+            f"{k_grad}")
+    naive_excess = max(
+        float(((a - b).abs() - GRAD_TOL["atol"]
+               - GRAD_TOL["rtol"] * b.abs()).max())
+        for a, b in zip(got["mali_cuda"][2], got["naive_reference"][2]))
+    require(naive_excess <= 0.0, f"lm_train (b) f32 MALI vs Naive: "
+            f"{naive_excess} beyond rtol/atol")
+    require(got["mali_cuda"][1] == got["naive_reference"][1],
+            "lm_train (b): MALI and Naive counters differ")
+    out["f32_cut"] = {"layers": LT_CUT_LAYERS, "seq_len": LT_CUT_SEQ,
+                      "kernel_vs_reference_loss": k_loss,
+                      "kernel_vs_reference_grad": k_grad,
+                      "mali_vs_naive_loss": _rel(
+                          got["mali_cuda"][0], got["naive_reference"][0]),
+                      "mali_vs_naive_grad": max(
+                          _rel(a, b) for a, b in zip(
+                              got["mali_cuda"][2],
+                              got["naive_reference"][2])),
+                      "mali_vs_naive_excess": naive_excess}
+    return out
+
+
+def _lt_smoke():
+    """(d): the smoke configs one step each, kernel vs reference (f32),
+    then the Trainer with a checkpoint every 2 steps and an injected
+    failure at step 3: the resumed loss trace bit-equal to the clean
+    one."""
+    import tempfile
+
+    import torch
+    from repro_torch.models import init_lm
+    from repro_torch.train import MemoryEmitter, Trainer, TrainerConfig
+    out = {}
+    for arch, batch, seq in LT_SMOKE:
+        cfg = _lt_config("cuda", arch=arch, smoke=True)
+        params = init_lm(torch.Generator(device="cuda").manual_seed(4), cfg)
+        b = _lt_batch(cfg, batch, seq)
+        k = _lt_grads(params, cfg, b)
+        r = _lt_grads(params, _lt_config("reference", arch=arch, smoke=True),
+                      b)
+        loss = _rel(k[0], r[0])
+        grad = max(_rel(x, y) for x, y in zip(k[2], r[2]))
+        require(loss <= LT_F32_TOL and grad <= LT_F32_TOL and k[1] == r[1],
+                f"lm_train (d) {arch}: loss {loss}, grads {grad}")
+        fired = []
+
+        def hook(step):
+            if step == 3 and not fired:
+                fired.append(step)
+                raise RuntimeError("injected failure")
+
+        traces = []
+        with tempfile.TemporaryDirectory(dir=HERE / "build") as d:
+            for label, kw in (("clean", {}),
+                              ("faulty", dict(ckpt_dir=d, ckpt_every=2))):
+                tc = TrainerConfig(arch=arch, steps=6, global_batch=4,
+                                   seq_len=64, log_every=100, emit="memory",
+                                   **kw)
+                t = Trainer(tc, emitter=MemoryEmitter(),
+                            step_hook=hook if kw else None)
+                require(t.train() == 6, f"lm_train (d) {arch} {label}")
+                traces.append(t.loss_trace())
+        require(fired == [3] and traces[0] == traces[1],
+                f"lm_train (d) {arch}: resumed trace {traces[1]} != clean "
+                f"{traces[0]}")
+        out[arch] = {"batch": batch, "seq_len": seq, "loss_rel": loss,
+                     "grad_rel": grad, "fevals": k[1][2],
+                     "trace": traces[0]}
+    return out
+
+
+def _lt_cli():
+    """(e): the launcher at its defaults (qwen3 smoke, batch 8, S 64)."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--steps", "4"], cwd=str(HERE), env=env,
+                         capture_output=True, text=True, timeout=300)
+    require(res.returncode == 0 and "final_step=4" in res.stdout,
+            f"lm_train (e): the CLI failed: {res.stdout[-2000:]}"
+            f"{res.stderr[-2000:]}")
+    rows = [json.loads(line) for line in res.stdout.splitlines()
+            if line.startswith("{")]
+    return {"cli_s": time.perf_counter() - t0,
+            "losses": [r["loss"] for r in rows],
+            "kernel_launches": rows[0]["kernel_launches"]}
+
+
+def phase_lm_train(card: str, smi: str):
+    """Phase 17: continuous-depth LM training on the card. (a) qwen3-1.7b
+    at full width, 3 Trainer steps; no host sync in train_step and a
+    device profile; (b) kernel vs reference; (c) memory; (d) the smoke
+    configs and a resumed run; (e) the CLI. Returns the ALF launches of
+    one step of (a) (the kernels line's launches_lm_train)."""
+    import torch
+    t0 = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    trainer, batch0, per_step, full = _lt_full_width()
+    lap("a_train")
+    full.update(_lt_step_profile(trainer, batch0))
+    lap("a_profile")
+    memory = _lt_memory_mali(trainer, batch0)
+    lap("c_memory_mali")
+    params = trainer.state.params
+    del trainer
+    torch.cuda.empty_cache()
+    compare = _lt_kernel_vs_reference(params, batch0)
+    del params
+    torch.cuda.empty_cache()
+    lap("b_compare")
+    memory.update(_lt_memory_naive())
+    torch.cuda.empty_cache()
+    lap("c_memory_naive")
+    smoke = _lt_smoke()
+    lap("d_smoke")
+    cli = _lt_cli()
+    lap("e_cli")
+    emit({"phase": "lm_train", "card": card, "nvidia_smi": smi,
+          "full_width": full, "compare": compare, "memory": memory,
+          "smoke": smoke, "cli": cli, "part_s": parts,
+          "phase_s": time.perf_counter() - t0})
+    return per_step[0]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4083,6 +4499,8 @@ def main() -> int:
     lap("per_sample")
     serve_launches = phase_serve(card, smi)
     lap("serve")
+    train_launches = phase_lm_train(card, smi)
+    lap("lm_train")
     emit({"phase": "walls", "seconds": walls})
 
     table = []
@@ -4118,7 +4536,9 @@ def main() -> int:
                       # per-row launches on the PerSample paths (phase 15)
                       "launches_per_sample": ps_launches[name],
                       # on the serving engine's chunk lane (phase 16)
-                      "launches_serve": serve_launches[name]})
+                      "launches_serve": serve_launches[name],
+                      # per qwen3-1.7b training step (phase 17)
+                      "launches_lm_train": train_launches[name]})
     for name, (replaces, source) in LM_KERNELS.items():
         row = lm_times[name]
         # each kernel's launches from its own path: the scan's from the
@@ -4130,6 +4550,7 @@ def main() -> int:
                       "launches_lm_serve": lm_launches[name],
                       "launches_ssm_serve": ssm_launches[name],
                       "launches_serve": serve_launches[name],
+                      "launches_lm_train": train_launches[name],
                       "checks": lm_checks[name],
                       "max_abs_err": lm_worst[name]["bfloat16"],
                       "ms": row["ms"], "plain_ms": row["plain_ms"],

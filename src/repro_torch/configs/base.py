@@ -68,7 +68,7 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     # long-seq attention backward of the training path: 'flash' (FA2-style,
-    # O(S*d) residuals) or 'autodiff'; read by the training slice
+    # O(S*d) residuals) or 'autodiff'; read by attention_train
     attn_bwd: str = "flash"
     # the paper's technique
     ode: OdeSettings = dataclasses.field(default_factory=OdeSettings)

@@ -1,4 +1,6 @@
 """Deterministic synthetic data, bit-equal to the JAX package's."""
-from .synthetic import DataConfig, make_batch, make_image_batch
+from .synthetic import (DataConfig, SyntheticStream, batch_to_device,
+                        make_batch, make_image_batch)
 
-__all__ = ["DataConfig", "make_batch", "make_image_batch"]
+__all__ = ["DataConfig", "SyntheticStream", "batch_to_device", "make_batch",
+           "make_image_batch"]

@@ -3,7 +3,8 @@
 
 The same numpy code as the JAX package's ``repro.data.synthetic``, so
 both packages draw bit-equal batches from the same ``(seed, step,
-shard)``; the caller moves them to the device. Token streams are
+shard)``; the caller moves them to the device, or a
+:class:`SyntheticStream` does. Token streams are
 Zipf-ish (heavy-headed) so cross-entropy losses are non-degenerate;
 'embeds' mode draws Gaussian frame/patch embeddings; image batches are
 the CNF's MNIST-shaped feed.
@@ -11,11 +12,13 @@ the CNF's MNIST-shaped feed.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict, Iterator
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,3 +72,31 @@ def make_image_batch(dcfg: DataConfig, step: int, shard: int = 0,
     img = np.floor(img * 255.0) / 256.0  # 256-level quantization grid
     img = np.repeat(img[..., None], c, axis=-1)
     return {"image": img.reshape(b, h * w * c).astype(np.float32)}
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], device=None
+                    ) -> Dict[str, torch.Tensor]:
+    """A host batch as tensors on ``device`` (default: the CUDA card)."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+class SyntheticStream:
+    """Iterator over global batches on ``device`` (default: the CUDA
+    card), from ``start_step`` on. The JAX package's stream places its
+    batches with an optional sharding; the port's takes the device."""
+
+    def __init__(self, cfg: ModelConfig, dcfg: DataConfig, device=None,
+                 start_step: int = 0):
+        self.cfg = cfg
+        self.dcfg = dcfg
+        self.device = resolve_device(device)
+        self.step = start_step
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        batch = make_batch(self.cfg, self.dcfg, self.step)
+        self.step += 1
+        return batch_to_device(batch, self.device)

@@ -36,15 +36,16 @@ NO_REVERSE_RULE = {
         "propagation); runs inside MALI's autograd.Function backward and "
         "is never itself differentiated",
     "flash_attention.flash_attention":
-        "serving path only; training (with the FA2 backward) is a later "
-        "slice",
+        "serving path only; as in the JAX package, training runs the "
+        "plain attention (the direct einsum, or the chunked online "
+        "softmax with its FA2-style backward written in PyTorch), which "
+        "autograd differentiates",
     "rmsnorm.rmsnorm":
-        "serving path only; training (with the FA2 backward) is a later "
-        "slice",
+        "serving path only; as in the JAX package, training runs the "
+        "plain RMSNorm, which autograd differentiates",
     "mamba_scan.selective_scan":
-        "serving path only; as in the JAX package, training (a later "
-        "slice) scans with the plain version, which autograd "
-        "differentiates",
+        "serving path only; as in the JAX package, training scans with "
+        "the plain chunked scan, which autograd differentiates",
 }
 
 

@@ -1,36 +1,47 @@
-"""Full language model, serve path: embeddings -> blocks -> head, with the
-prefill / decode entry points the launcher drives.
+"""Full language model: embeddings -> blocks -> head, with the train loss
+and the prefill / decode entry points the launchers drive.
 
-The port of the serve parts of the JAX package's ``repro.models.lm``
-(the loss and training path come with the training slice).
+The port of the JAX package's ``repro.models.lm``.
 ``input_mode='embeds'`` is the stub modality frontend of the [audio]/[vlm]
 archs: the model consumes precomputed frame/patch embeddings instead of
 token ids.
 
-``prefill`` and ``decode_step`` take ``backend``: ``"cuda"`` (default)
-sends RMSNorm, prompt attention, the Mamba prompt scan and the ALF state
-updates through the port's kernel ops (the hand-written kernels on the
-card, their plain versions on the CPU); ``"reference"`` runs the plain
-versions on any device, the yardstick the kernel path is held against on
-the card. Both run without autograd; the cache in ``state`` is written in
-place. ``ServeState.pos`` is a 0-d int32 tensor on the cache's device, as
-in the JAX package, and no host reads it, so a decode step can be
-captured in a CUDA graph and replayed (``launch.serve.make_decode_step``).
+Training: :func:`lm_loss_and_stats` is next-token cross-entropy over
+``backbone_train``'s hidden states, computed in sequence chunks of
+``_LOSS_CHUNK`` under ``torch.utils.checkpoint`` (outside any ODE
+dynamics, so plain autograd applies), so the full [B, S, vocab] logits
+never exist (vocab up to 256k makes them tens of GB); it returns the
+summed ODE counters beside the loss.
+
+Serving: ``prefill`` and ``decode_step`` take ``backend``: ``"cuda"``
+(default) sends RMSNorm, prompt attention, the Mamba prompt scan and the
+ALF state updates through the port's kernel ops (the hand-written kernels
+on the card, their plain versions on the CPU); ``"reference"`` runs the
+plain versions on any device, the yardstick the kernel path is held
+against on the card. Both run without autograd; the cache in ``state``
+is written in place. ``ServeState.pos`` is a 0-d int32 tensor on the
+cache's device, as in the JAX package, and no host reads it, so a decode
+step can be captured in a CUDA graph and replayed
+(``launch.serve.make_decode_step``).
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.interface import RunStats
 from repro_torch.device import resolve_device
 
 from .common import (embed_init, materialize, rmsnorm, rmsnorm_inits,
                      softcap, torch_dtype)
-from .transformer import blocks_serve, init_blocks, init_cache
+from .transformer import blocks_serve, blocks_train, init_blocks, init_cache
 
 Pytree = Any
+
+_LOSS_CHUNK = 512
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig,
@@ -72,6 +83,67 @@ def _logits(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     logits = (h @ _head_matrix(params, cfg)).float()
     return softcap(logits, cfg.final_softcap)
 
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def backbone_train(params: Pytree, cfg: ModelConfig, batch: Pytree
+                   ) -> Tuple[torch.Tensor, RunStats]:
+    """Returns (final hidden states, summed ODE RunStats — int32 counters
+    from every residual-branch solve; zeros with ode.mode='off')."""
+    x = _embed(params, cfg, batch)
+    x, stats = blocks_train(params["blocks"], cfg, x, None)
+    return rmsnorm(params["final_norm"], x, backend="reference"), stats
+
+
+def _chunk_nll(hc: torch.Tensor, lc: torch.Tensor, head: torch.Tensor,
+               cap: float) -> torch.Tensor:
+    """Summed next-token NLL of one sequence chunk (labels < 0 count 0)."""
+    logits = softcap((hc @ head).float(), cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, lc.clamp_min(0).long()[..., None])[..., 0]
+    return torch.where(lc >= 0, lse - tgt, 0.0).sum()
+
+
+def chunked_ce_loss(h: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor, cfg: ModelConfig,
+                    chunk: int = _LOSS_CHUNK) -> torch.Tensor:
+    """Mean next-token CE without materializing [B, S, vocab]: the chunks'
+    sums in sequence order, each chunk recomputed in the backward
+    (``checkpoint``), over the count of labels >= 0."""
+    s = h.shape[1]
+    n_chunks = -(-s // chunk)
+    pad = n_chunks * chunk - s
+    h_p = torch.nn.functional.pad(h, (0, 0, 0, pad))
+    l_p = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        cs = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(_chunk_nll, h_p[:, cs], l_p[:, cs], head,
+                                   cfg.final_softcap, use_reentrant=False,
+                                   preserve_rng_state=False)
+    count = (labels >= 0).sum(dtype=torch.int32)
+    return total / torch.clamp_min(count, 1)
+
+
+def lm_loss_and_stats(params: Pytree, cfg: ModelConfig, batch: Pytree
+                      ) -> Tuple[torch.Tensor, RunStats]:
+    """Like :func:`lm_loss` but also returns the integration accounting
+    (the counters are integer outputs that autograd leaves alone)."""
+    h, stats = backbone_train(params, cfg, batch)
+    loss = chunked_ce_loss(h, _head_matrix(params, cfg), batch["labels"], cfg)
+    return loss, stats
+
+
+def lm_loss(params: Pytree, cfg: ModelConfig, batch: Pytree) -> torch.Tensor:
+    """batch: {'tokens' | 'embeds', 'labels'} with labels already shifted."""
+    return lm_loss_and_stats(params, cfg, batch)[0]
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 
 class ServeState(NamedTuple):
     cache: Pytree

@@ -1,15 +1,20 @@
 """Mixture-of-Experts FFN: top-k softmax router, capacity-bounded dispatch,
 optional shared experts (DeepSeekMoE-style fine-grained + shared).
 
-The port of the serve parts of the JAX package's ``repro.models.moe``,
-decision for decision: a float32 router, top-k over the softmax then
+The port of the JAX package's ``repro.models.moe``, decision for
+decision: a float32 router, top-k over the softmax then
 renormalised, each (token, choice)'s rank within its expert from a stable
 argsort of the expert ids, ``keep = (rank < capacity) & (gate > 0)``,
 scatter-add dispatch into [E, capacity, D] expert buffers, the three
 expert products as batched matmuls (cuBLAS on the card, as the JAX
 package leaves them to XLA), and a gather back. Capacity is a Python int
 and nothing is indexed by a mask, so no call syncs the host with the
-card. The load-balancing loss comes with the training slice.
+card. ``eval_mode=False`` (training) takes ``moe_capacity_factor``, which
+drops the (token, choice) pairs past their expert's capacity; autograd
+differentiates the dispatch (the scatter-add into the expert buffers) and
+the gather back, under ``torch.func.vjp`` too (MALI's backward).
+:func:`aux_load_balance_loss` is the Switch-style auxiliary loss; as in
+the JAX package, no loss calls it.
 
 :func:`recording_routes` collects each call's routing decisions, so a
 caller can see which routes two runs took and which were dropped.
@@ -130,3 +135,14 @@ def apply_moe(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     if cfg.moe_shared_experts > 0:
         out = out + apply_mlp(params["shared"], xt)
     return out.reshape(b, s, d)
+
+
+def aux_load_balance_loss(params: Pytree, cfg: ModelConfig,
+                          x: torch.Tensor) -> torch.Tensor:
+    """Switch-style auxiliary load-balancing loss (fraction * prob)."""
+    b, s, d = x.shape
+    probs = torch.softmax(x.reshape(b * s, d).float() @ params["router"],
+                          dim=-1)
+    top1 = torch.argmax(probs, dim=-1)
+    frac = torch.nn.functional.one_hot(top1, cfg.moe_experts).float().mean(0)
+    return cfg.moe_experts * torch.sum(frac * probs.mean(0))

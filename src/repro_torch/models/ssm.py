@@ -1,7 +1,17 @@
-"""Mamba (selective SSM) mixer, serve paths — the Jamba hybrid's dominant
-layer type.
+"""Mamba (selective SSM) mixer — the Jamba hybrid's dominant layer type.
 
-The port of the serve parts of the JAX package's ``repro.models.ssm``:
+The port of the JAX package's ``repro.models.ssm``:
+
+  * ``apply_mamba_train`` — the training path: the chunked selective
+    scan in plain PyTorch, differentiable by autograd, as in the JAX
+    package (the scan kernel is forward-only in both packages). The
+    sequence runs in chunks of ``_CHUNK`` carrying the state h; inside a
+    chunk an associative scan over the discretised terms (dA, dBu)
+    gives every h_t in log2(chunk) doubling steps. The JAX package wraps
+    each chunk in ``jax.checkpoint``; the port does not:
+    ``torch.utils.checkpoint`` refuses ``torch.func`` transforms, and
+    MALI's backward runs this mixer under ``torch.func.vjp`` (there one
+    backward step holds one f-eval's internals anyway).
 
   * ``apply_mamba_prefill`` — the whole prompt: in-projection, depthwise
     causal conv, the discretisation inputs (delta, A = -exp(A_log), B, C)
@@ -17,8 +27,7 @@ The port of the serve parts of the JAX package's ``repro.models.ssm``:
     the (conv, ssm) state cache, as in the JAX package.
 
 The JAX package's sharding hints (``hint``) place arrays on a TPU mesh;
-the port runs on one card and has none. The training path comes with the
-training slice.
+the port runs on one card and has none.
 
 Caches are written in place (the JAX package returns updated copies);
 each function still returns the cache it was given.
@@ -142,6 +151,69 @@ def apply_mamba_prefill(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
         return out
     conv_state = ui[:, s - (d_conv - 1):].float()
     return out, (conv_state, h_last)
+
+
+def _discretised(delta, a, b_mat, u):
+    """(dA, dBu) [B, S, d_inner, d_state] float32: the JAX package's
+    ``_ssm_inputs`` terms from their factors."""
+    d_a = torch.exp(delta[..., None] * a)
+    d_bu = (delta * u.float())[..., None] * b_mat.float()[..., None, :]
+    return d_a, d_bu
+
+
+def _scan_chunk(h, d_a, d_bu):
+    """h [B, di, st]; d_a/d_bu [B, c, di, st] -> (h at the chunk's end,
+    every h_t [B, c, di, st]). An inclusive associative scan of the
+    combine (aL, bL) . (aR, bR) = (aL * aR, bL * aR + bR) by doubling
+    (Hillis-Steele), then h_t = A_t * h + B_t."""
+    c = d_a.shape[1]
+    a_cum, b_cum = d_a, d_bu
+    off = 1
+    while off < c:
+        a_r, b_r = a_cum[:, off:], b_cum[:, off:]
+        a_cum, b_cum = (
+            torch.cat([a_cum[:, :off], a_cum[:, :-off] * a_r], 1),
+            torch.cat([b_cum[:, :off], b_cum[:, :-off] * a_r + b_r], 1))
+        off *= 2
+    h_all = a_cum * h[:, None] + b_cum
+    return h_all[:, -1], h_all
+
+
+def apply_mamba_train(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
+                      chunk: int = _CHUNK, return_state: bool = False):
+    """x: [B, S, D] -> [B, S, D] (+ the final (conv_state, ssm_state) if
+    asked, which needs S % chunk == 0 so the final carry is exact).
+    Differentiable; runs no kernel."""
+    b, s, _ = x.shape
+    d_inner, _, d_state, d_conv = _dims(cfg)
+    ui, res = torch.chunk(x @ params["in_proj"], 2, dim=-1)
+    u = silu(_causal_conv(ui, params["conv_w"], params["conv_b"]))
+    c = min(chunk, s)
+    n_chunks = -(-s // c)
+    pad = n_chunks * c - s
+    if return_state and pad:
+        raise ValueError("prefill requires seq_len % chunk == 0")
+    u_p = torch.nn.functional.pad(u, (0, 0, 0, pad)) if pad else u
+    delta, a, b_mat, c_mat = _ssm_inputs(params, cfg, u_p)
+    h = torch.zeros((b, d_inner, d_state), dtype=torch.float32,
+                    device=x.device)
+    h_seq = []
+    for i in range(n_chunks):
+        cs = slice(i * c, (i + 1) * c)
+        d_a, d_bu = _discretised(delta[:, cs], a, b_mat[:, cs], u_p[:, cs])
+        h, h_all = _scan_chunk(h, d_a, d_bu)
+        h_seq.append(h_all)
+    h_seq = torch.cat(h_seq, 1)[:, :s]
+    # y[b,t,i] = sum_s h[b,t,i,s] * C[b,t,s]: an elementwise product and
+    # sum, not a matmul (no TF32 on the card)
+    y = (h_seq * c_mat[:, :s].float()[:, :, None, :]).sum(-1)
+    y = y + params["D"] * u.float()
+    y = y.to(x.dtype) * silu(res)
+    out = y @ params["out_proj"]
+    if not return_state:
+        return out
+    conv_state = ui[:, s - (d_conv - 1):].float()
+    return out, (conv_state, h)
 
 
 class MambaCache(NamedTuple):

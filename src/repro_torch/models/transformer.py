@@ -1,27 +1,37 @@
-"""Block assembly, serve path: (prelude, stacked periods) x (mixer, mlp)
-residual branches, with the paper's continuous-depth mode.
+"""Block assembly: (prelude, stacked periods) x (mixer, mlp) residual
+branches, with the paper's continuous-depth mode.
 
-The port of the serve parts of the JAX package's
-``repro.models.transformer``. Each residual branch is either the discrete
-``x + f(norm(x))`` (``ode.mode == 'off'``) or the Neural-ODE
-``x <- z(T), dz/dt = f_branch(z)`` integrated by ``ode.n_steps`` explicit
-ALF steps (forward only), with the KV or SSM cache threaded through every
-f-eval: each eval index is a cache "virtual layer" slot. The ALF state
-algebra between the f-evals (``midpoint`` then ``update``, in float32)
-runs through the fused ALF ops (``kernels/alf_step``), so the card
-launches the ALF kernels inside every continuous-depth block.
+The port of the JAX package's ``repro.models.transformer``.
+
+Train path (``layer_train``/``blocks_train``): each residual branch is
+either the discrete ``x + f(norm(x))`` (``ode.mode == 'off'``, the
+"ResNet" baseline of paper Sec 4.2) or the Neural ODE
+``x <- z(T), dz/dt = f_branch(z)`` integrated by ``solve()`` with the
+configured solver, controller and gradient method (MALI by default) —
+paper Sec 4.2's ResNet->Neural-ODE conversion applied per residual
+branch, parameter count unchanged. With ``ALF(backend="cuda")`` the
+state algebra launches the ALF kernels (forward: midpoint + update per
+step; MALI's backward: bwd_pre + bwd_post per step); the branch's own
+f (attention, Mamba, MLP, MoE, the norms) runs plain PyTorch, as the JAX
+package trains through the plain versions of its LM kernels.
+
+Serve path (prefill/decode): forward only, so the ALF steps are unrolled
+explicitly with the KV or SSM cache threaded through every f-eval: each
+eval index is a cache "virtual layer" slot. The ALF state algebra between
+the f-evals (``midpoint`` then ``update``, in float32) runs through the
+fused ALF ops (``kernels/alf_step``), so the card launches the ALF
+kernels inside every continuous-depth block.
 
 Mixers: attention (``attention.py``) and Mamba (``ssm.py``); MLPs: dense
-(``mlp.py``), MoE (``moe.py``, at the serve-time capacity) or none.
-Parameters and caches keep the JAX package's layout — the prelude's
-layers unstacked in a list, the period's parameters and caches stacked on
-a leading ``n_periods`` axis — so weights convert leaf for leaf; the port
-loops over that axis in Python where the JAX package scans. Caches are
-updated in place.
+(``mlp.py``), MoE (``moe.py``: the training capacity on the train path,
+the serve-time one on the serve path) or none. Parameters and caches keep
+the JAX package's layout — the prelude's layers unstacked in a list, the
+period's parameters and caches stacked on a leading ``n_periods`` axis —
+so weights convert leaf for leaf; the port loops over that axis in Python
+where the JAX package scans. Caches are updated in place.
 
 The xLSTM mixers raise ``NotImplementedError`` naming the ROADMAP item
-they land with. The training path (``layer_train``/``blocks_train``)
-comes with the training slice.
+they land with.
 """
 from __future__ import annotations
 
@@ -30,18 +40,21 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 
+from repro_torch import tree_util
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.alf import check_backend
+from repro_torch.core.interface import RunStats
+from repro_torch.core.solve import solve
 from repro_torch.kernels.alf_step import ops as alf_ops
 from repro_torch.kernels.alf_step import ref as alf_ref
 
 from .attention import (KVCache, attention_decode, attention_inits,
-                        attention_prefill)
+                        attention_prefill, attention_train)
 from .common import materialize, rmsnorm, rmsnorm_inits, torch_dtype
 from .mlp import apply_mlp, mlp_inits
 from .moe import apply_moe, moe_inits
 from .ssm import (MambaCache, apply_mamba_decode, apply_mamba_prefill,
-                  mamba_inits)
+                  apply_mamba_train, mamba_inits)
 
 Pytree = Any
 
@@ -129,6 +142,118 @@ def init_blocks(generator: torch.Generator, cfg: ModelConfig,
                 del leaf
         params["period"] = pytree.tree_unflatten(stacked, tree)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Train path
+# ---------------------------------------------------------------------------
+
+def _mixer_train_fn(cfg: ModelConfig, spec: LayerSpec, positions=None):
+    # positions stay None on the ODE path: attention makes its own 0..S-1
+    # (and then skips the tiles its causal mask hides)
+    if spec.mixer == "attn":
+        return lambda p, z: attention_train(p, cfg, spec, z, positions)
+    return lambda p, z: apply_mamba_train(p, cfg, z)
+
+
+def _mlp_train_fn(cfg: ModelConfig, spec: LayerSpec,
+                  eval_mode: bool = False):
+    if spec.mlp == "moe":
+        return lambda p, z: apply_moe(p, cfg, z, eval_mode=eval_mode)
+    return lambda p, z: apply_mlp(p, z)
+
+
+def zero_run_stats(device) -> RunStats:
+    """Zero int32 counters on ``device`` (a fill kernel: no host copy)."""
+    z = torch.zeros((), dtype=torch.int32, device=device)
+    return RunStats(z, z, z)
+
+
+# The JAX package launders each solve's counters (``_detach_counter``)
+# because a custom_vjp's integer outputs carry float0 tangents under a
+# jvp trace. The port's counters are integer outputs of an
+# autograd.Function, which autograd never differentiates: they are plain
+# tensors and need no counterpart.
+
+
+def add_run_stats(a: RunStats, b: RunStats) -> RunStats:
+    return RunStats(a.n_accepted + b.n_accepted,
+                    a.n_rejected + b.n_rejected,
+                    a.n_fevals + b.n_fevals)
+
+
+def _residual_branch(cfg: ModelConfig, branch_params: Pytree,
+                     x: torch.Tensor, inner) -> Tuple[torch.Tensor, RunStats]:
+    """Apply one residual branch discretely or as a Neural ODE.
+
+    The ODE state (z, v) is kept in float32 — ALF's exact reversibility
+    is a float-rounding property, and a bf16 state would visibly degrade
+    the backward reconstruction; ``f`` itself computes in the model's
+    compute dtype (cast at the norm boundary), with the plain RMSNorm.
+    Returns the branch output and the solve's :class:`RunStats` (int32
+    counters on x's device)."""
+    cdt = torch_dtype(cfg.compute_dtype)
+
+    def dynamics(p, z, t):
+        zn = rmsnorm(p["norm"], z.to(cdt), backend="reference")
+        return inner(p["inner"], zn).float()
+
+    p = {"norm": branch_params["norm"], "inner": branch_params["inner"]}
+    ode = cfg.ode
+    if ode.mode == "off":
+        zn = rmsnorm(p["norm"], x, backend="reference")
+        return x + inner(p["inner"], zn), zero_run_stats(x.device)
+    solver, controller, gradient, saveat = ode.as_objects()
+    sol = solve(dynamics, p, x.float(), 0.0, ode.t1, solver=solver,
+                controller=controller, gradient=gradient, saveat=saveat,
+                batching=ode.batching())
+    stats = RunStats(sol.stats.n_accepted, sol.stats.n_rejected,
+                     sol.stats.n_fevals)
+    return sol.ys.to(x.dtype), stats
+
+
+def layer_train(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
+                x: torch.Tensor, positions=None
+                ) -> Tuple[torch.Tensor, RunStats]:
+    """One layer's two residual branches (mixer, then the MLP unless
+    ``spec.mlp == 'none'``) and their summed counters."""
+    x, stats = _residual_branch(
+        cfg, {"norm": params["mixer_norm"], "inner": params["mixer"]}, x,
+        _mixer_train_fn(cfg, spec, None))
+    if spec.mlp != "none":
+        x, s2 = _residual_branch(
+            cfg, {"norm": params["mlp_norm"], "inner": params["mlp"]}, x,
+            _mlp_train_fn(cfg, spec))
+        stats = add_run_stats(stats, s2)
+    return x, stats
+
+
+def _periods(stacked: Pytree, n: int):
+    """The ``n`` periods of a stacked parameter tree, as views: each leaf
+    unbound once, so the backward stacks the periods' gradients in one
+    op (an index per period would add a stack-sized zero tensor per
+    period)."""
+    leaves, spec = tree_util.tree_flatten(stacked)
+    parts = [leaf.unbind(0) for leaf in leaves]
+    return [tree_util.tree_unflatten([part[p] for part in parts], spec)
+            for p in range(n)]
+
+
+def blocks_train(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
+                 positions=None) -> Tuple[torch.Tensor, RunStats]:
+    """Returns (activations, summed ODE RunStats over every residual
+    branch)."""
+    check_supported(cfg)
+    stats = zero_run_stats(x.device)
+    for i, spec in enumerate(cfg.prelude):
+        x, s = layer_train(params["prelude"][i], cfg, spec, x, positions)
+        stats = add_run_stats(stats, s)
+    if cfg.period:
+        for pp in _periods(params["period"], cfg.n_periods):
+            for j, spec in enumerate(cfg.period):
+                x, s = layer_train(pp[f"sub{j}"], cfg, spec, x, positions)
+                stats = add_run_stats(stats, s)
+    return x, stats
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,17 @@ def test_port_has_files_to_scan():
                 "src/repro_torch/launch/serve.py",
                 "src/repro_torch/models/ssm.py",
                 "src/repro_torch/models/moe.py",
-                "src/repro_torch/kernels/mamba_scan/ops.py"):
+                "src/repro_torch/kernels/mamba_scan/ops.py",
+                "src/repro_torch/train/loop.py",
+                "src/repro_torch/train/trainer.py",
+                "src/repro_torch/train/state.py",
+                "src/repro_torch/train/metrics.py",
+                "src/repro_torch/optim/optimizer.py",
+                "src/repro_torch/optim/compression.py",
+                "src/repro_torch/checkpoint/checkpoint.py",
+                "src/repro_torch/distributed/fault_tolerance.py",
+                "src/repro_torch/launch/train.py",
+                "src/repro_torch/launch/steps.py"):
         assert new in names
 
 
@@ -57,6 +67,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.mamba_scan.ops\n"
         "import repro_torch.configs, repro_torch.models\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.train, repro_torch.optim\n"
+        "import repro_torch.checkpoint, repro_torch.distributed\n"
+        "import repro_torch.launch.train, repro_torch.launch.steps\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -73,6 +86,7 @@ def test_kernel_build_module_is_not_imported_eagerly():
     must not import (or run) the kernel builder."""
     code = ("import sys, repro_torch.core, repro_torch.kernels.alf_step.ops\n"
             "import repro_torch.models, repro_torch.launch.serve\n"
+            "import repro_torch.train, repro_torch.launch.train\n"
             "sys.exit(1 if 'repro_torch.kernels.build' in sys.modules "
             "else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
