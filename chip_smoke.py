@@ -243,6 +243,33 @@ either. Phases, each printing JSON lines:
                failure injected at step 3 whose resumed loss trace is
                bit-equal to the clean one; (e) python -m
                repro_torch.launch.train --steps 4 prints final_step=4.
+18. xlstm     — xlstm-125m at full width (12 layers: 10 mLSTM, 2 sLSTM;
+               d 768, 4 heads, vocab 50304, bf16, DEFAULT_ODE, seeded
+               weights): (a) phase 11's checks at batch 4, prompt 1024,
+               32 graphed decode steps (per prefill and per decode step
+               37 RMSNorm, 24 + 24 ALF, no flash, no scan), the kernel
+               path against backend="reference" in bf16 and f32 and
+               prefill(64) against prefill(63) + decode (the chunk rule
+               allows no 1025-token prompt), each within LM_TOL or 3x the
+               model's own noise floor (the plain path with the embedding
+               moved by one rounding), device profiles of a prefill and
+               of 4 replays; (b) phase 17's checks for 3 Trainer steps at
+               batch 8 x 256 (24 launches of each of the four MALI
+               kernels and 36 f-evals a step; kernel vs reference in bf16
+               at full width and in f32 on one period at S 128, MALI vs
+               Naive there; MALI's peak 2 -> 8 steps) and the bytes one
+               mLSTM f-eval VJP holds between its forward and pullback;
+               (c) python -m repro_torch.launch.serve and .train --arch
+               xlstm-125m --full for a few tokens and steps.
+19. gemma2_serve — gemma2-2b at full width (26 layers, d 2304, d_head 256,
+               vocab 256000, tied embeddings, bf16): phase 11's checks at
+               batch 4, prompt 1024, 32 graphed decode steps (per prefill
+               78 flash at d 256, 157 RMSNorm, 104 + 104 ALF), one prompt
+               past the 4096-token window (batch 1, 4608 tokens, 8 decode
+               steps: kernel vs plain within LM_TOL, the flash launches
+               and their share of the prefill's device time), and the
+               flash kernel timed at its prefill shape (d 256, softcap
+               50) against its bound and plain version.
 
 Phase 2 also holds the eight kernels with a per-row (B,) h, each row
 its own (kernels_rows: B x D in ROW_CASES, f32, bf16, mixed, f64, one
@@ -1859,35 +1886,48 @@ def _serve_run(params, cfg, toks, prompt: int, n_decode: int,
             (time.perf_counter() - t1) * 1e3 / n_decode)
 
 
-def _lm_compare(dtype, batch: int, prompt: int, n_decode: int):
-    """qwen3-1.7b at full width in ``dtype``: the kernel path against the
+def _lm_compare(dtype, batch: int, prompt: int, n_decode: int,
+                arch: str = LM_ARCH, self_prompt: int = 0,
+                floor: bool = False):
+    """``arch`` at full width in ``dtype``: the kernel path against the
     plain path (prefill logits and teacher-forced decode logits), and
-    prefill(p+1) against prefill(p) + decode(token p), on both paths."""
+    prefill(p+1) against prefill(p) + decode(token p), on both paths, p =
+    ``self_prompt`` (default: ``prompt``). With ``floor``, a comparison
+    may also lie within FLOOR_FACTOR x the model's own noise floor: the
+    plain path with the embedding moved by one rounding (``_moved``)
+    against the plain path."""
     import dataclasses
     import torch
     from repro_torch.configs import DEFAULT_ODE, get_config
     from repro_torch.models import init_lm, init_serve_state, prefill
     name = str(dtype).split(".")[-1]
-    cfg = dataclasses.replace(get_config(LM_ARCH, DEFAULT_ODE),
+    cfg = dataclasses.replace(get_config(arch, DEFAULT_ODE),
                               param_dtype=name, compute_dtype=name)
     params = init_lm(torch.Generator(device="cuda").manual_seed(1), cfg)
     rng = np.random.default_rng(1)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                         (batch, prompt + n_decode)),
                            device="cuda")
+    p = self_prompt or prompt
     out, logits = {}, {}
-    for backend in ("cuda", "reference"):
-        logits[backend], _, pre_ms, dec_ms = _serve_run(
-            params, cfg, toks, prompt, n_decode, backend)
-        out[f"prefill_ms_{backend}"] = pre_ms
-        out[f"decode_ms_per_step_{backend}"] = dec_ms
-        # prefill over prompt + 1 tokens: its last logits are decode
-        # step 0's (the token at position `prompt` fed after prefill)
-        lg1, _ = prefill(params, cfg, {"tokens": toks[:, :prompt + 1]},
-                         init_serve_state(cfg, batch, prompt + 1),
+    runs = [("cuda", "cuda", params), ("reference", "reference", params)]
+    if floor:
+        runs.append(("moved", "reference", _moved(params, dtype)))
+    for label, backend, w in runs:
+        logits[label], _, pre_ms, dec_ms = _serve_run(
+            w, cfg, toks, prompt, n_decode, backend)
+        out[f"prefill_ms_{label}"] = pre_ms
+        out[f"decode_ms_per_step_{label}"] = dec_ms
+        if label == "moved":
+            continue
+        # prefill over p + 1 tokens: its last logits are those of decode
+        # step 0 after prefill(p) (the token at position p fed)
+        decoded = (logits[label] if p == prompt else _serve_run(
+            w, cfg, toks, p, 1, backend)[0])[:, 1]
+        lg1, _ = prefill(w, cfg, {"tokens": toks[:, :p + 1]},
+                         init_serve_state(cfg, batch, p + 1),
                          backend=backend)
-        out[f"self_consistency_{backend}"] = _rel(lg1[:, 0],
-                                                  logits[backend][:, 1])
+        out[f"self_consistency_{label}"] = _rel(lg1[:, 0], decoded)
     out["kernel_vs_plain_prefill"] = _rel(logits["cuda"][:, 0],
                                           logits["reference"][:, 0])
     out["kernel_vs_plain_decode"] = _rel(logits["cuda"][:, 1:],
@@ -1896,15 +1936,24 @@ def _lm_compare(dtype, batch: int, prompt: int, n_decode: int):
         (logits["cuda"].argmax(-1) == logits["reference"].argmax(-1))
         .float().mean())
     tol = LM_TOL[name]
+    if floor:
+        out["floor_prefill"] = _rel(logits["moved"][:, 0],
+                                    logits["reference"][:, 0])
+        out["floor_decode"] = _rel(logits["moved"][:, 1:],
+                                   logits["reference"][:, 1:])
+        tol = max(tol, FLOOR_FACTOR * max(out["floor_prefill"],
+                                          out["floor_decode"]))
     for key in ("kernel_vs_plain_prefill", "kernel_vs_plain_decode",
                 "self_consistency_cuda", "self_consistency_reference"):
-        require(out[key] <= tol, f"lm {name} {key}: {out[key]} > {tol}")
+        require(out[key] <= tol, f"lm {arch} {name} {key}: {out[key]} > "
+                f"{tol}")
     require(all(bool(torch.isfinite(t).all()) for t in logits.values()),
-            f"lm {name}: non-finite logits")
+            f"lm {arch} {name}: non-finite logits")
     del params
     torch.cuda.empty_cache()
-    return {"dtype": name, "batch": batch, "prompt": prompt,
-            "decode_steps": n_decode, "tolerance": tol, **out}
+    return {"arch": arch, "dtype": name, "batch": batch, "prompt": prompt,
+            "self_prompt": p, "decode_steps": n_decode, "tolerance": tol,
+            **out}
 
 
 def _no_sync(fn):
@@ -2586,11 +2635,13 @@ def _method_runs(x, y):
     for label, kw, _ in METHOD_RUNS:
         out[label]["step_ms"] = step_ms[label]
         out[label]["median_step_ms"] = float(np.median(step_ms[label]))
-        prof = _device_profile(lambda: _train(
+        # the raw kineto events: the profiler's Python event tree takes
+        # longer than the run it reads
+        prof = _kernel_profile(lambda: _train(
             x, y, None, None, loss_fn=_odeint_loss(kw, x, y)))
         out[label]["profile"] = {k: prof[k] for k in (
             "device_busy_ms", "device_window_ms", "idle_share",
-            "device_launches", "host_ms")}
+            "device_launches", "wall_ms")}
     # The adaptive run's forward accounting at the seeded parameters (its
     # reverse augmented solve runs its own accept/reject loop).
     from repro_torch.core import AdaptiveController, Backsolve, Dopri5, solve
@@ -2721,18 +2772,29 @@ def phase_methods(card: str, smi: str):
     import warnings
 
     import torch
+    t0 = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
     torch.cuda.empty_cache()
     x_np, y_np = make_data(N_TRAIN, seed=0)
     x = torch.as_tensor(x_np, device="cuda")
     y = torch.as_tensor(y_np, device="cuda")
     thm21 = _thm21()
+    lap("a_thm21")
     with warnings.catch_warnings():
         # odeint() is the legacy facade and says so on every call
         warnings.simplefilter("ignore", DeprecationWarning)
         runs, launches, first_grads = _method_runs(x, y)
+    lap("b_runs")
     peaks, growth = _method_memory()
+    lap("c_memory")
     bounds, agree = _method_bounds(x_np)
+    lap("d_bounds")
     emit({"phase": "methods", "card": card, "nvidia_smi": smi,
+          "part_s": parts,
           "thm21": thm21, "model": "paper Sec 4.2 (D=64, HIDDEN=64, 3 "
           "classes, 2048 images)", "steps": TRAIN_STEPS, "runs": runs,
           "launches": launches,
@@ -2941,7 +3003,7 @@ def _cnf_times(xs_by_batch):
             for backend in order[::1 if i % 2 == 0 else -1]:
                 _, _, wall, _ = _cnf_train(xs, backend)
                 step_ms[backend].append(wall / CNF_STEPS * 1e3)
-        prof = _device_profile(lambda: _cnf_train(xs, "cuda"))
+        prof = _kernel_profile(lambda: _cnf_train(xs, "cuda"))
         out[batch] = {
             "step_ms_cuda": step_ms["cuda"],
             "step_ms_reference": step_ms["reference"],
@@ -2950,7 +3012,7 @@ def _cnf_times(xs_by_batch):
                 np.median(step_ms["reference"])),
             "profile_cuda": {k: prof[k] for k in (
                 "device_busy_ms", "device_window_ms", "idle_share",
-                "device_launches", "host_ms", "top_device_ms")}}
+                "device_launches", "wall_ms", "top_device_ms")}}
     return out
 
 
@@ -3067,6 +3129,12 @@ def phase_cnf(card: str, smi: str):
     hold the kernels on a moving state."""
     import torch
     from repro_torch.core import Naive
+    t0 = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
     torch.cuda.empty_cache()
     xs_by_batch = {b: _cnf_data(b) for b in CNF_BATCHES}
     out = {}
@@ -3127,11 +3195,16 @@ def phase_cnf(card: str, smi: str):
         out[f"batch_{batch}"] = row
         trained_by_batch[batch] = trained
         del init
+    lap("a_train_compare")
     peaks, growth = _cnf_memory(xs_by_batch[CNF_BATCHES[-1]][0])
+    lap("b_memory")
     sample_launches, sample = _cnf_sample(_cnf_params())
+    lap("c_sample")
     events = _events()
+    lap("d_events")
     times = _cnf_times(xs_by_batch)
-    emit({"phase": "cnf", "card": card, "nvidia_smi": smi,
+    lap("e_times")
+    emit({"phase": "cnf", "card": card, "nvidia_smi": smi, "part_s": parts,
           "model": f"examples/cnf_image.py: DIM {CNF_DIM}, mlp_vfield "
           f"hidden {CNF_HIDDEN} depth {CNF_DEPTH}, Hutchinson, ALF(eta=1, "
           f"cuda), ConstantSteps({CNF_N_SUB}), MALI, cnf_loss(kinetic_reg="
@@ -4075,15 +4148,18 @@ def _lt_grads(params, cfg, batch):
     return loss, [int(c) for c in stats], tree_util.tree_leaves(grads)
 
 
-def _lt_full_width():
-    """(a): 3 Trainer steps of qwen3-1.7b at full width; returns (the
-    trainer, batch 0, per-step launches, the results)."""
+def _lt_full_width(arch: str = LM_ARCH, batch: int = LT_BATCH,
+                   seq: int = LT_SEQ, per_step_want: dict = LT_PER_STEP):
+    """(a): LT_STEPS Trainer steps of ``arch`` at full width, each
+    launching exactly ``per_step_want``; returns (the trainer, batch 0,
+    per-step launches, the results)."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.models import lm_loss
     from repro_torch.optim import OptimizerConfig
     from repro_torch.train import MemoryEmitter, Trainer, TrainerConfig
-    tc = TrainerConfig(arch=LM_ARCH, smoke=False, steps=LT_STEPS,
-                       global_batch=LT_BATCH, seq_len=LT_SEQ,
+    tc = TrainerConfig(arch=arch, smoke=False, steps=LT_STEPS,
+                       global_batch=batch, seq_len=seq,
                        log_every=100, emit="memory")
     snaps = []
     # the optimizer's own defaults (warmup over 100 steps): the rule the
@@ -4093,8 +4169,11 @@ def _lt_full_width():
                       step_hook=lambda step: snaps.append(
                           _lm_counts()[0]),
                       opt_cfg=OptimizerConfig())
-    require(trainer.cfg.ode.backend == "cuda" and trainer.cfg.d_model == 2048
-            and trainer.cfg.n_layers == 28, "lm_train: not the full config")
+    full = get_config(arch)
+    require(trainer.cfg.ode.backend == "cuda"
+            and trainer.cfg.d_model == full.d_model
+            and trainer.cfg.n_layers == full.n_layers,
+            f"{arch} training: not the full config")
     _lm_reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4106,13 +4185,13 @@ def _lt_full_width():
                 for i in range(LT_STEPS)]
     for i, counts in enumerate(per_step):
         for name, n in counts.items():
-            want = LT_PER_STEP.get(name, 0)
-            require(n == want, f"lm_train step {i}: {name} launched {n} "
-                    f"times, expected {want}")
+            want = per_step_want.get(name, 0)
+            require(n == want, f"{arch} training step {i}: {name} launched "
+                    f"{n} times, expected {want}")
     _, calls = _lm_counts()
-    for name in LT_PER_STEP:
-        require(calls[name] == LT_STEPS * LT_PER_STEP[name],
-                f"lm_train: {name} op calls {calls[name]}")
+    for name in per_step_want:
+        require(calls[name] == LT_STEPS * per_step_want[name],
+                f"{arch} training: {name} op calls {calls[name]}")
     recs = [trainer.records[s] for s in range(LT_STEPS)]
     require(all(np.isfinite(r.loss) for r in recs),
             f"lm_train: non-finite loss {[r.loss for r in recs]}")
@@ -4122,10 +4201,10 @@ def _lt_full_width():
     require(np.isfinite(after) and after < recs[0].loss,
             f"lm_train: loss on batch 0 {recs[0].loss} -> {after}")
     return trainer, batch0, per_step, {
-        "config": {"arch": LM_ARCH, "d_model": trainer.cfg.d_model,
+        "config": {"arch": arch, "d_model": trainer.cfg.d_model,
                    "layers": trainer.cfg.n_layers,
                    "vocab": trainer.cfg.vocab_size, "dtype": "bfloat16",
-                   "batch": LT_BATCH, "seq_len": LT_SEQ,
+                   "batch": batch, "seq_len": seq,
                    "ode": "MALI, ALF(cuda), ConstantSteps(2)",
                    "optimizer": "AdamW, peak 3e-4, warmup 100"},
         "losses": [r.loss for r in recs], "loss_batch0_after": after,
@@ -4139,11 +4218,13 @@ def _lt_full_width():
         "launches_per_step": per_step[0]}
 
 
-def _kernel_profile(run, top: int = 8):
+def _kernel_profile(run, top: int = 8, of: str = ""):
     """torch.profiler with device activity only over ``run()``, read from
-    the raw kineto events: the device's busy and idle share and the top
-    device operations. ``_device_profile``'s Python event tree takes
-    minutes at a training step's ~10^5 kernels and ~10^6 host ops."""
+    the raw kineto events: the device's busy and idle share, the top
+    device operations and, with ``of``, the device time and count of the
+    kernels whose name holds it. ``_device_profile``'s Python event tree
+    takes minutes at a training step's ~10^5 kernels and ~10^6 host
+    ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -4170,11 +4251,17 @@ def _kernel_profile(run, top: int = 8):
         ns, n = by_name.get(e.name(), (0, 0))
         by_name[e.name()] = (ns + e.duration_ns(), n + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e6,
-            "device_window_ms": window / 1e6,
-            "idle_share": 1.0 - busy / window, "device_launches": len(dev),
-            "top_device_ms": [[name[:60], ns / 1e6, n]
-                              for name, (ns, n) in ranked]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy / 1e6,
+           "device_window_ms": window / 1e6,
+           "idle_share": 1.0 - busy / window, "device_launches": len(dev),
+           "top_device_ms": [[name[:60], ns / 1e6, n]
+                             for name, (ns, n) in ranked]}
+    if of:
+        hits = [v for name, v in by_name.items() if of in name]
+        ns = sum(v[0] for v in hits)
+        out[of] = {"device_ms": ns / 1e6, "kernels": sum(v[1] for v in hits),
+                   "share_of_busy": ns / busy}
+    return out
 
 
 def _lt_step_profile(trainer, batch0):
@@ -4219,12 +4306,13 @@ def _lt_memory_mali(trainer, batch0):
     """(c), MALI: the peak over one train_step at (a)'s shape, 2 and 8
     ALF steps a branch."""
     st = trainer.state
-    mali = {n: _lt_peak(st.params, st.opt, _lt_config("cuda", n),
+    arch = trainer.cfg.name
+    mali = {n: _lt_peak(st.params, st.opt, _lt_config("cuda", n, arch=arch),
                         trainer.opt_cfg, batch0) for n in LT_MEM_STEPS}
     lo, hi = LT_MEM_STEPS
     ratio = mali[hi] / mali[lo]
-    require(ratio <= 1.05, f"lm_train (c): MALI's peak grows {ratio}x from "
-            f"{lo} to {hi} steps")
+    require(ratio <= 1.05, f"{arch} training (c): MALI's peak grows "
+            f"{ratio}x from {lo} to {hi} steps")
     return {"mali_bytes": mali, "mali_ratio": ratio}
 
 
@@ -4253,12 +4341,15 @@ def _lt_memory_naive():
                           "batch": LT_NAIVE_MEM_BATCH, "dtype": "float32"}}
 
 
-def _lt_kernel_vs_reference(params, batch0):
+def _lt_kernel_vs_reference(params, batch0, arch: str = LM_ARCH,
+                            cut_layers: int = LT_CUT_LAYERS,
+                            cut_seq: int = LT_CUT_SEQ,
+                            cut_batch: int = LT_BATCH):
     """(b): one step's loss and gradients with backend="cuda" against
     backend="reference": at full width in bf16 (to max(LT_BF16_TOL, 3x the
-    reference's one-rounding floor) per gradient leaf), and on the f32
-    2-layer cut (LT_F32_TOL; MALI on cuda against Naive on the reference
-    backend at GRAD_TOL)."""
+    reference's one-rounding floor) per gradient leaf), and on the f32 cut
+    to ``cut_layers`` periods at ``cut_seq`` tokens (LT_F32_TOL; MALI on
+    cuda against Naive on the reference backend at GRAD_TOL)."""
     import torch
     from repro_torch.models import init_lm
     out = {}
@@ -4267,7 +4358,7 @@ def _lt_kernel_vs_reference(params, batch0):
                               ("reference", "reference", params),
                               ("reference_moved", "reference",
                                _moved(params, torch.bfloat16))):
-        runs[label] = _lt_grads(p, _lt_config(backend), batch0)
+        runs[label] = _lt_grads(p, _lt_config(backend, arch=arch), batch0)
     ref_loss, ref_stats, ref_g = runs["reference"]
     loss_err = _rel(runs["cuda"][0], ref_loss)
     loss_floor = _rel(runs["reference_moved"][0], ref_loss)
@@ -4288,11 +4379,11 @@ def _lt_kernel_vs_reference(params, batch0):
     del runs
     torch.cuda.empty_cache()
 
-    cut = _lt_config("cuda", layers=LT_CUT_LAYERS, dtype="float32")
+    cut = _lt_config("cuda", layers=cut_layers, dtype="float32", arch=arch)
     p32 = init_lm(torch.Generator(device="cuda").manual_seed(2), cut)
-    batch = _lt_batch(cut, LT_BATCH, LT_CUT_SEQ)
-    got = {label: _lt_grads(p32, _lt_config(backend, 2, method,
-                                            LT_CUT_LAYERS, "float32"), batch)
+    batch = _lt_batch(cut, cut_batch, cut_seq)
+    got = {label: _lt_grads(p32, _lt_config(backend, 2, method, cut_layers,
+                                            "float32", arch), batch)
            for label, backend, method in (
                ("mali_cuda", "cuda", "mali"),
                ("mali_reference", "reference", "mali"),
@@ -4311,7 +4402,8 @@ def _lt_kernel_vs_reference(params, batch0):
             f"{naive_excess} beyond rtol/atol")
     require(got["mali_cuda"][1] == got["naive_reference"][1],
             "lm_train (b): MALI and Naive counters differ")
-    out["f32_cut"] = {"layers": LT_CUT_LAYERS, "seq_len": LT_CUT_SEQ,
+    out["f32_cut"] = {"periods": cut_layers, "seq_len": cut_seq,
+                      "batch": cut_batch,
                       "kernel_vs_reference_loss": k_loss,
                       "kernel_vs_reference_grad": k_grad,
                       "mali_vs_naive_loss": _rel(
@@ -4431,6 +4523,332 @@ def phase_lm_train(card: str, smi: str):
     return per_step[0]
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-19: xlstm-125m served and trained, gemma2-2b served (full width)
+# ---------------------------------------------------------------------------
+
+XL_ARCH = "xlstm-125m"
+# per prefill and per decode step under DEFAULT_ODE (3 f-evals per
+# residual branch, no MLP branch): 12 layers x 3 mixer norms + the final
+# norm; 12 layers x 2 ALF steps, one midpoint and one update each
+XL_PER_PREFILL = {"rmsnorm": 37, "alf_midpoint": 24, "alf_update": 24}
+XL_PER_DECODE = XL_PER_PREFILL
+# prefill(p) + decode against prefill(p + 1): the chunk rule allows p < 64
+# or a multiple of 64 only, so p = 63 (p + 1 = one 64-token chunk)
+XL_SELF_PROMPT = 63
+# (b): 3 Trainer steps at batch 8 x 256; per step 12 layers x 2 ALF steps
+# of each kernel forward and backward, 36 f-evals
+XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_FEVALS = 8, 256, 36
+XL_PER_STEP = {"alf_midpoint": 24, "alf_update": 24, "alf_bwd_pre": 24,
+               "alf_bwd_post": 24}
+XL_CUT_PERIODS, XL_CUT_SEQ = 1, 128      # (b) f32: one period, 6 layers
+GM_ARCH = "gemma2-2b"
+# per prefill: 26 layers x 3 flash calls (d 256); 26 layers x 2 branches x
+# 3 norms + the final norm; 26 layers x 2 branches x 2 ALF steps
+GM_PER_PREFILL = {"flash_attention": 78, "rmsnorm": 157,
+                  "alf_midpoint": 104, "alf_update": 104}
+GM_PER_DECODE = {"flash_attention": 0, "rmsnorm": 157, "alf_midpoint": 104,
+                 "alf_update": 104}
+# one prompt past the local layers' 4096-token window, batch 1
+GM_LONG_PROMPT, GM_LONG_DECODE = 4608, 8
+
+
+def _serve_cell(arch: str, per_prefill: dict, per_decode: dict, what: str,
+                self_prompt: int = 0, floor: bool = False):
+    """Phase 11's checks for ``arch`` at full width (bf16, DEFAULT_ODE,
+    batch LM_BATCH, prompt LM_PROMPT, LM_DECODE graphed decode steps):
+    exact launch counts, no host sync, the graph against eager decode and
+    serve(), the kernel path against the plain one (``_lm_compare``, with
+    ``self_prompt`` and ``floor``), peak memory, and the device profiles
+    of a prefill and of 4 replays from the raw kineto events. Returns
+    (the serve run's launches, the phase's fields, the weights)."""
+    import torch
+    from repro_torch.configs import DEFAULT_ODE, get_config
+    from repro_torch.launch.serve import serve, serve_prompt
+    from repro_torch.models import init_lm, init_serve_state, prefill
+    kw = dict(smoke=False, ode=True, batch=LM_BATCH, seed=0)
+    # warm (cuBLAS, kernels) on a short prompt: an xLSTM prefill of
+    # LM_PROMPT tokens takes seconds of host time
+    serve(arch, decode_tokens=2, prompt_len=64, **kw)
+    kw["prompt_len"] = LM_PROMPT
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _lm_reset()
+    result = serve(arch, decode_tokens=LM_DECODE, **kw)
+    launches = _lm_check_counts(
+        f"{what} (one prefill + {LM_DECODE} decode steps: one eager, one "
+        "captured, replays)", per_decode, 2, plus=per_prefill)
+    peak = torch.cuda.max_memory_allocated()
+    require(result.tokens.shape == (LM_BATCH, LM_DECODE)
+            and int(result.tokens.min()) >= 0, f"{what}: tokens")
+    cfg = get_config(arch, DEFAULT_ODE)
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 8)), device="cuda")
+    step, gstate = _counted_steps(params, cfg, toks, LM_PROMPT,
+                                  per_prefill, per_decode, what)
+    state = init_serve_state(cfg, LM_BATCH, LM_PROMPT + 8)
+    prof_prefill = _kernel_profile(lambda: prefill(
+        params, cfg, {"tokens": toks[:, :LM_PROMPT]}, state),
+        of="flash")
+
+    def replay4():
+        st = gstate
+        for i in range(LM_PROMPT + 3, LM_PROMPT + 7):
+            _, st = step(params, toks[:, i:i + 1], st)
+
+    prof_replay = _kernel_profile(replay4)
+    graph = _graph_vs_eager(params, cfg, serve_prompt(
+        cfg, LM_BATCH, LM_PROMPT, 0, "cuda"), LM_DECODE, result.tokens,
+        prof_replay["device_busy_ms"] / 4)
+    del state, step, gstate
+    torch.cuda.empty_cache()
+    fields = {
+        "arch": arch, "batch": LM_BATCH, "prompt": LM_PROMPT,
+        "decode_tokens": LM_DECODE, "dtype": "bfloat16",
+        "ode": "DEFAULT_ODE (per_block, MALI/ALF, n_steps=2)",
+        "prefill_ms": result.prefill_ms, "decode_ms": result.decode_ms,
+        "decode_ms_per_step": result.decode_ms / LM_DECODE,
+        "prefill_tok_s": result.prefill_tok_s,
+        "decode_tok_s": result.decode_tok_s,
+        "peak_memory_bytes": peak, "launches": launches,
+        "per_prefill": per_prefill, "per_decode_step": per_decode,
+        "sample": result.tokens[0][:8].tolist(), "graph_vs_eager": graph,
+        "profile_prefill": prof_prefill,
+        "profile_decode_4_replays": prof_replay}
+    return launches, fields, params
+
+
+def _compare_cells(arch: str, self_prompt: int = 0, floor: bool = False):
+    """``_lm_compare`` at phase 11's two cells: bf16 at batch LM_BATCH x
+    LM_PROMPT + 8 decode steps, f32 at batch 2 x 256 + 4."""
+    import torch
+    return [_lm_compare(torch.bfloat16, LM_BATCH, LM_PROMPT, 8, arch,
+                        self_prompt, floor),
+            _lm_compare(torch.float32, 2, 256, 4, arch, self_prompt, floor)]
+
+
+def _xl_vjp_bytes(params, cfg, tokens: int):
+    """The device bytes one mLSTM f-eval VJP (period 0's first mLSTM, at
+    the training batch and ``tokens``, under torch.func.vjp as MALI's
+    backward takes it) holds between its forward and its pullback, and
+    its peak during the pullback, each beyond what was allocated
+    before."""
+    import torch
+    from repro_torch.models.xlstm import _mlstm_dims, apply_mlstm_train
+    _, heads, dh = _mlstm_dims(cfg)
+    mixer = {k: v[0] for k, v in
+             params["blocks"]["period"]["sub0"]["mixer"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((XL_TRAIN_BATCH, tokens, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, pull = torch.func.vjp(
+        lambda p, z: apply_mlstm_train(p, cfg, z).float(), mixer, x)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    grads = pull(torch.ones_like(out))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    require(all(bool(torch.isfinite(g).all()) for g in grads[0].values()),
+            "xlstm (b): non-finite mLSTM VJP")
+    del out, pull, grads
+    return {"batch": XL_TRAIN_BATCH, "tokens": tokens,
+            "held_bytes": held, "pullback_peak_bytes": peak,
+            # what storing every token's C would hold, per saved tensor
+            "per_token_c_bytes_per_saved_tensor":
+                XL_TRAIN_BATCH * tokens * heads * dh * dh * 4}
+
+
+def _xl_cli():
+    """(c): both launchers at --full for a few tokens and steps."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = {}
+    for label, args, want in (
+            ("serve", ["repro_torch.launch.serve", "--arch", XL_ARCH,
+                       "--full", "--prompt-len", "64", "--decode-tokens",
+                       "8", "--batch", "4"],
+             f"arch={XL_ARCH} batch=4 prompt=64"),
+            ("train", ["repro_torch.launch.train", "--arch", XL_ARCH,
+                       "--full", "--steps", "2", "--global-batch", "2",
+                       "--seq-len", "64"], "final_step=2")):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", *args], cwd=str(HERE),
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+        require(res.returncode == 0 and want in res.stdout,
+                f"xlstm (c): the {label} CLI failed: {res.stdout[-2000:]}"
+                f"{res.stderr[-2000:]}")
+        out[label] = {"s": time.perf_counter() - t0,
+                      "stdout_tail": res.stdout.splitlines()[-3:]}
+    return out
+
+
+def phase_xlstm(card: str, smi: str):
+    """Phase 18: xlstm-125m at full width. (a) served through the decode
+    graph with phase 11's checks; (b) trained (MALI, ALF cuda, 3 Trainer
+    steps at batch 8 x 256) with phase 17's checks and the bytes one
+    mLSTM f-eval VJP holds; (c) the two launchers. Returns the per-prefill,
+    per-decode-step and per-training-step launches."""
+    import torch
+    t0 = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    _, serve_fields, params = _serve_cell(XL_ARCH, XL_PER_PREFILL,
+                                          XL_PER_DECODE, "xlstm",
+                                          XL_SELF_PROMPT, floor=True)
+    del params
+    torch.cuda.empty_cache()
+    lap("a_serve")
+    serve_fields["compare"] = _compare_cells(XL_ARCH, XL_SELF_PROMPT,
+                                             floor=True)
+    lap("a_compare")
+    trainer, batch0, per_step, full = _lt_full_width(
+        XL_ARCH, XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_PER_STEP)
+    require(full["fevals_per_step"] == XL_FEVALS,
+            f"xlstm (b): {full['fevals_per_step']} f-evals a step")
+    lap("b_train")
+    full.update(_lt_step_profile(trainer, batch0))
+    lap("b_profile")
+    memory = _lt_memory_mali(trainer, batch0)
+    memory["mlstm_feval_vjp"] = _xl_vjp_bytes(
+        trainer.state.params, trainer.cfg, batch0["tokens"].shape[1])
+    lap("b_memory")
+    params = trainer.state.params
+    del trainer
+    torch.cuda.empty_cache()
+    compare = _lt_kernel_vs_reference(params, batch0, XL_ARCH,
+                                      XL_CUT_PERIODS, XL_CUT_SEQ,
+                                      XL_TRAIN_BATCH)
+    del params
+    torch.cuda.empty_cache()
+    lap("b_compare")
+    cli = _xl_cli()
+    lap("c_cli")
+    emit({"phase": "xlstm", "card": card, "nvidia_smi": smi,
+          "serve": serve_fields,
+          "train": {"full_width": full, "compare": compare,
+                    "memory": memory},
+          "cli": cli, "part_s": parts, "phase_s": time.perf_counter() - t0})
+    return {"prefill": XL_PER_PREFILL, "decode": XL_PER_DECODE,
+            "train": per_step[0]}
+
+
+def _flash_d256_times(card: str):
+    """The flash kernel at gemma2-2b's prefill shape (d 256, causal,
+    softcap 50; the 4096 window masks nothing at 1024 tokens) against its
+    bound and its plain version. No library call computes a softcapped
+    attention; SDPA without the softcap is timed beside it for scale."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    bw, _, bf16_peak = card_rates(card)
+    cfg = get_config(GM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    b, s, h, kv, d = (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.d_head)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v = rand(b, s, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = dict(causal=True, window=cfg.sliding_window,
+              softcap=cfg.attn_softcap)
+    kern = lambda: fa_k.flash_attention_call(q, k, v, **kw)   # noqa: E731
+    plain = lambda: fa_ref.attention_ref(q, k, v, **kw)       # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(            # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    _close(kern(), plain(), *FA_TOL["bfloat16"],
+           "flash at gemma2's shape against the plain version")
+    ms, plain_ms = _alternate(kern, plain, 10)
+    pairs = b * h * s * (s + 1) // 2
+    ops_ms = 4 * pairs * d / bf16_peak * 1e3
+    bytes_ms = (2 * b * s * h * d + 2 * b * s * kv * d) * 2 / bw * 1e3
+    graph_ms = _graph_ms(kern, 10)
+    return {"shape": [b, s, h, kv, d], "causal": True,
+            "window": cfg.sliding_window, "softcap": cfg.attn_softcap,
+            "ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "sdpa_without_softcap_ms": _time_ms(sdpa, 10),
+            "tflops_per_s": 4 * pairs * d / graph_ms / 1e9}
+
+
+def _gm_long_prompt(params):
+    """One prompt past the local layers' window (batch 1, 4608 tokens,
+    8 decode steps): the kernel path against the plain path within
+    LM_TOL, and the flash launches of the kernel path's prefill and their
+    share of its device time."""
+    import torch
+    from repro_torch.configs import DEFAULT_ODE, get_config
+    from repro_torch.models import init_serve_state, prefill
+    cfg = get_config(GM_ARCH, DEFAULT_ODE)
+    n = GM_LONG_PROMPT
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, n + GM_LONG_DECODE)), device="cuda")
+    logits, out = {}, {}
+    for backend in ("cuda", "reference"):
+        logits[backend], _, pre_ms, dec_ms = _serve_run(
+            params, cfg, toks, n, GM_LONG_DECODE, backend)
+        out[f"prefill_ms_{backend}"] = pre_ms
+        out[f"decode_ms_per_step_{backend}"] = dec_ms
+    out.update({"prompt": n, "batch": 1, "decode_steps": GM_LONG_DECODE,
+           "kernel_vs_plain_prefill": _rel(logits["cuda"][:, 0],
+                                           logits["reference"][:, 0]),
+           "kernel_vs_plain_decode": _rel(logits["cuda"][:, 1:],
+                                          logits["reference"][:, 1:])})
+    for key in ("kernel_vs_plain_prefill", "kernel_vs_plain_decode"):
+        require(out[key] <= LM_TOL["bfloat16"],
+                f"gemma2 long prompt {key}: {out[key]}")
+    state = init_serve_state(cfg, 1, n)
+    _lm_reset()
+    out["profile_prefill"] = _kernel_profile(lambda: prefill(
+        params, cfg, {"tokens": toks[:, :n]}, state), of="flash")
+    out["flash_launches"] = _lm_counts()[0]["flash_attention"]
+    require(out["flash_launches"] == GM_PER_PREFILL["flash_attention"],
+            f"gemma2 long prompt: {out['flash_launches']} flash launches")
+    return out
+
+
+def phase_gemma2_serve(card: str, smi: str):
+    """Phase 19: gemma2-2b at full width served with phase 11's checks,
+    one prompt past the 4096-token window, and the d = 256 flash kernel
+    timed at its prefill shape. Returns the per-prefill launches and the
+    flash times."""
+    import torch
+    t0 = time.perf_counter()
+    _, fields, params = _serve_cell(GM_ARCH, GM_PER_PREFILL, GM_PER_DECODE,
+                                    "gemma2")
+    fields["long_prompt"] = _gm_long_prompt(params)
+    del params
+    torch.cuda.empty_cache()
+    fields["compare"] = _compare_cells(GM_ARCH)
+    flash = _flash_d256_times(card)
+    emit({"phase": "gemma2_serve", "card": card, "nvidia_smi": smi,
+          **fields, "flash_d256": flash,
+          "phase_s": time.perf_counter() - t0})
+    return {"prefill": GM_PER_PREFILL, "flash_d256": flash}
+
+
+def _new_cell_launches(name: str, xlstm: dict, gemma2: dict) -> dict:
+    return {"launches_xlstm_prefill": xlstm["prefill"].get(name, 0),
+            "launches_xlstm_decode": xlstm["decode"].get(name, 0),
+            "launches_xlstm_train": xlstm["train"].get(name, 0),
+            "launches_gemma2_prefill": gemma2["prefill"].get(name, 0)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4501,6 +4919,10 @@ def main() -> int:
     lap("serve")
     train_launches = phase_lm_train(card, smi)
     lap("lm_train")
+    xlstm = phase_xlstm(card, smi)
+    lap("xlstm")
+    gemma2 = phase_gemma2_serve(card, smi)
+    lap("gemma2_serve")
     emit({"phase": "walls", "seconds": walls})
 
     table = []
@@ -4538,7 +4960,10 @@ def main() -> int:
                       # on the serving engine's chunk lane (phase 16)
                       "launches_serve": serve_launches[name],
                       # per qwen3-1.7b training step (phase 17)
-                      "launches_lm_train": train_launches[name]})
+                      "launches_lm_train": train_launches[name],
+                      # per xlstm-125m prefill, decode step and training
+                      # step (phase 18), per gemma2-2b prefill (19)
+                      **_new_cell_launches(name, xlstm, gemma2)})
     for name, (replaces, source) in LM_KERNELS.items():
         row = lm_times[name]
         # each kernel's launches from its own path: the scan's from the
@@ -4551,6 +4976,7 @@ def main() -> int:
                       "launches_ssm_serve": ssm_launches[name],
                       "launches_serve": serve_launches[name],
                       "launches_lm_train": train_launches[name],
+                      **_new_cell_launches(name, xlstm, gemma2),
                       "checks": lm_checks[name],
                       "max_abs_err": lm_worst[name]["bfloat16"],
                       "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -4562,6 +4988,9 @@ def main() -> int:
                       "library_ms": row["library_ms"],
                       "graph_ms": row["graph_ms"],
                       "library_graph_ms": row.get("library_graph_ms")})
+        if name == "flash_attention":
+            # at gemma2-2b's prefill shape: d 256, softcap 50
+            table[-1]["gemma2_d256"] = gemma2["flash_d256"]
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

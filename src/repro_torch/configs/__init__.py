@@ -1,9 +1,8 @@
 """Config registry: the assigned architectures + reduced smoke variants.
 
 The same ten configs as the JAX package's ``repro.configs``, in data files
-of their own. Every config loads; ``models.init_lm`` raises
-``NotImplementedError`` on the layer kinds the port has not ported yet
-(the xLSTM mixers), naming their ROADMAP item.
+of their own. Every config loads, and the port serves and trains each
+one.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Model substrate: attention, Mamba and MoE blocks + the continuous-depth
-LM (its training loss, prefill and decode); the CNF's MLP vector field."""
+"""Model substrate: attention, Mamba, xLSTM and MoE blocks + the
+continuous-depth LM (its training loss, prefill and decode); the CNF's MLP
+vector field."""
 from .lm import (ServeState, backbone_train, chunked_ce_loss, decode_step,
                  init_lm, init_serve_state, lm_loss, lm_loss_and_stats,
                  prefill)

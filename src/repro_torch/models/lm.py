@@ -48,8 +48,7 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig,
             device=None) -> Pytree:
     """Seeded random weights in the JAX package's tree layout, on
     ``device`` (default: the CUDA card); ``generator`` must live on that
-    device. Raises ``NotImplementedError`` for layer kinds not ported
-    yet."""
+    device."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.param_dtype)
     params = {

@@ -22,16 +22,14 @@ the f-evals (``midpoint`` then ``update``, in float32) runs through the
 fused ALF ops (``kernels/alf_step``), so the card launches the ALF
 kernels inside every continuous-depth block.
 
-Mixers: attention (``attention.py``) and Mamba (``ssm.py``); MLPs: dense
+Mixers: attention (``attention.py``), Mamba (``ssm.py``) and the xLSTM
+mixers mLSTM and sLSTM (``xlstm.py``); MLPs: dense
 (``mlp.py``), MoE (``moe.py``: the training capacity on the train path,
 the serve-time one on the serve path) or none. Parameters and caches keep
 the JAX package's layout — the prelude's layers unstacked in a list, the
 period's parameters and caches stacked on a leading ``n_periods`` axis —
 so weights convert leaf for leaf; the port loops over that axis in Python
 where the JAX package scans. Caches are updated in place.
-
-The xLSTM mixers raise ``NotImplementedError`` naming the ROADMAP item
-they land with.
 """
 from __future__ import annotations
 
@@ -55,26 +53,11 @@ from .mlp import apply_mlp, mlp_inits
 from .moe import apply_moe, moe_inits
 from .ssm import (MambaCache, apply_mamba_decode, apply_mamba_prefill,
                   apply_mamba_train, mamba_inits)
+from .xlstm import (LstmCache, apply_mlstm_decode, apply_mlstm_train,
+                    apply_slstm_decode, apply_slstm_train, mlstm_inits,
+                    slstm_inits)
 
 Pytree = Any
-
-# Layer kinds of the JAX package that land with a later slice.
-_LATER = {
-    "mlstm": "the xLSTM slice (ROADMAP queue 1)",
-    "slstm": "the xLSTM slice (ROADMAP queue 1)",
-}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config with a layer kind this
-    port does not have yet."""
-    for spec in cfg.prelude + cfg.period:
-        for kind in (spec.mixer, spec.mlp):
-            if kind in _LATER:
-                raise NotImplementedError(
-                    f"{cfg.name}: {kind!r} layers are not ported yet; they "
-                    f"land with {_LATER[kind]}")
-
 
 def n_cache_slots(cfg: ModelConfig) -> int:
     """Virtual-layer count per block: v0-init + one per ALF step."""
@@ -86,6 +69,8 @@ def n_cache_slots(cfg: ModelConfig) -> int:
 _MIXER_INITS = {
     "attn": attention_inits,
     "mamba": mamba_inits,
+    "mlstm": mlstm_inits,
+    "slstm": slstm_inits,
 }
 
 
@@ -119,7 +104,6 @@ def init_blocks(generator: torch.Generator, cfg: ModelConfig,
     as [n_periods, ...] and filled period by period as it is drawn: init
     holds the weights plus one leaf's draw temporaries (stacking finished
     periods would hold the weights twice)."""
-    check_supported(cfg)
     params: Pytree = {}
     if cfg.prelude:
         params["prelude"] = [
@@ -148,12 +132,21 @@ def init_blocks(generator: torch.Generator, cfg: ModelConfig,
 # Train path
 # ---------------------------------------------------------------------------
 
+# the token-recurrent mixers' train paths, each apply(params, cfg, x)
+_RECURRENT_TRAIN = {
+    "mamba": apply_mamba_train,
+    "mlstm": apply_mlstm_train,
+    "slstm": apply_slstm_train,
+}
+
+
 def _mixer_train_fn(cfg: ModelConfig, spec: LayerSpec, positions=None):
     # positions stay None on the ODE path: attention makes its own 0..S-1
     # (and then skips the tiles its causal mask hides)
     if spec.mixer == "attn":
         return lambda p, z: attention_train(p, cfg, spec, z, positions)
-    return lambda p, z: apply_mamba_train(p, cfg, z)
+    apply = _RECURRENT_TRAIN[spec.mixer]
+    return lambda p, z: apply(p, cfg, z)
 
 
 def _mlp_train_fn(cfg: ModelConfig, spec: LayerSpec,
@@ -243,7 +236,6 @@ def blocks_train(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
                  positions=None) -> Tuple[torch.Tensor, RunStats]:
     """Returns (activations, summed ODE RunStats over every residual
     branch)."""
-    check_supported(cfg)
     stats = zero_run_stats(x.device)
     for i, spec in enumerate(cfg.prelude):
         x, s = layer_train(params["prelude"][i], cfg, spec, x, positions)
@@ -265,11 +257,14 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     slots = n_cache_slots(cfg)
     if spec.mixer == "attn":
         return KVCache.init(cfg, slots, batch, s_max, device)
-    return MambaCache.init(cfg, slots, batch, device)
+    if spec.mixer == "mamba":
+        return MambaCache.init(cfg, slots, batch, device)
+    if spec.mixer == "mlstm":
+        return LstmCache.init_mlstm(cfg, slots, batch, device)
+    return LstmCache.init_slstm(cfg, slots, batch, device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> Pytree:
-    check_supported(cfg)
     cache: Pytree = {}
     if cfg.prelude:
         cache["prelude"] = [init_layer_cache(cfg, spec, batch, s_max, device)
@@ -278,7 +273,7 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> Pytree:
         proto = {f"sub{j}": init_layer_cache(cfg, spec, batch, s_max, device)
                  for j, spec in enumerate(cfg.period)}
         # tiled from one period's caches (not zeros), as the JAX package
-        # does, so a non-zero initial state would carry over
+        # does, so the xLSTM stabilizer's -1e30 start carries over
         cache["period"] = pytree.tree_map(
             lambda t: t[None].repeat(cfg.n_periods, *(1,) * t.dim()), proto)
     return cache
@@ -293,13 +288,24 @@ def _mixer_serve(params, cfg, spec, z, cache, slot, pos_info, kind,
                                      slot, backend)
         return attention_decode(params, cfg, spec, z, pos_info, cache, slot,
                                 backend)
+    if spec.mixer == "mamba":
+        if kind == "prefill":
+            y, (conv_state, ssm_state) = apply_mamba_prefill(
+                params, cfg, z, return_state=True, backend=backend)
+            cache.conv[slot] = conv_state
+            cache.ssm[slot] = ssm_state
+            return y, cache
+        return apply_mamba_decode(params, cfg, z, cache, slot)
+    mlstm = spec.mixer == "mlstm"
     if kind == "prefill":
-        y, (conv_state, ssm_state) = apply_mamba_prefill(
-            params, cfg, z, return_state=True, backend=backend)
-        cache.conv[slot] = conv_state
-        cache.ssm[slot] = ssm_state
+        apply = apply_mlstm_train if mlstm else apply_slstm_train
+        y, carry = apply(params, cfg, z, return_state=True)
+        # mLSTM: (C, n, m), its cache's h unused; sLSTM: (c, n, m, h)
+        for buf, val in zip(cache, carry):
+            buf[slot] = val
         return y, cache
-    return apply_mamba_decode(params, cfg, z, cache, slot)
+    decode = apply_mlstm_decode if mlstm else apply_slstm_decode
+    return decode(params, cfg, z, cache, slot)
 
 
 def _alf_unroll(f, x: torch.Tensor, n: int, eta: float, h: torch.Tensor,

@@ -34,6 +34,7 @@ def test_port_has_files_to_scan():
                 "src/repro_torch/launch/serve.py",
                 "src/repro_torch/models/ssm.py",
                 "src/repro_torch/models/moe.py",
+                "src/repro_torch/models/xlstm.py",
                 "src/repro_torch/kernels/mamba_scan/ops.py",
                 "src/repro_torch/train/loop.py",
                 "src/repro_torch/train/trainer.py",

@@ -197,16 +197,6 @@ def test_ode_settings_batch_axis_is_a_later_slice():
     assert OdeSettings().batching() is None
 
 
-@pytest.mark.parametrize("arch,kind", [("xlstm-125m", "mlstm")])
-def test_unported_layer_kinds_raise(arch, kind):
-    cfg = smoke_config(arch, DEFAULT_ODE)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match=f"'{kind}'.*ROADMAP"):
-        init_lm(gen, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_serve_state(cfg, 1, 8, "cpu")
-
-
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------

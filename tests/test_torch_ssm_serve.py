@@ -585,12 +585,6 @@ def test_dense_init_is_scaled_in_place():
     assert abs(float(w.std()) - 0.88 / 4) < 0.02
 
 
-def test_xlstm_still_raises():
-    cfg = smoke_config("xlstm-125m", DEFAULT_ODE)
-    with pytest.raises(NotImplementedError, match="'mlstm'.*ROADMAP"):
-        init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
-
-
 def test_serve_takes_a_model_config(capsys):
     """A depth-cut config goes in as it is, as chip_smoke.py serves Jamba
     at 2 of its 4 periods."""
