@@ -166,7 +166,8 @@ either. Phases, each printing JSON lines:
                ALF cuda within 1e-6 of the reference backend, and a
                detection pass whose bisection calls no dynamics and syncs
                no host. ms per step on each backend in turns and the
-               device's busy share over 20 profiled steps at each batch.
+               device's busy share over 20 profiled steps at batch 1024
+               (batch 16's cut to keep the script near 1000 s).
 15. per_sample — PerSample and Sharded batching on the card: (a)
                benchmarks/batched_throughput.py's stiffness mix (B 16,
                lam log-spaced over [0.5, 50], ALF(eta=0.9, cuda),
@@ -228,7 +229,7 @@ either. Phases, each printing JSON lines:
                alf_midpoint, alf_update, alf_bwd_pre and alf_bwd_post per
                step and none of the other seven kernels, no host sync in
                train_step, ms a step, peak memory, f-evals a step and the
-               device's busy share and top ops over 2 profiled steps; (b)
+               device's busy share and top ops over a profiled step; (b)
                one step's loss and gradients with backend="cuda" against
                "reference": at full width in bf16 within max(3e-2, 3x the
                reference's own one-rounding floor), on 2 of the 28 layers
@@ -270,6 +271,34 @@ either. Phases, each printing JSON lines:
                and their share of the prefill's device time), and the
                flash kernel timed at its prefill shape (d 256, softcap
                50) against its bound and plain version.
+20. dp_train  — data-parallel training (repro_torch.distributed.
+               data_parallel) over two ranks that share the card: two
+               processes, gloo through a FileStore, every collective
+               staged through the host. (a) qwen3-1.7b at full width
+               (bf16, pure DP: ZeRO-1 optimizer state), global batch 4 x
+               1024, 3 Trainer steps: loss, lr and grad norm a step
+               against a one-rank Trainer on the same global batch
+               (LT_BF16_TOL; in f32, cut to 2 layers at S 256, LT_F32_TOL),
+               parameters bit-equal on the ranks after every step, 112
+               launches of each MALI kernel a step on each rank, a rank's
+               optimizer bytes <= 0.55x the one rank's, the collectives
+               and their bytes and host seconds a step by kind, the
+               peaks, the step times, the last step profiled on both
+               ranks (their busy times add: the processes time-share the
+               card); (b) qwen3's smoke config made pure DP
+               with a 1024-token vocabulary (ZeRO-1 shards the embedding
+               and head): the host syncs of a step by line (only the
+               collectives' stagings), a failure at step 2 on both ranks
+               resumes to
+               the clean trace bit for bit, a one-rank checkpoint restores
+               on two ranks and a two-rank one on one rank with equal
+               states; (c) deepseek-moe's smoke config (fsdp_tp, capacity
+               factor 0.5): each rank's kept masks equal its block of a
+               one-rank forward's on the global batch, with drops, and
+               under ode.batch_axis="data" a one-rank forward's on its
+               own rows; (d) python -m torch.distributed.run
+               --nproc-per-node 2 -m repro_torch.launch.train --steps 3
+               --device cuda:0 prints final_step=3 once.
 
 Phase 2 also holds the eight kernels with a per-row (B,) h, each row
 its own (kernels_rows: B x D in ROW_CASES, f32, bf16, mixed, f64, one
@@ -3202,7 +3231,9 @@ def phase_cnf(card: str, smi: str):
     lap("c_sample")
     events = _events()
     lap("d_events")
-    times = _cnf_times(xs_by_batch)
+    # batch 16's times cut to keep the script near 1000 s
+    big = CNF_BATCHES[-1]
+    times = _cnf_times({big: xs_by_batch[big]})
     lap("e_times")
     emit({"phase": "cnf", "card": card, "nvidia_smi": smi, "part_s": parts,
           "model": f"examples/cnf_image.py: DIM {CNF_DIM}, mlp_vfield "
@@ -4098,8 +4129,9 @@ def phase_serve(card: str, smi: str):
 # (a): qwen3-1.7b at its published widths, bf16, each residual branch a
 # MALI solve (ConstantSteps(2)) on ALF(backend="cuda"), batch 2 x 4096
 # (the JAX package's train_4k length: the FA2 path, an ALF state of 2^24
-# f32), 3 Trainer steps
-LT_BATCH, LT_SEQ, LT_STEPS, LT_PROFILED = 2, 4096, 3, 2
+# f32), 3 Trainer steps; one more step profiled (phases 17 and 18; a
+# second one was cut to keep the script near 1000 s)
+LT_BATCH, LT_SEQ, LT_STEPS, LT_PROFILED = 2, 4096, 3, 1
 # per step: 28 layers x 2 branches x 2 ALF steps, one launch of each
 # kernel a step forward (midpoint, update) and backward (bwd_pre, bwd_post)
 LT_PER_STEP = {"alf_midpoint": 112, "alf_update": 112, "alf_bwd_pre": 112,
@@ -4232,6 +4264,11 @@ def _kernel_profile(run, top: int = 8, of: str = ""):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return _profile_summary(prof, wall_ms, top, of)
+
+
+def _profile_summary(prof, wall_ms: float, top: int = 8, of: str = ""):
+    """:func:`_kernel_profile`'s reading of a finished profiler."""
     dev = [e for e in prof.profiler.kineto_results.events()
            if str(e.device_type()).endswith("CUDA")
            and not e.is_user_annotation() and "#" not in e.name()]
@@ -4842,11 +4879,557 @@ def phase_gemma2_serve(card: str, smi: str):
     return {"prefill": GM_PER_PREFILL, "flash_d256": flash}
 
 
-def _new_cell_launches(name: str, xlstm: dict, gemma2: dict) -> dict:
+# ---------------------------------------------------------------------------
+# Phase 20: data-parallel training, two ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_DEVICE = "cuda:0"          # both ranks on the one card (gloo)
+DP_BATCH, DP_SEQ, DP_STEPS = 4, 1024, 3      # (a): 2 rows of 1024 a rank
+DP_CUT_LAYERS, DP_CUT_SEQ = 2, 256           # (a) in f32
+DP_OPT_RATIO = 0.55           # a rank's optimizer bytes / the one rank's
+DP_TOL = {"bfloat16": LT_BF16_TOL, "float32": LT_F32_TOL}
+# (b): qwen3's smoke config made pure-DP with a 1024-token vocabulary:
+# ZeRO-1 shards its embedding and head (1024 x 64 = 2^16 elements each)
+DP_SMOKE = dict(sharding="dp", vocab_size=1024)
+DP_SMOKE_RUN = dict(steps=6, global_batch=4, seq_len=64, ckpt_every=2)
+DP_FAIL_STEP = 2
+# (c): deepseek-moe's smoke config under its own strategy, with drops
+DP_MOE = dict(sharding="fsdp_tp", moe_capacity_factor=0.5)
+DP_MOE_BATCH, DP_MOE_SEQ = 4, 64
+DP_TIMEOUT = 420              # seconds the ranks may take together
+
+
+def _dp_checksums(tree):
+    """Per leaf, the sum of its bit patterns (int64) and of its values
+    (float64), on the host: equal on two ranks only if the leaves are
+    (almost surely) bit-equal."""
+    import torch
+    from repro_torch import tree_util
+    out = []
+    for t in tree_util.tree_leaves(tree):
+        bits = t.contiguous().view({2: torch.int16, 4: torch.int32,
+                                    8: torch.int64}[t.element_size()])
+        out += [torch.sum(bits, dtype=torch.int64).double(),
+                torch.sum(t, dtype=torch.float64)]
+    return torch.stack(out).cpu()
+
+
+def _dp_same_on_ranks(tree) -> bool:
+    """Whether every rank holds ``tree`` bit for bit (a gloo all-gather
+    of the host checksums, outside the counted collectives)."""
+    import torch
+    import torch.distributed as dist
+    mine = _dp_checksums(tree)
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, mine)
+    return all(torch.equal(p, mine) for p in parts)
+
+
+def _dp_counts():
+    from repro_torch.distributed import data_parallel
+    return dict(_lm_counts()[0]), data_parallel.collective_counts()
+
+
+def _dp_delta(a, b):
+    """Launches, collectives ({kind: calls, bytes, seconds}) and host
+    stagings between two ``_dp_counts`` snapshots."""
+    (la, ca), (lb, cb) = a, b
+    launches = {k: lb[k] - la.get(k, 0) for k in lb if lb[k] - la.get(k, 0)}
+    coll = {kind: {k: x - ca.get(kind, {}).get(k, 0) for k, x in v.items()}
+            for kind, v in cb.items()}
+    return launches, coll
+
+
+def _dp_opt_bytes(state) -> int:
+    from repro_torch import tree_util
+    return sum(t.numel() * t.element_size()
+               for t in tree_util.tree_leaves((state.opt, state.ef)))
+
+
+def _dp_trainer(cfg=None, hook=None, **kw):
+    """A Trainer of qwen3-1.7b at full width (or ``cfg``) on DP_DEVICE,
+    AdamW at its defaults."""
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import MemoryEmitter, Trainer, TrainerConfig
+    run = dict(arch=LM_ARCH, smoke=False, steps=DP_STEPS,
+               global_batch=DP_BATCH, seq_len=DP_SEQ, log_every=100,
+               emit="memory", device=DP_DEVICE)
+    run.update(kw)
+    return Trainer(TrainerConfig(**run), emitter=MemoryEmitter(),
+                   step_hook=hook, opt_cfg=OptimizerConfig(), model_cfg=cfg)
+
+
+def _dp_records(t) -> dict:
+    recs = [t.records[s] for s in sorted(t.records)]
+    return {"loss": [r.loss for r in recs], "lr": [r.lr for r in recs],
+            "grad_norm": [r.grad_norm for r in recs],
+            "step_ms": [r.wall_s * 1e3 for r in recs],
+            "fevals": [r.fevals for r in recs]}
+
+
+def _dp_full_width() -> dict:
+    """(a) on one rank: DP_STEPS Trainer steps at full width, each step's
+    launches, collectives, host stagings and the ranks' parameters
+    compared after it; the optimizer bytes, the peak, and the last step
+    under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    snaps, equal = [], []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    t_prof = []
+
+    def hook(step):
+        if step:
+            equal.append(_dp_same_on_ranks(trainer.state.params))
+        snaps.append(_dp_counts())
+        if step == DP_STEPS - 1:
+            torch.cuda.synchronize()
+            prof.start()
+            t_prof.append(time.perf_counter())
+
+    trainer = _dp_trainer(hook=hook)
+    torch.cuda.reset_peak_memory_stats()
+    require(trainer.train() == DP_STEPS, "dp_train (a): the run did not "
+            "finish")
+    torch.cuda.synchronize()
+    prof.stop()
+    wall_ms = (time.perf_counter() - t_prof[0]) * 1e3
+    snaps.append(_dp_counts())
+    equal.append(_dp_same_on_ranks(trainer.state.params))
+    per_step = [_dp_delta(snaps[i], snaps[i + 1]) for i in range(DP_STEPS)]
+    return {**_dp_records(trainer),
+            "launches_per_step": [p[0] for p in per_step],
+            "collectives_per_step": [p[1] for p in per_step],
+            "params_equal_after_each_step": equal,
+            "opt_bytes": _dp_opt_bytes(trainer.state),
+            "sharded_leaves": trainer.plan.n_sharded,
+            "leaves": len(trainer.plan.dims),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "profile": _profile_summary(prof, wall_ms)}
+
+
+def _dp_f32_cut() -> dict:
+    """(a) in f32 on the cut (DP_CUT_LAYERS layers at DP_CUT_SEQ)."""
+    cfg = _lt_config("cuda", layers=DP_CUT_LAYERS, dtype="float32")
+    t = _dp_trainer(cfg, seq_len=DP_CUT_SEQ)
+    require(t.train() == DP_STEPS, "dp_train (a) f32: the run did not "
+            "finish")
+    return {**_dp_records(t), "params_equal": _dp_same_on_ranks(
+        t.state.params)}
+
+
+def _dp_smoke_cfg():
+    import dataclasses
+    return dataclasses.replace(_lt_config("cuda", smoke=True), **DP_SMOKE)
+
+
+def _dp_state_file(t, path: Path) -> None:
+    """The Trainer's whole state (gathered: every rank calls this), saved
+    by rank 0."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree_util
+    whole = t.whole_state()
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        torch.save({k: [x.cpu() for x in tree_util.tree_leaves(v)]
+                    for k, v in (("params", whole.params),
+                                 ("opt", whole.opt), ("ef", whole.ef))},
+                   path)
+
+
+def _dp_same_state(path: Path, t, what: str) -> None:
+    import torch
+    from repro_torch import tree_util
+    saved = torch.load(path)
+    whole = t.whole_state()
+    for key, tree in (("params", whole.params), ("opt", whole.opt),
+                      ("ef", whole.ef)):
+        mine = [x.cpu() for x in tree_util.tree_leaves(tree)]
+        require(len(mine) == len(saved[key]) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(saved[key], mine)),
+            f"dp_train (b): {what}: the {key} differ")
+
+
+def _dp_recovery(d: Path) -> dict:
+    """(b) on one rank: the clean run and the host syncs of one more step
+    by the line that made them, a run with a failure at DP_FAIL_STEP on
+    every rank resumed from the checkpoint before it, the one-rank
+    checkpoint restored, and a checkpoint for the one-rank Trainer to
+    restore."""
+    from repro_torch.train import train_step
+    cfg = _dp_smoke_cfg()
+    fired = []
+
+    def hook(step):
+        if step == DP_FAIL_STEP and not fired:
+            fired.append(step)
+            raise RuntimeError("injected failure")
+
+    def run(steps=DP_SMOKE_RUN["steps"], hook=None, **kw):
+        t = _dp_trainer(cfg, hook, **{**DP_SMOKE_RUN, "smoke": True,
+                                      "steps": steps, **kw})
+        require(t.train() == steps, "dp_train (b): the run did not finish")
+        return t
+
+    clean = run()
+    st, batch = clean.state, clean.batch(0)
+    staged = _dp_counts()[1]["host_staged"]["calls"]
+    with clean.mesh:
+        _, syncs, where = _count_syncs(lambda: train_step(
+            st.params, st.opt, None, batch, cfg=cfg, opt_cfg=clean.opt_cfg,
+            zero1=True))
+    staged = _dp_counts()[1]["host_staged"]["calls"] - staged
+    # the collectives' host stagings are the step's only host syncs
+    elsewhere = {k: n for k, n in where.items()
+                 if not k.startswith("data_parallel.py")}
+    require(not elsewhere, f"dp_train (b): train_step synced the host "
+            f"outside its collectives: {elsewhere}")
+    resumed = run(hook=hook, ckpt_dir=str(d / "resumed"))
+    restored = run(steps=4, ckpt_dir=str(d / "one_rank"))
+    _dp_state_file(restored, d / "restored_state.pt")
+    written = run(steps=4, ckpt_dir=str(d / "two_rank"))
+    _dp_state_file(written, d / "written_state.pt")
+    return {"clean": clean.loss_trace(), "resumed": resumed.loss_trace(),
+            "fired": fired, "restored_steps": sorted(restored.records),
+            "sharded_leaves": clean.plan.n_sharded,
+            "host_syncs_in_train_step": syncs, "host_syncs_by_line": where,
+            "host_staged_in_train_step": staged}
+
+
+def _dp_moe_cfg(batch_axis=None):
+    import dataclasses
+    cfg = dataclasses.replace(_lt_config("cuda", arch="deepseek-moe-16b",
+                                         smoke=True), **DP_MOE)
+    return dataclasses.replace(cfg, ode=dataclasses.replace(
+        cfg.ode, batch_axis=batch_axis))
+
+
+def _dp_kept(params, cfg, batch, plan=None):
+    """The kept masks of a forward (no grad), rows split when ``plan``."""
+    import contextlib
+
+    import torch
+    from repro_torch.models import lm_loss
+    from repro_torch.models.moe import recording_routes
+    split = plan.splitting_rows() if plan else contextlib.nullcontext()
+    with torch.no_grad(), recording_routes() as log, split:
+        lm_loss(params, cfg, batch)
+    return [r.kept.cpu().numpy() for r in log]
+
+
+def _dp_moe_params(cfg):
+    import torch
+    from repro_torch.models import init_lm
+    return init_lm(torch.Generator(device="cuda").manual_seed(7), cfg,
+                   DP_DEVICE)
+
+
+def _dp_moe(d: Path, rank: int) -> dict:
+    """(c) on one rank: the kept masks over this rank's rows in the global
+    token order, and solved per shard (ode.batch_axis='data')."""
+    from repro_torch.distributed.data_parallel import DataParallel
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = _dp_moe_cfg()
+    params = _dp_moe_params(cfg)
+    plan = DataParallel(cfg, make_host_mesh(DP_DEVICE), params)
+    rows, split = plan.local_rows(_lt_batch(cfg, DP_MOE_BATCH, DP_MOE_SEQ))
+    require(split, "dp_train (c): the rows are not split")
+    kept = _dp_kept(params, cfg, rows, plan)
+    shard = _dp_kept(params, _dp_moe_cfg("data"), rows, plan)
+    np.savez(d / f"moe_{rank}.npz", **{f"global_{i}": k
+                                       for i, k in enumerate(kept)},
+             **{f"shard_{i}": k for i, k in enumerate(shard)})
+    return {"calls": len(kept), "sharded_leaves": plan.n_sharded}
+
+
+def _dp_rank(argv) -> int:
+    """One rank of phase 20: ``chip_smoke.py --dp-rank RANK DIR``."""
+    rank, d = int(argv[0]), Path(argv[1])
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(torch.device(DP_DEVICE))
+    dist.init_process_group("gloo", store=dist.FileStore(str(d / "store"),
+                                                         DP_WORLD),
+                            rank=rank, world_size=DP_WORLD)
+    try:
+        t0 = time.perf_counter()
+        out = {"full_width": _dp_full_width()}
+        out["full_width"]["part_s"] = time.perf_counter() - t0
+        out["f32_cut"] = _dp_f32_cut()
+        out["recovery"] = _dp_recovery(d)
+        out["moe"] = _dp_moe(d, rank)
+        out["rank_s"] = time.perf_counter() - t0
+        (d / f"rank{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _dp_spawn(d: Path):
+    """Run the ranks; returns their results (raises if any fails or the
+    ranks outlast DP_TIMEOUT)."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    logs = [open(d / f"rank{r}.log", "w") for r in range(DP_WORLD)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--dp-rank", str(r), str(d)], cwd=str(HERE),
+                              env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT)
+             for r in range(DP_WORLD)]
+    deadline = time.monotonic() + DP_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        require(p.returncode == 0, f"dp_train: rank {r} failed "
+                f"(exit {p.returncode}): "
+                f"{(d / f'rank{r}.log').read_text()[-3000:]}")
+    return [json.loads((d / f"rank{r}.json").read_text())
+            for r in range(DP_WORLD)]
+
+
+def _dp_one_rank(d: Path) -> dict:
+    """The one-rank runs the ranks are held to: (a) at full width and on
+    the f32 cut, (b)'s checkpoint for the ranks to restore, (c)'s masks
+    on the global batch and on each rank's rows."""
+    import torch
+    ref = {}
+    t = _dp_trainer()
+    torch.cuda.reset_peak_memory_stats()
+    require(t.train() == DP_STEPS, "dp_train: the one-rank run did not "
+            "finish")
+    ref["full_width"] = {**_dp_records(t),
+                         "opt_bytes": _dp_opt_bytes(t.state),
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del t
+    torch.cuda.empty_cache()
+    t = _dp_trainer(_lt_config("cuda", layers=DP_CUT_LAYERS,
+                               dtype="float32"), seq_len=DP_CUT_SEQ)
+    require(t.train() == DP_STEPS, "dp_train: the one-rank f32 run")
+    ref["f32_cut"] = _dp_records(t)
+    del t
+    torch.cuda.empty_cache()
+    t = _dp_trainer(_dp_smoke_cfg(), **{**DP_SMOKE_RUN, "smoke": True,
+                                        "steps": 4,
+                                        "ckpt_dir": str(d / "one_rank")})
+    require(t.train() == 4, "dp_train: the one-rank smoke run")
+    _dp_state_file(t, d / "one_rank_state.pt")
+    t = _dp_trainer(_dp_smoke_cfg(), **{**DP_SMOKE_RUN, "smoke": True})
+    require(t.train() == DP_SMOKE_RUN["steps"], "dp_train: the one-rank "
+            "smoke trace")
+    ref["recovery_clean"] = t.loss_trace()
+    cfg = _dp_moe_cfg()
+    params = _dp_moe_params(cfg)
+    batch = _lt_batch(cfg, DP_MOE_BATCH, DP_MOE_SEQ)
+    ref["moe_global"] = _dp_kept(params, cfg, batch)
+    rows = DP_MOE_BATCH // DP_WORLD
+    ref["moe_shard"] = [_dp_kept(params, cfg, {k: v[r * rows:(r + 1) * rows]
+                                               for k, v in batch.items()})
+                        for r in range(DP_WORLD)]
+    return ref
+
+
+def _dp_rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _dp_check(d: Path, ranks, ref) -> dict:
+    """Hold the ranks to the one-rank runs and to the phase's counts."""
+    import torch
+    out = {}
+    # (a)
+    fw = [r["full_width"] for r in ranks]
+    cmp = {}
+    for label, key, tol in (("full_width", "full_width", DP_TOL["bfloat16"]),
+                            ("f32_cut", "f32_cut", DP_TOL["float32"])):
+        one = ref[key]
+        worst = {}
+        for r in ranks:
+            got = r[key]
+            for m in ("loss", "grad_norm"):
+                errs = [_dp_rel(a, b) for a, b in zip(got[m], one[m])]
+                worst[m] = max(worst.get(m, 0.0), *errs)
+            require(got["lr"] == one["lr"], f"dp_train (a) {label}: lr "
+                    f"{got['lr']} != {one['lr']}")
+            require(got["fevals"] == one["fevals"], f"dp_train (a) "
+                    f"{label}: f-evals {got['fevals']} != {one['fevals']}")
+        require(max(worst.values()) <= tol, f"dp_train (a) {label}: two "
+                f"ranks against one: {worst} (tolerance {tol})")
+        cmp[label] = {"rel": worst, "tolerance": tol,
+                      "two_ranks": {m: ranks[0][key][m] for m in
+                                    ("loss", "lr", "grad_norm", "step_ms")},
+                      "one_rank": {m: one[m] for m in
+                                   ("loss", "lr", "grad_norm", "step_ms")}}
+    out["compare"] = cmp
+    for r, got in enumerate(fw):
+        require(all(got["params_equal_after_each_step"]),
+                f"dp_train (a): rank {r}'s parameters differ")
+        for i, launches in enumerate(got["launches_per_step"]):
+            require(launches == LT_PER_STEP, f"dp_train (a) rank {r} step "
+                    f"{i}: launches {launches}, expected {LT_PER_STEP}")
+        require(got["opt_bytes"] <= DP_OPT_RATIO
+                * ref["full_width"]["opt_bytes"], f"dp_train (a): rank {r}"
+                f" holds {got['opt_bytes']} optimizer bytes against "
+                f"{ref['full_width']['opt_bytes']} on one rank")
+    f32 = [r["f32_cut"] for r in ranks]
+    require(all(g["params_equal"] for g in f32), "dp_train (a) f32: the "
+            "ranks' parameters differ")
+    out["full_width"] = {
+        "config": {"arch": LM_ARCH, "layers": 28, "d_model": 2048,
+                   "dtype": "bfloat16", "sharding": "dp (ZeRO-1)",
+                   "global_batch": DP_BATCH, "seq_len": DP_SEQ,
+                   "ranks": DP_WORLD, "backend": "gloo, one card",
+                   "ode": "MALI, ALF(cuda), ConstantSteps(2)"},
+        "ranks": [{k: g[k] for k in (
+            "step_ms", "launches_per_step", "collectives_per_step",
+            "params_equal_after_each_step", "opt_bytes", "sharded_leaves",
+            "leaves", "peak_gb", "part_s")} for g in fw],
+        "one_rank": {k: ref["full_width"][k] for k in ("opt_bytes",
+                                                       "peak_gb",
+                                                       "step_ms")},
+        "opt_ratio": [g["opt_bytes"] / ref["full_width"]["opt_bytes"]
+                      for g in fw],
+        "profile_last_step": [g["profile"] for g in fw],
+        # two processes' kernels time-share the card: the busy times add
+        "idle_share_last_step": 1.0 - sum(
+            g["profile"]["device_busy_ms"] for g in fw) / max(
+            g["profile"]["wall_ms"] for g in fw),
+    }
+    # (b)
+    rec = [r["recovery"] for r in ranks]
+    for r, got in enumerate(rec):
+        require(got["fired"] == [DP_FAIL_STEP], f"dp_train (b) rank {r}: "
+                f"the failure fired at {got['fired']}")
+        require(got["resumed"] == got["clean"],
+                f"dp_train (b) rank {r}: resumed {got['resumed']} against "
+                f"clean {got['clean']}")
+        require(got["restored_steps"] == [] and got["sharded_leaves"] >= 1,
+                f"dp_train (b) rank {r}: {got}")
+    worst = max(_dp_rel(a, b) for a, b in zip(rec[0]["clean"],
+                                             ref["recovery_clean"]))
+    require(worst <= DP_TOL["float32"], f"dp_train (b): the two-rank trace "
+            f"{rec[0]['clean']} against one rank's {ref['recovery_clean']}")
+    restored = _dp_trainer(_dp_smoke_cfg(), **{
+        **DP_SMOKE_RUN, "smoke": True, "steps": 4,
+        "ckpt_dir": str(d / "two_rank")})
+    require(restored.train() == 4 and not restored.records,
+            "dp_train (b): the one-rank Trainer ran steps")
+    _dp_same_state(d / "written_state.pt", restored,
+                   "a two-rank checkpoint restored on one rank")
+    saved = torch.load(d / "restored_state.pt")
+    mine = torch.load(d / "one_rank_state.pt")
+    require(all(len(saved[k]) == len(mine[k]) and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(saved[k], mine[k])) for k in mine),
+        "dp_train (b): a one-rank checkpoint restored on two ranks "
+        "differs")
+    out["recovery"] = {"trace": rec[0]["clean"], "fired_at": DP_FAIL_STEP,
+                       "two_vs_one_rank_rel": worst,
+                       "sharded_leaves": rec[0]["sharded_leaves"],
+                       "host_syncs_in_train_step": [
+                           {"total": g["host_syncs_in_train_step"],
+                            "by_line": g["host_syncs_by_line"],
+                            "host_staged": g["host_staged_in_train_step"]}
+                           for g in rec]}
+    # (c)
+    drops, calls = 0, len(ref["moe_global"])
+    for r in range(DP_WORLD):
+        with np.load(d / f"moe_{r}.npz") as f:
+            require(ranks[r]["moe"]["calls"] == calls, "dp_train (c): "
+                    "the MoE calls differ")
+            for i, want in enumerate(ref["moe_global"]):
+                n = f[f"global_{i}"].shape[0]
+                require(np.array_equal(f[f"global_{i}"],
+                                       want[r * n:(r + 1) * n]),
+                        f"dp_train (c): rank {r} call {i}: kept masks "
+                        "differ from the one-rank run's")
+                require(np.array_equal(f[f"shard_{i}"],
+                                       ref["moe_shard"][r][i]),
+                        f"dp_train (c): rank {r} call {i}: per-shard masks "
+                        "differ")
+    for want in ref["moe_global"]:
+        drops += int((~want).sum())
+    require(drops > 0, "dp_train (c): no (token, choice) was dropped")
+    out["moe"] = {"calls": calls, "drops": drops,
+                  "kept": int(sum(k.sum() for k in ref["moe_global"])),
+                  "sharded_leaves": ranks[0]["moe"]["sharded_leaves"]}
+    return out
+
+
+def _dp_cli() -> dict:
+    """(d): the training CLI on two ranks of one card."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                          "--standalone", "--nproc-per-node", "2", "-m",
+                          "repro_torch.launch.train", "--steps", "3",
+                          "--device", DP_DEVICE], cwd=str(HERE), env=env,
+                         capture_output=True, text=True, timeout=240)
+    require(res.returncode == 0 and res.stdout.count("final_step=3") == 1,
+            f"dp_train (d): the CLI failed: {res.stdout[-2000:]}"
+            f"{res.stderr[-3000:]}")
+    require(res.stderr.count("backend gloo") == 2, "dp_train (d): the "
+            f"backend: {res.stderr[-2000:]}")
+    return {"cli_s": time.perf_counter() - t0,
+            "losses": [json.loads(line)["loss"] for line in
+                       res.stdout.splitlines() if line.startswith("{")]}
+
+
+def phase_dp_train(card: str, smi: str):
+    """Phase 20: data-parallel training over two ranks sharing the card
+    (gloo): (a) qwen3-1.7b at full width, (b) recovery and checkpoints
+    across world sizes, (c) the MoE under DP, (d) the CLI. Returns the
+    ALF launches of one step of (a) on a rank."""
+    import tempfile
+
+    import torch
+    t0 = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        d = Path(tmp)
+        ref = _dp_one_rank(d)
+        torch.cuda.empty_cache()
+        lap("one_rank")
+        ranks = _dp_spawn(d)
+        lap("ranks")
+        fields = _dp_check(d, ranks, ref)
+        lap("check")
+    fields["cli"] = _dp_cli()
+    lap("d_cli")
+    emit({"phase": "dp_train", "card": card, "nvidia_smi": smi, **fields,
+          "part_s": parts, "phase_s": time.perf_counter() - t0})
+    return ranks[0]["full_width"]["launches_per_step"][0]
+
+
+
+def _new_cell_launches(name: str, xlstm: dict, gemma2: dict,
+                       dp: dict) -> dict:
     return {"launches_xlstm_prefill": xlstm["prefill"].get(name, 0),
             "launches_xlstm_decode": xlstm["decode"].get(name, 0),
             "launches_xlstm_train": xlstm["train"].get(name, 0),
-            "launches_gemma2_prefill": gemma2["prefill"].get(name, 0)}
+            "launches_gemma2_prefill": gemma2["prefill"].get(name, 0),
+            # per data-parallel qwen3 training step, on each rank (20)
+            "launches_dp_train": dp.get(name, 0)}
 
 
 def main() -> int:
@@ -4923,6 +5506,8 @@ def main() -> int:
     lap("xlstm")
     gemma2 = phase_gemma2_serve(card, smi)
     lap("gemma2_serve")
+    dp = phase_dp_train(card, smi)
+    lap("dp_train")
     emit({"phase": "walls", "seconds": walls})
 
     table = []
@@ -4962,8 +5547,9 @@ def main() -> int:
                       # per qwen3-1.7b training step (phase 17)
                       "launches_lm_train": train_launches[name],
                       # per xlstm-125m prefill, decode step and training
-                      # step (phase 18), per gemma2-2b prefill (19)
-                      **_new_cell_launches(name, xlstm, gemma2)})
+                      # step (phase 18), per gemma2-2b prefill (19), per
+                      # data-parallel training step on a rank (20)
+                      **_new_cell_launches(name, xlstm, gemma2, dp)})
     for name, (replaces, source) in LM_KERNELS.items():
         row = lm_times[name]
         # each kernel's launches from its own path: the scan's from the
@@ -4976,7 +5562,7 @@ def main() -> int:
                       "launches_ssm_serve": ssm_launches[name],
                       "launches_serve": serve_launches[name],
                       "launches_lm_train": train_launches[name],
-                      **_new_cell_launches(name, xlstm, gemma2),
+                      **_new_cell_launches(name, xlstm, gemma2, dp),
                       "checks": lm_checks[name],
                       "max_abs_err": lm_worst[name]["bfloat16"],
                       "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -4998,4 +5584,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(_dp_rank(sys.argv[2:]))
     sys.exit(main())

@@ -129,10 +129,16 @@ class OdeSettings:
         """The Batching object of this block's solves (None: the batch
         one system, lockstep). ``batch_axis`` names a mesh dimension: the
         block's solve runs as a ``Sharded(axis)`` fleet over the ambient
-        ``with mesh:`` context (:mod:`repro_torch.distributed.sharding`)."""
+        ``with mesh:`` context (:mod:`repro_torch.distributed.sharding`).
+        Under data parallelism over that axis the rows are already split
+        (:func:`~repro_torch.distributed.data_parallel.solves_per_shard`):
+        this rank's rows are its shard, solved with ``Sharded``'s inner
+        batching and not sliced again."""
         if self.batch_axis is None:
             return None
-        return Sharded(axis=self.batch_axis)
+        from repro_torch.distributed.data_parallel import solves_per_shard
+        sharded = Sharded(axis=self.batch_axis)
+        return sharded.inner if solves_per_shard(self) else sharded
 
 
 def ode_block(dynamics: Callable[[Pytree, Pytree, Any], Pytree],

@@ -284,7 +284,8 @@ def _solve_sharded(f, params, z0, grid, nb, solver, controller, gradient,
     gradient of the JAX package's replicated-in, sharded-out
     ``shard_map``)."""
     from repro_torch.distributed.sharding import (ambient_mesh, axis_group,
-                                                  gather_rows, replicated)
+                                                  gather_rows,
+                                                  mark_replicated)
     mesh = ambient_mesh()
     if mesh is None:
         raise ValueError(
@@ -304,9 +305,9 @@ def _solve_sharded(f, params, z0, grid, nb, solver, controller, gradient,
             "pick a divisible size")
     local = nb // n_shards
     lo = rank * local
-    p_local = _tm(lambda x: replicated(x, group, n_shards), params)
-    z_local = _tm(lambda x: replicated(x, group, n_shards)[lo:lo + local],
-                  z0)
+    p_local = _tm(lambda x: mark_replicated(x, group, n_shards), params)
+    z_local = _tm(
+        lambda x: mark_replicated(x, group, n_shards)[lo:lo + local], z0)
     if isinstance(batching.inner, PerSample):
         ys, per = _solve_per_sample(f, p_local, z_local, grid, solver,
                                     controller, gradient, trajectory)

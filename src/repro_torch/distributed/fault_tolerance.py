@@ -1,22 +1,70 @@
-"""Restart-on-failure for the training loop.
+"""Fault tolerance and elasticity for the training loop.
 
-The port of ``run_with_recovery`` and ``RecoveryStats`` from the JAX
-package's ``repro.distributed.fault_tolerance``: transient failures
-(preemption, a lost device — simulated by exceptions in the tests)
-restore from the latest checkpoint and rerun, up to ``max_failures``.
-Training state is (params, optimizer state, data step) and the synthetic
-batches are a pure function of the step, so a resume is exact. The mesh
-planners of that module (``plan_elastic_mesh``, ``reassign_shards``)
-come with data parallelism (ROADMAP queue 1 item 9).
+The port of the JAX package's ``repro.distributed.fault_tolerance``:
+
+* restart on failure: transient failures (preemption, a lost device —
+  simulated by exceptions in the tests) restore from the latest
+  checkpoint and rerun, up to ``max_failures`` (:func:`run_with_recovery`).
+  Training state is (params, optimizer state, data step) and the
+  synthetic batches are a pure function of the step, so a resume is
+  exact;
+* elastic re-meshing: on losing devices the *data* axis shrinks (the
+  'model' axis is fixed by the parameter layout) to the largest size
+  that divides the global batch (:func:`plan_elastic_mesh`);
+* shard reassignment: a lost host's data shards go round-robin to the
+  survivors (:func:`reassign_shards`).
+
+The planners are host arithmetic; a data-parallel run over the planned
+mesh is :mod:`repro_torch.distributed.data_parallel`.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 log = logging.getLogger("repro_torch.ft")
+
+
+@dataclasses.dataclass
+class MeshPlan:
+    pod: int
+    data: int
+    model: int
+
+    @property
+    def n_devices(self) -> int:
+        return self.pod * self.data * self.model
+
+
+def plan_elastic_mesh(n_available: int, model_size: int, global_batch: int,
+                      pods: int = 1) -> MeshPlan:
+    """Largest (pod, data, model) mesh fitting the surviving devices:
+    'model' fixed, 'data' the largest divisor of ``global_batch`` that
+    fits."""
+    if n_available < model_size:
+        raise RuntimeError(
+            f"cannot re-mesh: {n_available} devices < model axis {model_size}")
+    data = n_available // (model_size * pods)
+    while data > 1 and global_batch % data:
+        data -= 1
+    if data < 1:
+        raise RuntimeError("no valid data axis")
+    return MeshPlan(pods, data, model_size)
+
+
+def reassign_shards(healthy_hosts: Sequence[int], n_shards: int
+                    ) -> Dict[int, List[int]]:
+    """Round-robin shard ownership over the surviving hosts
+    (deterministic)."""
+    hosts = sorted(healthy_hosts)
+    if not hosts:
+        raise RuntimeError("no healthy hosts")
+    out: Dict[int, List[int]] = {h: [] for h in hosts}
+    for s in range(n_shards):
+        out[hosts[s % len(hosts)]].append(s)
+    return out
 
 
 @dataclasses.dataclass

@@ -1,22 +1,236 @@
-"""The ambient device mesh and the collectives of ``Sharded`` batching.
+"""Sharding rules, the ambient device mesh and the collectives of
+``Sharded`` batching.
 
-The JAX package finds its mesh through ``with mesh:`` and splits a batch
-with ``shard_map(in_specs=(P(), P(axis)), out_specs=P(axis))``: inputs
-replicated, outputs sharded over the axis. The port does the same over a
+**Rules.** The port of the JAX package's ``repro.distributed.sharding``
+rules, decision for decision: :func:`param_shardings`,
+:func:`batch_shardings`, :func:`zero1_sharding` and
+:func:`opt_state_shardings` are pure functions of the model config, the
+mesh's axis names and sizes, and each leaf's key path and shape. They
+return trees of :class:`Spec`, the counterpart of ``PartitionSpec``: per
+dimension ``None``, an axis name or a tuple of names. A mesh is a
 ``torch.distributed`` :class:`~torch.distributed.device_mesh.DeviceMesh`
+or a plain ``{axis name: size}`` dict (tests and planning). Strategies
+(``ModelConfig.sharding``):
+
+* ``'dp'`` — pure data parallel: parameters replicated, the batch over
+  every mesh axis (``'model'`` included) when divisible, the optimizer
+  state ZeRO-1 sharded (:func:`zero1_sharding`);
+* ``'tp'`` — weights over ``'model'`` only;
+* ``'fsdp_tp'`` — the same ``'model'`` sharding plus the complementary
+  large dimension over ``'data'``.
+
+Every rule is divisibility-guarded: a dimension is sharded only if the
+axis size divides it. A spec over an axis of size 1 is still a spec, not
+``None``: on a (W, 1) host mesh a ``'tp'`` leaf is "sharded" over
+``'model'``, so its optimizer state inherits the parameter's layout and
+is not ZeRO-1'd, as in the JAX package. What the port executes of these
+layouts, and how, is :mod:`repro_torch.distributed.data_parallel`.
+``cache_shardings``, the activation ``hint`` and the helpers that in the
+port only they would call (``replicated``, ``model_axis_size`` and its
+``REPRO_NO_HINTS`` switch) belong to tensor parallelism, which the port
+does not have (ROADMAP queue 1 item 10).
+
+**Ambient mesh and ``Sharded``.** The JAX package finds its mesh through
+``with mesh:`` and splits a batch with ``shard_map(in_specs=(P(),
+P(axis)), out_specs=P(axis))``: inputs replicated, outputs sharded over
+the axis. The port does the same over a ``DeviceMesh``
 (:func:`repro_torch.launch.mesh.make_host_mesh`): ``with mesh:`` makes it
 ambient (:func:`ambient_mesh`); each rank takes its slice of the rows of
 a replicated input; :func:`gather_rows` puts the whole batch back on
 every rank, its backward taking the rank's own slice of the cotangent;
-and :func:`replicated` marks a replicated input, its backward summing
-the ranks' cotangents. The gradient of a loss of the gathered output is
-then the unsharded solve's on every rank. A mesh dimension of size 1
-makes every one of these the identity, with no collective.
+and :func:`mark_replicated` marks a replicated input, its backward
+summing the ranks' cotangents. The gradient of a loss of the gathered
+output is then the unsharded solve's on every rank. A mesh dimension of
+size 1 makes every one of these the identity, with no collective.
 """
 from __future__ import annotations
 
+from typing import Any, Dict, Optional, Tuple
+
 import torch
 import torch.distributed as dist
+import torch.utils._pytree as _pt
+
+from repro_torch.configs.base import ModelConfig
+
+Pytree = Any
+
+
+class Spec(tuple):
+    """A partition spec: one entry per leading dimension, ``None``
+    (replicated), an axis name, or a tuple of axis names. A one-name tuple
+    is stored as the name, as ``PartitionSpec`` stores it. A tree leaf of
+    its own (torch's pytree does not descend into a tuple subclass)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self) -> str:
+        return f"Spec{tuple.__repr__(self)}"
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a DeviceMesh or of such a dict."""
+    if isinstance(mesh, dict):
+        return mesh
+    return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in mesh_axes(mesh) if a in ("pod", "data"))
+
+
+def _axis_size(mesh, name: str) -> int:
+    return mesh_axes(mesh).get(name, 1)
+
+
+def _maybe(dim: int, axis: Optional[str], mesh) -> Optional[str]:
+    """Shard ``dim`` over ``axis`` only if divisible."""
+    if axis is None or axis not in mesh_axes(mesh):
+        return None
+    return axis if dim % _axis_size(mesh, axis) == 0 else None
+
+
+def _leaf_spec(cfg: ModelConfig, mesh, path: Tuple[str, ...],
+               shape: Tuple[int, ...]) -> Spec:
+    if cfg.sharding == "dp":
+        return Spec()
+    fsdp = cfg.sharding == "fsdp_tp"
+    data = "data" if fsdp else None
+    name = path[-1]
+
+    # xLSTM mixers: replicated (125M: data parallelism only)
+    if name in ("w_i", "w_f", "f_bias", "r_in", "out_norm") or \
+            (name in ("w_up", "w_q", "w_k", "w_v", "w_down", "w_in", "bias")
+             and _in_lstm_path(cfg, path)):
+        return Spec()
+
+    if len(shape) <= 1:
+        return Spec()  # norms, biases, scalars
+
+    if name in ("embed", "head"):
+        return Spec(_maybe(shape[0], data, mesh),
+                    _maybe(shape[1], "model", mesh))
+
+    # attention: the fused (H*dh) dimension only on whole heads; K/V
+    # projections replicated on 'model' where kv_heads do not divide it
+    if name == "wq":
+        ok = cfg.n_heads % _axis_size(mesh, "model") == 0
+        return Spec(_maybe(shape[0], data, mesh),
+                    _maybe(shape[1], "model", mesh) if ok else None)
+    if name in ("wk", "wv"):
+        ok = cfg.n_kv_heads % _axis_size(mesh, "model") == 0
+        return Spec(_maybe(shape[0], data, mesh),
+                    _maybe(shape[1], "model", mesh) if ok else None)
+    if name == "wo":
+        return Spec(_maybe(shape[0], "model", mesh),
+                    _maybe(shape[1], data, mesh))
+
+    # dense mlp
+    if name in ("w_gate", "w_up") and len(shape) == 2:
+        return Spec(_maybe(shape[0], data, mesh),
+                    _maybe(shape[1], "model", mesh))
+    if name == "w_down" and len(shape) == 2:
+        return Spec(_maybe(shape[0], "model", mesh),
+                    _maybe(shape[1], data, mesh))
+
+    # moe experts [E, D, F] / [E, F, D]
+    if name in ("w_gate", "w_up") and len(shape) == 3:
+        ep = _maybe(shape[0], "model", mesh)
+        if ep:
+            return Spec(ep, _maybe(shape[1], data, mesh), None)
+        return Spec(None, _maybe(shape[1], data, mesh),
+                    _maybe(shape[2], "model", mesh))
+    if name == "w_down" and len(shape) == 3:
+        ep = _maybe(shape[0], "model", mesh)
+        if ep:
+            return Spec(ep, None, _maybe(shape[2], data, mesh))
+        return Spec(None, _maybe(shape[1], "model", mesh),
+                    _maybe(shape[2], data, mesh))
+    if name == "router":
+        return Spec()
+
+    # mamba
+    if name == "in_proj":
+        return Spec(_maybe(shape[0], data, mesh),
+                    _maybe(shape[1], "model", mesh))
+    if name in ("conv_w", "dt_proj"):
+        return Spec(None, _maybe(shape[1], "model", mesh))
+    if name in ("x_proj", "A_log"):
+        return Spec(_maybe(shape[0], "model", mesh), None)
+    if name == "out_proj":
+        return Spec(_maybe(shape[0], "model", mesh),
+                    _maybe(shape[1], data, mesh))
+
+    return Spec()
+
+
+def _in_lstm_path(cfg: ModelConfig, path: Tuple[str, ...]) -> bool:
+    """True if this parameter belongs to an mLSTM/sLSTM mixer (any layer
+    spec of the config uses those mixers and the path is a mixer's)."""
+    if "mixer" not in path:
+        return False
+    return any(spec.mixer in ("mlstm", "slstm")
+               for spec in cfg.prelude + cfg.period)
+
+
+def _path_names(path) -> Tuple[str, ...]:
+    """A key path (torch's or JAX's key entries) as names: dict keys,
+    attribute names, sequence indices."""
+    names = []
+    for p in path:
+        if hasattr(p, "key"):
+            names.append(str(p.key))
+        elif hasattr(p, "name"):
+            names.append(str(p.name))
+        elif hasattr(p, "idx"):
+            names.append(str(p.idx))
+    return tuple(names)
+
+
+def param_shardings(cfg: ModelConfig, mesh, params_like: Pytree) -> Pytree:
+    """The :class:`Spec` tree of ``params_like`` (any leaves with a
+    ``shape``)."""
+
+    def one(path, leaf):
+        names = _path_names(path)
+        shape = tuple(leaf.shape)
+        # scanned-period parameters carry a leading n_periods dimension:
+        # the rule applies to the per-layer shape, the stack replicated
+        if "period" in names:
+            spec = Spec(None, *_leaf_spec(cfg, mesh, names, shape[1:]))
+        else:
+            spec = _leaf_spec(cfg, mesh, names, shape)
+        if len(spec) > len(shape):
+            spec = Spec(*spec[:len(shape)])
+        return spec
+
+    return _pt.tree_map_with_path(one, params_like)
+
+
+def batch_shardings(cfg: ModelConfig, mesh, batch_like: Pytree) -> Pytree:
+    """Each batch leaf's leading dimension over the data axes (pure-DP
+    configs over the otherwise idle 'model' axis too) when divisible."""
+    candidates = []
+    if cfg.sharding == "dp":
+        candidates.append(dp_axes(mesh) + ("model",))
+    candidates.append(dp_axes(mesh))
+
+    def one(leaf):
+        shape = tuple(leaf.shape)
+        lead = None
+        for axes in candidates:
+            total = 1
+            for a in axes:
+                total *= _axis_size(mesh, a)
+            if total > 1 and shape[0] % total == 0:
+                lead = axes
+                break
+        return Spec(lead, *([None] * (len(shape) - 1)))
+
+    return _pt.tree_map(one, batch_like)
 
 
 def ambient_mesh():
@@ -26,6 +240,52 @@ def ambient_mesh():
     stack = getattr(_mesh_resources, "mesh_stack", [])
     return stack[-1] if stack else None
 
+
+def zero1_sharding(mesh, leaf) -> Spec:
+    """ZeRO-1 spec for the optimizer state of a replicated parameter: the
+    largest dimension divisible by ('data', 'model') (then 'data', then
+    'model'; a tie to the lower index) over those axes, for leaves of at
+    least 2^16 elements; else replicated."""
+    shape = tuple(leaf.shape)
+    size = 1
+    for d in shape:
+        size *= d
+    if not shape or size < (1 << 16):
+        return Spec()
+    names = mesh_axes(mesh)
+    for axes in (("data", "model"), ("data",), ("model",)):
+        if not all(a in names for a in axes):
+            continue
+        total = 1
+        for a in axes:
+            total *= _axis_size(mesh, a)
+        best = -1
+        for d in sorted(range(len(shape)), key=lambda i: -shape[i]):
+            if shape[d] % total == 0:
+                best = d
+                break
+        if best >= 0:
+            spec = [None] * len(shape)
+            spec[best] = axes
+            return Spec(*spec)
+    return Spec()
+
+
+def opt_state_shardings(cfg: ModelConfig, mesh, p_sh: Pytree,
+                        params_like: Pytree) -> Pytree:
+    """Optimizer-state specs: a sharded parameter's own spec; ZeRO-1 for
+    a replicated one."""
+    def one(sh, leaf):
+        if any(ax is not None for ax in sh):
+            return sh
+        return zero1_sharding(mesh, leaf)
+
+    return _pt.tree_map(one, p_sh, params_like)
+
+
+# ---------------------------------------------------------------------------
+# The row collectives of Sharded batching
+# ---------------------------------------------------------------------------
 
 class _Replicated(torch.autograd.Function):
     """Identity forward; the backward all-reduces (sums) the cotangent
@@ -61,7 +321,7 @@ class _GatherRows(torch.autograd.Function):
         return g[lo:lo + ctx.rows], None, None, None
 
 
-def replicated(x: torch.Tensor, group, size: int) -> torch.Tensor:
+def mark_replicated(x: torch.Tensor, group, size: int) -> torch.Tensor:
     """``x``, replicated on the ``size`` ranks of ``group``: its gradient
     is the sum of the ranks' (the identity when ``size`` is 1)."""
     if size == 1:
@@ -90,4 +350,7 @@ def axis_group(mesh, axis: str):
     return mesh.get_group(dim), mesh.size(dim), mesh.get_local_rank(dim)
 
 
-__all__ = ["ambient_mesh", "replicated", "gather_rows", "axis_group"]
+__all__ = ["Spec", "mesh_axes", "dp_axes", "param_shardings",
+           "batch_shardings", "zero1_sharding", "opt_state_shardings",
+           "ambient_mesh",
+           "mark_replicated", "gather_rows", "axis_group"]

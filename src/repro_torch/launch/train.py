@@ -14,16 +14,56 @@ card each residual branch is a MALI solve through the ALF kernels
 ``cuda``). Killing a run and relaunching it with the same flags resumes
 from the latest checkpoint and reproduces the uninterrupted loss trace;
 relaunching with other integrator flags fails fast with
-``ConfigMismatchError``. ``--production-mesh``, ``--multi-pod`` and
-``--ode-batch-axis`` need data parallelism and are refused (ROADMAP
-queue 1 item 9).
+``ConfigMismatchError``.
+
+Data parallelism: under ``torch.distributed.run`` (``RANK``,
+``WORLD_SIZE`` and ``LOCAL_RANK`` in the environment) the process group
+starts from the environment and the Trainer trains data-parallel with
+ZeRO-1 over the ranks, each on ``cuda:LOCAL_RANK`` unless ``--device``
+names one::
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --steps 3 --device cpu
+
+The backend is NCCL when the ranks have cards of their own, gloo on the
+CPU or when ``--device`` puts every rank on one card (NCCL refuses two
+ranks on one device); the choice is logged. Only rank 0 prints its
+metrics and ``final_step=``. ``--ode-batch-axis data`` solves each rank's
+rows with its own controller, as the JAX package's ``Sharded("data")``
+does. ``--production-mesh`` and ``--multi-pod`` are refused: their 16-way
+'model' axis is tensor parallelism (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
-from repro_torch.train import Trainer, TrainerConfig
+import torch
+import torch.distributed as dist
+
+from repro_torch.train import MemoryEmitter, Trainer, TrainerConfig
+
+log = logging.getLogger("repro_torch.launch.train")
+
+
+def init_distributed(device: str) -> str:
+    """Start the process group from a launcher's environment (none:
+    nothing to start) and return this rank's device."""
+    if "WORLD_SIZE" not in os.environ:
+        return device
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    dev = torch.device(device) if device else torch.device("cuda", local)
+    shared = (bool(device) and dev.type == "cuda"
+              and int(os.environ.get("LOCAL_WORLD_SIZE", "1")) > 1)
+    backend = "gloo" if dev.type == "cpu" or shared else "nccl"
+    log.info("rank %s of %s on %s: backend %s%s", os.environ.get("RANK"),
+             os.environ["WORLD_SIZE"], dev, backend,
+             " (the ranks share one card)" if shared else "")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend)
+    return str(dev)
 
 
 def main(argv=None) -> None:
@@ -60,6 +100,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="",
                     help="torch device ('' = the CUDA card; 'cpu')")
     a = ap.parse_args(argv)
+    device = init_distributed(a.device)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     loop = a.loop or ("compressed" if a.compress else "standard")
     cfg = TrainerConfig(
         arch=a.arch, smoke=a.smoke, ode=a.ode == "on",
@@ -72,9 +114,10 @@ def main(argv=None) -> None:
         emit="jsonl" if a.metrics_jsonl else "stdout",
         metrics_path=a.metrics_jsonl,
         production_mesh=a.production_mesh, multi_pod=a.multi_pod,
-        device=a.device)
-    final = Trainer(cfg).train()
-    print(f"final_step={final}", flush=True)
+        device=device)
+    final = Trainer(cfg, emitter=None if rank0 else MemoryEmitter()).train()
+    if rank0:
+        print(f"final_step={final}", flush=True)
 
 
 if __name__ == "__main__":

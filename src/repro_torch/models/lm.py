@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.interface import RunStats
 from repro_torch.device import resolve_device
+from repro_torch.distributed.data_parallel import row_split
 
 from .common import (embed_init, materialize, rmsnorm, rmsnorm_inits,
                      softcap, torch_dtype)
@@ -110,7 +111,10 @@ def chunked_ce_loss(h: torch.Tensor, head: torch.Tensor,
                     chunk: int = _LOSS_CHUNK) -> torch.Tensor:
     """Mean next-token CE without materializing [B, S, vocab]: the chunks'
     sums in sequence order, each chunk recomputed in the backward
-    (``checkpoint``), over the count of labels >= 0."""
+    (``checkpoint``), over the count of labels >= 0. Under data
+    parallelism (rows split over a group) the count is the group's, so
+    the loss is this rank's share of the global mean: the shares sum to
+    it, and so do their gradients."""
     s = h.shape[1]
     n_chunks = -(-s // chunk)
     pad = n_chunks * chunk - s
@@ -123,6 +127,9 @@ def chunked_ce_loss(h: torch.Tensor, head: torch.Tensor,
                                    cfg.final_softcap, use_reentrant=False,
                                    preserve_rng_state=False)
     count = (labels >= 0).sum(dtype=torch.int32)
+    split = row_split()
+    if split is not None:
+        count = split.all_reduce(count)
     return total / torch.clamp_min(count, 1)
 
 

@@ -14,7 +14,11 @@ drops the (token, choice) pairs past their expert's capacity; autograd
 differentiates the dispatch (the scatter-add into the expert buffers) and
 the gather back, under ``torch.func.vjp`` too (MALI's backward).
 :func:`aux_load_balance_loss` is the Switch-style auxiliary loss; as in
-the JAX package, no loss calls it.
+the JAX package, no loss calls it. Under data parallelism
+(:func:`~repro_torch.distributed.data_parallel.row_split`) the capacity
+and each (token, choice)'s rank come from the global batch: the ranks'
+expert ids are all-gathered (a kept token's output does not depend on
+the other tokens, so each rank computes its own tokens' outputs).
 
 :func:`recording_routes` collects each call's routing decisions, so a
 caller can see which routes two runs took and which were dropped.
@@ -28,6 +32,7 @@ from typing import Any, Iterator, List, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.data_parallel import row_split
 
 from .common import dense_inits, silu, torch_dtype
 from .mlp import apply_mlp, mlp_inits
@@ -96,7 +101,12 @@ def apply_moe(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     n = b * s
     factor = (cfg.moe_eval_capacity_factor if eval_mode
               else cfg.moe_capacity_factor)
-    cap = _capacity(n, cfg, factor)
+    # the data group whose ranks' tokens make this call's batch (None
+    # inside a branch that solves the rank's rows on their own, the JAX
+    # package's shard_map)
+    split = row_split(cfg.ode)
+    n_all = n if split is None else n * split.size
+    cap = _capacity(n_all, cfg, factor)
 
     logits = xt.float() @ params["router"]                       # [N, E]
     probs = torch.softmax(logits, dim=-1)
@@ -107,14 +117,19 @@ def apply_moe(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     # rank of each (token, choice) within its expert: stable sort of the
     # expert ids, rank = index - the group's start, scattered back
     eidx = gate_idx.reshape(-1)                                  # [N*k]
-    order = torch.argsort(eidx, stable=True)
-    sorted_e = eidx[order]
+    # under data parallelism, ranked in the global token order: the
+    # ranks' ids in rank order, this rank's block taken back
+    eidx_all = eidx if split is None else split.all_gather(eidx)
+    order = torch.argsort(eidx_all, stable=True)
+    sorted_e = eidx_all[order]
     group_start = torch.searchsorted(
         sorted_e, torch.arange(e, dtype=eidx.dtype, device=x.device),
         right=False)                                             # [E]
-    pos_sorted = (torch.arange(n * k, dtype=eidx.dtype, device=x.device)
+    pos_sorted = (torch.arange(n_all * k, dtype=eidx.dtype, device=x.device)
                   - group_start[sorted_e])
     pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    if split is not None:
+        pos = pos[split.rank * n * k:(split.rank + 1) * n * k]
     keep = (pos < cap) & (gate_vals.reshape(-1) > 0)
     pos_safe = torch.clamp_max(pos, cap - 1)
     for log in _ROUTE_LOGS:

@@ -4,14 +4,17 @@
 The port of the JAX package's ``repro.optim.compression``: each tensor is
 quantized per tensor, symmetric int8, after adding the residual carried
 from the last step, so compression error does not accumulate. The train
-step applies Q(g + e) -> dequant -> optimizer, e' = (g + e) - deq. With
-data parallelism the int8 payload is what would cross the interconnect;
-here the numerics — what affects training — are exact, and
-:func:`compressed_bytes` gives the wire bytes analytically.
+step applies Q(g + e) -> dequant -> optimizer, e' = (g + e) - deq, to
+the reduced gradient, as the JAX package does after GSPMD's reduction;
+under data parallelism to each rank's shard of it, with the whole
+tensor's scale, the residual sharded like the optimizer state. The int8
+payload is what would cross the interconnect; here the numerics — what
+affects training — are exact, and :func:`compressed_bytes` gives the
+wire bytes analytically.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,9 +33,12 @@ def init_ef_state(params: Pytree) -> EFState:
         params))
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric int8. Returns (q, scale)."""
-    amax = torch.max(torch.abs(x))
+def quantize_int8(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8. Returns (q, scale). ``amax`` given: the
+    whole tensor's max |x| when ``x`` is a shard of it."""
+    if amax is None:
+        amax = torch.max(torch.abs(x))
     scale = torch.clamp_min(
         amax / torch.full((), 127.0, dtype=amax.dtype, device=amax.device),
         1e-12)
@@ -44,14 +50,24 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compress_grads(grads: Pytree, ef: EFState) -> Tuple[Pytree, EFState]:
+def compress_grads(grads: Pytree, ef: EFState,
+                   max_over_ranks: Optional[Callable] = None
+                   ) -> Tuple[Pytree, EFState]:
     """Error-feedback int8 round trip: returns (dequantized grads, new
-    error-feedback state)."""
+    error-feedback state). Under data parallelism ``grads`` and ``ef``
+    hold this rank's shards and ``max_over_ranks`` maps the shards'
+    maxima to the whole tensors' (one collective), so each shard takes
+    its tensor's scale."""
     leaves, spec = pytree.tree_flatten(grads)
+    errors = pytree.tree_leaves(ef.error)
+    amaxes = [None] * len(leaves)
+    if max_over_ranks is not None:
+        amaxes = max_over_ranks([torch.max(torch.abs(g.float() + e))
+                                 for g, e in zip(leaves, errors)])
     deq, err = [], []
-    for g, e in zip(leaves, pytree.tree_leaves(ef.error)):
+    for g, e, amax in zip(leaves, errors, amaxes):
         gf = g.float() + e
-        d = dequantize_int8(*quantize_int8(gf))
+        d = dequantize_int8(*quantize_int8(gf, amax))
         deq.append(d.to(g.dtype))
         err.append(gf - d)
     return (pytree.tree_unflatten(deq, spec),

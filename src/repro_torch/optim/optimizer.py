@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -81,10 +81,14 @@ def global_norm(tree: Pytree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Pytree, max_norm: float
+def clip_by_global_norm(grads: Pytree, max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[Pytree, torch.Tensor]:
-    """max_norm <= 0 disables clipping (the norm is still computed)."""
-    norm = global_norm(grads)
+    """max_norm <= 0 disables clipping (the norm is still computed).
+    ``norm`` given: the global norm of gradients of which ``grads`` hold
+    this rank's shards (data parallelism)."""
+    if norm is None:
+        norm = global_norm(grads)
     if max_norm <= 0:
         return grads, norm
     scale = torch.clamp_max(
@@ -126,10 +130,16 @@ def _per_leaf(fn, trees):
 
 
 def apply_updates(cfg: OptimizerConfig, params: Pytree, grads: Pytree,
-                  state: OptState) -> Tuple[Pytree, OptState, Dict]:
+                  state: OptState, grad_norm: Optional[torch.Tensor] = None
+                  ) -> Tuple[Pytree, OptState, Dict]:
     """One optimizer step; returns (new_params, new_state, metrics) with
-    metrics ``{"lr", "grad_norm"}`` as 0-d float32 tensors."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    metrics ``{"lr", "grad_norm"}`` as 0-d float32 tensors.
+
+    Under data parallelism every tree holds this rank's shard of each
+    leaf (``params``, ``grads`` and the state's m, v and master alike) and
+    ``grad_norm`` is the global gradient norm; the update is elementwise,
+    so each new parameter shard is the new master shard cast."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, grad_norm)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     mdt = torch_dtype(cfg.momentum_dtype)

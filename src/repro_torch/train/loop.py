@@ -22,11 +22,12 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch import tree_util as pytree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.interface import RunStats
+from repro_torch.distributed.data_parallel import DataParallel, plan_for
+from repro_torch.distributed.sharding import ambient_mesh
 from repro_torch.models.lm import lm_loss_and_stats
 from repro_torch.models.transformer import add_run_stats
 from repro_torch.optim.compression import (EFState, compress_grads,
@@ -96,25 +97,63 @@ def train_step(params: Pytree, opt_state: OptState, ef: Optional[EFState],
     the device.
 
     ``compress=True`` routes the gradients through int8 error-feedback
-    compression, threading ``ef``. ``zero1=True`` shards the optimizer
-    update over data-parallel ranks in the JAX package; on one process it
-    changes nothing, and over several it is not ported yet.
+    compression, threading ``ef``. ``zero1=True`` under an ambient mesh
+    of several ranks (``with mesh:``) runs the step data-parallel
+    (:mod:`repro_torch.distributed.data_parallel`): ``batch`` is the
+    global batch, of which each rank computes its rows; ``params`` are
+    whole on every rank; ``opt_state`` and ``ef`` hold the rank's shards
+    by ``opt_state_shardings`` (ZeRO-1). The result is the one-rank step
+    on the global batch, as the JAX package's GSPMD step is its unsharded
+    one; the ODE counters are the global solve's (summed over the ranks'
+    rows when the branches are batched, ``ode.batch_axis``).
     """
-    if zero1 and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "zero1 over several ranks needs data parallelism, which is not "
-            "ported yet (ROADMAP queue 1 item 9)")
+    mesh = ambient_mesh() if zero1 else None
+    plan = plan_for(cfg, mesh, params)
+    if plan is not None:
+        return _data_parallel_step(plan, params, opt_state, ef, batch,
+                                   cfg=cfg, opt_cfg=opt_cfg,
+                                   microbatches=microbatches,
+                                   compress=compress)
     loss, stats, grads = loss_and_grads(params, batch, cfg=cfg,
                                         microbatches=microbatches)
     if compress:
         grads, ef = compress_grads(grads, ef)
     params, opt_state, metrics = apply_updates(opt_cfg, params, grads,
                                                opt_state)
+    return params, opt_state, ef, _with_run_metrics(metrics, loss, stats)
+
+
+def _with_run_metrics(metrics: Dict, loss: torch.Tensor,
+                      stats: RunStats) -> Dict:
     metrics["loss"] = loss
     metrics["ode_accepted"] = stats.n_accepted
     metrics["ode_rejected"] = stats.n_rejected
     metrics["ode_fevals"] = stats.n_fevals
-    return params, opt_state, ef, metrics
+    return metrics
+
+
+def _data_parallel_step(plan: DataParallel, params, opt_state, ef, batch,
+                        *, cfg, opt_cfg, microbatches, compress):
+    """:func:`train_step` over the plan's data group: this rank's rows,
+    gradients reduced into the optimizer state's layout, the update on
+    the shards, the parameters gathered whole."""
+    rows, split = plan.local_rows(batch, microbatches)
+    with plan.splitting_rows(split):
+        loss, stats, grads = loss_and_grads(params, rows, cfg=cfg,
+                                            microbatches=microbatches)
+    if split:
+        loss = plan.group.all_reduce(loss)          # the ranks' shares
+        if cfg.ode.batch_axis is not None:
+            # batched solves count per row: the global batch's totals
+            stats = RunStats(*(plan.group.all_reduce(c) for c in stats))
+    grads = plan.reduce_grads(grads, split)
+    if compress:
+        grads, ef = compress_grads(grads, ef, plan.max_over_ranks)
+    shards, opt_state, metrics = apply_updates(
+        opt_cfg, plan.shard(params), grads, opt_state,
+        grad_norm=plan.global_norm(grads))
+    return (plan.gather(shards), opt_state, ef,
+            _with_run_metrics(metrics, loss, stats))
 
 
 class TrainLoop:

@@ -27,10 +27,31 @@ are pure functions of (seed, step) and the step is deterministic, so the
 recomputed post-checkpoint steps reproduce the uninterrupted run's loss
 trace bit for bit.
 
-The JAX package's multi-host meshes (``production_mesh``, ``multi_pod``)
-and ``Sharded`` solve batching over a mesh axis (``ode_batch_axis``) need
-data parallelism, which the port's Trainer does not have yet: they raise
-``NotImplementedError`` (ROADMAP queue 1 item 9).
+Meshes: as in the JAX package every run is on a mesh, here
+``make_host_mesh`` over the default ``torch.distributed`` process group
+(a (W, 1) ("data", "model") mesh, made once a process and reused). Side
+effects: in a process with no process group the first Trainer makes one
+of world size 1 (NCCL on the card, gloo on the CPU), and on the card
+each Trainer makes its device the current CUDA device. ZeRO-1 is on
+whenever the mesh has more than one rank. Then each rank
+computes its rows of the global batch and the gradients are reduced into
+the optimizer state's layout by ``opt_state_shardings``
+(:mod:`repro_torch.distributed.data_parallel`): the steps, losses and
+checkpoints are the one-rank run's. The parameters start from the seed on
+every rank (a checksum all-gather confirms them equal) and stay whole on
+every rank; the optimizer state and the error-feedback carry hold the
+rank's shards. For the ``'fsdp_tp'`` configs (deepseek-moe, jamba,
+granite, grok, internvl2) the JAX package shards the parameters over
+'data' too: same numbers, but each rank here holds them whole (ROADMAP
+queue 1 item 11). Rank 0 writes each checkpoint, the whole state gathered
+from the shards (the files a one-rank run writes); every rank restores
+the whole state and keeps its shards, so checkpoints move between world
+sizes. ``ode_batch_axis="data"`` solves each rank's rows with its own
+controller (the JAX package's ``Sharded("data")``). Refused, with a
+``NotImplementedError`` naming a ROADMAP item: the production meshes
+(``production_mesh``, ``multi_pod``: their 16-way 'model' axis is tensor
+parallelism, item 10), and adaptive control (``ode_steps=0``) over
+several ranks without ``ode_batch_axis="data"`` (item 12).
 """
 from __future__ import annotations
 
@@ -41,16 +62,24 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import tree_util as pytree
 from repro_torch.checkpoint.checkpoint import (AsyncCheckpointer,
                                                list_checkpoints)
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import ModelConfig, get_config, smoke_config
 from repro_torch.core.ode_block import OdeSettings
 from repro_torch.data.synthetic import DataConfig, batch_to_device, make_batch
 from repro_torch.device import resolve_device
+from repro_torch.distributed.data_parallel import (TENSOR_PARALLEL_ITEM,
+                                                   DataParallel,
+                                                   check_supported, plan_for)
 from repro_torch.distributed.fault_tolerance import run_with_recovery
+from repro_torch.launch.mesh import make_host_mesh, production_axes
 from repro_torch.models import init_lm
-from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state
+from repro_torch.optim.compression import EFState
+from repro_torch.optim.optimizer import (OptimizerConfig, OptState,
+                                         init_opt_state)
 from repro_torch.train.loop import get_train_loop
 from repro_torch.train.metrics import (MetricsEmitter, StepRecord,
                                        kernel_launch_total, make_emitter,
@@ -64,8 +93,6 @@ log = logging.getLogger("repro_torch.train")
 # The paper's default pairings (GradientMethod.default_solver()).
 _SOLVER_FOR = {"mali": "alf", "naive": "alf", "aca": "heun_euler",
                "adjoint": "dopri5"}
-_NOT_PORTED = ("needs data parallelism over several devices, which the "
-               "port's Trainer does not have yet (ROADMAP queue 1 item 9)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +118,8 @@ class TrainerConfig:
     log_every: int = 10
     emit: str = "stdout"            # EMITTERS key
     metrics_path: str = ""          # for emit='jsonl'
-    production_mesh: bool = False   # multi-host mesh: not ported
-    multi_pod: bool = False
+    production_mesh: bool = False   # the 16x16 mesh (refused: item 10)
+    multi_pod: bool = False         # the 2x16x16 one (implies the above)
     max_failures: int = 3
     device: str = ""                # '' = the CUDA card
 
@@ -113,17 +140,34 @@ class TrainerConfig:
 
 
 def build(tc: TrainerConfig):
-    """(model config, optimizer config) for one run description."""
-    if tc.production_mesh or tc.multi_pod:
-        raise NotImplementedError(f"production_mesh/multi_pod {_NOT_PORTED}")
-    if tc.ode_batch_axis:
-        raise NotImplementedError(f"ode_batch_axis {_NOT_PORTED}")
+    """(model config, mesh, optimizer config) for one run description.
+    The mesh is ``make_host_mesh`` over the default process group (every
+    rank calls this). The production meshes, and a mesh or config the
+    port cannot train on, raise ``NotImplementedError``."""
     ode = tc.ode_settings()
     cfg = (smoke_config(tc.arch, ode) if tc.smoke
            else get_config(tc.arch, ode))
+    if tc.production_mesh or tc.multi_pod:
+        # both production meshes have a 16-way 'model' axis
+        raise NotImplementedError(
+            f"the production meshes {production_axes(multi_pod=tc.multi_pod)}"
+            ": tensor parallelism over 'model' is not ported "
+            f"({TENSOR_PARALLEL_ITEM})")
+    mesh = make_host_mesh(tc.torch_device())
+    check_supported(cfg, mesh)
     opt_cfg = OptimizerConfig(total_steps=tc.steps,
                               warmup_steps=max(tc.steps // 20, 1))
-    return cfg, opt_cfg
+    return cfg, mesh, opt_cfg
+
+
+def _map_shards(state: TrainState, fn) -> TrainState:
+    """``state`` with ``fn`` applied to the trees data parallelism shards:
+    the optimizer's m, v and master, and the error-feedback carry."""
+    o, ef = state.opt, state.ef
+    return TrainState(state.params,
+                      OptState(o.step, fn(o.m), fn(o.v), fn(o.master)),
+                      None if ef is None else EFState(fn(ef.error)),
+                      state.rng)
 
 
 class Trainer:
@@ -131,28 +175,36 @@ class Trainer:
     step on the host — the fault-injection point for recovery tests.
     ``opt_cfg`` replaces the optimizer config :func:`build` derives from
     the run length (the JAX package's rule: a cosine over ``steps`` after
-    ``steps // 20`` warmup steps, at least one)."""
+    ``steps // 20`` warmup steps, at least one); ``model_cfg`` replaces
+    the model config (a config ``arch`` names, changed, e.g. in its
+    widths or its sharding strategy)."""
 
     def __init__(self, config: TrainerConfig,
                  emitter: Optional[MetricsEmitter] = None,
                  step_hook: Optional[Callable[[int], None]] = None,
-                 opt_cfg: Optional[OptimizerConfig] = None):
+                 opt_cfg: Optional[OptimizerConfig] = None,
+                 model_cfg: Optional[ModelConfig] = None):
         self.config = config
         self.device = config.torch_device()
-        self.cfg, self.opt_cfg = build(config)
+        self.cfg, self.mesh, self.opt_cfg = build(config)
         if opt_cfg is not None:
             self.opt_cfg = opt_cfg
+        if model_cfg is not None:
+            check_supported(model_cfg, self.mesh)
+            self.cfg = model_cfg
         self.loop = get_train_loop(config.loop)
         self.emitter = emitter if emitter is not None else make_emitter(
             config.emit, config.metrics_path)
         self.step_hook = step_hook
         self.records: Dict[int, StepRecord] = {}
         self.kernel_launches: Optional[int] = None
+        self.plan: Optional[DataParallel] = None   # set by init_state
         self._state: Optional[TrainState] = None
 
     @property
     def state(self) -> Optional[TrainState]:
-        """Final :class:`TrainState` after :meth:`train` (None before)."""
+        """The newest :class:`TrainState`: after each step of
+        :meth:`train`, the final one after it (None before)."""
         return self._state
 
     def loss_trace(self):
@@ -162,12 +214,45 @@ class Trainer:
         return [self.records[s].loss for s in sorted(self.records)]
 
     def init_state(self) -> TrainState:
-        """Seeded weights, a fresh optimizer and the loop's carry."""
+        """Seeded weights, a fresh optimizer and the loop's carry. Over
+        several ranks the optimizer state and the carry hold this rank's
+        shards (:attr:`plan`), and the ranks' weights are checked equal."""
         tc = self.config
         gen = torch.Generator(device=self.device).manual_seed(tc.seed)
         params = init_lm(gen, self.cfg, self.device)
-        return TrainState(params, init_opt_state(self.opt_cfg, params),
-                          self.loop.init_carry(params), init_rng(tc.seed))
+        self.plan = plan_for(self.cfg, self.mesh, params)
+        local = params
+        if self.plan is not None:
+            if not self.plan.checksum_equal(params):
+                raise RuntimeError("the ranks' seeded weights differ")
+            local = self.plan.shard(params)
+        return TrainState(params, init_opt_state(self.opt_cfg, local),
+                          self.loop.init_carry(local), init_rng(tc.seed))
+
+    def whole_state(self, state: Optional[TrainState] = None
+                    ) -> TrainState:
+        """``state`` (default: the newest) with the optimizer state and
+        carry whole, gathered from the ranks' shards onto the host (a
+        collective: every rank calls it); what a checkpoint holds."""
+        state = self._state if state is None else state
+        if self.plan is None:
+            return state
+        return _map_shards(state, lambda t: self.plan.gather(t, host=True))
+
+    def _restore(self, state: TrainState, fingerprint):
+        """The latest checkpoint as this rank's state (its shards of the
+        whole state), or None."""
+        tc, plan = self.config, self.plan
+        if plan is None:
+            return restore_train_state(tc.ckpt_dir, state, fingerprint)
+        got = restore_train_state(tc.ckpt_dir,
+                                  _map_shards(state, plan.whole_like),
+                                  fingerprint)
+        if got is None:
+            return None
+        step, whole, meta = got
+        return step, _map_shards(whole, lambda tree: pytree.tree_map(
+            lambda t: t.to(self.device).contiguous(), plan.shard(tree))), meta
 
     def batch(self, step: int):
         """Step ``step``'s global batch on the run's device."""
@@ -177,23 +262,39 @@ class Trainer:
         return batch_to_device(make_batch(self.cfg, dcfg, step), self.device)
 
     def train(self) -> int:
+        with self.mesh:
+            return self._train()
+
+    def _train(self) -> int:
         tc = self.config
         cfg, opt_cfg = self.cfg, self.opt_cfg
         fingerprint = config_fingerprint(
             cfg, opt_cfg, arch=tc.arch, loop=tc.loop,
             microbatches=tc.microbatches, seed=tc.seed,
             global_batch=tc.global_batch, seq_len=tc.seq_len)
+        rank0 = self.mesh.get_rank() == 0
+        # rank 0 writes; the others wait at a barrier before reading
         ckpt = (AsyncCheckpointer(tc.ckpt_dir, keep=tc.keep)
-                if tc.ckpt_dir else None)
+                if tc.ckpt_dir and rank0 else None)
         residual_bytes = ode_residual_bytes(
             cfg, tc.global_batch // max(tc.microbatches, 1), tc.seq_len)
+        zero1 = self.mesh.size() > 1
         state = self.init_state()
+
+        def barrier():
+            if self.plan is not None:
+                dist.barrier(group=self.plan.group.group)
+
+        def save(step: int, metadata: dict):
+            tree = state_tree(self.whole_state(state))
+            if ckpt is not None:
+                ckpt.save(step, tree, metadata=metadata)
 
         def train_loop(resume: Optional[int]) -> int:
             nonlocal state
             start = 0
-            if resume is not None and ckpt is not None:
-                got = restore_train_state(tc.ckpt_dir, state, fingerprint)
+            if resume is not None:
+                got = self._restore(state, fingerprint)
                 if got is not None:
                     start, state, _meta = got
                     log.info("resumed from step %d", start)
@@ -204,7 +305,8 @@ class Trainer:
                 launched = kernel_launch_total()
                 p, o, carry, metrics = self.loop.step(
                     state.params, state.opt, state.ef, self.batch(step),
-                    cfg=cfg, opt_cfg=opt_cfg, microbatches=tc.microbatches)
+                    cfg=cfg, opt_cfg=opt_cfg, microbatches=tc.microbatches,
+                    zero1=zero1)
                 if self.kernel_launches is None:
                     self.kernel_launches = kernel_launch_total() - launched
                 # the step's one host read
@@ -215,6 +317,7 @@ class Trainer:
                 if not math.isfinite(loss):
                     raise RuntimeError(f"non-finite loss at step {step}")
                 state = TrainState(p, o, carry, next_rng(state.rng, step))
+                self._state = state
                 rec = StepRecord(
                     step=step, loss=loss, lr=lr, grad_norm=gnorm,
                     wall_s=time.time() - t0, fevals=int(fev),
@@ -227,24 +330,26 @@ class Trainer:
                     log.info("step %d loss %.4f lr %.2e gnorm %.2f "
                              "fevals %d", step, loss, rec.lr,
                              rec.grad_norm, rec.fevals)
-                if ckpt is not None and (step + 1) % tc.ckpt_every == 0:
-                    ckpt.save(step + 1, state_tree(state),
-                              metadata={**fingerprint, "loss": loss})
+                if tc.ckpt_dir and (step + 1) % tc.ckpt_every == 0:
+                    save(step + 1, {**fingerprint, "loss": loss})
             return tc.steps
 
         def restore_step() -> Optional[int]:
-            if ckpt is None:
+            if not tc.ckpt_dir:
                 return None
-            ckpt.wait()   # a crash may race an in-flight save
+            if ckpt is not None:
+                ckpt.wait()   # a crash may race an in-flight save
+            barrier()
             ckpts = list_checkpoints(tc.ckpt_dir)
             return ckpts[-1][0] if ckpts else None
 
         final, rstats = run_with_recovery(
             train_loop, restore_step, max_failures=tc.max_failures)
-        if ckpt is not None:
-            ckpt.save(final, state_tree(state),
-                      metadata={**fingerprint, "final": True})
-            ckpt.close()
+        if tc.ckpt_dir:
+            save(final, {**fingerprint, "final": True})
+            if ckpt is not None:
+                ckpt.close()
+            barrier()   # the final checkpoint is on disk on every rank
         self.emitter.close()
         self._state = state
         log.info("done: step %d (failures=%d)", final, rstats.failures)

@@ -202,11 +202,27 @@ def test_microbatch_accumulation_trains():
     assert recs[0].fevals == 2 * 3 * 4
 
 
-def test_unported_axes_raise():
-    for kw in (dict(production_mesh=True), dict(multi_pod=True),
-               dict(ode_batch_axis="data")):
-        with pytest.raises(NotImplementedError, match="item 9"):
+@pytest.mark.parametrize("kw", [dict(production_mesh=True),
+                                dict(multi_pod=True),
+                                dict(ode_batch_axis="data")],
+                         ids=["production_mesh", "multi_pod",
+                              "ode_batch_axis"])
+def test_unported_axes_raise(kw, clean_run):
+    """The production meshes' 16-way 'model' axis is tensor parallelism,
+    refused naming its ROADMAP item; ``ode_batch_axis="data"`` trains on
+    the one-rank host mesh (``Sharded`` over one rank: the lockstep solve
+    of every row), its counters summed over the batch's rows."""
+    if "ode_batch_axis" not in kw:
+        with pytest.raises(NotImplementedError, match="item 10"):
             tiny_trainer(**kw)
+        return
+    t = tiny_trainer(**kw)
+    assert t.cfg.ode.batch_axis == "data" and t.mesh.size() == 1
+    assert t.train() == TINY["steps"]
+    assert t.loss_trace() == clean_run.loss_trace()
+    rows = TINY["global_batch"]
+    for s in range(TINY["steps"]):
+        assert t.records[s].fevals == rows * clean_run.records[s].fevals
 
 
 def test_backend_names():
