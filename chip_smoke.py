@@ -85,7 +85,10 @@ either. Phases, each printing JSON lines:
                none for the scan), and flash's TFLOP/s from graph times.
                The scan's bound has three terms: bytes, f32 operations,
                and its expf on the MUFU unit (16 a clock per SM at the
-               card's maximum SM clock).
+               card's maximum SM clock). Flash also at the prefill shapes
+               of stablelm-1.6b (d 64, MHA 32/32) and granite-20b (MQA
+               48/1 at d 128), B4 S1024 causal, each held to its plain
+               version first.
 11. lm_serve  — the port's serve() for qwen3-1.7b at full width (bf16,
                DEFAULT_ODE, seeded random weights): batch 4, prompt 1024,
                32 greedy decode steps through the decode graph (one eager
@@ -244,24 +247,26 @@ either. Phases, each printing JSON lines:
                failure injected at step 3 whose resumed loss trace is
                bit-equal to the clean one; (e) python -m
                repro_torch.launch.train --steps 4 prints final_step=4.
-18. xlstm     — xlstm-125m at full width (12 layers: 10 mLSTM, 2 sLSTM;
-               d 768, 4 heads, vocab 50304, bf16, DEFAULT_ODE, seeded
-               weights): (a) phase 11's checks at batch 4, prompt 1024,
+18. xlstm     — xlstm-125m at full width, one of its two periods (6 of
+               its 12 layers: 5 mLSTM, 1 sLSTM; d 768, 4 heads, vocab
+               50304, bf16, DEFAULT_ODE, seeded weights; the cut keeps
+               every check, and its host-bound token loops take half the
+               time): (a) phase 11's checks at batch 4, prompt 1024,
                32 graphed decode steps (per prefill and per decode step
-               37 RMSNorm, 24 + 24 ALF, no flash, no scan), the kernel
+               19 RMSNorm, 12 + 12 ALF, no flash, no scan), the kernel
                path against backend="reference" in bf16 and f32 and
                prefill(64) against prefill(63) + decode (the chunk rule
                allows no 1025-token prompt), each within LM_TOL or 3x the
                model's own noise floor (the plain path with the embedding
                moved by one rounding), device profiles of a prefill and
                of 4 replays; (b) phase 17's checks for 3 Trainer steps at
-               batch 8 x 256 (24 launches of each of the four MALI
-               kernels and 36 f-evals a step; kernel vs reference in bf16
-               at full width and in f32 on one period at S 128, MALI vs
-               Naive there; MALI's peak 2 -> 8 steps) and the bytes one
-               mLSTM f-eval VJP holds between its forward and pullback;
-               (c) python -m repro_torch.launch.serve and .train --arch
-               xlstm-125m --full for a few tokens and steps.
+               batch 8 x 256 (12 launches of each of the four MALI
+               kernels and 18 f-evals a step; kernel vs reference in bf16
+               at full width and in f32 at S 128, MALI vs Naive there;
+               MALI's peak 2 -> 8 steps) and the bytes one mLSTM f-eval
+               VJP holds between its forward and pullback; (c) python -m
+               repro_torch.launch.serve and .train --arch xlstm-125m
+               --full (both periods) for a few tokens and steps.
 19. gemma2_serve — gemma2-2b at full width (26 layers, d 2304, d_head 256,
                vocab 256000, tied embeddings, bf16): phase 11's checks at
                batch 4, prompt 1024, 32 graphed decode steps (per prefill
@@ -299,6 +304,35 @@ either. Phases, each printing JSON lines:
                own rows; (d) python -m torch.distributed.run
                --nproc-per-node 2 -m repro_torch.launch.train --steps 3
                --device cuda:0 prints final_step=3 once.
+21. configs_serve — the four configs that fit one card and no earlier
+               phase serves, at full width, one at a time (each one's
+               weights freed before the next): stablelm-1.6b (d_head 64),
+               musicgen-large (input_mode="embeds": prompts from the stub
+               frontend, models/frontend.py, and decode through the
+               embeds path), deepseek-moe-16b (a dense prelude layer, 27
+               MoE layers of 64 experts, top 6, 2 shared) and granite-20b
+               (MQA 48/1, d 6144, 52 layers; 56.3 GB of weights). For each:
+               the weights and cache predicted from the meta specs
+               (launch/specs.py) before anything is made, the prediction
+               within 0.9 of the card at init's bound; phase 11's checks
+               (_serve_cell: exact launch counts per prefill and decode
+               step, CS_PER_PREFILL, no host sync, the graph against eager
+               decode and serve(), device profiles of a prefill and 4
+               replays); the weights equal to the specs' bytes, init's
+               peak within them plus its largest draw (_cs_predict), the
+               serve run's peak within the specs'
+               weights and cache plus one prefill's allocations and
+               CS_PEAK_SLACK; graphed decode against the step's byte
+               bound (the blocks' weights once per f-eval, the head once,
+               every cache slot once, over the card's memory rate); the
+               kernel path against backend="reference" in bf16 (LM_TOL;
+               deepseek route-aware, as phase 12) and in f32 at batch 2 x
+               256 + 4 (full depth for stablelm and musicgen; 4 layers for
+               granite, whose f32 RMSNorm at d 6144 takes the scalar
+               kernel, and deepseek, which do not fit in f32; deepseek's
+               f32 cut also with a capacity that drops nothing, where
+               prefill(p + 1) must equal prefill(p) + decode on every
+               row); the phase's seconds beside its CS_PHASE_S budget.
 
 Phase 2 also holds the eight kernels with a per-row (B,) h, each row
 its own (kernels_rows: B x D in ROW_CASES, f32, bf16, mixed, f64, one
@@ -447,6 +481,9 @@ FA_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2.0 ** -7, 1e-5)}
 # The library yardstick multiplies P.V in bf16, as the Pallas kernel does:
 # held to the Pallas bf16 bar of tests/test_kernels.py:287.
 FA_LIB_TOL = (3e-2, 3e-2)
+# phase 10 also times flash at these configs' prefill shapes (batch
+# LM_BATCH, prompt LM_PROMPT, causal): d 64, MHA 32/32; MQA 48/1 at d 128
+FA_MORE_ARCHS = ("stablelm-1.6b", "granite-20b")
 # Whole-model logit agreement, max |a - b| / max |b|: the kernel path
 # against the plain path, and prefill(p+1) against prefill(p) + decode.
 # f32: summation orders only; bf16: roundings of 28 layers x 3 f-evals.
@@ -497,8 +534,12 @@ INIT_PEAK_RATIO = 1.25
 FLOOR_FACTOR = 3.0
 # layer by layer from the same input, each layer's kernel and plain
 # outputs are compared on the tokens whose routes agree in the layer; at
-# least this share of tokens must be compared
+# least this share of tokens must be compared at Jamba's
+# LAYER_ROUTE_DECISIONS routing decisions a token takes in a layer (top 2
+# x 3 f-evals), the same bar per decision at another count: share >=
+# LAYER_TOKEN_SHARE ** (decisions / LAYER_ROUTE_DECISIONS)
 LAYER_TOKEN_SHARE = 0.9
+LAYER_ROUTE_DECISIONS = 6
 
 
 def emit(obj) -> None:
@@ -1713,12 +1754,11 @@ def phase_lm_kernels():
 
 def phase_lm_times(card: str):
     """The two kernels at qwen3-1.7b's prefill shapes against their bound,
-    their plain versions and one library call."""
+    their plain versions and one library call; flash also at
+    FA_MORE_ARCHS' prefill shapes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention as fa_k
-    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rmsnorm import ref as rn_ref
     from repro_torch.kernels.rmsnorm import rmsnorm as rn_k
     bw, f32_peak, bf16_peak = card_rates(card)
@@ -1752,8 +1792,33 @@ def phase_lm_times(card: str):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
         emit({"phase": "lm_times", **rows[label]})
         del x
-    b, s, h, kv, d = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads, \
-        cfg.d_head
+    rows["flash_attention"] = _flash_times(
+        rand, bw, bf16_peak, LM_BATCH, LM_PROMPT, cfg.n_heads,
+        cfg.n_kv_heads, cfg.d_head)
+    emit({"phase": "lm_times", **rows["flash_attention"]})
+    # the prefill shapes of configs_serve's configs that no earlier row
+    # has: d 64 (stablelm-1.6b; musicgen-large's is the same) and MQA,
+    # 48 query heads over one KV head (granite-20b)
+    for arch in FA_MORE_ARCHS:
+        c = get_config(arch)
+        label = f"flash_attention_{arch}"
+        rows[label] = {**_flash_times(rand, bw, bf16_peak, LM_BATCH,
+                                      LM_PROMPT, c.n_heads, c.n_kv_heads,
+                                      c.d_head), "name": label, "arch": arch}
+        emit({"phase": "lm_times", **rows[label]})
+    rows["selective_scan"] = _scan_times(gen, bw, f32_peak)
+    emit({"phase": "lm_times", **rows["selective_scan"]})
+    return rows
+
+
+def _flash_times(rand, bw: float, bf16_peak: float, b: int, s: int,
+                 h: int, kv: int, d: int):
+    """The bf16 flash kernel at one causal prefill shape against its
+    plain version (within FA_TOL), its bound and SDPA (causal, GQA; held
+    to FA_LIB_TOL), each also in a CUDA graph."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     q, k, v = rand(b, s, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
     # the library's own [B, H, S, d] layout, made outside the timed call
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -1761,6 +1826,8 @@ def phase_lm_times(card: str):
     plain = lambda: fa_ref.attention_ref(q, k, v, causal=True)      # noqa
     lib = lambda: F.scaled_dot_product_attention(                   # noqa
         qt, kt, vt, is_causal=True, enable_gqa=True)
+    _close(kern(), plain(), *FA_TOL["bfloat16"],
+           f"flash at B{b} S{s} H{h}/{kv} d{d} against the plain version")
     # the yardstick computes the same function
     _close(lib().transpose(1, 2), plain(), *FA_LIB_TOL,
            "scaled_dot_product_attention against the plain version")
@@ -1768,28 +1835,23 @@ def phase_lm_times(card: str):
     pairs = b * h * s * (s + 1) // 2          # unmasked (query, key) pairs
     ops_ms = 4 * pairs * d / bf16_peak * 1e3
     bytes_ms = (2 * b * s * h * d + 2 * b * s * kv * d) * 2 / bw * 1e3
-    rows["flash_attention"] = {
-        "name": "flash_attention", "shape": [b, s, h, kv, d],
-        "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
-        "library_ms": _time_ms(lib, 10),
-        "library": "scaled_dot_product_attention(is_causal=True, "
-                   "enable_gqa=True)",
-        "graph_ms": _graph_ms(kern, 10),
-        "plain_graph_ms": _graph_ms(plain, 5),
-        "library_graph_ms": _graph_ms(lib, 10),
-        "flops": 4 * pairs * d,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    fa = rows["flash_attention"]
+    fa = {"name": "flash_attention", "shape": [b, s, h, kv, d],
+          "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+          "library_ms": _time_ms(lib, 10),
+          "library": "scaled_dot_product_attention(is_causal=True, "
+                     "enable_gqa=True)",
+          "graph_ms": _graph_ms(kern, 10),
+          "plain_graph_ms": _graph_ms(plain, 5),
+          "library_graph_ms": _graph_ms(lib, 10),
+          "flops": 4 * pairs * d,
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     # useful operations (the masked half of the scores not counted) per
     # second of device time
     fa["tflops_per_s"] = fa["flops"] / fa["graph_ms"] / 1e9
     fa["library_tflops_per_s"] = fa["flops"] / fa["library_graph_ms"] / 1e9
-    emit({"phase": "lm_times", **fa})
-    del q, k, v, qt, kt, vt
-    rows["selective_scan"] = _scan_times(gen, bw, f32_peak)
-    emit({"phase": "lm_times", **rows["selective_scan"]})
-    return rows
+    fa["graph_to_bound"] = fa["graph_ms"] / fa["bound_ms"]
+    return fa
 
 
 def _scan_times(gen, bw: float, f32_peak: float):
@@ -1889,10 +1951,30 @@ def _rel(a, b) -> float:
                  / b.double().abs().max())
 
 
+def _lm_inputs(cfg, batch: int, n: int, seed: int):
+    """``n`` seeded input positions for ``batch`` rows: token ids [B, n]
+    from numpy, or for an input_mode="embeds" config the stub frontend's
+    frame embeddings [B, n, d_model] (``models.frontend``). A slice of the
+    sequence axis is a prefill's or a decode step's input."""
+    import torch
+    from repro_torch.models.frontend import synthetic_frame_embeddings
+    if cfg.input_mode == "embeds":
+        return synthetic_frame_embeddings(
+            torch.Generator(device="cuda").manual_seed(seed), cfg, batch, n)
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, n)), device="cuda")
+
+
+def _prompt(cfg, x) -> dict:
+    """A prefill batch of ``_lm_inputs``."""
+    return {"embeds" if cfg.input_mode == "embeds" else "tokens": x}
+
+
 def _serve_run(params, cfg, toks, prompt: int, n_decode: int,
                backend: str):
-    """prefill + n_decode teacher-forced decode steps: (logits [B, 1 + n,
-    V], the MoE routes of every call, prefill ms, decode ms per step)."""
+    """prefill + n_decode teacher-forced decode steps (``toks``: token ids
+    or embeddings, ``_lm_inputs``): (logits [B, 1 + n, V], the MoE routes
+    of every call, prefill ms, decode ms per step)."""
     import torch
     from repro_torch.models import decode_step, init_serve_state, prefill
     from repro_torch.models.moe import recording_routes
@@ -1900,8 +1982,8 @@ def _serve_run(params, cfg, toks, prompt: int, n_decode: int,
     with recording_routes() as log:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, state = prefill(params, cfg, {"tokens": toks[:, :prompt]}, state,
-                            backend=backend)
+        lg, state = prefill(params, cfg, _prompt(cfg, toks[:, :prompt]),
+                            state, backend=backend)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         steps = [lg]
@@ -1917,26 +1999,26 @@ def _serve_run(params, cfg, toks, prompt: int, n_decode: int,
 
 def _lm_compare(dtype, batch: int, prompt: int, n_decode: int,
                 arch: str = LM_ARCH, self_prompt: int = 0,
-                floor: bool = False):
+                floor: bool = False, periods: int = 0):
     """``arch`` at full width in ``dtype``: the kernel path against the
     plain path (prefill logits and teacher-forced decode logits), and
     prefill(p+1) against prefill(p) + decode(token p), on both paths, p =
     ``self_prompt`` (default: ``prompt``). With ``floor``, a comparison
     may also lie within FLOOR_FACTOR x the model's own noise floor: the
     plain path with the embedding moved by one rounding (``_moved``)
-    against the plain path."""
+    against the plain path. ``periods`` cuts the depth (0: as published).
+    An input_mode="embeds" config is fed the stub frontend's embeddings
+    (``_lm_inputs``)."""
     import dataclasses
     import torch
     from repro_torch.configs import DEFAULT_ODE, get_config
     from repro_torch.models import init_lm, init_serve_state, prefill
     name = str(dtype).split(".")[-1]
-    cfg = dataclasses.replace(get_config(arch, DEFAULT_ODE),
-                              param_dtype=name, compute_dtype=name)
+    cfg = get_config(arch, DEFAULT_ODE)
+    cfg = dataclasses.replace(cfg, param_dtype=name, compute_dtype=name,
+                              n_periods=periods or cfg.n_periods)
     params = init_lm(torch.Generator(device="cuda").manual_seed(1), cfg)
-    rng = np.random.default_rng(1)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                        (batch, prompt + n_decode)),
-                           device="cuda")
+    toks = _lm_inputs(cfg, batch, prompt + n_decode, 1)
     p = self_prompt or prompt
     out, logits = {}, {}
     runs = [("cuda", "cuda", params), ("reference", "reference", params)]
@@ -1953,7 +2035,7 @@ def _lm_compare(dtype, batch: int, prompt: int, n_decode: int,
         # step 0 after prefill(p) (the token at position p fed)
         decoded = (logits[label] if p == prompt else _serve_run(
             w, cfg, toks, p, 1, backend)[0])[:, 1]
-        lg1, _ = prefill(w, cfg, {"tokens": toks[:, :p + 1]},
+        lg1, _ = prefill(w, cfg, _prompt(cfg, toks[:, :p + 1]),
                          init_serve_state(cfg, batch, p + 1),
                          backend=backend)
         out[f"self_consistency_{label}"] = _rel(lg1[:, 0], decoded)
@@ -1980,9 +2062,9 @@ def _lm_compare(dtype, batch: int, prompt: int, n_decode: int,
             f"lm {arch} {name}: non-finite logits")
     del params
     torch.cuda.empty_cache()
-    return {"arch": arch, "dtype": name, "batch": batch, "prompt": prompt,
-            "self_prompt": p, "decode_steps": n_decode, "tolerance": tol,
-            **out}
+    return {"arch": arch, "dtype": name, "n_layers": cfg.n_layers,
+            "batch": batch, "prompt": prompt, "self_prompt": p,
+            "decode_steps": n_decode, "tolerance": tol, **out}
 
 
 def _no_sync(fn):
@@ -2001,8 +2083,8 @@ def _counted_steps(params, cfg, toks, prompt: int, per_prefill: dict,
     graph's first call (an eager warm-up step and the capture of the next)
     and one replay, each with its launches counted apart: per_prefill,
     per_decode, 2 x per_decode and none (a replay calls no wrapper).
-    Returns the graph step and its state, for more replays (``toks``
-    holds prompt + 8 positions; 4 are used)."""
+    Returns the graph step and its state, for more replays (``toks``:
+    ``_lm_inputs`` of prompt + 8 positions; 4 are used)."""
     import torch
     from repro_torch.launch.serve import make_decode_step
     from repro_torch.models import decode_step, init_serve_state, prefill
@@ -2011,7 +2093,8 @@ def _counted_steps(params, cfg, toks, prompt: int, per_prefill: dict,
     torch.cuda.synchronize()
     _lm_reset()
     _, state = _no_sync(lambda: prefill(params, cfg,
-                                        {"tokens": toks[:, :prompt]}, state))
+                                        _prompt(cfg, toks[:, :prompt]),
+                                        state))
     _lm_check_counts(f"one {what} prefill", per_prefill)
     for i, (label, fn, times) in enumerate((
             ("eager decode step", lambda t, st: decode_step(
@@ -2039,7 +2122,7 @@ def _graph_vs_eager(params, cfg, prompt, n_decode: int, serve_tokens,
     step may lie below. The first step (for the graph: the eager warm-up
     and the capture) is timed apart."""
     import torch
-    from repro_torch.launch.serve import make_decode_step
+    from repro_torch.launch.serve import decode_input, make_decode_step
     from repro_torch.models import decode_step, init_serve_state, prefill
     name = str(cfg.compute_dtype)
     batch, prompt_len = next(iter(prompt.values())).shape[:2]
@@ -2054,7 +2137,8 @@ def _graph_vs_eager(params, cfg, prompt, n_decode: int, serve_tokens,
 
         def steps(k):
             for _ in range(k):
-                lg, box["state"] = step(params, box["tok"], box["state"])
+                lg, box["state"] = step(params, decode_input(cfg, box["tok"]),
+                                        box["state"])
                 box["tok"] = torch.argmax(lg[:, -1], -1)[:, None]
                 box["toks"].append(box["tok"][:, 0])
                 box["logits"].append(lg)
@@ -2177,20 +2261,32 @@ def phase_lm_serve(card: str, smi: str):
 # Phase 12: the Jamba/SSM serving slice (jamba-v0.1-52b, 2 of 4 periods)
 # ---------------------------------------------------------------------------
 
-def _ssm_config(dtype_name: str = "bfloat16", periods: int = SSM_PERIODS):
-    """jamba-v0.1-52b at its published widths under DEFAULT_ODE, cut to
-    ``periods`` of its 4 periods."""
+def _ssm_config(dtype_name: str = "bfloat16", periods: int = SSM_PERIODS,
+                arch: str = SSM_ARCH, **changes):
+    """``arch`` (jamba-v0.1-52b) at its published widths under
+    DEFAULT_ODE, cut to ``periods`` of its periods (and ``changes``)."""
     import dataclasses
     from repro_torch.configs import DEFAULT_ODE, get_config
-    return dataclasses.replace(get_config(SSM_ARCH, DEFAULT_ODE),
+    return dataclasses.replace(get_config(arch, DEFAULT_ODE), **changes,
                                n_periods=periods, param_dtype=dtype_name,
                                compute_dtype=dtype_name)
+
+
+def _route_differs(ra, rb):
+    """Per (token, choice) of one MoE call, whether two runs' routes
+    differ: the token's experts (as a set) or whether each choice was
+    kept or dropped at its expert's capacity. With capacity binding, a
+    flip elsewhere moves a token's rank in its expert, so a token whose
+    experts agree may be kept in one run and dropped in the other."""
+    ia, oa = ra.idx.sort(-1)
+    ib, ob = rb.idx.sort(-1)
+    return (ia != ib) | (ra.kept.gather(-1, oa) != rb.kept.gather(-1, ob))
 
 
 def _same_routes(a, b, batch: int):
     """Two runs' MoE routes (moe.Routes, call by call; the tokens of a call
     in batch-major order): the count of (token, choice) routes that differ
-    (as sets per token), the count compared, and per batch row whether
+    (``_route_differs``), the count compared, and per batch row whether
     every route of the row agreed."""
     import torch
     require(len(a) == len(b), f"routes: {len(a)} vs {len(b)} MoE calls")
@@ -2198,7 +2294,7 @@ def _same_routes(a, b, batch: int):
     differ, total = 0, 0
     for ra, rb in zip(a, b):
         require(ra.idx.shape == rb.idx.shape, "routes: shapes differ")
-        d = ra.idx.sort(-1).values != rb.idx.sort(-1).values
+        d = _route_differs(ra, rb)
         differ += int(d.sum())
         total += d.numel()
         agree &= ~d.reshape(batch, -1).any(-1)
@@ -2227,9 +2323,11 @@ def _moved(params, dtype):
 def _ssm_layers(params, cfg, toks, prompt: int):
     """Layer by layer from the same input (the plain path's output of the
     layer before): each layer's prefill on the kernel path against the
-    plain path, on the tokens whose MoE routes agree in every f-eval of
-    the layer. Returns one [period, index, mixer, mlp, rel, share of
-    tokens compared, share of routes differing] row per layer."""
+    plain path, on the tokens whose MoE routes (``_route_differs``) agree
+    in every f-eval of the layer. Returns one [period ("prelude" for the
+    prelude's layers),
+    index, mixer, mlp, rel, share of tokens compared, share of routes
+    differing] row per layer."""
     import torch
     import torch.utils._pytree as pytree
     from repro_torch.models import transformer
@@ -2238,38 +2336,43 @@ def _ssm_layers(params, cfg, toks, prompt: int):
     x = params["embed"][toks[:, :prompt]]
     pos = torch.arange(prompt, dtype=torch.int32,
                        device="cuda")[None].expand(batch, prompt)
-    rows = []
+    layers = [("prelude", j, spec, params["blocks"]["prelude"][j])
+              for j, spec in enumerate(cfg.prelude)]
     for p in range(cfg.n_periods):
         pp = pytree.tree_map(lambda a: a[p], params["blocks"]["period"])
-        for j, spec in enumerate(cfg.period):
-            ys, logs = {}, {}
-            for backend in ("cuda", "reference"):
-                cache = transformer.init_layer_cache(cfg, spec, batch, prompt,
-                                                     "cuda")
-                with recording_routes() as log:
-                    ys[backend], _ = transformer.layer_serve(
-                        pp[f"sub{j}"], cfg, spec, x, cache, pos, "prefill",
-                        backend)
-                logs[backend] = list(log)
-            same = torch.ones(batch * prompt, dtype=torch.bool, device="cuda")
-            differ, total = 0, 0
-            for a, b in zip(logs["cuda"], logs["reference"]):
-                d = a.idx.sort(-1).values != b.idx.sort(-1).values
-                same &= ~d.any(-1)
-                differ, total = differ + int(d.sum()), total + d.numel()
-            got = ys["cuda"].reshape(batch * prompt, -1)[same]
-            want = ys["reference"].reshape(batch * prompt, -1)[same]
-            rows.append([p, j, spec.mixer, spec.mlp,
-                         _rel(got, want) if got.numel() else float("inf"),
-                         float(same.float().mean()),
-                         differ / total if total else 0.0])
-            x = ys["reference"]
+        layers += [(p, j, spec, pp[f"sub{j}"])
+                   for j, spec in enumerate(cfg.period)]
+    rows = []
+    for p, j, spec, lp in layers:
+        ys, logs = {}, {}
+        for backend in ("cuda", "reference"):
+            cache = transformer.init_layer_cache(cfg, spec, batch, prompt,
+                                                 "cuda")
+            with recording_routes() as log:
+                ys[backend], _ = transformer.layer_serve(
+                    lp, cfg, spec, x, cache, pos, "prefill", backend)
+            logs[backend] = list(log)
+        same = torch.ones(batch * prompt, dtype=torch.bool, device="cuda")
+        differ, total = 0, 0
+        for a, b in zip(logs["cuda"], logs["reference"]):
+            d = _route_differs(a, b)
+            same &= ~d.any(-1)
+            differ, total = differ + int(d.sum()), total + d.numel()
+        got = ys["cuda"].reshape(batch * prompt, -1)[same]
+        want = ys["reference"].reshape(batch * prompt, -1)[same]
+        rows.append([p, j, spec.mixer, spec.mlp,
+                     _rel(got, want) if got.numel() else float("inf"),
+                     float(same.float().mean()),
+                     differ / total if total else 0.0])
+        x = ys["reference"]
     return rows
 
 
 def _ssm_compare(dtype, periods: int, batch: int, prompt: int,
-                 n_decode: int):
-    """jamba-v0.1-52b at full width, ``periods`` periods, in ``dtype``:
+                 n_decode: int, arch: str = SSM_ARCH,
+                 consistent_rows=None, **changes):
+    """``arch`` (jamba-v0.1-52b; any MoE config) at full width,
+    ``periods`` periods, in ``dtype``:
 
     - the kernel path against the plain path (prefill and teacher-forced
       decode logits) on the batch rows whose MoE routes agree in every
@@ -2290,7 +2393,7 @@ def _ssm_compare(dtype, periods: int, batch: int, prompt: int,
     from repro_torch.models import init_lm, init_serve_state, prefill
     from repro_torch.models.moe import recording_routes
     name = str(dtype).split(".")[-1]
-    cfg = _ssm_config(name, periods)
+    cfg = _ssm_config(name, periods, arch, **changes)
     params = init_lm(torch.Generator(device="cuda").manual_seed(1), cfg)
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (batch, prompt + n_decode)), device="cuda")
@@ -2320,7 +2423,7 @@ def _ssm_compare(dtype, periods: int, batch: int, prompt: int,
                              backend=backend)
         log = routes[backend]
         ok = torch.ones(batch, dtype=torch.bool, device="cuda")
-        dropped = 0
+        dropped, prefill_dropped = 0, 0
         for p_r, d_r, l_r in zip(log[:per_call], log[per_call:2 * per_call],
                                  longer):
             k = p_r.idx.shape[-1]
@@ -2329,8 +2432,16 @@ def _ssm_compare(dtype, periods: int, batch: int, prompt: int,
             didx = d_r.idx.reshape(batch, k).sort(-1).values
             ok &= (lidx[:, :prompt] == pidx).all(-1).all(-1)
             ok &= (lidx[:, prompt] == didx).all(-1)
+            # the prompt's tokens kept or dropped alike in both prefills
+            ok &= ~(_route_differs(
+                type(p_r)(l_r.idx.reshape(batch, prompt + 1, k)[:, :prompt],
+                          l_r.kept.reshape(batch, prompt + 1, k)[:, :prompt]),
+                type(p_r)(p_r.idx.reshape(batch, prompt, k),
+                          p_r.kept.reshape(batch, prompt, k)))
+                    .any(-1).any(-1))
             ok &= d_r.kept.reshape(batch, k).all(-1)
             dropped += int((~d_r.kept).sum())
+            prefill_dropped += int((~p_r.kept).sum())
         ok = ok.cpu()
         out[f"self_consistency_{backend}"] = _rows_rel(
             lg1[:, 0], logits[backend][:, 1], ok)
@@ -2338,6 +2449,7 @@ def _ssm_compare(dtype, periods: int, batch: int, prompt: int,
         out[f"self_consistency_all_rows_{backend}"] = _rel(
             lg1[:, 0], logits[backend][:, 1])
         out[f"decode_step0_dropped_routes_{backend}"] = dropped
+        out[f"prefill_dropped_routes_{backend}"] = prefill_dropped
 
     differ, total, agree = _same_routes(routes["cuda"], routes["reference"],
                                         batch)
@@ -2369,14 +2481,24 @@ def _ssm_compare(dtype, periods: int, batch: int, prompt: int,
                 "self_consistency_cuda", "self_consistency_reference"):
         require(out[key] is None or out[key] <= tol,
                 f"ssm {name} {key}: {out[key]} > {tol}")
+    decisions = cfg.moe_top_k * (cfg.ode.n_steps + 1)
+    out["layer_token_share_bar"] = LAYER_TOKEN_SHARE ** (
+        decisions / LAYER_ROUTE_DECISIONS)
     for _, _, _, _, err, share, _ in out["layers"]:
-        require(err <= tol and share >= LAYER_TOKEN_SHARE,
+        require(err <= tol and share >= out["layer_token_share_bar"],
                 f"ssm {name} layer by layer: {out['layers']}")
     if name == "float32":
-        # no route may flip and every comparison has rows to compare
-        require(differ == 0 and out["self_consistency_rows_cuda"] == batch
-                and out["self_consistency_rows_reference"] == batch,
-                f"ssm {name}: routes differ or a decode route was dropped")
+        # no route may flip, and prefill(p + 1) = prefill(p) + decode on
+        # ``consistent_rows`` rows (None: all of them)
+        rows_want = batch if consistent_rows is None else consistent_rows
+        require(differ == 0 and out["self_consistency_rows_cuda"] >= rows_want
+                and out["self_consistency_rows_reference"] >= rows_want,
+                f"ssm {arch} {name}: {differ} routes differ, or fewer than "
+                f"{rows_want} rows prefill(p + 1) = prefill(p) + decode: "
+                f"{out['self_consistency_rows_cuda']} / "
+                f"{out['self_consistency_rows_reference']} (prefill drops "
+                f"{out['prefill_dropped_routes_cuda']}, decode drops "
+                f"{out['decode_step0_dropped_routes_cuda']})")
     else:
         for key, floor in (
                 ("kernel_vs_plain_prefill_all_rows", out["floor_prefill"]),
@@ -2393,8 +2515,12 @@ def _ssm_compare(dtype, periods: int, batch: int, prompt: int,
                 f"{limit}")
     del params
     torch.cuda.empty_cache()
-    return {"dtype": name, "periods": periods, "batch": batch,
-            "prompt": prompt, "decode_steps": n_decode, "tolerance": tol,
+    return {"arch": arch, "dtype": name, "periods": periods,
+            "n_layers": cfg.n_layers, "changes": changes,
+            "consistent_rows_required": (batch if consistent_rows is None
+                                         else consistent_rows),
+            "batch": batch, "prompt": prompt,
+            "decode_steps": n_decode, "tolerance": tol,
             "floor_factor": FLOOR_FACTOR, **out}
 
 
@@ -4181,10 +4307,13 @@ def _lt_grads(params, cfg, batch):
 
 
 def _lt_full_width(arch: str = LM_ARCH, batch: int = LT_BATCH,
-                   seq: int = LT_SEQ, per_step_want: dict = LT_PER_STEP):
-    """(a): LT_STEPS Trainer steps of ``arch`` at full width, each
-    launching exactly ``per_step_want``; returns (the trainer, batch 0,
-    per-step launches, the results)."""
+                   seq: int = LT_SEQ, per_step_want: dict = LT_PER_STEP,
+                   periods: int = 0):
+    """(a): LT_STEPS Trainer steps of ``arch`` at full width (cut to
+    ``periods`` periods; 0: every one), each launching exactly
+    ``per_step_want``; returns (the trainer, batch 0, per-step launches,
+    the results)."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import lm_loss
@@ -4193,6 +4322,11 @@ def _lt_full_width(arch: str = LM_ARCH, batch: int = LT_BATCH,
     tc = TrainerConfig(arch=arch, smoke=False, steps=LT_STEPS,
                        global_batch=batch, seq_len=seq,
                        log_every=100, emit="memory")
+    full = get_config(arch)
+    periods = periods or full.n_periods
+    # the Trainer's own config (``train.trainer.build``), cut
+    cut = dataclasses.replace(get_config(arch, tc.ode_settings()),
+                              n_periods=periods)
     snaps = []
     # the optimizer's own defaults (warmup over 100 steps): the rule the
     # Trainer derives from 3 steps warms up over 1, and at this width the
@@ -4200,12 +4334,11 @@ def _lt_full_width(arch: str = LM_ARCH, batch: int = LT_BATCH,
     trainer = Trainer(tc, emitter=MemoryEmitter(),
                       step_hook=lambda step: snaps.append(
                           _lm_counts()[0]),
-                      opt_cfg=OptimizerConfig())
-    full = get_config(arch)
+                      opt_cfg=OptimizerConfig(), model_cfg=cut)
     require(trainer.cfg.ode.backend == "cuda"
             and trainer.cfg.d_model == full.d_model
-            and trainer.cfg.n_layers == full.n_layers,
-            f"{arch} training: not the full config")
+            and trainer.cfg.n_periods == periods,
+            f"{arch} training: not the full config at {periods} periods")
     _lm_reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4344,8 +4477,9 @@ def _lt_memory_mali(trainer, batch0):
     ALF steps a branch."""
     st = trainer.state
     arch = trainer.cfg.name
-    mali = {n: _lt_peak(st.params, st.opt, _lt_config("cuda", n, arch=arch),
-                        trainer.opt_cfg, batch0) for n in LT_MEM_STEPS}
+    mali = {n: _lt_peak(st.params, st.opt, _lt_config(
+        "cuda", n, layers=trainer.cfg.n_periods, arch=arch),
+        trainer.opt_cfg, batch0) for n in LT_MEM_STEPS}
     lo, hi = LT_MEM_STEPS
     ratio = mali[hi] / mali[lo]
     require(ratio <= 1.05, f"{arch} training (c): MALI's peak grows "
@@ -4381,12 +4515,13 @@ def _lt_memory_naive():
 def _lt_kernel_vs_reference(params, batch0, arch: str = LM_ARCH,
                             cut_layers: int = LT_CUT_LAYERS,
                             cut_seq: int = LT_CUT_SEQ,
-                            cut_batch: int = LT_BATCH):
+                            cut_batch: int = LT_BATCH, periods: int = 0):
     """(b): one step's loss and gradients with backend="cuda" against
-    backend="reference": at full width in bf16 (to max(LT_BF16_TOL, 3x the
-    reference's one-rounding floor) per gradient leaf), and on the f32 cut
-    to ``cut_layers`` periods at ``cut_seq`` tokens (LT_F32_TOL; MALI on
-    cuda against Naive on the reference backend at GRAD_TOL)."""
+    backend="reference": at full width in bf16 (``periods`` periods, 0:
+    every one; to max(LT_BF16_TOL, 3x the reference's one-rounding floor)
+    per gradient leaf), and on the f32 cut to ``cut_layers`` periods at
+    ``cut_seq`` tokens (LT_F32_TOL; MALI on cuda against Naive on the
+    reference backend at GRAD_TOL)."""
     import torch
     from repro_torch.models import init_lm
     out = {}
@@ -4395,7 +4530,8 @@ def _lt_kernel_vs_reference(params, batch0, arch: str = LM_ARCH,
                               ("reference", "reference", params),
                               ("reference_moved", "reference",
                                _moved(params, torch.bfloat16))):
-        runs[label] = _lt_grads(p, _lt_config(backend, arch=arch), batch0)
+        runs[label] = _lt_grads(p, _lt_config(backend, layers=periods,
+                                              arch=arch), batch0)
     ref_loss, ref_stats, ref_g = runs["reference"]
     loss_err = _rel(runs["cuda"][0], ref_loss)
     loss_floor = _rel(runs["reference_moved"][0], ref_loss)
@@ -4565,19 +4701,23 @@ def phase_lm_train(card: str, smi: str):
 # ---------------------------------------------------------------------------
 
 XL_ARCH = "xlstm-125m"
+# (a) and (b) run one of its two periods (6 of 12 layers: 5 mLSTM, 1
+# sLSTM) at full width: the token loops are host-bound and scale with the
+# layers, and one period holds every layer kind
+XL_PERIODS = 1
 # per prefill and per decode step under DEFAULT_ODE (3 f-evals per
-# residual branch, no MLP branch): 12 layers x 3 mixer norms + the final
-# norm; 12 layers x 2 ALF steps, one midpoint and one update each
-XL_PER_PREFILL = {"rmsnorm": 37, "alf_midpoint": 24, "alf_update": 24}
+# residual branch, no MLP branch): 6 layers x 3 mixer norms + the final
+# norm; 6 layers x 2 ALF steps, one midpoint and one update each
+XL_PER_PREFILL = {"rmsnorm": 19, "alf_midpoint": 12, "alf_update": 12}
 XL_PER_DECODE = XL_PER_PREFILL
 # prefill(p) + decode against prefill(p + 1): the chunk rule allows p < 64
 # or a multiple of 64 only, so p = 63 (p + 1 = one 64-token chunk)
 XL_SELF_PROMPT = 63
-# (b): 3 Trainer steps at batch 8 x 256; per step 12 layers x 2 ALF steps
-# of each kernel forward and backward, 36 f-evals
-XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_FEVALS = 8, 256, 36
-XL_PER_STEP = {"alf_midpoint": 24, "alf_update": 24, "alf_bwd_pre": 24,
-               "alf_bwd_post": 24}
+# (b): 3 Trainer steps at batch 8 x 256; per step 6 layers x 2 ALF steps
+# of each kernel forward and backward, 18 f-evals
+XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_FEVALS = 8, 256, 18
+XL_PER_STEP = {"alf_midpoint": 12, "alf_update": 12, "alf_bwd_pre": 12,
+               "alf_bwd_post": 12}
 XL_CUT_PERIODS, XL_CUT_SEQ = 1, 128      # (b) f32: one period, 6 layers
 GM_ARCH = "gemma2-2b"
 # per prefill: 26 layers x 3 flash calls (d 256); 26 layers x 2 branches x
@@ -4590,19 +4730,24 @@ GM_PER_DECODE = {"flash_attention": 0, "rmsnorm": 157, "alf_midpoint": 104,
 GM_LONG_PROMPT, GM_LONG_DECODE = 4608, 8
 
 
-def _serve_cell(arch: str, per_prefill: dict, per_decode: dict, what: str,
-                self_prompt: int = 0, floor: bool = False):
-    """Phase 11's checks for ``arch`` at full width (bf16, DEFAULT_ODE,
-    batch LM_BATCH, prompt LM_PROMPT, LM_DECODE graphed decode steps):
-    exact launch counts, no host sync, the graph against eager decode and
-    serve(), the kernel path against the plain one (``_lm_compare``, with
-    ``self_prompt`` and ``floor``), peak memory, and the device profiles
-    of a prefill and of 4 replays from the raw kineto events. Returns
+def _serve_cell(arch, per_prefill: dict, per_decode: dict, what: str):
+    """Phase 11's checks for ``arch`` (an arch name, served at full width,
+    or a ModelConfig served as given: a depth cut) in bf16 under
+    DEFAULT_ODE at batch LM_BATCH, prompt LM_PROMPT and LM_DECODE graphed
+    decode steps: exact launch counts, no host sync, the graph against
+    eager decode and serve(), peak memory, init's peak beside the weights
+    it made, the bytes one prefill allocates beyond the weights and its
+    state, and the device profiles of a prefill and of 4 replays from the
+    raw kineto events. An input_mode="embeds" config prefills the stub
+    frontend's embeddings and decodes through the embeds path. Returns
     (the serve run's launches, the phase's fields, the weights)."""
     import torch
-    from repro_torch.configs import DEFAULT_ODE, get_config
+    import torch.utils._pytree as pytree
+    from repro_torch.configs import DEFAULT_ODE, ModelConfig, get_config
     from repro_torch.launch.serve import serve, serve_prompt
     from repro_torch.models import init_lm, init_serve_state, prefill
+    cfg = (arch.with_ode(DEFAULT_ODE) if isinstance(arch, ModelConfig)
+           else get_config(arch, DEFAULT_ODE))
     kw = dict(smoke=False, ode=True, batch=LM_BATCH, seed=0)
     # warm (cuBLAS, kernels) on a short prompt: an xLSTM prefill of
     # LM_PROMPT tokens takes seconds of host time
@@ -4611,6 +4756,7 @@ def _serve_cell(arch: str, per_prefill: dict, per_decode: dict, what: str,
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    serve_base = torch.cuda.memory_allocated()
     _lm_reset()
     result = serve(arch, decode_tokens=LM_DECODE, **kw)
     launches = _lm_check_counts(
@@ -4619,16 +4765,29 @@ def _serve_cell(arch: str, per_prefill: dict, per_decode: dict, what: str,
     peak = torch.cuda.max_memory_allocated()
     require(result.tokens.shape == (LM_BATCH, LM_DECODE)
             and int(result.tokens.min()) >= 0, f"{what}: tokens")
-    cfg = get_config(arch, DEFAULT_ODE)
+    # init's peak beside the weights it made
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
     params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
-    toks = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 8)), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    weights = sum(t.numel() * t.element_size()
+                  for t in pytree.tree_leaves(params))
+    toks = _lm_inputs(cfg, LM_BATCH, LM_PROMPT + 8, 0)
     step, gstate = _counted_steps(params, cfg, toks, LM_PROMPT,
                                   per_prefill, per_decode, what)
     state = init_serve_state(cfg, LM_BATCH, LM_PROMPT + 8)
+    # the bytes a prefill allocates beyond the weights and its state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     prof_prefill = _kernel_profile(lambda: prefill(
-        params, cfg, {"tokens": toks[:, :LM_PROMPT]}, state),
+        params, cfg, _prompt(cfg, toks[:, :LM_PROMPT]), state),
         of="flash")
+    prefill_bytes = torch.cuda.max_memory_allocated() - base
 
     def replay4():
         st = gstate
@@ -4642,14 +4801,20 @@ def _serve_cell(arch: str, per_prefill: dict, per_decode: dict, what: str,
     del state, step, gstate
     torch.cuda.empty_cache()
     fields = {
-        "arch": arch, "batch": LM_BATCH, "prompt": LM_PROMPT,
+        "arch": cfg.name, "layers": cfg.n_layers, "batch": LM_BATCH,
+        "prompt": LM_PROMPT, "input_mode": cfg.input_mode,
         "decode_tokens": LM_DECODE, "dtype": "bfloat16",
         "ode": "DEFAULT_ODE (per_block, MALI/ALF, n_steps=2)",
         "prefill_ms": result.prefill_ms, "decode_ms": result.decode_ms,
         "decode_ms_per_step": result.decode_ms / LM_DECODE,
         "prefill_tok_s": result.prefill_tok_s,
         "decode_tok_s": result.decode_tok_s,
-        "peak_memory_bytes": peak, "launches": launches,
+        "peak_memory_bytes": peak,
+        # what earlier phases left allocated when the serve run began
+        "serve_base_bytes": serve_base, "weights_bytes": weights,
+        "init_s": init_s, "init_peak_bytes": init_peak,
+        "init_peak_ratio": init_peak / weights,
+        "prefill_activation_bytes": prefill_bytes, "launches": launches,
         "per_prefill": per_prefill, "per_decode_step": per_decode,
         "sample": result.tokens[0][:8].tolist(), "graph_vs_eager": graph,
         "profile_prefill": prof_prefill,
@@ -4657,13 +4822,16 @@ def _serve_cell(arch: str, per_prefill: dict, per_decode: dict, what: str,
     return launches, fields, params
 
 
-def _compare_cells(arch: str, self_prompt: int = 0, floor: bool = False):
+def _compare_cells(arch: str, self_prompt: int = 0, floor: bool = False,
+                   periods: int = 0, f32_periods: int = 0):
     """``_lm_compare`` at phase 11's two cells: bf16 at batch LM_BATCH x
-    LM_PROMPT + 8 decode steps, f32 at batch 2 x 256 + 4."""
+    LM_PROMPT + 8 decode steps (``periods`` periods; 0: every one), f32
+    at batch 2 x 256 + 4 (``f32_periods``; 0: as the bf16 cell)."""
     import torch
     return [_lm_compare(torch.bfloat16, LM_BATCH, LM_PROMPT, 8, arch,
-                        self_prompt, floor),
-            _lm_compare(torch.float32, 2, 256, 4, arch, self_prompt, floor)]
+                        self_prompt, floor, periods),
+            _lm_compare(torch.float32, 2, 256, 4, arch, self_prompt, floor,
+                        f32_periods or periods)]
 
 
 def _xl_vjp_bytes(params, cfg, tokens: int):
@@ -4726,10 +4894,11 @@ def _xl_cli():
 
 
 def phase_xlstm(card: str, smi: str):
-    """Phase 18: xlstm-125m at full width. (a) served through the decode
-    graph with phase 11's checks; (b) trained (MALI, ALF cuda, 3 Trainer
-    steps at batch 8 x 256) with phase 17's checks and the bytes one
-    mLSTM f-eval VJP holds; (c) the two launchers. Returns the per-prefill,
+    """Phase 18: xlstm-125m at full width, one of its two periods (6 of 12
+    layers). (a) served through the decode graph with phase 11's checks;
+    (b) trained (MALI, ALF cuda, 3 Trainer steps at batch 8 x 256) with
+    phase 17's checks and the bytes one mLSTM f-eval VJP holds; (c) the
+    two launchers (both periods). Returns the per-prefill,
     per-decode-step and per-training-step launches."""
     import torch
     t0 = time.perf_counter()
@@ -4738,17 +4907,19 @@ def phase_xlstm(card: str, smi: str):
     def lap(name):
         parts[name] = time.perf_counter() - t0 - sum(parts.values())
 
-    _, serve_fields, params = _serve_cell(XL_ARCH, XL_PER_PREFILL,
-                                          XL_PER_DECODE, "xlstm",
-                                          XL_SELF_PROMPT, floor=True)
+    import dataclasses
+    from repro_torch.configs import get_config
+    cut = dataclasses.replace(get_config(XL_ARCH), n_periods=XL_PERIODS)
+    _, serve_fields, params = _serve_cell(cut, XL_PER_PREFILL,
+                                          XL_PER_DECODE, "xlstm")
     del params
     torch.cuda.empty_cache()
     lap("a_serve")
     serve_fields["compare"] = _compare_cells(XL_ARCH, XL_SELF_PROMPT,
-                                             floor=True)
+                                             floor=True, periods=XL_PERIODS)
     lap("a_compare")
     trainer, batch0, per_step, full = _lt_full_width(
-        XL_ARCH, XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_PER_STEP)
+        XL_ARCH, XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_PER_STEP, XL_PERIODS)
     require(full["fevals_per_step"] == XL_FEVALS,
             f"xlstm (b): {full['fevals_per_step']} f-evals a step")
     lap("b_train")
@@ -4763,7 +4934,7 @@ def phase_xlstm(card: str, smi: str):
     torch.cuda.empty_cache()
     compare = _lt_kernel_vs_reference(params, batch0, XL_ARCH,
                                       XL_CUT_PERIODS, XL_CUT_SEQ,
-                                      XL_TRAIN_BATCH)
+                                      XL_TRAIN_BATCH, XL_PERIODS)
     del params
     torch.cuda.empty_cache()
     lap("b_compare")
@@ -5422,14 +5593,191 @@ def phase_dp_train(card: str, smi: str):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the four configs that fit one card, served at full width
+# ---------------------------------------------------------------------------
+
+# (arch, periods of the f32 check; 0: full depth), served in this order,
+# one at a time, each one's weights freed before the next. In f32
+# granite-20b (112 GB) and deepseek-moe-16b (65.5 GB) do not fit: their
+# f32 checks run 4 layers (granite 4 periods; deepseek its dense prelude
+# layer and 3 MoE layers).
+CS_CONFIGS = (("stablelm-1.6b", 0), ("musicgen-large", 0),
+              ("deepseek-moe-16b", 3), ("granite-20b", 4))
+# per prefill under DEFAULT_ODE (3 f-evals a branch): flash, RMSNorm and
+# each ALF op (tests/test_torch_lm_serve.py, FULL_DEPTH_CALLS: layers x 3;
+# layers x 2 branches x 3 + the final norm; layers x 2 branches x 2
+# steps). A decode step launches the same but no flash.
+CS_PER_PREFILL = {
+    "stablelm-1.6b": (72, 145, 96),          # 24 layers
+    "musicgen-large": (144, 289, 192),       # 48 layers
+    "deepseek-moe-16b": (84, 169, 112),      # 1 prelude + 27 MoE layers
+    "granite-20b": (156, 313, 208),          # 52 layers
+}
+# init's predicted peak and the cache must fit this share of the card
+CS_FIT = 0.9
+# init's peak beyond the weights and its largest draw: the caching
+# allocator's rounding of each block (2 MiB for large ones)
+CS_INIT_SLACK = 64 * 2 ** 20
+# a serve run's peak beyond the weights, the cache and one prefill's own
+# allocations: the prompt, the logits, the decode graph's pool and the
+# capture stream's cuBLAS workspace
+CS_PEAK_SLACK = 512 * 2 ** 20
+# the phase's wall-time budget, seconds: reported beside its time (host
+# times vary ~1.5x between calls, so it is not a check)
+CS_PHASE_S = 150.0
+
+
+def _cs_counts(arch: str):
+    flash, norms, alf = CS_PER_PREFILL[arch]
+    prefill = {"flash_attention": flash, "rmsnorm": norms,
+               "alf_midpoint": alf, "alf_update": alf}
+    return prefill, {**prefill, "flash_attention": 0}
+
+
+def _cs_predict(cfg, bw: float):
+    """The weights, init's peak, the serve run's cache (batch LM_BATCH,
+    LM_PROMPT + LM_DECODE positions) and a decode step's byte bound, from
+    the meta specs (``launch.specs``) before anything is made.
+
+    Init holds the weights and one draw's temporaries: an embedding or
+    head table drawn whole in float32 (4 bytes an element), or one
+    period's slice of a stacked block leaf, drawn in float32 and cast
+    before it is copied in (4 + the cast's bytes an element). A decode
+    step reads every block's weights once per f-eval (n_steps + 1 a
+    branch), the head and the final norm once and, in its attention,
+    every f-eval's cache slot once."""
+    from repro_torch import tree_util
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.specs import (param_specs, serve_state_specs,
+                                          tree_bytes)
+    params = param_specs(cfg)
+    draws = [4 * t.numel() for t in tree_util.tree_leaves(
+        {k: v for k, v in params.items() if k != "blocks"})]
+    draws += [4 * t.numel() for t in tree_util.tree_leaves(
+        params["blocks"].get("prelude", []))]
+    draws += [(4 + t.element_size()) * t[0].numel()
+              for t in tree_util.tree_leaves(
+                  params["blocks"].get("period", {}))]
+    cache = tree_bytes(serve_state_specs(cfg, ShapeCell(
+        "serve", LM_PROMPT + LM_DECODE, LM_BATCH, "decode")))
+    weights = tree_bytes(params)
+    blocks = tree_bytes(params["blocks"])
+    head = tree_bytes(params["head"] if "head" in params else
+                      params["embed"]) + tree_bytes(params["final_norm"])
+    read = (cfg.ode.n_steps + 1) * blocks + head
+    return {"weights_bytes": weights, "init_bound_bytes": weights
+            + max(draws) + CS_INIT_SLACK, "cache_bytes": cache,
+            "decode_weight_bytes": read,
+            "decode_weights_bound_ms": read / bw * 1e3,
+            "decode_bound_ms": (read + cache) / bw * 1e3}
+
+
+def phase_configs_serve(card: str, smi: str):
+    """Phase 21: stablelm-1.6b, musicgen-large (the embeds path),
+    deepseek-moe-16b and granite-20b at full width, one at a time, each
+    with phase 11's checks (``_serve_cell``) and its memory predicted from
+    the meta specs first; the kernel path against the plain one in bf16
+    (deepseek route-aware, as phase 12) and in f32 (at full depth, or at
+    4 layers where f32 does not fit). Returns each config's launches per
+    prefill and per decode step."""
+    import torch
+    from repro_torch.configs import DEFAULT_ODE, get_config
+    t0 = time.perf_counter()
+    bw, _, _ = card_rates(card)
+    total = torch.cuda.get_device_properties(0).total_memory
+    rows, launches = {}, {}
+    for arch, f32_periods in CS_CONFIGS:
+        t1 = time.perf_counter()
+        cfg = get_config(arch, DEFAULT_ODE)
+        want = _cs_predict(cfg, bw)
+        fit = want["init_bound_bytes"] + want["cache_bytes"]
+        require(fit <= CS_FIT * total,
+                f"configs_serve {arch}: {fit} bytes predicted for a card of "
+                f"{total}")
+        per_prefill, per_decode = _cs_counts(arch)
+        torch.cuda.empty_cache()
+        _, fields, params = _serve_cell(arch, per_prefill, per_decode, arch)
+        del params
+        torch.cuda.empty_cache()
+        require(fields["weights_bytes"] == want["weights_bytes"],
+                f"configs_serve {arch}: {fields['weights_bytes']} bytes of "
+                f"weights, the specs say {want['weights_bytes']}")
+        require(fields["init_peak_bytes"] <= want["init_bound_bytes"],
+                f"configs_serve {arch}: init peaked at "
+                f"{fields['init_peak_bytes']} bytes, above the weights and "
+                f"one draw's {want['init_bound_bytes']}")
+        limit = (want["weights_bytes"] + want["cache_bytes"]
+                 + fields["prefill_activation_bytes"] + CS_PEAK_SLACK)
+        peak = fields["peak_memory_bytes"] - fields["serve_base_bytes"]
+        require(peak <= limit,
+                f"configs_serve {arch}: serve peaked at {peak} bytes, more "
+                f"than the specs' weights and cache and one prefill's "
+                f"{limit}")
+        fields.update(want)
+        fields["serve_peak_bytes"] = peak
+        fields["peak_over_prediction_bytes"] = (
+            peak - want["weights_bytes"] - want["cache_bytes"])
+        fields["graph_to_decode_bound"] = (
+            fields["graph_vs_eager"]["graph_ms_per_step"]
+            / want["decode_weights_bound_ms"])
+        serve_s = time.perf_counter() - t1
+        if cfg.moe_experts:
+            # bf16 routes flip at near-ties: phase 12's route-aware
+            # checks. The prefill drops at capacity (64 experts, twice the
+            # mean load): one more prompt token moves the ranks of every
+            # token after it, so prefill(p + 1) = prefill(p) + decode holds
+            # only on rows whose drops agree (none, on an H100). The f32
+            # cut is run again with a capacity that drops nothing (factor
+            # E / k: every expert takes every token), where it must hold
+            # on every row.
+            no_drop = cfg.moe_experts / cfg.moe_top_k
+            fields["compare"] = [
+                _ssm_compare(torch.bfloat16, cfg.n_periods, LM_BATCH,
+                             LM_PROMPT, 4, arch),
+                _ssm_compare(torch.float32, f32_periods, 2, 256, 4, arch,
+                             consistent_rows=0),
+                _ssm_compare(torch.float32, f32_periods, 2, 256, 4, arch,
+                             moe_eval_capacity_factor=no_drop)]
+        else:
+            fields["compare"] = _compare_cells(arch,
+                                               f32_periods=f32_periods)
+        f32 = fields["compare"][1]
+        fields["f32_cut"] = (
+            f"{f32['n_layers']} of {cfg.n_layers} layers: "
+            f"{arch} does not fit in f32" if f32_periods else "none")
+        if cfg.d_model > 4096:
+            # rmsnorm.cu takes f32 rows of more than 4096 elements through
+            # its scalar kernel
+            fields["f32_rmsnorm_kernel"] = (
+                f"scalar (f32, d {cfg.d_model} > 4096): its first run at "
+                "a model's shape")
+        fields["serve_s"] = serve_s
+        fields["config_s"] = time.perf_counter() - t1
+        rows[arch] = fields
+        launches[arch] = {"prefill": per_prefill, "decode": per_decode}
+        emit({"phase": "configs_serve", "card": card, "nvidia_smi": smi,
+              **fields})
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "configs_serve", "card": card, "nvidia_smi": smi,
+          "configs": list(rows), "phase_s": phase_s,
+          "budget_s": CS_PHASE_S, "within_budget": phase_s <= CS_PHASE_S,
+          "config_s": {a: r["config_s"] for a, r in rows.items()}})
+    return launches
+
+
 def _new_cell_launches(name: str, xlstm: dict, gemma2: dict,
-                       dp: dict) -> dict:
+                       dp: dict, configs: dict) -> dict:
     return {"launches_xlstm_prefill": xlstm["prefill"].get(name, 0),
             "launches_xlstm_decode": xlstm["decode"].get(name, 0),
             "launches_xlstm_train": xlstm["train"].get(name, 0),
             "launches_gemma2_prefill": gemma2["prefill"].get(name, 0),
             # per data-parallel qwen3 training step, on each rank (20)
-            "launches_dp_train": dp.get(name, 0)}
+            "launches_dp_train": dp.get(name, 0),
+            # per prefill and per decode step of each config (21)
+            "launches_configs_serve": {
+                arch: {kind: per.get(name, 0) for kind, per in c.items()}
+                for arch, c in configs.items()}}
 
 
 def main() -> int:
@@ -5508,6 +5856,8 @@ def main() -> int:
     lap("gemma2_serve")
     dp = phase_dp_train(card, smi)
     lap("dp_train")
+    configs = phase_configs_serve(card, smi)
+    lap("configs_serve")
     emit({"phase": "walls", "seconds": walls})
 
     table = []
@@ -5549,7 +5899,8 @@ def main() -> int:
                       # per xlstm-125m prefill, decode step and training
                       # step (phase 18), per gemma2-2b prefill (19), per
                       # data-parallel training step on a rank (20)
-                      **_new_cell_launches(name, xlstm, gemma2, dp)})
+                      **_new_cell_launches(name, xlstm, gemma2, dp,
+                                           configs)})
     for name, (replaces, source) in LM_KERNELS.items():
         row = lm_times[name]
         # each kernel's launches from its own path: the scan's from the
@@ -5562,7 +5913,8 @@ def main() -> int:
                       "launches_ssm_serve": ssm_launches[name],
                       "launches_serve": serve_launches[name],
                       "launches_lm_train": train_launches[name],
-                      **_new_cell_launches(name, xlstm, gemma2, dp),
+                      **_new_cell_launches(name, xlstm, gemma2, dp,
+                                           configs),
                       "checks": lm_checks[name],
                       "max_abs_err": lm_worst[name]["bfloat16"],
                       "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -5577,6 +5929,9 @@ def main() -> int:
         if name == "flash_attention":
             # at gemma2-2b's prefill shape: d 256, softcap 50
             table[-1]["gemma2_d256"] = gemma2["flash_d256"]
+            # at stablelm-1.6b's (d 64) and granite-20b's (MQA 48/1)
+            for arch in FA_MORE_ARCHS:
+                table[-1][arch] = lm_times[f"flash_attention_{arch}"]
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

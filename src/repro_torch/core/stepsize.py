@@ -7,17 +7,22 @@
   (rejected trials still cost f-evals), warm-starting each segment at the
   previous segment's step proposal.
 * :class:`ReproducibleController` — the same controller with its
-  device-dependent float32 operations taken in float64 (or on the host)
-  and rounded once: the error norm (sum of squares, mean, root), the
-  step-size factor's power and the initial step's root. In float32 they
-  differ between devices and batchings (the CPU's and the card's ``pow``
-  differ on ~6% of inputs, the CPU's ``sqrt`` is not correctly rounded
-  on ~0.6%; a per-row and a whole-state sum of the same elements, or the
-  CPU's and the card's, add in other orders; the card divides by a
-  Python number as a multiply by its reciprocal), and on a stiff problem
-  an ulp in one step size changes later accept/reject decisions. Rounded
-  once, a solve takes the same steps on every device and in every
-  batching (a row of a batch, alone): the serve engine's controller.
+  device-dependent float32 operations taken in float64 and rounded once:
+  the error norm's sum of squares and mean, and the step-size factor's
+  power. In float32 they differ between devices and batchings (the CPU's
+  and the card's ``pow`` differ on ~6% of inputs; a per-row and a
+  whole-state sum of the same elements, or the CPU's and the card's, add
+  in other orders; the card divides by a Python number as a multiply by
+  its reciprocal), and on a stiff problem an ulp in one step size
+  changes later accept/reject decisions. Rounded once, a solve takes the
+  same steps on every device and in every batching (a row of a batch,
+  alone): the serve engine's controller.
+
+Both controllers take their square roots correctly rounded (the error
+norm's in float64, rounded once; the initial step's on the host). The
+CPU's float32 ``sqrt`` is MKL's vector kernel, which misses the correct
+rounding on ~0.6% of inputs on an AVX-512 host, on none with AVX2 and on
+~17% without FMA (``tests/f1_host_probe.py``).
 
 The numeric policy is plain tensor functions over 0-d tensors, computed on
 the state's device; the driving loop lives in
@@ -70,10 +75,13 @@ def _scaled_rms(err: Any, z0: Any, z1: Any, rtol, atol, rows: bool,
     # safe sqrt: d(sqrt)/dx at exactly 0 is inf, which poisons backprop
     # through the adaptive loop (0-cotangent * inf = NaN) — the naive
     # method differentiates through this code path.
+    # The root in float64, rounded once: correctly rounded, as XLA's. The
+    # CPU's float32 sqrt (MKL's vector kernel) is not, and which inputs it
+    # misses moves with the host's instruction set.
     ms = total / max(count, 1)
     pos = ms > 0
-    return (torch.sqrt(torch.where(pos, ms, torch.ones_like(ms)))
-            * torch.where(pos, 1.0, 0.0))
+    root = torch.sqrt(torch.where(pos, ms, torch.ones_like(ms)).double())
+    return root.to(ms.dtype) * torch.where(pos, 1.0, 0.0)
 
 
 def error_ratio(err: Any, z0: Any, z1: Any, rtol, atol,
@@ -116,9 +124,11 @@ def initial_step_size(rtol: float, atol: float,
                       span: torch.Tensor) -> torch.Tensor:
     """A small fraction of the span, tolerance-scaled, signed like the span
     (a negative span — reverse time — proposes a negative step)."""
-    # a fill on the device: no host-to-device copy, so no sync
-    tol = torch.full((), rtol + atol, dtype=torch.float32, device=span.device)
-    return _bounded_step(span, torch.sqrt(tol))
+    # the float32 tolerance's root taken on the host, correctly rounded,
+    # then a fill on the device: no host-to-device copy, so no sync
+    root = float(np.sqrt(np.float32(rtol + atol)))
+    return _bounded_step(span, torch.full((), root, dtype=torch.float32,
+                                          device=span.device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,13 +260,6 @@ class ReproducibleController(AdaptiveController):
         exponent = float(np.float32(-1.0 / (order + 1)))
         power = torch.pow(ratio.double(), exponent).to(ratio.dtype)
         return _clipped_step(h, power)
-
-    def initial_step(self, span: torch.Tensor) -> torch.Tensor:
-        """The float32 tolerance's square root taken on the host,
-        correctly rounded."""
-        root = float(np.sqrt(np.float32(self.rtol + self.atol)))
-        return _bounded_step(span, torch.full(
-            (), root, dtype=torch.float32, device=span.device))
 
 
 def controller_from_kwargs(n_steps: int, rtol: float, atol: float,

@@ -171,6 +171,15 @@ def serve_prompt(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
         0, cfg.vocab_size, (batch, prompt_len)), device=device)}
 
 
+def decode_input(cfg: ModelConfig, tok: torch.Tensor) -> torch.Tensor:
+    """The next decode step's input after the greedy token ``tok`` [B, 1]:
+    the token itself, or for an ``input_mode="embeds"`` config (the stub
+    frontend) the token id through a fixed projection, [B, 1, d_model]."""
+    if cfg.input_mode == "embeds":
+        return tok[..., None].float().expand(-1, -1, cfg.d_model) * 1e-3
+    return tok
+
+
 class ServeResult(NamedTuple):
     tokens: np.ndarray     # [batch, decode_tokens] greedy tokens
     prefill_ms: float      # host clock, ends in a device sync
@@ -217,12 +226,7 @@ def serve(arch: Union[str, ModelConfig], *, smoke: bool = True,
     tok = torch.argmax(logits[:, -1], -1)[:, None]
     t0 = time.perf_counter()
     for _ in range(decode_tokens):
-        if cfg.input_mode == "embeds":
-            # stub frontend: feed the token id through a fixed projection
-            inp = tok[..., None].float().expand(-1, -1, cfg.d_model) * 1e-3
-        else:
-            inp = tok
-        logits, state = decode_fn(params, inp, state)
+        logits, state = decode_fn(params, decode_input(cfg, tok), state)
         tok = torch.argmax(logits[:, -1], -1)[:, None]
         out_tokens.append(tok[:, 0])
     _sync(dev)

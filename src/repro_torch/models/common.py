@@ -74,9 +74,12 @@ def full_inits(shape: Tuple[int, ...], value: float, dtype, device) -> Init:
 
 def embed_init(generator: torch.Generator, shape: Tuple[int, ...], dtype,
                device) -> torch.Tensor:
+    """Normal, scale 0.02, drawn in float32 and cast to ``dtype``. Scaled
+    in place, as :func:`dense_init`: init holds one float32 copy of the
+    table beside the weights, not two."""
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -46,7 +46,9 @@ def test_port_has_files_to_scan():
                 "src/repro_torch/distributed/fault_tolerance.py",
                 "src/repro_torch/distributed/data_parallel.py",
                 "src/repro_torch/launch/train.py",
-                "src/repro_torch/launch/steps.py"):
+                "src/repro_torch/launch/steps.py",
+                "src/repro_torch/launch/specs.py",
+                "src/repro_torch/models/frontend.py"):
         assert new in names
 
 
@@ -73,6 +75,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.checkpoint, repro_torch.distributed\n"
         "import repro_torch.distributed.data_parallel\n"
         "import repro_torch.launch.train, repro_torch.launch.steps\n"
+        "import repro_torch.launch.specs, repro_torch.models.frontend\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

@@ -426,8 +426,32 @@ def test_expected_calls_of_qwen3_at_full_depth():
         "alf_update": 112}
 
 
+# chip_smoke.py's configs_serve counts for the configs it serves at full
+# width (per prefill; a decode step launches no flash): deepseek-moe-16b's
+# 28 layers are its dense prelude layer and 27 MoE layers, whose MoE
+# branch launches no kernel of its own, so the dense formula holds
+FULL_DEPTH_CALLS = {
+    "deepseek-moe-16b": (84, 169, 112),
+    "granite-20b": (156, 313, 208),
+    "stablelm-1.6b": (72, 145, 96),
+    "musicgen-large": (144, 289, 192),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(FULL_DEPTH_CALLS))
+def test_expected_calls_at_full_depth(arch):
+    """The counts chip_smoke.py asserts for the four configs of its
+    configs_serve phase, at full depth under DEFAULT_ODE."""
+    flash, norms, alf = FULL_DEPTH_CALLS[arch]
+    cfg = get_config(arch, DEFAULT_ODE)
+    for kind, fa in (("prefill", flash), ("decode", 0)):
+        assert expected_calls(cfg, kind) == {
+            "flash_attention": fa, "rmsnorm": norms, "alf_midpoint": alf,
+            "alf_update": alf}
+
+
 @pytest.mark.parametrize("ode_on", [True, False], ids=["ode", "off"])
-@pytest.mark.parametrize("arch", SERVE_ARCHS)
+@pytest.mark.parametrize("arch", SERVE_ARCHS + ["deepseek-moe-16b"])
 def test_op_calls_per_prefill_and_decode_step(arch, ode_on):
     _, tcfg = _configs(arch, ode_on, "f32")
     tw = init_lm(torch.Generator().manual_seed(0), tcfg, "cpu")
