@@ -102,8 +102,9 @@ either. Phases, each printing JSON lines:
                per step graphed (at most half the eager) and eager, the
                kernel path against backend="reference" (bf16 and f32,
                eager), prefill(p+1) against prefill(p) + decode, peak
-               memory and device profiles of prefill, 4 eager decode steps
-               and 4 replays.
+               memory and the device profile of 4 replays (those of a
+               prefill and of 4 eager decode steps were cut to
+               keep the script near 1000 s).
 12. ssm_serve — the port's serve() for jamba-v0.1-52b at full width, 2 of
                its 4 periods (16 of 32 layers, the only cut: 4 periods
                are ~104 GB of bf16 weights), bf16, DEFAULT_ODE, batch 4,
@@ -117,8 +118,8 @@ either. Phases, each printing JSON lines:
                batch 2, prompt 256; eager, as these read the MoE routes)
                on the rows whose MoE routes agree, prefill(p+1) against
                prefill(p) + decode on the rows whose routes agree and
-               whose decode step dropped none, peak memory and device
-               profiles.
+               whose decode step dropped none, peak memory and the
+               device profile of 4 replays (as phase 11).
 13. methods   — the rest of the solver surface, through the port's entry
                points: (a) Thm 2.1 — dL/da of -a*z (a=8, ALF(eta=0.9),
                ConstantSteps(128)): MALI on cuda within 1e-4 of Naive on
@@ -136,8 +137,8 @@ either. Phases, each printing JSON lines:
                of Naive's on the same tableau, Backsolve's on ALF cuda
                within 1e-5 of its own on the reference backend (the
                forward pair over the packed (z, a, g_params) state at
-               full width), ms per step in turns and
-               each method's device busy/idle share (torch.profiler);
+               full width), ms per step (one timed run each; a
+               second round and the profiles were cut);
                (c) peak memory on phase 7's 2^20-element state at
                ConstantSteps(8) and (64): MALI and Backsolve <= 1.05x,
                ACA > 2x and below Naive (heun_euler) at 64 steps, MALI
@@ -168,9 +169,9 @@ either. Phases, each printing JSON lines:
                (dopri5) under ConstantSteps(128) and AdaptiveController,
                ALF cuda within 1e-6 of the reference backend, and a
                detection pass whose bisection calls no dynamics and syncs
-               no host. ms per step on each backend in turns and the
-               device's busy share over 20 profiled steps at batch 1024
-               (batch 16's cut to keep the script near 1000 s).
+               no host. ms per step on each backend at batch 1024, one
+               run each (batch 16's, a second round and the profile cut
+               to keep the script near 1000 s).
 15. per_sample — PerSample and Sharded batching on the card: (a)
                benchmarks/batched_throughput.py's stiffness mix (B 16,
                lam log-spaced over [0.5, 50], ALF(eta=0.9, cuda),
@@ -185,8 +186,9 @@ either. Phases, each printing JSON lines:
                1e-5, counters equal), four rows (the fastest and the
                slowest among them) against their own single-row solves,
                exactly one host read and one midpoint + one update launch
-               per trial (PerSample and Lockstep), ms per step and the
-               device's idle share, the spread of accepted steps; (c)
+               per trial (PerSample and Lockstep), ms per step (the
+               profiled steps cut), the spread of accepted
+               steps; (c)
                MALI's peak memory at batch 1024 from the base tolerances
                to the first tighter pair with >= 4x the accepted steps a
                row (<= 1.05x, two readings each); (d) Sharded(inner=
@@ -216,7 +218,8 @@ either. Phases, each printing JSON lines:
                --chunk-steps 32 (its mlp_field), both engines all at
                once: p50/p99, solves/s, occupancy, rounds, ms a
                round, peak memory, the device's busy share over 4 rounds,
-               host syncs over 4 rounds, and the CLI at its defaults; (e)
+               host syncs over 4 rounds, and the CLI at its defaults
+               (in phase 23); (e)
                exactly 2 x chunk_steps ALF launches a round, all per-row
                (the kernels line's launches_serve: (d)'s two serve_ode
                runs), no host sync inside a chunk
@@ -231,8 +234,8 @@ either. Phases, each printing JSON lines:
                the loss on batch 0 falls, exactly 112 launches of each of
                alf_midpoint, alf_update, alf_bwd_pre and alf_bwd_post per
                step and none of the other seven kernels, no host sync in
-               train_step, ms a step, peak memory, f-evals a step and the
-               device's busy share and top ops over a profiled step; (b)
+               train_step, ms a step, peak memory, f-evals a step (the
+               profiled step was cut); (b)
                one step's loss and gradients with backend="cuda" against
                "reference": at full width in bf16 within max(3e-2, 3x the
                reference's own one-rounding floor), on 2 of the 28 layers
@@ -246,7 +249,8 @@ either. Phases, each printing JSON lines:
                and a Trainer run with a checkpoint every 2 steps and a
                failure injected at step 3 whose resumed loss trace is
                bit-equal to the clean one; (e) python -m
-               repro_torch.launch.train --steps 4 prints final_step=4.
+               repro_torch.launch.train --steps 4 prints final_step=4
+               (in phase 23).
 18. xlstm     — xlstm-125m at full width, one of its two periods (6 of
                its 12 layers: 5 mLSTM, 1 sLSTM; d 768, 4 heads, vocab
                50304, bf16, DEFAULT_ODE, seeded weights; the cut keeps
@@ -266,7 +270,8 @@ either. Phases, each printing JSON lines:
                MALI's peak 2 -> 8 steps) and the bytes one mLSTM f-eval
                VJP holds between its forward and pullback; (c) python -m
                repro_torch.launch.serve and .train --arch xlstm-125m
-               --full (both periods) for a few tokens and steps.
+               --full (both periods) for a few tokens and steps (in phase
+               23).
 19. gemma2_serve — gemma2-2b at full width (26 layers, d 2304, d_head 256,
                vocab 256000, tied embeddings, bf16): phase 11's checks at
                batch 4, prompt 1024, 32 graphed decode steps (per prefill
@@ -303,7 +308,7 @@ either. Phases, each printing JSON lines:
                under ode.batch_axis="data" a one-rank forward's on its
                own rows; (d) python -m torch.distributed.run
                --nproc-per-node 2 -m repro_torch.launch.train --steps 3
-               --device cuda:0 prints final_step=3 once.
+               --device cuda:0 prints final_step=3 once (in phase 23).
 21. configs_serve — the four configs that fit one card and no earlier
                phase serves, at full width, one at a time (each one's
                weights freed before the next): stablelm-1.6b (d_head 64),
@@ -327,12 +332,50 @@ either. Phases, each printing JSON lines:
                every cache slot once, over the card's memory rate); the
                kernel path against backend="reference" in bf16 (LM_TOL;
                deepseek route-aware, as phase 12) and in f32 at batch 2 x
-               256 + 4 (full depth for stablelm and musicgen; 4 layers for
-               granite, whose f32 RMSNorm at d 6144 takes the scalar
-               kernel, and deepseek, which do not fit in f32; deepseek's
+               256 + 4 (4 layers: for stablelm and musicgen to keep
+               the script near 1000 s; for granite, whose f32 RMSNorm
+               at d 6144 takes the scalar kernel, and deepseek, which
+               do not fit in f32; deepseek's
                f32 cut also with a capacity that drops nothing, where
                prefill(p + 1) must equal prefill(p) + decode on every
                row); the phase's seconds beside its CS_PHASE_S budget.
+22. tp_train  — tensor parallelism over 'model' and FSDP over 'data'
+               (repro_torch.distributed.tensor_parallel, data_parallel)
+               on ranks that share the card (gloo through a FileStore,
+               every collective staged through the host), each held to a
+               one-rank run in this process first. (a) granite-20b at
+               full width cut to 2 of its 52 layers (d 6144, MQA 48/1,
+               d_ff 24576, vocab 49152, bf16, 1.66 B parameters) on four
+               ranks, a (data 2, model 2) mesh, global batch 2 x 1024,
+               MALI with ConstantSteps(2) on ALF(cuda), two chained
+               train_steps with AdamW: loss, lr and grad norm a step
+               within LT_BF16_TOL, every leaf's block bit-equal on the
+               ranks that hold it, the ODE end states bit-equal on each
+               'model' pair, each ALF kernel's launches a step equal to
+               one rank's, a rank's parameter and optimizer bytes equal
+               to the rules' reckoning from launch/specs.py to the byte
+               and <= 0.30x one rank's, its peak below one rank's,
+               FSDP's gathers (each split leaf once a layer forward, at
+               most once backward), the collectives a step by kind and
+               axis with their bytes and host seconds, the step times;
+               (b) deepseek-moe-16b's prelude and 1 MoE layer at full
+               width in f32 on (data 1, model 2), 32 of the 64 experts a
+               rank, a capacity that drops nothing: every token's route
+               (its experts and whether each was kept) in every MoE call
+               equal to one rank's, loss and grad norm within
+               LT_F32_TOL; (c) python -m torch.distributed.run
+               --nproc-per-node 2 -m repro_torch.launch.train --arch
+               deepseek-moe-16b --smoke --steps 3 --device cuda:0 prints
+               final_step=3 once (in phase 23); the phase's seconds
+               beside TP_PHASE_S. (a) also reads each rank's allocator
+               at the step's edges and where its forward, backward and
+               update end: nothing beyond its shards and the
+               workspaces stays after a step, the peaks within bounds
+               reckoned from its shards and the config.
+23. clis      — the launchers of phases 16 (d), 17 (e), 18 (c), 20 (d)
+               and 22 (c), six processes started together (host-bound
+               smoke runs: one after another they took 120-165 s), each
+               held to its phase's check.
 
 Phase 2 also holds the eight kernels with a per-row (B,) h, each row
 its own (kernels_rows: B x D in ROW_CASES, f32, bf16, mixed, f64, one
@@ -346,6 +389,7 @@ check raises.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1507,32 +1551,6 @@ def _device_profile(run):
             "top_host_self_ms": [[k[:60], ms, n] for k, ms, n in top_host]}
 
 
-def _host_profile(run, top: int = 12):
-    """cProfile over ``run()`` (ended by a device sync): the host's self
-    time by Python source file and by function, the costs that the
-    profiler's op events cannot name (tree maps, argument marshalling,
-    Python between launches)."""
-    import cProfile
-    import pstats
-    import torch
-    prof = cProfile.Profile()
-    prof.enable()
-    run()
-    torch.cuda.synchronize()
-    prof.disable()
-    stats = pstats.Stats(prof).stats      # (file, line, fn) -> (cc, nc, tt, ..)
-    by_file, by_fn = {}, []
-    for (path, line, fn), (_cc, nc, tt, _ct, _callers) in stats.items():
-        where = "/".join(Path(path).parts[-2:]) if path != "~" else "~"
-        by_file[where] = by_file.get(where, 0.0) + tt * 1e3
-        by_fn.append((f"{where}:{line}:{fn}"[:80], tt * 1e3, nc))
-    return {"total_ms": sum(by_file.values()),
-            "by_file_ms": sorted(([k, v] for k, v in by_file.items()),
-                                 key=lambda r: -r[1])[:top],
-            "by_function_ms": [list(r) for r in
-                               sorted(by_fn, key=lambda r: -r[1])[:top]]}
-
-
 def phase_profile():
     """torch.profiler over TRAIN_STEPS training steps of the main path on
     each backend: the device's busy and idle share and the top device
@@ -2185,8 +2203,7 @@ def phase_lm_serve(card: str, smi: str):
     import torch
     from repro_torch.configs import DEFAULT_ODE, get_config
     from repro_torch.launch.serve import serve, serve_prompt
-    from repro_torch.models import decode_step, init_lm, init_serve_state
-    from repro_torch.models import prefill
+    from repro_torch.models import init_lm
     kw = dict(smoke=False, ode=True, prompt_len=LM_PROMPT,
               batch=LM_BATCH, seed=0)
     serve(LM_ARCH, decode_tokens=2, **kw)          # warm: cuBLAS, kernels
@@ -2205,35 +2222,25 @@ def phase_lm_serve(card: str, smi: str):
             and int(result.tokens.min()) >= 0, "lm_serve: tokens")
 
     # per prefill, eager decode step, capture and replay, counted apart,
-    # with no host sync; the graph against eager decode; profiles
+    # with no host sync; the graph against eager decode; 4 replays
+    # profiled
     cfg = get_config(LM_ARCH, DEFAULT_ODE)
     params = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 8)), device="cuda")
     step, gstate = _counted_steps(params, cfg, toks, LM_PROMPT,
                                   LM_PER_PREFILL, LM_PER_DECODE, "qwen3")
-    state = init_serve_state(cfg, LM_BATCH, LM_PROMPT + 8)
-    prof_prefill = _device_profile(lambda: prefill(
-        params, cfg, {"tokens": toks[:, :LM_PROMPT]}, state))
-
-    def decode4():
-        st = state._replace(pos=torch.full((), LM_PROMPT, dtype=torch.int32,
-                                           device="cuda"))
-        for i in range(LM_PROMPT, LM_PROMPT + 4):
-            _, st = decode_step(params, cfg, toks[:, i:i + 1], st)
 
     def replay4():
         st = gstate
         for i in range(LM_PROMPT + 3, LM_PROMPT + 7):
             _, st = step(params, toks[:, i:i + 1], st)
 
-    prof_decode = _device_profile(decode4)
-    host_decode = _host_profile(decode4)
     prof_replay = _device_profile(replay4)
     graph = _graph_vs_eager(params, cfg, serve_prompt(
         cfg, LM_BATCH, LM_PROMPT, 0, "cuda"), LM_DECODE, result.tokens,
         prof_replay["device_busy_ms"] / 4)
-    del params, state, step, gstate
+    del params, step, gstate
     torch.cuda.empty_cache()
 
     compare = [_lm_compare(torch.bfloat16, LM_BATCH, LM_PROMPT, 8),
@@ -2250,8 +2257,6 @@ def phase_lm_serve(card: str, smi: str):
           "per_prefill": LM_PER_PREFILL, "per_decode_step": LM_PER_DECODE,
           "sample": result.tokens[0][:8].tolist(),
           "graph_vs_eager": graph,
-          "profile_prefill": prof_prefill, "profile_decode_4_steps":
-          prof_decode, "host_profile_decode_4_steps": host_decode,
           "profile_decode_4_replays": prof_replay,
           "compare": compare})
     return launches
@@ -2530,8 +2535,7 @@ def phase_ssm_serve(card: str, smi: str):
     import torch
     import torch.utils._pytree as pytree
     from repro_torch.launch.serve import serve, serve_prompt
-    from repro_torch.models import decode_step, init_lm, init_serve_state
-    from repro_torch.models import prefill
+    from repro_torch.models import init_lm
     cfg = _ssm_config()
     kw = dict(ode=True, prompt_len=SSM_PROMPT, batch=SSM_BATCH, seed=0)
     t0 = time.perf_counter()
@@ -2575,28 +2579,17 @@ def phase_ssm_serve(card: str, smi: str):
         0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT + 8)), device="cuda")
     step, gstate = _counted_steps(params, cfg, toks, SSM_PROMPT,
                                   SSM_PER_PREFILL, SSM_PER_DECODE, "Jamba")
-    state = init_serve_state(cfg, SSM_BATCH, SSM_PROMPT + 8)
-    prof_prefill = _device_profile(lambda: prefill(
-        params, cfg, {"tokens": toks[:, :SSM_PROMPT]}, state))
-
-    def decode4():
-        st = state._replace(pos=torch.full((), SSM_PROMPT, dtype=torch.int32,
-                                           device="cuda"))
-        for i in range(SSM_PROMPT, SSM_PROMPT + 4):
-            _, st = decode_step(params, cfg, toks[:, i:i + 1], st)
 
     def replay4():
         st = gstate
         for i in range(SSM_PROMPT + 3, SSM_PROMPT + 7):
             _, st = step(params, toks[:, i:i + 1], st)
 
-    prof_decode = _device_profile(decode4)
-    host_decode = _host_profile(decode4)
     prof_replay = _device_profile(replay4)
     graph = _graph_vs_eager(params, cfg, serve_prompt(
         cfg, SSM_BATCH, SSM_PROMPT, 0, "cuda"), SSM_DECODE, result.tokens,
         prof_replay["device_busy_ms"] / 4)
-    del params, state, step, gstate
+    del params, step, gstate
     torch.cuda.empty_cache()
 
     # bf16 at the served depth; f32 (twice the bytes) at one period
@@ -2623,8 +2616,6 @@ def phase_ssm_serve(card: str, smi: str):
           "per_prefill": SSM_PER_PREFILL, "per_decode_step": SSM_PER_DECODE,
           "sample": result.tokens[0][:8].tolist(),
           "graph_vs_eager": graph,
-          "profile_prefill": prof_prefill, "profile_decode_4_steps":
-          prof_decode, "host_profile_decode_4_steps": host_decode,
           "profile_decode_4_replays": prof_replay,
           "compare": compare})
     return launches
@@ -2738,7 +2729,7 @@ def _method_runs(x, y):
     for each of METHOD_RUNS: the loss falls, exact launch counts, no host
     sync in a fixed-step step; ACA's first-step gradient equals Naive's on
     the same tableau, and Backsolve's on the kernels equals its own on the
-    plain versions; ms per step, each method timed in turns."""
+    plain versions; ms per step, each method timed once."""
     import torch
     import torch.utils._pytree as pytree
     from repro_torch import params_from_numpy
@@ -2781,22 +2772,11 @@ def _method_runs(x, y):
     require(backsolve_vs_ref <= SAME_DISCRETIZATION_RTOL,
             f"Backsolve first-step gradients, ALF cuda vs reference: rel "
             f"{backsolve_vs_ref}")
-    step_ms = {label: [] for label, _, _ in METHOD_RUNS}
-    for i in range(2):
-        for label, kw, _ in METHOD_RUNS[::1 if i % 2 == 0 else -1]:
-            _, wall = _train(x, y, None, None,
-                             loss_fn=_odeint_loss(kw, x, y))
-            step_ms[label].append(wall / TRAIN_STEPS * 1e3)
+    # one timed run a method (a second round in the other order and a
+    # profiled run were cut to keep the script near 1000 s)
     for label, kw, _ in METHOD_RUNS:
-        out[label]["step_ms"] = step_ms[label]
-        out[label]["median_step_ms"] = float(np.median(step_ms[label]))
-        # the raw kineto events: the profiler's Python event tree takes
-        # longer than the run it reads
-        prof = _kernel_profile(lambda: _train(
-            x, y, None, None, loss_fn=_odeint_loss(kw, x, y)))
-        out[label]["profile"] = {k: prof[k] for k in (
-            "device_busy_ms", "device_window_ms", "idle_share",
-            "device_launches", "wall_ms")}
+        _, wall = _train(x, y, None, None, loss_fn=_odeint_loss(kw, x, y))
+        out[label]["step_ms"] = wall / TRAIN_STEPS * 1e3
     # The adaptive run's forward accounting at the seeded parameters (its
     # reverse augmented solve runs its own accept/reject loop).
     from repro_torch.core import AdaptiveController, Backsolve, Dopri5, solve
@@ -3147,27 +3127,17 @@ def _cnf_sample(params):
 
 
 def _cnf_times(xs_by_batch):
-    """ms per training step on each ALF backend, 2 runs of CNF_STEPS each
-    in turns (the first backend alternating), and the device's busy share
-    over CNF_STEPS profiled kernel-backend steps."""
+    """ms per training step on each ALF backend, one run of CNF_STEPS
+    each (a second round and a profiled run were cut to keep the
+    script near 1000 s)."""
     out = {}
     for batch, xs in xs_by_batch.items():
-        step_ms = {"cuda": [], "reference": []}
-        order = ("reference", "cuda")
-        for i in range(2):
-            for backend in order[::1 if i % 2 == 0 else -1]:
-                _, _, wall, _ = _cnf_train(xs, backend)
-                step_ms[backend].append(wall / CNF_STEPS * 1e3)
-        prof = _kernel_profile(lambda: _cnf_train(xs, "cuda"))
-        out[batch] = {
-            "step_ms_cuda": step_ms["cuda"],
-            "step_ms_reference": step_ms["reference"],
-            "median_step_ms_cuda": float(np.median(step_ms["cuda"])),
-            "median_step_ms_reference": float(
-                np.median(step_ms["reference"])),
-            "profile_cuda": {k: prof[k] for k in (
-                "device_busy_ms", "device_window_ms", "idle_share",
-                "device_launches", "wall_ms", "top_device_ms")}}
+        step_ms = {}
+        for backend in ("reference", "cuda"):
+            _, _, wall, _ = _cnf_train(xs, backend)
+            step_ms[backend] = wall / CNF_STEPS * 1e3
+        out[batch] = {"step_ms_cuda": step_ms["cuda"],
+                      "step_ms_reference": step_ms["reference"]}
     return out
 
 
@@ -3391,7 +3361,6 @@ CNF_PS_TOL = (1e-2, 1e-3)
 CNF_PS_TIGHT = ((1e-3, 1e-4), (1e-4, 1e-5), (1e-5, 1e-6), (1e-6, 1e-7))
 CNF_PS_MAX = 256
 CNF_PS_STEPS = 3          # timed PerSample training steps a batch
-CNF_PS_PROFILED = 2       # profiled PerSample training steps a batch
 CNF_PS_ROWS = 4           # rows held to their own single-row solves
 
 
@@ -3538,8 +3507,8 @@ def _count_syncs(fn):
 def _cnf_ps_batch(params, xs):
     """(b) at one batch: kernel vs reference backend, rows vs their
     single-row solves, host reads and ALF launches per trial (PerSample
-    and Lockstep), ms per training step and the device's idle share, the
-    spread of accepted steps over rows."""
+    and Lockstep), ms per training step, the spread of accepted steps
+    over rows."""
     import torch
     import torch.utils._pytree as pytree
     from repro_torch.core import Lockstep
@@ -3620,14 +3589,10 @@ def _cnf_ps_batch(params, xs):
     t0 = time.perf_counter()
     train(CNF_PS_STEPS)
     step_ms = (time.perf_counter() - t0) / CNF_PS_STEPS * 1e3
-    prof = _device_profile(lambda: train(CNF_PS_PROFILED))
     accf = acc.double()
     return {"loss": float(l_k), "kernel_vs_reference_rel": rel,
             "rows_vs_single_rel": row_rel, "trials": trials,
-            "step_ms": step_ms, "profiled_steps": CNF_PS_PROFILED,
-            "profile": {k: prof[k] for k in (
-                "device_busy_ms", "device_window_ms", "idle_share",
-                "device_launches", "host_ms", "top_device_ms")},
+            "step_ms": step_ms,
             "accepted_min": int(acc.min()), "accepted_max": int(acc.max()),
             "accepted_mean": float(accf.mean()),
             "accepted_std": float(accf.std()) if acc.numel() > 1 else 0.0}
@@ -4078,10 +4043,10 @@ def _sv_full_width():
     """(d) and (e) at full width: serve_ode for both engines all at once
     (the phase's counted main path; its continuous engine kept for peak
     memory and (b)'s 8 rows), 4 profiled and 4 sync-counted rounds, no
-    sync inside a chunk, and the CLI at its defaults."""
+    sync inside a chunk. (The CLI at its defaults runs in
+    phase_clis.)"""
     import contextlib
     import io
-    import os
 
     import torch
     import repro_torch.serve as serve_pkg
@@ -4178,20 +4143,18 @@ def _sv_full_width():
         "reported": n_syncs, "where": where,
         "engine_synchronize_calls": explicit}
 
-    # The CLI at its defaults, as users call it (the card by default).
-    t0 = time.perf_counter()
-    cli = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "ode"],
-        capture_output=True, text=True, timeout=600, cwd=str(HERE),
-        env=dict(os.environ, PYTHONPATH=str(SRC)))
-    require(cli.returncode == 0, f"serve (d): the CLI exited "
-            f"{cli.returncode}: {cli.stderr[-2000:]}")
-    require("serve[continuous]" in cli.stdout
-            and "256 completed" in cli.stdout and "device=cuda" in
-            cli.stdout, f"serve (d): CLI output {cli.stdout[-2000:]}")
-    out["cli_defaults"] = {"stdout": cli.stdout.strip().splitlines(),
-                           "wall_s": time.perf_counter() - t0}
     return out, launches
+
+
+def _sv_cli(res) -> dict:
+    """(d), run by phase_clis: the CLI at its defaults, as users call it
+    (the card by default)."""
+    require(res.returncode == 0, f"serve (d): the CLI exited "
+            f"{res.returncode}: {res.stderr[-2000:]}")
+    require("serve[continuous]" in res.stdout
+            and "256 completed" in res.stdout and "device=cuda" in
+            res.stdout, f"serve (d): CLI output {res.stdout[-2000:]}")
+    return {"stdout": res.stdout.strip().splitlines(), "wall_s": res.s}
 
 
 def phase_serve(card: str, smi: str):
@@ -4257,7 +4220,7 @@ def phase_serve(card: str, smi: str):
 # (the JAX package's train_4k length: the FA2 path, an ALF state of 2^24
 # f32), 3 Trainer steps; one more step profiled (phases 17 and 18; a
 # second one was cut to keep the script near 1000 s)
-LT_BATCH, LT_SEQ, LT_STEPS, LT_PROFILED = 2, 4096, 3, 1
+LT_BATCH, LT_SEQ, LT_STEPS = 2, 4096, 3
 # per step: 28 layers x 2 branches x 2 ALF steps, one launch of each
 # kernel a step forward (midpoint, update) and backward (bwd_pre, bwd_post)
 LT_PER_STEP = {"alf_midpoint": 112, "alf_update": 112, "alf_bwd_pre": 112,
@@ -4434,28 +4397,23 @@ def _profile_summary(prof, wall_ms: float, top: int = 8, of: str = ""):
     return out
 
 
-def _lt_step_profile(trainer, batch0):
-    """No host sync in train_step, and the device profile of
-    LT_PROFILED steps."""
-    import torch
+def _lt_no_sync_step(trainer, batch0):
+    """No host sync in train_step. (The device profile of a step that
+    followed it was cut to keep the script near 1000 s: a
+    timing-only part; PERF.md cites the last profiles by their runs.)"""
     from repro_torch.train import train_step
     st = trainer.state
-    batches = [batch0] + [trainer.batch(i) for i in range(1, LT_PROFILED)]
 
-    def steps(n):
-        # each step from the trained state, its result dropped at once:
-        # two states beside it would not fit with its activations
-        for i in range(n):
-            train_step(st.params, st.opt, None, batches[i], cfg=trainer.cfg,
-                       opt_cfg=trainer.opt_cfg)
+    def step():
+        # from the trained state, its result dropped at once: two states
+        # beside it would not fit with its activations
+        train_step(st.params, st.opt, None, batch0, cfg=trainer.cfg,
+                   opt_cfg=trainer.opt_cfg)
 
-    _, syncs, where = _count_syncs(lambda: steps(1))
+    _, syncs, where = _count_syncs(step)
     require(syncs == 0, f"lm_train: train_step synced the host {syncs} "
             f"times: {where}")
-    torch.cuda.synchronize()
-    prof = _kernel_profile(lambda: steps(LT_PROFILED))
-    prof["device_ms_per_step"] = prof["device_busy_ms"] / LT_PROFILED
-    return {"host_syncs_in_train_step": syncs, "profile": prof}
+    return {"host_syncs_in_train_step": syncs}
 
 
 def _lt_peak(params, opt, cfg, opt_cfg, batch) -> int:
@@ -4638,30 +4596,25 @@ def _lt_smoke():
     return out
 
 
-def _lt_cli():
-    """(e): the launcher at its defaults (qwen3 smoke, batch 8, S 64)."""
-    import os
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          "--steps", "4"], cwd=str(HERE), env=env,
-                         capture_output=True, text=True, timeout=300)
+def _lt_cli(res) -> dict:
+    """(e), run by phase_clis: the launcher at its defaults (qwen3 smoke,
+    batch 8, S 64)."""
     require(res.returncode == 0 and "final_step=4" in res.stdout,
             f"lm_train (e): the CLI failed: {res.stdout[-2000:]}"
             f"{res.stderr[-2000:]}")
     rows = [json.loads(line) for line in res.stdout.splitlines()
             if line.startswith("{")]
-    return {"cli_s": time.perf_counter() - t0,
-            "losses": [r["loss"] for r in rows],
+    return {"cli_s": res.s, "losses": [r["loss"] for r in rows],
             "kernel_launches": rows[0]["kernel_launches"]}
 
 
 def phase_lm_train(card: str, smi: str):
     """Phase 17: continuous-depth LM training on the card. (a) qwen3-1.7b
-    at full width, 3 Trainer steps; no host sync in train_step and a
-    device profile; (b) kernel vs reference; (c) memory; (d) the smoke
-    configs and a resumed run; (e) the CLI. Returns the ALF launches of
-    one step of (a) (the kernels line's launches_lm_train)."""
+    at full width, 3 Trainer steps; no host sync in train_step; (b)
+    kernel vs reference; (c) memory; (d) the smoke
+    configs and a resumed run; (e) the CLI (phase_clis). Returns the ALF
+    launches of one step of (a) (the kernels line's
+    launches_lm_train)."""
     import torch
     t0 = time.perf_counter()
     parts = {}
@@ -4671,8 +4624,8 @@ def phase_lm_train(card: str, smi: str):
 
     trainer, batch0, per_step, full = _lt_full_width()
     lap("a_train")
-    full.update(_lt_step_profile(trainer, batch0))
-    lap("a_profile")
+    full.update(_lt_no_sync_step(trainer, batch0))
+    lap("a_no_sync")
     memory = _lt_memory_mali(trainer, batch0)
     lap("c_memory_mali")
     params = trainer.state.params
@@ -4687,11 +4640,9 @@ def phase_lm_train(card: str, smi: str):
     lap("c_memory_naive")
     smoke = _lt_smoke()
     lap("d_smoke")
-    cli = _lt_cli()
-    lap("e_cli")
     emit({"phase": "lm_train", "card": card, "nvidia_smi": smi,
           "full_width": full, "compare": compare, "memory": memory,
-          "smoke": smoke, "cli": cli, "part_s": parts,
+          "smoke": smoke, "part_s": parts,
           "phase_s": time.perf_counter() - t0})
     return per_step[0]
 
@@ -4868,29 +4819,15 @@ def _xl_vjp_bytes(params, cfg, tokens: int):
                 XL_TRAIN_BATCH * tokens * heads * dh * dh * 4}
 
 
-def _xl_cli():
-    """(c): both launchers at --full for a few tokens and steps."""
-    import os
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
-    out = {}
-    for label, args, want in (
-            ("serve", ["repro_torch.launch.serve", "--arch", XL_ARCH,
-                       "--full", "--prompt-len", "64", "--decode-tokens",
-                       "8", "--batch", "4"],
-             f"arch={XL_ARCH} batch=4 prompt=64"),
-            ("train", ["repro_torch.launch.train", "--arch", XL_ARCH,
-                       "--full", "--steps", "2", "--global-batch", "2",
-                       "--seq-len", "64"], "final_step=2")):
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", *args], cwd=str(HERE),
-                             env=env, capture_output=True, text=True,
-                             timeout=300)
+def _xl_cli(label: str, want: str):
+    """(c), run by phase_clis: a launcher at --full for a few tokens or
+    steps prints ``want``."""
+    def check(res) -> dict:
         require(res.returncode == 0 and want in res.stdout,
                 f"xlstm (c): the {label} CLI failed: {res.stdout[-2000:]}"
                 f"{res.stderr[-2000:]}")
-        out[label] = {"s": time.perf_counter() - t0,
-                      "stdout_tail": res.stdout.splitlines()[-3:]}
-    return out
+        return {"s": res.s, "stdout_tail": res.stdout.splitlines()[-3:]}
+    return check
 
 
 def phase_xlstm(card: str, smi: str):
@@ -4923,8 +4860,8 @@ def phase_xlstm(card: str, smi: str):
     require(full["fevals_per_step"] == XL_FEVALS,
             f"xlstm (b): {full['fevals_per_step']} f-evals a step")
     lap("b_train")
-    full.update(_lt_step_profile(trainer, batch0))
-    lap("b_profile")
+    full.update(_lt_no_sync_step(trainer, batch0))
+    lap("b_no_sync")
     memory = _lt_memory_mali(trainer, batch0)
     memory["mlstm_feval_vjp"] = _xl_vjp_bytes(
         trainer.state.params, trainer.cfg, batch0["tokens"].shape[1])
@@ -4938,13 +4875,11 @@ def phase_xlstm(card: str, smi: str):
     del params
     torch.cuda.empty_cache()
     lap("b_compare")
-    cli = _xl_cli()
-    lap("c_cli")
     emit({"phase": "xlstm", "card": card, "nvidia_smi": smi,
           "serve": serve_fields,
           "train": {"full_width": full, "compare": compare,
                     "memory": memory},
-          "cli": cli, "part_s": parts, "phase_s": time.perf_counter() - t0})
+          "part_s": parts, "phase_s": time.perf_counter() - t0})
     return {"prefill": XL_PER_PREFILL, "decode": XL_PER_DECODE,
             "train": per_step[0]}
 
@@ -5542,22 +5477,15 @@ def _dp_check(d: Path, ranks, ref) -> dict:
     return out
 
 
-def _dp_cli() -> dict:
-    """(d): the training CLI on two ranks of one card."""
-    import os
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "torch.distributed.run",
-                          "--standalone", "--nproc-per-node", "2", "-m",
-                          "repro_torch.launch.train", "--steps", "3",
-                          "--device", DP_DEVICE], cwd=str(HERE), env=env,
-                         capture_output=True, text=True, timeout=240)
+def _dp_cli(res) -> dict:
+    """(d), run by phase_clis: the training CLI on two ranks of one
+    card."""
     require(res.returncode == 0 and res.stdout.count("final_step=3") == 1,
             f"dp_train (d): the CLI failed: {res.stdout[-2000:]}"
             f"{res.stderr[-3000:]}")
     require(res.stderr.count("backend gloo") == 2, "dp_train (d): the "
             f"backend: {res.stderr[-2000:]}")
-    return {"cli_s": time.perf_counter() - t0,
+    return {"cli_s": res.s,
             "losses": [json.loads(line)["loss"] for line in
                        res.stdout.splitlines() if line.startswith("{")]}
 
@@ -5585,8 +5513,6 @@ def phase_dp_train(card: str, smi: str):
         lap("ranks")
         fields = _dp_check(d, ranks, ref)
         lap("check")
-    fields["cli"] = _dp_cli()
-    lap("d_cli")
     emit({"phase": "dp_train", "card": card, "nvidia_smi": smi, **fields,
           "part_s": parts, "phase_s": time.perf_counter() - t0})
     return ranks[0]["full_width"]["launches_per_step"][0]
@@ -5597,13 +5523,15 @@ def phase_dp_train(card: str, smi: str):
 # Phase 21: the four configs that fit one card, served at full width
 # ---------------------------------------------------------------------------
 
-# (arch, periods of the f32 check; 0: full depth), served in this order,
-# one at a time, each one's weights freed before the next. In f32
-# granite-20b (112 GB) and deepseek-moe-16b (65.5 GB) do not fit: their
-# f32 checks run 4 layers (granite 4 periods; deepseek its dense prelude
-# layer and 3 MoE layers).
-CS_CONFIGS = (("stablelm-1.6b", 0), ("musicgen-large", 0),
+# (arch, periods of the f32 check), served in this order, one at a time,
+# each one's weights freed before the next. In f32 granite-20b (112 GB)
+# and deepseek-moe-16b (65.5 GB) do not fit: their f32 checks run 4
+# layers (granite 4 periods; deepseek its dense prelude layer and 3 MoE
+# layers). stablelm-1.6b's and musicgen-large's run 4 layers too (their
+# full depth was cut to keep the script near 1000 s).
+CS_CONFIGS = (("stablelm-1.6b", 4), ("musicgen-large", 4),
               ("deepseek-moe-16b", 3), ("granite-20b", 4))
+CS_F32_FITS = ("stablelm-1.6b", "musicgen-large")
 # per prefill under DEFAULT_ODE (3 f-evals a branch): flash, RMSNorm and
 # each ALF op (tests/test_torch_lm_serve.py, FULL_DEPTH_CALLS: layers x 3;
 # layers x 2 branches x 3 + the final norm; layers x 2 branches x 2
@@ -5744,8 +5672,9 @@ def phase_configs_serve(card: str, smi: str):
                                                f32_periods=f32_periods)
         f32 = fields["compare"][1]
         fields["f32_cut"] = (
-            f"{f32['n_layers']} of {cfg.n_layers} layers: "
-            f"{arch} does not fit in f32" if f32_periods else "none")
+            f"{f32['n_layers']} of {cfg.n_layers} layers: " + (
+                "time" if arch in CS_F32_FITS
+                else f"{arch} does not fit in f32"))
         if cfg.d_model > 4096:
             # rmsnorm.cu takes f32 rows of more than 4096 elements through
             # its scalar kernel
@@ -5766,14 +5695,634 @@ def phase_configs_serve(card: str, smi: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: tensor parallelism and FSDP, ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+TP_DEVICE = "cuda:0"          # every rank on the one card (gloo)
+# (a): granite-20b at full width, 2 of its 52 layers, bf16, on a
+# (data 2, model 2) mesh: MQA 48/1 (wk/wv whole on every rank), FSDP
+TP_ARCH, TP_LAYERS = "granite-20b", 2
+TP_MESH = (2, 2)
+TP_BATCH, TP_SEQ, TP_STEPS = 2, 1024, 2
+TP_SEED = 11
+TP_BYTES_RATIO = 0.30         # a rank's parameter + optimizer bytes / one's
+# (b): deepseek-moe-16b at full width, its prelude and 1 MoE layer, f32,
+# on (data 1, model 2): 32 of the 64 experts a rank, a capacity that
+# drops nothing (>= E / top_k: every token fits every expert)
+TP_MOE_ARCH, TP_MOE_MESH = "deepseek-moe-16b", (1, 2)
+TP_MOE_BATCH, TP_MOE_SEQ = 2, 256
+TP_MOE_CAPACITY = 64.0
+TP_TIMEOUT = 300              # seconds the ranks of a part may take
+TP_PHASE_S = 180.0            # the phase's budget
+# what a rank may hold after a step beyond its parameter and optimizer
+# shards: the cuBLAS and cuBLASLt workspaces a process makes at its
+# first GEMM (64 MiB with PyTorch 2.11 on the H100) and the allocator's
+# rounding (a granite layer's gathered leaves are 0.53 GB a rank, its
+# MLP's leaves 151 MB each)
+TP_RESIDENT_SLACK = 65 << 20
+# the step's activations a rank, as this many float32 tensors of its
+# tokens times its widest activation (max(d_model, d_ff / model,
+# vocab / model))
+TP_ACT_TENSORS = 8
+# the update's temporaries: this many float32 copies of the largest leaf
+# of a rank's optimizer state (AdamW's g, m, v, m-hat, v-hat and w of one
+# leaf at a time)
+TP_UPDATE_TEMPS = 8
+
+
+def _tp_cfg(part: str):
+    """(a)'s or (b)'s config: MALI, ConstantSteps(2), ALF(cuda)."""
+    import dataclasses
+    if part == "granite":
+        return _lt_config("cuda", arch=TP_ARCH, layers=TP_LAYERS)
+    cfg = _lt_config("cuda", arch=TP_MOE_ARCH, layers=1, dtype="float32")
+    return dataclasses.replace(cfg, moe_capacity_factor=TP_MOE_CAPACITY)
+
+
+def _tp_batch(part: str, cfg, step: int):
+    if part == "granite":
+        return _lt_batch(cfg, TP_BATCH, TP_SEQ, step)
+    return _lt_batch(cfg, TP_MOE_BATCH, TP_MOE_SEQ, step)
+
+
+def _tp_opt_cfg():
+    from repro_torch.optim import OptimizerConfig
+    return OptimizerConfig(warmup_steps=1, total_steps=TP_STEPS)
+
+
+def _tp_bytes(tree) -> int:
+    from repro_torch import tree_util
+    return sum(t.numel() * t.element_size()
+               for t in tree_util.tree_leaves(tree))
+
+
+def _tp_rule_bytes(cfg, mesh, opt_cfg):
+    """(parameter bytes, optimizer bytes) a rank holds by the rules,
+    reckoned from the meta specs (launch/specs.py)."""
+    import torch
+    from repro_torch.distributed.sharding import (opt_state_shardings,
+                                                  param_shardings,
+                                                  shard_bytes)
+    from repro_torch.launch.specs import param_specs
+    from repro_torch.models.common import torch_dtype
+    meta = param_specs(cfg)
+    p_sh = param_shardings(cfg, mesh, meta)
+    o_sh = opt_state_shardings(cfg, mesh, p_sh, meta)
+    mom = torch_dtype(opt_cfg.momentum_dtype)
+    return (shard_bytes(p_sh, meta, mesh),
+            2 * shard_bytes(o_sh, meta, mesh, mom)
+            + shard_bytes(o_sh, meta, mesh, torch.float32) + 4)
+
+
+@contextlib.contextmanager
+def _tp_memory_marks(log: list):
+    """For the block, each train_step appends to ``log`` the device bytes
+    allocated when its forward ends (what the backward will read) and
+    the peaks of its forward, of its backward (up to the update) and of
+    its update: train/loop.py's ``lm_loss_and_stats`` and
+    ``apply_updates`` are wrapped to read the allocator's counters (host
+    counters: no sync) and reset its peak."""
+    import torch
+    from repro_torch.train import loop
+    fwd, upd = loop.lm_loss_and_stats, loop.apply_updates
+
+    def mark(name):
+        log.append((name, torch.cuda.memory_allocated(),
+                    torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+
+    def forward(*a, **kw):
+        out = fwd(*a, **kw)
+        mark("forward")
+        return out
+
+    def update(*a, **kw):
+        mark("backward")
+        out = upd(*a, **kw)
+        mark("update")
+        return out
+
+    loop.lm_loss_and_stats, loop.apply_updates = forward, update
+    try:
+        yield
+    finally:
+        loop.lm_loss_and_stats, loop.apply_updates = fwd, upd
+
+
+def _tp_steps(part: str, params, plan=None) -> dict:
+    """TP_STEPS chained train_steps (one for (b)) from ``params`` (the
+    whole seeded weights on one rank, the rank's shards under ``plan``):
+    each step's metrics, ALF launches, collectives, FSDP gathers, time,
+    ODE end states and device memory (allocated before it, when its
+    forward ends and after it; the peaks of its forward, backward and
+    update), and (b)'s routes."""
+    import torch
+    from repro_torch.distributed.data_parallel import (
+        collective_counts, reset_collective_counts)
+    from repro_torch.distributed.tensor_parallel import recording_states
+    from repro_torch.models.moe import recording_routes
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import train_step
+    cfg, opt_cfg = _tp_cfg(part), _tp_opt_cfg()
+    opt = init_opt_state(opt_cfg, params if plan is None
+                         else plan.param_to_opt(params))
+    out = {"param_bytes": _tp_bytes(params), "opt_bytes": _tp_bytes(opt),
+           "metrics": [], "launches": [], "collectives": [], "step_ms": [],
+           "states": [], "routes": None}
+    out["memory"] = []
+    marks = []
+    mesh = contextlib.nullcontext() if plan is None else plan.mesh
+    n_steps = TP_STEPS if part == "granite" else 1
+    with mesh, _tp_memory_marks(marks):
+        for step in range(n_steps):
+            batch = _tp_batch(part, cfg, step)
+            _lm_reset()
+            reset_collective_counts()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            routes = (recording_routes() if part == "moe"
+                      else contextlib.nullcontext([]))
+            with recording_states() as states, routes as log:
+                params, opt, _, m = train_step(
+                    params, opt, None, batch, cfg=cfg, opt_cfg=opt_cfg,
+                    zero1=plan is not None)
+                metrics = {k: float(v) for k, v in m.items()}
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["metrics"].append(metrics)
+            out["launches"].append({k: n for k, n in _lm_counts()[0].items()
+                                    if n})
+            out["collectives"].append(collective_counts())
+            out["states"].append(_dp_checksums(states).tolist())
+            if part == "moe":
+                out["routes"] = [(r.idx.cpu().numpy(), r.kept.cpu().numpy())
+                                 for r in log]
+            # what stays of the step: the new shards and state, nothing
+            # it gathered or computed
+            del batch, states, log, m
+            torch.cuda.synchronize()
+            (_, fwd_end, fwd_peak), (_, _, bwd_peak), (_, _, upd_peak) = \
+                marks[-3:]
+            out["memory"].append({
+                "before": before, "forward_end": fwd_end,
+                "forward_peak": fwd_peak, "backward_peak": bwd_peak,
+                "update_peak": upd_peak,
+                "after": torch.cuda.memory_allocated()})
+    out["peak_gb"] = max(max(m["forward_peak"], m["backward_peak"],
+                             m["update_peak"])
+                         for m in out["memory"]) / 1e9
+    out["params"] = params
+    return out
+
+
+def _tp_memory_terms(cfg, plan, params, rows: int, seq: int) -> dict:
+    """The terms of phase 22's memory bounds on a rank, reckoned from its
+    shards and the config: ``gather``, the most one FSDP gather holds (a
+    period's slice of every stacked leaf split over 'data', or one such
+    unstacked leaf: the embedding, the head; each whole over 'data' and
+    the rank's block over 'model'); ``activations``, TP_ACT_TENSORS
+    float32 tensors of the rank's tokens times its widest activation;
+    ``update_temps``, TP_UPDATE_TEMPS float32 copies of its largest
+    optimizer-state leaf."""
+    import torch
+    layer, single = 0, [0]
+    for (path, t), dim in zip(
+            torch.utils._pytree.tree_flatten_with_path(params)[0],
+            plan.fsdp_dims):
+        if dim is None:
+            continue
+        whole = t.numel() * t.element_size() * plan.sizes["data"]
+        if any(getattr(p, "key", None) == "period" for p in path):
+            layer += whole // t.shape[0]
+        else:
+            single.append(whole)
+    model = plan.sizes.get("model", 1) if plan.model is not None else 1
+    rows_here = rows // max(plan.group.size, 1)
+    width = max(cfg.d_model, cfg.d_ff // model, cfg.vocab_size // model)
+    from repro_torch import tree_util
+    largest = max(t.numel() for t in
+                  tree_util.tree_leaves(plan.param_to_opt(params)))
+    return {"gather": max(layer, max(single)),
+            "activations": TP_ACT_TENSORS * rows_here * seq * width * 4,
+            "update_temps": TP_UPDATE_TEMPS * largest * 4}
+
+
+def _tp_init(part: str):
+    """The seeded whole weights of a part's config on the card."""
+    import torch
+    from repro_torch.models import init_lm
+    cfg = _tp_cfg(part)
+    return cfg, init_lm(torch.Generator(device="cuda").manual_seed(TP_SEED),
+                        cfg, TP_DEVICE)
+
+
+def _tp_rank(argv) -> int:
+    """One rank of phase 22: ``chip_smoke.py --tp-rank PART RANK WORLD
+    DIR``."""
+    part, rank, world, d = argv[0], int(argv[1]), int(argv[2]), Path(argv[3])
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(torch.device(TP_DEVICE))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(d / f"store_{part}"), world), rank=rank, world_size=world)
+    try:
+        from repro_torch import tree_util
+        from repro_torch.distributed.data_parallel import DataParallel
+        t0 = time.perf_counter()
+        shape = TP_MESH if part == "granite" else TP_MOE_MESH
+        mesh = init_device_mesh("cuda", shape,
+                                mesh_dim_names=("data", "model"))
+        cfg, whole = _tp_init(part)
+        plan = DataParallel(cfg, mesh, whole)
+        require(plan.checksum_equal(whole), "tp_train: the ranks' seeded "
+                "weights differ")
+        start = [plan.param_shards(whole)]
+        whole_bytes = _tp_bytes(whole)
+        del whole
+        torch.cuda.empty_cache()
+        # handed over (no reference kept here): the first step frees them
+        out = _tp_steps(part, start.pop(), plan)
+        params = out.pop("params")
+        rule = _tp_rule_bytes(cfg, mesh, _tp_opt_cfg())
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        # every leaf's checksum, with the axes its block is split over
+        leaves = tree_util.tree_leaves(params)
+        out["leaf_sums"] = [_dp_checksums([t]).tolist() for t in leaves]
+        out["leaf_split"] = [sorted({a for _, names in lay.param
+                                     for a in names})
+                             for lay in plan.leaves]
+        out.update(coord=coord, rule_param_bytes=rule[0],
+                   rule_opt_bytes=rule[1], whole_param_bytes=whole_bytes,
+                   n_fsdp=plan.n_fsdp, rank_s=time.perf_counter() - t0,
+                   memory_terms=_tp_memory_terms(
+                       cfg, plan, params,
+                       TP_BATCH if part == "granite" else TP_MOE_BATCH,
+                       TP_SEQ if part == "granite" else TP_MOE_SEQ))
+        instances = 0
+        for (path, t), dim in zip(
+                torch.utils._pytree.tree_flatten_with_path(params)[0],
+                plan.fsdp_dims):
+            if dim is not None:
+                stacked = any(getattr(p, "key", None) == "period"
+                              for p in path)
+                instances += t.shape[0] if stacked else 1
+        out["gather_instances"] = instances
+        routes = out.pop("routes")
+        if routes is not None:
+            np.savez(d / f"routes_{rank}.npz",
+                     **{f"idx_{i}": a for i, (a, _) in enumerate(routes)},
+                     **{f"kept_{i}": b for i, (_, b) in enumerate(routes)})
+            out["route_calls"] = len(routes)
+        (d / f"{part}_rank{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _tp_spawn(part: str, d: Path, world: int):
+    """Run a part's ranks; returns their results."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    logs = [open(d / f"{part}_rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--tp-rank", part, str(r), str(world),
+                               str(d)], cwd=str(HERE), env=env,
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        require(p.returncode == 0, f"tp_train {part}: rank {r} failed "
+                f"(exit {p.returncode}): "
+                f"{(d / f'{part}_rank{r}.log').read_text()[-3000:]}")
+    return [json.loads((d / f"{part}_rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def _tp_one_rank(part: str) -> dict:
+    """A part's steps on one rank (this process), the ranks' oracle."""
+    import torch
+    out = _tp_steps(part, _tp_init(part)[1])
+    out.pop("params")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_check_steps(part: str, ranks, one, tol: float) -> dict:
+    """Hold each rank's steps to the one-rank run's."""
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for r, got in enumerate(ranks):
+        for step, (g, w) in enumerate(zip(got["metrics"], one["metrics"])):
+            for k in worst:
+                worst[k] = max(worst[k], _dp_rel(g[k], w[k]))
+            require(g["lr"] == w["lr"], f"tp_train {part} rank {r} step "
+                    f"{step}: lr {g['lr']} != {w['lr']}")
+            for k in ("ode_accepted", "ode_rejected", "ode_fevals"):
+                require(g[k] == w[k], f"tp_train {part} rank {r}: {k}")
+        for step, launches in enumerate(got["launches"]):
+            require(launches == one["launches"][step], f"tp_train {part} "
+                    f"rank {r} step {step}: ALF launches {launches}, one "
+                    f"rank {one['launches'][step]}")
+        require(got["param_bytes"] == got["rule_param_bytes"]
+                and got["opt_bytes"] == got["rule_opt_bytes"],
+                f"tp_train {part} rank {r}: holds {got['param_bytes']} + "
+                f"{got['opt_bytes']} bytes, the rule reckons "
+                f"{got['rule_param_bytes']} + {got['rule_opt_bytes']}")
+    require(max(worst.values()) <= tol, f"tp_train {part}: the ranks "
+            f"against one rank: {worst} (tolerance {tol})")
+    # the ODE states bit-equal on the ranks of a 'model' group (the same
+    # rows), every leaf's block bit-equal on the ranks that hold it
+    for r, got in enumerate(ranks):
+        for q, other in enumerate(ranks):
+            if got["coord"]["data"] == other["coord"]["data"]:
+                require(got["states"] == other["states"], f"tp_train "
+                        f"{part}: ranks {r} and {q}'s ODE states differ")
+            for i, split in enumerate(got["leaf_split"]):
+                if all(got["coord"][a] == other["coord"][a]
+                       for a in split):
+                    require(got["leaf_sums"][i] == other["leaf_sums"][i],
+                            f"tp_train {part}: leaf {i} differs on ranks "
+                            f"{r} and {q}")
+    return worst
+
+
+def _tp_check_memory(r: int, got: dict) -> None:
+    """FSDP frees what it gathers, on rank ``r`` of (a). Each bound is
+    what the rank held before the step plus TP_RESIDENT_SLACK (the
+    workspaces the first step makes) plus:
+
+    * after the step: nothing (it holds its new parameter and optimizer
+      shards, as many bytes as the old);
+    * when the forward ends: the activations the backward reads (MALI
+      saves each branch's states, not a layer's gathered leaves);
+    * the forward's and the backward's peak: its gradients (one copy of
+      its parameter shards), four gathers' bytes (a layer's leaves
+      gathered again for the backward, MALI's gradient accumulator over
+      them, one f-VJP's gradient and their sum) and the activations;
+    * the update's peak: the clipped gradients beside the gradients, the
+      new shards and state beside the old, and the update's
+      temporaries.
+
+    A layer's gathered leaves kept by the forward would show at its end,
+    and, with their gradient, at the backward's peak."""
+    terms = got["memory_terms"]
+    shards = got["param_bytes"] + got["opt_bytes"]
+    for step, m in enumerate(got["memory"]):
+        where = f"tp_train (a) rank {r} step {step}: {m}, {terms}"
+        base = m["before"] + TP_RESIDENT_SLACK
+        require(m["after"] <= base and m["after"] - shards
+                <= TP_RESIDENT_SLACK, f"{where}: "
+                f"{m['after'] - shards} bytes beyond the shards stay "
+                f"after the step")
+        require(m["forward_end"] <= base + terms["activations"],
+                f"{where}: the forward keeps more than its activations")
+        compute = (base + got["param_bytes"] + 4 * terms["gather"]
+                   + terms["activations"])
+        require(max(m["forward_peak"], m["backward_peak"]) <= compute,
+                f"{where}: the forward/backward peak exceeds {compute}")
+        update = (base + 2 * got["param_bytes"] + shards
+                  + terms["update_temps"])
+        require(m["update_peak"] <= update,
+                f"{where}: the update's peak exceeds {update}")
+
+
+def _tp_granite(d: Path) -> dict:
+    """(a): the one-rank run, the four ranks, the checks."""
+    t0 = time.perf_counter()
+    one = _tp_one_rank("granite")
+    one_s = time.perf_counter() - t0
+    world = TP_MESH[0] * TP_MESH[1]
+    ranks = _tp_spawn("granite", d, world)
+    worst = _tp_check_steps("granite", ranks, one, LT_BF16_TOL)
+    one_bytes = one["param_bytes"] + one["opt_bytes"]
+    for r, got in enumerate(ranks):
+        mine = got["param_bytes"] + got["opt_bytes"]
+        require(mine <= TP_BYTES_RATIO * one_bytes, f"tp_train (a) rank {r}"
+                f": {mine} bytes against {one_bytes} on one rank")
+        require(got["peak_gb"] < one["peak_gb"], f"tp_train (a) rank {r}: "
+                f"peak {got['peak_gb']} GB, one rank {one['peak_gb']} GB")
+        _tp_check_memory(r, got)
+        for step, col in enumerate(got["collectives"]):
+            gathers = col["fsdp_gathers"]
+            require(gathers["forward"] == got["gather_instances"]
+                    and 0 < gathers["backward"]
+                    <= got["gather_instances"], f"tp_train (a) rank {r} "
+                    f"step {step}: FSDP gathers {gathers} for "
+                    f"{got['gather_instances']} (leaf, layer) instances")
+    keep = ("step_ms", "peak_gb", "param_bytes", "opt_bytes",
+            "rule_param_bytes", "rule_opt_bytes", "collectives",
+            "launches", "coord", "gather_instances", "n_fsdp", "rank_s",
+            "memory", "memory_terms")
+    return {"config": {"arch": TP_ARCH, "layers": f"{TP_LAYERS} of 52",
+                       "d_model": 6144, "heads": "48 / 1 (MQA), d 128",
+                       "d_ff": 24576, "vocab": 49152, "dtype": "bfloat16",
+                       "mesh": {"data": TP_MESH[0], "model": TP_MESH[1]},
+                       "ranks": world, "backend": "gloo, one card",
+                       "global_batch": TP_BATCH, "seq_len": TP_SEQ,
+                       "steps": TP_STEPS,
+                       "ode": "MALI, ALF(cuda), ConstantSteps(2)",
+                       "optimizer": "AdamW, warmup 1 of 2 steps"},
+            "rel": worst, "tolerance": LT_BF16_TOL,
+            "ranks_metrics": ranks[0]["metrics"],
+            "one_rank": {k: one[k] for k in ("metrics", "step_ms", "peak_gb",
+                                             "param_bytes", "opt_bytes",
+                                             "launches", "memory")},
+            "bytes_ratio": [(g["param_bytes"] + g["opt_bytes"]) / one_bytes
+                            for g in ranks],
+            "ranks": [{k: g[k] for k in keep} for g in ranks],
+            "one_rank_s": one_s}
+
+
+def _tp_moe(d: Path) -> dict:
+    """(b): deepseek-moe-16b's routes on two ranks against one rank's."""
+    one = _tp_one_rank("moe")
+    world = TP_MOE_MESH[0] * TP_MOE_MESH[1]
+    ranks = _tp_spawn("moe", d, world)
+    worst = _tp_check_steps("moe", ranks, one, LT_F32_TOL)
+    calls = len(one["routes"])
+    differ = []
+    for r in range(world):
+        require(ranks[r]["route_calls"] == calls, f"tp_train (b) rank {r}: "
+                f"{ranks[r]['route_calls']} MoE calls against {calls}")
+        with np.load(d / f"routes_{r}.npz") as f:
+            for i, (idx, kept) in enumerate(one["routes"]):
+                # a token's route: its experts (as a set) and their kept
+                mine = np.sort(f[f"idx_{i}"], -1)
+                want = np.sort(idx, -1)
+                differ.append(int((mine != want).any(-1).sum()
+                                  + (f[f"kept_{i}"] != kept).any(-1).sum()))
+    require(not any(differ), f"tp_train (b): tokens whose routes differ "
+            f"from the one-rank run's, by rank and call: {differ} of "
+            f"{TP_MOE_BATCH * TP_MOE_SEQ}")
+    require(all(k.all() for _, k in one["routes"]), "tp_train (b): a "
+            "(token, choice) was dropped")
+    return {"config": {"arch": TP_MOE_ARCH, "layers": "prelude + 1 MoE",
+                       "dtype": "float32", "experts_a_rank": 32,
+                       "capacity_factor": TP_MOE_CAPACITY,
+                       "mesh": {"data": TP_MOE_MESH[0],
+                                "model": TP_MOE_MESH[1]},
+                       "global_batch": TP_MOE_BATCH,
+                       "seq_len": TP_MOE_SEQ},
+            "rel": worst, "tolerance": LT_F32_TOL, "route_calls": calls,
+            "routes_checked": calls * TP_MOE_BATCH * TP_MOE_SEQ,
+            "ranks": [{k: g[k] for k in ("step_ms", "peak_gb",
+                                         "param_bytes", "opt_bytes",
+                                         "collectives", "rank_s")}
+                      for g in ranks],
+            "one_rank": {k: one[k] for k in ("metrics", "step_ms",
+                                             "peak_gb", "param_bytes")}}
+
+
+def _tp_cli(res) -> dict:
+    """(c), run by phase_clis: the training CLI, deepseek-moe's smoke
+    config on two ranks of one card (the host mesh (2, 1))."""
+    require(res.returncode == 0 and res.stdout.count("final_step=3") == 1,
+            f"tp_train (c): the CLI failed: {res.stdout[-2000:]}"
+            f"{res.stderr[-3000:]}")
+    return {"cli_s": res.s,
+            "losses": [json.loads(line)["loss"] for line in
+                       res.stdout.splitlines() if line.startswith("{")]}
+
+
+def phase_tp_train(card: str, smi: str):
+    """Phase 22: tensor parallelism over 'model' and FSDP over 'data' on
+    ranks sharing the card (gloo): (a) granite-20b at full width on a
+    (2, 2) mesh, (b) deepseek-moe-16b's routes on (1, 2); (c), the CLI,
+    runs in phase_clis. Returns the ALF launches of one step of (a) on a
+    rank."""
+    import tempfile
+
+    import torch
+    t0 = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        d = Path(tmp)
+        granite = _tp_granite(d)
+        torch.cuda.empty_cache()
+        lap("a_granite")
+        moe = _tp_moe(d)
+        torch.cuda.empty_cache()
+        lap("b_moe")
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "tp_train", "card": card, "nvidia_smi": smi,
+          "granite": granite, "moe": moe, "part_s": parts,
+          "phase_s": phase_s, "budget_s": TP_PHASE_S,
+          "within_budget": phase_s <= TP_PHASE_S})
+    return granite["ranks"][0]["launches"][0]
+
+
+def _cli_runs() -> dict:
+    """Each launcher a phase checks: name -> (the arguments after
+    ``python -m``, its timeout in seconds, its phase's check of the
+    finished run)."""
+    dist_run = ["torch.distributed.run", "--standalone",
+                "--nproc-per-node", "2", "-m", "repro_torch.launch.train"]
+    return {
+        "serve_defaults": (["repro_torch.launch.serve", "--mode", "ode"],
+                           600, _sv_cli),
+        "lm_train": (["repro_torch.launch.train", "--steps", "4"], 300,
+                     _lt_cli),
+        "xlstm_serve": (["repro_torch.launch.serve", "--arch", XL_ARCH,
+                         "--full", "--prompt-len", "64", "--decode-tokens",
+                         "8", "--batch", "4"], 300,
+                        _xl_cli("serve", f"arch={XL_ARCH} batch=4 "
+                                "prompt=64")),
+        "xlstm_train": (["repro_torch.launch.train", "--arch", XL_ARCH,
+                         "--full", "--steps", "2", "--global-batch", "2",
+                         "--seq-len", "64"], 300,
+                        _xl_cli("train", "final_step=2")),
+        "dp_train": ([*dist_run, "--steps", "3", "--device", DP_DEVICE],
+                     240, _dp_cli),
+        "tp_train": ([*dist_run, "--arch", TP_MOE_ARCH, "--smoke",
+                      "--steps", "3", "--device", TP_DEVICE], 240, _tp_cli)}
+
+
+def phase_clis(card: str, smi: str):
+    """Phase 23: the launchers of phases 16 (d), 17 (e), 18 (c), 20 (d)
+    and 22 (c), all started together (each its own process; their host
+    work overlaps) and each held to its phase's check. Every process is
+    stopped before this returns."""
+    import os
+    import tempfile
+    import types
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    runs = _cli_runs()
+    t0 = time.perf_counter()
+    done = {}
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        d = Path(tmp)
+        procs = {}
+        try:
+            for name, (args, timeout, _) in runs.items():
+                so = open(d / f"{name}.out", "w")
+                se = open(d / f"{name}.err", "w")
+                procs[name] = (subprocess.Popen(
+                    [sys.executable, "-m", *args], cwd=str(HERE), env=env,
+                    stdout=so, stderr=se), so, se, time.perf_counter(),
+                    timeout)
+            while len(done) < len(procs):
+                now = time.perf_counter()
+                for name, (p, _, _, start, timeout) in procs.items():
+                    if name in done:
+                        continue
+                    if p.poll() is not None:
+                        done[name] = now - start
+                    elif now - start > timeout:
+                        p.kill()
+                        p.wait()
+                        done[name] = now - start
+                time.sleep(0.05)
+        finally:
+            for p, so, se, _, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                so.close()
+                se.close()
+        out = {}
+        for name, (p, _, _, _, _) in procs.items():
+            res = types.SimpleNamespace(
+                returncode=p.returncode, s=done[name],
+                stdout=(d / f"{name}.out").read_text(),
+                stderr=(d / f"{name}.err").read_text())
+            out[name] = runs[name][2](res)
+    emit({"phase": "clis", "card": card, "nvidia_smi": smi, **out,
+          "phase_s": time.perf_counter() - t0})
+
+
 def _new_cell_launches(name: str, xlstm: dict, gemma2: dict,
-                       dp: dict, configs: dict) -> dict:
+                       dp: dict, configs: dict, tp: dict) -> dict:
     return {"launches_xlstm_prefill": xlstm["prefill"].get(name, 0),
             "launches_xlstm_decode": xlstm["decode"].get(name, 0),
             "launches_xlstm_train": xlstm["train"].get(name, 0),
             "launches_gemma2_prefill": gemma2["prefill"].get(name, 0),
             # per data-parallel qwen3 training step, on each rank (20)
             "launches_dp_train": dp.get(name, 0),
+            # per granite-20b training step on a rank of (2, 2) (22)
+            "launches_tp_train": tp.get(name, 0),
             # per prefill and per decode step of each config (21)
             "launches_configs_serve": {
                 arch: {kind: per.get(name, 0) for kind, per in c.items()}
@@ -5858,6 +6407,10 @@ def main() -> int:
     lap("dp_train")
     configs = phase_configs_serve(card, smi)
     lap("configs_serve")
+    tp = phase_tp_train(card, smi)
+    lap("tp_train")
+    phase_clis(card, smi)
+    lap("clis")
     emit({"phase": "walls", "seconds": walls})
 
     table = []
@@ -5900,7 +6453,7 @@ def main() -> int:
                       # step (phase 18), per gemma2-2b prefill (19), per
                       # data-parallel training step on a rank (20)
                       **_new_cell_launches(name, xlstm, gemma2, dp,
-                                           configs)})
+                                           configs, tp)})
     for name, (replaces, source) in LM_KERNELS.items():
         row = lm_times[name]
         # each kernel's launches from its own path: the scan's from the
@@ -5914,7 +6467,7 @@ def main() -> int:
                       "launches_serve": serve_launches[name],
                       "launches_lm_train": train_launches[name],
                       **_new_cell_launches(name, xlstm, gemma2, dp,
-                                           configs),
+                                           configs, tp),
                       "checks": lm_checks[name],
                       "max_abs_err": lm_worst[name]["bfloat16"],
                       "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -5941,4 +6494,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(_dp_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(_tp_rank(sys.argv[2:]))
     sys.exit(main())

@@ -24,11 +24,19 @@ axis size divides it. A spec over an axis of size 1 is still a spec, not
 ``None``: on a (W, 1) host mesh a ``'tp'`` leaf is "sharded" over
 ``'model'``, so its optimizer state inherits the parameter's layout and
 is not ZeRO-1'd, as in the JAX package. What the port executes of these
-layouts, and how, is :mod:`repro_torch.distributed.data_parallel`.
-``cache_shardings``, the activation ``hint`` and the helpers that in the
-port only they would call (``replicated``, ``model_axis_size`` and its
-``REPRO_NO_HINTS`` switch) belong to tensor parallelism, which the port
-does not have (ROADMAP queue 1 item 10).
+layouts, and how, is :mod:`repro_torch.distributed.data_parallel` (the
+rows, the gradients, the shards and FSDP's gathers) and
+:mod:`repro_torch.distributed.tensor_parallel` (the layers' collectives
+over ``'model'``). :func:`cache_shardings` is the serve caches' rule;
+:func:`shard_bytes` reckons what a rank holds under a spec tree.
+
+The JAX package's activation ``hint`` (a ``with_sharding_constraint``
+that pins where GSPMD places an activation) has no counterpart, nor have
+the helpers only its hints call (``replicated``, ``model_axis_size`` and
+its ``REPRO_NO_HINTS`` switch): the port's layers place their
+activations themselves, by the conjugate collectives below, at the
+points where the JAX package hints, and read the 'model' group from
+:func:`repro_torch.distributed.tensor_parallel.model_split`.
 
 **Ambient mesh and ``Sharded``.** The JAX package finds its mesh through
 ``with mesh:`` and splits a batch with ``shard_map(in_specs=(P(),
@@ -42,9 +50,20 @@ and :func:`mark_replicated` marks a replicated input, its backward
 summing the ranks' cotangents. The gradient of a loss of the gathered
 output is then the unsharded solve's on every rank. A mesh dimension of
 size 1 makes every one of these the identity, with no collective.
+
+**Conjugate collectives.** :class:`_Replicated` (identity forward, the
+cotangent summed over the group) and :class:`_Summed` (the sum over the
+group forward, identity backward) are Megatron's f and g: an activation
+that every rank of a group holds whole enters a split computation
+through f, and the ranks' partial results leave it through g. Each
+takes either a raw process group or a
+:class:`~repro_torch.distributed.data_parallel.DataGroup` (which counts
+the collective), and each works under ``torch.func`` transforms
+(MALI's backward runs the dynamics under ``torch.func.vjp``).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -233,6 +252,77 @@ def batch_shardings(cfg: ModelConfig, mesh, batch_like: Pytree) -> Pytree:
     return _pt.tree_map(one, batch_like)
 
 
+def cache_shardings(cfg: ModelConfig, mesh, cache_like: Pytree,
+                    batch: int) -> Pytree:
+    """The serve caches' specs: the batch dimension over the data axes
+    when it divides (pure-DP configs over 'model' too); otherwise
+    (long-context, batch 1) a KV cache's sequence dimension over 'data'
+    (flash-decoding's split KV); then the widest model-side dimension that
+    divides over 'model', scanning from the heads outward (for a KV cache
+    the sequence dimension is kept for 'data')."""
+    dp = dp_axes(mesh)
+    if cfg.sharding == "dp":
+        full = dp + ("model",)
+        if batch % max(math.prod(_axis_size(mesh, a) for a in full), 1) == 0:
+            dp = full
+    dp_total = math.prod(_axis_size(mesh, a) for a in dp)
+    batch_on_dp = batch % max(dp_total, 1) == 0 and dp_total > 1
+    names_of_mesh = mesh_axes(mesh)
+
+    def one(path, leaf):
+        names = _path_names(path)
+        shape = tuple(leaf.shape)
+        # period-stacked caches have a leading n_periods dimension
+        lead = "period" in names
+        core = shape[1:] if lead else shape
+        # KV leaves are the 'k'/'v' fields, [slots, B, S, K, dh]; the
+        # recurrent states (Mamba's conv/ssm, the LSTMs' c/n/m/h) have no
+        # sequence dimension to split
+        is_kv = bool(names) and names[-1] in ("k", "v") and len(core) == 5
+
+        def fits(dim_size, axis):
+            sz = _axis_size(mesh, axis)
+            return sz > 1 and dim_size % sz == 0
+
+        spec: list = [None] * len(core)
+        if len(core) >= 2 and batch_on_dp:
+            spec[1] = dp
+        elif is_kv and "data" in names_of_mesh and fits(core[2], "data"):
+            spec[2] = "data"
+        if "model" in names_of_mesh:
+            for d in range(3 if is_kv else 2, len(core)):
+                if spec[d] is None and fits(core[d], "model"):
+                    spec[d] = "model"
+                    break
+        return Spec(*([None] + spec if lead else spec))
+
+    return _pt.tree_map_with_path(one, cache_like)
+
+
+def spec_ways(spec, mesh) -> int:
+    """Into how many blocks ``spec`` cuts a leaf on ``mesh``."""
+    axes = mesh_axes(mesh)
+    n = 1
+    for entry in spec:
+        for a in ((entry,) if isinstance(entry, str) else (entry or ())):
+            n *= axes.get(a, 1)
+    return n
+
+
+def shard_bytes(specs: Pytree, like: Pytree, mesh, dtype=None) -> int:
+    """The bytes one rank holds of ``like``'s leaves (any leaves with a
+    shape and a dtype, meta tensors included) laid out by the matching
+    ``specs`` tree: each leaf's bytes over the blocks its spec cuts it
+    into. ``dtype`` replaces the leaves' own (the optimizer's moments
+    and master copy)."""
+    total = 0
+    for spec, leaf in zip(_pt.tree_leaves(specs), _pt.tree_leaves(like)):
+        dt = dtype or leaf.dtype
+        size = torch.empty((), dtype=dt).element_size()
+        total += leaf.numel() * size // spec_ways(spec, mesh)
+    return total
+
+
 def ambient_mesh():
     """The mesh of the innermost active ``with mesh:`` context, or
     None."""
@@ -287,19 +377,54 @@ def opt_state_shardings(cfg: ModelConfig, mesh, p_sh: Pytree,
 # The row collectives of Sharded batching
 # ---------------------------------------------------------------------------
 
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """The plain tensor under ``torch.func``'s wrappers (a collective
+    needs a data pointer)."""
+    while torch._C._functorch.is_functorch_wrapped_tensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t
+
+
+def _sum_over(group, t: torch.Tensor) -> torch.Tensor:
+    """A new tensor: ``t`` summed over ``group`` (a DataGroup, which
+    counts the call, or a raw process group)."""
+    t = _plain(t)
+    if hasattr(group, "all_reduce"):
+        return group.all_reduce(t)
+    t = t.contiguous().clone()
+    dist.all_reduce(t, group=group)
+    return t
+
+
 class _Replicated(torch.autograd.Function):
-    """Identity forward; the backward all-reduces (sums) the cotangent
-    over the group."""
+    """Identity forward; the backward sums the cotangent over the group
+    (Megatron's f: a whole activation entering computations split over
+    the group, each rank's cotangent a partial one)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(x, group):
         return x.view_as(x)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        return _sum_over(ctx.group, g), None
+
+
+class _Summed(_Replicated):
+    """The conjugate of :class:`_Replicated`: the sum over the group
+    forward, identity backward (Megatron's g: the ranks' partial results
+    leaving a split computation, whole on every rank after it)."""
+
+    @staticmethod
+    def forward(x, group):
+        return _sum_over(group, x)
+
+    @staticmethod
+    def backward(ctx, g):
         return g, None
 
 
@@ -351,6 +476,7 @@ def axis_group(mesh, axis: str):
 
 
 __all__ = ["Spec", "mesh_axes", "dp_axes", "param_shardings",
-           "batch_shardings", "zero1_sharding", "opt_state_shardings",
-           "ambient_mesh",
+           "batch_shardings", "cache_shardings", "zero1_sharding",
+           "opt_state_shardings", "ambient_mesh", "spec_ways",
+           "shard_bytes",
            "mark_replicated", "gather_rows", "axis_group"]

@@ -68,9 +68,10 @@ def make_production_mesh(*, multi_pod: bool = False,
                          device=None) -> DeviceMesh:
     """The JAX package's production meshes (:func:`production_axes`) over
     the default process group of 256 or 512 ranks. Raises ``ValueError``
-    naming the world size needed otherwise. The port's data-parallel
-    training refuses both meshes' 16-way 'model' axis (tensor
-    parallelism, ROADMAP queue 1 item 10)."""
+    naming the world size needed otherwise. The Trainer trains on both
+    (``production_mesh``, ``multi_pod``): their 16-way 'model' axis is
+    tensor parallelism, and 'pod' x 'data' data parallelism with FSDP
+    (:mod:`repro_torch.distributed.data_parallel`)."""
     axes = production_axes(multi_pod=multi_pod)
     shape = tuple(axes.values())
     need = math.prod(shape)

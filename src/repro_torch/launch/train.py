@@ -16,11 +16,12 @@ from the latest checkpoint and reproduces the uninterrupted loss trace;
 relaunching with other integrator flags fails fast with
 ``ConfigMismatchError``.
 
-Data parallelism: under ``torch.distributed.run`` (``RANK``,
+Over several ranks: under ``torch.distributed.run`` (``RANK``,
 ``WORLD_SIZE`` and ``LOCAL_RANK`` in the environment) the process group
-starts from the environment and the Trainer trains data-parallel with
-ZeRO-1 over the ranks, each on ``cuda:LOCAL_RANK`` unless ``--device``
-names one::
+starts from the environment and the Trainer trains over the host mesh
+(W, 1), data-parallel with ZeRO-1, and with FSDP parameter shards for the
+``'fsdp_tp'`` configs, each rank on ``cuda:LOCAL_RANK`` unless
+``--device`` names one::
 
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.train --steps 3 --device cpu
@@ -30,8 +31,9 @@ CPU or when ``--device`` puts every rank on one card (NCCL refuses two
 ranks on one device); the choice is logged. Only rank 0 prints its
 metrics and ``final_step=``. ``--ode-batch-axis data`` solves each rank's
 rows with its own controller, as the JAX package's ``Sharded("data")``
-does. ``--production-mesh`` and ``--multi-pod`` are refused: their 16-way
-'model' axis is tensor parallelism (ROADMAP queue 1 item 10).
+does. ``--production-mesh`` (``--multi-pod``) trains on the 16 x 16
+(2 x 16 x 16) mesh, tensor-parallel over its 'model' axis, and needs a
+world of 256 (512) ranks.
 """
 from __future__ import annotations
 

@@ -29,8 +29,16 @@ The chunked paths skip the tiles that the causal (and window) mask hides
 from every query row of the tile: the JAX package computes them, and they
 change nothing (a fully masked tile adds exact zeros to the running sums
 and to every gradient), so the results are the same and the causal work
-halves. The JAX package's sharding hints (``hint``) place arrays on a TPU
-mesh; the port runs on one card and has none.
+halves.
+
+Under tensor parallelism over 'model' (a training step on a mesh,
+:func:`~repro_torch.distributed.tensor_parallel.model_split`), where the
+JAX package's ``hint`` calls pin q/k/v to a head split, each rank computes
+its block of the query heads through its columns of ``wq``. ``wk``/``wv``
+are column-parallel where the group divides ``n_kv_heads``; where it
+does not (MQA: granite's 48/1) they are whole on every rank, K/V are
+whole, and each rank's query heads read their own KV heads. ``wo`` is
+row-parallel and the ranks' partial outputs are summed.
 
 The ``slot`` axis of the cache is the *virtual layer* index of
 continuous-depth mode: every ALF f-eval inside a block gets its own KV
@@ -50,6 +58,9 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.alf import check_backend
+from repro_torch.distributed.tensor_parallel import (block, enter,
+                                                     enter_leaves, leave,
+                                                     model_split, splits)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -88,11 +99,14 @@ def attention_inits(generator: torch.Generator, cfg: ModelConfig,
 
 def _project_qkv(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, backend: str = "cuda"):
+    """(q, k, v) [B, S, heads, d_head] of x, over the heads of the
+    projections ``params`` holds (a rank's block under tensor
+    parallelism)."""
     b, s, _ = x.shape
-    h, k_, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ params["wq"]).reshape(b, s, h, dh)
-    k = (x @ params["wk"]).reshape(b, s, k_, dh)
-    v = (x @ params["wv"]).reshape(b, s, k_, dh)
+    dh = cfg.d_head
+    q = (x @ params["wq"]).reshape(b, s, -1, dh)
+    k = (x @ params["wk"]).reshape(b, s, -1, dh)
+    v = (x @ params["wv"]).reshape(b, s, -1, dh)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, backend=backend)
         k = rmsnorm(params["k_norm"], k, backend=backend)
@@ -327,20 +341,52 @@ def _window(cfg: ModelConfig, spec: LayerSpec) -> int:
     return cfg.sliding_window if spec.attn_kind == "local" else 0
 
 
+def _local_kv(cfg: ModelConfig, tp, k: torch.Tensor, v: torch.Tensor):
+    """The KV heads that the rank's block of query heads reads, from
+    whole K/V [B, S, K, dh] (the group does not divide the KV heads)."""
+    h, kh = cfg.n_heads, cfg.n_kv_heads
+    g = h // kh
+    q0, hl = block(tp, h)
+    if hl % g == 0:
+        sel = slice(q0 // g, (q0 + hl) // g)
+    elif g % hl == 0:
+        sel = slice(q0 // g, q0 // g + 1)
+    else:
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+        sel = slice(q0, q0 + hl)
+    return k[:, :, sel], v[:, :, sel]
+
+
 def attention_train(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
                     x: torch.Tensor,
                     positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Differentiable causal self-attention over x [B, S, D]. Without
     ``positions`` (the training path's case) the positions are 0..S-1,
     made here, and the chunked path skips the tiles the mask hides. The
-    q/k norms run the plain RMSNorm."""
+    q/k norms run the plain RMSNorm. Under tensor parallelism, over the
+    rank's block of the query heads (module docstring)."""
     b, s, _ = x.shape
     given = positions is not None
     if not given:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
     window = _window(cfg, spec)
+    tp = model_split()
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    # the rule's splits: wq on whole heads, wk/wv where the KV heads
+    # divide, wo on its rows
+    split_o = splits(tp, h * dh)
+    split_q = split_o and splits(tp, h)
+    split_kv = splits(tp, kh) and splits(tp, kh * dh)
+    if split_o:
+        x = enter(x)
+        params = enter_leaves(params, [n for n, whole in (
+            ("wq", not split_q), ("wk", not split_kv), ("wv", not split_kv),
+            ("q_norm", True), ("k_norm", True)) if whole])
     q, k, v = _project_qkv(params, cfg, x, positions, backend="reference")
+    if split_q and not split_kv:
+        k, v = _local_kv(cfg, tp, k, v)
     pos = positions[0]
     if s <= _DIRECT_SEQ_LIMIT:
         out = _sdpa_direct(cfg, q, k, v, _mask_bias(pos, pos, window))
@@ -349,7 +395,14 @@ def attention_train(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
         chunked = (_sdpa_chunked_flash if cfg.attn_bwd == "flash"
                    else _sdpa_chunked)
         out = chunked(cfg, q, k, v, pos, pos, window, tiles=tiles)
-    return _finish(params, b, s, out)
+    if not split_o:
+        return _finish(params, b, s, out)
+    out = out.reshape(b, s, -1)
+    if not split_q:
+        # every head here, wo's rows split: this rank's columns of them
+        lo, n = block(tp, h * dh)
+        out = out[..., lo:lo + n]
+    return leave(out @ params["wo"])
 
 
 class KVCache(NamedTuple):

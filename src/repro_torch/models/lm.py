@@ -11,7 +11,16 @@ Training: :func:`lm_loss_and_stats` is next-token cross-entropy over
 ``_LOSS_CHUNK`` under ``torch.utils.checkpoint`` (outside any ODE
 dynamics, so plain autograd applies), so the full [B, S, vocab] logits
 never exist (vocab up to 256k makes them tens of GB); it returns the
-summed ODE counters beside the loss.
+summed ODE counters beside the loss. In a training step over a mesh the
+embedding and the head are gathered over 'data' where they are used
+(FSDP), and under tensor parallelism the embedding (split on D) gives
+each rank its columns of the lookup, gathered over 'model', and the head
+(split on the vocabulary) computes a vocab-parallel cross-entropy: each
+rank's logits are its vocabulary block, and the maximum, the sum of
+exponentials and the label's logit are reduced over 'model' (three
+floats a token cross the group, where gathering the logits would move a
+chunk's [B, 512, V / M] a rank). A tied head (the embedding's transpose,
+split on D) sums its partial logits over 'model' instead.
 
 Serving: ``prefill`` and ``decode_step`` take ``backend``: ``"cuda"``
 (default) sends RMSNorm, prompt attention, the Mamba prompt scan and the
@@ -34,7 +43,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.interface import RunStats
 from repro_torch.device import resolve_device
-from repro_torch.distributed.data_parallel import row_split
+from repro_torch.distributed.data_parallel import fsdp_gathered, row_split
+from repro_torch.distributed.tensor_parallel import (block, enter,
+                                                     gather_last, leave,
+                                                     model_split, splits)
 
 from .common import (embed_init, materialize, rmsnorm, rmsnorm_inits,
                      softcap, torch_dtype)
@@ -70,11 +82,21 @@ def _head_matrix(params: Pytree, cfg: ModelConfig) -> torch.Tensor:
     return params["head"]
 
 
+def _head_params(params: Pytree, cfg: ModelConfig) -> Pytree:
+    """The leaves :func:`_head_matrix` reads."""
+    name = "embed" if cfg.tie_embeddings else "head"
+    return {name: params[name]}
+
+
 def _embed(params: Pytree, cfg: ModelConfig, batch: Pytree) -> torch.Tensor:
     cdt = torch_dtype(cfg.compute_dtype)
     if cfg.input_mode == "embeds":
         return batch["embeds"].to(cdt)
-    return params["embed"][batch["tokens"]].to(cdt)
+    with fsdp_gathered({"embed": params["embed"]}) as p:
+        x = p["embed"][batch["tokens"]]
+    if splits(model_split(), cfg.d_model):
+        x = gather_last(x)        # the ranks' column blocks of the rows
+    return x.to(cdt)
 
 
 def _logits(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
@@ -98,11 +120,38 @@ def backbone_train(params: Pytree, cfg: ModelConfig, batch: Pytree
 
 
 def _chunk_nll(hc: torch.Tensor, lc: torch.Tensor, head: torch.Tensor,
-               cap: float) -> torch.Tensor:
-    """Summed next-token NLL of one sequence chunk (labels < 0 count 0)."""
-    logits = softcap((hc @ head).float(), cap)
+               cap: float, split: str = "") -> torch.Tensor:
+    """Summed next-token NLL of one sequence chunk (labels < 0 count 0).
+    Under tensor parallelism ``head`` is the rank's block: of the
+    vocabulary (``split="vocab"``) or of D (``"rows"``, a tied head)."""
+    if split == "vocab":
+        return _chunk_nll_vocab(hc, lc, head, cap)
+    if split == "rows":
+        lo, n = block(model_split(), hc.shape[-1])
+        logits = softcap(leave((enter(hc)[..., lo:lo + n] @ head).float()),
+                         cap)
+    else:
+        logits = softcap((hc @ head).float(), cap)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, lc.clamp_min(0).long()[..., None])[..., 0]
+    return torch.where(lc >= 0, lse - tgt, 0.0).sum()
+
+
+def _chunk_nll_vocab(hc: torch.Tensor, lc: torch.Tensor, head: torch.Tensor,
+                     cap: float) -> torch.Tensor:
+    """:func:`_chunk_nll` over the rank's vocabulary block: the
+    log-sum-exp from the group's maximum and summed exponentials, the
+    label's logit from the rank that holds it."""
+    tp = model_split()
+    logits = softcap((enter(hc) @ head).float(), cap)      # [B, c, V / M]
+    m = tp.all_reduce(logits.detach().amax(-1),
+                      op=torch.distributed.ReduceOp.MAX)
+    lse = m + torch.log(leave(torch.exp(logits - m[..., None]).sum(-1)))
+    lo, n = tp.rank * logits.shape[-1], logits.shape[-1]
+    mine = (lc >= lo) & (lc < lo + n)
+    tgt = torch.gather(logits, -1, (lc - lo).clamp(0, n - 1).long()[..., None]
+                       )[..., 0]
+    tgt = leave(torch.where(mine, tgt, 0.0))
     return torch.where(lc >= 0, lse - tgt, 0.0).sum()
 
 
@@ -114,7 +163,14 @@ def chunked_ce_loss(h: torch.Tensor, head: torch.Tensor,
     (``checkpoint``), over the count of labels >= 0. Under data
     parallelism (rows split over a group) the count is the group's, so
     the loss is this rank's share of the global mean: the shares sum to
-    it, and so do their gradients."""
+    it, and so do their gradients. Under tensor parallelism ``head`` is
+    the rank's block of the rule's split (module docstring)."""
+    tp = model_split()
+    split = ""
+    if cfg.tie_embeddings and splits(tp, cfg.d_model):
+        split = "rows"
+    elif not cfg.tie_embeddings and splits(tp, cfg.vocab_size):
+        split = "vocab"
     s = h.shape[1]
     n_chunks = -(-s // chunk)
     pad = n_chunks * chunk - s
@@ -124,21 +180,26 @@ def chunked_ce_loss(h: torch.Tensor, head: torch.Tensor,
     for i in range(n_chunks):
         cs = slice(i * chunk, (i + 1) * chunk)
         total = total + checkpoint(_chunk_nll, h_p[:, cs], l_p[:, cs], head,
-                                   cfg.final_softcap, use_reentrant=False,
+                                   cfg.final_softcap, split,
+                                   use_reentrant=False,
                                    preserve_rng_state=False)
     count = (labels >= 0).sum(dtype=torch.int32)
-    split = row_split()
-    if split is not None:
-        count = split.all_reduce(count)
+    split_rows = row_split()
+    if split_rows is not None:
+        count = split_rows.all_reduce(count)
     return total / torch.clamp_min(count, 1)
 
 
 def lm_loss_and_stats(params: Pytree, cfg: ModelConfig, batch: Pytree
                       ) -> Tuple[torch.Tensor, RunStats]:
     """Like :func:`lm_loss` but also returns the integration accounting
-    (the counters are integer outputs that autograd leaves alone)."""
+    (the counters are integer outputs that autograd leaves alone). In a
+    training step over a mesh the head is gathered over 'data' for the
+    loss (once: its chunks' recomputations reuse it)."""
     h, stats = backbone_train(params, cfg, batch)
-    loss = chunked_ce_loss(h, _head_matrix(params, cfg), batch["labels"], cfg)
+    with fsdp_gathered(_head_params(params, cfg)) as p:
+        loss = chunked_ce_loss(h, _head_matrix(p, cfg), batch["labels"],
+                               cfg)
     return loss, stats
 
 

@@ -1,13 +1,18 @@
 """Dense gated-MLP (SwiGLU) feed-forward. The products stay
 ``torch.matmul`` (cuBLAS on the card), as the JAX package leaves them to
-XLA."""
+XLA. Under tensor parallelism
+(:func:`~repro_torch.distributed.tensor_parallel.model_split`) the rule
+splits d_ff over 'model': ``w_gate``/``w_up`` are column-parallel,
+``w_down`` row-parallel, and the ranks' partial outputs are summed."""
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.tensor_parallel import (enter, leave,
+                                                     model_split, splits)
 
 from .common import dense_inits, silu, torch_dtype
 
@@ -26,6 +31,19 @@ def mlp_inits(generator: torch.Generator, cfg: ModelConfig, d_ff: int,
     }
 
 
-def apply_mlp(params: Pytree, x: torch.Tensor) -> torch.Tensor:
+def mlp_partial(params: Pytree, x: torch.Tensor) -> torch.Tensor:
+    """The gated MLP of ``x`` on the d_ff block ``params`` holds (the
+    whole output when it holds all of d_ff)."""
     return (silu(x @ params["w_gate"]) * (x @ params["w_up"])) \
         @ params["w_down"]
+
+
+def apply_mlp(params: Pytree, x: torch.Tensor,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """x [..., D] -> [..., D]. ``d_ff`` (the whole hidden width) lets a
+    training step under tensor parallelism see whether the rule splits
+    this MLP over 'model'; without it the MLP is whole."""
+    tp = model_split()
+    if d_ff is None or not splits(tp, d_ff):
+        return mlp_partial(params, x)
+    return leave(mlp_partial(params, enter(x)))

@@ -33,9 +33,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.data_parallel import row_split
+from repro_torch.distributed.sharding import _Summed
+from repro_torch.distributed.tensor_parallel import (block, enter,
+                                                     enter_leaves, leave,
+                                                     model_split, splits)
 
 from .common import dense_inits, silu, torch_dtype
-from .mlp import apply_mlp, mlp_inits
+from .mlp import mlp_inits, mlp_partial
 
 Pytree = Any
 
@@ -97,7 +101,7 @@ def apply_moe(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     capacity factor."""
     b, s, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
-    xt = x.reshape(b * s, d)
+    dff = cfg.moe_d_ff or cfg.d_ff
     n = b * s
     factor = (cfg.moe_eval_capacity_factor if eval_mode
               else cfg.moe_capacity_factor)
@@ -107,8 +111,24 @@ def apply_moe(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     split = row_split(cfg.ode)
     n_all = n if split is None else n * split.size
     cap = _capacity(n_all, cfg, factor)
+    # the rule's splits over 'model': the experts, else their d_ff; the
+    # shared experts' d_ff
+    tp = model_split()
+    split_e = splits(tp, e)
+    split_f = not split_e and splits(tp, dff)
+    shared = cfg.moe_shared_experts > 0
+    split_s = shared and splits(tp, dff * cfg.moe_shared_experts)
+    xt = x.reshape(n, d)
+    # the routed experts (and the router feeding them) and the shared
+    # ones each read the tokens whole or, when split, through enter()
+    xr, xs, p = xt, xt, params
+    if split_e or split_f:
+        xr = enter(xt)
+        p = enter_leaves(params, ["router"])
+    if split_s:
+        xs = xr if xr is not xt else enter(xt)
 
-    logits = xt.float() @ params["router"]                       # [N, E]
+    logits = xr.float() @ p["router"]                            # [N, E]
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1)           # [N, k]
     gate_vals = gate_vals / torch.clamp_min(
@@ -135,29 +155,52 @@ def apply_moe(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     for log in _ROUTE_LOGS:
         log.append(Routes(gate_idx, keep.reshape(n, k)))
 
+    mine, n_e = keep, e
+    if split_e:
+        # this rank's experts: the routes to the others add nothing here
+        lo, n_e = block(tp, e)
+        mine = keep & (eidx >= lo) & (eidx < lo + n_e)
+        eidx = torch.clamp(eidx - lo, 0, n_e - 1)
     cdt = torch_dtype(cfg.compute_dtype)
-    x_rep = torch.repeat_interleave(xt, k, dim=0)                # [N*k, D]
-    contrib = torch.where(keep[:, None], x_rep, 0).to(cdt)
-    expert_in = torch.zeros((e, cap, d), dtype=cdt, device=x.device)
+    x_rep = torch.repeat_interleave(xr, k, dim=0)                # [N*k, D]
+    contrib = torch.where(mine[:, None], x_rep, 0).to(cdt)
+    expert_in = torch.zeros((n_e, cap, d), dtype=cdt, device=x.device)
     expert_in.index_put_((eidx, pos_safe), contrib, accumulate=True)
-    h = torch.bmm(expert_in, params["w_gate"])                   # [E, cap, F]
-    u = torch.bmm(expert_in, params["w_up"])
-    expert_out = torch.bmm(silu(h) * u, params["w_down"])        # [E, cap, D]
+    h = torch.bmm(expert_in, p["w_gate"])                        # [E, cap, F]
+    u = torch.bmm(expert_in, p["w_up"])
+    expert_out = torch.bmm(silu(h) * u, p["w_down"])             # [E, cap, D]
     gathered = expert_out[eidx, pos_safe]                        # [N*k, D]
-    w = (gate_vals.reshape(-1) * keep).to(cdt)
+    w = (gate_vals.reshape(-1) * mine).to(cdt)
     out = (gathered * w[:, None]).reshape(n, k, d).sum(dim=1)
 
-    if cfg.moe_shared_experts > 0:
-        out = out + apply_mlp(params["shared"], xt)
+    # the ranks' partial outputs summed once, whole ones added after
+    partial, whole = [], []
+    (partial if split_e or split_f else whole).append(out)
+    if shared:
+        y = mlp_partial(params["shared"], xs)
+        (partial if split_s else whole).append(y)
+    out = leave(sum(partial[1:], partial[0])) if partial else whole.pop(0)
+    for y in whole:
+        out = out + y
     return out.reshape(b, s, d)
 
 
 def aux_load_balance_loss(params: Pytree, cfg: ModelConfig,
                           x: torch.Tensor) -> torch.Tensor:
-    """Switch-style auxiliary load-balancing loss (fraction * prob)."""
+    """Switch-style auxiliary load-balancing loss (fraction * prob).
+    Under data parallelism (:func:`~repro_torch.distributed.data_parallel.
+    row_split`) the fractions and mean probabilities are the global
+    batch's: the ranks' sums are summed over the group (their gradients
+    each rank's own), so every rank returns the global batch's loss."""
     b, s, d = x.shape
     probs = torch.softmax(x.reshape(b * s, d).float() @ params["router"],
                           dim=-1)
     top1 = torch.argmax(probs, dim=-1)
-    frac = torch.nn.functional.one_hot(top1, cfg.moe_experts).float().mean(0)
-    return cfg.moe_experts * torch.sum(frac * probs.mean(0))
+    counts = torch.nn.functional.one_hot(top1, cfg.moe_experts).float()
+    counts, mass, n = counts.sum(0), probs.sum(0), b * s
+    split = row_split(cfg.ode)
+    if split is not None:
+        counts = split.all_reduce(counts)
+        mass = _Summed.apply(mass, split)
+        n *= split.size
+    return cfg.moe_experts * torch.sum((counts / n) * (mass / n))

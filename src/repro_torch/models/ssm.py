@@ -26,8 +26,15 @@ The port of the JAX package's ``repro.models.ssm``:
   * ``apply_mamba_decode`` — the O(1) recurrent update of one token against
     the (conv, ssm) state cache, as in the JAX package.
 
-The JAX package's sharding hints (``hint``) place arrays on a TPU mesh;
-the port runs on one card and has none.
+Under tensor parallelism over 'model' (a training step on a mesh,
+:func:`~repro_torch.distributed.tensor_parallel.model_split`), where the
+JAX package's ``hint`` calls pin the scan's d_inner over 'model', each rank
+runs its block of d_inner: ``in_proj``'s column blocks are gathered and
+each rank takes its block of ``u`` and of the gate (the rule splits the
+fused ``[u | gate]`` columns in contiguous blocks); ``conv_w``,
+``dt_proj``, ``A_log`` and the per-channel vectors are the rank's block;
+``x_proj``'s contraction over d_inner is summed over the group, and
+``out_proj`` is row-parallel, its partial outputs summed.
 
 Caches are written in place (the JAX package returns updated copies);
 each function still returns the cache it was given.
@@ -41,6 +48,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.alf import check_backend
+from repro_torch.distributed.tensor_parallel import (block, enter,
+                                                     enter_leaves,
+                                                     gather_last_summed,
+                                                     leave, model_split,
+                                                     splits)
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 
@@ -110,9 +122,13 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 def _ssm_inputs(params: Pytree, cfg: ModelConfig, u: torch.Tensor):
     """u: [B, S, d_inner] -> (delta [B, S, d_inner] f32, A [d_inner,
     d_state] f32, B, C [B, S, d_state]): the factors of the discretised
-    terms, which the JAX package's ``_ssm_inputs`` multiplies out."""
-    _, dt_rank, d_state, _ = _dims(cfg)
+    terms, which the JAX package's ``_ssm_inputs`` multiplies out. Under
+    tensor parallelism ``u`` is the rank's block of d_inner: ``x_proj``'s
+    products are summed over the group, and (delta, A) are the block's."""
+    d_inner, dt_rank, d_state, _ = _dims(cfg)
     proj = _matmul(u, params["x_proj"])
+    if splits(model_split(), d_inner):
+        proj = enter(leave(proj))
     dt_raw, b_mat, c_mat = torch.split(proj, [dt_rank, d_state, d_state],
                                        dim=-1)
     # torch's softplus returns x above 20 where jax.nn.softplus is
@@ -179,14 +195,38 @@ def _scan_chunk(h, d_a, d_bu):
     return h_all[:, -1], h_all
 
 
+def _split_params(params: Pytree, cfg: ModelConfig, tp) -> Pytree:
+    """The rank's view of a Mamba mixer whose d_inner the rule splits:
+    its whole per-channel vectors entered and cut to the rank's block."""
+    d_inner = _dims(cfg)[0]
+    p = enter_leaves(params, ["conv_b", "dt_bias", "D"])
+    lo, n = block(tp, d_inner)
+    for name in ("conv_b", "dt_bias", "D"):
+        p[name] = p[name][lo:lo + n]
+    return p
+
+
 def apply_mamba_train(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
                       chunk: int = _CHUNK, return_state: bool = False):
     """x: [B, S, D] -> [B, S, D] (+ the final (conv_state, ssm_state) if
     asked, which needs S % chunk == 0 so the final carry is exact).
-    Differentiable; runs no kernel."""
+    Differentiable; runs no kernel. Under tensor parallelism, over the
+    rank's block of d_inner (module docstring)."""
     b, s, _ = x.shape
     d_inner, _, d_state, d_conv = _dims(cfg)
-    ui, res = torch.chunk(x @ params["in_proj"], 2, dim=-1)
+    tp = model_split()
+    split = splits(tp, d_inner)
+    if split and return_state:
+        raise ValueError("apply_mamba_train: no final state of a d_inner "
+                         "split over 'model' (a serving path)")
+    if split:
+        lo, n = block(tp, d_inner)
+        params = _split_params(params, cfg, tp)
+        y = gather_last_summed(enter(x) @ params["in_proj"])
+        ui, res = y[..., lo:lo + n], y[..., d_inner + lo:d_inner + lo + n]
+        d_inner = n
+    else:
+        ui, res = torch.chunk(x @ params["in_proj"], 2, dim=-1)
     u = silu(_causal_conv(ui, params["conv_w"], params["conv_b"]))
     c = min(chunk, s)
     n_chunks = -(-s // c)
@@ -210,6 +250,8 @@ def apply_mamba_train(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     y = y + params["D"] * u.float()
     y = y.to(x.dtype) * silu(res)
     out = y @ params["out_proj"]
+    if split:
+        return leave(out)
     if not return_state:
         return out
     conv_state = ui[:, s - (d_conv - 1):].float()

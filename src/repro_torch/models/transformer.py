@@ -13,7 +13,13 @@ branch, parameter count unchanged. With ``ALF(backend="cuda")`` the
 state algebra launches the ALF kernels (forward: midpoint + update per
 step; MALI's backward: bwd_pre + bwd_post per step); the branch's own
 f (attention, Mamba, MLP, MoE, the norms) runs plain PyTorch, as the JAX
-package trains through the plain versions of its LM kernels.
+package trains through the plain versions of its LM kernels. In a
+training step over a mesh each layer is where FSDP gathers the leaves
+that the rule splits over 'data' (:func:`~repro_torch.distributed.
+data_parallel.fsdp_gathered`, once for the layer's forward and once for
+its backward), and its mixer and MLP compute on their blocks of the
+leaves split over 'model' (:mod:`repro_torch.distributed.
+tensor_parallel`); the ODE state between them is whole on every rank.
 
 Serve path (prefill/decode): forward only, so the ALF steps are unrolled
 explicitly with the KV or SSM cache threaded through every f-eval: each
@@ -43,6 +49,8 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.alf import check_backend
 from repro_torch.core.interface import RunStats
 from repro_torch.core.solve import solve
+from repro_torch.distributed.data_parallel import fsdp_gathered, fsdp_unbind
+from repro_torch.distributed.tensor_parallel import record_state
 from repro_torch.kernels.alf_step import ops as alf_ops
 from repro_torch.kernels.alf_step import ref as alf_ref
 
@@ -150,10 +158,13 @@ def _mixer_train_fn(cfg: ModelConfig, spec: LayerSpec, positions=None):
 
 
 def _mlp_train_fn(cfg: ModelConfig, spec: LayerSpec,
-                  eval_mode: bool = False):
+                  eval_mode: bool = False, d_ff: Optional[int] = None):
+    """The MLP branch's f; ``d_ff`` is a dense MLP's hidden width (the
+    prelude's may differ from ``cfg.d_ff``)."""
     if spec.mlp == "moe":
         return lambda p, z: apply_moe(p, cfg, z, eval_mode=eval_mode)
-    return lambda p, z: apply_mlp(p, z)
+    d_ff = d_ff or cfg.d_ff
+    return lambda p, z: apply_mlp(p, z, d_ff)
 
 
 def zero_run_stats(device) -> RunStats:
@@ -202,22 +213,28 @@ def _residual_branch(cfg: ModelConfig, branch_params: Pytree,
                 batching=ode.batching())
     stats = RunStats(sol.stats.n_accepted, sol.stats.n_rejected,
                      sol.stats.n_fevals)
+    record_state(sol.ys)
     return sol.ys.to(x.dtype), stats
 
 
 def layer_train(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
-                x: torch.Tensor, positions=None
+                x: torch.Tensor, positions=None,
+                dense_d_ff: Optional[int] = None
                 ) -> Tuple[torch.Tensor, RunStats]:
     """One layer's two residual branches (mixer, then the MLP unless
-    ``spec.mlp == 'none'``) and their summed counters."""
-    x, stats = _residual_branch(
-        cfg, {"norm": params["mixer_norm"], "inner": params["mixer"]}, x,
-        _mixer_train_fn(cfg, spec, None))
-    if spec.mlp != "none":
-        x, s2 = _residual_branch(
-            cfg, {"norm": params["mlp_norm"], "inner": params["mlp"]}, x,
-            _mlp_train_fn(cfg, spec))
-        stats = add_run_stats(stats, s2)
+    ``spec.mlp == 'none'``) and their summed counters. In a training step
+    over a mesh, the layer's leaves split over 'data' are gathered for
+    its forward here (and, where autograd saved them, once more for its
+    backward)."""
+    with fsdp_gathered(params) as params:
+        x, stats = _residual_branch(
+            cfg, {"norm": params["mixer_norm"], "inner": params["mixer"]},
+            x, _mixer_train_fn(cfg, spec, None))
+        if spec.mlp != "none":
+            x, s2 = _residual_branch(
+                cfg, {"norm": params["mlp_norm"], "inner": params["mlp"]}, x,
+                _mlp_train_fn(cfg, spec, d_ff=dense_d_ff))
+            stats = add_run_stats(stats, s2)
     return x, stats
 
 
@@ -227,7 +244,7 @@ def _periods(stacked: Pytree, n: int):
     op (an index per period would add a stack-sized zero tensor per
     period)."""
     leaves, spec = tree_util.tree_flatten(stacked)
-    parts = [leaf.unbind(0) for leaf in leaves]
+    parts = [fsdp_unbind(leaf) for leaf in leaves]
     return [tree_util.tree_unflatten([part[p] for part in parts], spec)
             for p in range(n)]
 
@@ -238,7 +255,8 @@ def blocks_train(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     branch)."""
     stats = zero_run_stats(x.device)
     for i, spec in enumerate(cfg.prelude):
-        x, s = layer_train(params["prelude"][i], cfg, spec, x, positions)
+        x, s = layer_train(params["prelude"][i], cfg, spec, x, positions,
+                           dense_d_ff=cfg.prelude_d_ff or None)
         stats = add_run_stats(stats, s)
     if cfg.period:
         for pp in _periods(params["period"], cfg.n_periods):

@@ -54,10 +54,11 @@ def compress_grads(grads: Pytree, ef: EFState,
                    max_over_ranks: Optional[Callable] = None
                    ) -> Tuple[Pytree, EFState]:
     """Error-feedback int8 round trip: returns (dequantized grads, new
-    error-feedback state). Under data parallelism ``grads`` and ``ef``
-    hold this rank's shards and ``max_over_ranks`` maps the shards'
-    maxima to the whole tensors' (one collective), so each shard takes
-    its tensor's scale."""
+    error-feedback state). Over a mesh ``grads`` and ``ef`` hold this
+    rank's blocks (split over 'data', 'model' or both) and
+    ``max_over_ranks`` maps the blocks' maxima to the whole tensors'
+    (one collective over the mesh), so each block takes its tensor's
+    scale."""
     leaves, spec = pytree.tree_flatten(grads)
     errors = pytree.tree_leaves(ef.error)
     amaxes = [None] * len(leaves)

@@ -86,7 +86,8 @@ def clip_by_global_norm(grads: Pytree, max_norm: float,
                         ) -> Tuple[Pytree, torch.Tensor]:
     """max_norm <= 0 disables clipping (the norm is still computed).
     ``norm`` given: the global norm of gradients of which ``grads`` hold
-    this rank's shards (data parallelism)."""
+    this rank's blocks (a mesh's data and 'model' shards:
+    ``DataParallel.global_norm`` counts each element once)."""
     if norm is None:
         norm = global_norm(grads)
     if max_norm <= 0:

@@ -26,7 +26,8 @@ import torch
 from repro_torch import tree_util as pytree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.interface import RunStats
-from repro_torch.distributed.data_parallel import DataParallel, plan_for
+from repro_torch.distributed.data_parallel import (DataParallel,
+                                                   fsdp_leaves, plan_for)
 from repro_torch.distributed.sharding import ambient_mesh
 from repro_torch.models.lm import lm_loss_and_stats
 from repro_torch.models.transformer import add_run_stats
@@ -41,12 +42,15 @@ Pytree = Any
 def _value_and_grad(params: Pytree, cfg: ModelConfig, batch: Pytree
                     ) -> Tuple[torch.Tensor, RunStats, Pytree]:
     """(loss, RunStats, grads) of one batch; each grad in its parameter's
-    dtype (zeros for a parameter the loss does not reach, as in JAX)."""
+    dtype (zeros for a parameter the loss does not reach, as in JAX).
+    Inside a step's FSDP context the leaves are registered for their
+    layers' gathers, forward and backward."""
     leaves, spec = pytree.tree_flatten(params)
     leaves = [leaf.detach().requires_grad_() for leaf in leaves]
-    loss, stats = lm_loss_and_stats(pytree.tree_unflatten(leaves, spec),
-                                    cfg, batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with fsdp_leaves(leaves):
+        loss, stats = lm_loss_and_stats(pytree.tree_unflatten(leaves, spec),
+                                        cfg, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), stats, pytree.tree_unflatten(grads, spec)
@@ -98,14 +102,21 @@ def train_step(params: Pytree, opt_state: OptState, ef: Optional[EFState],
 
     ``compress=True`` routes the gradients through int8 error-feedback
     compression, threading ``ef``. ``zero1=True`` under an ambient mesh
-    of several ranks (``with mesh:``) runs the step data-parallel
+    of several ranks (``with mesh:``; the host mesh or a two- or
+    three-dimensional one) runs the step over the mesh
     (:mod:`repro_torch.distributed.data_parallel`): ``batch`` is the
     global batch, of which each rank computes its rows; ``params`` are
-    whole on every rank; ``opt_state`` and ``ef`` hold the rank's shards
-    by ``opt_state_shardings`` (ZeRO-1). The result is the one-rank step
-    on the global batch, as the JAX package's GSPMD step is its unsharded
-    one; the ODE counters are the global solve's (summed over the ranks'
-    rows when the branches are batched, ``ode.batch_axis``).
+    the rank's shards by ``param_shardings``, in and out
+    (:meth:`~repro_torch.distributed.data_parallel.DataParallel.
+    param_shards` cuts them from the whole leaves, ``gather_params``
+    puts them back together); ``opt_state`` and ``ef`` hold the rank's
+    shards by ``opt_state_shardings`` (ZeRO-1 for the replicated
+    leaves). The layers split over 'model' compute on their blocks, and
+    the leaves split over 'data' are gathered layer by layer (FSDP). The
+    result is the one-rank step on the global batch, as the JAX
+    package's GSPMD step is its unsharded one; the ODE counters are the
+    global solve's (summed over the ranks' rows when the branches are
+    batched, ``ode.batch_axis``).
     """
     mesh = ambient_mesh() if zero1 else None
     plan = plan_for(cfg, mesh, params)
@@ -134,25 +145,26 @@ def _with_run_metrics(metrics: Dict, loss: torch.Tensor,
 
 def _data_parallel_step(plan: DataParallel, params, opt_state, ef, batch,
                         *, cfg, opt_cfg, microbatches, compress):
-    """:func:`train_step` over the plan's data group: this rank's rows,
-    gradients reduced into the optimizer state's layout, the update on
-    the shards, the parameters gathered whole."""
+    """:func:`train_step` over the plan's mesh: this rank's rows, the
+    loss and gradients from its parameter shards, the gradients reduced
+    into the optimizer state's layout, the update on the shards, the
+    parameter shards gathered back from them."""
     rows, split = plan.local_rows(batch, microbatches)
-    with plan.splitting_rows(split):
+    with plan.computing(split):
         loss, stats, grads = loss_and_grads(params, rows, cfg=cfg,
                                             microbatches=microbatches)
-    if split:
-        loss = plan.group.all_reduce(loss)          # the ranks' shares
+    if split is not None:
+        loss = split.all_reduce(loss)          # the ranks' shares
         if cfg.ode.batch_axis is not None:
             # batched solves count per row: the global batch's totals
-            stats = RunStats(*(plan.group.all_reduce(c) for c in stats))
+            stats = RunStats(*(split.all_reduce(c) for c in stats))
     grads = plan.reduce_grads(grads, split)
     if compress:
         grads, ef = compress_grads(grads, ef, plan.max_over_ranks)
     shards, opt_state, metrics = apply_updates(
-        opt_cfg, plan.shard(params), grads, opt_state,
+        opt_cfg, plan.param_to_opt(params), grads, opt_state,
         grad_norm=plan.global_norm(grads))
-    return (plan.gather(shards), opt_state, ef,
+    return (plan.opt_to_param(shards), opt_state, ef,
             _with_run_metrics(metrics, loss, stats))
 
 

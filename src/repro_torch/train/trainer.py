@@ -27,31 +27,32 @@ are pure functions of (seed, step) and the step is deterministic, so the
 recomputed post-checkpoint steps reproduce the uninterrupted run's loss
 trace bit for bit.
 
-Meshes: as in the JAX package every run is on a mesh, here
-``make_host_mesh`` over the default ``torch.distributed`` process group
-(a (W, 1) ("data", "model") mesh, made once a process and reused). Side
-effects: in a process with no process group the first Trainer makes one
-of world size 1 (NCCL on the card, gloo on the CPU), and on the card
-each Trainer makes its device the current CUDA device. ZeRO-1 is on
-whenever the mesh has more than one rank. Then each rank
-computes its rows of the global batch and the gradients are reduced into
-the optimizer state's layout by ``opt_state_shardings``
-(:mod:`repro_torch.distributed.data_parallel`): the steps, losses and
-checkpoints are the one-rank run's. The parameters start from the seed on
-every rank (a checksum all-gather confirms them equal) and stay whole on
-every rank; the optimizer state and the error-feedback carry hold the
-rank's shards. For the ``'fsdp_tp'`` configs (deepseek-moe, jamba,
-granite, grok, internvl2) the JAX package shards the parameters over
-'data' too: same numbers, but each rank here holds them whole (ROADMAP
-queue 1 item 11). Rank 0 writes each checkpoint, the whole state gathered
-from the shards (the files a one-rank run writes); every rank restores
-the whole state and keeps its shards, so checkpoints move between world
-sizes. ``ode_batch_axis="data"`` solves each rank's rows with its own
-controller (the JAX package's ``Sharded("data")``). Refused, with a
-``NotImplementedError`` naming a ROADMAP item: the production meshes
-(``production_mesh``, ``multi_pod``: their 16-way 'model' axis is tensor
-parallelism, item 10), and adaptive control (``ode_steps=0``) over
-several ranks without ``ode_batch_axis="data"`` (item 12).
+Meshes: as in the JAX package every run is on a mesh: ``make_host_mesh``
+over the default ``torch.distributed`` process group (a (W, 1) ("data",
+"model") mesh, made once a process and reused), or with
+``production_mesh`` / ``multi_pod`` the production meshes (16 x 16
+("data", "model"), 2 x 16 x 16 ("pod", "data", "model");
+``make_production_mesh``, which raises ``ValueError`` naming the 256 or
+512 ranks it needs). Side effects: in a process with no process group
+the first Trainer makes one of world size 1 (NCCL on the card, gloo on
+the CPU), and on the card each Trainer makes its device the current CUDA
+device. Over several ranks each rank computes its rows of the global
+batch and holds its shards of the state
+(:mod:`repro_torch.distributed.data_parallel`): the parameters by
+``param_shardings`` (split over 'model' for tensor parallelism, and over
+'data' for the ``'fsdp_tp'`` configs, gathered layer by layer), the
+optimizer state and the error-feedback carry by ``opt_state_shardings``
+(ZeRO-1 for the replicated leaves). The steps, losses and checkpoints
+are the one-rank run's. The parameters start from the seed, whole, on
+every rank (a checksum all-gather confirms them equal), and each rank
+keeps its shards. Rank 0 writes each checkpoint, the whole state
+gathered from the shards (the files a one-rank run writes); every rank
+restores the whole state and keeps its shards, so checkpoints move
+between world sizes and mesh shapes. ``ode_batch_axis="data"`` solves
+each rank's rows with its own controller (the JAX package's
+``Sharded("data")``). Refused, with a ``NotImplementedError`` naming
+ROADMAP queue 1 item 12: adaptive control (``ode_steps=0``) over several
+data ranks without ``ode_batch_axis="data"``.
 """
 from __future__ import annotations
 
@@ -71,11 +72,10 @@ from repro_torch.configs import ModelConfig, get_config, smoke_config
 from repro_torch.core.ode_block import OdeSettings
 from repro_torch.data.synthetic import DataConfig, batch_to_device, make_batch
 from repro_torch.device import resolve_device
-from repro_torch.distributed.data_parallel import (TENSOR_PARALLEL_ITEM,
-                                                   DataParallel,
+from repro_torch.distributed.data_parallel import (DataParallel,
                                                    check_supported, plan_for)
 from repro_torch.distributed.fault_tolerance import run_with_recovery
-from repro_torch.launch.mesh import make_host_mesh, production_axes
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import init_lm
 from repro_torch.optim.compression import EFState
 from repro_torch.optim.optimizer import (OptimizerConfig, OptState,
@@ -118,8 +118,8 @@ class TrainerConfig:
     log_every: int = 10
     emit: str = "stdout"            # EMITTERS key
     metrics_path: str = ""          # for emit='jsonl'
-    production_mesh: bool = False   # the 16x16 mesh (refused: item 10)
-    multi_pod: bool = False         # the 2x16x16 one (implies the above)
+    production_mesh: bool = False   # the 16x16 mesh (256 ranks)
+    multi_pod: bool = False         # the 2x16x16 one (512; implies it)
     max_failures: int = 3
     device: str = ""                # '' = the CUDA card
 
@@ -141,30 +141,31 @@ class TrainerConfig:
 
 def build(tc: TrainerConfig):
     """(model config, mesh, optimizer config) for one run description.
-    The mesh is ``make_host_mesh`` over the default process group (every
-    rank calls this). The production meshes, and a mesh or config the
-    port cannot train on, raise ``NotImplementedError``."""
+    The mesh is ``make_host_mesh`` over the default process group, or a
+    production mesh (every rank calls this). A world that is not the
+    production mesh's raises ``ValueError``; a mesh or config the port
+    cannot train on raises ``NotImplementedError``."""
     ode = tc.ode_settings()
     cfg = (smoke_config(tc.arch, ode) if tc.smoke
            else get_config(tc.arch, ode))
     if tc.production_mesh or tc.multi_pod:
-        # both production meshes have a 16-way 'model' axis
-        raise NotImplementedError(
-            f"the production meshes {production_axes(multi_pod=tc.multi_pod)}"
-            ": tensor parallelism over 'model' is not ported "
-            f"({TENSOR_PARALLEL_ITEM})")
-    mesh = make_host_mesh(tc.torch_device())
+        mesh = make_production_mesh(multi_pod=tc.multi_pod,
+                                    device=tc.torch_device())
+    else:
+        mesh = make_host_mesh(tc.torch_device())
     check_supported(cfg, mesh)
     opt_cfg = OptimizerConfig(total_steps=tc.steps,
                               warmup_steps=max(tc.steps // 20, 1))
     return cfg, mesh, opt_cfg
 
 
-def _map_shards(state: TrainState, fn) -> TrainState:
-    """``state`` with ``fn`` applied to the trees data parallelism shards:
-    the optimizer's m, v and master, and the error-feedback carry."""
+def _map_shards(state: TrainState, fn, params_fn=None) -> TrainState:
+    """``state`` with ``fn`` applied to the trees in the optimizer
+    state's layout (the optimizer's m, v and master, the error-feedback
+    carry) and ``params_fn`` (if given) to the parameters."""
     o, ef = state.opt, state.ef
-    return TrainState(state.params,
+    params = state.params if params_fn is None else params_fn(state.params)
+    return TrainState(params,
                       OptState(o.step, fn(o.m), fn(o.v), fn(o.master)),
                       None if ef is None else EFState(fn(ef.error)),
                       state.rng)
@@ -215,29 +216,35 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """Seeded weights, a fresh optimizer and the loop's carry. Over
-        several ranks the optimizer state and the carry hold this rank's
-        shards (:attr:`plan`), and the ranks' weights are checked equal."""
+        several ranks every tree holds this rank's shards (:attr:`plan`):
+        the ranks' whole weights are checked equal, each keeps its
+        shards, and the whole ones are freed."""
         tc = self.config
         gen = torch.Generator(device=self.device).manual_seed(tc.seed)
         params = init_lm(gen, self.cfg, self.device)
         self.plan = plan_for(self.cfg, self.mesh, params)
-        local = params
-        if self.plan is not None:
-            if not self.plan.checksum_equal(params):
-                raise RuntimeError("the ranks' seeded weights differ")
-            local = self.plan.shard(params)
+        if self.plan is None:
+            return TrainState(params, init_opt_state(self.opt_cfg, params),
+                              self.loop.init_carry(params),
+                              init_rng(tc.seed))
+        if not self.plan.checksum_equal(params):
+            raise RuntimeError("the ranks' seeded weights differ")
+        params = self.plan.param_shards(params)
+        local = self.plan.param_to_opt(params)
         return TrainState(params, init_opt_state(self.opt_cfg, local),
                           self.loop.init_carry(local), init_rng(tc.seed))
 
     def whole_state(self, state: Optional[TrainState] = None
                     ) -> TrainState:
-        """``state`` (default: the newest) with the optimizer state and
-        carry whole, gathered from the ranks' shards onto the host (a
-        collective: every rank calls it); what a checkpoint holds."""
+        """``state`` (default: the newest) with every tree whole,
+        gathered from the ranks' shards onto the host (a collective:
+        every rank calls it); what a checkpoint holds."""
         state = self._state if state is None else state
         if self.plan is None:
             return state
-        return _map_shards(state, lambda t: self.plan.gather(t, host=True))
+        return _map_shards(
+            state, lambda t: self.plan.gather(t, host=True),
+            lambda t: self.plan.gather_params(t, host=True))
 
     def _restore(self, state: TrainState, fingerprint):
         """The latest checkpoint as this rank's state (its shards of the
@@ -246,13 +253,19 @@ class Trainer:
         if plan is None:
             return restore_train_state(tc.ckpt_dir, state, fingerprint)
         got = restore_train_state(tc.ckpt_dir,
-                                  _map_shards(state, plan.whole_like),
+                                  _map_shards(state, plan.whole_like,
+                                              plan.whole_like),
                                   fingerprint)
         if got is None:
             return None
         step, whole, meta = got
-        return step, _map_shards(whole, lambda tree: pytree.tree_map(
-            lambda t: t.to(self.device).contiguous(), plan.shard(tree))), meta
+
+        def mine(tree):
+            return pytree.tree_map(lambda t: t.to(self.device).clone(), tree)
+
+        return step, _map_shards(whole, lambda t: mine(plan.shard(t)),
+                                 lambda t: mine(plan.param_shards(
+                                     t, copy=False))), meta
 
     def batch(self, step: int):
         """Step ``step``'s global batch on the run's device."""
@@ -283,7 +296,7 @@ class Trainer:
 
         def barrier():
             if self.plan is not None:
-                dist.barrier(group=self.plan.group.group)
+                dist.barrier(group=self.plan.world.group)
 
         def save(step: int, metadata: dict):
             tree = state_tree(self.whole_state(state))

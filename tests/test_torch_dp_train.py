@@ -309,20 +309,24 @@ def _assert_state_equal(saved, state):
 
 
 def test_data_parallel_refusals():
-    """A mesh axis other than 'data' larger than 1 is tensor
-    parallelism; adaptive control over several data ranks needs each
-    rank's rows solved alone."""
+    """Meshes with a 'model' axis (tensor parallelism) or a 'pod' axis
+    are accepted; adaptive control over several data ranks needs each
+    rank's rows solved alone (item 12), and over 'model' alone the
+    ranks solve their rows whole."""
     cfg = R.qwen_cfg()
     for axes in ({"data": 2, "model": 2}, {"pod": 2, "data": 2, "model": 1},
                  {"data": 16, "model": 16}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            check_supported(cfg, axes)
+        check_supported(cfg, axes)
     adaptive = R.qwen_cfg(R.ADAPTIVE)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        check_supported(adaptive, {"data": 2, "model": 1})
+    for axes in ({"data": 2, "model": 1}, {"pod": 2, "data": 1, "model": 2}):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            check_supported(adaptive, axes)
     check_supported(adaptive, {"data": 1, "model": 1})
+    check_supported(adaptive, {"data": 1, "model": 2})
     check_supported(R.qwen_cfg(dict(R.ADAPTIVE, batch_axis="data")),
                     {"data": 4, "model": 1})
+    with pytest.raises(ValueError, match="expert"):
+        check_supported(cfg, {"data": 2, "expert": 2})
 
 
 def test_cli_under_torch_distributed_run(tmp_path):

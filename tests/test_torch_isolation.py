@@ -45,6 +45,8 @@ def test_port_has_files_to_scan():
                 "src/repro_torch/checkpoint/checkpoint.py",
                 "src/repro_torch/distributed/fault_tolerance.py",
                 "src/repro_torch/distributed/data_parallel.py",
+                "src/repro_torch/distributed/tensor_parallel.py",
+                "src/repro_torch/distributed/sharding.py",
                 "src/repro_torch/launch/train.py",
                 "src/repro_torch/launch/steps.py",
                 "src/repro_torch/launch/specs.py",
@@ -74,6 +76,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.train, repro_torch.optim\n"
         "import repro_torch.checkpoint, repro_torch.distributed\n"
         "import repro_torch.distributed.data_parallel\n"
+        "import repro_torch.distributed.tensor_parallel\n"
         "import repro_torch.launch.train, repro_torch.launch.steps\n"
         "import repro_torch.launch.specs, repro_torch.models.frontend\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -208,12 +208,14 @@ def test_microbatch_accumulation_trains():
                          ids=["production_mesh", "multi_pod",
                               "ode_batch_axis"])
 def test_unported_axes_raise(kw, clean_run):
-    """The production meshes' 16-way 'model' axis is tensor parallelism,
-    refused naming its ROADMAP item; ``ode_batch_axis="data"`` trains on
-    the one-rank host mesh (``Sharded`` over one rank: the lockstep solve
-    of every row), its counters summed over the batch's rows."""
+    """The production meshes need their worlds: on one process the
+    Trainer raises ``ValueError`` naming the 256 (512) ranks;
+    ``ode_batch_axis="data"`` trains on the one-rank host mesh
+    (``Sharded`` over one rank: the lockstep solve of every row), its
+    counters summed over the batch's rows."""
     if "ode_batch_axis" not in kw:
-        with pytest.raises(NotImplementedError, match="item 10"):
+        need = "512" if kw.get("multi_pod") else "256"
+        with pytest.raises(ValueError, match=f"world of {need} ranks"):
             tiny_trainer(**kw)
         return
     t = tiny_trainer(**kw)

@@ -76,7 +76,8 @@ def chained_steps(mesh, out, case):
     params = torch.load(out.parent / "weights.pt")
     opt_cfg = OptimizerConfig(warmup_steps=1, total_steps=N_STEPS)
     plan = DataParallel(cfg, mesh, params)
-    local = plan.shard(params)
+    params = plan.param_shards(params)
+    local = plan.param_to_opt(params)
     opt = init_opt_state(opt_cfg, local)
     ef = init_ef_state(local) if kw["compress"] else None
     rows = []
@@ -87,6 +88,7 @@ def chained_steps(mesh, out, case):
                 params, opt, ef, batch(cfg, step), cfg=cfg, opt_cfg=opt_cfg,
                 zero1=True, **kw)
             rows.append(metrics_row(m))
+    params = plan.gather_params(params)
     return {"metrics": rows, "n_sharded": plan.n_sharded,
             "dims": plan.dims, "params_equal": _same_on_every_rank(params),
             "collectives": collective_counts()}
@@ -111,7 +113,8 @@ def moe(mesh, out):
     np.savez(out / f"moe_kept_{rank}.npz",
              *[r.kept.numpy() for r in log])
     opt_cfg = OptimizerConfig(warmup_steps=1, total_steps=MOE_STEPS)
-    opt = init_opt_state(opt_cfg, plan.shard(params))
+    params = plan.param_shards(params)
+    opt = init_opt_state(opt_cfg, plan.param_to_opt(params))
     metrics = []
     with mesh:
         for step in range(MOE_STEPS):
@@ -119,6 +122,7 @@ def moe(mesh, out):
                                            batch(cfg, step), cfg=cfg,
                                            opt_cfg=opt_cfg, zero1=True)
             metrics.append(metrics_row(m))
+    params = plan.gather_params(params)
     return {"metrics": metrics, "n_sharded": plan.n_sharded,
             "calls": len(log), "params_equal": _same_on_every_rank(params)}
 
@@ -132,10 +136,12 @@ def adaptive(mesh, out):
     cfg = qwen_cfg(dict(ADAPTIVE, batch_axis="data"))
     params = torch.load(out.parent / "weights.pt")
     plan = DataParallel(cfg, mesh, params)
+    params = plan.param_shards(params)
     opt_cfg = OptimizerConfig(warmup_steps=1, total_steps=1)
     with mesh:
         _, _, _, m = train_step(params,
-                                init_opt_state(opt_cfg, plan.shard(params)),
+                                init_opt_state(opt_cfg,
+                                               plan.param_to_opt(params)),
                                 None, batch(cfg, 0), cfg=cfg,
                                 opt_cfg=opt_cfg, zero1=True)
     try:
