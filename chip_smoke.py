@@ -58,9 +58,7 @@ either. Phases, each printing JSON lines:
 7. memory    — peak device memory of a solve's forward + backward on a
                2^20-element state at ConstantSteps(8) and (64): flat
                (<= 1.05x) for MALI, growing for Naive on either backend.
-8. profile   — torch.profiler over 20 training steps of phase 4 on the
-               kernel and the reference backend: device busy/idle share
-               and the top device operations.
+8. (profile: cut, timing only; PERF.md cites its last runs)
 9. lm_kernels — the RMSNorm, flash-attention and selective-scan kernels
                against their plain versions on the card. RMSNorm: f32 and
                bf16, rows in {1, 4, 65536, 4099}, d every config's d_model
@@ -137,8 +135,8 @@ either. Phases, each printing JSON lines:
                of Naive's on the same tableau, Backsolve's on ALF cuda
                within 1e-5 of its own on the reference backend (the
                forward pair over the packed (z, a, g_params) state at
-               full width), ms per step (one timed run each; a
-               second round and the profiles were cut);
+               full width), ms per step (from the counted run; its own
+               timed run, a second round and the profiles were cut);
                (c) peak memory on phase 7's 2^20-element state at
                ConstantSteps(8) and (64): MALI and Backsolve <= 1.05x,
                ACA > 2x and below Naive (heun_euler) at 64 steps, MALI
@@ -169,9 +167,9 @@ either. Phases, each printing JSON lines:
                (dopri5) under ConstantSteps(128) and AdaptiveController,
                ALF cuda within 1e-6 of the reference backend, and a
                detection pass whose bisection calls no dynamics and syncs
-               no host. ms per step on each backend at batch 1024, one
-               run each (batch 16's, a second round and the profile cut
-               to keep the script near 1000 s).
+               no host. ms per step of the counted training runs (the
+               timed runs on each backend, the profile and a second
+               round were cut to keep the script near 1000 s).
 15. per_sample — PerSample and Sharded batching on the card: (a)
                benchmarks/batched_throughput.py's stiffness mix (B 16,
                lam log-spaced over [0.5, 50], ALF(eta=0.9, cuda),
@@ -262,8 +260,8 @@ either. Phases, each printing JSON lines:
                prefill(64) against prefill(63) + decode (the chunk rule
                allows no 1025-token prompt), each within LM_TOL or 3x the
                model's own noise floor (the plain path with the embedding
-               moved by one rounding), device profiles of a prefill and
-               of 4 replays; (b) phase 17's checks for 3 Trainer steps at
+               moved by one rounding), the device profile of 4
+               replays; (b) phase 17's checks for 3 Trainer steps at
                batch 8 x 256 (12 launches of each of the four MALI
                kernels and 18 f-evals a step; kernel vs reference in bf16
                at full width and in f32 at S 128, MALI vs Naive there;
@@ -322,8 +320,8 @@ either. Phases, each printing JSON lines:
                within 0.9 of the card at init's bound; phase 11's checks
                (_serve_cell: exact launch counts per prefill and decode
                step, CS_PER_PREFILL, no host sync, the graph against eager
-               decode and serve(), device profiles of a prefill and 4
-               replays); the weights equal to the specs' bytes, init's
+               decode and serve(), the device profile of 4 replays); the
+               weights equal to the specs' bytes, init's
                peak within them plus its largest draw (_cs_predict), the
                serve run's peak within the specs'
                weights and cache plus one prefill's allocations and
@@ -373,9 +371,46 @@ either. Phases, each printing JSON lines:
                workspaces stays after a step, the peaks within bounds
                reckoned from its shards and the config.
 23. clis      — the launchers of phases 16 (d), 17 (e), 18 (c), 20 (d)
-               and 22 (c), six processes started together (host-bound
-               smoke runs: one after another they took 120-165 s), each
-               held to its phase's check.
+               and 22 (c), and the serve launcher under python -m
+               torch.distributed.run --nproc-per-node 2 (deepseek-moe's
+               smoke config on two ranks of the card, the host mesh
+               (2, 1): one report, from rank 0, its decode eager), seven
+               processes
+               started together (host-bound smoke runs: one after
+               another they took 120-165 s), each held to its phase's
+               check.
+24. tp_serve  — LM serving on the JAX package's meshes
+               (models/lm.py prefill and decode_step under a mesh,
+               data_parallel.ServePlan) on ranks that share the card
+               (gloo through a FileStore), each part held to one rank
+               serving the same cut in this process first, the ranks
+               teacher-forced on its greedy tokens (each group of rank
+               processes, (b) and (c) in the same two, starts while the
+               work before it runs): (a) granite-20b, 2
+               of 52 layers, bf16, on (data 2, model 2), batch 4 x 1024
+               + 16 decode steps (FSDP, the rows over 'data', MQA's
+               cache split on d_head over 'model', the head split on
+               the vocabulary); (b) jamba-v0.1-52b, one period of a
+               Mamba+MoE layer and an attention layer, f32, on (1, 2),
+               batch 2 x 512 + 8 (the scan on d_inner 4096 a rank, 8 of
+               16 experts a rank, the KV heads over 'model'); (c)
+               qwen3-1.7b, 8 of 28 layers, bf16, batch 1 on (2, 1), 1024
+               + 8 (the KV sequence over 'data': split-KV decode). Each:
+               logits within LM_TOL (bf16) or TPS_F32_TOL / 3x the
+               model's one-rounding floor (f32), equal on every rank,
+               greedy agreement counted; every MoE route equal; a rank's
+               parameter and cache bytes equal to launch/specs.py's
+               serve_shard_bytes, its allocator after prefill within
+               them plus TP_RESIDENT_SLACK, init's peak within its
+               shards plus one whole leaf's draw (drawn leaf by leaf);
+               the LM kernels' launches a step equal to one rank's; the
+               collectives and FSDP gathers a step equal to
+               _tps_reckon's; the ALF states bit-equal on the ranks of
+               one row block; a decode graph over the gloo ranks
+               refused; flash at each rank's heads and the scan at its
+               d_inner against their plain versions; prefill and eager
+               decode ms beside one rank's; the phase's seconds beside
+               TPS_PHASE_S.
 
 Phase 2 also holds the eight kernels with a per-row (B,) h, each row
 its own (kernels_rows: B x D in ROW_CASES, f32, bf16, mixed, f64, one
@@ -1551,24 +1586,6 @@ def _device_profile(run):
             "top_host_self_ms": [[k[:60], ms, n] for k, ms, n in top_host]}
 
 
-def phase_profile():
-    """torch.profiler over TRAIN_STEPS training steps of the main path on
-    each backend: the device's busy and idle share and the top device
-    operations."""
-    import torch
-    from repro_torch.core import ALF, ConstantSteps
-    x_np, y_np = make_data(N_TRAIN, seed=0)
-    x = torch.as_tensor(x_np, device="cuda")
-    y = torch.as_tensor(y_np, device="cuda")
-    out = {}
-    for backend in ("cuda", "reference"):
-        solver = ALF(eta=1.0, backend=backend)
-        _train(x, y, solver, ConstantSteps(N_SUB))          # warm
-        out[backend] = {"steps": TRAIN_STEPS, **_device_profile(
-            lambda: _train(x, y, solver, ConstantSteps(N_SUB)))}
-    emit({"phase": "profile", **out})
-
-
 # ---------------------------------------------------------------------------
 # Phases 9-11: the LM serving slice (qwen3-1.7b)
 # ---------------------------------------------------------------------------
@@ -2206,7 +2223,7 @@ def phase_lm_serve(card: str, smi: str):
     from repro_torch.models import init_lm
     kw = dict(smoke=False, ode=True, prompt_len=LM_PROMPT,
               batch=LM_BATCH, seed=0)
-    serve(LM_ARCH, decode_tokens=2, **kw)          # warm: cuBLAS, kernels
+    # (a warm-up serve, for the timings alone, was cut)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2538,9 +2555,7 @@ def phase_ssm_serve(card: str, smi: str):
     from repro_torch.models import init_lm
     cfg = _ssm_config()
     kw = dict(ode=True, prompt_len=SSM_PROMPT, batch=SSM_BATCH, seed=0)
-    t0 = time.perf_counter()
-    serve(cfg, decode_tokens=2, **kw)          # warm: cuBLAS, kernels
-    warm_s = time.perf_counter() - t0
+    # (a warm-up serve, for the timings alone, was cut)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2604,7 +2619,6 @@ def phase_ssm_serve(card: str, smi: str):
           "batch": SSM_BATCH, "prompt": SSM_PROMPT,
           "decode_tokens": SSM_DECODE, "dtype": "bfloat16",
           "ode": "DEFAULT_ODE (per_block, MALI/ALF, n_steps=2)",
-          "warm_serve_s": warm_s,
           "prefill_ms": result.prefill_ms, "decode_ms": result.decode_ms,
           "decode_ms_per_step": result.decode_ms / SSM_DECODE,
           "prefill_tok_s": result.prefill_tok_s,
@@ -2729,7 +2743,7 @@ def _method_runs(x, y):
     for each of METHOD_RUNS: the loss falls, exact launch counts, no host
     sync in a fixed-step step; ACA's first-step gradient equals Naive's on
     the same tableau, and Backsolve's on the kernels equals its own on the
-    plain versions; ms per step, each method timed once."""
+    plain versions; ms per step, from the counted run."""
     import torch
     import torch.utils._pytree as pytree
     from repro_torch import params_from_numpy
@@ -2746,7 +2760,7 @@ def _method_runs(x, y):
             # one fixed-step forward + backward with every host sync an
             # error
             _no_sync(lambda: loss_fn(params).backward())
-        counts, (losses, _) = _counted(
+        counts, (losses, wall) = _counted(
             f"odeint({label})",
             lambda: _train(x, y, None, None, loss_fn=loss_fn), TRAIN_STEPS,
             per)
@@ -2754,7 +2768,10 @@ def _method_runs(x, y):
         require(losses[-1] < losses[0],
                 f"{label}: loss did not fall: {losses[0]} -> {losses[-1]}")
         launches[label] = counts
-        out[label] = {"first_loss": losses[0], "last_loss": losses[-1]}
+        out[label] = {"first_loss": losses[0], "last_loss": losses[-1],
+                      # the counted run's ms a step (a timed run of its
+                      # own was cut)
+                      "step_ms": wall / TRAIN_STEPS * 1e3}
     aca_vs_naive = _rel_err(first["aca_heun_euler"],
                             first["naive_heun_euler"])
     require(aca_vs_naive <= SAME_DISCRETIZATION_RTOL,
@@ -2772,11 +2789,6 @@ def _method_runs(x, y):
     require(backsolve_vs_ref <= SAME_DISCRETIZATION_RTOL,
             f"Backsolve first-step gradients, ALF cuda vs reference: rel "
             f"{backsolve_vs_ref}")
-    # one timed run a method (a second round in the other order and a
-    # profiled run were cut to keep the script near 1000 s)
-    for label, kw, _ in METHOD_RUNS:
-        _, wall = _train(x, y, None, None, loss_fn=_odeint_loss(kw, x, y))
-        out[label]["step_ms"] = wall / TRAIN_STEPS * 1e3
     # The adaptive run's forward accounting at the seeded parameters (its
     # reverse augmented solve runs its own accept/reject loop).
     from repro_torch.core import AdaptiveController, Backsolve, Dopri5, solve
@@ -3126,21 +3138,6 @@ def _cnf_sample(params):
                       "round_trip_mean_logp": float(back.logp.mean())}
 
 
-def _cnf_times(xs_by_batch):
-    """ms per training step on each ALF backend, one run of CNF_STEPS
-    each (a second round and a profiled run were cut to keep the
-    script near 1000 s)."""
-    out = {}
-    for batch, xs in xs_by_batch.items():
-        step_ms = {}
-        for backend in ("reference", "cuda"):
-            _, _, wall, _ = _cnf_train(xs, backend)
-            step_ms[backend] = wall / CNF_STEPS * 1e3
-        out[batch] = {"step_ms_cuda": step_ms["cuda"],
-                      "step_ms_reference": step_ms["reference"]}
-    return out
-
-
 def _decay(p, z, t):
     return -p["a"] * z
 
@@ -3327,10 +3324,8 @@ def phase_cnf(card: str, smi: str):
     lap("c_sample")
     events = _events()
     lap("d_events")
-    # batch 16's times cut to keep the script near 1000 s
-    big = CNF_BATCHES[-1]
-    times = _cnf_times({big: xs_by_batch[big]})
-    lap("e_times")
+    # the times are the counted runs' (first_run_step_ms): the timed runs
+    # on each backend were cut
     emit({"phase": "cnf", "card": card, "nvidia_smi": smi, "part_s": parts,
           "model": f"examples/cnf_image.py: DIM {CNF_DIM}, mlp_vfield "
           f"hidden {CNF_HIDDEN} depth {CNF_DEPTH}, Hutchinson, ALF(eta=1, "
@@ -3341,8 +3336,7 @@ def phase_cnf(card: str, smi: str):
           **out, "peak_bytes_batch_1024": peaks, **growth,
           "sample": sample, "sample_launches": {
               k: v for k, v in sample_launches.items() if v},
-          "events": events, "times": {f"batch_{b}": t
-                                      for b, t in times.items()}})
+          "events": events})
     return launches, sample_launches, trained_by_batch, xs_by_batch
 
 
@@ -3753,7 +3747,7 @@ SV_FULL_REL = 1e-5                # (b) on (d): max |d| / max |x|
 SV_FULL_ROWS = 8                  # (b) on (d): the 4 fastest + 4 slowest
 # (d): launch/serve.py --mode ode at full width (D = the image CNF's 784)
 SV_FULL = dict(batch=1024, d_state=784, n_requests=4096, chunk_steps=32)
-SV_PROFILED = 4                   # rounds profiled and sync-counted
+SV_PROFILED = 4                   # rounds sync-counted
 
 
 def _sv_engine(cls, device: str, **kw):
@@ -4042,9 +4036,8 @@ def _sv_report(rep) -> dict:
 def _sv_full_width():
     """(d) and (e) at full width: serve_ode for both engines all at once
     (the phase's counted main path; its continuous engine kept for peak
-    memory and (b)'s 8 rows), 4 profiled and 4 sync-counted rounds, no
-    sync inside a chunk. (The CLI at its defaults runs in
-    phase_clis.)"""
+    memory and (b)'s 8 rows), 4 sync-counted rounds, no sync inside a
+    chunk. (The CLI at its defaults runs in phase_clis.)"""
     import contextlib
     import io
 
@@ -4109,14 +4102,12 @@ def _sv_full_width():
     out["capacity_requests_per_s"] = rep.n_requests / rep.duration_s
     out["capacity_solves_per_s"] = rep.solves_per_s
 
-    # Four profiled rounds, four sync-counted rounds (no sync inside a
-    # chunk: dispatch_chunk under set_sync_debug_mode("error")).
+    # Four sync-counted rounds (no sync inside a chunk: dispatch_chunk
+    # under set_sync_debug_mode("error")).
     eng = _sv_full_engine()
     eng.scheduler.release(0.0)
     eng._backfill()
     _sv_rounds(eng, 1)
-    out["profile_4_rounds"] = _device_profile(
-        lambda: _sv_rounds(eng, SV_PROFILED))
     chunk = engine_mod.dispatch_chunk
 
     def no_sync_chunk(*a, **kw):
@@ -4688,8 +4679,9 @@ def _serve_cell(arch, per_prefill: dict, per_decode: dict, what: str):
     decode steps: exact launch counts, no host sync, the graph against
     eager decode and serve(), peak memory, init's peak beside the weights
     it made, the bytes one prefill allocates beyond the weights and its
-    state, and the device profiles of a prefill and of 4 replays from the
-    raw kineto events. An input_mode="embeds" config prefills the stub
+    state, and the device profile of 4 replays from the raw kineto events
+    (the graph check reads its busy time). An input_mode="embeds" config
+    prefills the stub
     frontend's embeddings and decodes through the embeds path. Returns
     (the serve run's launches, the phase's fields, the weights)."""
     import torch
@@ -4699,11 +4691,8 @@ def _serve_cell(arch, per_prefill: dict, per_decode: dict, what: str):
     from repro_torch.models import init_lm, init_serve_state, prefill
     cfg = (arch.with_ode(DEFAULT_ODE) if isinstance(arch, ModelConfig)
            else get_config(arch, DEFAULT_ODE))
-    kw = dict(smoke=False, ode=True, batch=LM_BATCH, seed=0)
-    # warm (cuBLAS, kernels) on a short prompt: an xLSTM prefill of
-    # LM_PROMPT tokens takes seconds of host time
-    serve(arch, decode_tokens=2, prompt_len=64, **kw)
-    kw["prompt_len"] = LM_PROMPT
+    kw = dict(smoke=False, ode=True, batch=LM_BATCH, seed=0,
+              prompt_len=LM_PROMPT)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4735,9 +4724,8 @@ def _serve_cell(arch, per_prefill: dict, per_decode: dict, what: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    prof_prefill = _kernel_profile(lambda: prefill(
-        params, cfg, _prompt(cfg, toks[:, :LM_PROMPT]), state),
-        of="flash")
+    prefill(params, cfg, _prompt(cfg, toks[:, :LM_PROMPT]), state)
+    torch.cuda.synchronize()
     prefill_bytes = torch.cuda.max_memory_allocated() - base
 
     def replay4():
@@ -4768,7 +4756,6 @@ def _serve_cell(arch, per_prefill: dict, per_decode: dict, what: str):
         "prefill_activation_bytes": prefill_bytes, "launches": launches,
         "per_prefill": per_prefill, "per_decode_step": per_decode,
         "sample": result.tokens[0][:8].tolist(), "graph_vs_eager": graph,
-        "profile_prefill": prof_prefill,
         "profile_decode_4_replays": prof_replay}
     return launches, fields, params
 
@@ -6234,6 +6221,640 @@ def phase_tp_train(card: str, smi: str):
     return granite["ranks"][0]["launches"][0]
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: LM serving on the JAX package's meshes, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# Each part: a config at full width cut in depth, its dtype, its mesh
+# (data, model), its global batch, prompt and decode tokens. Every rank
+# draws its shards of the seeded weights leaf by leaf (init_lm's cut):
+# it holds its shards plus one whole leaf at a time, never the model.
+TPS_PARTS = {
+    # (a) FSDP over 'data', the rows over 'data', MQA 48/1 (the cache's
+    # d_head over 'model': layout (c)), the head split on the vocabulary
+    "granite": dict(arch="granite-20b", layers=2, dtype="bfloat16",
+                    mesh=(2, 2), batch=4, prompt=1024, decode=16),
+    # (b) one Mamba layer (with a 16-expert MoE: 8 a rank) and one
+    # attention layer (32/8 heads, KV heads over 'model': layout (b)); the
+    # scan on d_inner 4096 of 8192 a rank
+    "jamba": dict(arch="jamba-v0.1-52b", layers=1, dtype="float32",
+                  mesh=(1, 2), batch=2, prompt=512, decode=8,
+                  period=(("mamba", "moe"), ("attn", "dense"))),
+    # (c) batch 1: the KV sequence split over 'data' (layout (d)),
+    # weights replicated ('dp')
+    "qwen3": dict(arch="qwen3-1.7b", layers=8, dtype="bfloat16",
+                  mesh=(2, 1), batch=1, prompt=1024, decode=8),
+}
+# the parts one spawn of rank processes serves, one after another (a
+# process takes ~10 s to start and ~10 s more for its first serve plan:
+# the meta specs' first imports)
+TPS_GROUPS = (("granite",), ("jamba", "qwen3"))
+TPS_SEED = 13
+TPS_TIMEOUT = 240             # seconds the ranks of a part may take
+TPS_PHASE_S = 120.0           # the phase's budget
+# f32 logits against one rank's: rtol 1e-5, or 3x the model's own floor
+# (the one-rank run with the embedding moved by one rounding) where larger
+TPS_F32_TOL = 1e-5
+
+
+def _tps_cfg(part: str):
+    """A part's config: DEFAULT_ODE (MALI, ALF, ConstantSteps(2)) on the
+    kernel path, at full width, cut in depth."""
+    import dataclasses
+    from repro_torch.configs import DEFAULT_ODE, LayerSpec, get_config
+    p = TPS_PARTS[part]
+    changes = dict(n_periods=p["layers"], param_dtype=p["dtype"],
+                   compute_dtype=p["dtype"])
+    if "period" in p:
+        changes["period"] = tuple(LayerSpec(mixer=m, mlp=f)
+                                  for m, f in p["period"])
+    return dataclasses.replace(get_config(p["arch"], DEFAULT_ODE), **changes)
+
+
+def _tps_sizes(part: str) -> dict:
+    return dict(zip(("data", "model"), TPS_PARTS[part]["mesh"]))
+
+
+def _tps_serve(params, cfg, toks, prompt: int, n_decode: int,
+               greedy: bool = False):
+    """prefill + n_decode eager decode steps of ``toks`` (under the
+    ambient mesh, if any), teacher-forced on ``toks`` [B, prompt +
+    n_decode] or, ``greedy``, each step's input the argmax of the logits
+    before it (``toks`` the prompt): the input tokens, logits per step,
+    each step's LM kernel launches, collectives, ALF end states'
+    checksums and ms, the MoE routes, and the bytes allocated after
+    prefill."""
+    import torch
+    from repro_torch.distributed.data_parallel import (
+        collective_counts, reset_collective_counts)
+    from repro_torch.distributed.tensor_parallel import recording_states
+    from repro_torch.models import decode_step, init_serve_state, prefill
+    from repro_torch.models.moe import recording_routes
+    out = {"logits": [], "launches": [], "collectives": [], "ms": [],
+           "states": []}
+    state = init_serve_state(cfg, toks.shape[0], prompt + n_decode)
+    out["cache_bytes"] = _tp_bytes(state.cache)
+    with recording_routes() as routes:
+        for step in range(n_decode + 1):
+            _lm_reset()
+            reset_collective_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with recording_states() as states:
+                if step == 0:
+                    lg, state = prefill(params, cfg,
+                                        _prompt(cfg, toks[:, :prompt]), state)
+                else:
+                    at = prompt + step - 1
+                    if greedy:
+                        toks = torch.cat([toks, torch.argmax(
+                            out["logits"][-1][:, -1], -1)[:, None]], 1)
+                    lg, state = decode_step(params, cfg,
+                                            toks[:, at:at + 1], state)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["logits"].append(lg)
+            out["launches"].append({k: n for k, n in _lm_counts()[0].items()
+                                    if n})
+            out["collectives"].append(collective_counts())
+            out["states"].append(_dp_checksums(states).tolist())
+            del states      # the recorded branch states are the harness's
+            if step == 0:
+                out["allocated_after_prefill"] = torch.cuda.memory_allocated()
+    out["routes"] = list(routes)
+    out["tokens"] = toks
+    return out
+
+
+def _tps_reckon(cfg, sizes: dict, batch: int, s_max: int, kind: str):
+    """The collectives a rank makes in one prefill or decode step (calls
+    by ``kind@axis``) and its FSDP gathers, reckoned from the rules and
+    the serve path's design (PERF.md): a rank's rows are the cache's
+    batch axes; an f-eval of a mixer or MLP split over 'model' leaves
+    through one all-reduce; layout (c)'s decode gathers q and the output
+    and sums the scores over 'model'; layout (d)'s decode gathers the
+    partials over 'data'; Mamba gathers its in-projection's columns; the
+    MoE gathers the expert ids over the rows' group; FSDP gathers each
+    leaf split over 'data' once a layer (the embedding, read by tokens,
+    and the head once a step); the logits are gathered over 'model' and
+    over the rows."""
+    from collections import Counter
+
+    import torch.utils._pytree as _pt
+    from repro_torch.distributed.sharding import (_cache_batch_axes,
+                                                  _path_names,
+                                                  cache_leaf_spec,
+                                                  param_shardings)
+    from repro_torch.launch.specs import param_specs
+    from repro_torch.models.transformer import n_cache_slots
+    m = sizes.get("model", 1)
+    f = cfg.ode.n_steps + 1 if cfg.ode.mode != "off" else 1
+    rows = tuple(a for a in (_cache_batch_axes(cfg, sizes, batch) or ())
+                 if sizes[a] > 1)
+    rows_axis = "+".join(rows)
+    tp_w = cfg.sharding != "dp" and m > 1
+    tp_c = m > 1 and "model" not in rows
+    kv = cache_leaf_spec(cfg, sizes, "k", (n_cache_slots(cfg), batch, s_max,
+                                           cfg.n_kv_heads, cfg.d_head), batch)
+    seq, heads, d_split = kv[2] == "data", kv[3] == "model", \
+        kv[4] == "model"
+    n = Counter()
+    gathers = 0
+    meta = param_specs(cfg)
+    for (path, leaf), spec in zip(
+            _pt.tree_flatten_with_path(meta)[0],
+            _pt.tree_leaves(param_shardings(cfg, sizes, meta))):
+        names = _path_names(path)
+        data = any("data" in ((e,) if isinstance(e, str) else (e or ()))
+                   for e in spec) and sizes.get("data", 1) > 1
+        if not data or (names == ("embed",) and cfg.input_mode == "embeds"):
+            continue
+        gathers += leaf.shape[0] if "period" in names else 1
+    n["all_gather@data"] += gathers
+    if cfg.input_mode != "embeds" and tp_w and cfg.d_model % m == 0:
+        n["all_gather@model"] += 1
+    h, dh = cfg.n_heads, cfg.d_head
+    d_inner = cfg.mamba_expand * cfg.d_model
+    for spec in cfg.prelude + cfg.period * cfg.n_periods:
+        if spec.mixer == "attn" and (tp_w or tp_c):
+            q_local = (tp_w and h % m == 0) or heads
+            o_local = tp_w and (h * dh) % m == 0
+            if q_local or o_local or heads:
+                n["all_reduce@model"] += f
+            if kind == "decode" and d_split:
+                n["all_reduce@model"] += f
+                n["all_gather@model"] += f * (2 if q_local else 1)
+        if spec.mixer == "attn" and kind == "decode" and seq:
+            n["all_gather@data"] += f
+        if spec.mixer == "mamba" and tp_c and d_inner % m == 0:
+            n["all_reduce@model"] += 2 * f
+            if tp_w:
+                n["all_gather@model"] += f
+        if spec.mlp == "dense" and tp_w and cfg.d_ff % m == 0:
+            n["all_reduce@model"] += f
+        if spec.mlp == "moe":
+            if rows:
+                n[f"all_gather@{rows_axis}"] += f
+            dff = cfg.moe_d_ff or cfg.d_ff
+            if tp_w and (cfg.moe_experts % m == 0 or dff % m == 0):
+                n["all_reduce@model"] += f
+    if cfg.tie_embeddings:
+        if tp_w and cfg.d_model % m == 0:
+            n["all_reduce@model"] += 1
+    elif tp_w and cfg.vocab_size % m == 0:
+        n["all_gather@model"] += 1
+    if rows:
+        n[f"all_gather@{rows_axis}"] += 1
+    return {k: v for k, v in n.items() if v}, gathers
+
+
+def _tps_rank(argv) -> int:
+    """One rank of phase 24: ``chip_smoke.py --tps-rank PART[,PART] RANK
+    WORLD DIR``, the parts one after another in this process (each on its
+    own mesh over the same ranks). The process starts with the others of
+    the phase and makes its first part's mesh and serve plan at once; it
+    touches the card when ``DIR/go_PART`` (its first part) appears."""
+    parts, rank, world, d = (argv[0].split(","), int(argv[1]),
+                             int(argv[2]), Path(argv[3]))
+    start = time.time()
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(torch.device(TP_DEVICE))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(d / f"store_{parts[0]}"), world), rank=rank, world_size=world)
+    try:
+        for i, part in enumerate(parts):
+            go = d / f"go_{parts[0]}" if i == 0 else None
+            out = _tps_rank_part(part, rank, d, go,
+                                 d / f"ready_{parts[0]}_{rank}")
+            out["wall"]["start"] = start
+            (d / f"{part}_rank{rank}.json").write_text(json.dumps(out))
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _tps_rank_part(part: str, rank: int, d: Path, go=None,
+                   ready=None) -> dict:
+    """One part on this rank: its mesh and serve plan (then ``ready`` is
+    made), then (once ``go`` exists, if given) its shards drawn leaf by
+    leaf and the teacher-forced serve (``_tps_serve``) on the part's
+    mesh."""
+    import torch
+    import torch.utils._pytree as _pt
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.data_parallel import serve_plan_for
+    from repro_torch.distributed.sharding import _path_names
+    from repro_torch.launch.serve import make_decode_step
+    from repro_torch.launch.specs import param_specs, serve_shard_bytes
+    from repro_torch.models import init_lm
+    p = TPS_PARTS[part]
+    cfg = _tps_cfg(part)
+    mesh = init_device_mesh("cuda", p["mesh"],
+                            mesh_dim_names=("data", "model"))
+    t0 = time.perf_counter()
+    with mesh:
+        plan = serve_plan_for(cfg, mesh, p["batch"])
+        wall = {"plan_s": time.perf_counter() - t0, "planned": time.time()}
+        ready.touch()
+        while go is not None and not go.exists():
+            time.sleep(0.05)
+        wall["ready"] = time.time()
+        toks = torch.load(d / f"{part}_tokens.pt").to(TP_DEVICE)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_lm(torch.Generator(device="cuda").manual_seed(
+            TPS_SEED), cfg, TP_DEVICE, cut=plan.cut)
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated()
+        init_s = time.perf_counter() - t0
+        out = _tps_serve(params, cfg, toks, p["prompt"], p["decode"])
+        wall["served"] = time.time()
+        # a decode graph over these gloo ranks is refused, not skipped
+        try:
+            make_decode_step(cfg, capture=True)(params, toks[:, :1], None)
+            out["capture_refused"] = ""
+        except NotImplementedError as e:
+            out["capture_refused"] = str(e)
+    rule = serve_shard_bytes(cfg, mesh, p["batch"],
+                             p["prompt"] + p["decode"])
+    largest = max(
+        t.numel() // (t.shape[0] if "period" in _path_names(path) else 1)
+        for path, t in _pt.tree_flatten_with_path(param_specs(cfg))[0])
+    out.pop("tokens")
+    logits = out.pop("logits")
+    if rank == 0:
+        torch.save([lg.cpu() for lg in logits], d / f"{part}_logits.pt")
+    out["logits_sums"] = _dp_checksums(logits).tolist()
+    routes = out.pop("routes")
+    if routes:
+        np.savez(d / f"{part}_routes_{rank}.npz",
+                 **{f"idx_{i}": r.idx.cpu().numpy()
+                    for i, r in enumerate(routes)},
+                 **{f"kept_{i}": r.kept.cpu().numpy()
+                    for i, r in enumerate(routes)})
+    out.update(coord=dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())),
+               param_bytes=_tp_bytes(params), rule=rule,
+               init_peak=init_peak, init_s=init_s, largest_leaf=largest,
+               element_size=params["embed"].element_size(),
+               row_axes=list(plan.row_axes), route_calls=len(routes),
+               rank_s=time.perf_counter() - t0, wall=wall)
+    return out
+
+
+def _tps_start(parts, d: Path) -> dict:
+    """Start the rank processes of ``parts`` (one mesh size: the same
+    processes serve them one after another); they wait for
+    ``go_PART``."""
+    import os
+    shape = TPS_PARTS[parts[0]]["mesh"]
+    world = shape[0] * shape[1]
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    logs = [open(d / f"{parts[0]}_rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--tps-rank", ",".join(parts), str(r),
+                               str(world), str(d)], cwd=str(HERE), env=env,
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    return {"parts": parts, "world": world, "procs": procs, "logs": logs,
+            "spawned": time.time()}
+
+
+def _tps_stop(started: dict) -> None:
+    for p in started["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in started["logs"]:
+        f.close()
+
+
+def _tps_go(started: dict, d: Path) -> None:
+    """Let a group of rank processes touch the card."""
+    (d / f"go_{started['parts'][0]}").touch()
+    started["went"] = time.time()
+
+
+def _tps_wait_ready(started: dict, d: Path) -> None:
+    """Until every rank of a group has made its serve plan (or one has
+    ended)."""
+    deadline = time.monotonic() + TPS_TIMEOUT
+    marks = [d / f"ready_{started['parts'][0]}_{r}"
+             for r in range(started["world"])]
+    while (not all(m.exists() for m in marks)
+           and all(p.poll() is None for p in started["procs"])
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+
+
+def _tps_finish(started: dict, d: Path) -> dict:
+    """Wait for a group of rank processes (let go); returns each part's
+    rank results."""
+    parts, world, procs = (started["parts"], started["world"],
+                           started["procs"])
+    went = started["went"]
+    deadline = time.monotonic() + TPS_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        _tps_stop(started)
+    ended = time.time()
+    for r, p in enumerate(procs):
+        require(p.returncode == 0, f"tp_serve {'+'.join(parts)}: rank {r} "
+                f"failed (exit {p.returncode}): "
+                f"{(d / f'{parts[0]}_rank{r}.log').read_text()[-3000:]}")
+    out = {}
+    for part in parts:
+        out[part] = [json.loads((d / f"{part}_rank{r}.json").read_text())
+                     for r in range(world)]
+        for g in out[part]:
+            w = g["wall"]
+            # seconds from the spawn to the process's start and to its
+            # serve plan's end; from the go to the part's start; from the
+            # part's serve to the exit
+            g["startup_s"] = [w["start"] - started["spawned"],
+                              w["planned"] - started["spawned"],
+                              max(0.0, w["ready"] - went),
+                              ended - w["served"]]
+    return out
+
+
+def _tps_kernel_checks(part: str, gen) -> dict:
+    """The kernels at the shapes a rank of the part gives them, against
+    their plain versions: flash on the rank's query and KV heads over its
+    rows, the scan on its block of d_inner (one layer's prefill)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    cfg, p = _tps_cfg(part), TPS_PARTS[part]
+    sizes = _tps_sizes(part)
+    m = sizes["model"]
+    rows = p["batch"] // (sizes["data"] if p["batch"] % sizes["data"] == 0
+                          and sizes["data"] > 1 else 1)
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if m > 1 and h % m == 0:
+        h, kv = h // m, (kv // m if kv % m == 0 else 1)
+    dtype = getattr(torch, p["dtype"])
+    out = {}
+    q = torch.randn(rows, p["prompt"], h, cfg.d_head, generator=gen,
+                    device="cuda").to(dtype)
+    k = torch.randn(rows, p["prompt"], kv, cfg.d_head, generator=gen,
+                    device="cuda").to(dtype)
+    v = torch.randn(rows, p["prompt"], kv, cfg.d_head, generator=gen,
+                    device="cuda").to(dtype)
+    got = fa_ops.flash_attention(q, k, v, causal=True)
+    want = fa_ref.attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rtol, atol = FA_TOL[p["dtype"]]
+    out["flash_attention"] = {
+        "shape": [rows, p["prompt"], h, kv, cfg.d_head],
+        "max_abs_err": _close(got, want, rtol, atol,
+                              f"tp_serve {part} flash at the rank's heads")}
+    if any(s.mixer == "mamba" for s in cfg.period):
+        worst = {}
+        di = cfg.mamba_expand * cfg.d_model // m
+        from repro_torch.kernels.mamba_scan import ops as ms_ops
+        from repro_torch.kernels.mamba_scan import ref as ms_ref
+        args = _scan_inputs(gen, rows, p["prompt"], di, cfg.mamba_d_state,
+                            dtype)
+        got, want = ms_ops.selective_scan(*args), \
+            ms_ref.selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, ("y", "h")):
+            worst[name] = _close(g, w, *MS_TOL,
+                                 f"tp_serve {part} scan {name} at d_inner "
+                                 f"{di}")
+        require(worst["h"] == 0.0, f"tp_serve {part}: the scan's h at the "
+                f"rank's d_inner is not bit-equal ({worst['h']})")
+        out["selective_scan"] = {"shape": [rows, p["prompt"], di,
+                                           cfg.mamba_d_state],
+                                 "max_abs_err": worst}
+    return out
+
+
+def _tps_reference(part: str, d: Path) -> dict:
+    """A part's one-rank run (and, in f32, its floor) and the kernels at
+    the rank's shapes; the greedy tokens saved for the ranks."""
+    import torch
+    from repro_torch.models import init_lm
+    p = TPS_PARTS[part]
+    cfg = _tps_cfg(part)
+    sizes = _tps_sizes(part)
+    s_max = p["prompt"] + p["decode"]
+    f32 = p["dtype"] == "float32"
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device="cuda").manual_seed(TPS_SEED),
+                     cfg, "cuda")
+    # one rank decodes greedily; the ranks and the floor's run are
+    # teacher-forced on its tokens
+    one = _tps_serve(params, cfg, _lm_inputs(cfg, p["batch"], p["prompt"],
+                                             TPS_SEED),
+                     p["prompt"], p["decode"], greedy=True)
+    toks = one.pop("tokens")
+    floor = None
+    if f32:
+        moved = _tps_serve(_moved(params, torch.float32), cfg, toks,
+                           p["prompt"], p["decode"])
+        floor = max(_rel(a, b) for a, b in zip(moved["logits"],
+                                                one["logits"]))
+    kernels = _tps_kernel_checks(
+        part, torch.Generator(device="cuda").manual_seed(TPS_SEED))
+    one_bytes = _tp_bytes(params)
+    one_logits = [lg.cpu() for lg in one.pop("logits")]
+    one_routes = one.pop("routes")
+    torch.save(toks.cpu(), d / f"{part}_tokens.pt")
+    del params
+    torch.cuda.empty_cache()
+    return {"one": one, "floor": floor, "kernels": kernels,
+            "one_bytes": one_bytes, "one_logits": one_logits,
+            "one_routes": one_routes, "one_s": time.perf_counter() - t0}
+
+
+def _tps_check(part: str, d: Path, ref: dict, ranks) -> dict:
+    """Hold a part's ranks to its one-rank run."""
+    import torch
+    p = TPS_PARTS[part]
+    cfg = _tps_cfg(part)
+    sizes = _tps_sizes(part)
+    s_max = p["prompt"] + p["decode"]
+    f32 = p["dtype"] == "float32"
+    one, floor, one_logits, one_routes = (
+        ref["one"], ref["floor"], ref["one_logits"], ref["one_routes"])
+    # the logits: rank 0's against one rank's, the same on every rank
+    got = torch.load(d / f"{part}_logits.pt")
+    rel = [_rel(g, w) for g, w in zip(got, one_logits)]
+    tol = (max(TPS_F32_TOL, FLOOR_FACTOR * floor) if f32
+           else LM_TOL["bfloat16"])
+    require(max(rel) <= tol, f"tp_serve {part}: logits against one rank's "
+            f"{rel} (tolerance {tol})")
+    greedy = [int((torch.argmax(g[:, -1], -1) == torch.argmax(w[:, -1],
+                                                               -1)).sum())
+              for g, w in zip(got, one_logits)]
+    reck = {kind: _tps_reckon(cfg, sizes, p["batch"], s_max, kind)
+            for kind in ("prefill", "decode")}
+    for r, g in enumerate(ranks):
+        where = f"tp_serve {part} rank {r}"
+        require(g["logits_sums"] == ranks[0]["logits_sums"],
+                f"{where}: its logits differ from rank 0's")
+        require(g["param_bytes"] == g["rule"]["params"]
+                and g["cache_bytes"] == g["rule"]["cache"],
+                f"{where}: holds {g['param_bytes']} + {g['cache_bytes']} "
+                f"bytes, the rules reckon {g['rule']}")
+        held = g["param_bytes"] + g["cache_bytes"]
+        require(g["allocated_after_prefill"] <= held + TP_RESIDENT_SLACK,
+                f"{where}: {g['allocated_after_prefill']} bytes allocated "
+                f"after prefill, the shards and caches are {held}")
+        leaf = g["largest_leaf"] * (4 + g["element_size"])
+        require(g["init_peak"] <= g["param_bytes"] + leaf
+                + TP_RESIDENT_SLACK, f"{where}: init peaked at "
+                f"{g['init_peak']} bytes, its shards {g['param_bytes']} "
+                f"plus one whole leaf's draw {leaf}")
+        require(g["launches"] == one["launches"], f"{where}: launches "
+                f"{g['launches']}, one rank {one['launches']}")
+        for step, col in enumerate(g["collectives"]):
+            kind = "prefill" if step == 0 else "decode"
+            want, gathers = reck[kind]
+            calls = {k: v["calls"] for k, v in col.items()
+                     if "@" in k and v.get("calls")}
+            require(calls == want, f"{where} step {step}: collectives "
+                    f"{calls}, reckoned {want}")
+            require(col["fsdp_gathers"]["forward"] == gathers,
+                    f"{where} step {step}: FSDP gathers "
+                    f"{col['fsdp_gathers']}, reckoned {gathers}")
+        require("stages its collectives through the host"
+                in g["capture_refused"], f"{where}: a decode graph over "
+                f"gloo ranks was not refused ({g['capture_refused']})")
+        for q, other in enumerate(ranks):
+            same_rows = all(g["coord"][a] == other["coord"][a]
+                            for a in g["row_axes"])
+            if same_rows:
+                require(g["states"] == other["states"], f"tp_serve {part}: "
+                        f"ranks {r} and {q}'s ALF states differ")
+    differ = 0
+    if one_routes:
+        for r, g in enumerate(ranks):
+            require(g["route_calls"] == len(one_routes), f"tp_serve {part} "
+                    f"rank {r}: {g['route_calls']} MoE calls against "
+                    f"{len(one_routes)}")
+            with np.load(d / f"{part}_routes_{r}.npz") as f:
+                for i, want in enumerate(one_routes):
+                    mine = np.sort(f[f"idx_{i}"], -1)
+                    theirs = np.sort(want.idx.cpu().numpy(), -1)
+                    differ += int((mine != theirs).any(-1).sum() + (
+                        f[f"kept_{i}"] != want.kept.cpu().numpy()
+                    ).any(-1).sum())
+        require(differ == 0, f"tp_serve {part}: {differ} routes differ "
+                "from the one-rank run's")
+    return {"config": {"arch": p["arch"], "dtype": p["dtype"],
+                       "layers": (f"{p['layers']} of "
+                                  f"{_tps_layers(p['arch'])}"
+                                  if "period" not in p else
+                                  "one period of "
+                                  + "/".join("+".join(s)
+                                             for s in p["period"])),
+                       "mesh": sizes, "batch": p["batch"],
+                       "prompt": p["prompt"], "decode": p["decode"],
+                       "backend": "gloo, ranks sharing one card",
+                       "ode": "MALI, ALF(cuda), ConstantSteps(2)"},
+            "rel": rel, "tolerance": tol, "floor": floor,
+            "greedy_agree": greedy, "rows": p["batch"],
+            "kernels": ref["kernels"], "routes_differ": differ,
+            "route_calls": len(one_routes),
+            "one_rank": {"prefill_ms": one["ms"][0],
+                         "decode_ms": one["ms"][1:],
+                         "param_bytes": ref["one_bytes"],
+                         "cache_bytes": one["cache_bytes"],
+                         "launches": one["launches"][:2]},
+            "reckoned": reck,
+            "ranks": [{"coord": g["coord"], "prefill_ms": g["ms"][0],
+                       "decode_ms": g["ms"][1:],
+                       "param_bytes": g["param_bytes"],
+                       "cache_bytes": g["cache_bytes"],
+                       "allocated_after_prefill":
+                           g["allocated_after_prefill"],
+                       "init_peak": g["init_peak"], "init_s": g["init_s"],
+                       "plan_s": g["wall"]["plan_s"],
+                       "startup_s": g["startup_s"],
+                       "collectives": g["collectives"][:2],
+                       "rank_s": g["rank_s"]} for g in ranks],
+            "launches": ranks[0]["launches"][:2], "one_rank_s": ref["one_s"]}
+
+
+def _tps_layers(arch: str) -> int:
+    from repro_torch.configs import get_config
+    return get_config(arch).n_layers
+
+
+def phase_tp_serve(card: str, smi: str):
+    """Phase 24: LM serving on meshes, ranks sharing the card (gloo): (a)
+    granite-20b on (2, 2), (b) jamba-v0.1-52b on (1, 2), (c) qwen3-1.7b at
+    batch 1 on (2, 1), each against one rank serving the same cut. Each
+    group of rank processes (TPS_GROUPS; (b) and (c) in the same two)
+    starts before it serves: the first while this process runs the
+    one-rank references, the next while the one before it serves.
+    Returns each part's launches per rank, per prefill and per decode
+    step."""
+    import tempfile
+
+    import torch
+    t0 = time.perf_counter()
+    parts, walls = {}, {}
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        d = Path(tmp)
+        started = [_tps_start(TPS_GROUPS[0], d)]
+        try:
+            refs = {part: _tps_reference(part, d) for group in TPS_GROUPS
+                    for part in group}
+            walls["one_rank"] = time.perf_counter() - t0
+            for i, group in enumerate(TPS_GROUPS):
+                t1 = time.perf_counter()
+                _tps_go(started[i], d)
+                if i + 1 < len(TPS_GROUPS):
+                    # the next group starts while this one serves
+                    _tps_wait_ready(started[i], d)
+                    started.append(_tps_start(TPS_GROUPS[i + 1], d))
+                ranks = _tps_finish(started[i], d)
+                for part in group:
+                    parts[part] = _tps_check(part, d, refs[part],
+                                             ranks[part])
+                walls["+".join(group)] = time.perf_counter() - t1
+        finally:
+            for run in started:
+                _tps_stop(run)
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "tp_serve", "card": card, "nvidia_smi": smi, **parts,
+          "group_s": walls, "phase_s": phase_s, "budget_s": TPS_PHASE_S,
+          "within_budget": phase_s <= TPS_PHASE_S})
+    return {part: {"prefill": r["launches"][0], "decode": r["launches"][1]}
+            for part, r in parts.items()}
+
+TPS_CLI_ARCH = "deepseek-moe-16b"
+
+
+def _tps_cli(res) -> dict:
+    """Phase 24's CLI, run by phase_clis: the serve launcher under
+    torch.distributed.run, deepseek-moe's smoke config on two ranks of one
+    card (the host mesh (2, 1): the rows over 'data', the MoE ranking its
+    tokens over both ranks): rank 0 alone prints, the decode eager."""
+    lines = res.stdout.splitlines()
+    heads = [x for x in lines if x.startswith("arch=")]
+    require(res.returncode == 0 and len(heads) == 1
+            and "mesh={'data': 2, 'model': 1}" in heads[0]
+            and any(x.startswith("decode:") and x.endswith("eager")
+                    for x in lines),
+            f"tp_serve (CLI): {res.stdout[-2000:]}{res.stderr[-3000:]}")
+    return {"cli_s": res.s, "lines": lines}
+
+
 def _cli_runs() -> dict:
     """Each launcher a phase checks: name -> (the arguments after
     ``python -m``, its timeout in seconds, its phase's check of the
@@ -6257,12 +6878,14 @@ def _cli_runs() -> dict:
         "dp_train": ([*dist_run, "--steps", "3", "--device", DP_DEVICE],
                      240, _dp_cli),
         "tp_train": ([*dist_run, "--arch", TP_MOE_ARCH, "--smoke",
-                      "--steps", "3", "--device", TP_DEVICE], 240, _tp_cli)}
+                      "--steps", "3", "--device", TP_DEVICE], 240, _tp_cli),
+        "tp_serve": ([*dist_run[:-1], "repro_torch.launch.serve", "--arch",
+                      TPS_CLI_ARCH, "--device", TP_DEVICE], 240, _tps_cli)}
 
 
 def phase_clis(card: str, smi: str):
-    """Phase 23: the launchers of phases 16 (d), 17 (e), 18 (c), 20 (d)
-    and 22 (c), all started together (each its own process; their host
+    """Phase 23: the launchers of phases 16 (d), 17 (e), 18 (c), 20 (d),
+    22 (c) and 24's serve launcher on two ranks, all started together (each its own process; their host
     work overlaps) and each held to its phase's check. Every process is
     stopped before this returns."""
     import os
@@ -6314,7 +6937,7 @@ def phase_clis(card: str, smi: str):
 
 
 def _new_cell_launches(name: str, xlstm: dict, gemma2: dict,
-                       dp: dict, configs: dict, tp: dict) -> dict:
+                       dp: dict, configs: dict, tp: dict, tps: dict) -> dict:
     return {"launches_xlstm_prefill": xlstm["prefill"].get(name, 0),
             "launches_xlstm_decode": xlstm["decode"].get(name, 0),
             "launches_xlstm_train": xlstm["train"].get(name, 0),
@@ -6326,7 +6949,12 @@ def _new_cell_launches(name: str, xlstm: dict, gemma2: dict,
             # per prefill and per decode step of each config (21)
             "launches_configs_serve": {
                 arch: {kind: per.get(name, 0) for kind, per in c.items()}
-                for arch, c in configs.items()}}
+                for arch, c in configs.items()},
+            # per prefill and per decode step on a rank of each part of
+            # the serve on meshes (24)
+            "launches_tp_serve": {
+                part: {kind: per.get(name, 0) for kind, per in c.items()}
+                for part, c in tps.items()}}
 
 
 def main() -> int:
@@ -6380,8 +7008,7 @@ def main() -> int:
         launches[name] = direct[name]
     lap("direct_backprop")
     phase_memory()
-    phase_profile()
-    lap("memory_profile")
+    lap("memory")
     lm_worst, lm_checks = phase_lm_kernels()
     lm_times = phase_lm_times(card)
     lap("lm_kernels_times")
@@ -6411,6 +7038,8 @@ def main() -> int:
     lap("tp_train")
     phase_clis(card, smi)
     lap("clis")
+    tps = phase_tp_serve(card, smi)
+    lap("tp_serve")
     emit({"phase": "walls", "seconds": walls})
 
     table = []
@@ -6453,7 +7082,7 @@ def main() -> int:
                       # step (phase 18), per gemma2-2b prefill (19), per
                       # data-parallel training step on a rank (20)
                       **_new_cell_launches(name, xlstm, gemma2, dp,
-                                           configs, tp)})
+                                           configs, tp, tps)})
     for name, (replaces, source) in LM_KERNELS.items():
         row = lm_times[name]
         # each kernel's launches from its own path: the scan's from the
@@ -6467,7 +7096,7 @@ def main() -> int:
                       "launches_serve": serve_launches[name],
                       "launches_lm_train": train_launches[name],
                       **_new_cell_launches(name, xlstm, gemma2, dp,
-                                           configs, tp),
+                                           configs, tp, tps),
                       "checks": lm_checks[name],
                       "max_abs_err": lm_worst[name]["bfloat16"],
                       "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -6496,4 +7125,6 @@ if __name__ == "__main__":
         sys.exit(_dp_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-rank"]:
         sys.exit(_tp_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tps-rank"]:
+        sys.exit(_tps_rank(sys.argv[2:]))
     sys.exit(main())

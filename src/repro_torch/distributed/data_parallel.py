@@ -53,6 +53,24 @@ data ranks without ``ode.batch_axis='data'`` (the controller's error norm
 would have to be reduced over the group every trial: ROADMAP queue 1
 item 12).
 
+**Serving** (:class:`ServePlan`, :func:`serve_plan_for`): a prefill or
+decode step on a mesh, on the parameter leaves' layout that training
+uses too (:class:`ParamLayout`, the base of both plans). The parameters
+are the rank's shards by ``param_shardings`` (cut leaf by leaf as
+``init_lm`` draws them, :meth:`ServePlan.cut`), the caches the rank's blocks by
+``cache_shardings`` (:meth:`ServePlan.cache_shape`), and the rows those
+of the caches' batch dimension (:meth:`ServePlan.local_rows`; every row
+on every rank where the batch does not divide the data axes). Inside
+:meth:`ServePlan.computing` the layers split over 'model' as in training
+(the caches' 'model' group beside the weights',
+:func:`~repro_torch.distributed.tensor_parallel.serving`), the MoE ranks
+its tokens in the global order (:func:`row_split`), and each layer
+gathers its leaves split over 'data' once (:func:`fsdp_gathered`).
+Refused by the serve plan: caches that the rule splits over 'model' where
+the serve path does not split its compute (the xLSTM's LSTM states, whose
+weights the rule replicates; a Mamba cache split on its window or state
+axis): ROADMAP queue 1 item 15.
+
 Collectives go through :class:`DataGroup`, one for each mesh dimension
 or set of dimensions (:func:`mesh_group`), chosen by the group's
 backend: NCCL takes device tensors (one card a rank); gloo takes CPU
@@ -79,13 +97,16 @@ import torch.utils._pytree as _pt
 from repro_torch import tree_util as pytree
 from repro_torch.configs.base import ModelConfig
 
-from .sharding import (_path_names, axis_group, batch_shardings, dp_axes,
-                       mesh_axes, opt_state_shardings, param_shardings)
-from .tensor_parallel import splitting_model
+from .sharding import (_cache_batch_axes, _path_names, axis_group,
+                       batch_shardings, cache_leaf_spec, cache_shardings,
+                       dp_axes, local_shape, mesh_axes, opt_state_shardings,
+                       param_shardings)
+from .tensor_parallel import serving, splitting_model
 
 Pytree = Any
 
 ADAPTIVE_ITEM = "ROADMAP queue 1 item 12"
+SERVE_ITEM = "ROADMAP queue 1 item 15"
 
 # torch 2.13 renamed the tensor-form collectives
 _all_gather = (getattr(dist, "all_gather_single", None)
@@ -246,15 +267,20 @@ def _adaptive(cfg: ModelConfig) -> bool:
     return cfg.ode.mode != "off" and cfg.ode.n_steps == 0
 
 
-def check_supported(cfg: ModelConfig, mesh) -> None:
-    """Raise ``NotImplementedError`` for what the port does not train on
-    a mesh: adaptive control over several data ranks unless each rank
-    solves its own rows (``ode.batch_axis='data'``)."""
+def _check_axes(mesh) -> Dict[str, int]:
     axes = mesh_axes(mesh)
     unknown = set(axes) - {"pod", "data", "model"}
     if unknown:
         raise ValueError(f"mesh axes {sorted(unknown)}: the rules name "
                          "'pod', 'data' and 'model'")
+    return axes
+
+
+def check_supported(cfg: ModelConfig, mesh) -> None:
+    """Raise ``NotImplementedError`` for what the port does not train on
+    a mesh: adaptive control over several data ranks unless each rank
+    solves its own rows (``ode.batch_axis='data'``)."""
+    axes = _check_axes(mesh)
     ranks = math.prod(axes.get(a, 1) for a in ("pod", "data"))
     if (ranks > 1 and _adaptive(cfg) and cfg.ode.batch_axis != "data"):
         raise NotImplementedError(
@@ -441,33 +467,116 @@ class _Leaf(NamedTuple):
     opt: Dims                   # where its optimizer state is split
 
 
-class DataParallel:
-    """A training step's plan on a mesh: each parameter leaf's layout by
-    ``param_shardings`` and its optimizer state's by
-    ``opt_state_shardings`` (found by key path, from the config's whole
-    shapes), the rows' group, and the collectives that execute them.
-    Every rank of the mesh builds the same plan and calls its collective
-    methods in the same order. ``params`` is any tree of the model's
-    parameters (whole or the rank's shards) in the caller's leaf order."""
+class ParamLayout:
+    """Each parameter leaf's layout on a mesh by ``param_shardings`` (found
+    by key path, from the config's whole shapes) and this rank's place in
+    it: what a training plan (:class:`DataParallel`) and a serve plan
+    (:class:`ServePlan`) share. With ``opt=True`` each leaf also carries
+    its optimizer state's layout by ``opt_state_shardings`` (else the
+    parameter's)."""
 
-    def __init__(self, cfg: ModelConfig, mesh, params: Pytree):
-        check_supported(cfg, mesh)
+    def __init__(self, cfg: ModelConfig, mesh, opt: bool = False):
         from repro_torch.launch.specs import param_specs
         self.cfg, self.mesh = cfg, mesh
-        self.sizes = sizes = mesh_axes(mesh)
+        self.sizes = sizes = _check_axes(mesh)
         self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         meta = param_specs(cfg)
         p_sh = param_shardings(cfg, mesh, meta)
-        o_sh = opt_state_shardings(cfg, mesh, p_sh, meta)
-        by_path = {}
+        o_sh = opt_state_shardings(cfg, mesh, p_sh, meta) if opt else p_sh
+        self.by_path: Dict[Tuple[str, ...], _Leaf] = {}
         for (path, leaf), ps, os_ in zip(
                 _pt.tree_flatten_with_path(meta)[0],
                 _pt.tree_leaves(p_sh), _pt.tree_leaves(o_sh)):
-            by_path[_path_names(path)] = _Leaf(
+            self.by_path[_path_names(path)] = _Leaf(
                 tuple(leaf.shape), _dims(ps, sizes), _dims(os_, sizes))
-        self.leaves: List[_Leaf] = [
-            by_path[_path_names(path)]
-            for path, _ in _pt.tree_flatten_with_path(params)[0]]
+
+    def layouts(self, tree: Pytree) -> List[_Leaf]:
+        """Each leaf's layout, in ``tree``'s leaf order."""
+        return [self.by_path[_path_names(path)]
+                for path, _ in _pt.tree_flatten_with_path(tree)[0]]
+
+    @staticmethod
+    def fsdp_dim(lay: _Leaf) -> Optional[int]:
+        """The dimension a leaf is split on over 'data' (FSDP), or None."""
+        return next((d for d, names in lay.param if "data" in names), None)
+
+    def _make_groups(self, extra) -> None:
+        """Every group the plan uses, made now in one order on every rank:
+        each axis, then ``extra``."""
+        for names in [(a,) for a in self.mesh.mesh_dim_names] + list(extra):
+            mesh_group(self.mesh, names)
+
+    def _group(self, names) -> DataGroup:
+        return mesh_group(self.mesh, names)
+
+    def _index(self, names) -> Tuple[int, int]:
+        """(this rank's block index, the number of blocks) over the axes
+        ``names``, first axis major."""
+        idx, n = 0, 1
+        for a in names:
+            idx = idx * self.sizes[a] + self.coord[a]
+            n *= self.sizes[a]
+        return idx, n
+
+    def _narrow(self, t: torch.Tensor, dims: Dims) -> torch.Tensor:
+        """The rank's block of ``t`` along each of ``dims`` (a view)."""
+        for d, names in dims:
+            idx, n = self._index(names)
+            size = t.shape[d] // n
+            t = t.narrow(d, idx * size, size)
+        return t
+
+    def param_shards(self, params: Pytree, copy: bool = True) -> Pytree:
+        """The rank's block of each leaf of the whole ``params`` by
+        ``param_shardings`` (copies, so the whole leaves can be freed;
+        views with ``copy=False``)."""
+        def one(path, t):
+            # an empty leaf (an optimizer's placeholder) is never split
+            dims = self.by_path[_path_names(path)].param if t.numel() else ()
+            s = self._narrow(t, dims)
+            return s.clone() if copy and dims else s
+        return _pt.tree_map_with_path(one, params)
+
+    @contextlib.contextmanager
+    def _splitting(self, rows: Optional[DataGroup], model, fsdp_split: bool,
+                   fsdp_dims: List[Optional[int]]) -> Iterator[None]:
+        """Inside the block the loss and the MoE see rows split over
+        ``rows`` (:func:`row_split`), the layers split over ``model``, and
+        the flattened leaves with a dimension in ``fsdp_dims`` are gathered
+        over 'data' per layer (their gradients reduce-scattered where
+        ``fsdp_split``, the rows being split over 'data')."""
+        data = self._group(("data",))
+        fsdp = (_Fsdp(data, fsdp_split, fsdp_dims)
+                if data is not None and any(d is not None for d in fsdp_dims)
+                else None)
+        if rows is not None:
+            _ROW_SPLITS.append(rows)
+        if fsdp is not None:
+            _FSDP.append(fsdp)
+        try:
+            with splitting_model(model):
+                yield
+        finally:
+            if fsdp is not None:
+                _FSDP.pop()
+            if rows is not None:
+                _ROW_SPLITS.pop()
+
+
+class DataParallel(ParamLayout):
+    """A training step's plan on a mesh: each parameter leaf's layout by
+    ``param_shardings`` and its optimizer state's by
+    ``opt_state_shardings`` (:class:`ParamLayout`), the rows' group, and
+    the collectives that execute them. Every rank of the mesh builds the
+    same plan and calls its collective methods in the same order.
+    ``params`` is any tree of the model's parameters (whole or the rank's
+    shards) in the caller's leaf order."""
+
+    def __init__(self, cfg: ModelConfig, mesh, params: Pytree):
+        check_supported(cfg, mesh)
+        super().__init__(cfg, mesh, opt=True)
+        sizes = self.sizes
+        self.leaves: List[_Leaf] = self.layouts(params)
         for leaf in self.leaves:
             if not set(leaf.param) <= set(leaf.opt):
                 raise ValueError(f"optimizer layout {leaf.opt} does not "
@@ -475,17 +584,13 @@ class DataParallel:
         self.dims: List[Optional[int]] = [
             leaf.opt[0][0] if leaf.opt else None for leaf in self.leaves]
         self.fsdp_dims: List[Optional[int]] = [
-            next((d for d, names in leaf.param if "data" in names), None)
-            for leaf in self.leaves]
-        # every group the plan will use, made now in one order on every
-        # rank: each axis, the rows', the ZeRO-1 sets, the whole mesh
+            self.fsdp_dim(leaf) for leaf in self.leaves]
+        # the rows', the ZeRO-1 sets, the whole mesh
         self.row_axes = self._row_axes(None)
-        for names in ([(a,) for a in mesh.mesh_dim_names]
-                      + [self.row_axes, dp_axes(mesh)]
-                      + sorted({names for leaf in self.leaves
-                                for _, names in leaf.opt})
-                      + [tuple(mesh.mesh_dim_names)]):
-            mesh_group(mesh, names)
+        self._make_groups([self.row_axes, dp_axes(mesh)]
+                          + sorted({names for leaf in self.leaves
+                                    for _, names in leaf.opt})
+                          + [tuple(mesh.mesh_dim_names)])
         self.group = (mesh_group(mesh, self.row_axes)
                       or mesh_group(mesh, ("data",))
                       or DataGroup("data", *axis_group(mesh, "data")))
@@ -502,25 +607,6 @@ class DataParallel:
     def n_fsdp(self) -> int:
         """How many leaves are split over 'data' (gathered per layer)."""
         return sum(d is not None for d in self.fsdp_dims)
-
-    def _group(self, names) -> DataGroup:
-        return mesh_group(self.mesh, names)
-
-    def _index(self, names) -> Tuple[int, int]:
-        """(this rank's block index, the number of blocks) over the axes
-        ``names``, first axis major."""
-        idx, n = 0, 1
-        for a in names:
-            idx = idx * self.sizes[a] + self.coord[a]
-            n *= self.sizes[a]
-        return idx, n
-
-    def _narrow(self, t: torch.Tensor, dims: Dims) -> torch.Tensor:
-        for d, names in dims:
-            idx, n = self._index(names)
-            size = t.shape[d] // n
-            t = t.narrow(d, idx * size, size)
-        return t
 
     def _gather(self, t: torch.Tensor, dims: Dims) -> torch.Tensor:
         for d, names in dims:
@@ -586,20 +672,10 @@ class DataParallel:
         """Where a step computes its loss and gradients from the rank's
         parameter shards: the rows split over ``split``, the layers
         split over 'model', the 'data' shards gathered per layer."""
-        data = self._group(("data",))
-        fsdp = (_Fsdp(data, split is not None and "data" in split.axes,
-                      self.fsdp_dims)
-                if data is not None and self.n_fsdp else None)
-        with self.splitting_rows(split or False), \
-                splitting_model(self.model):
-            if fsdp is None:
-                yield
-                return
-            _FSDP.append(fsdp)
-            try:
-                yield
-            finally:
-                _FSDP.pop()
+        with self._splitting(split, self.model,
+                             split is not None and "data" in split.axes,
+                             self.fsdp_dims):
+            yield
 
     # -- leaves ---------------------------------------------------------------
 
@@ -611,17 +687,6 @@ class DataParallel:
         return leaves, spec, [
             _Leaf(lay.whole, (), ()) if t.numel() == 0 else lay
             for t, lay in zip(leaves, self.leaves)]
-
-    def param_shards(self, params: Pytree, copy: bool = True) -> Pytree:
-        """The rank's block of each leaf of the whole ``params`` by
-        ``param_shardings`` (copies, so the whole leaves can be freed;
-        views with ``copy=False``)."""
-        leaves, spec, lays = self._zip(params)
-        out = []
-        for t, lay in zip(leaves, lays):
-            s = self._narrow(t, lay.param)
-            out.append(s.clone() if copy and lay.param else s)
-        return pytree.tree_unflatten(out, spec)
 
     def shard(self, tree: Pytree) -> Pytree:
         """This rank's block of each leaf of a whole params-shaped tree in
@@ -778,8 +843,155 @@ def plan_for(cfg: ModelConfig, mesh, params: Pytree
     return _PLANS[key]
 
 
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+_LSTM_FIELDS = ("c", "n", "m", "h")
+# a Mamba cache leaf's d_inner dimension (without the period dimension):
+# the only one the serve path splits its compute on
+_MAMBA_D_INNER = {"conv": 3, "ssm": 2}
+
+
+def _check_servable(names: Tuple[str, ...], spec, sizes) -> None:
+    """Raise ``NotImplementedError`` for a cache leaf that the rule splits
+    over 'model' (off its batch dimension) where the serve path computes
+    whole (module docstring)."""
+    core = spec[1:] if "period" in names else spec
+    at = [d for d, e in enumerate(core) if d > 1 and sizes.get("model", 1) > 1
+          and "model" in ((e,) if isinstance(e, str) else (e or ()))]
+    if not at:
+        return
+    field = names[-1]
+    if field in _LSTM_FIELDS:
+        raise NotImplementedError(
+            f"serving an xLSTM on a mesh whose 'model' axis splits its LSTM "
+            f"caches ({'/'.join(names)}: {spec}): the rule replicates the "
+            f"LSTM weights, so each rank would compute every head and keep "
+            f"a block of the state ({SERVE_ITEM}); serve it under a data "
+            "split alone")
+    if field in _MAMBA_D_INNER and at != [_MAMBA_D_INNER[field]]:
+        raise NotImplementedError(
+            f"a Mamba cache split over 'model' off its d_inner dimension "
+            f"({'/'.join(names)}: {spec}; {SERVE_ITEM})")
+
+
+class ServePlan(ParamLayout):
+    """A serve step's layout on a mesh (module docstring): each parameter
+    leaf's block by ``param_shardings`` (:class:`ParamLayout`), each cache
+    leaf's by ``cache_shardings`` at the global ``batch``, the rows, and
+    the groups that run the layers' collectives. Every rank of the mesh
+    builds the same plan. Raises ``ValueError`` where ``cache_shardings``
+    does (a spec naming an axis twice) and ``NotImplementedError`` for the
+    caches of :data:`SERVE_ITEM`."""
+
+    def __init__(self, cfg: ModelConfig, mesh, batch: int):
+        from repro_torch.launch.specs import META
+        from repro_torch.models.transformer import init_cache
+        super().__init__(cfg, mesh)
+        sizes, self.batch = self.sizes, batch
+        # the caches' layout off the sequence dimension does not depend
+        # on its length
+        cache = init_cache(cfg, batch, 1, META)
+        for (path, _), spec in zip(
+                _pt.tree_flatten_with_path(cache)[0],
+                _pt.tree_leaves(cache_shardings(cfg, mesh, cache, batch))):
+            _check_servable(_path_names(path), spec, sizes)
+        lead = _cache_batch_axes(cfg, mesh, batch) or ()
+        self.row_axes = tuple(a for a in lead if sizes[a] > 1)
+        self._make_groups([self.row_axes])
+        self.rows = mesh_group(mesh, self.row_axes)
+        model = mesh_group(mesh, ("model",))
+        # the weights' split (MLP, MoE, embedding, head), and the caches'
+        # (attention, Mamba): a pure-DP config's caches split over 'model'
+        # unless its batch is
+        self.model = model if cfg.sharding != "dp" else None
+        self.tp = model if "model" not in self.row_axes else None
+        self.data = mesh_group(mesh, ("data",))
+
+    # -- parameters ---------------------------------------------------------
+
+    def cut(self, names: Tuple[str, ...], t: torch.Tensor,
+            period: bool = False) -> torch.Tensor:
+        """The rank's block of the leaf at key path ``names`` (a copy;
+        ``period=True``: ``t`` is one period of a period-stacked leaf,
+        whose stacked dimension is never split)."""
+        dims = self.by_path[names].param
+        if period:
+            dims = tuple((d - 1, a) for d, a in dims)
+        return self._narrow(t, dims).clone() if dims else t
+
+    def check_params(self, params: Pytree) -> None:
+        """Raise ``ValueError`` unless ``params`` holds this rank's blocks
+        (a whole tree passed by mistake would be summed over 'model')."""
+        for path, t in _pt.tree_flatten_with_path(params)[0]:
+            names = _path_names(path)
+            want = list(self.by_path[names].whole)
+            for d, axes in self.by_path[names].param:
+                want[d] //= self._index(axes)[1]
+            if list(t.shape) != want:
+                raise ValueError(
+                    f"serving on a mesh takes the rank's parameter shards "
+                    f"(ServePlan.param_shards): {'/'.join(names)} has shape "
+                    f"{tuple(t.shape)}, its shard {tuple(want)}")
+
+    # -- caches and rows ----------------------------------------------------
+
+    def cache_shape(self, name: str, shape: Tuple[int, ...]
+                    ) -> Tuple[int, ...]:
+        """The rank's block of a cache leaf (field ``name``, whole shape
+        ``shape`` without a period dimension)."""
+        spec = cache_leaf_spec(self.cfg, self.mesh, name, tuple(shape),
+                               self.batch)
+        return local_shape(spec, shape, self.mesh)
+
+    def local_rows(self, tree: Pytree) -> Pytree:
+        """This rank's rows of a tree of global-batch leaves."""
+        if self.rows is None:
+            return tree
+        idx, n = self._index(self.row_axes)
+        b = self.batch // n
+        return pytree.tree_map(lambda a: a[idx * b:(idx + 1) * b], tree)
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' rows of ``t`` put together: the global batch."""
+        return t if self.rows is None else self.rows.all_gather(t)
+
+    # -- the step -----------------------------------------------------------
+
+    @contextlib.contextmanager
+    def computing(self, params: Pytree) -> Iterator[None]:
+        """Where a serve step runs on the rank's shards ``params``: the
+        rows split over the caches' batch axes, the layers over 'model',
+        each layer's 'data' shards gathered once (and freed after it)."""
+        dims = [self.fsdp_dim(lay) for lay in self.layouts(params)]
+        with self._splitting(self.rows, self.model, False, dims), \
+                serving(self.tp, self.data), \
+                fsdp_leaves(_pt.tree_leaves(params)):
+            yield
+
+
+# (cfg, mesh, batch) -> its serve plan, made once
+_SERVE_PLANS: Dict[tuple, ServePlan] = {}
+
+
+def serve_plan_for(cfg: ModelConfig, mesh, batch: int
+                   ) -> Optional[ServePlan]:
+    """The serve plan of a mesh of several ranks at the global ``batch``,
+    None for one rank (or no mesh). Made once, then reused."""
+    if mesh is None or mesh.size() <= 1:
+        return None
+    key = (cfg, mesh, batch)
+    if key not in _SERVE_PLANS:
+        if len(_SERVE_PLANS) >= _MAX_PLANS:
+            del _SERVE_PLANS[next(iter(_SERVE_PLANS))]
+        _SERVE_PLANS[key] = ServePlan(cfg, mesh, batch)
+    return _SERVE_PLANS[key]
+
+
 __all__ = ["COLLECTIVES", "HOST_STAGED", "FSDP_GATHERS", "DataGroup",
-           "DataParallel", "check_supported", "collective_counts",
+           "DataParallel", "ParamLayout", "check_supported",
+           "collective_counts",
            "fsdp_gathered", "fsdp_leaves", "fsdp_unbind", "mesh_group",
            "plan_for", "reset_collective_counts", "row_split",
-           "solves_per_shard"]
+           "solves_per_shard", "ServePlan", "serve_plan_for", "SERVE_ITEM"]

@@ -252,51 +252,95 @@ def batch_shardings(cfg: ModelConfig, mesh, batch_like: Pytree) -> Pytree:
     return _pt.tree_map(one, batch_like)
 
 
-def cache_shardings(cfg: ModelConfig, mesh, cache_like: Pytree,
-                    batch: int) -> Pytree:
-    """The serve caches' specs: the batch dimension over the data axes
-    when it divides (pure-DP configs over 'model' too); otherwise
-    (long-context, batch 1) a KV cache's sequence dimension over 'data'
-    (flash-decoding's split KV); then the widest model-side dimension that
-    divides over 'model', scanning from the heads outward (for a KV cache
-    the sequence dimension is kept for 'data')."""
+def _cache_batch_axes(cfg: ModelConfig, mesh, batch: int
+                      ) -> Optional[Tuple[str, ...]]:
+    """The axes a serve cache's batch dimension is split over (the data
+    axes, for pure-DP configs 'model' too when the batch divides them
+    all), or None when the batch does not divide them."""
     dp = dp_axes(mesh)
     if cfg.sharding == "dp":
         full = dp + ("model",)
         if batch % max(math.prod(_axis_size(mesh, a) for a in full), 1) == 0:
             dp = full
     dp_total = math.prod(_axis_size(mesh, a) for a in dp)
-    batch_on_dp = batch % max(dp_total, 1) == 0 and dp_total > 1
+    return dp if batch % max(dp_total, 1) == 0 and dp_total > 1 else None
+
+
+def cache_leaf_spec(cfg: ModelConfig, mesh, name: str,
+                    core: Tuple[int, ...], batch: int) -> Spec:
+    """The spec of one serve-cache leaf without a period dimension:
+    ``name`` is its field (``'k'``/``'v'`` of a KV cache [slots, B, S, K,
+    dh]; Mamba's ``'conv'``/``'ssm'``; the LSTMs' ``'c'``/``'n'``/``'m'``/
+    ``'h'``), ``core`` its shape. Raises ``ValueError`` where the spec
+    would name one mesh axis twice (a pure-DP batch over 'model', and
+    'model' again on the heads or ``d_head``), as ``NamedSharding``
+    refuses such a spec in the JAX package."""
     names_of_mesh = mesh_axes(mesh)
+    lead = _cache_batch_axes(cfg, mesh, batch)
+    # KV leaves are the 'k'/'v' fields, [slots, B, S, K, dh]; the
+    # recurrent states (Mamba's conv/ssm, the LSTMs' c/n/m/h) have no
+    # sequence dimension to split
+    is_kv = name in ("k", "v") and len(core) == 5
+
+    def fits(dim_size, axis):
+        sz = _axis_size(mesh, axis)
+        return sz > 1 and dim_size % sz == 0
+
+    spec: list = [None] * len(core)
+    if len(core) >= 2 and lead is not None:
+        spec[1] = lead
+    elif is_kv and "data" in names_of_mesh and fits(core[2], "data"):
+        spec[2] = "data"
+    if "model" in names_of_mesh:
+        for d in range(3 if is_kv else 2, len(core)):
+            if spec[d] is None and fits(core[d], "model"):
+                spec[d] = "model"
+                break
+    used = [a for e in spec
+            for a in ((e,) if isinstance(e, str) else (e or ()))]
+    twice = sorted({a for a in used if used.count(a) > 1})
+    if twice:
+        raise ValueError(
+            f"cache leaf {name!r} {tuple(core)} at batch {batch}: the spec "
+            f"{Spec(*spec)} maps mesh axes {twice} to more than one "
+            "dimension (a NamedSharding spec maps each mesh axis to at "
+            "most one dimension)")
+    return Spec(*spec)
+
+
+def cache_shardings(cfg: ModelConfig, mesh, cache_like: Pytree,
+                    batch: int) -> Pytree:
+    """The serve caches' specs (:func:`cache_leaf_spec` for each leaf; a
+    period-stacked leaf's leading ``n_periods`` dimension replicated):
+    the batch dimension over the data axes when it divides (pure-DP
+    configs over 'model' too); otherwise (long-context, batch 1) a KV
+    cache's sequence dimension over 'data' (flash-decoding's split KV);
+    then the widest model-side dimension that divides over 'model',
+    scanning from the heads outward (for a KV cache the sequence
+    dimension is kept for 'data'). Raises ``ValueError`` where a spec
+    would name one mesh axis twice, as the JAX package's does."""
 
     def one(path, leaf):
         names = _path_names(path)
         shape = tuple(leaf.shape)
         # period-stacked caches have a leading n_periods dimension
         lead = "period" in names
-        core = shape[1:] if lead else shape
-        # KV leaves are the 'k'/'v' fields, [slots, B, S, K, dh]; the
-        # recurrent states (Mamba's conv/ssm, the LSTMs' c/n/m/h) have no
-        # sequence dimension to split
-        is_kv = bool(names) and names[-1] in ("k", "v") and len(core) == 5
-
-        def fits(dim_size, axis):
-            sz = _axis_size(mesh, axis)
-            return sz > 1 and dim_size % sz == 0
-
-        spec: list = [None] * len(core)
-        if len(core) >= 2 and batch_on_dp:
-            spec[1] = dp
-        elif is_kv and "data" in names_of_mesh and fits(core[2], "data"):
-            spec[2] = "data"
-        if "model" in names_of_mesh:
-            for d in range(3 if is_kv else 2, len(core)):
-                if spec[d] is None and fits(core[d], "model"):
-                    spec[d] = "model"
-                    break
-        return Spec(*([None] + spec if lead else spec))
+        spec = cache_leaf_spec(cfg, mesh, names[-1] if names else "",
+                               shape[1:] if lead else shape, batch)
+        return Spec(None, *spec) if lead else spec
 
     return _pt.tree_map_with_path(one, cache_like)
+
+
+def local_shape(spec, shape: Tuple[int, ...], mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a leaf of ``shape`` under
+    ``spec``."""
+    axes = mesh_axes(mesh)
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for a in ((entry,) if isinstance(entry, str) else (entry or ())):
+            out[d] //= axes.get(a, 1)
+    return tuple(out)
 
 
 def spec_ways(spec, mesh) -> int:
@@ -478,5 +522,5 @@ def axis_group(mesh, axis: str):
 __all__ = ["Spec", "mesh_axes", "dp_axes", "param_shardings",
            "batch_shardings", "cache_shardings", "zero1_sharding",
            "opt_state_shardings", "ambient_mesh", "spec_ways",
-           "shard_bytes",
+           "shard_bytes", "cache_leaf_spec", "local_shape",
            "mark_replicated", "gather_rows", "axis_group"]

@@ -31,6 +31,19 @@ all-reduce, and the ALF state algebra and the controller run on it on
 every rank. :func:`recording_states` collects the branches' end states,
 so a caller can check that.
 
+**Serving** (no autograd) opens :func:`serving` with the 'model' group
+whose blocks the serve caches hold (:func:`serve_model`; None where the
+batch is split over 'model' or the axis has one rank) and the 'data'
+group over which a KV cache's sequence may be split (:func:`serve_data`).
+Attention and Mamba read them, since a pure-DP config keeps its weights
+whole while the rule still splits its caches over 'model'; the MLP, the
+MoE, the embedding and the head read :func:`model_split`, the weights'
+split, as in training. The no-grad collectives they use:
+:func:`gather_dim` (the ranks' blocks of one dimension put together),
+:func:`sum_over` (an all-reduce) and :func:`combine_split_kv`
+(flash-decoding's log-sum-exp combine of partial attention over the
+ranks that each hold a block of the positions).
+
 :func:`block` gives a rank's range of a dimension that the rule splits,
 :func:`splits` whether the rule splits a dimension of a given size.
 """
@@ -51,6 +64,8 @@ from .sharding import _plain, _Replicated, _Summed
 _MODEL_SPLITS: List = []
 # The open recording_states() lists, innermost last.
 _STATE_LOGS: List[List[torch.Tensor]] = []
+# The open serving() groups, (model, data), innermost last.
+_SERVING: List[Tuple[Any, Any]] = []
 
 
 def model_split():
@@ -88,14 +103,16 @@ def block(tp, size: int) -> Tuple[int, int]:
     return tp.rank * n, n
 
 
-def enter(x: torch.Tensor) -> torch.Tensor:
-    """``x``, whole on every rank, entering a split computation."""
-    return _Replicated.apply(x, model_split())
+def enter(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x``, whole on every rank, entering a split computation (over
+    ``group``, default :func:`model_split`)."""
+    return _Replicated.apply(x, group or model_split())
 
 
-def leave(x: torch.Tensor) -> torch.Tensor:
-    """The ranks' partial results summed: whole on every rank."""
-    return _Summed.apply(x, model_split())
+def leave(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The ranks' partial results summed: whole on every rank (over
+    ``group``, default :func:`model_split`)."""
+    return _Summed.apply(x, group or model_split())
 
 
 class _EnterLeaves(torch.autograd.Function):
@@ -197,6 +214,62 @@ def recording_states() -> Iterator[List[torch.Tensor]]:
         _STATE_LOGS.pop()
 
 
+# ---------------------------------------------------------------------------
+# Serving: the caches' groups and the no-grad collectives
+# ---------------------------------------------------------------------------
+
+def serve_model():
+    """The 'model' group whose blocks the serve caches of the step now
+    running hold (heads, ``d_head`` or d_inner), or None."""
+    return _SERVING[-1][0] if _SERVING else None
+
+
+def serve_data():
+    """The 'data' group of the serve step now running (a KV cache whose
+    sequence the rule splits holds this rank's block of positions), or
+    None."""
+    return _SERVING[-1][1] if _SERVING else None
+
+
+@contextlib.contextmanager
+def serving(model, data) -> Iterator[None]:
+    """Inside the block, a serve step's caches are split over the groups
+    ``model`` and ``data`` (either None) as the rule places them."""
+    _SERVING.append((model, data))
+    try:
+        yield
+    finally:
+        _SERVING.pop()
+
+
+def gather_dim(group, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' blocks of ``x``'s dimension ``dim`` put together in
+    rank order, on every rank (no gradient)."""
+    return group.all_gather(_plain(x).movedim(dim, 0)).movedim(0, dim)
+
+
+def sum_over(group, x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over ``group`` (no gradient; the identity without a
+    group)."""
+    return x if group is None else group.all_reduce(_plain(x))
+
+
+def combine_split_kv(group, m: torch.Tensor, l: torch.Tensor,
+                     o: torch.Tensor) -> torch.Tensor:
+    """Attention over positions split across ``group`` from each rank's
+    partial softmax over its block: ``m`` the block's maximum score
+    [...], ``l`` its sum of ``exp(s - m)`` [...], ``o`` its unnormalised
+    output ``exp(s - m) @ v`` [..., d]. The partials are gathered and
+    combined by log-sum-exp in rank order, the same arithmetic on every
+    rank: sum_r e^(m_r - M) o_r / sum_r e^(m_r - M) l_r, M = max_r m_r."""
+    part = torch.cat([m[..., None], l[..., None], o], -1)
+    every = group.all_gather(part[None])          # [ranks, ..., 2 + d]
+    ms, ls, os_ = every[..., 0], every[..., 1], every[..., 2:]
+    w = torch.exp(ms - ms.amax(0))
+    return (w[..., None] * os_).sum(0) / (w * ls).sum(0)[..., None]
+
+
 __all__ = ["model_split", "splitting_model", "splits", "block", "enter",
            "leave", "enter_leaves", "gather_last", "gather_last_summed",
-           "record_state", "recording_states"]
+           "record_state", "recording_states", "serve_model", "serve_data",
+           "serving", "gather_dim", "sum_over", "combine_split_kv"]

@@ -19,6 +19,22 @@ its first call runs one eager step and captures a CUDA graph of the next,
 and every later step replays that graph; on the CPU each step runs
 eagerly (the kernel ops take their plain versions there).
 
+On a mesh, as the JAX package's ``serve`` places its parameters and
+caches by ``param_shardings`` and ``cache_shardings``: under
+``torch.distributed.run`` the process group starts from the environment
+(gloo on the CPU or when the ranks share one card) and the ranks serve
+on the host mesh (W, 1), each holding its shards (drawn leaf by leaf),
+its blocks of the caches and its rows of the batch; ``--production-mesh``
+(LM mode) serves on the 16 x 16 mesh and needs a world of 256 ranks.
+``serve()`` called inside ``with mesh:`` serves on that mesh. Only rank
+0 prints. A decode step over several ranks runs eagerly (its collectives
+cannot be captured in a CUDA graph while gloo stages them through the
+host; a graph over NCCL is ROADMAP queue 1 item 13)::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch granite-20b --device cpu
+
 ODE path (``--mode ode``) — the ``repro_torch.serve`` serving loop::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode ode --batch 64 \
@@ -39,23 +55,28 @@ CPU their plain versions (``backend="reference"``). Prints the
 f-evals/request, occupancy.
 
 Per-mode ``--batch`` defaults live in ``MODE_DEFAULT_BATCH`` (for ode,
-batch == engine slots). ``--production-mesh`` (the JAX package's
-multi-host GSPMD mesh) has no counterpart on one card and is refused.
+batch == engine slots). ``--mode ode --production-mesh`` is refused: the
+JAX package's ODE engine places nothing on the mesh it is given.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 from typing import NamedTuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
 
 from repro_torch.configs import (DEFAULT_ODE, ModelConfig, get_config,
                                  smoke_config)
 from repro_torch.core.ode_block import OdeSettings
 from repro_torch.device import resolve_device
+from repro_torch.distributed.data_parallel import serve_plan_for
+from repro_torch.distributed.sharding import ambient_mesh
 from repro_torch.kernels import on_cuda
 from repro_torch.models import decode_step, init_lm, moe, prefill
 from repro_torch.models.lm import ServeState, init_serve_state
@@ -63,11 +84,15 @@ from repro_torch.models.lm import ServeState, init_serve_state
 MODE_DEFAULT_BATCH = {"lm": 4, "ode": 64}
 
 NO_PRODUCTION_MESH = (
-    "--production-mesh is the JAX package's multi-host GSPMD mesh; the "
-    "port serves on one card and has no counterpart")
+    "--mode ode --production-mesh: the JAX package's ODE serving engine "
+    "places nothing on the mesh it is given (repro.serve never reads it), "
+    "so there is no layout to port")
+NCCL_GRAPH_ITEM = "ROADMAP queue 1 item 13"
 
 
 def make_prefill_step(cfg):
+    """The prefill ``serve`` runs: ``models.prefill``, on the ambient
+    mesh's layout under ``with mesh:``."""
     def prefill_step(params, batch, state: ServeState):
         return prefill(params, cfg, batch, state)
     return prefill_step
@@ -145,16 +170,42 @@ class DecodeGraph:
         return logits, state
 
 
-def make_decode_step(cfg):
-    """The decode step ``serve`` runs, dispatched by the state's device: on
-    the card a :class:`DecodeGraph` (captured at the first call, replayed
-    after), on the CPU ``decode_step`` itself, eagerly."""
+def _graph_refusal(plan) -> str:
+    """Why a decode step on ``plan``'s mesh cannot be captured."""
+    group = plan.rows or plan.tp or plan.model or plan.data
+    backend = group.backend if group is not None else "gloo"
+    if backend == "gloo":
+        return ("a decode step over gloo ranks stages its collectives "
+                "through the host, which a CUDA graph cannot hold")
+    return (f"a CUDA graph of a decode step with NCCL collectives is "
+            f"{NCCL_GRAPH_ITEM}")
+
+
+def make_decode_step(cfg, capture: bool = False):
+    """The decode step ``serve`` runs, dispatched by the state's device and
+    the ambient mesh: on the card with one rank a :class:`DecodeGraph`
+    (captured at the first call, replayed after); on the CPU, or over a
+    mesh of several ranks, ``decode_step`` itself, eagerly. With
+    ``capture`` a call that cannot run the graph raises (a mesh of several
+    ranks: :func:`_graph_refusal`; the CPU). The returned function's
+    ``graphed`` attribute says whether its last call ran the graph."""
     graph = DecodeGraph(cfg)
 
     def serve_step(params, tokens, state: ServeState):
-        if on_cuda("decode_step", state.pos.device):
+        plan = serve_plan_for(cfg, ambient_mesh(), tokens.shape[0])
+        if capture and plan is not None:
+            raise NotImplementedError(
+                f"decode graph over {plan.mesh.size()} ranks: "
+                + _graph_refusal(plan))
+        serve_step.graphed = (plan is None
+                              and on_cuda("decode_step", state.pos.device))
+        if serve_step.graphed:
             return graph(params, tokens, state)
+        if capture:
+            raise ValueError("decode graph: the state is not on a CUDA "
+                             "device")
         return decode_step(params, cfg, tokens, state)
+    serve_step.graphed = False
     return serve_step
 
 
@@ -186,6 +237,7 @@ class ServeResult(NamedTuple):
     decode_ms: float       # all decode steps, ends in a device sync
     prefill_tok_s: float
     decode_tok_s: float
+    graphed: bool = False  # the decode steps replayed a CUDA graph
 
 
 def _sync(device: torch.device) -> None:
@@ -193,13 +245,33 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _serve_mesh(production_mesh: bool = False, device=None):
+    """The mesh ``serve`` runs on: the ambient one, else the production
+    mesh when asked (its ``ValueError`` names the world size it needs),
+    else the host mesh (W, 1) over the process group when there is one of
+    several ranks; None for one process."""
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    mesh = ambient_mesh()
+    if mesh is not None:
+        return mesh
+    if production_mesh:
+        return make_production_mesh(device=device)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        return make_host_mesh(device)
+    return None
+
+
 def serve(arch: Union[str, ModelConfig], *, smoke: bool = True,
           ode: bool = True, prompt_len: int = 32, decode_tokens: int = 16,
-          batch: int = 4, seed: int = 0, device=None) -> ServeResult:
+          batch: int = 4, seed: int = 0, device=None,
+          production_mesh: bool = False) -> ServeResult:
     """Prefill a seeded random prompt, then decode greedily; returns the
     tokens and the timings. ``arch`` is an arch name (its smoke or full
     config, per ``smoke``) or a ``ModelConfig`` served as given (a depth
-    cut, say; ``smoke`` is then not read)."""
+    cut, say; ``smoke`` is then not read). On a mesh (:func:`_serve_mesh`)
+    each rank draws its shards of the same seeded weights leaf by leaf
+    and serves its blocks of the caches; every rank returns the same
+    tokens, and only rank 0 prints."""
     settings = DEFAULT_ODE if ode else OdeSettings(mode="off")
     if isinstance(arch, ModelConfig):
         cfg = arch.with_ode(settings).validate()
@@ -209,8 +281,17 @@ def serve(arch: Union[str, ModelConfig], *, smoke: bool = True,
         cfg = get_config(arch, settings)
     dev = resolve_device(device)
     s_max = prompt_len + decode_tokens
+    mesh = _serve_mesh(production_mesh, device=dev)
+    with (mesh if mesh is not None else contextlib.nullcontext()):
+        return _serve_on(cfg, dev, mesh, s_max, prompt_len, decode_tokens,
+                         batch, seed)
 
-    params = init_lm(torch.Generator(device=dev).manual_seed(seed), cfg, dev)
+
+def _serve_on(cfg, dev, mesh, s_max, prompt_len, decode_tokens, batch,
+              seed) -> ServeResult:
+    plan = serve_plan_for(cfg, mesh, batch)
+    params = init_lm(torch.Generator(device=dev).manual_seed(seed), cfg, dev,
+                     cut=plan.cut if plan is not None else None)
     prompt = serve_prompt(cfg, batch, prompt_len, seed, dev)
     state = init_serve_state(cfg, batch, s_max, dev)
     prefill_fn = make_prefill_step(cfg)
@@ -236,14 +317,19 @@ def serve(arch: Union[str, ModelConfig], *, smoke: bool = True,
     result = ServeResult(
         tokens=toks, prefill_ms=t_prefill * 1e3, decode_ms=t_decode * 1e3,
         prefill_tok_s=batch * prompt_len / max(t_prefill, 1e-9),
-        decode_tok_s=batch * decode_tokens / max(t_decode, 1e-9))
-    print(f"arch={cfg.name} batch={batch} prompt={prompt_len} "
-          f"decode={decode_tokens} device={dev}")
-    print(f"prefill: {result.prefill_ms:.1f} ms "
-          f"({result.prefill_tok_s:.0f} tok/s)")
-    print(f"decode:  {result.decode_ms:.1f} ms "
-          f"({result.decode_tok_s:.0f} tok/s)")
-    print("sample:", toks[0][:12].tolist())
+        decode_tok_s=batch * decode_tokens / max(t_decode, 1e-9),
+        graphed=decode_fn.graphed)
+    if plan is None or dist.get_rank() == 0:
+        where = "" if plan is None else (
+            f" mesh={dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}")
+        print(f"arch={cfg.name} batch={batch} prompt={prompt_len} "
+              f"decode={decode_tokens} device={dev}{where}")
+        print(f"prefill: {result.prefill_ms:.1f} ms "
+              f"({result.prefill_tok_s:.0f} tok/s)")
+        print(f"decode:  {result.decode_ms:.1f} ms "
+              f"({result.decode_tok_s:.0f} tok/s)"
+              f"{'' if result.graphed else ' eager'}")
+        print("sample:", toks[0][:12].tolist())
     return result
 
 
@@ -374,23 +460,31 @@ def main(argv=None) -> None:
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="refused: no counterpart on one card")
+                    help="lm: serve on the 16 x 16 mesh (a world of 256 "
+                         "ranks); refused with --mode ode")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA card)")
+                    help="torch device (default: the CUDA card; under "
+                         "torch.distributed.run cuda:LOCAL_RANK)")
     a = ap.parse_args(argv)
-    if a.production_mesh:
-        raise ValueError(NO_PRODUCTION_MESH)
     batch = MODE_DEFAULT_BATCH[a.mode] if a.batch is None else a.batch
     if a.mode == "ode":
         serve_ode(batch=batch, d_state=a.d_state, t1=a.t1,
                   engine=a.ode_engine, chunk_steps=a.chunk_steps,
                   n_requests=a.requests, rate=a.rate, rtol=a.rtol,
-                  atol=a.atol, max_steps=a.max_steps, seed=a.seed,
+                  atol=a.atol, max_steps=a.max_steps,
+                  production_mesh=a.production_mesh, seed=a.seed,
                   device=a.device)
         return
-    serve(a.arch, smoke=a.smoke, ode=a.ode == "on", prompt_len=a.prompt_len,
-          decode_tokens=a.decode_tokens, batch=batch, seed=a.seed,
-          device=a.device)
+    from repro_torch.launch.train import init_distributed
+    device = init_distributed(a.device or "") or a.device
+    try:
+        serve(a.arch, smoke=a.smoke, ode=a.ode == "on",
+              prompt_len=a.prompt_len, decode_tokens=a.decode_tokens,
+              batch=batch, seed=a.seed, device=device,
+              production_mesh=a.production_mesh)
+    finally:
+        if dist.is_initialized() and "WORLD_SIZE" in os.environ:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

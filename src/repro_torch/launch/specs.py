@@ -8,7 +8,9 @@ run the port's own ``init_lm`` and ``init_serve_state`` on the meta
 device, so they allocate nothing at any width (grok-1-314b's 633 GB of
 bf16 weights included), and their trees are the ones the real calls make.
 :func:`tree_bytes` sums a tree's bytes: what a config's weights or cache
-will take on the card, known before either is made.
+will take on the card, known before either is made;
+:func:`serve_shard_bytes` what one rank of a mesh holds of them by the
+sharding rules.
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ def param_specs(cfg: ModelConfig) -> Pytree:
 
 
 def serve_state_specs(cfg: ModelConfig, cell: ShapeCell) -> ServeState:
-    """The serve state (cache and position) as meta tensors."""
+    """The serve state (cache and position) as meta tensors (under an
+    ambient mesh of several ranks, the rank's blocks)."""
     return init_serve_state(cfg, cell.global_batch, cell.seq_len, META)
 
 
@@ -78,5 +81,26 @@ def tree_bytes(specs: Pytree) -> int:
                for t in tree_util.tree_leaves(specs))
 
 
+def serve_shard_bytes(cfg: ModelConfig, mesh, batch: int,
+                      s_max: int) -> Dict[str, int]:
+    """The bytes one rank of ``mesh`` (a DeviceMesh or ``{axis: size}``)
+    holds to serve a global ``batch`` of ``s_max`` positions, by the
+    rules: ``"params"`` its parameter shards (``param_shardings``),
+    ``"cache"`` its blocks of the caches (``cache_shardings``, which
+    raises where the JAX package's does), ``"pos"`` the position."""
+    from repro_torch.distributed.sharding import (cache_shardings,
+                                                  param_shardings,
+                                                  shard_bytes)
+    from repro_torch.models.transformer import init_cache
+    params = param_specs(cfg)
+    cache = init_cache(cfg, batch, s_max, META)
+    return {"params": shard_bytes(param_shardings(cfg, mesh, params),
+                                  params, mesh),
+            "cache": shard_bytes(cache_shardings(cfg, mesh, cache, batch),
+                                 cache, mesh),
+            "pos": 4}
+
+
 __all__ = ["META", "batch_specs", "decode_token_specs", "param_specs",
-           "serve_state_specs", "input_specs", "tree_bytes"]
+           "serve_state_specs", "input_specs", "tree_bytes",
+           "serve_shard_bytes"]

@@ -40,6 +40,31 @@ does not (MQA: granite's 48/1) they are whole on every rank, K/V are
 whole, and each rank's query heads read their own KV heads. ``wo`` is
 row-parallel and the ranks' partial outputs are summed.
 
+A serve step on a mesh (``ServePlan.computing``) computes on the rank's
+block of the KV cache, in whichever of the four layouts
+``cache_shardings`` gives it, and gathers no cache:
+
+  (a) the batch over the data axes: the rank's rows, nothing else;
+  (b) the KV heads over 'model': the rank's query heads and their KV
+      heads (a pure-DP config, whose weights are whole, takes its columns
+      of ``wq``/``wk``/``wv`` and rows of ``wo``); the ranks' ``wo``
+      products are summed;
+  (c) ``d_head`` over 'model' (MQA, or KV heads the axis does not
+      divide): K/V are projected whole and the rank writes its block of
+      ``d_head``. Prefill runs flash on the rank's query heads as in
+      training. A decode step gathers q over 'model' (every head, one
+      token), sums the partial scores of the rank's ``d_head`` block over
+      'model', takes the softmax whole on every rank, computes its block
+      of every head's output, gathers that over 'model' and keeps its own
+      heads for the row-parallel ``wo``: two all-gathers of [B, 1, H,
+      dh] and one all-reduce of the scores an f-eval;
+  (d) the sequence over 'data' (batch 1; a :class:`KVBlock`): every data
+      rank computes every row; prefill writes the rank's block of
+      positions, a decode step writes position ``pos`` only on the rank
+      that holds it, attends over its block and combines the partial
+      (max, sum, output) over 'data' by log-sum-exp
+      (``tensor_parallel.combine_split_kv``).
+
 The ``slot`` axis of the cache is the *virtual layer* index of
 continuous-depth mode: every ALF f-eval inside a block gets its own KV
 slot; slot 0 is used when ode.mode == 'off'.
@@ -58,9 +83,13 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.alf import check_backend
-from repro_torch.distributed.tensor_parallel import (block, enter,
-                                                     enter_leaves, leave,
-                                                     model_split, splits)
+from repro_torch.distributed.tensor_parallel import (block,
+                                                     combine_split_kv, enter,
+                                                     enter_leaves,
+                                                     gather_dim, leave,
+                                                     model_split, serve_data,
+                                                     serve_model, splits,
+                                                     sum_over)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -411,11 +440,112 @@ class KVCache(NamedTuple):
 
     @staticmethod
     def init(cfg: ModelConfig, n_slots: int, batch: int, s_max: int,
-             device) -> "KVCache":
+             device, cut=None) -> "KVCache":
+        """Zeros. ``cut(field, shape)`` gives a rank's block of a leaf of
+        the whole ``shape`` (a serve plan's ``cache_shape``); a cache whose
+        block holds part of the positions is a :class:`KVBlock`."""
         dt = torch_dtype(cfg.compute_dtype)
         shape = (n_slots, batch, s_max, cfg.n_kv_heads, cfg.d_head)
-        return KVCache(torch.zeros(shape, dtype=dt, device=device),
-                       torch.zeros(shape, dtype=dt, device=device))
+        if cut is not None:
+            shape = cut("k", shape)
+        cls = KVBlock if shape[2] < s_max else KVCache
+        return cls(torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros(shape, dtype=dt, device=device))
+
+
+class KVBlock(KVCache):
+    """A rank's block of a KV cache whose sequence dimension the rule
+    splits over 'data' (flash-decoding's split KV at batch 1): data rank
+    r holds positions [r * S_block, (r + 1) * S_block)."""
+    __slots__ = ()
+
+
+class _Share(NamedTuple):
+    """What one rank computes of an attention mixer's serve f-eval (module
+    docstring): the 'model' group (None: everything whole), the
+    (first, count) of the query heads, of the KV heads and of ``d_head``
+    it computes or holds, the rows of ``wo`` it multiplies (None: all of
+    them, and the output needs no sum), and its block of the positions
+    (the 'data' group, None where the cache holds them all)."""
+    tp: Any
+    q: Tuple[int, int]
+    kv: Tuple[int, int]
+    dh: Tuple[int, int]
+    o: Optional[Tuple[int, int]]
+    seq: Any
+
+
+def _share(params: Pytree, cfg: ModelConfig, cache: KVCache) -> _Share:
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    seq = serve_data() if isinstance(cache, KVBlock) else None
+    tp = serve_model()
+    heads = cache.k.shape[3] < kh            # (b) KV heads over 'model'
+    d_split = cache.k.shape[4] < dh          # (c) d_head over 'model'
+    q_local = params["wq"].shape[1] < h * dh or heads
+    o_local = params["wo"].shape[0] < h * dh or heads
+    if tp is None or not (heads or d_split or q_local or o_local):
+        return _Share(None, (0, h), (0, kh), (0, dh), None, seq)
+    q = block(tp, h) if q_local else (0, h)
+    kv = block(tp, kh) if heads else (0, kh)
+    d = block(tp, dh) if d_split else (0, dh)
+    o = None
+    if q_local:
+        o = (q[0] * dh, q[1] * dh)
+    elif o_local:
+        o = block(tp, h * dh)
+    return _Share(tp, q, kv, d, o, seq)
+
+
+def _columns(w: torch.Tensor, first: int, count: int, dh: int,
+             whole: int) -> torch.Tensor:
+    """The columns of heads [first, first + count) of a projection held
+    whole (``whole`` heads), or ``w`` itself when it is already that
+    block."""
+    if w.shape[1] == count * dh:
+        return w
+    assert w.shape[1] == whole * dh, (w.shape, whole, dh)
+    return w[:, first * dh:(first + count) * dh]
+
+
+def _project_share(params: Pytree, cfg: ModelConfig, sh: _Share,
+                   x: torch.Tensor, positions: torch.Tensor, backend: str):
+    """(q, k, v) of the rank's query and KV heads (:func:`_project_qkv`
+    over its columns of the projections)."""
+    dh = cfg.d_head
+    p = dict(params)
+    p["wq"] = _columns(params["wq"], *sh.q, dh, cfg.n_heads)
+    p["wk"] = _columns(params["wk"], *sh.kv, dh, cfg.n_kv_heads)
+    p["wv"] = _columns(params["wv"], *sh.kv, dh, cfg.n_kv_heads)
+    return _project_qkv(p, cfg, x, positions, backend)
+
+
+def _kv_for_queries(cfg: ModelConfig, sh: _Share, k, v):
+    """The KV heads the rank's query heads read, from k/v over the
+    rank's KV heads (``sh.kv``)."""
+    if sh.q[1] == cfg.n_heads or sh.kv[1] < cfg.n_kv_heads:
+        return k, v
+    return _local_kv(cfg, sh.tp, k, v)
+
+
+def _finish_share(params: Pytree, sh: _Share, out: torch.Tensor):
+    """``wo`` of the heads' outputs ``out`` [B, S, heads, dh]: the rank's
+    rows and a sum over 'model', or the whole product."""
+    b, s = out.shape[:2]
+    out = out.reshape(b, s, -1)
+    if sh.o is None:
+        return out @ params["wo"]
+    lo, n = sh.o
+    if out.shape[-1] > n:
+        out = out[..., lo:lo + n]
+    wo = params["wo"]
+    if wo.shape[0] > n:
+        wo = wo[lo:lo + n]
+    return sum_over(sh.tp, out @ wo)
+
+
+def _positions_block(cache: KVCache, sh: _Share) -> int:
+    """The first position of the rank's block of the cache."""
+    return 0 if sh.seq is None else sh.seq.rank * cache.k.shape[2]
 
 
 def attention_prefill(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
@@ -424,16 +554,55 @@ def attention_prefill(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
                       ) -> Tuple[torch.Tensor, KVCache]:
     """Prompt attention; ``positions`` are ``arange(S)`` per row, as
     ``lm.prefill`` makes them (the flash op puts query i at position i).
-    Writes K/V into ``cache[slot, :, :S]`` in place."""
+    Writes K/V into ``cache[slot, :, :S]`` in place. In a serve step on a
+    mesh, over the rank's heads and into its block of the cache (module
+    docstring)."""
     check_backend(backend)
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x, positions, backend)
-    cache.k[slot, :, :s] = k
-    cache.v[slot, :, :s] = v
+    sh = _share(params, cfg, cache)
+    q, k, v = _project_share(params, cfg, sh, x, positions, backend)
+    d0, nd = sh.dh
+    lo, n = _positions_block(cache, sh), cache.k.shape[2]
+    w = max(0, min(s - lo, n))            # the prompt's positions held here
+    cache.k[slot, :, :w] = k[:, lo:lo + w, :, d0:d0 + nd]
+    cache.v[slot, :, :w] = v[:, lo:lo + w, :, d0:d0 + nd]
+    k, v = _kv_for_queries(cfg, sh, k, v)
     attend = flash_ops.flash_attention if backend == "cuda" else attention_ref
     out = attend(q, k, v, causal=True, window=_window(cfg, spec),
                  softcap=cfg.attn_softcap)
-    return _finish(params, b, s, out), cache
+    return _finish_share(params, sh, out), cache
+
+
+def _write_position(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                    lo: Optional[int]) -> None:
+    """``buf`` [B, S_block, ...] at position ``pos`` (a 0-d device tensor)
+    set to ``new`` [B, 1, ...] where the block [lo, lo + S_block) holds
+    ``pos``; left as it is elsewhere (``lo`` None: ``buf`` holds every
+    position). No host read."""
+    at = pos.reshape(1).long()
+    if lo is None:
+        buf.index_copy_(1, at, new)
+        return
+    n = buf.shape[1]
+    at = at - lo
+    owned = (at >= 0) & (at < n)
+    at = at.clamp(0, n - 1)
+    old = buf.index_select(1, at)
+    buf.index_copy_(1, at, torch.where(owned, new, old))
+
+
+def _decode_scores(cfg: ModelConfig, sh: _Share, q, k_all):
+    """Scaled, soft-capped scores [B, K, g, 1, S_block] float32 of the
+    query heads ``q`` [B, 1, H', dh'] against the cache block ``k_all``
+    [B, S_block, K', dh'] (with ``d_head`` split over 'model', partial
+    over the rank's block of it and summed over the group)."""
+    b, sq, hq, _ = q.shape
+    kh = k_all.shape[2]
+    qg = q.reshape(b, sq, kh, hq // kh, q.shape[-1])
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_all.float())
+    if sh.dh[1] < cfg.d_head:
+        scores = sum_over(sh.tp, scores)
+    return softcap(scores * cfg.d_head ** -0.5, cfg.attn_softcap)
 
 
 def attention_decode(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
@@ -442,16 +611,42 @@ def attention_decode(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
                      ) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode: x [B, 1, D]; pos the current position, a 0-d int
     tensor on x's device (never read on the host). Writes K/V at
-    ``cache[slot, :, pos]`` in place."""
+    ``cache[slot, :, pos]`` in place. In a serve step on a mesh, on the
+    rank's block of the cache, never gathered (module docstring)."""
     check_backend(backend)
     b = x.shape[0]
     positions = pos.reshape(1, 1).expand(b, 1)
-    q, k, v = _project_qkv(params, cfg, x, positions, backend)
-    at = pos.reshape(1).long()
-    cache.k[slot].index_copy_(1, at, k)
-    cache.v[slot].index_copy_(1, at, v)
+    sh = _share(params, cfg, cache)
+    q, k, v = _project_share(params, cfg, sh, x, positions, backend)
+    d0, nd = sh.dh
+    lo = _positions_block(cache, sh)
+    held = None if sh.seq is None else lo
+    _write_position(cache.k[slot], k[..., d0:d0 + nd], pos, held)
+    _write_position(cache.v[slot], v[..., d0:d0 + nd], pos, held)
     k_all, v_all = cache.k[slot], cache.v[slot]
-    k_pos = torch.arange(k_all.shape[1], dtype=torch.int32, device=x.device)
-    bias = _mask_bias(positions[0], k_pos, _window(cfg, spec))   # [1, S]
-    out = _sdpa_direct(cfg, q, k_all, v_all, bias)
-    return _finish(params, b, 1, out), cache
+    if nd < cfg.d_head:
+        # (c): every query head against the rank's block of d_head
+        if sh.q[1] < cfg.n_heads:
+            q = gather_dim(sh.tp, q, 2)
+        q = q[..., d0:d0 + nd]
+    else:
+        k_all, v_all = _kv_for_queries(cfg, sh, k_all, v_all)
+    k_pos = torch.arange(lo, lo + k_all.shape[1], dtype=torch.int32,
+                         device=x.device)
+    scores = _decode_scores(cfg, sh, q, k_all) + _mask_bias(
+        positions[0], k_pos, _window(cfg, spec))[None, None, None]
+    if sh.seq is None:
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_all.float())
+    else:
+        # (d): the rank's block of positions, combined over 'data'
+        m = scores.amax(-1)
+        p = torch.exp(scores - m[..., None])
+        o = torch.einsum("bkgqs,bskd->bkgqd", p, v_all.float())
+        out = combine_split_kv(sh.seq, m, p.sum(-1), o).permute(0, 3, 1, 2, 4)
+    out = out.reshape(b, 1, -1, nd)
+    if nd < cfg.d_head:
+        out = gather_dim(sh.tp, out, 3)
+        if sh.q[1] < cfg.n_heads:
+            out = out[:, :, sh.q[0]:sh.q[0] + sh.q[1]]
+    return _finish_share(params, sh, out.to(x.dtype)), cache

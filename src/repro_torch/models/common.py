@@ -54,7 +54,10 @@ def dense_init(generator: torch.Generator, shape: Tuple[int, ...], dtype,
     """Truncated-normal on [-2, 2] with 1/sqrt(fan_in) scale (standard LM
     init), drawn in float32 and cast to ``dtype``. Scaled in place: at a
     Jamba expert leaf ([16, 4096, 14336]) an out-of-place product would
-    hold another 3.8 GB of float32."""
+    hold another 3.8 GB of float32. On the meta device only the shape and
+    dtype are made (:func:`embed_init`)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     fan_in = fan_in if fan_in is not None else shape[0]
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
@@ -76,7 +79,12 @@ def embed_init(generator: torch.Generator, shape: Tuple[int, ...], dtype,
                device) -> torch.Tensor:
     """Normal, scale 0.02, drawn in float32 and cast to ``dtype``. Scaled
     in place, as :func:`dense_init`: init holds one float32 copy of the
-    table beside the weights, not two."""
+    table beside the weights, not two. On the meta device only the shape
+    and dtype are made: the draws' meta kernels (``randn``, and in some
+    torch versions ``erfinv_``) import ``torch._dynamo`` and sympy,
+    seconds a process, where the specs allocate nothing."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
     return w.mul_(0.02).to(dtype)

@@ -31,19 +31,30 @@ against on the card. Both run without autograd; the cache in ``state``
 is written in place. ``ServeState.pos`` is a 0-d int32 tensor on the
 cache's device, as in the JAX package, and no host reads it, so a decode
 step can be captured in a CUDA graph and replayed
-(``launch.serve.make_decode_step``).
+(``launch.serve.make_decode_step``). Under an ambient mesh of several
+ranks (``with mesh:``) the two serve the JAX package's layout by its
+rules: ``params`` are the rank's shards (``ServePlan.param_shards``, or
+``init_lm(..., cut=plan.cut)``), the state the rank's blocks of the
+caches (:func:`init_serve_state`), and the batch in and the logits out
+the global batch's; each rank computes its rows, the layers split over
+'model', and the head's logits are gathered over 'model' and over the
+rows (:class:`~repro_torch.distributed.data_parallel.ServePlan`).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.interface import RunStats
 from repro_torch.device import resolve_device
-from repro_torch.distributed.data_parallel import fsdp_gathered, row_split
+from repro_torch.distributed.data_parallel import (fsdp_gathered, row_split,
+                                                   serve_plan_for)
+from repro_torch.distributed.sharding import ambient_mesh
 from repro_torch.distributed.tensor_parallel import (block, enter,
                                                      gather_last, leave,
                                                      model_split, splits)
@@ -58,21 +69,25 @@ _LOSS_CHUNK = 512
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig,
-            device=None) -> Pytree:
+            device=None, cut=None) -> Pytree:
     """Seeded random weights in the JAX package's tree layout, on
     ``device`` (default: the CUDA card); ``generator`` must live on that
-    device."""
+    device. ``cut(names, leaf, period=False)`` (a serve plan's ``cut``)
+    keeps a rank's block of each leaf as it is drawn: every rank draws
+    the same numbers and holds its blocks plus one whole leaf at a
+    time."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.param_dtype)
+    keep = cut or (lambda names, leaf: leaf)
     params = {
-        "embed": embed_init(generator, (cfg.vocab_size, cfg.d_model), dt,
-                            dev),
-        "blocks": init_blocks(generator, cfg, dev),
+        "embed": keep(("embed",), embed_init(
+            generator, (cfg.vocab_size, cfg.d_model), dt, dev)),
+        "blocks": init_blocks(generator, cfg, dev, cut),
         "final_norm": materialize(rmsnorm_inits(cfg.d_model, dt, dev)),
     }
     if not cfg.tie_embeddings:
-        params["head"] = embed_init(generator, (cfg.d_model, cfg.vocab_size),
-                                    dt, dev)
+        params["head"] = keep(("head",), embed_init(
+            generator, (cfg.d_model, cfg.vocab_size), dt, dev))
     return params
 
 
@@ -92,17 +107,39 @@ def _embed(params: Pytree, cfg: ModelConfig, batch: Pytree) -> torch.Tensor:
     cdt = torch_dtype(cfg.compute_dtype)
     if cfg.input_mode == "embeds":
         return batch["embeds"].to(cdt)
+    return _embed_tokens(params, cfg, batch["tokens"])
+
+
+def _embed_tokens(params: Pytree, cfg: ModelConfig,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in the compute dtype (on a mesh:
+    the table gathered over 'data', the ranks' column blocks over
+    'model')."""
     with fsdp_gathered({"embed": params["embed"]}) as p:
-        x = p["embed"][batch["tokens"]]
+        x = p["embed"][tokens]
     if splits(model_split(), cfg.d_model):
         x = gather_last(x)        # the ranks' column blocks of the rows
-    return x.to(cdt)
+    return x.to(torch_dtype(cfg.compute_dtype))
 
 
 def _logits(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
             backend: str) -> torch.Tensor:
+    """The serve path's float32 logits of ``x``. On a mesh the head is
+    gathered over 'data' and, where the rule splits it over 'model', each
+    rank multiplies its block: of the vocabulary (its logits gathered
+    over 'model', in float32) or, for a tied head, of D (the float32
+    partial logits summed over 'model')."""
     h = rmsnorm(params["final_norm"], x, backend=backend)
-    logits = (h @ _head_matrix(params, cfg)).float()
+    tp = model_split()
+    with fsdp_gathered(_head_params(params, cfg)) as p:
+        head = _head_matrix(p, cfg)
+        if cfg.tie_embeddings and splits(tp, cfg.d_model):
+            lo, n = block(tp, cfg.d_model)
+            logits = leave((h[..., lo:lo + n] @ head).float())
+        elif not cfg.tie_embeddings and splits(tp, cfg.vocab_size):
+            logits = gather_last((h @ head).float())
+        else:
+            logits = (h @ head).float()
     return softcap(logits, cfg.final_softcap)
 
 
@@ -223,10 +260,36 @@ def _position(value: int, device) -> torch.Tensor:
     return torch.full((), value, dtype=torch.int32, device=device)
 
 
+def _serve_plan(cfg: ModelConfig, batch: int):
+    """The serve plan of the ambient mesh at the global ``batch`` (None
+    without a mesh of several ranks)."""
+    return serve_plan_for(cfg, ambient_mesh(), batch)
+
+
 def init_serve_state(cfg: ModelConfig, batch: int, s_max: int,
                      device=None) -> ServeState:
+    """The empty cache of a global ``batch`` of ``s_max`` positions; under
+    an ambient mesh of several ranks, the rank's blocks of it by
+    ``cache_shardings`` (:class:`~repro_torch.distributed.data_parallel.
+    ServePlan`)."""
     dev = resolve_device(device)
-    return ServeState(init_cache(cfg, batch, s_max, dev), _position(0, dev))
+    plan = _serve_plan(cfg, batch)
+    cut = plan.cache_shape if plan is not None else None
+    return ServeState(init_cache(cfg, batch, s_max, dev, cut),
+                      _position(0, dev))
+
+
+@contextlib.contextmanager
+def _serving(params: Pytree, cfg: ModelConfig, batch: int):
+    """The serve plan of the ambient mesh inside its computing context
+    (None and no context without a mesh of several ranks)."""
+    plan = _serve_plan(cfg, batch)
+    if plan is None:
+        yield None
+        return
+    plan.check_params(params)
+    with plan.computing(params):
+        yield plan
 
 
 @torch.no_grad()
@@ -234,15 +297,24 @@ def prefill(params: Pytree, cfg: ModelConfig, batch: Pytree,
             state: ServeState, backend: str = "cuda"
             ) -> Tuple[torch.Tensor, ServeState]:
     """Process the prompt; returns last-position logits [B, 1, V] (f32)
-    and the state with the filled cache."""
-    x = _embed(params, cfg, batch)
-    b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device)[None].expand(b, s)
-    x, cache = blocks_serve(params["blocks"], cfg, x, state.cache,
-                            positions, "prefill", backend)
-    return (_logits(params, cfg, x[:, -1:], backend),
-            ServeState(cache, _position(s, x.device)))
+    and the state with the filled cache. Under an ambient mesh of several
+    ranks ``params`` are the rank's shards and ``state`` its blocks
+    (:func:`init_serve_state`); ``batch`` and the logits are the global
+    batch's, the rank computing its rows."""
+    rows = tree_util.tree_leaves(batch)[0].shape[0]
+    with _serving(params, cfg, rows) as plan:
+        if plan is not None:
+            batch = plan.local_rows(batch)
+        x = _embed(params, cfg, batch)
+        b, s, _ = x.shape
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+        x, cache = blocks_serve(params["blocks"], cfg, x, state.cache,
+                                positions, "prefill", backend)
+        logits = _logits(params, cfg, x[:, -1:], backend)
+        if plan is not None:
+            logits = plan.gather_rows(logits)
+    return logits, ServeState(cache, _position(s, x.device))
 
 
 @torch.no_grad()
@@ -250,13 +322,18 @@ def decode_step(params: Pytree, cfg: ModelConfig,
                 tokens_or_embeds: torch.Tensor, state: ServeState,
                 backend: str = "cuda") -> Tuple[torch.Tensor, ServeState]:
     """One decode step. tokens [B, 1] int (or [B, 1, D] embeds); returns
-    logits [B, 1, V] (f32)."""
-    cdt = torch_dtype(cfg.compute_dtype)
-    if cfg.input_mode == "embeds" and tokens_or_embeds.dim() == 3:
-        x = tokens_or_embeds.to(cdt)
-    else:
-        x = params["embed"][tokens_or_embeds].to(cdt)
-    x, cache = blocks_serve(params["blocks"], cfg, x, state.cache,
-                            state.pos, "decode", backend)
-    return (_logits(params, cfg, x, backend),
-            ServeState(cache, state.pos + 1))
+    logits [B, 1, V] (f32). Under an ambient mesh of several ranks, as
+    :func:`prefill`: the global batch in and out."""
+    with _serving(params, cfg, tokens_or_embeds.shape[0]) as plan:
+        if plan is not None:
+            tokens_or_embeds = plan.local_rows(tokens_or_embeds)
+        if cfg.input_mode == "embeds" and tokens_or_embeds.dim() == 3:
+            x = tokens_or_embeds.to(torch_dtype(cfg.compute_dtype))
+        else:
+            x = _embed_tokens(params, cfg, tokens_or_embeds)
+        x, cache = blocks_serve(params["blocks"], cfg, x, state.cache,
+                                state.pos, "decode", backend)
+        logits = _logits(params, cfg, x, backend)
+        if plan is not None:
+            logits = plan.gather_rows(logits)
+    return logits, ServeState(cache, state.pos + 1)

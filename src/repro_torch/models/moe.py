@@ -15,7 +15,8 @@ differentiates the dispatch (the scatter-add into the expert buffers) and
 the gather back, under ``torch.func.vjp`` too (MALI's backward).
 :func:`aux_load_balance_loss` is the Switch-style auxiliary loss; as in
 the JAX package, no loss calls it. Under data parallelism
-(:func:`~repro_torch.distributed.data_parallel.row_split`) the capacity
+(:func:`~repro_torch.distributed.data_parallel.row_split`; in training and
+in a serve step on a mesh, ``eval_mode``) the capacity
 and each (token, choice)'s rank come from the global batch: the ranks'
 expert ids are all-gathered (a kept token's output does not depend on
 the other tokens, so each rank computes its own tokens' outputs).
@@ -106,9 +107,9 @@ def apply_moe(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     factor = (cfg.moe_eval_capacity_factor if eval_mode
               else cfg.moe_capacity_factor)
     # the data group whose ranks' tokens make this call's batch (None
-    # inside a branch that solves the rank's rows on their own, the JAX
-    # package's shard_map)
-    split = row_split(cfg.ode)
+    # inside a training branch that solves the rank's rows on their own,
+    # the JAX package's shard_map; its serve path has no such branch)
+    split = row_split(None if eval_mode else cfg.ode)
     n_all = n if split is None else n * split.size
     cap = _capacity(n_all, cfg, factor)
     # the rule's splits over 'model': the experts, else their d_ff; the

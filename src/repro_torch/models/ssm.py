@@ -34,7 +34,12 @@ each rank takes its block of ``u`` and of the gate (the rule splits the
 fused ``[u | gate]`` columns in contiguous blocks); ``conv_w``,
 ``dt_proj``, ``A_log`` and the per-channel vectors are the rank's block;
 ``x_proj``'s contraction over d_inner is summed over the group, and
-``out_proj`` is row-parallel, its partial outputs summed.
+``out_proj`` is row-parallel, its partial outputs summed. A serve step on
+a mesh whose caches split d_inner over 'model' (``ServePlan.computing``)
+runs the same split without autograd on its block of the conv and ssm
+caches, the scan kernel on the local d_inner; the whole leaves it cuts
+to its block include every leaf of a config whose weights the rule
+replicates.
 
 Caches are written in place (the JAX package returns updated copies);
 each function still returns the cache it was given.
@@ -50,9 +55,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.alf import check_backend
 from repro_torch.distributed.tensor_parallel import (block, enter,
                                                      enter_leaves,
+                                                     gather_dim,
                                                      gather_last_summed,
                                                      leave, model_split,
-                                                     splits)
+                                                     serve_model, splits,
+                                                     sum_over)
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 
@@ -78,6 +85,9 @@ def mamba_inits(generator: torch.Generator, cfg: ModelConfig,
     d = cfg.d_model
 
     def a_log():
+        if torch.device(device).type == "meta":
+            # a shape only (meta arange and log import torch._dynamo)
+            return torch.empty((d_inner, d_state), dtype=f32, device=device)
         a = torch.arange(1, d_state + 1, dtype=f32, device=device)
         return torch.log(a[None, :].repeat(d_inner, 1))
 
@@ -119,16 +129,18 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out + b
 
 
-def _ssm_inputs(params: Pytree, cfg: ModelConfig, u: torch.Tensor):
+def _ssm_inputs(params: Pytree, cfg: ModelConfig, u: torch.Tensor,
+                tp=None):
     """u: [B, S, d_inner] -> (delta [B, S, d_inner] f32, A [d_inner,
     d_state] f32, B, C [B, S, d_state]): the factors of the discretised
     terms, which the JAX package's ``_ssm_inputs`` multiplies out. Under
-    tensor parallelism ``u`` is the rank's block of d_inner: ``x_proj``'s
-    products are summed over the group, and (delta, A) are the block's."""
+    tensor parallelism ``u`` is the rank's block of d_inner (over the
+    group ``tp``): ``x_proj``'s products are summed over the group, and
+    (delta, A) are the block's."""
     d_inner, dt_rank, d_state, _ = _dims(cfg)
     proj = _matmul(u, params["x_proj"])
-    if splits(model_split(), d_inner):
-        proj = enter(leave(proj))
+    if tp is not None:
+        proj = enter(leave(proj, tp), tp)
     dt_raw, b_mat, c_mat = torch.split(proj, [dt_rank, d_state, d_state],
                                        dim=-1)
     # torch's softplus returns x above 20 where jax.nn.softplus is
@@ -140,13 +152,52 @@ def _ssm_inputs(params: Pytree, cfg: ModelConfig, u: torch.Tensor):
     return delta, a, b_mat, c_mat
 
 
+def _serve_share(params: Pytree, cfg: ModelConfig):
+    """(the 'model' group, the rank's view of the mixer's parameters, its
+    (first, count) of d_inner) in a serve step whose caches hold a block
+    of d_inner; (None, params, None) otherwise. The leaves the rule
+    splits are the rank's block already; a whole one (a 1-D leaf, or every
+    leaf of a config whose weights the rule replicates) is cut here."""
+    d_inner = _dims(cfg)[0]
+    tp = serve_model()
+    if not splits(tp, d_inner):
+        return None, params, None
+    lo, n = block(tp, d_inner)
+    p = dict(params)
+    for name, dim in (("conv_w", 1), ("dt_proj", 1), ("x_proj", 0),
+                      ("A_log", 0), ("out_proj", 0), ("conv_b", 0),
+                      ("dt_bias", 0), ("D", 0)):
+        if p[name].shape[dim] == d_inner:
+            p[name] = p[name].narrow(dim, lo, n)
+    return tp, p, (lo, n)
+
+
+def _in_projection(params: Pytree, cfg: ModelConfig, x: torch.Tensor, tp,
+                   blk):
+    """(u, gate) before the conv: the rank's block of d_inner of each
+    (``blk``; the rule splits the fused ``[u | gate]`` columns of
+    ``in_proj`` in contiguous blocks, so the ranks' columns are gathered
+    first), or the whole of each."""
+    y = x @ params["in_proj"]
+    d_inner = _dims(cfg)[0]
+    if y.shape[-1] < 2 * d_inner:
+        y = gather_dim(tp or model_split(), y, y.dim() - 1)
+    if blk is None:
+        return torch.chunk(y, 2, dim=-1)
+    lo, n = blk
+    return y[..., lo:lo + n], y[..., d_inner + lo:d_inner + lo + n]
+
+
 def apply_mamba_prefill(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
                         return_state: bool = False, backend: str = "cuda"):
     """x: [B, S, D] -> [B, S, D] (+ the final (conv_state, ssm_state) if
     asked). The JAX package's ``apply_mamba_train(return_state=...)``; the
     recurrence is one selective-scan op call over the whole prompt from
     h = 0. With state, S must be a multiple of min(_CHUNK, S), the JAX
-    package's contract (its scan carries state across chunks of _CHUNK)."""
+    package's contract (its scan carries state across chunks of _CHUNK).
+    In a serve step whose caches split d_inner over 'model', the rank's
+    block of d_inner (and of the state), ``out_proj``'s partial products
+    summed (module docstring)."""
     check_backend(backend)
     _, s, _ = x.shape
     _, _, _, d_conv = _dims(cfg)
@@ -155,14 +206,15 @@ def apply_mamba_prefill(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     if return_state and s < d_conv - 1:
         raise ValueError(f"prefill with state needs at least d_conv - 1 = "
                          f"{d_conv - 1} tokens, got {s}")
-    ui, res = torch.chunk(x @ params["in_proj"], 2, dim=-1)
+    tp, params, blk = _serve_share(params, cfg)
+    ui, res = _in_projection(params, cfg, x, tp, blk)
     u = silu(_causal_conv(ui, params["conv_w"], params["conv_b"]))
-    delta, a, b_mat, c_mat = _ssm_inputs(params, cfg, u)
+    delta, a, b_mat, c_mat = _ssm_inputs(params, cfg, u, tp)
     scan = scan_ops.selective_scan if backend == "cuda" else selective_scan_ref
     y, h_last = scan(delta, u, a, b_mat, c_mat)
     y = y + params["D"] * u.float()
     y = y.to(x.dtype) * silu(res)
-    out = y @ params["out_proj"]
+    out = sum_over(tp, y @ params["out_proj"])
     if not return_state:
         return out
     conv_state = ui[:, s - (d_conv - 1):].float()
@@ -234,7 +286,8 @@ def apply_mamba_train(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     if return_state and pad:
         raise ValueError("prefill requires seq_len % chunk == 0")
     u_p = torch.nn.functional.pad(u, (0, 0, 0, pad)) if pad else u
-    delta, a, b_mat, c_mat = _ssm_inputs(params, cfg, u_p)
+    delta, a, b_mat, c_mat = _ssm_inputs(params, cfg, u_p,
+                                         tp if split else None)
     h = torch.zeros((b, d_inner, d_state), dtype=torch.float32,
                     device=x.device)
     h_seq = []
@@ -264,34 +317,39 @@ class MambaCache(NamedTuple):
 
     @staticmethod
     def init(cfg: ModelConfig, n_slots: int, batch: int,
-             device) -> "MambaCache":
+             device, cut=None) -> "MambaCache":
+        """Zeros. ``cut(field, shape)`` gives a rank's block of a leaf of
+        the whole ``shape`` (a serve plan's ``cache_shape``)."""
         d_inner, _, d_state, d_conv = _dims(cfg)
+        conv = (n_slots, batch, d_conv - 1, d_inner)
+        ssm = (n_slots, batch, d_inner, d_state)
+        if cut is not None:
+            conv, ssm = cut("conv", conv), cut("ssm", ssm)
         f32 = torch.float32
-        return MambaCache(
-            torch.zeros((n_slots, batch, d_conv - 1, d_inner), dtype=f32,
-                        device=device),
-            torch.zeros((n_slots, batch, d_inner, d_state), dtype=f32,
-                        device=device))
+        return MambaCache(torch.zeros(conv, dtype=f32, device=device),
+                          torch.zeros(ssm, dtype=f32, device=device))
 
 
 def apply_mamba_decode(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
                        cache: MambaCache, slot: int
                        ) -> Tuple[torch.Tensor, MambaCache]:
     """x: [B, 1, D] single-token recurrent update; writes the conv and ssm
-    state at ``slot`` in place."""
-    ui, res = torch.chunk(x[:, 0] @ params["in_proj"], 2, dim=-1)  # [B, di]
+    state at ``slot`` in place (in a serve step whose caches split d_inner
+    over 'model', the rank's block of both)."""
+    tp, params, blk = _serve_share(params, cfg)
+    ui, res = _in_projection(params, cfg, x[:, 0], tp, blk)     # [B, di]
     window = torch.cat([cache.conv[slot], ui.float()[:, None]],
                        dim=1)                                   # [B,d_conv,di]
     u = silu(torch.einsum("bkc,kc->bc", window, params["conv_w"].float())
              + params["conv_b"].float())
-    delta, a, b_mat, c_mat = _ssm_inputs(params, cfg, u[:, None])   # S=1
+    delta, a, b_mat, c_mat = _ssm_inputs(params, cfg, u[:, None], tp)  # S=1
     dA = torch.exp(delta[:, 0, :, None] * a)                       # [B,di,st]
     dBu = (delta[:, 0] * u)[..., None] * b_mat[:, 0, None, :].float()
     h = dA * cache.ssm[slot] + dBu
     y = torch.einsum("bis,bs->bi", h, c_mat[:, 0].float())
     y = y + params["D"] * u
     y = y.to(x.dtype) * silu(res)
-    out = (y @ params["out_proj"])[:, None]
+    out = sum_over(tp, y @ params["out_proj"])[:, None]
     cache.conv[slot] = window[:, 1:]
     cache.ssm[slot] = h
     return out, cache

@@ -23,8 +23,11 @@ tensor_parallel`); the ODE state between them is whole on every rank.
 
 Serve path (prefill/decode): forward only, so the ALF steps are unrolled
 explicitly with the KV or SSM cache threaded through every f-eval: each
-eval index is a cache "virtual layer" slot. The ALF state algebra between
-the f-evals (``midpoint`` then ``update``, in float32) runs through the
+eval index is a cache "virtual layer" slot. In a serve step on a mesh
+the layers gather their 'data' shards once each and compute over
+'model' as in training, on the rank's blocks of the caches; the state
+between the branches stays whole and bit-equal on a 'model' group. The
+ALF state algebra between the f-evals (``midpoint`` then ``update``, in float32) runs through the
 fused ALF ops (``kernels/alf_step``), so the card launches the ALF
 kernels inside every continuous-depth block.
 
@@ -50,6 +53,7 @@ from repro_torch.core.alf import check_backend
 from repro_torch.core.interface import RunStats
 from repro_torch.core.solve import solve
 from repro_torch.distributed.data_parallel import fsdp_gathered, fsdp_unbind
+from repro_torch.distributed.sharding import _path_names
 from repro_torch.distributed.tensor_parallel import record_state
 from repro_torch.kernels.alf_step import ops as alf_ops
 from repro_torch.kernels.alf_step import ref as alf_ref
@@ -107,27 +111,40 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
 
 
 def init_blocks(generator: torch.Generator, cfg: ModelConfig,
-                device) -> Pytree:
+                device, cut=None) -> Pytree:
     """The prelude's layers, then the period's, each leaf allocated once
     as [n_periods, ...] and filled period by period as it is drawn: init
     holds the weights plus one leaf's draw temporaries (stacking finished
-    periods would hold the weights twice)."""
+    periods would hold the weights twice). ``cut(names, leaf, period)``
+    (a serve plan's ``cut``) keeps a rank's block of each leaf as it is
+    drawn (``names`` its key path; ``period``: one period of a stacked
+    leaf), so init holds the rank's blocks plus one whole leaf."""
     params: Pytree = {}
     if cfg.prelude:
-        params["prelude"] = [
-            init_layer(generator, cfg, spec, device,
-                       dense_d_ff=cfg.prelude_d_ff or None)
-            for spec in cfg.prelude]
+        params["prelude"] = []
+        for i, spec in enumerate(cfg.prelude):
+            inits = layer_inits(generator, cfg, spec, device,
+                                dense_d_ff=cfg.prelude_d_ff or None)
+            params["prelude"].append(
+                materialize(inits) if cut is None else
+                pytree.tree_map_with_path(
+                    lambda path, make: cut(
+                        ("blocks", "prelude", str(i)) + _path_names(path),
+                        make()),
+                    inits))
     if cfg.period:
         stacked, tree = None, None
         for p in range(cfg.n_periods):
-            inits, tree = pytree.tree_flatten(
+            inits, tree = pytree.tree_flatten_with_path(
                 {f"sub{j}": layer_inits(generator, cfg, spec, device)
                  for j, spec in enumerate(cfg.period)})
             if stacked is None:
                 stacked = [None] * len(inits)
-            for i, make in enumerate(inits):
+            for i, (path, make) in enumerate(inits):
                 leaf = make()
+                if cut is not None:
+                    leaf = cut(("blocks", "period") + _path_names(path),
+                               leaf, True)
                 if stacked[i] is None:
                     stacked[i] = leaf.new_empty((cfg.n_periods, *leaf.shape))
                 stacked[i][p].copy_(leaf)
@@ -271,29 +288,38 @@ def blocks_train(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
-                     s_max: int, device) -> Pytree:
+                     s_max: int, device, cut=None) -> Pytree:
+    """One layer's cache; ``cut(field, shape)`` (a serve plan's
+    ``cache_shape``) makes each leaf the rank's block."""
     slots = n_cache_slots(cfg)
     if spec.mixer == "attn":
-        return KVCache.init(cfg, slots, batch, s_max, device)
+        return KVCache.init(cfg, slots, batch, s_max, device, cut)
     if spec.mixer == "mamba":
-        return MambaCache.init(cfg, slots, batch, device)
+        return MambaCache.init(cfg, slots, batch, device, cut)
     if spec.mixer == "mlstm":
-        return LstmCache.init_mlstm(cfg, slots, batch, device)
-    return LstmCache.init_slstm(cfg, slots, batch, device)
+        return LstmCache.init_mlstm(cfg, slots, batch, device, cut)
+    return LstmCache.init_slstm(cfg, slots, batch, device, cut)
 
 
-def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> Pytree:
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, device,
+               cut=None) -> Pytree:
+    """The serve cache of a global ``batch`` (with ``cut``, the rank's
+    blocks of it: :func:`init_layer_cache`)."""
     cache: Pytree = {}
     if cfg.prelude:
-        cache["prelude"] = [init_layer_cache(cfg, spec, batch, s_max, device)
+        cache["prelude"] = [init_layer_cache(cfg, spec, batch, s_max, device,
+                                             cut)
                             for spec in cfg.prelude]
     if cfg.period:
-        proto = {f"sub{j}": init_layer_cache(cfg, spec, batch, s_max, device)
+        proto = {f"sub{j}": init_layer_cache(cfg, spec, batch, s_max, device,
+                                             cut)
                  for j, spec in enumerate(cfg.period)}
         # tiled from one period's caches (not zeros), as the JAX package
-        # does, so the xLSTM stabilizer's -1e30 start carries over
+        # does, so the xLSTM stabilizer's -1e30 start carries over (a
+        # broadcast copy: a meta repeat would import sympy)
         cache["period"] = pytree.tree_map(
-            lambda t: t[None].repeat(cfg.n_periods, *(1,) * t.dim()), proto)
+            lambda t: t.new_empty((cfg.n_periods, *t.shape)).copy_(t[None]),
+            proto)
     return cache
 
 
@@ -341,15 +367,18 @@ def _alf_unroll(f, x: torch.Tensor, n: int, eta: float, h: torch.Tensor,
         else:
             k1 = alf_ref.midpoint_ref(z, v, h)
             z, v = alf_ref.update_ref(k1, v, f(k1, i + 1), h, eta)
+    record_state(z)
     return z.to(x.dtype)
 
 
 def layer_serve(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
                 x: torch.Tensor, cache: Pytree, pos_info, kind: str,
-                backend: str = "cuda") -> Tuple[torch.Tensor, Pytree]:
+                backend: str = "cuda", dense_d_ff: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Pytree]:
     """One layer, serve mode. pos_info: positions [B,S] (prefill) or the
     0-d int32 pos tensor (decode). The cache is written in place and
-    returned."""
+    returned. ``dense_d_ff``: a dense MLP's hidden width where it is not
+    ``cfg.d_ff`` (the prelude's), which the split over 'model' reads."""
     check_backend(backend)
     ode = cfg.ode
     cdt = torch_dtype(cfg.compute_dtype)
@@ -364,7 +393,7 @@ def layer_serve(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
         zn = rmsnorm(params["mlp_norm"], z.to(cdt), backend=backend)
         if spec.mlp == "moe":
             return apply_moe(params["mlp"], cfg, zn, eval_mode=True).float()
-        return apply_mlp(params["mlp"], zn).float()
+        return apply_mlp(params["mlp"], zn, dense_d_ff or cfg.d_ff).float()
 
     if ode.mode == "off":
         x = x + mixer_eval(x, 0).to(x.dtype)
@@ -385,13 +414,19 @@ def layer_serve(params: Pytree, cfg: ModelConfig, spec: LayerSpec,
 def blocks_serve(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
                  cache: Pytree, pos_info, kind: str, backend: str = "cuda"
                  ) -> Tuple[torch.Tensor, Pytree]:
+    """Every layer, serve mode. In a serve step on a mesh each layer's
+    leaves split over 'data' are gathered once, for its f-evals, and
+    freed after it (FSDP)."""
     for i, spec in enumerate(cfg.prelude):
-        x, _ = layer_serve(params["prelude"][i], cfg, spec, x,
-                           cache["prelude"][i], pos_info, kind, backend)
-    for p in range(cfg.n_periods if cfg.period else 0):
-        pp = pytree.tree_map(lambda a: a[p], params["period"])
-        cc = pytree.tree_map(lambda a: a[p], cache["period"])   # views
-        for j, spec in enumerate(cfg.period):
-            x, _ = layer_serve(pp[f"sub{j}"], cfg, spec, x, cc[f"sub{j}"],
-                               pos_info, kind, backend)
+        with fsdp_gathered(params["prelude"][i]) as lp:
+            x, _ = layer_serve(lp, cfg, spec, x, cache["prelude"][i],
+                               pos_info, kind, backend,
+                               dense_d_ff=cfg.prelude_d_ff or None)
+    if cfg.period:
+        for p, pp in enumerate(_periods(params["period"], cfg.n_periods)):
+            cc = pytree.tree_map(lambda a: a[p], cache["period"])   # views
+            for j, spec in enumerate(cfg.period):
+                with fsdp_gathered(pp[f"sub{j}"]) as lp:
+                    x, _ = layer_serve(lp, cfg, spec, x, cc[f"sub{j}"],
+                                       pos_info, kind, backend)
     return x, cache

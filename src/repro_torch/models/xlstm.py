@@ -209,24 +209,32 @@ class LstmCache(NamedTuple):
     h: torch.Tensor   # sLSTM hidden (zeros-shaped for mLSTM)
 
     @staticmethod
-    def init_mlstm(cfg: ModelConfig, n_slots: int, batch: int,
-                   device) -> "LstmCache":
-        _, nh, dh = _mlstm_dims(cfg)
+    def _filled(shapes, device, cut) -> "LstmCache":
+        """(c, n, m, h) of the whole ``shapes``; ``cut(field, shape)``
+        gives a rank's block (a serve plan's ``cache_shape``: the rows of
+        a data split)."""
         f32 = dict(dtype=torch.float32, device=device)
-        return LstmCache(torch.zeros((n_slots, batch, nh, dh, dh), **f32),
-                         torch.zeros((n_slots, batch, nh, dh), **f32),
-                         torch.full((n_slots, batch, nh), _M0, **f32),
-                         torch.zeros((n_slots, batch, 1), **f32))
+        if cut is not None:
+            shapes = [cut(f, s) for f, s in zip(LstmCache._fields, shapes)]
+        c, n, m, h = shapes
+        return LstmCache(torch.zeros(c, **f32), torch.zeros(n, **f32),
+                         torch.full(m, _M0, **f32), torch.zeros(h, **f32))
+
+    @staticmethod
+    def init_mlstm(cfg: ModelConfig, n_slots: int, batch: int,
+                   device, cut=None) -> "LstmCache":
+        _, nh, dh = _mlstm_dims(cfg)
+        return LstmCache._filled(
+            [(n_slots, batch, nh, dh, dh), (n_slots, batch, nh, dh),
+             (n_slots, batch, nh), (n_slots, batch, 1)], device, cut)
 
     @staticmethod
     def init_slstm(cfg: ModelConfig, n_slots: int, batch: int,
-                   device) -> "LstmCache":
+                   device, cut=None) -> "LstmCache":
         nh, dh = _head_dims(cfg)
-        f32 = dict(dtype=torch.float32, device=device)
-        return LstmCache(torch.zeros((n_slots, batch, nh, dh), **f32),
-                         torch.zeros((n_slots, batch, nh, dh), **f32),
-                         torch.full((n_slots, batch, nh), _M0, **f32),
-                         torch.zeros((n_slots, batch, nh, dh), **f32))
+        return LstmCache._filled(
+            [(n_slots, batch, nh, dh), (n_slots, batch, nh, dh),
+             (n_slots, batch, nh), (n_slots, batch, nh, dh)], device, cut)
 
 
 def apply_mlstm_decode(params: Pytree, cfg: ModelConfig, x: torch.Tensor,

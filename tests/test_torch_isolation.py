@@ -10,7 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_serve_rank.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -50,7 +50,11 @@ def test_port_has_files_to_scan():
                 "src/repro_torch/launch/train.py",
                 "src/repro_torch/launch/steps.py",
                 "src/repro_torch/launch/specs.py",
-                "src/repro_torch/models/frontend.py"):
+                "src/repro_torch/models/frontend.py",
+                "src/repro_torch/models/attention.py",
+                "src/repro_torch/models/lm.py",
+                "src/repro_torch/launch/mesh.py",
+                "tests/torch_tp_serve_rank.py"):
         assert new in names
 
 
@@ -79,6 +83,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.distributed.tensor_parallel\n"
         "import repro_torch.launch.train, repro_torch.launch.steps\n"
         "import repro_torch.launch.specs, repro_torch.models.frontend\n"
+        "import repro_torch.launch.mesh, repro_torch.distributed.sharding\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

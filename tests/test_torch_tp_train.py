@@ -387,3 +387,44 @@ def test_cache_shardings_match_jax(arch, mesh):
                    tsh.cache_shardings(tcfg, tmesh, tstate.cache,
                                        cell.global_batch))[0]}
         assert got == want, (arch, mesh, cell.name)
+
+
+STEP0_MESHES = {"2x2": {"data": 2, "model": 2}, "1x2": {"data": 1, "model": 2}}
+
+
+@pytest.mark.parametrize("batch", [4, 2, 1])
+@pytest.mark.parametrize("mesh", list(STEP0_MESHES))
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-2b", "xlstm-125m"])
+def test_cache_shardings_raise_where_jax_raises(arch, mesh, batch):
+    """A pure-DP config whose batch divides data x model puts the batch on
+    ('data', 'model') and 'model' again on the heads or d_head: the JAX
+    package's ``NamedSharding`` refuses the spec, and the port's
+    ``cache_shardings`` raises ``ValueError`` in the same cases (batch 4
+    on both meshes, batch 2 on {data 1, model 2}); elsewhere the two give
+    the same specs."""
+    from jax.sharding import AbstractMesh
+    from repro.configs import get_config as jax_get_config
+    from repro.models.lm import init_serve_state as jax_init_serve_state
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import META
+    from repro_torch.models import init_serve_state
+    sizes = STEP0_MESHES[mesh]
+    jmesh = AbstractMesh(tuple(sizes.values()), tuple(sizes))
+    jcfg, tcfg = jax_get_config(arch), get_config(arch)
+    jstate = jax.eval_shape(lambda: jax_init_serve_state(jcfg, batch, 64))
+    tstate = init_serve_state(tcfg, batch, 64, META)
+    try:
+        want = _jax_specs(jsh.cache_shardings(jcfg, jmesh, jstate.cache,
+                                              batch))
+    except Exception as e:          # jax's DuplicateSpecError
+        assert "DuplicateSpec" in type(e).__name__, e
+        want = None
+    assert (want is None) == (batch == 4 or (batch == 2 and mesh == "1x2"))
+    if want is None:
+        with pytest.raises(ValueError, match="maps mesh axes"):
+            tsh.cache_shardings(tcfg, sizes, tstate.cache, batch)
+        return
+    got = {tsh._path_names(path): tuple(spec) for path, spec in
+           torch.utils._pytree.tree_flatten_with_path(
+               tsh.cache_shardings(tcfg, sizes, tstate.cache, batch))[0]}
+    assert got == want, (arch, mesh, batch)
