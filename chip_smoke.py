@@ -102,7 +102,10 @@ either. Phases, each printing JSON lines:
                eager), prefill(p+1) against prefill(p) + decode, peak
                memory and the device profile of 4 replays (those of a
                prefill and of 4 eager decode steps were cut to
-               keep the script near 1000 s).
+               keep the script near 1000 s); a decode graph captured
+               while a dead one waits in a reference cycle and the cyclic
+               collector runs at every allocation (it must not free the
+               dead graph inside the capture).
 12. ssm_serve — the port's serve() for jamba-v0.1-52b at full width, 2 of
                its 4 periods (16 of 32 layers, the only cut: 4 periods
                are ~104 GB of bf16 weights), bf16, DEFAULT_ODE, batch 4,
@@ -240,7 +243,9 @@ either. Phases, each printing JSON lines:
                at S 1024 in f32 within 1e-5, and MALI (cuda) against
                Naive (reference) within rtol 2e-4 / atol 2e-5; (c) the
                peak memory of one train_step from 2 to 8 ALF steps: MALI
-               at (a)'s shape <= 1.05x, Naive (2 layers, S 1024, f32,
+               at (a)'s shape, cut to 8 of the 28 layers for the
+               script's time (fresh weights), <= 1.05x, Naive (2 layers,
+               S 1024, f32,
                batch 8) > 2x; (d) the gemma2 (S 2304: window, softcaps
                and the FA2 backward), jamba and deepseek smoke configs one
                step each, kernel against reference within 1e-5 in f32,
@@ -282,12 +287,13 @@ either. Phases, each printing JSON lines:
 20. dp_train  — data-parallel training (repro_torch.distributed.
                data_parallel) over two ranks that share the card: two
                processes, gloo through a FileStore, every collective
-               staged through the host. (a) qwen3-1.7b at full width
-               (bf16, pure DP: ZeRO-1 optimizer state), global batch 4 x
-               1024, 3 Trainer steps: loss, lr and grad norm a step
+               staged through the host. (a) qwen3-1.7b at full width,
+               cut to DP_LAYERS (8) of its 28 layers for the script's
+               time (bf16, pure DP: ZeRO-1 optimizer state), global batch
+               4 x 1024, 3 Trainer steps: loss, lr and grad norm a step
                against a one-rank Trainer on the same global batch
                (LT_BF16_TOL; in f32, cut to 2 layers at S 256, LT_F32_TOL),
-               parameters bit-equal on the ranks after every step, 112
+               parameters bit-equal on the ranks after every step, 32
                launches of each MALI kernel a step on each rank, a rank's
                optimizer bytes <= 0.55x the one rank's, the collectives
                and their bytes and host seconds a step by kind, the
@@ -370,7 +376,8 @@ either. Phases, each printing JSON lines:
                update end: nothing beyond its shards and the
                workspaces stays after a step, the peaks within bounds
                reckoned from its shards and the config.
-23. clis      — the launchers of phases 16 (d), 17 (e), 18 (c), 20 (d)
+23. clis      — (with phase 25's two helper processes beside them)
+               the launchers of phases 16 (d), 17 (e), 18 (c), 20 (d)
                and 22 (c), and the serve launcher under python -m
                torch.distributed.run --nproc-per-node 2 (deepseek-moe's
                smoke config on two ranks of the card, the host mesh
@@ -411,6 +418,40 @@ either. Phases, each printing JSON lines:
                d_inner against their plain versions; prefill and eager
                decode ms beside one rank's; the phase's seconds beside
                TPS_PHASE_S.
+25. examples  — the paper's experiments as the port's own entry points:
+               each module of repro_torch.examples run on the card
+               through its main(), ALF on "cuda", every launch count set
+               to 0 just before a run and read just after (the kernels
+               line's launches_examples); the two host-bound runs that
+               would take most of the time (the latent ODE's adjoint and
+               cnf_toy) in helper processes (chip_smoke.py --example,
+               counting alike) that start with phase 23's CLIs and that
+               phase 23 waits for, the rest in this process. quickstart
+               whole:
+               dL/dalpha of the four methods within 1e-5 of the port on
+               the CPU, MALI against Naive within 1e-6, the counters
+               (steps, f-evals, Lockstep's rows) equal the CPU's, the
+               event fired, PerSample's rows on both (the stiffest row's
+               float32 step-size power differs between the devices) and
+               the same PerSample solve under ReproducibleController
+               equal on both, the allocator's peak over a
+               forward + backward from 8 to 64 steps <= 1.05x for MALI
+               and > 2x for Naive; image_recognition at its 400 steps:
+               every test accuracy (resnet, node, the five invariance
+               solvers) >= 0.98, 4 + 4 forward and 4 + 4 backward
+               launches a node step plus the forward-only evaluations;
+               time_series_latent_ode, each of its four methods at 20
+               steps: the loss falls, its ALF launches a step equal the
+               accepted steps of the same rollout on the CPU (its Stats),
+               MALI's first-step gradient on the kernels against Naive's
+               on the reference backend within rtol 2e-4 / atol 2e-5, the
+               test extrapolation MSE; cnf_toy at 150 steps and
+               cnf_image at its defaults (each asserts its own result:
+               the fine NLL below the Gaussian baseline, bits/dim
+               falling); lm_continuous_depth at 6 steps (the recovered
+               loss trace bit-equal to the clean one; the serve). Each
+               example's ms a step (host clock ending in a sync) and
+               wall; the phase's seconds beside EX_PHASE_S.
 
 Phase 2 also holds the eight kernels with a per-row (B,) h, each row
 its own (kernels_rows: B x D in ROW_CASES, f32, bf16, mixed, f64, one
@@ -435,8 +476,16 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 SRC = HERE / "src"
+if not (SRC / "repro_torch").is_dir():
+    sys.exit(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
+             "from a checkout of the repository")
+sys.path.insert(0, str(SRC))
+# The paper's experiments are the port's own examples: the Sec 4.2
+# model's widths, data and field, and the image CNF's settings.
+from repro_torch.examples import cnf_image  # noqa: E402
+from repro_torch.examples.image_recognition import (  # noqa: E402
+    D, HIDDEN, N_CLASS, field, make_data)
 
-D, HIDDEN, N_CLASS = 64, 64, 3          # examples/image_recognition.py
 N_TRAIN, TRAIN_STEPS, LR, N_SUB = 2048, 20, 3e-3, 4
 SLICE_N = N_TRAIN * D                   # the main path's state: 2048 x 64
 BIG_N = 1 << 25
@@ -450,7 +499,7 @@ BACKSOLVE_AUG_N = 2 * SLICE_N + 2 * D * HIDDEN + HIDDEN + D
 # The image CNF (phase 14; examples/cnf_image.py) at the example's
 # default batch and at a real state; its augmented state (z, logdet,
 # kinetic, probe), packed into one buffer: 25,120 and 1,607,680 f32
-CNF_DIM, CNF_BATCHES = 28 * 28, (16, 1024)
+CNF_DIM, CNF_BATCHES = cnf_image.DIM, (cnf_image.BATCH, 1024)
 CNF_ROW = 2 * CNF_DIM + 2
 CNF_PACKED_N = tuple(b * CNF_ROW for b in CNF_BATCHES)
 # Per-row h (PerSample batching): (B rows, D elements a row). D = 1, 2
@@ -639,17 +688,13 @@ def card_rates(name: str):
 
 
 # ---------------------------------------------------------------------------
-# The paper's Sec 4.2 model (examples/image_recognition.py)
+# The paper's Sec 4.2 model (repro_torch.examples.image_recognition)
 # ---------------------------------------------------------------------------
 
-def make_data(n: int, seed: int):
-    """Three gaussian-blob classes with fixed means, exactly as the JAX
-    example makes them."""
-    protos = np.random.default_rng(12345).standard_normal((N_CLASS, D)) * 0.6
-    rng = np.random.default_rng(seed)
-    y = rng.integers(0, N_CLASS, n)
-    x = protos[y] + rng.standard_normal((n, D)) * 0.8
-    return x.astype(np.float32), y.astype(np.int64)
+def _data_np(n: int, seed: int):
+    """The Sec 4.2 example's images and labels, as host numpy."""
+    x, y = make_data(n, seed, device="cpu")
+    return x.numpy(), y.numpy()
 
 
 def init_params_numpy(seed: int):
@@ -664,12 +709,6 @@ def init_params_numpy(seed: int):
         "head": (0.3 * rng.standard_normal((D, N_CLASS))).astype(f32),
         "bh": np.zeros((N_CLASS,), f32),
     }
-
-
-def field(fp, z, t):
-    import torch
-    h = torch.tanh(z @ fp["w1"] + fp["b1"])
-    return h @ fp["w2"] + fp["b2"]
 
 
 # ---------------------------------------------------------------------------
@@ -1271,7 +1310,7 @@ def phase_main_path():
     from repro_torch import params_from_numpy
     from repro_torch.core import ALF, MALI, ConstantSteps, Naive
 
-    x_np, y_np = make_data(N_TRAIN, seed=0)
+    x_np, y_np = _data_np(N_TRAIN, seed=0)
     x = torch.as_tensor(x_np, device="cuda")
     y = torch.as_tensor(y_np, device="cuda")
     params = params_from_numpy(init_params_numpy(0))
@@ -1343,7 +1382,7 @@ def phase_adaptive():
     from repro_torch import params_from_numpy
     from repro_torch.core import (ALF, MALI, AdaptiveController, Naive,
                                   SaveAt, solve)
-    x_np, _ = make_data(N_TRAIN, seed=0)
+    x_np, _ = _data_np(N_TRAIN, seed=0)
     fp = params_from_numpy(init_params_numpy(0)["f"])
     ctrl = AdaptiveController(1e-4, 1e-5, 128)
     saveat = SaveAt(ts=torch.linspace(0.0, 1.0, 5))
@@ -1399,7 +1438,7 @@ def phase_direct_backprop(mali_losses):
     from repro_torch import params_from_numpy
     from repro_torch.core import (ALF, MALI, AdaptiveController,
                                   ConstantSteps, Naive, SaveAt)
-    x_np, y_np = make_data(N_TRAIN, seed=0)
+    x_np, y_np = _data_np(N_TRAIN, seed=0)
     x = torch.as_tensor(x_np, device="cuda")
     y = torch.as_tensor(y_np, device="cuda")
     params = params_from_numpy(init_params_numpy(0))
@@ -1500,7 +1539,7 @@ def phase_memory():
     import torch.utils._pytree as pytree
     from repro_torch import params_from_numpy
     from repro_torch.core import ALF, MALI, ConstantSteps, Naive, solve
-    x_np, _ = make_data((1 << 20) // D, seed=2)
+    x_np, _ = _data_np((1 << 20) // D, seed=2)
     fp = params_from_numpy(init_params_numpy(0)["f"])
     peaks = {}
     for label, solver, gradient in (
@@ -2144,6 +2183,55 @@ def _counted_steps(params, cfg, toks, prompt: int, per_prefill: dict,
     return step, state
 
 
+def _capture_beside_a_dead_graph(params, cfg, toks, prompt: int) -> dict:
+    """make_decode_step's capture while a dead DecodeGraph (captured)
+    waits in a reference cycle that only the cyclic collector frees, and
+    that collector is set, from the capture's start, to run at every
+    allocation: the capture must not free the dead graph (a CUDA graph
+    freed inside another capture ends it with an error) and the captured
+    step's logits are finite."""
+    import gc
+    import torch
+    from repro_torch.launch.serve import DecodeGraph, make_decode_step
+    from repro_torch.models import init_serve_state, prefill
+    begin, threshold = torch.cuda.CUDAGraph.capture_begin, gc.get_threshold()
+    dead = []
+
+    def first_call(step):
+        state = init_serve_state(cfg, toks.shape[0], prompt + 2)
+        _, state = prefill(params, cfg, _prompt(cfg, toks[:, :prompt]),
+                           state)
+        return step(params, toks[:, prompt:prompt + 1], state)
+
+    def capture_begin(graph, *args, **kwargs):
+        begin(graph, *args, **kwargs)
+        box = [dead.pop()]
+        box.append(box)
+        del box
+        gc.set_threshold(1)
+
+    old = DecodeGraph(cfg)
+    first_call(old)
+    require(old.graph is not None, "lm_serve: the dead graph was not "
+            "captured")
+    dead.append(old)
+    del old
+    step = make_decode_step(cfg)
+    torch.cuda.CUDAGraph.capture_begin = capture_begin
+    try:
+        logits, _ = first_call(step)
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = begin
+        gc.set_threshold(*threshold)
+    gc.collect()
+    torch.cuda.synchronize()
+    require(step.graphed and not dead, "lm_serve: the decode step did not "
+            "capture beside the dead graph")
+    require(bool(torch.isfinite(logits).all()), "lm_serve: non-finite "
+            "logits from the step captured beside a dead graph")
+    return {"captured": True, "collector_threshold_in_capture": 1}
+
+
 def _graph_vs_eager(params, cfg, prompt, n_decode: int, serve_tokens,
                     busy_ms: float):
     """Greedy decode of ``n_decode`` tokens from one prefill of ``prompt``,
@@ -2257,7 +2345,9 @@ def phase_lm_serve(card: str, smi: str):
     graph = _graph_vs_eager(params, cfg, serve_prompt(
         cfg, LM_BATCH, LM_PROMPT, 0, "cuda"), LM_DECODE, result.tokens,
         prof_replay["device_busy_ms"] / 4)
-    del params, step, gstate
+    del step, gstate
+    dead_graph = _capture_beside_a_dead_graph(params, cfg, toks, LM_PROMPT)
+    del params
     torch.cuda.empty_cache()
 
     compare = [_lm_compare(torch.bfloat16, LM_BATCH, LM_PROMPT, 8),
@@ -2274,6 +2364,7 @@ def phase_lm_serve(card: str, smi: str):
           "per_prefill": LM_PER_PREFILL, "per_decode_step": LM_PER_DECODE,
           "sample": result.tokens[0][:8].tolist(),
           "graph_vs_eager": graph,
+          "capture_beside_a_dead_graph": dead_graph,
           "profile_decode_4_replays": prof_replay,
           "compare": compare})
     return launches
@@ -2811,7 +2902,7 @@ def _method_memory():
     from repro_torch import params_from_numpy
     from repro_torch.core import (ACA, ALF, MALI, Backsolve, ConstantSteps,
                                   HeunEuler, Naive, solve)
-    x_np, _ = make_data((1 << 20) // D, seed=2)
+    x_np, _ = _data_np((1 << 20) // D, seed=2)
     fp = params_from_numpy(init_params_numpy(0)["f"])
     cuda_alf = ALF(eta=1.0, backend="cuda")
     peaks = {}
@@ -2926,7 +3017,7 @@ def phase_methods(card: str, smi: str):
         parts[name] = time.perf_counter() - t0 - sum(parts.values())
 
     torch.cuda.empty_cache()
-    x_np, y_np = make_data(N_TRAIN, seed=0)
+    x_np, y_np = _data_np(N_TRAIN, seed=0)
     x = torch.as_tensor(x_np, device="cuda")
     y = torch.as_tensor(y_np, device="cuda")
     thm21 = _thm21()
@@ -2956,8 +3047,10 @@ def phase_methods(card: str, smi: str):
 # Phase 14: the image CNF (paper Sec 4.4; examples/cnf_image.py) and events
 # ---------------------------------------------------------------------------
 
-CNF_HIDDEN, CNF_DEPTH = 64, 2   # examples/cnf_image.py; CNF_DIM above
-CNF_STEPS, CNF_N_SUB, CNF_LR, CNF_KINETIC = 20, 8, 1e-3, 0.05
+# repro_torch.examples.cnf_image's settings; CNF_DIM above
+CNF_HIDDEN, CNF_DEPTH = cnf_image.HIDDEN, cnf_image.DEPTH
+CNF_STEPS, CNF_N_SUB = cnf_image.STEPS, cnf_image.N_STEPS
+CNF_LR, CNF_KINETIC = cnf_image.LR, cnf_image.KINETIC_REG
 CNF_MEMORY_STEPS = (8, 64)
 # kernel backend against the reference backend, same probe: max |a - b| /
 # max |b| per leaf; a leaf that is all zero on the reference backend must
@@ -2980,18 +3073,13 @@ EV_KERNEL_REL = 1e-6
 
 
 def _cnf_data(batch: int):
-    """CNF_STEPS dequantized image batches on the card: the port's
-    make_image_batch plus uniform noise inside each 1/256 bin."""
-    import torch
-    from repro_torch.data import DataConfig, make_image_batch
+    """CNF_STEPS dequantized image batches on the card, as the example
+    draws them."""
+    from repro_torch.data import DataConfig
     dcfg = DataConfig(seed=0, global_batch=batch)
     rng = np.random.default_rng(0)
-    out = []
-    for step in range(CNF_STEPS):
-        img = make_image_batch(dcfg, step)["image"]
-        x = (img + rng.uniform(0, 1.0 / 256.0, img.shape)).astype(np.float32)
-        out.append(torch.as_tensor(x, device="cuda"))
-    return out
+    return [cnf_image.dequantized_batch(dcfg, step, rng, "cuda")
+            for step in range(CNF_STEPS)]
 
 
 def _cnf_params():
@@ -4221,6 +4309,10 @@ LT_CUT_LAYERS, LT_CUT_SEQ = 2, 1024
 LT_BF16_TOL = 3e-2            # bf16 kernel vs reference (or 3x the floor)
 LT_F32_TOL = 1e-5             # f32 kernel vs reference, relative
 LT_MEM_STEPS = (2, 8)
+# (c), MALI: qwen3-1.7b at (a)'s shape cut to 8 of its 28 layers (a
+# depth cut for the script's time; the ALF state a branch keeps is the
+# same at any depth)
+LT_MEM_LAYERS = 8
 LT_NAIVE_MEM_BATCH = 8        # Naive's activations must outweigh the state
 # (d): smoke configs, one step each, f32; gemma2 past the direct limit
 LT_SMOKE = (("gemma2-2b", 2, 2304), ("jamba-v0.1-52b", 2, 64),
@@ -4421,19 +4513,26 @@ def _lt_peak(params, opt, cfg, opt_cfg, batch) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
-def _lt_memory_mali(trainer, batch0):
+def _lt_memory_mali(trainer, batch0, layers: int = 0):
     """(c), MALI: the peak over one train_step at (a)'s shape, 2 and 8
-    ALF steps a branch."""
-    st = trainer.state
+    ALF steps a branch, on seeded weights and a fresh optimizer state of
+    ``trainer``'s config cut to ``layers`` periods (0: as it is)."""
+    import torch
+    from repro_torch.models import init_lm
+    from repro_torch.optim import init_opt_state
     arch = trainer.cfg.name
-    mali = {n: _lt_peak(st.params, st.opt, _lt_config(
-        "cuda", n, layers=trainer.cfg.n_periods, arch=arch),
-        trainer.opt_cfg, batch0) for n in LT_MEM_STEPS}
+    layers = layers or trainer.cfg.n_periods
+    params = init_lm(torch.Generator(device="cuda").manual_seed(3),
+                     _lt_config("cuda", layers=layers, arch=arch))
+    opt = init_opt_state(trainer.opt_cfg, params)
+    mali = {n: _lt_peak(params, opt, _lt_config(
+        "cuda", n, layers=layers, arch=arch), trainer.opt_cfg, batch0)
+        for n in LT_MEM_STEPS}
     lo, hi = LT_MEM_STEPS
     ratio = mali[hi] / mali[lo]
     require(ratio <= 1.05, f"{arch} training (c): MALI's peak grows "
             f"{ratio}x from {lo} to {hi} steps")
-    return {"mali_bytes": mali, "mali_ratio": ratio}
+    return {"mali_bytes": mali, "mali_ratio": ratio, "mali_layers": layers}
 
 
 def _lt_memory_naive():
@@ -4617,7 +4716,7 @@ def phase_lm_train(card: str, smi: str):
     lap("a_train")
     full.update(_lt_no_sync_step(trainer, batch0))
     lap("a_no_sync")
-    memory = _lt_memory_mali(trainer, batch0)
+    memory = _lt_memory_mali(trainer, batch0, LT_MEM_LAYERS)
     lap("c_memory_mali")
     params = trainer.state.params
     del trainer
@@ -4979,6 +5078,13 @@ def phase_gemma2_serve(card: str, smi: str):
 DP_WORLD = 2
 DP_DEVICE = "cuda:0"          # both ranks on the one card (gloo)
 DP_BATCH, DP_SEQ, DP_STEPS = 4, 1024, 3      # (a): 2 rows of 1024 a rank
+# (a) runs qwen3-1.7b at full width, DP_LAYERS of its 28 layers: a depth
+# cut for the script's time (the two ranks' steps are mostly gloo's
+# staged collectives, which scale with the weights); its ALF launches a
+# step, one midpoint, update, bwd_pre and bwd_post per layer, branch and
+# ALF step
+DP_LAYERS = 8
+DP_PER_STEP = {name: 2 * 2 * DP_LAYERS for name in LT_PER_STEP}
 DP_CUT_LAYERS, DP_CUT_SEQ = 2, 256           # (a) in f32
 DP_OPT_RATIO = 0.55           # a rank's optimizer bytes / the one rank's
 DP_TOL = {"bfloat16": LT_BF16_TOL, "float32": LT_F32_TOL}
@@ -5041,14 +5147,16 @@ def _dp_opt_bytes(state) -> int:
 
 
 def _dp_trainer(cfg=None, hook=None, **kw):
-    """A Trainer of qwen3-1.7b at full width (or ``cfg``) on DP_DEVICE,
-    AdamW at its defaults."""
+    """A Trainer of qwen3-1.7b at full width, DP_LAYERS layers (or
+    ``cfg``) on DP_DEVICE, AdamW at its defaults."""
     from repro_torch.optim import OptimizerConfig
     from repro_torch.train import MemoryEmitter, Trainer, TrainerConfig
     run = dict(arch=LM_ARCH, smoke=False, steps=DP_STEPS,
                global_batch=DP_BATCH, seq_len=DP_SEQ, log_every=100,
                emit="memory", device=DP_DEVICE)
     run.update(kw)
+    if cfg is None:
+        cfg = _lt_config("cuda", layers=DP_LAYERS)
     return Trainer(TrainerConfig(**run), emitter=MemoryEmitter(),
                    step_hook=hook, opt_cfg=OptimizerConfig(), model_cfg=cfg)
 
@@ -5240,7 +5348,6 @@ def _dp_moe(d: Path, rank: int) -> dict:
 def _dp_rank(argv) -> int:
     """One rank of phase 20: ``chip_smoke.py --dp-rank RANK DIR``."""
     rank, d = int(argv[0]), Path(argv[1])
-    sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5373,8 +5480,8 @@ def _dp_check(d: Path, ranks, ref) -> dict:
         require(all(got["params_equal_after_each_step"]),
                 f"dp_train (a): rank {r}'s parameters differ")
         for i, launches in enumerate(got["launches_per_step"]):
-            require(launches == LT_PER_STEP, f"dp_train (a) rank {r} step "
-                    f"{i}: launches {launches}, expected {LT_PER_STEP}")
+            require(launches == DP_PER_STEP, f"dp_train (a) rank {r} step "
+                    f"{i}: launches {launches}, expected {DP_PER_STEP}")
         require(got["opt_bytes"] <= DP_OPT_RATIO
                 * ref["full_width"]["opt_bytes"], f"dp_train (a): rank {r}"
                 f" holds {got['opt_bytes']} optimizer bytes against "
@@ -5383,7 +5490,8 @@ def _dp_check(d: Path, ranks, ref) -> dict:
     require(all(g["params_equal"] for g in f32), "dp_train (a) f32: the "
             "ranks' parameters differ")
     out["full_width"] = {
-        "config": {"arch": LM_ARCH, "layers": 28, "d_model": 2048,
+        "config": {"arch": LM_ARCH, "layers": f"{DP_LAYERS} of 28",
+                   "d_model": 2048,
                    "dtype": "bfloat16", "sharding": "dp (ZeRO-1)",
                    "global_batch": DP_BATCH, "seq_len": DP_SEQ,
                    "ranks": DP_WORLD, "backend": "gloo, one card",
@@ -5910,7 +6018,6 @@ def _tp_rank(argv) -> int:
     """One rank of phase 22: ``chip_smoke.py --tp-rank PART RANK WORLD
     DIR``."""
     part, rank, world, d = argv[0], int(argv[1]), int(argv[2]), Path(argv[3])
-    sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -6417,7 +6524,6 @@ def _tps_rank(argv) -> int:
     parts, rank, world, d = (argv[0].split(","), int(argv[1]),
                              int(argv[2]), Path(argv[3]))
     start = time.time()
-    sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6936,8 +7042,367 @@ def phase_clis(card: str, smi: str):
           "phase_s": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the paper's experiments as the port's own entry points
+# ---------------------------------------------------------------------------
+
+EX_PHASE_S = 60.0             # the phase's budget
+EX_TS_STEPS = 20              # latent ODE: training steps a method
+EX_TOY_STEPS = 150            # cnf_toy: the reduced run
+EX_LM_STEPS = 6               # lm_continuous_depth
+EX_MIN_ACC = 0.98             # image_recognition: each test accuracy
+EX_QS_REL = 1e-5              # quickstart: card against CPU gradients
+EX_QS_MALI_NAIVE = 1e-6       # quickstart: MALI against Naive, relative
+EX_PRINTED_LINES = 12         # the tail of each example's output kept
+EX_HELPER_TIMEOUT = 240       # seconds a helper process may take
+# The two host-bound runs that would take most of the phase run in helper
+# processes (chip_smoke.py --example) started with phase 23's CLIs, whose
+# host work they overlap; phase 23 waits for them. Each helper runs the
+# example's main with the counts set to 0 just before and read just
+# after, as _ex_run does here. (key, module, its arguments)
+EX_HELPERS = (
+    ("time_series_latent_ode_adjoint", "time_series_latent_ode",
+     ["--steps", str(EX_TS_STEPS), "--method", "adjoint"]),
+    ("cnf_toy", "cnf_toy", ["--steps", str(EX_TOY_STEPS)]),
+)
+
+
+def _ex_run(mod, argv):
+    """``mod.main(argv)`` with every launch and op-call count set to 0 just
+    before and read just after, its output captured; returns (result,
+    launches, wall seconds, printed lines)."""
+    import io
+    import torch
+    _lm_reset()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, calls = _lm_counts()
+    for name, n in launches.items():
+        require(n == calls[name], f"examples {mod.__name__}: {name} "
+                f"launches {n} != op calls {calls[name]}")
+    return out, launches, wall, buf.getvalue().splitlines()
+
+
+def _ex_require_launches(what: str, launches: dict, want: dict) -> None:
+    for name, n in launches.items():
+        require(n == want.get(name, 0), f"examples {what}: {name} launched "
+                f"{n} times, expected {want.get(name, 0)}")
+
+
+def _ex_quickstart() -> dict:
+    """The quickstart whole on the card against the port on the CPU."""
+    import io
+    from repro_torch.examples import quickstart
+    card, launches, wall, lines = _ex_run(quickstart, ["--device", "cuda"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = quickstart.main(["--device", "cpu"])
+    rel = {name: abs(card["dalpha"][name] - g) / abs(g)
+           for name, g in cpu["dalpha"].items()}
+    require(max(rel.values()) <= EX_QS_REL, f"examples quickstart: dL/d"
+            f"alpha on the card against the CPU: {rel}")
+    require(card["mali_naive_rel"] <= EX_QS_MALI_NAIVE, f"examples "
+            f"quickstart: MALI against Naive {card['mali_naive_rel']}")
+    for key in ("steps", "fevals"):
+        require(card[key] == cpu[key], f"examples quickstart: {key} "
+                f"{card[key]} on the card, {cpu[key]} on the CPU")
+    require(card["batching"]["lockstep"] == cpu["batching"]["lockstep"],
+            f"examples quickstart: Lockstep {card['batching']} on the card, "
+            f"{cpu['batching']} on the CPU")
+    require(card["event"]["fired"] and cpu["event"]["fired"],
+            "examples quickstart: the event did not fire")
+    per_row = _ex_per_sample_rounded_once()
+    growth = {}
+    for name, mem in card["memory"].items():
+        growth[name] = mem[1]["peak_bytes"] / mem[0]["peak_bytes"]
+    require(growth["mali"] <= 1.05, f"examples quickstart: MALI's peak "
+            f"grows {growth['mali']}x from 8 to 64 steps")
+    require(growth["naive"] > 2.0, f"examples quickstart: Naive's peak "
+            f"grows only {growth['naive']}x from 8 to 64 steps")
+    return {"wall_s": wall, "launches": launches,
+            "per_sample_card": card["batching"]["per_sample"],
+            "per_sample_cpu": cpu["batching"]["per_sample"],
+            "per_sample_equal": (card["batching"]["per_sample"]
+                                 == cpu["batching"]["per_sample"]),
+            "per_sample_rounded_once": per_row,
+            "dalpha": card["dalpha"], "dalpha_rel_to_cpu": rel,
+            "mali_naive_rel": card["mali_naive_rel"],
+            "batching": card["batching"], "event": card["event"],
+            "z_T": card["z_T"], "memory": card["memory"],
+            "peak_growth_8_to_64": growth, "printed": lines}
+
+
+def _ex_per_sample_rounded_once() -> dict:
+    """The quickstart's PerSample solve (its decay batch, ALF(eta=0.9) on
+    the kernels, tolerances 1e-3 / 1e-4, 256 trials) under
+    ReproducibleController, on the card and on the CPU: per-row counters
+    equal. Under AdaptiveController the float32 power of the step-size
+    factor differs between the two devices on ~6% of inputs, and the
+    stiffest row's accept/reject decisions part (ROADMAP queue 3, F2);
+    rounded once, every other operation of the path must give the CPU's
+    decisions."""
+    import torch
+    from repro_torch.core import (ALF, MALI, PerSample,
+                                  ReproducibleController, solve)
+    from repro_torch.examples import quickstart
+    out = {}
+    for dev in ("cuda", "cpu"):
+        zb = {"y": torch.ones((8, 1), device=dev),
+              "lam": torch.logspace(-0.3, 1.5, 8, device=dev)[:, None]}
+        sol = solve(quickstart.decay, {}, zb, 0.0, 1.0,
+                    solver=ALF(eta=0.9, backend="cuda"),
+                    controller=ReproducibleController(1e-3, 1e-4, 256),
+                    gradient=MALI(), batching=PerSample())
+        out[dev] = {"fevals": int(sol.stats.n_fevals),
+                    "per_row_accepted": [
+                        int(v) for v in sol.stats.per_sample.n_accepted]}
+    require(out["cuda"] == out["cpu"], f"examples quickstart: PerSample "
+            f"under ReproducibleController {out['cuda']} on the card, "
+            f"{out['cpu']} on the CPU")
+    return out
+
+
+def _ex_image_recognition() -> dict:
+    """Sec 4.2 at its default 400 steps: the accuracies, and phase 4's
+    counts for each node step (4 + 4 forward, 4 + 4 backward) plus the
+    forward-only evaluations on ALF (node, alf 4, alf 8)."""
+    from repro_torch.examples import image_recognition as ex
+    out, launches, wall, lines = _ex_run(ex, ["--device", "cuda"])
+    accs = {"resnet": out["resnet"]["test_acc"],
+            "node": out["node"]["test_acc"],
+            **{f"invariance_{k}": v for k, v in out["invariance"].items()}}
+    require(min(accs.values()) >= EX_MIN_ACC, f"examples image_"
+            f"recognition: test accuracies {accs}")
+    steps, evals = 400, 4 + 4 + 8
+    _ex_require_launches("image_recognition", launches, {
+        "alf_midpoint": N_SUB * steps + evals,
+        "alf_update": N_SUB * steps + evals,
+        "alf_bwd_pre": N_SUB * steps, "alf_bwd_post": N_SUB * steps})
+    return {"wall_s": wall, "launches": launches, "test_acc": accs,
+            "train_loss": {m: out[m]["train_loss"]
+                           for m in ("resnet", "node")},
+            "step_ms": {m: out[m]["step_ms"] for m in ("resnet", "node")},
+            "printed": lines}
+
+
+def _ex_ts_loss(ex, p, data, ts, gradient, solver):
+    """The latent ODE's loss through ``solve`` with a given gradient and
+    solver (the example's ``loss_fn`` takes a METHODS key)."""
+    import torch
+    from repro_torch.core import ConstantSteps, SaveAt, solve
+    z0 = ex.encode(p, data[:, :ex.T_OBS])
+    zs = solve(ex.latent_field, p["f"], z0, solver=solver,
+               controller=ConstantSteps(2), gradient=gradient,
+               saveat=SaveAt(ts=ts)).ys
+    return torch.mean((ex.decode(p, zs.transpose(0, 1)) - data) ** 2)
+
+
+# the ALF kernels each latent-ODE method launches, per accepted step, in
+# training; the extrapolation's forward rollout adds the forward pair
+EX_TS_KERNELS = {"mali": ("alf_midpoint", "alf_update", "alf_bwd_pre",
+                          "alf_bwd_post"),
+                 "naive": ("alf_midpoint", "alf_update", "alf_midpoint_vjp",
+                           "alf_update_vjp"),
+                 "aca": (), "adjoint": ()}
+
+
+def _ex_latent_method(method: str, run, acc: int) -> dict:
+    """One method's run of the latent ODE ((result, launches, wall,
+    printed)): the loss falls, and its launches are EX_TS_KERNELS' at
+    ``acc`` accepted steps a rollout."""
+    res, launches, wall, lines = run
+    losses = res["losses"]
+    require(losses[-1] < losses[0], f"examples latent ODE {method}: the "
+            f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    want = {name: acc * EX_TS_STEPS for name in EX_TS_KERNELS[method]}
+    for name in ("alf_midpoint", "alf_update"):
+        if name in want:
+            want[name] += acc
+    _ex_require_launches(f"latent ODE {method}", launches, want)
+    return {"wall_s": wall, "launches": launches, "first_loss": losses[0],
+            "last_loss": losses[-1], "test_ext_mse": res["test_ext_mse"],
+            "step_ms": res["step_ms"], "printed": lines}
+
+
+def _ex_latent_ode() -> dict:
+    """Sec 4.3 at EX_TS_STEPS steps, every method but the adjoint (its
+    helper's): the accepted steps of a rollout on the CPU (its Stats),
+    MALI's first-step gradient (cuda) against Naive's (reference), each
+    method's run."""
+    import torch
+    from repro_torch import tree_util
+    from repro_torch.core import (ALF, MALI, ConstantSteps, Naive, SaveAt,
+                                  solve)
+    from repro_torch.examples import time_series_latent_ode as ex
+    s_cpu, ts_cpu = ex.make_series(16, seed=0, device="cpu")
+    p_cpu = ex.init_params(torch.Generator().manual_seed(0), "cpu")
+    with torch.no_grad():
+        sol = solve(ex.latent_field, p_cpu["f"],
+                    ex.encode(p_cpu, s_cpu[:, :ex.T_OBS]),
+                    solver=ALF(backend="cuda"), controller=ConstantSteps(2),
+                    gradient=MALI(), saveat=SaveAt(ts=ts_cpu))
+    acc = int(sol.stats.n_accepted)
+    series, ts = ex.make_series(256, seed=0, device="cuda")
+    p0 = ex.init_params(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    grads = []
+    for gradient, backend in ((MALI(), "cuda"), (Naive(), "reference")):
+        leaves, spec = tree_util.tree_flatten(p0)
+        leaves = [leaf.detach().requires_grad_(True) for leaf in leaves]
+        loss = _ex_ts_loss(ex, tree_util.tree_unflatten(leaves, spec),
+                           series, ts, gradient, ALF(backend=backend))
+        grads.append(torch.autograd.grad(loss, leaves))
+    out = {"accepted_steps_a_rollout_cpu": acc,
+           "mali_cuda_vs_naive_reference_max_abs_grad_diff":
+               _leaves_close(grads[0], grads[1], "examples latent ODE: "
+                             "MALI cuda vs Naive reference")}
+    for method in ("mali", "naive", "aca"):
+        out[method] = _ex_latent_method(method, _ex_run(
+            ex, ["--steps", str(EX_TS_STEPS), "--method", method,
+                 "--device", "cuda"]), acc)
+    return out
+
+
+def _ex_cnf_toy(helper) -> dict:
+    """Sec 4.4 in 2-D at EX_TOY_STEPS steps, from its helper process (the
+    example asserts that the fine NLL beats the Gaussian baseline)."""
+    out, launches, wall, lines = helper
+    require(out["test_nll_fine"] < out["base_nll"], "examples cnf_toy: "
+            f"fine NLL {out['test_nll_fine']} against {out['base_nll']}")
+    return {"wall_s": wall, "launches": launches,
+            **{k: out[k] for k in ("trace_bias", "test_nll",
+                                   "test_nll_fine", "base_nll",
+                                   "dnll_dt1", "step_ms")},
+            "first_loss": out["losses"][0], "last_loss": out["losses"][-1],
+            "printed": lines}
+
+
+def _ex_cnf_image() -> dict:
+    """Sec 4.4 at image scale, its defaults (the example asserts that
+    bits/dim falls)."""
+    from repro_torch.examples import cnf_image as ex
+    out, launches, wall, lines = _ex_run(ex, ["--device", "cuda"])
+    return {"wall_s": wall, "launches": launches, "bpds": out["bpds"],
+            "residual_bytes": out["residual_bytes"],
+            "step_ms": out["step_ms"], "printed": lines}
+
+
+def _ex_lm() -> dict:
+    """The LM driver at EX_LM_STEPS steps (the example asserts the
+    recovered loss trace bit-equal to the clean one)."""
+    from repro_torch.examples import lm_continuous_depth as ex
+    out, launches, wall, lines = _ex_run(
+        ex, ["--steps", str(EX_LM_STEPS), "--device", "cuda"])
+    return {"wall_s": wall, "launches": launches, "clean": out["clean"],
+            "discrete": out["discrete"], "faulted": out["faulted"],
+            "step_ms": out["step_ms"], "printed": lines[-EX_PRINTED_LINES:]}
+
+
+def _ex_helper(argv) -> int:
+    """One helper of phase 25: ``chip_smoke.py --example DIR KEY MODULE
+    ARGS...`` runs the example's main on the card as _ex_run does and
+    writes DIR/KEY.json."""
+    import importlib
+    import torch
+    d, key, module, *args = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mod = importlib.import_module(f"repro_torch.examples.{module}")
+    out, launches, wall, lines = _ex_run(mod, [*args, "--device", "cuda"])
+    (Path(d) / f"{key}.json").write_text(json.dumps(
+        [out, launches, wall, lines],
+        default=lambda a: np.asarray(a).tolist()))
+    return 0
+
+
+def _ex_start_helpers(d: Path) -> dict:
+    """Start phase 25's helper processes (EX_HELPERS), writing to ``d``."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    started = {}
+    for key, module, args in EX_HELPERS:
+        log = open(d / f"{key}.log", "w")
+        started[key] = (subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--example",
+             str(d), key, module, *args], cwd=str(HERE), env=env,
+            stdout=log, stderr=subprocess.STDOUT), log, time.perf_counter())
+    return started
+
+
+def _ex_stop_helpers(started: dict) -> None:
+    """Stop any helper still running and close the logs."""
+    for p, log, _ in started.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def _ex_finish_helpers(started: dict, d: Path):
+    """Wait for the helpers (EX_HELPER_TIMEOUT each from its start), then
+    stop any left; returns each one's (result, launches, wall, printed)
+    and its process's seconds."""
+    out, seconds = {}, {}
+    for key, (p, _, t0) in started.items():
+        try:
+            p.wait(timeout=max(1.0, EX_HELPER_TIMEOUT
+                               - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        seconds[key] = time.perf_counter() - t0
+    _ex_stop_helpers(started)
+    for key, (p, _, _) in started.items():
+        require(p.returncode == 0, f"examples: the {key} helper failed "
+                f"(exit {p.returncode}): "
+                f"{(d / f'{key}.log').read_text()[-3000:]}")
+        out[key] = json.loads((d / f"{key}.json").read_text())
+    return out, seconds
+
+
+def phase_examples(card: str, smi: str, helped) -> dict:
+    """Phase 25: the six examples of repro_torch.examples on the card,
+    ALF on "cuda": the two of EX_HELPERS from their helper processes'
+    results (``helped``: _ex_finish_helpers'; they run beside phase 23's
+    CLIs), the rest in this process. Returns each example's launches of
+    each kernel."""
+    t0 = time.perf_counter()
+    helpers, helper_s = helped
+    parts, out = {}, {}
+    for name, run in (("quickstart", _ex_quickstart),
+                      ("image_recognition", _ex_image_recognition),
+                      ("time_series_latent_ode", _ex_latent_ode),
+                      ("cnf_image", _ex_cnf_image),
+                      ("lm_continuous_depth", _ex_lm)):
+        t1 = time.perf_counter()
+        out[name] = run()
+        parts[name] = time.perf_counter() - t1
+    latent = out["time_series_latent_ode"]
+    latent["adjoint"] = _ex_latent_method(
+        "adjoint", helpers["time_series_latent_ode_adjoint"],
+        latent["accepted_steps_a_rollout_cpu"])
+    out["cnf_toy"] = _ex_cnf_toy(helpers["cnf_toy"])
+    launches = {}
+    for name, res in out.items():
+        if name == "time_series_latent_ode":
+            for method in ("mali", "naive", "aca", "adjoint"):
+                launches[f"{name}_{method}"] = res[method]["launches"]
+        else:
+            launches[name] = res["launches"]
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "examples", "card": card, "nvidia_smi": smi, **out,
+          "part_s": parts, "helper_process_s": helper_s,
+          "phase_s": phase_s, "budget_s": EX_PHASE_S,
+          "within_budget": phase_s <= EX_PHASE_S})
+    return launches
+
+
 def _new_cell_launches(name: str, xlstm: dict, gemma2: dict,
-                       dp: dict, configs: dict, tp: dict, tps: dict) -> dict:
+                       dp: dict, configs: dict, tp: dict, tps: dict,
+                       examples: dict) -> dict:
     return {"launches_xlstm_prefill": xlstm["prefill"].get(name, 0),
             "launches_xlstm_decode": xlstm["decode"].get(name, 0),
             "launches_xlstm_train": xlstm["train"].get(name, 0),
@@ -6954,19 +7419,19 @@ def _new_cell_launches(name: str, xlstm: dict, gemma2: dict,
             # the serve on meshes (24)
             "launches_tp_serve": {
                 part: {kind: per.get(name, 0) for kind, per in c.items()}
-                for part, c in tps.items()}}
+                for part, c in tps.items()},
+            # per whole run of each example's main (25)
+            "launches_examples": {ex: per.get(name, 0)
+                                  for ex, per in examples.items()}}
 
 
 def main() -> int:
+    import tempfile
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
-              "from a checkout of the repository", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -7036,10 +7501,19 @@ def main() -> int:
     lap("configs_serve")
     tp = phase_tp_train(card, smi)
     lap("tp_train")
-    phase_clis(card, smi)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as ex_tmp:
+        # phase 25's two host-bound runs start beside phase 23's CLIs
+        helpers = _ex_start_helpers(Path(ex_tmp))
+        try:
+            phase_clis(card, smi)
+            helped = _ex_finish_helpers(helpers, Path(ex_tmp))
+        finally:
+            _ex_stop_helpers(helpers)
     lap("clis")
     tps = phase_tp_serve(card, smi)
     lap("tp_serve")
+    examples = phase_examples(card, smi, helped)
+    lap("examples")
     emit({"phase": "walls", "seconds": walls})
 
     table = []
@@ -7082,7 +7556,7 @@ def main() -> int:
                       # step (phase 18), per gemma2-2b prefill (19), per
                       # data-parallel training step on a rank (20)
                       **_new_cell_launches(name, xlstm, gemma2, dp,
-                                           configs, tp, tps)})
+                                           configs, tp, tps, examples)})
     for name, (replaces, source) in LM_KERNELS.items():
         row = lm_times[name]
         # each kernel's launches from its own path: the scan's from the
@@ -7096,7 +7570,7 @@ def main() -> int:
                       "launches_serve": serve_launches[name],
                       "launches_lm_train": train_launches[name],
                       **_new_cell_launches(name, xlstm, gemma2, dp,
-                                           configs, tp, tps),
+                                           configs, tp, tps, examples),
                       "checks": lm_checks[name],
                       "max_abs_err": lm_worst[name]["bfloat16"],
                       "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -7127,4 +7601,6 @@ if __name__ == "__main__":
         sys.exit(_tp_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["--tps-rank"]:
         sys.exit(_tps_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--example"]:
+        sys.exit(_ex_helper(sys.argv[2:]))
     sys.exit(main())

@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import os
 import time
 from typing import NamedTuple, Union
@@ -98,6 +99,19 @@ def make_prefill_step(cfg):
     return prefill_step
 
 
+@contextlib.contextmanager
+def _no_cyclic_gc():
+    """The cyclic garbage collector off inside the block (as it was after
+    it)."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
+
+
 class DecodeGraph:
     """One CUDA graph of ``decode_step(..., backend="cuda")``, bound to one
     ``ServeState`` (its cache tensors and its ``pos`` tensor) and one
@@ -118,7 +132,9 @@ class DecodeGraph:
     another token shape, on a capture while ``moe.recording_routes()`` is
     open (the graph would record the routes once, at capture), and on any
     capture or replay error. The kernel wrappers count their launches at
-    the warm-up and at the capture; a replay calls no wrapper."""
+    the warm-up and at the capture; a replay calls no wrapper. The cyclic
+    garbage collector is off during the capture: a dead CUDA graph that it
+    freed there would end the capture with an error."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -156,13 +172,14 @@ class DecodeGraph:
         with torch.cuda.stream(side):
             logits, state = decode_step(params, self.cfg, tokens, state)
             static_tokens = tokens.clone()
-            graph.capture_begin()
-            try:
-                out, nxt = decode_step(params, self.cfg, static_tokens,
-                                       state)
-                state.pos.copy_(nxt.pos)
-            finally:
-                graph.capture_end()
+            with _no_cyclic_gc():
+                graph.capture_begin()
+                try:
+                    out, nxt = decode_step(params, self.cfg, static_tokens,
+                                           state)
+                    state.pos.copy_(nxt.pos)
+                finally:
+                    graph.capture_end()
         current.wait_stream(side)
         logits.record_stream(current)
         self.graph, self.tokens, self.logits = graph, static_tokens, out
@@ -181,32 +198,41 @@ def _graph_refusal(plan) -> str:
             f"{NCCL_GRAPH_ITEM}")
 
 
+class _DecodeStep:
+    """The step :func:`make_decode_step` returns. An object, not a closure
+    that sets an attribute on itself: a closure would sit in a reference
+    cycle, and its graph would live on until the cyclic collector ran."""
+
+    def __init__(self, cfg, capture: bool):
+        self.cfg, self.capture = cfg, capture
+        self.graph = DecodeGraph(cfg)
+        self.graphed = False
+
+    def __call__(self, params, tokens, state: ServeState):
+        plan = serve_plan_for(self.cfg, ambient_mesh(), tokens.shape[0])
+        if self.capture and plan is not None:
+            raise NotImplementedError(
+                f"decode graph over {plan.mesh.size()} ranks: "
+                + _graph_refusal(plan))
+        self.graphed = (plan is None
+                        and on_cuda("decode_step", state.pos.device))
+        if self.graphed:
+            return self.graph(params, tokens, state)
+        if self.capture:
+            raise ValueError("decode graph: the state is not on a CUDA "
+                             "device")
+        return decode_step(params, self.cfg, tokens, state)
+
+
 def make_decode_step(cfg, capture: bool = False):
     """The decode step ``serve`` runs, dispatched by the state's device and
     the ambient mesh: on the card with one rank a :class:`DecodeGraph`
     (captured at the first call, replayed after); on the CPU, or over a
     mesh of several ranks, ``decode_step`` itself, eagerly. With
     ``capture`` a call that cannot run the graph raises (a mesh of several
-    ranks: :func:`_graph_refusal`; the CPU). The returned function's
+    ranks: :func:`_graph_refusal`; the CPU). The returned step's
     ``graphed`` attribute says whether its last call ran the graph."""
-    graph = DecodeGraph(cfg)
-
-    def serve_step(params, tokens, state: ServeState):
-        plan = serve_plan_for(cfg, ambient_mesh(), tokens.shape[0])
-        if capture and plan is not None:
-            raise NotImplementedError(
-                f"decode graph over {plan.mesh.size()} ranks: "
-                + _graph_refusal(plan))
-        serve_step.graphed = (plan is None
-                              and on_cuda("decode_step", state.pos.device))
-        if serve_step.graphed:
-            return graph(params, tokens, state)
-        if capture:
-            raise ValueError("decode graph: the state is not on a CUDA "
-                             "device")
-        return decode_step(params, cfg, tokens, state)
-    serve_step.graphed = False
-    return serve_step
+    return _DecodeStep(cfg, capture)
 
 
 def serve_prompt(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,

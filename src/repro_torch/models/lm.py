@@ -116,7 +116,9 @@ def _embed_tokens(params: Pytree, cfg: ModelConfig,
     the table gathered over 'data', the ranks' column blocks over
     'model')."""
     with fsdp_gathered({"embed": params["embed"]}) as p:
-        x = p["embed"][tokens]
+        # F.embedding, not p["embed"][tokens]: on the CPU the indexing's
+        # backward accumulates in an order that varies with the threads
+        x = torch.nn.functional.embedding(tokens, p["embed"])
     if splits(model_split(), cfg.d_model):
         x = gather_last(x)        # the ranks' column blocks of the rows
     return x.to(torch_dtype(cfg.compute_dtype))

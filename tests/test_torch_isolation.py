@@ -54,6 +54,12 @@ def test_port_has_files_to_scan():
                 "src/repro_torch/models/attention.py",
                 "src/repro_torch/models/lm.py",
                 "src/repro_torch/launch/mesh.py",
+                "src/repro_torch/examples/quickstart.py",
+                "src/repro_torch/examples/image_recognition.py",
+                "src/repro_torch/examples/time_series_latent_ode.py",
+                "src/repro_torch/examples/cnf_toy.py",
+                "src/repro_torch/examples/cnf_image.py",
+                "src/repro_torch/examples/lm_continuous_depth.py",
                 "tests/torch_tp_serve_rank.py"):
         assert new in names
 
@@ -84,6 +90,11 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.launch.train, repro_torch.launch.steps\n"
         "import repro_torch.launch.specs, repro_torch.models.frontend\n"
         "import repro_torch.launch.mesh, repro_torch.distributed.sharding\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.image_recognition\n"
+        "import repro_torch.examples.time_series_latent_ode\n"
+        "import repro_torch.examples.cnf_toy, repro_torch.examples.cnf_image\n"
+        "import repro_torch.examples.lm_continuous_depth\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

@@ -15,6 +15,8 @@ frameworks). Positions are compared exactly; the port against itself
 (``make_decode_step`` against ``decode_step``) bit for bit.
 """
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -230,3 +232,36 @@ def test_decode_graph_refuses_to_capture_while_routes_are_recorded():
             tserve.DecodeGraph(cfg)({}, torch.zeros(B, 1, dtype=torch.long),
                                     st)
     assert not moe.routes_recording()
+
+
+def test_a_dropped_decode_step_frees_its_graph_without_the_collector():
+    """A CUDA graph that the cyclic collector frees inside another
+    capture ends that capture with an error: a dropped step, and the
+    DecodeGraph it holds, go when their last reference does."""
+    cfg = smoke_config("qwen3-1.7b", DEFAULT_ODE)
+    step = tserve.make_decode_step(cfg)
+    graph = weakref.ref(step.graph)
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        del step
+        assert graph() is None
+    finally:
+        if was_on:
+            gc.enable()
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_no_cyclic_gc_holds_the_collector_off_and_restores_it(on):
+    """The decode graph's capture runs with the cyclic collector off, and
+    leaves it as it found it, also when the block raises."""
+    was_on = gc.isenabled()
+    (gc.enable if on else gc.disable)()
+    try:
+        with pytest.raises(RuntimeError, match="inside"):
+            with tserve._no_cyclic_gc():
+                assert not gc.isenabled()
+                raise RuntimeError("inside")
+        assert gc.isenabled() == on
+    finally:
+        (gc.enable if was_on else gc.disable)()

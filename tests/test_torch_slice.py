@@ -193,17 +193,20 @@ def test_adam_training_traces_match_jax():
 
 
 def test_chip_smoke_makes_data_as_the_example_does():
-    """chip_smoke.py's copy of make_data (the port may not import the JAX
-    example) gives the example's images and labels."""
-    smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
+    """The port's Sec 4.2 example (whose data, widths and field
+    chip_smoke.py imports; the port may not import the JAX example) gives
+    the JAX example's images and labels."""
+    from repro_torch.examples import image_recognition as port
     example = _load("image_recognition", ROOT / "examples" /
                     "image_recognition.py")
-    xs, ys = smoke.make_data(256, seed=0)
+    xs, ys = port.make_data(256, seed=0, device="cpu")
     xe, ye = example.make_data(256, seed=0)
-    np.testing.assert_array_equal(xs, np.asarray(xe))
-    np.testing.assert_array_equal(ys, np.asarray(ye).astype(np.int64))
-    assert (smoke.D, smoke.HIDDEN, smoke.N_CLASS) == (
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(xe))
+    np.testing.assert_array_equal(ys.numpy(), np.asarray(ye).astype(np.int64))
+    assert (port.D, port.HIDDEN, port.N_CLASS) == (
         example.D, example.HIDDEN, example.N_CLASS)
+    smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
+    assert smoke.make_data is port.make_data and smoke.field is port.field
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
