@@ -452,8 +452,22 @@ either. Phases, each printing JSON lines:
                loss trace bit-equal to the clean one; the serve). Each
                example's ms a step (host clock ending in a sync) and
                wall; the phase's seconds beside EX_PHASE_S.
+26. roofline  — the roofline of four steps earlier phases time: phase
+               4's Sec 4.2 MALI step, phase 11's qwen3-1.7b prefill and
+               eager decode step, phase 17 (a)'s qwen3-1.7b training
+               step, each counted on the meta device (launch/cost.py:
+               every aten op, each kernel op by its declared work) by a
+               helper process (chip_smoke.py --roofline-meta, no card)
+               that runs beside phases 2-7: FLOPs (bf16 part), bytes,
+               the bound at the card's rates (launch/roofline.py), the
+               measured time, roofline_share = bound / measured (must be
+               <= RL_SHARE_MAX) and, for the LM steps, mfu = model FLOPs
+               / (measured x the bf16 rate). The prefill and the eager
+               decode step are also counted on the card in phase 11,
+               the kernels launching, and must equal their meta counts.
 
-Phase 2 also holds the eight kernels with a per-row (B,) h, each row
+Phase 22 runs (b)'s two rank processes beside (a)'s four. Phase 2 also
+holds the eight kernels with a per-row (B,) h, each row
 its own (kernels_rows: B x D in ROW_CASES, f32, bf16, mixed, f64, one
 launch of the per-row instantiation a call), and phase 3 times each
 per-row instantiation beside its scalar one in turns at 2^25 (1024
@@ -467,6 +481,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -485,6 +500,9 @@ sys.path.insert(0, str(SRC))
 from repro_torch.examples import cnf_image  # noqa: E402
 from repro_torch.examples.image_recognition import (  # noqa: E402
     D, HIDDEN, N_CLASS, field, make_data)
+# (memory bytes/s, f32 FLOP/s, bf16 tensor-core FLOP/s) by card name: the
+# table the kernel bounds and the roofline both read
+from repro_torch.launch.roofline import card_rates  # noqa: E402
 
 N_TRAIN, TRAIN_STEPS, LR, N_SUB = 2048, 20, 3e-3, 4
 SLICE_N = N_TRAIN * D                   # the main path's state: 2048 x 64
@@ -516,23 +534,18 @@ TIME_PAIRS = 5
 NAIVE_TIME_PAIRS = 3
 UNFUSED_STEPS = 3
 
-# Memory rate (bytes/s), f32 peak (FLOP/s, outside the tensor cores) and
-# dense bf16 tensor-core peak by card name; NVIDIA data sheets.
-CARDS = (("H200", 4.8e12, 67e12, 989e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
-         ("H100 PCIe", 2.0e12, 51e12, 756e12),
-         ("H100", 3.35e12, 67e12, 989e12))
-
 TPU_SRC = "src/repro/kernels/alf_step/alf_step.py"
+# name: (TPU kernel replaced, packed inputs); each kernel's bound is the
+# work its op declares (kernels/alf_step/ops.py: alf_work, ALF_WORK)
 KERNELS = {
-    # name: (TPU kernel replaced, inputs, outputs, f32 ops per element)
-    "alf_midpoint": (f"{TPU_SRC}:43", 2, 1, 3),
-    "alf_update": (f"{TPU_SRC}:50", 3, 2, 5),
-    "alf_bwd_pre": (f"{TPU_SRC}:107", 4, 2, 5),
-    "alf_bwd_post": (f"{TPU_SRC}:118", 6, 4, 12),
-    "alf_midpoint_vjp": (f"{TPU_SRC}:91", 1, 1, 2),
-    "alf_update_vjp": (f"{TPU_SRC}:97", 2, 2, 4),
-    "alf_inverse": (f"{TPU_SRC}:75", 3, 2, 7),
-    "alf_inverse_update": (f"{TPU_SRC}:61", 3, 2, 5),
+    "alf_midpoint": (f"{TPU_SRC}:43", 2),
+    "alf_update": (f"{TPU_SRC}:50", 3),
+    "alf_bwd_pre": (f"{TPU_SRC}:107", 4),
+    "alf_bwd_post": (f"{TPU_SRC}:118", 6),
+    "alf_midpoint_vjp": (f"{TPU_SRC}:91", 1),
+    "alf_update_vjp": (f"{TPU_SRC}:97", 2),
+    "alf_inverse": (f"{TPU_SRC}:75", 3),
+    "alf_inverse_update": (f"{TPU_SRC}:61", 3),
 }
 VJPS = ("alf_midpoint_vjp", "alf_update_vjp")
 FORWARD = ("alf_midpoint", "alf_update")
@@ -679,12 +692,13 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def card_rates(name: str):
-    """(memory bytes/s, f32 FLOP/s, bf16 tensor-core FLOP/s) of a card."""
-    for key, *rates in CARDS:
-        if key in name:
-            return rates
-    raise RuntimeError(f"no memory rate known for card {name!r}")
+def _bound(work, bw: float, peak: float):
+    """(bound ms, "bytes" or "operations") of a kernel op's declared work
+    (``kernels.Work``) at the memory rate ``bw`` and the FLOP rate
+    ``peak`` of its class."""
+    bytes_ms, ops_ms = work.bytes / bw * 1e3, work.flops / peak * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -845,7 +859,7 @@ def phase_kernels_rows():
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = {k: 0.0 for k in KERNELS}
     checks = {k: 0 for k in KERNELS}
-    for name, (_, n_in, _, _) in KERNELS.items():
+    for name, (_, n_in) in KERNELS.items():
         params = ((1.0, -1.0) if name in ("alf_midpoint", "alf_midpoint_vjp")
                   else (1.0, 0.9))
         n_trees = {"alf_midpoint_vjp": 3, "alf_update_vjp": 5}.get(name,
@@ -887,7 +901,7 @@ def phase_kernels():
     h = torch.tensor(0.23, device="cuda")
     worst = {k: 0.0 for k in KERNELS}
     checks = {k: 0 for k in KERNELS}
-    for name, (_, n_in, _, _) in KERNELS.items():
+    for name, (_, n_in) in KERNELS.items():
         params = ((1.0, -1.0) if name in ("alf_midpoint", "alf_midpoint_vjp")
                   else (1.0, 0.9))
         # a VJP kernel's trees: its forward op's inputs, then the
@@ -1126,6 +1140,7 @@ def _row_times(bw: float, peak: float):
     and graph ms of both, and the per-row call's bound (its h adds B
     reads of 4 bytes)."""
     import torch
+    from repro_torch.kernels.alf_step.ops import alf_work
     gen = torch.Generator(device="cuda").manual_seed(2)
     h = torch.tensor(0.23, device="cuda")
     out = {}
@@ -1135,16 +1150,15 @@ def _row_times(bw: float, peak: float):
                 for _ in range(6)]
         h_rows = 0.1 + 0.2 * torch.rand(b, device="cuda", generator=gen)
         scalar, per_row = _kernel_calls(bufs, h), _kernel_calls(bufs, h_rows)
-        for name, (_, n_in, n_out, flops) in KERNELS.items():
+        for name in KERNELS:
             ms, row_ms = _alternate(scalar[name][0], per_row[name][0], reps)
-            bytes_ms = ((n_in + n_out) * 4 * n + 4 * b) / bw * 1e3
             row = {"name": name, "rows": b, "row_len": d, "n": n,
                    "scalar_ms": ms, "per_row_ms": row_ms,
                    "per_row_to_scalar": row_ms / ms,
                    "scalar_graph_ms": _graph_ms(scalar[name][0], reps),
                    "per_row_graph_ms": _graph_ms(per_row[name][0], reps),
-                   "per_row_bound_ms": max(bytes_ms,
-                                           flops * n / peak * 1e3)}
+                   "per_row_bound_ms": _bound(
+                       alf_work(name, bufs[0], h_rows), bw, peak)[0]}
             emit({"phase": "times_rows", **row})
             out[(name, n)] = row
         del bufs
@@ -1154,6 +1168,7 @@ def _row_times(bw: float, peak: float):
 
 def phase_times(card: str):
     import torch
+    from repro_torch.kernels.alf_step.ops import ALF_WORK, alf_work
     bw, peak, _ = card_rates(card)
     gen = torch.Generator(device="cuda").manual_seed(1)
     h = torch.tensor(0.23, device="cuda")
@@ -1178,15 +1193,13 @@ def phase_times(card: str):
         }
         for name in names:
             kern, plain = calls[name]
-            _, n_in, n_out, flops = KERNELS[name]
             ms, plain_ms = _alternate(kern, plain, reps)
-            bytes_ms = (n_in + n_out) * 4 * n / bw * 1e3
-            ops_ms = flops * n / peak * 1e3
-            label, lib = library.get(name, (NO_LIBRARY.format(n_out), None))
+            bound_ms, bound_by = _bound(alf_work(name, bufs[0], h), bw, peak)
+            label, lib = library.get(
+                name, (NO_LIBRARY.format(ALF_WORK[name][1]), None))
             row = {"name": name, "n": n, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": "bytes" if bytes_ms >= ops_ms
-                   else "operations", "library_ms": None, "library": label}
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None, "library": label}
             if lib is not None:
                 # kernel, library, kernel, library: the two compared in
                 # turns, in one run
@@ -1358,7 +1371,7 @@ def phase_main_path():
           "median_step_ms_cuda": float(np.median(step_ms["cuda"])),
           "median_step_ms_reference": float(np.median(step_ms["reference"])),
           "max_loss_gap_cuda_vs_reference": loss_gap})
-    return launches, losses
+    return launches, losses, float(np.median(step_ms["cuda"]))
 
 
 def _step_times(x, y, ctrl, gradient, pairs: int):
@@ -1573,58 +1586,6 @@ def phase_memory():
         require(growth[k] > 2.0, f"{k} peak memory grew only {growth[k]}x")
 
 
-def _busy_us(events) -> float:
-    """Union length of the device events' time ranges (us)."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, (lo, hi) = 0.0, spans[0]
-    for s0, e0 in spans[1:]:
-        if s0 > hi:
-            busy += hi - lo
-            lo, hi = s0, e0
-        else:
-            hi = max(hi, e0)
-    return busy + hi - lo
-
-
-def _device_profile(run):
-    """torch.profiler over ``run()``: device busy/idle share, the top
-    device operations, and the host's wall time of ``run()`` beside the
-    host self-time of its CPU events by op (PyTorch ops and CUDA runtime
-    calls); what is left is Python between the ops."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if str(getattr(e, "device_type", "")).endswith("CUDA")
-           and not getattr(e, "is_user_annotation", False)
-           and "#" not in e.name]
-    require(len(dev) > 0, "profile: no device events")
-    window = (max(e.time_range.end for e in dev)
-              - min(e.time_range.start for e in dev))
-    busy = _busy_us(dev)
-    by_name = {}
-    for e in dev:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    host = [(a.key, a.self_cpu_time_total / 1e3, a.count)
-            for a in prof.key_averages()
-            if a.key != "cudaDeviceSynchronize"]
-    in_ops = sum(ms for _, ms, _ in host)
-    top_host = sorted(host, key=lambda r: -r[1])[:10]
-    return {"device_busy_ms": busy / 1e3, "device_window_ms": window / 1e3,
-            "idle_share": 1.0 - busy / window, "device_launches": len(dev),
-            "top_device_ms": [[name[:60], ms, n] for name, (ms, n) in top],
-            "host_ms": host_ms, "host_self_in_ops_ms": in_ops,
-            "host_outside_ops_ms": host_ms - in_ops,
-            "top_host_self_ms": [[k[:60], ms, n] for k, ms, n in top_host]}
-
-
 # ---------------------------------------------------------------------------
 # Phases 9-11: the LM serving slice (qwen3-1.7b)
 # ---------------------------------------------------------------------------
@@ -1835,6 +1796,7 @@ def phase_lm_times(card: str):
     from repro_torch.configs import get_config
     from repro_torch.kernels.rmsnorm import ref as rn_ref
     from repro_torch.kernels.rmsnorm import rmsnorm as rn_k
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_work
     bw, f32_peak, bf16_peak = card_rates(card)
     cfg = get_config(LM_ARCH)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1853,8 +1815,7 @@ def phase_lm_times(card: str):
         plain = lambda: rn_ref.rmsnorm_ref(x, scale)          # noqa: E731
         lib = lambda: F.rms_norm(x, (d,), scale, 1e-6)        # noqa: E731
         ms, plain_ms = _alternate(kern, plain, 200)
-        bytes_ms = (2 * n * d + d) * 2 / bw * 1e3
-        ops_ms = 4 * n * d / f32_peak * 1e3
+        bound_ms, bound_by = _bound(rmsnorm_work(x, scale), bw, f32_peak)
         rows[label] = {
             "name": label, "shape": [n, d], "dtype": "bfloat16",
             "ms": ms, "plain_ms": plain_ms, "library_ms": _time_ms(lib, 200),
@@ -1862,8 +1823,7 @@ def phase_lm_times(card: str):
             "graph_ms": _graph_ms(kern, 100),
             "plain_graph_ms": _graph_ms(plain, 100),
             "library_graph_ms": _graph_ms(lib, 100),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "bound_ms": bound_ms, "bound_by": bound_by}
         emit({"phase": "lm_times", **rows[label]})
         del x
     rows["flash_attention"] = _flash_times(
@@ -1893,6 +1853,7 @@ def _flash_times(rand, bw: float, bf16_peak: float, b: int, s: int,
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as fa_k
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention_work
     q, k, v = rand(b, s, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
     # the library's own [B, H, S, d] layout, made outside the timed call
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -1906,9 +1867,10 @@ def _flash_times(rand, bw: float, bf16_peak: float, b: int, s: int,
     _close(lib().transpose(1, 2), plain(), *FA_LIB_TOL,
            "scaled_dot_product_attention against the plain version")
     ms, plain_ms = _alternate(kern, plain, 10)
-    pairs = b * h * s * (s + 1) // 2          # unmasked (query, key) pairs
-    ops_ms = 4 * pairs * d / bf16_peak * 1e3
-    bytes_ms = (2 * b * s * h * d + 2 * b * s * kv * d) * 2 / bw * 1e3
+    # the op's declared work: 4 d operations for each unmasked (query,
+    # key) pair and head, q, k, v read and the output written once
+    work = flash_attention_work(q, k, True, 0)
+    bound_ms, bound_by = _bound(work, bw, bf16_peak)
     fa = {"name": "flash_attention", "shape": [b, s, h, kv, d],
           "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
           "library_ms": _time_ms(lib, 10),
@@ -1917,9 +1879,8 @@ def _flash_times(rand, bw: float, bf16_peak: float, b: int, s: int,
           "graph_ms": _graph_ms(kern, 10),
           "plain_graph_ms": _graph_ms(plain, 5),
           "library_graph_ms": _graph_ms(lib, 10),
-          "flops": 4 * pairs * d,
-          "bound_ms": max(bytes_ms, ops_ms),
-          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+          "flops": work.flops, "bytes": work.bytes,
+          "bound_ms": bound_ms, "bound_by": bound_by}
     # useful operations (the masked half of the scores not counted) per
     # second of device time
     fa["tflops_per_s"] = fa["flops"] / fa["graph_ms"] / 1e9
@@ -1936,6 +1897,7 @@ def _scan_times(gen, bw: float, f32_peak: float):
     from repro_torch.configs import get_config
     from repro_torch.kernels.mamba_scan import mamba_scan as ms_k
     from repro_torch.kernels.mamba_scan import ref as ms_ref
+    from repro_torch.kernels.mamba_scan.ops import selective_scan_work
     cfg = get_config(SSM_ARCH)
     bt, s = SSM_BATCH, SSM_PROMPT
     di, st = cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
@@ -1946,13 +1908,10 @@ def _scan_times(gen, bw: float, f32_peak: float):
     plain = lambda: ms_ref.selective_scan_ref(delta, u, a, b, c, h0)  # noqa
     ms, plain_ms = _alternate(kern, plain, 4)
     n = bt * s * di
-    # each input read once, each output written once
-    moved = (n * (delta.element_size() + u.element_size() + 4)
-             + 2 * bt * s * st * b.element_size() + di * st * 4
-             + 2 * bt * di * st * 4)
-    # per (b, t, i, s): delta*A, exp, dA*h, du*B, +, h*C, + (exp counted
-    # as one f32 operation); per (b, t, i): delta*u
-    ops = 7 * n * st + n
+    # the op's declared work: each input read once, each output written
+    # once; 7 f32 operations per (b, t, i, s) and 1 per (b, t, i)
+    work = selective_scan_work(delta, u, a, b, c)
+    moved, ops = work.bytes, work.flops
     bytes_ms, ops_ms = moved / bw * 1e3, ops / f32_peak * 1e3
     # each expf is one MUFU ex2, and the MUFU unit retires 16 a clock per
     # SM: at the card's maximum SM clock that is a floor of its own
@@ -2335,13 +2294,15 @@ def phase_lm_serve(card: str, smi: str):
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 8)), device="cuda")
     step, gstate = _counted_steps(params, cfg, toks, LM_PROMPT,
                                   LM_PER_PREFILL, LM_PER_DECODE, "qwen3")
+    # phase 26's prefill and eager decode step, counted on the card
+    card_counts = _rl_card_counts(params, cfg, toks)
 
     def replay4():
         st = gstate
         for i in range(LM_PROMPT + 3, LM_PROMPT + 7):
             _, st = step(params, toks[:, i:i + 1], st)
 
-    prof_replay = _device_profile(replay4)
+    prof_replay = _kernel_profile(replay4)
     graph = _graph_vs_eager(params, cfg, serve_prompt(
         cfg, LM_BATCH, LM_PROMPT, 0, "cuda"), LM_DECODE, result.tokens,
         prof_replay["device_busy_ms"] / 4)
@@ -2367,7 +2328,9 @@ def phase_lm_serve(card: str, smi: str):
           "capture_beside_a_dead_graph": dead_graph,
           "profile_decode_4_replays": prof_replay,
           "compare": compare})
-    return launches
+    return launches, {"qwen3_prefill": result.prefill_ms,
+                      "qwen3_decode": graph["eager_ms_per_step"],
+                      "card_counts": card_counts}
 
 
 # ---------------------------------------------------------------------------
@@ -2691,7 +2654,7 @@ def phase_ssm_serve(card: str, smi: str):
         for i in range(SSM_PROMPT + 3, SSM_PROMPT + 7):
             _, st = step(params, toks[:, i:i + 1], st)
 
-    prof_replay = _device_profile(replay4)
+    prof_replay = _kernel_profile(replay4)
     graph = _graph_vs_eager(params, cfg, serve_prompt(
         cfg, SSM_BATCH, SSM_PROMPT, 0, "cuda"), SSM_DECODE, result.tokens,
         prof_replay["device_busy_ms"] / 4)
@@ -4433,9 +4396,9 @@ def _kernel_profile(run, top: int = 8, of: str = ""):
     """torch.profiler with device activity only over ``run()``, read from
     the raw kineto events: the device's busy and idle share, the top
     device operations and, with ``of``, the device time and count of the
-    kernels whose name holds it. ``_device_profile``'s Python event tree
+    kernels whose name holds it. (The profiler's Python event tree
     takes minutes at a training step's ~10^5 kernels and ~10^6 host
-    ops."""
+    ops.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -4734,7 +4697,8 @@ def phase_lm_train(card: str, smi: str):
           "full_width": full, "compare": compare, "memory": memory,
           "smoke": smoke, "part_s": parts,
           "phase_s": time.perf_counter() - t0})
-    return per_step[0]
+    # the steps after the first (which loads and warms up)
+    return per_step[0], min(full["step_ms"][1:])
 
 
 # ---------------------------------------------------------------------------
@@ -4980,6 +4944,7 @@ def _flash_d256_times(card: str):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fa_k
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention_work
     bw, _, bf16_peak = card_rates(card)
     cfg = get_config(GM_ARCH)
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -5001,18 +4966,16 @@ def _flash_d256_times(card: str):
     _close(kern(), plain(), *FA_TOL["bfloat16"],
            "flash at gemma2's shape against the plain version")
     ms, plain_ms = _alternate(kern, plain, 10)
-    pairs = b * h * s * (s + 1) // 2
-    ops_ms = 4 * pairs * d / bf16_peak * 1e3
-    bytes_ms = (2 * b * s * h * d + 2 * b * s * kv * d) * 2 / bw * 1e3
+    work = flash_attention_work(q, k, True, cfg.sliding_window)
+    bound_ms, bound_by = _bound(work, bw, bf16_peak)
     graph_ms = _graph_ms(kern, 10)
     return {"shape": [b, s, h, kv, d], "causal": True,
             "window": cfg.sliding_window, "softcap": cfg.attn_softcap,
             "ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
             "sdpa_without_softcap_ms": _time_ms(sdpa, 10),
-            "tflops_per_s": 4 * pairs * d / graph_ms / 1e9}
+            "tflops_per_s": work.flops / graph_ms / 1e9}
 
 
 def _gm_long_prompt(params):
@@ -5043,8 +5006,7 @@ def _gm_long_prompt(params):
                 f"gemma2 long prompt {key}: {out[key]}")
     state = init_serve_state(cfg, 1, n)
     _lm_reset()
-    out["profile_prefill"] = _kernel_profile(lambda: prefill(
-        params, cfg, {"tokens": toks[:, :n]}, state), of="flash")
+    prefill(params, cfg, {"tokens": toks[:, :n]}, state)
     out["flash_launches"] = _lm_counts()[0]["flash_attention"]
     require(out["flash_launches"] == GM_PER_PREFILL["flash_attention"],
             f"gemma2 long prompt: {out['flash_launches']} flash launches")
@@ -6081,8 +6043,8 @@ def _tp_rank(argv) -> int:
     return 0
 
 
-def _tp_spawn(part: str, d: Path, world: int):
-    """Run a part's ranks; returns their results."""
+def _tp_start(part: str, d: Path, world: int) -> dict:
+    """Start a part's ranks."""
     import os
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     logs = [open(d / f"{part}_rank{r}.log", "w") for r in range(world)]
@@ -6091,25 +6053,35 @@ def _tp_spawn(part: str, d: Path, world: int):
                                str(d)], cwd=str(HERE), env=env,
                               stdout=logs[r], stderr=subprocess.STDOUT)
              for r in range(world)]
-    deadline = time.monotonic() + TP_TIMEOUT
+    return {"procs": procs, "logs": logs,
+            "deadline": time.monotonic() + TP_TIMEOUT}
+
+
+def _tp_stop(started: dict) -> None:
+    for p in started["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in started["logs"]:
+        f.close()
+
+
+def _tp_wait(part: str, d: Path, started: dict):
+    """Wait for a part's ranks (started by _tp_start); their results."""
+    procs = started["procs"]
     try:
         for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            p.wait(timeout=max(1.0, started["deadline"] - time.monotonic()))
     except subprocess.TimeoutExpired:
         pass
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
+        _tp_stop(started)
     for r, p in enumerate(procs):
         require(p.returncode == 0, f"tp_train {part}: rank {r} failed "
                 f"(exit {p.returncode}): "
                 f"{(d / f'{part}_rank{r}.log').read_text()[-3000:]}")
     return [json.loads((d / f"{part}_rank{r}.json").read_text())
-            for r in range(world)]
+            for r in range(len(procs))]
 
 
 def _tp_one_rank(part: str) -> dict:
@@ -6199,13 +6171,9 @@ def _tp_check_memory(r: int, got: dict) -> None:
                 f"{where}: the update's peak exceeds {update}")
 
 
-def _tp_granite(d: Path) -> dict:
-    """(a): the one-rank run, the four ranks, the checks."""
-    t0 = time.perf_counter()
-    one = _tp_one_rank("granite")
-    one_s = time.perf_counter() - t0
+def _tp_granite(one: dict, ranks, one_s: float) -> dict:
+    """(a)'s checks: the four ranks against the one-rank run."""
     world = TP_MESH[0] * TP_MESH[1]
-    ranks = _tp_spawn("granite", d, world)
     worst = _tp_check_steps("granite", ranks, one, LT_BF16_TOL)
     one_bytes = one["param_bytes"] + one["opt_bytes"]
     for r, got in enumerate(ranks):
@@ -6246,11 +6214,10 @@ def _tp_granite(d: Path) -> dict:
             "one_rank_s": one_s}
 
 
-def _tp_moe(d: Path) -> dict:
-    """(b): deepseek-moe-16b's routes on two ranks against one rank's."""
-    one = _tp_one_rank("moe")
+def _tp_moe(d: Path, one: dict, ranks) -> dict:
+    """(b)'s checks: deepseek-moe-16b's routes on two ranks against one
+    rank's."""
     world = TP_MOE_MESH[0] * TP_MOE_MESH[1]
-    ranks = _tp_spawn("moe", d, world)
     worst = _tp_check_steps("moe", ranks, one, LT_F32_TOL)
     calls = len(one["routes"])
     differ = []
@@ -6314,12 +6281,28 @@ def phase_tp_train(card: str, smi: str):
 
     with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
         d = Path(tmp)
-        granite = _tp_granite(d)
+        # the one-rank oracles here, then (b)'s two ranks beside (a)'s
+        # four: one spawn, whose start-up and gloo waits overlap
+        one_granite = _tp_one_rank("granite")
+        lap("a_one_rank")
+        one_moe = _tp_one_rank("moe")
         torch.cuda.empty_cache()
-        lap("a_granite")
-        moe = _tp_moe(d)
+        lap("b_one_rank")
+        started = {"granite": _tp_start("granite", d, TP_MESH[0] * TP_MESH[1]),
+                   "moe": _tp_start("moe", d,
+                                    TP_MOE_MESH[0] * TP_MOE_MESH[1])}
+        try:
+            ranks = {part: _tp_wait(part, d, started[part])
+                     for part in ("granite", "moe")}
+        finally:
+            for st in started.values():
+                _tp_stop(st)
+        lap("ab_ranks")
+        granite = _tp_granite(one_granite, ranks["granite"],
+                              parts["a_one_rank"])
+        moe = _tp_moe(d, one_moe, ranks["moe"])
         torch.cuda.empty_cache()
-        lap("b_moe")
+        lap("ab_checks")
     phase_s = time.perf_counter() - t0
     emit({"phase": "tp_train", "card": card, "nvidia_smi": smi,
           "granite": granite, "moe": moe, "part_s": parts,
@@ -7400,6 +7383,250 @@ def phase_examples(card: str, smi: str, helped) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the roofline of four steps the script times
+# ---------------------------------------------------------------------------
+
+# (step, what) of the four steps: phase 4's Sec 4.2 MALI training step,
+# phase 11's qwen3-1.7b prefill (4 x 1024, its cache 1024 + 32) and eager
+# decode step, phase 17 (a)'s qwen3-1.7b bf16 training step (2 x 4096)
+RL_STEPS = (("sec42_mali_step", "phase 4: one Adam step of the Sec 4.2 "
+             "model, 2048 images, MALI, ALF cuda, ConstantSteps(4)"),
+            ("qwen3_prefill", "phase 11: qwen3-1.7b prefill, 4 x 1024, "
+             "DEFAULT_ODE, bf16"),
+            ("qwen3_decode", "phase 11: qwen3-1.7b eager decode step, batch "
+             "4, cache 1056, DEFAULT_ODE, bf16"),
+            ("qwen3_train", "phase 17 (a): qwen3-1.7b training step, bf16, "
+             "2 x 4096, MALI on ALF cuda, AdamW"))
+# a step's bound over its measured time: above 1 the count is wrong
+RL_SHARE_MAX = 1.05
+RL_TIMEOUT = 600              # seconds the meta-counting helper may take
+
+
+def _rl_sec42_step(dev):
+    """One Adam step of phase 4's Sec 4.2 model on ``dev`` (meta: only
+    shapes), as ``_train`` takes it."""
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch.core import ALF, MALI, ConstantSteps
+    params = {k: (torch.empty(v.shape, dtype=torch.float32, device=dev)
+                  if not isinstance(v, dict) else
+                  {kk: torch.empty(vv.shape, dtype=torch.float32,
+                                   device=dev) for kk, vv in v.items()})
+              for k, v in init_params_numpy(0).items()}
+    leaves = pytree.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = torch.optim.Adam(leaves, lr=LR)
+    x = torch.empty((N_TRAIN, D), dtype=torch.float32, device=dev)
+    y = torch.empty((N_TRAIN,), dtype=torch.int64, device=dev)
+    solver, ctrl = ALF(eta=1.0, backend="cuda"), ConstantSteps(N_SUB)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = _model_loss(params, x, y, solver, MALI(), ctrl)[0]
+        loss.backward()
+        opt.step()
+    return step
+
+
+def _rl_serve_steps(params, cfg, dev, toks=None):
+    """(prefill thunk, decode thunk) of phase 11's timed shapes on
+    ``dev``: a prefill of the first LM_PROMPT tokens into a cache of
+    LM_PROMPT + LM_DECODE, then one eager decode step after it."""
+    import torch
+    from repro_torch.models import decode_step, init_serve_state, prefill
+    if toks is None:
+        toks = torch.empty((LM_BATCH, LM_PROMPT + 1), dtype=torch.int64,
+                           device=dev)
+    box = {"state": init_serve_state(cfg, LM_BATCH, LM_PROMPT + LM_DECODE,
+                                     dev)}
+
+    def pre():
+        _, box["state"] = prefill(params, cfg,
+                                  _prompt(cfg, toks[:, :LM_PROMPT]),
+                                  box["state"])
+
+    def dec():
+        decode_step(params, cfg, toks[:, LM_PROMPT:LM_PROMPT + 1],
+                    box["state"])
+    return pre, dec
+
+
+def _rl_summary(counter, seconds: float) -> dict:
+    return {"flops": counter.flops, "flops_bf16": counter.flops_bf16,
+            "hbm_bytes": counter.bytes, "ops": counter.n_ops,
+            "kernels": {k: list(v) for k, v in sorted(
+                counter.kernels.items())},
+            "top_bytes": counter.table(6), "count_s": seconds}
+
+
+def _rl_count(run, grad: bool = False) -> dict:
+    import torch
+    from repro_torch.launch.cost import OpCounter
+    t0 = time.perf_counter()
+    with (torch.enable_grad() if grad else torch.no_grad()), \
+            OpCounter() as c:
+        run()
+    return _rl_summary(c, time.perf_counter() - t0)
+
+
+def _rl_meta_counts() -> dict:
+    """The four steps counted on the meta device (no storage, nothing
+    computed), with each LM step's model FLOPs (launch/dryrun.py's)."""
+    import torch
+    from repro_torch.configs import DEFAULT_ODE, get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.dryrun import _model_flops
+    from repro_torch.launch.specs import META, param_specs
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.optim.optimizer import init_opt_state
+    from repro_torch.train import train_step
+    out = {"sec42_mali_step": _rl_count(_rl_sec42_step(META), grad=True)}
+    cfg = get_config(LM_ARCH, DEFAULT_ODE)
+    params = param_specs(cfg)
+    pre, dec = _rl_serve_steps(params, cfg, META)
+    out["qwen3_prefill"] = _rl_count(pre)
+    out["qwen3_decode"] = _rl_count(dec)
+    for key, cell in (("qwen3_prefill", ShapeCell("p", LM_PROMPT, LM_BATCH,
+                                                  "prefill")),
+                      ("qwen3_decode", ShapeCell("d", LM_PROMPT, LM_BATCH,
+                                                 "decode"))):
+        out[key]["model_flops"] = _model_flops(cfg, cell, params)
+    tcfg = _lt_config()                      # phase 17 (a)'s Trainer config
+    tparams = param_specs(tcfg)
+    opt_cfg = OptimizerConfig()
+    opt = init_opt_state(opt_cfg, tparams)
+    batch = {k: torch.empty((LT_BATCH, LT_SEQ), dtype=torch.int32,
+                            device=META) for k in ("tokens", "labels")}
+    out["qwen3_train"] = _rl_count(
+        lambda: train_step(tparams, opt, None, batch, cfg=tcfg,
+                           opt_cfg=opt_cfg), grad=True)
+    out["qwen3_train"]["model_flops"] = _model_flops(
+        tcfg, ShapeCell("t", LT_SEQ, LT_BATCH, "train"), tparams)
+    return out
+
+
+def _rl_helper(argv) -> int:
+    """``chip_smoke.py --roofline-meta OUT``: phase 26's meta counts, on
+    the host only, written to OUT as JSON."""
+    import torch
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = _rl_meta_counts()
+    out["helper_s"] = time.perf_counter() - t0
+    Path(argv[0]).write_text(json.dumps(out))
+    return 0
+
+
+def _rl_start(d: Path) -> dict:
+    """Start the meta-counting helper (no card: CUDA_VISIBLE_DEVICES is
+    empty) beside the card's phases."""
+    import os
+    out, log = d / "roofline_meta.json", d / "roofline_meta.log"
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    f = open(log, "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--roofline-meta", str(out)], cwd=str(HERE),
+                            env=env, stdout=f, stderr=subprocess.STDOUT)
+    return {"proc": proc, "out": out, "log": log, "file": f,
+            "t0": time.perf_counter()}
+
+
+def _rl_stop(started: dict) -> None:
+    p = started["proc"]
+    if p.poll() is None:
+        p.kill()
+        p.wait()
+    started["file"].close()
+
+
+def _rl_finish(started: dict) -> dict:
+    """Wait for the helper; its counts."""
+    p = started["proc"]
+    left = RL_TIMEOUT - (time.perf_counter() - started["t0"])
+    try:
+        p.wait(timeout=max(1.0, left))
+    except subprocess.TimeoutExpired:
+        pass
+    _rl_stop(started)
+    require(p.returncode == 0, f"roofline: the meta-counting helper failed "
+            f"(exit {p.returncode}): {started['log'].read_text()[-3000:]}")
+    return json.loads(started["out"].read_text())
+
+
+def _rl_card_counts(params, cfg, toks) -> dict:
+    """Phase 11's prefill and eager decode step counted on the card, the
+    kernels launching (each must be one launch an op call)."""
+    pre, dec = _rl_serve_steps(params, cfg, "cuda", toks)
+    _lm_reset()
+    out = {"qwen3_prefill": _rl_count(pre)}
+    _lm_check_counts("roofline: the counted prefill", LM_PER_PREFILL)
+    _lm_reset()
+    out["qwen3_decode"] = _rl_count(dec)
+    _lm_check_counts("roofline: the counted eager decode step",
+                     LM_PER_DECODE)
+    return out
+
+
+def phase_roofline(card: str, smi: str, meta: dict, on_card: dict,
+                   measured_ms: dict) -> dict:
+    """Phase 26: each of RL_STEPS counted on meta (the helper), its
+    roofline at the card's rates beside the time an earlier phase
+    measured (``measured_ms``): the bound over the measured time must be
+    at most RL_SHARE_MAX, and for the LM steps the model FLOPs over the
+    measured time at the bf16 rate (MFU). The prefill and the eager decode
+    step counted on the card must equal their meta counts."""
+    from repro_torch.launch.roofline import CollectiveStats, Roofline
+    t0 = time.perf_counter()
+    rates = card_rates(card)
+    rows = {}
+    for key, what in RL_STEPS:
+        m = meta[key]
+        roof = Roofline(flops=m["flops"], hbm_bytes=m["hbm_bytes"],
+                        coll=CollectiveStats(), chips=1,
+                        model_flops=m.get("model_flops", 0.0),
+                        flops_bf16=m["flops_bf16"], rates=rates)
+        ms = measured_ms[key]
+        row = {"step": what, "flops": roof.flops,
+               "flops_bf16": roof.flops_bf16, "hbm_bytes": roof.hbm_bytes,
+               "ops": m["ops"], "t_compute_s": roof.t_compute,
+               "t_memory_s": roof.t_memory, "bound_ms": roof.t_bound * 1e3,
+               "bottleneck": roof.bottleneck, "measured_ms": ms,
+               "roofline_share": roof.t_bound * 1e3 / ms,
+               "kernel_ops": m["kernels"], "top_bytes": m["top_bytes"],
+               "meta_count_s": m["count_s"]}
+        if "model_flops" in m:
+            row["model_flops"] = m["model_flops"]
+            row["mfu"] = m["model_flops"] / (ms / 1e3 * rates.bf16)
+        require(row["roofline_share"] <= RL_SHARE_MAX,
+                f"roofline: {key} bound {row['bound_ms']} ms over the "
+                f"measured {ms} ms is {row['roofline_share']} > "
+                f"{RL_SHARE_MAX}: the count is wrong")
+        rows[key] = row
+    for key, got in on_card.items():
+        want = meta[key]
+        for field in ("flops", "flops_bf16", "hbm_bytes", "ops", "kernels"):
+            require(got[field] == want[field],
+                    f"roofline: {key} counted on the card, {field} "
+                    f"{got[field]} != the meta count's {want[field]}")
+        rows[key]["card_count_equal"] = True
+        rows[key]["card_count_s"] = got["count_s"]
+    emit({"phase": "roofline", "card": card, "nvidia_smi": smi,
+          "rates": {"hbm_bytes_s": rates.hbm, "f32_flops": rates.f32,
+                    "bf16_flops": rates.bf16},
+          "share_max": RL_SHARE_MAX, "steps": rows,
+          "helper_s": meta.get("helper_s"),
+          "phase_s": time.perf_counter() - t0})
+    # the figures alone, on a short line of their own
+    emit({"phase": "roofline_summary", "nvidia_smi": smi, "steps": {
+        key: {k: row.get(k) for k in (
+            "flops", "flops_bf16", "hbm_bytes", "bound_ms", "bottleneck",
+            "measured_ms", "roofline_share", "mfu", "card_count_equal")}
+        for key, row in rows.items()}})
+    return rows
+
+
 def _new_cell_launches(name: str, xlstm: dict, gemma2: dict,
                        dp: dict, configs: dict, tp: dict, tps: dict,
                        examples: dict) -> dict:
@@ -7447,6 +7674,21 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0})
 
+    # phase 26's meta counts, on the host beside the card's phases
+    (HERE / "build").mkdir(exist_ok=True)
+    rl_dir = Path(tempfile.mkdtemp(dir=HERE / "build"))
+    rl_helper = _rl_start(rl_dir)
+    try:
+        return _main_phases(card, smi, rl_helper)
+    finally:
+        _rl_stop(rl_helper)
+        shutil.rmtree(rl_dir, ignore_errors=True)
+
+
+def _main_phases(card: str, smi: str, rl_helper: dict) -> int:
+    import tempfile
+
+    import torch
     walls = {}
     last = [time.perf_counter()]
 
@@ -7461,7 +7703,7 @@ def main() -> int:
     lap("kernels_rows")
     times, row_times = phase_times(card)
     lap("times")
-    launches, mali_losses = phase_main_path()
+    launches, mali_losses, sec42_ms = phase_main_path()
     lap("main_path")
     phase_adaptive()
     lap("adaptive")
@@ -7477,7 +7719,7 @@ def main() -> int:
     lm_worst, lm_checks = phase_lm_kernels()
     lm_times = phase_lm_times(card)
     lap("lm_kernels_times")
-    lm_launches = phase_lm_serve(card, smi)
+    lm_launches, lm_roof = phase_lm_serve(card, smi)
     lap("lm_serve")
     ssm_launches = phase_ssm_serve(card, smi)
     lap("ssm_serve")
@@ -7489,7 +7731,7 @@ def main() -> int:
     lap("per_sample")
     serve_launches = phase_serve(card, smi)
     lap("serve")
-    train_launches = phase_lm_train(card, smi)
+    train_launches, train_ms = phase_lm_train(card, smi)
     lap("lm_train")
     xlstm = phase_xlstm(card, smi)
     lap("xlstm")
@@ -7514,10 +7756,17 @@ def main() -> int:
     lap("tp_serve")
     examples = phase_examples(card, smi, helped)
     lap("examples")
+    phase_roofline(card, smi, _rl_finish(rl_helper),
+                   lm_roof["card_counts"],
+                   {"sec42_mali_step": sec42_ms,
+                    "qwen3_prefill": lm_roof["qwen3_prefill"],
+                    "qwen3_decode": lm_roof["qwen3_decode"],
+                    "qwen3_train": train_ms})
+    lap("roofline")
     emit({"phase": "walls", "seconds": walls})
 
     table = []
-    for name, (replaces, *_rest) in KERNELS.items():
+    for name, (replaces, _) in KERNELS.items():
         row = times[(name, SLICE_N)]
         rrow = row_times[(name, BIG_N)]
         table.append({"name": name, "route": "cuda", "source": SOURCE,
@@ -7603,4 +7852,6 @@ if __name__ == "__main__":
         sys.exit(_tps_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["--example"]:
         sys.exit(_ex_helper(sys.argv[2:]))
+    if sys.argv[1:2] == ["--roofline-meta"]:
+        sys.exit(_rl_helper(sys.argv[2:]))
     sys.exit(main())

@@ -16,8 +16,9 @@ from .alf import (BACKENDS, alf_inverse, alf_step, alf_step_with_error,
 from .api import (METHODS, mali_forward_stats, odeint, odeint_aca,
                   odeint_adjoint, odeint_mali, odeint_naive)
 from .dense import DenseInterpolation, hermite_coefficients
-from .integrate import as_time_grid, integrate_grid, integrate_span, \
-    validate_span
+from .integrate import (as_time_grid, integrate_adaptive_grid,
+                        integrate_fixed_grid, integrate_grid, integrate_span,
+                        validate_span)
 from .interface import (Batching, Event, GradientMethod, Lockstep,
                         PerSample, RunStats, SaveAt, Sharded, Solution, Stats,
                         batch_size, state_nbytes)
@@ -50,5 +51,6 @@ __all__ = [
     "OdeSettings", "ode_block",
     # drivers / tree utils
     "as_time_grid", "validate_span", "integrate_grid", "integrate_span",
+    "integrate_fixed_grid", "integrate_adaptive_grid",
     "tree_add", "tree_sub", "tree_scale", "tree_zeros_like", "state_nbytes",
 ]

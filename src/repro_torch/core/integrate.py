@@ -199,7 +199,7 @@ def sweep_counts(controller: StepController, seg_acc: torch.Tensor):
     n_seg = seg_acc.shape[0]
     if isinstance(controller, ConstantSteps):
         return [(controller.n, None)] * n_seg
-    counts = seg_acc.tolist()             # one host read per backward
+    counts = seg_acc.tolist()  # odelint: disable=R001 -- one read a backward
     if seg_acc.dim() == 1:
         return [(c, None) for c in counts]
     return [(max(c), seg_acc[k]) for k, c in enumerate(counts)]
@@ -330,7 +330,7 @@ def integrate_adaptive(
         t = new_t
         n_acc = n_acc + accept.to(torch.int32)
         # the loop's one host read a trial
-        if bool(done.all() if shape else done):
+        if bool(done.all() if shape else done):  # odelint: disable=R001 -- one read a trial
             break
 
     traj = record_buf
@@ -484,6 +484,30 @@ def integrate_grid(
         return _adaptive_grid(trial, state0, ts, controller, order,
                               record_states, rows)
     raise TypeError(f"unknown step controller {controller!r}")
+
+
+# --- legacy driver names (pre-object API), kept as thin wrappers -----------
+
+def integrate_fixed_grid(step: Callable[[Pytree, torch.Tensor, torch.Tensor],
+                                        Pytree],
+                         state0: Pytree, ts: torch.Tensor,
+                         n_steps: int) -> Tuple[Pytree, Pytree]:
+    """Deprecated: use :func:`integrate_grid` with ``ConstantSteps``.
+    ``step(state, t, h)`` is one step; returns (the end state, the states
+    at ``ts`` stacked)."""
+    res = integrate_grid(lambda s, t, h: (step(s, t, h), None), state0, ts,
+                         controller=ConstantSteps(n_steps), order=1)
+    return res.state, res.traj
+
+
+def integrate_adaptive_grid(trial: TrialFn, state0: Pytree,
+                            ts: torch.Tensor, *, order: int, rtol: float,
+                            atol: float, max_steps: int,
+                            record_states: bool = False) -> GridResult:
+    """Deprecated: use :func:`integrate_grid` with ``AdaptiveController``."""
+    ctrl = AdaptiveController(rtol=rtol, atol=atol, max_steps=max_steps)
+    return integrate_grid(trial, state0, ts, controller=ctrl, order=order,
+                          record_states=record_states)
 
 
 def integrate_span(

@@ -27,6 +27,7 @@ import dataclasses
 import warnings
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import tree_util as pytree
@@ -160,6 +161,29 @@ class SaveAt:
         if len(picked) > 1:
             raise ValueError("SaveAt: pass only one of ts=<grid>, "
                              f"steps=True or dense=True, not {picked}")
+
+    def _key(self):
+        """Equality and hash by value, as the JAX package's: the grid's
+        dtype, shape and bytes (a grid on the card by identity: reading
+        it would sync)."""
+        ts = self.ts
+        if ts is None:
+            ts_key = None
+        elif isinstance(ts, torch.Tensor) and ts.device.type != "cpu":
+            ts_key = id(ts)
+        else:
+            arr = (ts.detach().numpy() if isinstance(ts, torch.Tensor)
+                   else np.asarray(ts))
+            ts_key = (arr.dtype.str, arr.shape, arr.tobytes())
+        return (ts_key, self.steps, self.dense)
+
+    def __eq__(self, other):
+        if not isinstance(other, SaveAt):
+            return NotImplemented
+        return self._key() == other._key()
+
+    def __hash__(self):
+        return hash(self._key())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -96,6 +96,7 @@ import torch.utils._pytree as _pt
 
 from repro_torch import tree_util as pytree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import COUNTERS
 
 from .sharding import (_cache_batch_axes, _path_names, axis_group,
                        batch_shardings, cache_leaf_spec, cache_shardings,
@@ -175,6 +176,9 @@ class DataGroup:
             calls[0] += 1
             calls[1] += whole_bytes
             calls[2] += seconds
+        for c in COUNTERS:          # the open op counters (launch/cost.py)
+            c.record_collective(kind.replace("_", "-"), self.axis,
+                                self.size, whole_bytes)
         return out
 
     def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM
@@ -219,6 +223,11 @@ def mesh_group(mesh, axes) -> Optional[DataGroup]:
     axes = tuple(a for a in axes if sizes.get(a, 1) > 1)
     if not axes:
         return None
+    stand_in = getattr(mesh, "stand_in_group", None)
+    if stand_in is not None:
+        # one rank's view of a mesh with no process group (the dry run's
+        # distributed/stand_in.py): its groups record, and compute nothing
+        return stand_in(axes)
     key = (mesh, axes)
     if key not in _GROUPS:
         if len(axes) == 1:

@@ -42,6 +42,12 @@ autograd, which casts each leaf's cotangent back to that leaf's dtype. The
 backward-sweep ops (``alf_inverse``, ``alf_inverse_update``,
 ``alf_bwd_pre``, ``alf_bwd_post``) run only inside MALI's backward and are
 forward-only, see :mod:`repro_torch.kernels.registry`.
+
+Work: each launch (or plain version) sits inside ``kernels.declared``
+with :func:`alf_work`, the closed form of ``chip_smoke.py``'s bounds:
+each packed buffer read or written once, :data:`ALF_WORK`'s f32
+operations an element; the packing around it is counted as the plain
+torch it is.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch import tree_util as pytree
+from repro_torch.kernels import Work, declared
 from repro_torch.kernels import on_cuda as _on_cuda
 
 from . import alf_step, ref
@@ -69,6 +76,30 @@ OP_CALLS: Dict[str, int] = {
 def reset_op_calls() -> None:
     for k in OP_CALLS:
         OP_CALLS[k] = 0
+
+
+# name: (packed buffers read, buffers written, f32 operations an element)
+ALF_WORK = {
+    "alf_midpoint": (2, 1, 3),
+    "alf_update": (3, 2, 5),
+    "alf_bwd_pre": (4, 2, 5),
+    "alf_bwd_post": (6, 4, 12),
+    "alf_midpoint_vjp": (1, 1, 2),
+    "alf_update_vjp": (2, 2, 4),
+    "alf_inverse": (3, 2, 7),
+    "alf_inverse_update": (3, 2, 5),
+}
+
+
+def alf_work(name: str, buf: torch.Tensor, h: torch.Tensor) -> Work:
+    """One launch's work over packed buffers like ``buf``: every input
+    read once and every output written once in the storage dtype, a
+    per-row (B,) ``h`` read once too (a 0-d one is one scalar), and
+    :data:`ALF_WORK`'s operations for each element."""
+    n_in, n_out, ops = ALF_WORK[name]
+    n = buf.numel()
+    h_bytes = h.numel() * h.element_size() if h.dim() else 0
+    return Work(ops * n, (n_in + n_out) * n * buf.element_size() + h_bytes)
 
 
 class _Tree:
@@ -197,15 +228,17 @@ def _h_cotangent(h: torch.Tensor, coeff: float, a: torch.Tensor,
 
 
 def _midpoint(zf, vf, h, sign):
-    if _on_cuda("alf_midpoint", zf.device):
-        return alf_step.midpoint_call(zf, vf, h, sign=sign)
-    return _plain(ref.midpoint_ref, h, zf, vf, param=sign)
+    with declared("alf_midpoint", alf_work, "alf_midpoint", zf, h):
+        if _on_cuda("alf_midpoint", zf.device):
+            return alf_step.midpoint_call(zf, vf, h, sign=sign)
+        return _plain(ref.midpoint_ref, h, zf, vf, param=sign)
 
 
 def _update(kf, vf, uf, h, eta):
-    if _on_cuda("alf_update", kf.device):
-        return alf_step.update_call(kf, vf, uf, h, eta=eta)
-    return _plain(ref.update_ref, h, kf, vf, uf, param=eta)
+    with declared("alf_update", alf_work, "alf_update", kf, h):
+        if _on_cuda("alf_update", kf.device):
+            return alf_step.update_call(kf, vf, uf, h, eta=eta)
+        return _plain(ref.update_ref, h, kf, vf, uf, param=eta)
 
 
 class _Midpoint(torch.autograd.Function):
@@ -232,10 +265,13 @@ class _Midpoint(torch.autograd.Function):
         v_bar = h_bar = None
         if ctx.needs_input_grad[1]:
             OP_CALLS["alf_midpoint_vjp"] += 1
-            if _on_cuda("alf_midpoint_vjp", g.device):
-                v_bar = alf_step.midpoint_vjp_call(g, h, sign=ctx.sign)
-            else:
-                v_bar = _plain(ref.midpoint_vjp_ref, h, g, param=ctx.sign)
+            with declared("alf_midpoint_vjp", alf_work,
+                          "alf_midpoint_vjp", g, h):
+                if _on_cuda("alf_midpoint_vjp", g.device):
+                    v_bar = alf_step.midpoint_vjp_call(g, h, sign=ctx.sign)
+                else:
+                    v_bar = _plain(ref.midpoint_vjp_ref, h, g,
+                                   param=ctx.sign)
         if ctx.needs_input_grad[2]:
             h_bar = _h_cotangent(h, 0.5 * ctx.sign, vf, g)
         return g, v_bar, h_bar, None
@@ -266,12 +302,14 @@ class _Update(torch.autograd.Function):
         v_bar = u1_bar = h_bar = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             OP_CALLS["alf_update_vjp"] += 1
-            if _on_cuda("alf_update_vjp", g_z.device):
-                v_bar, u1_bar = alf_step.update_vjp_call(g_z, g_v, h,
-                                                         eta=ctx.eta)
-            else:
-                v_bar, u1_bar = _plain(ref.update_vjp_ref, h, g_z, g_v,
-                                       param=ctx.eta)
+            with declared("alf_update_vjp", alf_work, "alf_update_vjp",
+                          g_z, h):
+                if _on_cuda("alf_update_vjp", g_z.device):
+                    v_bar, u1_bar = alf_step.update_vjp_call(g_z, g_v, h,
+                                                             eta=ctx.eta)
+                else:
+                    v_bar, u1_bar = _plain(ref.update_vjp_ref, h, g_z,
+                                           g_v, param=ctx.eta)
         if ctx.needs_input_grad[3]:
             h_bar = _h_cotangent(h, 0.5, v_out, g_z)
         return g_z, v_bar, u1_bar, h_bar, None
@@ -317,10 +355,11 @@ def _forward_only(name: str, launcher, plain, trees, h, eta: float):
     hh = _as_h(h, cd, dev)
     b = _rows(hh)
     bufs = [t.pack(cd, b) for t in ts]
-    if _on_cuda(name, dev):
-        out = launcher(*bufs, hh, eta=eta)
-    else:
-        out = _plain(plain, hh, *bufs, param=eta)
+    with declared(name, alf_work, name, bufs[0], hh):
+        if _on_cuda(name, dev):
+            out = launcher(*bufs, hh, eta=eta)
+        else:
+            out = _plain(plain, hh, *bufs, param=eta)
     return ts, out, b
 
 

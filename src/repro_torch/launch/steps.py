@@ -35,18 +35,21 @@ def make_loss_fn(cfg: ModelConfig
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
-                    microbatches: int = 1, compress: bool = False):
+                    microbatches: int = 1, compress: bool = False,
+                    zero1: bool = False):
+    """``zero1=True``: the step over the ambient mesh (``train_step``'s
+    ``zero1``), the parameters and optimizer state the rank's shards."""
     if compress:
         def train_step(params, opt_state: OptState, ef: EFState, batch):
             return _train_step(params, opt_state, ef, batch, cfg=cfg,
                                opt_cfg=opt_cfg, microbatches=microbatches,
-                               compress=True)
+                               compress=True, zero1=zero1)
         return train_step
 
     def train_step(params, opt_state: OptState, batch):
         params, opt_state, _, metrics = _train_step(
             params, opt_state, None, batch, cfg=cfg, opt_cfg=opt_cfg,
-            microbatches=microbatches)
+            microbatches=microbatches, zero1=zero1)
         return params, opt_state, metrics
 
     return train_step

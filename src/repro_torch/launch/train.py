@@ -34,10 +34,15 @@ rows with its own controller, as the JAX package's ``Sharded("data")``
 does. ``--production-mesh`` (``--multi-pod``) trains on the 16 x 16
 (2 x 16 x 16) mesh, tensor-parallel over its 'model' axis, and needs a
 world of 256 (512) ranks.
+
+``TrainConfig``/``train`` are kept as thin compatibility delegators for
+older callers (the JAX package's field names, same return), plus
+``device``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 
@@ -47,6 +52,46 @@ import torch.distributed as dist
 from repro_torch.train import MemoryEmitter, Trainer, TrainerConfig
 
 log = logging.getLogger("repro_torch.launch.train")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Legacy flat config; ``train(tc)`` maps it onto TrainerConfig."""
+    arch: str = "qwen3-1.7b"
+    smoke: bool = True
+    ode: bool = True
+    ode_steps: int = 2
+    steps: int = 50
+    global_batch: int = 8
+    seq_len: int = 64
+    microbatches: int = 1
+    compress: bool = False
+    ckpt_dir: str = ""
+    ckpt_every: int = 20
+    keep: int = 3
+    seed: int = 0
+    log_every: int = 10
+    production_mesh: bool = False
+    multi_pod: bool = False
+    device: str = ""                # '' = the CUDA card
+
+
+def _to_trainer_config(tc: TrainConfig) -> TrainerConfig:
+    return TrainerConfig(
+        arch=tc.arch, smoke=tc.smoke, ode=tc.ode, ode_steps=tc.ode_steps,
+        steps=tc.steps, global_batch=tc.global_batch, seq_len=tc.seq_len,
+        microbatches=tc.microbatches,
+        loop="compressed" if tc.compress else "standard",
+        ckpt_dir=tc.ckpt_dir, ckpt_every=tc.ckpt_every, keep=tc.keep,
+        seed=tc.seed, log_every=tc.log_every,
+        production_mesh=tc.production_mesh, multi_pod=tc.multi_pod,
+        device=tc.device)
+
+
+def train(tc: TrainConfig, emitter=None) -> int:
+    """Legacy entry point: run a TrainConfig to completion (the final
+    step). ``emitter``: the Trainer's metrics sink (default stdout)."""
+    return Trainer(_to_trainer_config(tc), emitter=emitter).train()
 
 
 def init_distributed(device: str) -> str:

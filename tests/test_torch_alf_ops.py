@@ -279,9 +279,15 @@ def test_op_calls_count_and_cpu_launches_nothing():
 
 
 def test_ops_refuse_devices_without_a_version():
-    z = torch.empty(8, device="meta")
+    """A device with neither a kernel nor a plain version is refused; the
+    meta device takes the plain version, which computes only shapes (what
+    the op cost counter and the dry run count a step on)."""
+    from repro_torch.kernels import on_cuda
     with pytest.raises(ValueError, match="no kernel or plain version"):
-        tops.alf_midpoint(z, z, torch.tensor(0.1, device="meta"))
+        on_cuda("alf_midpoint", torch.device("xpu"))
+    z = torch.empty(8, device="meta")
+    k1 = tops.alf_midpoint(z, z, torch.tensor(0.1, device="meta"))
+    assert k1.is_meta and k1.shape == z.shape and k1.dtype == z.dtype
 
 
 def test_launchers_refuse_cpu_buffers():

@@ -60,6 +60,19 @@ def test_port_has_files_to_scan():
                 "src/repro_torch/examples/cnf_toy.py",
                 "src/repro_torch/examples/cnf_image.py",
                 "src/repro_torch/examples/lm_continuous_depth.py",
+                "src/repro_torch/launch/roofline.py",
+                "src/repro_torch/launch/cost.py",
+                "src/repro_torch/launch/dryrun.py",
+                "src/repro_torch/distributed/stand_in.py",
+                "src/repro_torch/analysis/__init__.py",
+                "src/repro_torch/analysis/__main__.py",
+                "src/repro_torch/analysis/lint.py",
+                "src/repro_torch/analysis/trace_audit.py",
+                "src/repro_torch/analysis/rules/common.py",
+                "src/repro_torch/analysis/rules/r001_host_read.py",
+                "src/repro_torch/analysis/rules/r003_launchers.py",
+                "src/repro_torch/analysis/rules/r004_registry.py",
+                "src/repro_torch/analysis/rules/r005_signed_buffer.py",
                 "tests/torch_tp_serve_rank.py"):
         assert new in names
 
@@ -95,6 +108,13 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.examples.time_series_latent_ode\n"
         "import repro_torch.examples.cnf_toy, repro_torch.examples.cnf_image\n"
         "import repro_torch.examples.lm_continuous_depth\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.cost\n"
+        "import repro_torch.launch.dryrun\n"
+        "import repro_torch.distributed.stand_in\n"
+        "import repro_torch.analysis, repro_torch.analysis.trace_audit\n"
+        "import repro_torch.analysis.rules.r004_registry\n"
+        "from repro_torch.analysis.rules import r004_registry\n"
+        "r004_registry._load_registries()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

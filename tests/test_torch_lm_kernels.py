@@ -313,13 +313,16 @@ def test_launchers_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("op", ["rmsnorm", "flash_attention"])
 def test_ops_refuse_a_device_with_no_kernel_or_plain_version(op):
-    x = torch.ones(1, 4, 2, 16, device="meta")
+    """Refused on a device with neither version; on the meta device the
+    plain version computes only the output's shape."""
     with pytest.raises(ValueError, match="no kernel or plain version"):
-        if op == "rmsnorm":
-            rn_ops.rmsnorm(x, torch.ones(16, device="meta"))
-        else:
-            fa_ops.flash_attention(x, x, x)
+        on_cuda(op, torch.device("xpu"))
+    x = torch.ones(1, 4, 2, 16, device="meta")
+    out = (rn_ops.rmsnorm(x, torch.ones(16, device="meta"))
+           if op == "rmsnorm" else fa_ops.flash_attention(x, x, x))
+    assert out.is_meta and out.shape == x.shape
     assert not on_cuda(op, torch.device("cpu"))
+    assert not on_cuda(op, torch.device("meta"))
     assert on_cuda(op, torch.device("cuda"))
 
 

@@ -297,11 +297,17 @@ def test_launcher_refuses_cpu_tensors():
 
 
 def test_op_refuses_a_device_with_no_kernel_or_plain_version():
-    x = torch.ones(1, 4, 8, device="meta")
+    """Refused on a device with neither version; on the meta device the
+    op gives the plain version's shapes and dtypes."""
     with pytest.raises(ValueError, match="no kernel or plain version"):
-        ms_ops.selective_scan(x, x, torch.ones(8, 4, device="meta"),
-                              torch.ones(1, 4, 4, device="meta"),
-                              torch.ones(1, 4, 4, device="meta"))
+        on_cuda("selective_scan", torch.device("xpu"))
+    x = torch.ones(1, 4, 8, device="meta")
+    args = (x, x, torch.ones(8, 4, device="meta"),
+            torch.ones(1, 4, 4, device="meta"),
+            torch.ones(1, 4, 4, device="meta"))
+    got, want = ms_ops.selective_scan(*args), ms_ref.selective_scan_ref(*args)
+    for g, w in zip(got, want):
+        assert g.is_meta and (g.shape, g.dtype) == (w.shape, w.dtype)
     assert not on_cuda("selective_scan", torch.device("cpu"))
     assert on_cuda("selective_scan", torch.device("cuda"))
 

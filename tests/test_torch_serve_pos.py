@@ -211,13 +211,22 @@ def test_make_decode_step_on_the_cpu_equals_decode_step(arch):
 
 def test_make_decode_step_dispatches_by_the_state_device():
     """No fallback: a state on a device with neither a graph nor a plain
-    path raises."""
+    path raises; on the meta device the step runs eagerly, the plain
+    versions computing only shapes (what the dry run counts)."""
+    import types
     cfg = smoke_config("qwen3-1.7b", DEFAULT_ODE)
     st = init_serve_state(cfg, B, 4, "cpu")
-    meta = st._replace(pos=torch.zeros((), dtype=torch.int32,
-                                       device="meta"))
+    other = st._replace(pos=types.SimpleNamespace(device=torch.device("xpu")))
     with pytest.raises(ValueError, match="no kernel or plain version"):
-        tserve.make_decode_step(cfg)({}, torch.zeros(B, 1), meta)
+        tserve.make_decode_step(cfg)({}, torch.zeros(B, 1), other)
+    from repro_torch.launch.specs import META, param_specs
+    step = tserve.make_decode_step(cfg)
+    logits, st2 = step(param_specs(cfg),
+                       torch.zeros((B, 1), dtype=torch.int64, device=META),
+                       init_serve_state(cfg, B, 4, META))
+    assert not step.graphed
+    assert logits.is_meta and logits.shape == (B, 1, cfg.vocab_size)
+    assert st2.pos.is_meta
 
 
 def test_decode_graph_refuses_to_capture_while_routes_are_recorded():
