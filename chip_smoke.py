@@ -16,22 +16,27 @@ either. Phases, each printing JSON lines:
                (sign in {+1, -1} for the midpoint and its VJP). The two
                VJP kernels run as the backward of alf_midpoint /
                alf_update under torch.autograd.grad. One op call (or one
-               backward) must be exactly one launch. The three kernels
+               backward) must be exactly one launch. The five kernels
                that move 16-byte vectors (alf_midpoint, alf_update,
-               alf_midpoint_vjp) also with each input 0-3 elements past a
-               16-byte boundary, one input at a time and all together,
-               and (through the C entry) the outputs 1-3 past one, f32,
-               bf16 and f64 at n = 1, 1500*128+37 and 2048*64, and with
-               a per-row h at 3 x 37 and 2048 x 64; the update's C entry
-               must refuse outputs at two phases.
+               alf_midpoint_vjp, alf_bwd_pre, alf_bwd_post) also with
+               each input 0-3 elements past a 16-byte boundary, one input
+               at a time and all together, and (through the C entry) the
+               outputs 1-3 past one, f32, bf16 and f64 at n = 1,
+               1500*128+37, 2048*64 and 2^20+37, and with a per-row h at
+               3 x 37, 2048 x 64, 8192 x 37 and 1024 x 1570; the C
+               entries of the
+               update and of bwd_post must refuse outputs at two
+               phases.
 3. times     — CUDA-event times of each kernel, its plain version and
                (where one exists) one library call, beside the bound, at
                the main path's shape and at n = 2^25, the forward pair
                also at the LM paths' f32 ALF states (qwen3-1.7b 2^23,
-               Jamba 2^24); a kernel with a library call is timed against
-               it in turns (kernel, library, kernel, library); CUDA-graph
-               times at 2048*64 and, for the forward pair and the kernels
-               with a library call, at every size. The host's cost per
+               Jamba 2^24), MALI's backward pair also at 2^24; a kernel
+               with a library call is timed against it in turns (kernel,
+               library, kernel, library); CUDA-graph times at 2048*64
+               and, for both pairs and the kernels with a library call,
+               at every size; the vector kernels' registers a thread and
+               resident blocks per SM. The host's cost per
                call at 2048*64 (events minus graph) of the forward
                launchers and of their ops under no_grad and through
                their autograd.Function.
@@ -480,6 +485,7 @@ check raises.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import shutil
 import subprocess
@@ -508,6 +514,9 @@ N_TRAIN, TRAIN_STEPS, LR, N_SUB = 2048, 20, 3e-3, 4
 SLICE_N = N_TRAIN * D                   # the main path's state: 2048 x 64
 BIG_N = 1 << 25
 TAIL_N = 1500 * 128 + 37
+# Above one resident wave of threads (132 SMs x 2048): the vector
+# kernels take 16-byte vectors here, one element a thread below
+WAVE_N = (1 << 20) + 37
 # The f32 ALF state of the LM paths' prefill (batch 4 x 1024 tokens x
 # d_model): qwen3-1.7b and jamba-v0.1-52b
 QWEN_ALF_N, JAMBA_ALF_N = 4 * 1024 * 2048, 4 * 1024 * 4096
@@ -549,6 +558,7 @@ KERNELS = {
 }
 VJPS = ("alf_midpoint_vjp", "alf_update_vjp")
 FORWARD = ("alf_midpoint", "alf_update")
+MALI_BWD = ("alf_bwd_pre", "alf_bwd_post")
 # Why a kernel has no one-call PyTorch yardstick (library_ms null).
 NO_LIBRARY = "none: no single PyTorch call writes its {} outputs"
 SOURCE = "src/repro_torch/kernels/alf_step/csrc/alf_step.cu"
@@ -925,24 +935,34 @@ def phase_kernels():
                     if kind == "f32" and n == SLICE_N:
                         worst[name] = max(worst[name], err)
                     checks[name] += 1
-    # The three vector kernels (16-byte vectors): each input on a 16-byte
+    # The five vector kernels (16-byte vectors): each input on a 16-byte
     # boundary and 1, 2 and 3 elements past one, one input at a time and
     # all together (an input off the outputs' phase is read element by
-    # element, or by vectors again for f64 at 2); the outputs fresh (on a
-    # boundary) and, through the library's C entry, 1-3 elements past one
-    # (their head written element by element); f32, bf16 and f64 at n = 1,
-    # TAIL_N (a tail of whole elements) and the main path's size, and with
-    # a per-row h at 3 x 37 and 2048 x 64
+    # element, or by vectors again for f64 at 2; for the backward pair's
+    # four and six inputs by the general instantiation); the outputs fresh
+    # (on a boundary) and, through the library's C entry, 1-3 elements
+    # past one (their head written element by element); f32, bf16 and f64
+    # at n = 1, TAIL_N, the main path's size (below one wave of threads:
+    # one element a thread) and WAVE_N (vectors, a tail of whole
+    # elements), and with a per-row h at 3 x 37 and 2048 x 64 (one
+    # element a thread), 8192 x 37 and the CNF's 1024 x 1570 (vectors,
+    # some of which straddle rows)
     vec_kernels = {
-        # name: (launcher, inputs, outputs, plain version, keyword, value)
+        # name: (launcher, inputs, outputs, plain version, keyword, values)
         "alf_midpoint": (alf_step.midpoint_call, 2, 1, ref.midpoint_ref,
-                         "sign", -1.0),
+                         "sign", (-1.0,)),
         "alf_update": (alf_step.update_call, 3, 2, ref.update_ref, "eta",
-                       0.9),
+                       (0.9,)),
         "alf_midpoint_vjp": (alf_step.midpoint_vjp_call, 1, 1,
-                             ref.midpoint_vjp_ref, "sign", -1.0),
+                             ref.midpoint_vjp_ref, "sign", (-1.0,)),
+        "alf_bwd_pre": (alf_step.bwd_pre_call, 4, 2, ref.bwd_pre_ref, "eta",
+                        (0.9,)),
+        # eta 1.0 takes the exact branch of psi^-1's velocity
+        "alf_bwd_post": (alf_step.bwd_post_call, 6, 4, ref.bwd_post_ref,
+                         "eta", (1.0, 0.9)),
     }
-    for name, (launcher, n_in, n_out, plain, key, p) in vec_kernels.items():
+    for name, (launcher, n_in, n_out, plain, key, values) in (
+            vec_kernels.items()):
         patterns = [(0,) * n_in]
         for off in (1, 2, 3):
             patterns += [tuple(off if i == j else 0 for i in range(n_in))
@@ -951,49 +971,54 @@ def phase_kernels():
                 patterns.append((off,) * n_in)
         for dtype in (torch.float32, torch.bfloat16, torch.float64):
             hd = h.to(torch.promote_types(dtype, torch.float32))
-            # (n, h, row length): the scalar h at three sizes, and a
-            # per-row h over 3 rows of 37 (rows end inside vectors) and
-            # the main path's 2048 x 64, each row its own h
-            cases = [(n, hd, 0) for n in (1, TAIL_N, SLICE_N)]
-            for b, d in ((3, 37), (N_TRAIN, D)):
+            # (n, h, row length): the scalar h at four sizes, and a
+            # per-row h over 3 and 8192 rows of 37 (rows end inside
+            # vectors), the main path's 2048 x 64 and the CNF's
+            # 1024 x 1570, each row its own h
+            cases = [(n, hd, 0) for n in (1, TAIL_N, SLICE_N, WAVE_N)]
+            for b, d in ((3, 37), (N_TRAIN, D), (8192, 37),
+                         (1024, CNF_ROW)):
                 h_rows = (torch.rand(b, device="cuda", generator=gen)
                           - 0.5) * 0.8
                 cases.append((b * d, h_rows.to(hd.dtype), d))
-            for n, hh, row in cases:
-                for offs in patterns:
-                    ins = [torch.randn(n + 3, device="cuda", generator=gen)
-                           .to(dtype)[o:o + n] for o in offs]
-                    want = ops._plain(plain, hh, *ins, param=p)
-                    want = want if isinstance(want, tuple) else (want,)
-                    for out_off in (None, 1, 2, 3):
-                        before = alf_step.LAUNCHES[name]
-                        if out_off is None:
-                            got = launcher(*ins, hh, **{key: p})
-                            got = got if isinstance(got, tuple) else (got,)
-                            require(alf_step.LAUNCHES[name] == before + 1,
-                                    f"{name}: one call must be one launch")
-                        else:
-                            got = tuple(
-                                torch.empty(n + 3, device="cuda",
-                                            dtype=dtype)[out_off:out_off + n]
-                                for _ in range(n_out))
-                            rc = alf_step._fn(name)(
-                                alf_step._DTYPE_CODE[dtype], n,
-                                *[x.data_ptr() for x in ins], hh.data_ptr(),
-                                row, p, *[x.data_ptr() for x in got],
-                                torch.cuda.current_stream().cuda_stream)
-                            require(rc == 0, f"{name}: CUDA error {rc}")
-                        torch.cuda.synchronize()
-                        for g, w in zip(got, want):
-                            err = float((g.double() - w.double()).abs()
-                                        .max())
-                            tol = KERNEL_ULPS * _ulp(dtype) * max(
-                                1.0, float(w.double().abs().max()))
-                            require(err <= tol, f"{name} {dtype} n={n} "
-                                    f"row {row} input offsets {offs} output "
-                                    f"offset {out_off}: max abs err {err} > "
-                                    f"{tol}")
-                        checks[name] += 1
+            for (n, hh, row), offs, p in itertools.product(
+                    cases, patterns, values):
+                ins = [torch.randn(n + 3, device="cuda", generator=gen)
+                       .to(dtype)[o:o + n] for o in offs]
+                want = ops._plain(plain, hh, *ins, param=p)
+                want = want if isinstance(want, tuple) else (want,)
+                # each output's max error over its tolerance, on the card:
+                # one host read for the four output placements
+                ratios = []
+                for out_off in (None, 1, 2, 3):
+                    before = alf_step.LAUNCHES[name]
+                    if out_off is None:
+                        got = launcher(*ins, hh, **{key: p})
+                        got = got if isinstance(got, tuple) else (got,)
+                        require(alf_step.LAUNCHES[name] == before + 1,
+                                f"{name}: one call must be one launch")
+                    else:
+                        got = tuple(
+                            torch.empty(n + 3, device="cuda",
+                                        dtype=dtype)[out_off:out_off + n]
+                            for _ in range(n_out))
+                        rc = alf_step._fn(name)(
+                            alf_step._DTYPE_CODE[dtype], n,
+                            *[x.data_ptr() for x in ins], hh.data_ptr(),
+                            row, p, *[x.data_ptr() for x in got],
+                            torch.cuda.current_stream().cuda_stream)
+                        require(rc == 0, f"{name}: CUDA error {rc}")
+                    for g, w in zip(got, want):
+                        err = (g.double() - w.double()).abs().max()
+                        tol = KERNEL_ULPS * _ulp(dtype) * (
+                            w.double().abs().max().clamp(min=1.0))
+                        ratios.append(err / tol)
+                    checks[name] += 1
+                worst_ratio = float(torch.stack(ratios).max())
+                require(worst_ratio <= 1.0, f"{name} {dtype} n={n} row {row} "
+                        f"{key} {p} input offsets {offs}, outputs fresh and "
+                        f"at offsets 1-3: max abs err {worst_ratio} x the "
+                        "tolerance")
     # alf_update's two outputs share one 16-byte phase: the C entry
     # refuses outputs at two phases (cudaErrorMisalignedAddress), before
     # any launch
@@ -1006,6 +1031,14 @@ def phase_kernels():
     require(rc == 716, f"alf_update: outputs at two 16-byte phases gave "
             f"{rc}, expected 716 (cudaErrorMisalignedAddress)")
     checks["alf_update"] += 1
+    # and alf_bwd_post's four, the last at another phase
+    rc = alf_step._fn("alf_bwd_post")(
+        0, SLICE_N, *[x.data_ptr()] * 6, h.data_ptr(), 0, 0.9,
+        *[buf[4:].data_ptr()] * 3, buf[5:].data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    require(rc == 716, f"alf_bwd_post: outputs at two 16-byte phases gave "
+            f"{rc}, expected 716 (cudaErrorMisalignedAddress)")
+    checks["alf_bwd_post"] += 1
     emit({"phase": "kernels", "checks": checks,
           "tolerance": f"{KERNEL_ULPS} ulp of the storage dtype at the "
                        "output's largest magnitude (>= 1)",
@@ -1168,15 +1201,19 @@ def _row_times(bw: float, peak: float):
 
 def phase_times(card: str):
     import torch
+    from repro_torch.kernels.alf_step import alf_step
     from repro_torch.kernels.alf_step.ops import ALF_WORK, alf_work
     bw, peak, _ = card_rates(card)
     gen = torch.Generator(device="cuda").manual_seed(1)
     h = torch.tensor(0.23, device="cuda")
     rows = {}
     # every kernel at the main path's size and at 2^25; the forward pair
-    # also at the LM paths' ALF state sizes, with graph times at each
+    # also at the LM paths' ALF state sizes and MALI's backward pair at
+    # Jamba's (qwen3's training state, 2 x 4096 x 2048, has as many
+    # elements), with graph times at each
     sizes = ((SLICE_N, 500, tuple(KERNELS)),
-             (QWEN_ALF_N, 40, FORWARD), (JAMBA_ALF_N, 30, FORWARD),
+             (QWEN_ALF_N, 40, FORWARD),
+             (JAMBA_ALF_N, 30, FORWARD + MALI_BWD),
              (BIG_N, 20, tuple(KERNELS)))
     for n, reps, names in sizes:
         bufs = [torch.randn(n, device="cuda", generator=gen)
@@ -1216,7 +1253,7 @@ def phase_times(card: str):
                 row["plain_graph_ms"] = _graph_ms(plain, 100)
                 if lib is not None:
                     row["library_graph_ms"] = _graph_ms(lib, 100)
-            elif lib is not None or name in FORWARD:
+            elif lib is not None or name in FORWARD + MALI_BWD:
                 row["graph_ms"] = _graph_ms(kern, reps)
                 if lib is not None:
                     row["library_graph_ms"] = _graph_ms(lib, reps)
@@ -1225,6 +1262,12 @@ def phase_times(card: str):
         del bufs
         torch.cuda.empty_cache()
     emit({"phase": "times", "op_host_cost_slice": _op_host_cost(h)})
+    # registers a thread, spilled bytes and resident blocks per SM of the
+    # vector kernels' all-aligned scalar-h instantiations
+    info = {name: {str(dt).split(".")[-1]: alf_step.vec_kernel_info(name, dt)
+                   for dt in (torch.float32, torch.bfloat16, torch.float64)}
+            for name in alf_step.VEC_KERNELS}
+    emit({"phase": "times", "vec_kernel_info": info})
     return rows, _row_times(bw, peak)
 
 

@@ -55,6 +55,8 @@ _tm = pytree.tree_map
 Pytree = Any
 TrialFn = Callable[[Pytree, torch.Tensor, torch.Tensor],
                    Tuple[Pytree, torch.Tensor]]
+# step(state, t, h) -> state_next
+StepFn = Callable[[Pytree, torch.Tensor, torch.Tensor], Pytree]
 
 TIME_DTYPE = torch.float32
 
@@ -130,10 +132,31 @@ def grid_run(run: Callable[[torch.Tensor], Pytree], z0: Pytree, t0, t1,
 
 
 def fixed_grid_times(t0: torch.Tensor, t1: torch.Tensor, n_steps: int):
-    """(t_i, h) for a uniform grid (t_i = t0 + i*h, h signed)."""
+    """(t_i, h) for a uniform grid (t_i = t0 + i*h, h signed), in the
+    bounds' dtype and at least float32, as the JAX package's."""
     h = (t1 - t0) / n_steps
-    ts = t0 + h * torch.arange(n_steps, dtype=TIME_DTYPE, device=t0.device)
+    dtype = torch.promote_types(torch.promote_types(t0.dtype, t1.dtype),
+                                TIME_DTYPE)
+    ts = t0 + h * torch.arange(n_steps, dtype=dtype, device=t0.device)
     return ts, h
+
+
+def integrate_fixed(step: StepFn, state0: Pytree, t0, t1,
+                    n_steps: int) -> Pytree:
+    """``n_steps`` uniform steps ``step(state, t_i, h)`` from ``t0`` to
+    ``t1`` (``t1 < t0``: reverse time, a negative ``h``) on the grid of
+    :func:`fixed_grid_times`; returns the end state. Tensor bounds keep
+    their dtype (float64 bounds give a float64 grid); numbers become
+    float32 on the state's device."""
+    if not (isinstance(t0, torch.Tensor) and isinstance(t1, torch.Tensor)):
+        device = pytree.tree_leaves(state0)[0].device
+        t0, t1 = (t if isinstance(t, torch.Tensor)
+                  else _time_scalar(t, device) for t in (t0, t1))
+    ts, h = fixed_grid_times(t0, t1, n_steps)
+    state = state0
+    for i in range(n_steps):
+        state = step(state, ts[i], h)
+    return state
 
 
 def segment_pairs(ts: torch.Tensor) -> torch.Tensor:
@@ -526,10 +549,8 @@ def integrate_span(
     proposal for the span, per row under ``rows`` = B > 0."""
     t0, t1 = t0.to(TIME_DTYPE), t1.to(TIME_DTYPE)
     if isinstance(controller, ConstantSteps):
-        ts, h = fixed_grid_times(t0, t1, controller.n)
-        state = state0
-        for i in range(controller.n):
-            state, _ = trial(state, ts[i], h)
+        state = integrate_fixed(lambda s, t, h: trial(s, t, h)[0], state0,
+                                t0, t1, controller.n)
         n = torch.full((), controller.n, dtype=torch.int32, device=t0.device)
         return SpanResult(state, n, n)
     if isinstance(controller, AdaptiveController):

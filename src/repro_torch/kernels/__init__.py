@@ -15,6 +15,10 @@ from typing import Callable, List, NamedTuple
 
 import torch
 
+# the registry's names, exported here as by the JAX package's kernels
+from .registry import (NO_REVERSE_RULE, forward_only_ops,  # noqa: F401
+                       no_reverse_reason)
+
 # The kernel packages, each with its CUDA source in <package>/csrc/.
 PACKAGES = ("alf_step", "rmsnorm", "flash_attention", "mamba_scan")
 

@@ -68,6 +68,36 @@ def reset_launches() -> None:
         ROW_LAUNCHES[k] = 0
 
 
+# The vector kernels, in the order of the C entry alf_vec_kernel_info's
+# op codes.
+VEC_KERNELS = ("alf_midpoint", "alf_update", "alf_midpoint_vjp",
+               "alf_bwd_pre", "alf_bwd_post")
+
+
+def vec_kernel_info(name: str, dtype: torch.dtype, lib=None
+                    ) -> Dict[str, int]:
+    """Registers a thread, local (spilled) bytes a thread and resident
+    blocks of 256 threads per SM on the current device of the vector
+    kernel ``name`` (its all-aligned scalar-h instantiation for storage
+    ``dtype``), from ``cudaFuncGetAttributes`` and the occupancy API; of
+    the library ``lib`` (a ``ctypes.CDLL``) if given, else the built
+    one."""
+    if lib is None:
+        from repro_torch.kernels import build
+        lib = build.load(NAME)
+    info = lib.alf_vec_kernel_info
+    info.argtypes = [ctypes.c_int, ctypes.c_int] + [
+        ctypes.POINTER(ctypes.c_int)] * 3
+    info.restype = ctypes.c_int
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    rc = info(_DTYPE_CODE[dtype], VEC_KERNELS.index(name),
+              *[ctypes.byref(v) for v in vals])
+    if rc != 0:
+        raise RuntimeError(f"alf_vec_kernel_info({name}): CUDA error {rc}")
+    return dict(zip(("regs", "local_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
 def _ptrs(*tensors: torch.Tensor):
     return [t.data_ptr() for t in tensors]
 

@@ -28,31 +28,37 @@
 // held against: torch.addcmul(z, v, sign*h/2) for the midpoint and
 // torch.mul(g, sign*h/2) for its VJP; none for the update (two outputs).
 //
-// Design against that bound. The forward pair (alf_midpoint, alf_update)
-// and alf_midpoint_vjp, the three kernels on the paths that launch most,
-// are one vector kernel (vec_kernel) over an elementwise functor: 16-byte
-// vectors (4 float, 8 bfloat16 or 2 double), up to kVecUnroll in flight
-// per thread, on a grid of at most kVecBlocksPerSm blocks per SM and one
-// vector a thread on small buffers. The outputs are fresh buffers and
-// share one offset from a 16-byte boundary (the launch refuses outputs
-// that do not); the elements before their first boundary and after their
-// last whole vector go one by one, by the grid's first threads. Each
-// input is read by vectors where it sits at the outputs' offset from a
-// 16-byte boundary, else element by element (nothing is copied to align
-// it). That choice is made per input by a template bit mask, one
-// instantiation per mask (2, 4 and 8 for one, two and three inputs), so
-// the aligned case, the op layer's, runs straight-line code with no
-// per-element test; a runtime flag would cost nothing in divergence
-// (it is uniform) but would keep both load paths in every kernel. The
-// other kernels are one pass over one flat contiguous buffer, coalesced,
-// with a grid-stride loop and a masked tail. The TPU's [rows, 128] lane
-// layout and its padding to a block multiple are not carried over; the op
-// layer packs the whole state pytree into one buffer. The step size h is
-// read through a device pointer, so an adaptive controller that computes
-// h on the card never syncs the host. Nothing is allocated here; each
-// call is one launch on the caller's stream and returns
-// cudaGetLastError().
-//
+// Design against that bound. Five kernels are one vector kernel
+// (vec_kernel) over an elementwise functor: the forward pair
+// (alf_midpoint, alf_update) and alf_midpoint_vjp, the paths that launch
+// most, and MALI's backward pair (alf_bwd_pre, alf_bwd_post), which every
+// MALI backward step launches. It moves 16-byte vectors (4 float, 8
+// bfloat16 or 2 double), one vector a thread on a grid as large as the
+// buffer needs, or one element a thread when the call fits one resident
+// wave of threads (below). The outputs are fresh buffers and share one
+// offset from a 16-byte boundary (the launch refuses outputs that do
+// not); the elements before their first boundary
+// and after their last whole vector go one by one, by the grid's first
+// threads. Each input is read by vectors where it sits at the outputs'
+// offset from a 16-byte boundary, else element by element (nothing is
+// copied to align it). For one to three inputs that choice is a
+// template bit mask, one instantiation per mask (2, 4 and 8), so every
+// case runs straight-line code with no per-element test. Four and six
+// inputs would need 16 and 64 masks, so those ops have two
+// instantiations: all inputs at the outputs' phase (the op layer's case:
+// packed buffers are fresh allocations or whole leaves), and a general
+// one that reads each input's phase from a run-time mask (uniform across
+// the grid, so it costs no divergence).
+// Three kernels remain one pass each over one flat contiguous buffer,
+// coalesced, one element a thread with a grid-stride loop and a masked
+// tail: alf_update_vjp, alf_inverse and alf_inverse_update, the Naive
+// and unfused backward. The TPU's [rows, 128] lane layout and its padding
+// to a block multiple are not carried over; the op layer packs the whole
+// state pytree into one buffer. The step size h is read through a device
+// pointer, so an adaptive controller that computes h on the card never
+// syncs the host. Nothing is allocated here; each call is one launch on
+// the caller's stream and returns cudaGetLastError().
+
 // Per-row step size (PerSample batching: each sample of a batch takes its
 // own adaptive step). Every entry takes h and a row length D: D == 0 is
 // the scalar h above, D > 0 a (B,) h over a buffer packed row-major,
@@ -61,7 +67,8 @@
 // an element comes from a double-precision reciprocal of D computed on
 // the host and one correction either way (exact for e < 2^50), not from
 // a 64-bit integer division. The scalar-loop kernels take one element a
-// thread below 2^28 elements, so each finds its row once. The vector
+// thread below 2^28 elements, and the vector kernel's element wave one
+// element a thread, so each finds its row once. The vector
 // kernel finds the row of a vector's first element once a vector: a
 // vector inside one row takes one h, and a vector that straddles rows
 // (D % V != 0, as the CNF's D = 1570 and the tests' D = 1 and 2 give)
@@ -103,9 +110,23 @@ inline unsigned int n_blocks(int64_t n) {
   return static_cast<unsigned int>(b < cap ? b : cap);
 }
 
-// The vector kernel's grid: a few blocks per SM, grid-stride beyond.
-constexpr int kVecUnroll = 4;      // 16-byte vectors in flight per thread
-constexpr int kVecBlocksPerSm = 8;
+// The vector kernel's launch policy: one 16-byte vector a thread and
+// input, on a grid of as many blocks as the vectors need (a grid-stride
+// loop only guards the grid's limit); a call whose elements fit one
+// resident wave of threads (n <= SMs x kMaxThreadsPerSm) takes one
+// element a thread instead. Measured (PERF.md §6): at 2^24 and 2^25 this
+// grid is faster for all five kernels than one capped at 8 blocks per SM
+// with 1, 2 or 4 vectors in flight a thread (MALI's backward pair 89-91%
+// of the byte bound against 85-88%); at 2048 x 64 in a CUDA graph the
+// element wave is faster than one vector a thread, whose four to eight
+// elements run their arithmetic (an IEEE division in alf_bwd_post where
+// eta != 1) one after the other.
+constexpr int kMaxThreadsPerSm = 2048;   // sm_90
+// Inputs up to which every 16-byte phase mask has its own instantiation;
+// an op with more inputs has two: all inputs at the outputs' phase, and
+// kAnyPhase, which reads each input's phase from a run-time mask.
+constexpr int kMaskedInputs = 3;
+constexpr int kAnyPhase = -1;
 
 #define GRID_STRIDE(i, n)                                                  \
   for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < (n); \
@@ -200,62 +221,52 @@ struct MidpointVjpOp {
 };
 
 // k1 = z - v * (h/2);  cot_u1 = 2*eta * (a_v + a_z * (h/2))
-template <typename T, bool kRows>
-__global__ void bwd_pre_kernel(int64_t n, const T* __restrict__ z,
-                               const T* __restrict__ v,
-                               const T* __restrict__ a_z,
-                               const T* __restrict__ a_v,
-                               const typename Acc<T>::type* __restrict__ h,
-                               Rows rows, double eta, T* __restrict__ k1,
-                               T* __restrict__ cot_u1) {
+template <typename T>
+struct BwdPreOp {
   typedef typename Acc<T>::type A;
-  const A hh0 = kRows ? A(0) : *h * A(0.5);
-  const A two_eta = static_cast<A>(2.0 * eta);
-  GRID_STRIDE(i, n) {
-    const A hh = half_h<kRows>(h, hh0, rows, i);
-    const A vh = ld(v, i) * hh;
-    st(k1, i, ld(z, i) - vh);
-    const A azh = ld(a_z, i) * hh;
-    const A cv = ld(a_v, i) + azh;
-    st(cot_u1, i, two_eta * cv);
+  static constexpr int kIn = 4, kOut = 2;   // (z, v, a_z, a_v) -> (k1, cot_u1)
+  A hh, two_eta;
+  __device__ BwdPreOp(A h, double eta)
+      : hh(h * A(0.5)), two_eta(static_cast<A>(2.0 * eta)) {}
+  __device__ __forceinline__ void set_h(A h) { hh = h * A(0.5); }
+  __device__ __forceinline__ void operator()(const A* x, A* y) const {
+    const A vh = x[1] * hh;
+    y[0] = x[0] - vh;
+    const A azh = x[2] * hh;
+    const A cv = x[3] + azh;
+    y[1] = two_eta * cv;
   }
-}
+};
 
 // v_prev = 2*u1 - v_out (eta == 1) or (v_out - 2*eta*u1) / (1 - 2*eta);
 // z_prev = k1 - v_prev * (h/2);  dz = a_z + dk1;
 // dv = dz * (h/2) + (1 - 2*eta) * (a_v + a_z * (h/2))
-template <typename T, bool kRows>
-__global__ void bwd_post_kernel(int64_t n, const T* __restrict__ k1,
-                                const T* __restrict__ v_out,
-                                const T* __restrict__ u1,
-                                const T* __restrict__ a_z,
-                                const T* __restrict__ a_v,
-                                const T* __restrict__ dk1,
-                                const typename Acc<T>::type* __restrict__ h,
-                                Rows rows, double eta, int exact,
-                                T* __restrict__ z_prev, T* __restrict__ v_prev,
-                                T* __restrict__ dz, T* __restrict__ dv) {
+template <typename T>
+struct BwdPostOp {
   typedef typename Acc<T>::type A;
-  const A hh0 = kRows ? A(0) : *h * A(0.5);
-  const A two_eta = static_cast<A>(2.0 * eta);
-  const A one_m = static_cast<A>(1.0 - 2.0 * eta);
-  GRID_STRIDE(i, n) {
-    const A hh = half_h<kRows>(h, hh0, rows, i);
-    const A vp = inverse_velocity(ld(v_out, i), ld(u1, i), two_eta, one_m,
-                                  exact);
-    st(v_prev, i, vp);
+  // (k1, v_out, u1, a_z, a_v, dk1) -> (z_prev, v_prev, dz, dv)
+  static constexpr int kIn = 6, kOut = 4;
+  A hh, two_eta, one_m;
+  int exact;
+  __device__ BwdPostOp(A h, double eta)
+      : hh(h * A(0.5)), two_eta(static_cast<A>(2.0 * eta)),
+        one_m(static_cast<A>(1.0 - 2.0 * eta)), exact(eta == 1.0 ? 1 : 0) {}
+  __device__ __forceinline__ void set_h(A h) { hh = h * A(0.5); }
+  __device__ __forceinline__ void operator()(const A* x, A* y) const {
+    const A vp = inverse_velocity(x[1], x[2], two_eta, one_m, exact);
+    y[1] = vp;
     const A vph = vp * hh;
-    st(z_prev, i, ld(k1, i) - vph);
-    const A az = ld(a_z, i);
-    const A ck = az + ld(dk1, i);
-    st(dz, i, ck);
+    y[0] = x[0] - vph;
+    const A az = x[3];
+    const A ck = az + x[5];
+    y[2] = ck;
     const A azh = az * hh;
-    const A cv = ld(a_v, i) + azh;
+    const A cv = x[4] + azh;
     const A ckh = ck * hh;
     const A mcv = one_m * cv;
-    st(dv, i, ckh + mcv);
+    y[3] = ckh + mcv;
   }
-}
+};
 
 // v_in = inverse_velocity(v_out, u1);  z_in = k1 - v_in * (h/2)
 template <typename T, bool kRows>
@@ -330,13 +341,13 @@ __device__ __forceinline__ uint4 ld_vec(const T* __restrict__ p, int64_t j,
 // y = Op(x) elementwise over n elements, by 16-byte vectors of V elements:
 // the outputs' first `head` elements (up to their first 16-byte boundary)
 // and their last (n - head) % V are written one by one, by the grid's
-// first threads; the vectors between go through a grid-stride loop, one
-// vector per thread on a small buffer and kVecUnroll in flight per thread
-// once the grid is capped at kVecBlocksPerSm blocks per SM. Input i is
-// read by vectors when bit i of kVecMask is set (it sits at the outputs'
-// offset from a 16-byte boundary), else element by element. With kRows
-// the Op takes its row's h: once for a vector inside one row, element by
-// element (a row counter) for a vector that straddles rows.
+// first threads; the vectors between go one a thread (with head == n the
+// edge path takes every element, one a thread). Input i is read by
+// vectors when bit i of kVecMask is set (it sits at the outputs' offset
+// from a 16-byte boundary), else element by element; with kVecMask == kAnyPhase the same
+// bit of the run-time `phases` decides. With kRows the Op takes its
+// row's h: once for a vector inside one row, element by element (a row
+// counter) for a vector that straddles rows.
 template <typename Op, typename T, int NI, int NO>
 __device__ __forceinline__ void apply_elem(const Op& op, const uint4* r,
                                            uint4* w, int c) {
@@ -355,10 +366,11 @@ __global__ void __launch_bounds__(kThreads)
     vec_kernel(int64_t n, int64_t head, In<T, OpT<T>::kIn> in,
                Out<T, OpT<T>::kOut> out,
                const typename Acc<T>::type* __restrict__ h, Rows rows,
-               double param) {
+               double param, int phases) {
   typedef OpT<T> Op;
   typedef typename Op::A A;
   constexpr int NI = Op::kIn, NO = Op::kOut, V = 16 / sizeof(T);
+  const int vec_mask = kVecMask == kAnyPhase ? phases : kVecMask;
   Op op(*h, param);
   const int64_t nv = (n - head) / V;
   const int64_t body_end = head + nv * V;
@@ -380,51 +392,35 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int o = 0; o < NO; ++o) ov[o] = out.p[o] + head;
   const int64_t threads = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t j0 = t; j0 < nv; j0 += threads * kVecUnroll) {
-    uint4 r[kVecUnroll][NI];
+  for (int64_t j = t; j < nv; j += threads) {
+    uint4 r[NI], w[NO];
 #pragma unroll
-    for (int k = 0; k < kVecUnroll; ++k) {
-      const int64_t j = j0 + k * threads;
-      if (j < nv) {
+    for (int i = 0; i < NI; ++i) r[i] = ld_vec(iv[i], j, (vec_mask >> i) & 1);
+    if (kRows) {
+      const int64_t e = head + j * V;
+      int64_t row = rows(e);
+      int64_t at = e - row * rows.len;
+      if (at + V <= rows.len) {
+        op.set_h(h[row]);
 #pragma unroll
-        for (int i = 0; i < NI; ++i)
-          r[k][i] = ld_vec(iv[i], j, (kVecMask >> i) & 1);
-      }
-    }
+        for (int c = 0; c < V; ++c) apply_elem<Op, T, NI, NO>(op, r, w, c);
+      } else {
 #pragma unroll
-    for (int k = 0; k < kVecUnroll; ++k) {
-      const int64_t j = j0 + k * threads;
-      if (j < nv) {
-        uint4 w[NO];
-        if (kRows) {
-          const int64_t e = head + j * V;
-          int64_t row = rows(e);
-          int64_t at = e - row * rows.len;
-          if (at + V <= rows.len) {
-            op.set_h(h[row]);
-#pragma unroll
-            for (int c = 0; c < V; ++c)
-              apply_elem<Op, T, NI, NO>(op, r[k], w, c);
-          } else {
-#pragma unroll
-            for (int c = 0; c < V; ++c, ++at) {
-              if (at == rows.len) {
-                at = 0;
-                ++row;
-              }
-              op.set_h(h[row]);
-              apply_elem<Op, T, NI, NO>(op, r[k], w, c);
-            }
+        for (int c = 0; c < V; ++c, ++at) {
+          if (at == rows.len) {
+            at = 0;
+            ++row;
           }
-        } else {
-#pragma unroll
-          for (int c = 0; c < V; ++c)
-            apply_elem<Op, T, NI, NO>(op, r[k], w, c);
+          op.set_h(h[row]);
+          apply_elem<Op, T, NI, NO>(op, r, w, c);
         }
-#pragma unroll
-        for (int o = 0; o < NO; ++o) reinterpret_cast<uint4*>(ov[o])[j] = w[o];
       }
+    } else {
+#pragma unroll
+      for (int c = 0; c < V; ++c) apply_elem<Op, T, NI, NO>(op, r, w, c);
     }
+#pragma unroll
+    for (int o = 0; o < NO; ++o) reinterpret_cast<uint4*>(ov[o])[j] = w[o];
   }
 }
 
@@ -463,22 +459,35 @@ inline int sm_count() {
   return cached[dev];
 }
 
-// Launch vec_kernel<OpT, T, mask, kRows> for the runtime mask, by
-// recursion over the 2^kIn instantiations.
+// Launch vec_kernel<OpT, T, mask, kRows> for the runtime mask: up to
+// kMaskedInputs inputs by recursion over the 2^kIn instantiations, above
+// that the all-aligned one or the kAnyPhase one.
 template <template <typename> class OpT, typename T, bool kRows, int M>
 void launch_mask(int mask, unsigned int grid, cudaStream_t s, int64_t n,
                  int64_t head, const In<T, OpT<T>::kIn>& in,
                  const Out<T, OpT<T>::kOut>& out,
                  const typename Acc<T>::type* h, Rows rows, double param) {
-  if constexpr (M + 1 < (1 << OpT<T>::kIn)) {
-    if (mask != M) {
-      launch_mask<OpT, T, kRows, M + 1>(mask, grid, s, n, head, in, out, h,
-                                        rows, param);
-      return;
+  constexpr int kAll = (1 << OpT<T>::kIn) - 1;
+  if constexpr (OpT<T>::kIn > kMaskedInputs) {
+    if (mask == kAll) {
+      vec_kernel<OpT, T, kAll, kRows><<<grid, kThreads, 0, s>>>(
+          n, head, in, out, h, rows, param, mask);
+    } else {
+      vec_kernel<OpT, T, kAnyPhase, kRows><<<grid, kThreads, 0, s>>>(
+          n, head, in, out, h, rows, param, mask);
     }
+    return;
+  } else {
+    if constexpr (M < kAll) {
+      if (mask != M) {
+        launch_mask<OpT, T, kRows, M + 1>(mask, grid, s, n, head, in, out,
+                                          h, rows, param);
+        return;
+      }
+    }
+    vec_kernel<OpT, T, M, kRows><<<grid, kThreads, 0, s>>>(
+        n, head, in, out, h, rows, param, mask);
   }
-  vec_kernel<OpT, T, M, kRows><<<grid, kThreads, 0, s>>>(n, head, in, out, h,
-                                                          rows, param);
 }
 
 // The row geometry of a call: len 0 is a scalar h.
@@ -514,9 +523,13 @@ int launch_vec(int64_t n, const void* const* ins, void* const* outs,
   }
   int64_t head = int64_t((16 - (out0 & 15)) & 15) / int64_t(sizeof(T));
   head = head < n ? head : n;
-  const int64_t nv = (n - head) / V;
-  int64_t blocks = (nv + kThreads - 1) / kThreads;
-  const int64_t cap = int64_t(kVecBlocksPerSm) * sm_count();
+  // one element a thread (every element through the edge path) within a
+  // wave, else one vector a thread between the edges
+  const bool wave = n <= int64_t(sm_count()) * kMaxThreadsPerSm;
+  head = wave ? n : head;
+  const int64_t work = wave ? n : (n - head) / V;
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  const int64_t cap = 0x7fffffff;    // gridDim.x's limit
   blocks = blocks < cap ? blocks : cap;
   blocks = blocks > 0 ? blocks : 1;  // the edges, and one launch per call
   const unsigned int grid = static_cast<unsigned int>(blocks);
@@ -562,13 +575,9 @@ template <typename T>
 int launch_bwd_pre(int64_t n, const void* z, const void* v, const void* a_z,
                    const void* a_v, const void* h, int64_t row, double eta,
                    void* k1, void* cot_u1, cudaStream_t s) {
-  typedef typename Acc<T>::type A;
-  LAUNCH_LOOP(bwd_pre_kernel, T, row, s, n,
-      n, static_cast<const T*>(z), static_cast<const T*>(v),
-      static_cast<const T*>(a_z), static_cast<const T*>(a_v),
-      static_cast<const A*>(h), make_rows(row), eta, static_cast<T*>(k1),
-      static_cast<T*>(cot_u1));
-  return static_cast<int>(cudaGetLastError());
+  const void* ins[4] = {z, v, a_z, a_v};
+  void* outs[2] = {k1, cot_u1};
+  return launch_vec<BwdPreOp, T>(n, ins, outs, h, row, eta, s);
 }
 
 template <typename T>
@@ -577,15 +586,9 @@ int launch_bwd_post(int64_t n, const void* k1, const void* v_out,
                     const void* dk1, const void* h, int64_t row, double eta,
                     void* z_prev, void* v_prev, void* dz, void* dv,
                     cudaStream_t s) {
-  typedef typename Acc<T>::type A;
-  LAUNCH_LOOP(bwd_post_kernel, T, row, s, n,
-      n, static_cast<const T*>(k1), static_cast<const T*>(v_out),
-      static_cast<const T*>(u1), static_cast<const T*>(a_z),
-      static_cast<const T*>(a_v), static_cast<const T*>(dk1),
-      static_cast<const A*>(h), make_rows(row), eta, eta == 1.0 ? 1 : 0,
-      static_cast<T*>(z_prev), static_cast<T*>(v_prev), static_cast<T*>(dz),
-      static_cast<T*>(dv));
-  return static_cast<int>(cudaGetLastError());
+  const void* ins[6] = {k1, v_out, u1, a_z, a_v, dk1};
+  void* outs[4] = {z_prev, v_prev, dz, dv};
+  return launch_vec<BwdPostOp, T>(n, ins, outs, h, row, eta, s);
 }
 
 template <typename T>
@@ -634,6 +637,34 @@ int launch_update_vjp(int64_t n, const void* g_z, const void* g_v,
       static_cast<const A*>(h), make_rows(row), eta, static_cast<T*>(v_bar),
       static_cast<T*>(u1_bar));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread, local (spilled) bytes a thread and resident blocks
+// of kThreads per SM of a vector kernel's all-aligned scalar-h
+// instantiation.
+template <template <typename> class OpT, typename T>
+int vec_info(int* regs, int* local_bytes, int* blocks_per_sm) {
+  constexpr int kAll = (1 << OpT<T>::kIn) - 1;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, vec_kernel<OpT, T, kAll, false>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, vec_kernel<OpT, T, kAll, false>, kThreads, 0));
+}
+
+template <typename T>
+int launch_vec_info(int op, int* regs, int* local_bytes, int* blocks_per_sm) {
+  switch (op) {
+    case 0: return vec_info<MidpointOp, T>(regs, local_bytes, blocks_per_sm);
+    case 1: return vec_info<UpdateOp, T>(regs, local_bytes, blocks_per_sm);
+    case 2: return vec_info<MidpointVjpOp, T>(regs, local_bytes,
+                                              blocks_per_sm);
+    case 3: return vec_info<BwdPreOp, T>(regs, local_bytes, blocks_per_sm);
+    case 4: return vec_info<BwdPostOp, T>(regs, local_bytes, blocks_per_sm);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -712,6 +743,15 @@ int alf_update_vjp(int dtype, int64_t n, const void* g_z, const void* g_v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   DISPATCH(dtype, launch_update_vjp, n, g_z, g_v, h, row, eta, v_bar,
            u1_bar, s)
+}
+
+// The resources of a vector kernel (op: 0 alf_midpoint, 1 alf_update,
+// 2 alf_midpoint_vjp, 3 alf_bwd_pre, 4 alf_bwd_post), its all-aligned
+// scalar-h instantiation: registers a thread, local bytes a thread and
+// resident blocks of 256 threads per SM on the current device.
+int alf_vec_kernel_info(int dtype, int op, int* regs, int* local_bytes,
+                        int* blocks_per_sm) {
+  DISPATCH(dtype, launch_vec_info, op, regs, local_bytes, blocks_per_sm)
 }
 
 }  // extern "C"

@@ -53,3 +53,9 @@ def no_reverse_reason(qualname: str) -> Optional[str]:
     """The reason ``qualname`` ("package.op") is forward-only, else None."""
     return NO_REVERSE_RULE.get(qualname)
 
+
+def forward_only_ops(package: str) -> list:
+    """The sorted names of the forward-only ops of one kernel package."""
+    prefix = package + "."
+    return sorted(k[len(prefix):] for k in NO_REVERSE_RULE
+                  if k.startswith(prefix))

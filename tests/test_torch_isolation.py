@@ -10,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_serve_rank.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_tp_serve_rank.py",
+    ROOT / "tools" / "alf_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
