@@ -16,26 +16,27 @@ either. Phases, each printing JSON lines:
                (sign in {+1, -1} for the midpoint and its VJP). The two
                VJP kernels run as the backward of alf_midpoint /
                alf_update under torch.autograd.grad. One op call (or one
-               backward) must be exactly one launch. The five kernels
+               backward) must be exactly one launch. The seven kernels
                that move 16-byte vectors (alf_midpoint, alf_update,
-               alf_midpoint_vjp, alf_bwd_pre, alf_bwd_post) also with
-               each input 0-3 elements past a 16-byte boundary, one input
-               at a time and all together, and (through the C entry) the
-               outputs 1-3 past one, f32, bf16 and f64 at n = 1,
-               1500*128+37, 2048*64 and 2^20+37, and with a per-row h at
-               3 x 37, 2048 x 64, 8192 x 37 and 1024 x 1570; the C
-               entries of the
-               update and of bwd_post must refuse outputs at two
+               alf_midpoint_vjp, alf_bwd_pre, alf_bwd_post,
+               alf_update_vjp, alf_inverse) also with each input 0-3
+               elements past a 16-byte boundary, one input at a time and
+               all together, and (through the C entry) the outputs 1-3
+               past one, f32, bf16 and f64 at n = 1, 1500*128+37, 2048*64
+               and 2^20+37, and with a per-row h at 3 x 37, 2048 x 64,
+               8192 x 37 and 1024 x 1570; the C entries of the update,
+               of bwd_post and of the inverse must refuse outputs at two
                phases.
 3. times     — CUDA-event times of each kernel, its plain version and
                (where one exists) one library call, beside the bound, at
                the main path's shape and at n = 2^25, the forward pair
                also at the LM paths' f32 ALF states (qwen3-1.7b 2^23,
-               Jamba 2^24), MALI's backward pair also at 2^24; a kernel
-               with a library call is timed against it in turns (kernel,
-               library, kernel, library); CUDA-graph times at 2048*64
-               and, for both pairs and the kernels with a library call,
-               at every size; the vector kernels' registers a thread and
+               Jamba 2^24), MALI's backward pair, alf_update_vjp and
+               alf_inverse also at 2^24; a kernel with a library call is
+               timed against it in turns (kernel, library, kernel,
+               library); CUDA-graph times at 2048*64 and, for those six
+               and the kernels with a library call, at every size; the
+               vector kernels' registers a thread and
                resident blocks per SM. The host's cost per
                call at 2048*64 (events minus graph) of the forward
                launchers and of their ops under no_grad and through
@@ -539,8 +540,8 @@ ROW_CASES = ((1, CNF_ROW), (3, 1), (3, 2), (3, 37), (16, CNF_ROW),
              (8, 2 * 16), (64, 2 * 32), (1024, 2 * 784))
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_core_gradients.py:76
 KERNEL_ULPS = 2
-TIME_PAIRS = 5
-NAIVE_TIME_PAIRS = 3
+TIME_PAIRS = 3
+NAIVE_TIME_PAIRS = 2
 UNFUSED_STEPS = 3
 
 TPU_SRC = "src/repro/kernels/alf_step/alf_step.py"
@@ -558,7 +559,9 @@ KERNELS = {
 }
 VJPS = ("alf_midpoint_vjp", "alf_update_vjp")
 FORWARD = ("alf_midpoint", "alf_update")
-MALI_BWD = ("alf_bwd_pre", "alf_bwd_post")
+# timed at JAMBA_ALF_N and in a CUDA graph at every size beside the
+# forward pair: MALI's backward pair, the update's reverse rule and psi^-1
+GRAPHED = ("alf_bwd_pre", "alf_bwd_post", "alf_update_vjp", "alf_inverse")
 # Why a kernel has no one-call PyTorch yardstick (library_ms null).
 NO_LIBRARY = "none: no single PyTorch call writes its {} outputs"
 SOURCE = "src/repro_torch/kernels/alf_step/csrc/alf_step.cu"
@@ -935,11 +938,11 @@ def phase_kernels():
                     if kind == "f32" and n == SLICE_N:
                         worst[name] = max(worst[name], err)
                     checks[name] += 1
-    # The five vector kernels (16-byte vectors): each input on a 16-byte
+    # The seven vector kernels (16-byte vectors): each input on a 16-byte
     # boundary and 1, 2 and 3 elements past one, one input at a time and
     # all together (an input off the outputs' phase is read element by
-    # element, or by vectors again for f64 at 2; for the backward pair's
-    # four and six inputs by the general instantiation); the outputs fresh
+    # element, or by vectors again for f64 at 2; for the backward pair and
+    # alf_inverse by the general instantiation); the outputs fresh
     # (on a boundary) and, through the library's C entry, 1-3 elements
     # past one (their head written element by element); f32, bf16 and f64
     # at n = 1, TAIL_N, the main path's size (below one wave of threads:
@@ -960,6 +963,10 @@ def phase_kernels():
         # eta 1.0 takes the exact branch of psi^-1's velocity
         "alf_bwd_post": (alf_step.bwd_post_call, 6, 4, ref.bwd_post_ref,
                          "eta", (1.0, 0.9)),
+        "alf_update_vjp": (alf_step.update_vjp_call, 2, 2,
+                           ref.update_vjp_ref, "eta", (0.9,)),
+        "alf_inverse": (alf_step.inverse_call, 3, 2, ref.inverse_ref, "eta",
+                        (1.0, 0.9)),
     }
     for name, (launcher, n_in, n_out, plain, key, values) in (
             vec_kernels.items()):
@@ -986,7 +993,10 @@ def phase_kernels():
                 ins = [torch.randn(n + 3, device="cuda", generator=gen)
                        .to(dtype)[o:o + n] for o in offs]
                 want = ops._plain(plain, hh, *ins, param=p)
-                want = want if isinstance(want, tuple) else (want,)
+                want = [w.double() for w in (
+                    want if isinstance(want, tuple) else (want,))]
+                tols = [KERNEL_ULPS * _ulp(dtype) * w.abs().max().clamp(
+                    min=1.0) for w in want]
                 # each output's max error over its tolerance, on the card:
                 # one host read for the four output placements
                 ratios = []
@@ -1008,11 +1018,8 @@ def phase_kernels():
                             row, p, *[x.data_ptr() for x in got],
                             torch.cuda.current_stream().cuda_stream)
                         require(rc == 0, f"{name}: CUDA error {rc}")
-                    for g, w in zip(got, want):
-                        err = (g.double() - w.double()).abs().max()
-                        tol = KERNEL_ULPS * _ulp(dtype) * (
-                            w.double().abs().max().clamp(min=1.0))
-                        ratios.append(err / tol)
+                    for g, w, tol in zip(got, want, tols):
+                        ratios.append((g.double() - w).abs().max() / tol)
                     checks[name] += 1
                 worst_ratio = float(torch.stack(ratios).max())
                 require(worst_ratio <= 1.0, f"{name} {dtype} n={n} row {row} "
@@ -1039,6 +1046,14 @@ def phase_kernels():
     require(rc == 716, f"alf_bwd_post: outputs at two 16-byte phases gave "
             f"{rc}, expected 716 (cudaErrorMisalignedAddress)")
     checks["alf_bwd_post"] += 1
+    # and alf_inverse's two
+    rc = alf_step._fn("alf_inverse")(
+        0, SLICE_N, *[x.data_ptr()] * 3, h.data_ptr(), 0, 0.9,
+        buf[4:].data_ptr(), buf[5:].data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    require(rc == 716, f"alf_inverse: outputs at two 16-byte phases gave "
+            f"{rc}, expected 716 (cudaErrorMisalignedAddress)")
+    checks["alf_inverse"] += 1
     emit({"phase": "kernels", "checks": checks,
           "tolerance": f"{KERNEL_ULPS} ulp of the storage dtype at the "
                        "output's largest magnitude (>= 1)",
@@ -1091,12 +1106,14 @@ def _graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _alternate(kernel, plain, reps):
-    """kernel, plain, kernel, plain — each time the mean of its two runs."""
+def _alternate(kernel, plain, reps, plain_reps=None):
+    """kernel, plain, kernel, plain — each time the mean of its two runs
+    (the plain version over ``plain_reps`` calls a run, if given)."""
+    plain_reps = reps if plain_reps is None else plain_reps
     k1 = _time_ms(kernel, reps)
-    p1 = _time_ms(plain, reps)
+    p1 = _time_ms(plain, plain_reps)
     k2 = _time_ms(kernel, reps)
-    p2 = _time_ms(plain, reps)
+    p2 = _time_ms(plain, plain_reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -1208,12 +1225,12 @@ def phase_times(card: str):
     h = torch.tensor(0.23, device="cuda")
     rows = {}
     # every kernel at the main path's size and at 2^25; the forward pair
-    # also at the LM paths' ALF state sizes and MALI's backward pair at
-    # Jamba's (qwen3's training state, 2 x 4096 x 2048, has as many
-    # elements), with graph times at each
+    # also at the LM paths' ALF state sizes and GRAPHED at Jamba's
+    # (qwen3's training state, 2 x 4096 x 2048, has as many elements),
+    # with graph times at each
     sizes = ((SLICE_N, 500, tuple(KERNELS)),
              (QWEN_ALF_N, 40, FORWARD),
-             (JAMBA_ALF_N, 30, FORWARD + MALI_BWD),
+             (JAMBA_ALF_N, 30, FORWARD + GRAPHED),
              (BIG_N, 20, tuple(KERNELS)))
     for n, reps, names in sizes:
         bufs = [torch.randn(n, device="cuda", generator=gen)
@@ -1253,7 +1270,7 @@ def phase_times(card: str):
                 row["plain_graph_ms"] = _graph_ms(plain, 100)
                 if lib is not None:
                     row["library_graph_ms"] = _graph_ms(lib, 100)
-            elif lib is not None or name in FORWARD + MALI_BWD:
+            elif lib is not None or name in FORWARD + GRAPHED:
                 row["graph_ms"] = _graph_ms(kern, reps)
                 if lib is not None:
                     row["library_graph_ms"] = _graph_ms(lib, reps)
@@ -1949,7 +1966,8 @@ def _scan_times(gen, bw: float, f32_peak: float):
     h0 = torch.zeros(bt, di, st, device="cuda")
     kern = lambda: ms_k.selective_scan_call(delta, u, a, b, c, h0)  # noqa
     plain = lambda: ms_ref.selective_scan_ref(delta, u, a, b, c, h0)  # noqa
-    ms, plain_ms = _alternate(kern, plain, 4)
+    # the plain version (~130-190 ms a call) over one call a run
+    ms, plain_ms = _alternate(kern, plain, 4, plain_reps=1)
     n = bt * s * di
     # the op's declared work: each input read once, each output written
     # once; 7 f32 operations per (b, t, i, s) and 1 per (b, t, i)

@@ -71,7 +71,7 @@ def reset_launches() -> None:
 # The vector kernels, in the order of the C entry alf_vec_kernel_info's
 # op codes.
 VEC_KERNELS = ("alf_midpoint", "alf_update", "alf_midpoint_vjp",
-               "alf_bwd_pre", "alf_bwd_post")
+               "alf_bwd_pre", "alf_bwd_post", "alf_update_vjp", "alf_inverse")
 
 
 def vec_kernel_info(name: str, dtype: torch.dtype, lib=None

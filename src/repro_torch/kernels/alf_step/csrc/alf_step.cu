@@ -28,36 +28,40 @@
 // held against: torch.addcmul(z, v, sign*h/2) for the midpoint and
 // torch.mul(g, sign*h/2) for its VJP; none for the update (two outputs).
 //
-// Design against that bound. Five kernels are one vector kernel
+// Design against that bound. Seven kernels are one vector kernel
 // (vec_kernel) over an elementwise functor: the forward pair
-// (alf_midpoint, alf_update) and alf_midpoint_vjp, the paths that launch
-// most, and MALI's backward pair (alf_bwd_pre, alf_bwd_post), which every
-// MALI backward step launches. It moves 16-byte vectors (4 float, 8
-// bfloat16 or 2 double), one vector a thread on a grid as large as the
-// buffer needs, or one element a thread when the call fits one resident
-// wave of threads (below). The outputs are fresh buffers and share one
-// offset from a 16-byte boundary (the launch refuses outputs that do
-// not); the elements before their first boundary
+// (alf_midpoint, alf_update), the paths that launch most; MALI's backward
+// pair (alf_bwd_pre, alf_bwd_post), which every MALI backward step
+// launches; the forward step's reverse rules (alf_midpoint_vjp,
+// alf_update_vjp), which direct backprop (Naive) launches; and psi^-1
+// (alf_inverse), which the unfused MALI backward launches. It moves
+// 16-byte vectors (4 float, 8 bfloat16 or 2 double), one vector a thread
+// on a grid as large as the buffer needs, or one element a thread when
+// the call fits one resident wave of threads (below). The outputs are
+// fresh buffers and share one offset from a 16-byte boundary (the launch
+// refuses outputs that do not); the elements before their first boundary
 // and after their last whole vector go one by one, by the grid's first
 // threads. Each input is read by vectors where it sits at the outputs'
 // offset from a 16-byte boundary, else element by element (nothing is
-// copied to align it). For one to three inputs that choice is a
-// template bit mask, one instantiation per mask (2, 4 and 8), so every
-// case runs straight-line code with no per-element test. Four and six
-// inputs would need 16 and 64 masks, so those ops have two
-// instantiations: all inputs at the outputs' phase (the op layer's case:
-// packed buffers are fresh allocations or whole leaves), and a general
-// one that reads each input's phase from a run-time mask (uniform across
-// the grid, so it costs no divergence).
-// Three kernels remain one pass each over one flat contiguous buffer,
-// coalesced, one element a thread with a grid-stride loop and a masked
-// tail: alf_update_vjp, alf_inverse and alf_inverse_update, the Naive
-// and unfused backward. The TPU's [rows, 128] lane layout and its padding
-// to a block multiple are not carried over; the op layer packs the whole
-// state pytree into one buffer. The step size h is read through a device
-// pointer, so an adaptive controller that computes h on the card never
-// syncs the host. Nothing is allocated here; each call is one launch on
-// the caller's stream and returns cudaGetLastError().
+// copied to align it). For the forward pair and the two reverse rules
+// (one to three inputs) that choice is a template bit mask, one
+// instantiation per mask (2, 4 and 8), so every case runs straight-line
+// code with no per-element test. MALI's backward pair would need 16 and
+// 64 masks, and alf_inverse's 8 made the library's build over 5 s longer
+// (PERF.md §6), so those three have two instantiations: all inputs at the
+// outputs' phase (the op layer's case: packed buffers are fresh
+// allocations or whole leaves), and a general one that reads each
+// input's phase from a run-time mask (uniform across the grid, so it
+// costs no divergence).
+// One kernel remains a pass over one flat contiguous buffer, one element
+// a thread with a grid-stride loop and a masked tail: alf_inverse_update,
+// psi^-1's tail given k1, which nothing in the port launches. The TPU's
+// [rows, 128] lane layout and its padding to a block multiple are not
+// carried over; the op layer packs the whole state pytree into one
+// buffer. The step size h is read through a device pointer, so an
+// adaptive controller that computes h on the card never syncs the host.
+// Nothing is allocated here; each call is one launch on the caller's
+// stream and returns cudaGetLastError().
 
 // Per-row step size (PerSample batching: each sample of a batch takes its
 // own adaptive step). Every entry takes h and a row length D: D == 0 is
@@ -66,9 +70,9 @@
 // the scalar instantiation is the code and the time it was. The row of
 // an element comes from a double-precision reciprocal of D computed on
 // the host and one correction either way (exact for e < 2^50), not from
-// a 64-bit integer division. The scalar-loop kernels take one element a
-// thread below 2^28 elements, and the vector kernel's element wave one
-// element a thread, so each finds its row once. The vector
+// a 64-bit integer division. The scalar loop takes one element a thread
+// below 2^28 elements, and the vector kernel's element wave one element
+// a thread, so each finds its row once. The vector
 // kernel finds the row of a vector's first element once a vector: a
 // vector inside one row takes one h, and a vector that straddles rows
 // (D % V != 0, as the CNF's D = 1570 and the tests' D = 1 and 2 give)
@@ -115,17 +119,18 @@ inline unsigned int n_blocks(int64_t n) {
 // loop only guards the grid's limit); a call whose elements fit one
 // resident wave of threads (n <= SMs x kMaxThreadsPerSm) takes one
 // element a thread instead. Measured (PERF.md §6): at 2^24 and 2^25 this
-// grid is faster for all five kernels than one capped at 8 blocks per SM
-// with 1, 2 or 4 vectors in flight a thread (MALI's backward pair 89-91%
-// of the byte bound against 85-88%); at 2048 x 64 in a CUDA graph the
-// element wave is faster than one vector a thread, whose four to eight
-// elements run their arithmetic (an IEEE division in alf_bwd_post where
+// grid is faster for the forward pair, alf_midpoint_vjp and MALI's
+// backward pair than one capped at 8 blocks per SM with 1, 2 or 4
+// vectors in flight a thread (the backward pair 89-91% of the byte bound
+// against 85-88%); at 2048 x 64 in a CUDA graph the element wave is
+// faster than one vector a thread, whose four to eight elements run their
+// arithmetic (an IEEE division in alf_bwd_post and alf_inverse where
 // eta != 1) one after the other.
 constexpr int kMaxThreadsPerSm = 2048;   // sm_90
-// Inputs up to which every 16-byte phase mask has its own instantiation;
-// an op with more inputs has two: all inputs at the outputs' phase, and
-// kAnyPhase, which reads each input's phase from a run-time mask.
-constexpr int kMaskedInputs = 3;
+// A functor's kPhaseMasks chooses how the vector kernel is instantiated
+// for its inputs' 16-byte phases: true, once per mask (2^kIn); false,
+// twice: all inputs at the outputs' phase, and kAnyPhase, which reads
+// each input's phase from a run-time mask.
 constexpr int kAnyPhase = -1;
 
 #define GRID_STRIDE(i, n)                                                  \
@@ -177,6 +182,7 @@ template <typename T>
 struct MidpointOp {
   typedef typename Acc<T>::type A;
   static constexpr int kIn = 2, kOut = 1;   // (z, v) -> k1
+  static constexpr bool kPhaseMasks = true;
   A s, hh;
   __device__ MidpointOp(A h, double sign)
       : s(static_cast<A>(sign)), hh(h * A(0.5)) {}
@@ -192,6 +198,7 @@ template <typename T>
 struct UpdateOp {
   typedef typename Acc<T>::type A;
   static constexpr int kIn = 3, kOut = 2;   // (k1, v, u1) -> (z_out, v_out)
+  static constexpr bool kPhaseMasks = true;
   A hh, two_eta;
   __device__ UpdateOp(A h, double eta)
       : hh(h * A(0.5)), two_eta(static_cast<A>(2.0 * eta)) {}
@@ -210,6 +217,7 @@ template <typename T>
 struct MidpointVjpOp {
   typedef typename Acc<T>::type A;
   static constexpr int kIn = 1, kOut = 1;   // g -> v_bar
+  static constexpr bool kPhaseMasks = true;
   A s, hh;
   __device__ MidpointVjpOp(A h, double sign)
       : s(static_cast<A>(sign)), hh(h * A(0.5)) {}
@@ -225,6 +233,7 @@ template <typename T>
 struct BwdPreOp {
   typedef typename Acc<T>::type A;
   static constexpr int kIn = 4, kOut = 2;   // (z, v, a_z, a_v) -> (k1, cot_u1)
+  static constexpr bool kPhaseMasks = false;
   A hh, two_eta;
   __device__ BwdPreOp(A h, double eta)
       : hh(h * A(0.5)), two_eta(static_cast<A>(2.0 * eta)) {}
@@ -246,6 +255,7 @@ struct BwdPostOp {
   typedef typename Acc<T>::type A;
   // (k1, v_out, u1, a_z, a_v, dk1) -> (z_prev, v_prev, dz, dv)
   static constexpr int kIn = 6, kOut = 4;
+  static constexpr bool kPhaseMasks = false;
   A hh, two_eta, one_m;
   int exact;
   __device__ BwdPostOp(A h, double eta)
@@ -265,6 +275,50 @@ struct BwdPostOp {
     const A ckh = ck * hh;
     const A mcv = one_m * cv;
     y[3] = ckh + mcv;
+  }
+};
+
+// c = g_v + g_z * (h/2);  v_bar = (1 - 2*eta) * c;  u1_bar = 2*eta * c
+template <typename T>
+struct UpdateVjpOp {
+  typedef typename Acc<T>::type A;
+  static constexpr int kIn = 2, kOut = 2;   // (g_z, g_v) -> (v_bar, u1_bar)
+  static constexpr bool kPhaseMasks = true;
+  A hh, two_eta, one_m;
+  __device__ UpdateVjpOp(A h, double eta)
+      : hh(h * A(0.5)), two_eta(static_cast<A>(2.0 * eta)),
+        one_m(static_cast<A>(1.0 - 2.0 * eta)) {}
+  __device__ __forceinline__ void set_h(A h) { hh = h * A(0.5); }
+  __device__ __forceinline__ void operator()(const A* x, A* y) const {
+    const A gzh = x[0] * hh;
+    const A c = x[1] + gzh;
+    y[0] = one_m * c;
+    y[1] = two_eta * c;
+  }
+};
+
+// k1 = z_out - v_out * (h/2);  v_in = inverse_velocity(v_out, u1);
+// z_in = k1 - v_in * (h/2)
+template <typename T>
+struct InverseOp {
+  typedef typename Acc<T>::type A;
+  // (z_out, v_out, u1) -> (z_in, v_in)
+  static constexpr int kIn = 3, kOut = 2;
+  static constexpr bool kPhaseMasks = false;
+  A hh, two_eta, one_m;
+  int exact;
+  __device__ InverseOp(A h, double eta)
+      : hh(h * A(0.5)), two_eta(static_cast<A>(2.0 * eta)),
+        one_m(static_cast<A>(1.0 - 2.0 * eta)), exact(eta == 1.0 ? 1 : 0) {}
+  __device__ __forceinline__ void set_h(A h) { hh = h * A(0.5); }
+  __device__ __forceinline__ void operator()(const A* x, A* y) const {
+    const A vo = x[1];
+    const A voh = vo * hh;
+    const A k = x[0] - voh;
+    const A vi = inverse_velocity(vo, x[2], two_eta, one_m, exact);
+    y[1] = vi;
+    const A vih = vi * hh;
+    y[0] = k - vih;
   }
 };
 
@@ -288,31 +342,6 @@ __global__ void inverse_update_kernel(int64_t n, const T* __restrict__ k1,
     st(v_in, i, vi);
     const A vih = vi * hh;
     st(z_in, i, ld(k1, i) - vih);
-  }
-}
-
-// k1 = z_out - v_out * (h/2);  v_in = inverse_velocity(v_out, u1);
-// z_in = k1 - v_in * (h/2)
-template <typename T, bool kRows>
-__global__ void inverse_kernel(int64_t n, const T* __restrict__ z_out,
-                               const T* __restrict__ v_out,
-                               const T* __restrict__ u1,
-                               const typename Acc<T>::type* __restrict__ h,
-                               Rows rows, double eta, int exact,
-                               T* __restrict__ z_in, T* __restrict__ v_in) {
-  typedef typename Acc<T>::type A;
-  const A hh0 = kRows ? A(0) : *h * A(0.5);
-  const A two_eta = static_cast<A>(2.0 * eta);
-  const A one_m = static_cast<A>(1.0 - 2.0 * eta);
-  GRID_STRIDE(i, n) {
-    const A hh = half_h<kRows>(h, hh0, rows, i);
-    const A vo = ld(v_out, i);
-    const A voh = vo * hh;
-    const A k = ld(z_out, i) - voh;
-    const A vi = inverse_velocity(vo, ld(u1, i), two_eta, one_m, exact);
-    st(v_in, i, vi);
-    const A vih = vi * hh;
-    st(z_in, i, k - vih);
   }
 }
 
@@ -424,27 +453,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// c = g_v + g_z * (h/2);  v_bar = (1 - 2*eta) * c;  u1_bar = 2*eta * c
-template <typename T, bool kRows>
-__global__ void update_vjp_kernel(int64_t n, const T* __restrict__ g_z,
-                                  const T* __restrict__ g_v,
-                                  const typename Acc<T>::type* __restrict__ h,
-                                  Rows rows, double eta,
-                                  T* __restrict__ v_bar,
-                                  T* __restrict__ u1_bar) {
-  typedef typename Acc<T>::type A;
-  const A hh0 = kRows ? A(0) : *h * A(0.5);
-  const A two_eta = static_cast<A>(2.0 * eta);
-  const A one_m = static_cast<A>(1.0 - 2.0 * eta);
-  GRID_STRIDE(i, n) {
-    const A hh = half_h<kRows>(h, hh0, rows, i);
-    const A gzh = ld(g_z, i) * hh;
-    const A c = ld(g_v, i) + gzh;
-    st(v_bar, i, one_m * c);
-    st(u1_bar, i, two_eta * c);
-  }
-}
-
 // The cached SM count of the current device (the vector kernels' grid).
 inline int sm_count() {
   static int cached[64] = {0};
@@ -459,16 +467,16 @@ inline int sm_count() {
   return cached[dev];
 }
 
-// Launch vec_kernel<OpT, T, mask, kRows> for the runtime mask: up to
-// kMaskedInputs inputs by recursion over the 2^kIn instantiations, above
-// that the all-aligned one or the kAnyPhase one.
+// Launch vec_kernel<OpT, T, mask, kRows> for the runtime mask: by
+// recursion over the 2^kIn instantiations where the op has kPhaseMasks,
+// else the all-aligned one or the kAnyPhase one.
 template <template <typename> class OpT, typename T, bool kRows, int M>
 void launch_mask(int mask, unsigned int grid, cudaStream_t s, int64_t n,
                  int64_t head, const In<T, OpT<T>::kIn>& in,
                  const Out<T, OpT<T>::kOut>& out,
                  const typename Acc<T>::type* h, Rows rows, double param) {
   constexpr int kAll = (1 << OpT<T>::kIn) - 1;
-  if constexpr (OpT<T>::kIn > kMaskedInputs) {
+  if constexpr (!OpT<T>::kPhaseMasks) {
     if (mask == kAll) {
       vec_kernel<OpT, T, kAll, kRows><<<grid, kThreads, 0, s>>>(
           n, head, in, out, h, rows, param, mask);
@@ -544,7 +552,8 @@ int launch_vec(int64_t n, const void* const* ins, void* const* outs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of a scalar-loop kernel, its scalar or per-row instantiation.
+// One launch of the scalar-loop kernel, its scalar or per-row
+// instantiation.
 #define LAUNCH_LOOP(kernel, T, row, s, n, ...)                              \
   do {                                                                      \
     if ((row) > 0) {                                                        \
@@ -595,13 +604,9 @@ template <typename T>
 int launch_inverse(int64_t n, const void* z_out, const void* v_out,
                    const void* u1, const void* h, int64_t row, double eta,
                    void* z_in, void* v_in, cudaStream_t s) {
-  typedef typename Acc<T>::type A;
-  LAUNCH_LOOP(inverse_kernel, T, row, s, n,
-      n, static_cast<const T*>(z_out), static_cast<const T*>(v_out),
-      static_cast<const T*>(u1), static_cast<const A*>(h), make_rows(row),
-      eta,
-      eta == 1.0 ? 1 : 0, static_cast<T*>(z_in), static_cast<T*>(v_in));
-  return static_cast<int>(cudaGetLastError());
+  const void* ins[3] = {z_out, v_out, u1};
+  void* outs[2] = {z_in, v_in};
+  return launch_vec<InverseOp, T>(n, ins, outs, h, row, eta, s);
 }
 
 template <typename T>
@@ -631,12 +636,9 @@ template <typename T>
 int launch_update_vjp(int64_t n, const void* g_z, const void* g_v,
                       const void* h, int64_t row, double eta, void* v_bar,
                       void* u1_bar, cudaStream_t s) {
-  typedef typename Acc<T>::type A;
-  LAUNCH_LOOP(update_vjp_kernel, T, row, s, n,
-      n, static_cast<const T*>(g_z), static_cast<const T*>(g_v),
-      static_cast<const A*>(h), make_rows(row), eta, static_cast<T*>(v_bar),
-      static_cast<T*>(u1_bar));
-  return static_cast<int>(cudaGetLastError());
+  const void* ins[2] = {g_z, g_v};
+  void* outs[2] = {v_bar, u1_bar};
+  return launch_vec<UpdateVjpOp, T>(n, ins, outs, h, row, eta, s);
 }
 
 // Registers a thread, local (spilled) bytes a thread and resident blocks
@@ -663,6 +665,9 @@ int launch_vec_info(int op, int* regs, int* local_bytes, int* blocks_per_sm) {
                                               blocks_per_sm);
     case 3: return vec_info<BwdPreOp, T>(regs, local_bytes, blocks_per_sm);
     case 4: return vec_info<BwdPostOp, T>(regs, local_bytes, blocks_per_sm);
+    case 5: return vec_info<UpdateVjpOp, T>(regs, local_bytes,
+                                            blocks_per_sm);
+    case 6: return vec_info<InverseOp, T>(regs, local_bytes, blocks_per_sm);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -746,7 +751,8 @@ int alf_update_vjp(int dtype, int64_t n, const void* g_z, const void* g_v,
 }
 
 // The resources of a vector kernel (op: 0 alf_midpoint, 1 alf_update,
-// 2 alf_midpoint_vjp, 3 alf_bwd_pre, 4 alf_bwd_post), its all-aligned
+// 2 alf_midpoint_vjp, 3 alf_bwd_pre, 4 alf_bwd_post, 5 alf_update_vjp,
+// 6 alf_inverse), its all-aligned
 // scalar-h instantiation: registers a thread, local bytes a thread and
 // resident blocks of 256 threads per SM on the current device.
 int alf_vec_kernel_info(int dtype, int op, int* regs, int* local_bytes,

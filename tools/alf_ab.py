@@ -1,7 +1,10 @@
 """Hold this checkout's ALF library against another build of
-``alf_step.cu`` on the card: the five vector kernels (``alf_midpoint``,
-``alf_update``, ``alf_midpoint_vjp``, ``alf_bwd_pre``, ``alf_bwd_post``)
-bit for bit, and their times in turns.
+``alf_step.cu`` on the card: the seven vector kernels (``alf_midpoint``,
+``alf_update``, ``alf_midpoint_vjp``, ``alf_bwd_pre``, ``alf_bwd_post``,
+``alf_update_vjp``, ``alf_inverse``) bit for bit, and their times in
+turns. A base library that runs some of them as other kernels (an older
+commit's scalar loops, say) is held to the same bits through the same C
+entries.
 
     git show <commit>:src/repro_torch/kernels/alf_step/csrc/alf_step.cu \\
         > build/ab/base_alf_step.cu
@@ -9,28 +12,31 @@ bit for bit, and their times in turns.
         [--base-tree DIR] [--out build/alf_ab.jsonl]
 
 Both libraries are built with this checkout's nvcc flags for
-``alf_step`` (``--fmad=false`` included), one nvcc each, started
-together: ``base`` from ``--base`` and ``new`` from this checkout. It
-prints one JSON line a phase (and writes them to ``--out``):
+``alf_step`` (``--fmad=false`` included): ``base`` from ``--base`` and
+``new`` from this checkout, one nvcc at a time, twice each in turns
+(base, new, new, base). It prints one JSON line a phase (and writes them
+to ``--out``):
 
-- ``build``: each library's nvcc seconds;
+- ``build``: each library's nvcc seconds, build by build, and its
+  count of kernels (the functions ``cuobjdump -sass`` lists);
 - ``info``: registers and local bytes a thread and resident blocks per
-  SM of the new library's five vector kernels (``alf_vec_kernel_info``:
+  SM of the new library's seven vector kernels (``alf_vec_kernel_info``:
   ``cudaFuncGetAttributes`` and the occupancy API);
 - ``bits``: every kernel of ``base`` and ``new`` on the same inputs:
   ``chip_smoke.py``'s offset cases (every input at 16-byte offsets 0-3,
   one at a time and all together; the outputs fresh and at offsets 1-3;
   f32, bf16 and f64; n = 1, TAIL_N, the main path's 2048 x 64 and
   2^20 + 37; a per-row h at 3 x 37, 2048 x 64, 8192 x 37 and the
-  CNF's 1024 x 1570), and 2^24 and 2^25 elements; the midpoint and its VJP at sign
-  +1 and -1, the update and ``alf_bwd_pre`` at eta 0.9, ``alf_bwd_post``
-  at eta 1.0 and 0.9; every output must be bit-equal;
+  CNF's 1024 x 1570), and 2^24 and 2^25 elements; the midpoint and its
+  VJP at sign +1 and -1, the update and ``alf_bwd_pre`` at eta 0.9,
+  ``alf_bwd_post``, ``alf_update_vjp`` and ``alf_inverse`` at eta 1.0
+  and 0.9; every output must be bit-equal;
 - ``times``: every kernel of both libraries at ``--sizes`` (f32; the
   main path's 2048 x 64, Backsolve's and the CNF's packed states, 2^24
-  and 2^25 by default), ``alf_bwd_post`` at eta 0.9 and 1.0, through the
-  C entry: CUDA-event ms a call (eager) and ms a call inside a CUDA
-  graph, in turns (base, new, new, base; ``--turns`` times), beside the
-  bound of the work the op declares;
+  and 2^25 by default), ``alf_bwd_post`` and ``alf_inverse`` at eta 0.9
+  and 1.0, through the C entry: CUDA-event ms a call (eager) and ms a
+  call inside a CUDA graph, in turns (base, new, new, base; ``--turns``
+  times), beside the bound of the work the op declares;
 - ``ceiling``: one PyTorch copy (``copy_``: 1 read, 1 write) and one
   add (``torch.add(out=)``: 2 reads, 1 write) at 2^24 and 2^25 f32, their
   ms and share of their byte bound: what a plain stream reaches on this
@@ -71,7 +77,9 @@ VEC = {"alf_midpoint": (2, 1, (1.0, -1.0), (-1.0,)),
        "alf_update": (3, 2, (0.9,), (0.9,)),
        "alf_midpoint_vjp": (1, 1, (1.0, -1.0), (-1.0,)),
        "alf_bwd_pre": (4, 2, (0.9,), (0.9,)),
-       "alf_bwd_post": (6, 4, (1.0, 0.9), (0.9, 1.0))}
+       "alf_bwd_post": (6, 4, (1.0, 0.9), (0.9, 1.0)),
+       "alf_update_vjp": (2, 2, (0.9, 1.0), (0.9,)),
+       "alf_inverse": (3, 2, (1.0, 0.9), (0.9, 1.0))}
 INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
             torch.float64: torch.int64}
 SIZES = (SLICE_N, 270464, 1607680, *BIG)
@@ -84,24 +92,32 @@ def emit(out, obj) -> None:
 
 
 def _build_both(base: Path):
-    """{"base": (library, nvcc seconds), "new": ...}, both nvcc started
-    together."""
+    """{"base": (library, [nvcc seconds], kernels), "new": ...}: each
+    source built alone, in turns (base, new, new, base), so that no build
+    shares the host's cores with another; kernels is the number of
+    functions ``cuobjdump -sass`` lists in the library."""
     flags = build.nvcc_flags("alf_step")
-    t0 = time.perf_counter()
-    procs = {}
-    for label, src in (("base", base), ("new", build.source_path("alf_step"))):
-        lib = ROOT / "build" / "ab" / label / "libalf_step.so"
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [build.nvcc_path(), *flags, "-o", str(lib), str(src)]
-        procs[label] = (lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    libs = {}
-    for label, (lib, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {label}:\n{err}")
-        libs[label] = (lib, time.perf_counter() - t0)
-    return libs
+    nvcc = build.nvcc_path()
+    srcs = {"base": base, "new": build.source_path("alf_step")}
+    libs = {k: ROOT / "build" / "ab" / k / "libalf_step.so" for k in srcs}
+    seconds = {k: [] for k in srcs}
+    for label in ("base", "new", "new", "base"):
+        libs[label].parent.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        res = subprocess.run([nvcc, *flags, "-o", str(libs[label]),
+                              str(srcs[label])], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {label}:\n{res.stderr}")
+        seconds[label].append(time.perf_counter() - t0)
+    cuobjdump = Path(nvcc).resolve().parent / "cuobjdump"
+    out = {}
+    for label, lib in libs.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        out[label] = (lib, seconds[label], sass.count("Function :"))
+    return out
 
 
 def _build_trees(base_tree: Path) -> dict:
@@ -330,8 +346,9 @@ def main(argv=None) -> int:
                        **_build_trees(args.base_tree)})
         built = _build_both(args.base)
         emit(out, {"phase": "build", "card": card, "nvidia_smi": smi,
-                   "nvcc_s": {k: s for k, (_, s) in built.items()}})
-        libs = {k: _load(p) for k, (p, _) in built.items()}
+                   "nvcc_s": {k: s for k, (_, s, _) in built.items()},
+                   "kernels": {k: c for k, (_, _, c) in built.items()}})
+        libs = {k: _load(p) for k, (p, _, _) in built.items()}
         emit(out, {"phase": "info", "new": {
             name: alf_step.vec_kernel_info(name, torch.float32, libs["new"])
             for name in alf_step.VEC_KERNELS}})
