@@ -221,7 +221,7 @@ either. Phases, each printing JSON lines:
                trajectory (6 hits in 7 lookups, 0 f-evals a hit) and an
                event on -8 z against the same event solve() (1e-6), 2
                scalar ALF launches a trial; (d) launch/serve.py --mode ode
-               at --batch 1024 --d-state 784 --requests 4096
+               at --batch 1024 --d-state 784 --requests 2048
                --chunk-steps 32 (its mlp_field), both engines all at
                once: p50/p99, solves/s, occupancy, rounds, ms a
                round, peak memory, the device's busy share over 4 rounds,
@@ -318,7 +318,15 @@ either. Phases, each printing JSON lines:
                under ode.batch_axis="data" a one-rank forward's on its
                own rows; (d) python -m torch.distributed.run
                --nproc-per-node 2 -m repro_torch.launch.train --steps 3
-               --device cuda:0 prints final_step=3 once (in phase 23).
+               --device cuda:0 prints final_step=3 once (in phase 23);
+               (e) one adaptive controller over the two ranks
+               (ode_steps=0, no ode_batch_axis: each trial's error norm
+               summed over the ranks): qwen3-1.7b at full width, 2 of 28
+               layers, f32, 2 x 256 tokens a rank, one Trainer step
+               against one rank on the global batch (loss and grad norm
+               within DP_TOL["float32"]), accepted and rejected trials
+               equal block by block, parameters bit-equal on the ranks,
+               one error_norm@data reduction a trial.
 21. configs_serve — the four configs that fit one card and no earlier
                phase serves, at full width, one at a time (each one's
                weights freed before the next): stablelm-1.6b (d_head 64),
@@ -342,7 +350,7 @@ either. Phases, each printing JSON lines:
                every cache slot once, over the card's memory rate); the
                kernel path against backend="reference" in bf16 (LM_TOL;
                deepseek route-aware, as phase 12) and in f32 at batch 2 x
-               256 + 4 (4 layers: for stablelm and musicgen to keep
+               256 + 4 (2 layers: for stablelm and musicgen to keep
                the script near 1000 s; for granite, whose f32 RMSNorm
                at d 6144 takes the scalar kernel, and deepseek, which
                do not fit in f32; deepseek's
@@ -398,8 +406,8 @@ either. Phases, each printing JSON lines:
                (gloo through a FileStore), each part held to one rank
                serving the same cut in this process first, the ranks
                teacher-forced on its greedy tokens (each group of rank
-               processes, (b) and (c) in the same two, starts while the
-               work before it runs): (a) granite-20b, 2
+               processes, (b), (c) and (d) in the same two, starts while
+               the work before it runs): (a) granite-20b, 2
                of 52 layers, bf16, on (data 2, model 2), batch 4 x 1024
                + 16 decode steps (FSDP, the rows over 'data', MQA's
                cache split on d_head over 'model', the head split on
@@ -408,7 +416,11 @@ either. Phases, each printing JSON lines:
                batch 2 x 512 + 8 (the scan on d_inner 4096 a rank, 8 of
                16 experts a rank, the KV heads over 'model'); (c)
                qwen3-1.7b, 8 of 28 layers, bf16, batch 1 on (2, 1), 1024
-               + 8 (the KV sequence over 'data': split-KV decode). Each:
+               + 8 (the KV sequence over 'data': split-KV decode); (d)
+               xlstm-125m, one mLSTM and the sLSTM layer, f32, on (1, 2),
+               batch 3 x 64 + 4 (every LSTM cache split over 'model' on
+               the heads, the mixers computed whole: a decode f-eval
+               gathers its slot's state; greedy tokens equal). Each:
                logits within LM_TOL (bf16) or TPS_F32_TOL / 3x the
                model's one-rounding floor (f32), equal on every rank,
                greedy agreement counted; every MoE route equal; a rank's
@@ -3858,7 +3870,9 @@ SV_EVENT_TOL = 1e-6               # (c): event_time against solve()
 SV_FULL_REL = 1e-5                # (b) on (d): max |d| / max |x|
 SV_FULL_ROWS = 8                  # (b) on (d): the 4 fastest + 4 slowest
 # (d): launch/serve.py --mode ode at full width (D = the image CNF's 784)
-SV_FULL = dict(batch=1024, d_state=784, n_requests=4096, chunk_steps=32)
+# (2048 requests, two of the 1024 slots' worth: the trace cut from 4096
+# for the script's time; the checks are a round's)
+SV_FULL = dict(batch=1024, d_state=784, n_requests=2048, chunk_steps=32)
 SV_PROFILED = 4                   # rounds sync-counted
 
 
@@ -5120,6 +5134,10 @@ DP_FAIL_STEP = 2
 DP_MOE = dict(sharding="fsdp_tp", moe_capacity_factor=0.5)
 DP_MOE_BATCH, DP_MOE_SEQ = 4, 64
 DP_TIMEOUT = 420              # seconds the ranks may take together
+# (e): one adaptive controller over both ranks (ode_steps=0, no
+# ode_batch_axis), qwen3-1.7b at full width, DP_CUT_LAYERS layers in f32,
+# DP_ADAPTIVE_BATCH rows of DP_CUT_SEQ tokens (2 a rank), one step
+DP_ADAPTIVE_BATCH = 4
 
 
 def _dp_checksums(tree):
@@ -5241,6 +5259,44 @@ def _dp_f32_cut() -> dict:
             "finish")
     return {**_dp_records(t), "params_equal": _dp_same_on_ranks(
         t.state.params)}
+
+
+def _dp_adaptive() -> dict:
+    """(e) on one rank, or the one-rank reference: one Trainer step under
+    adaptive control, each block's (accepted, rejected) trials in call
+    order (the model's solves noted through a wrapper of
+    ``models.transformer.solve``), the step's collectives and whether the
+    ranks' parameters are bit-equal after it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import transformer
+    cfg = _lt_config("cuda", n_steps=0, layers=DP_CUT_LAYERS,
+                     dtype="float32")
+    t = _dp_trainer(cfg, steps=1, global_batch=DP_ADAPTIVE_BATCH,
+                    seq_len=DP_CUT_SEQ)
+    log, solve = [], transformer.solve
+
+    def noting(*args, **kw):
+        sol = solve(*args, **kw)
+        log.append((sol.stats.n_accepted, sol.stats.n_rejected))
+        return sol
+
+    before = _dp_counts()
+    transformer.solve = noting
+    try:
+        require(t.train() == 1, "dp_train (e): the step did not finish")
+    finally:
+        transformer.solve = solve
+    _, coll = _dp_delta(before, _dp_counts())
+    torch.cuda.synchronize()
+    return {**_dp_records(t),
+            "blocks": [[int(a), int(r)] for a, r in log],
+            "error_norm": coll.get("error_norm", {}),
+            "error_norm_data": coll.get("error_norm@data", {}),
+            "host_staged": coll["host_staged"],
+            "params_equal": (_dp_same_on_ranks(t.state.params)
+                             if dist.is_initialized()
+                             and dist.get_world_size() > 1 else True)}
 
 
 def _dp_smoke_cfg():
@@ -5386,6 +5442,9 @@ def _dp_rank(argv) -> int:
         out["f32_cut"] = _dp_f32_cut()
         out["recovery"] = _dp_recovery(d)
         out["moe"] = _dp_moe(d, rank)
+        t1 = time.perf_counter()
+        out["adaptive"] = _dp_adaptive()
+        out["adaptive"]["part_s"] = time.perf_counter() - t1
         out["rank_s"] = time.perf_counter() - t0
         (d / f"rank{rank}.json").write_text(json.dumps(out))
         dist.barrier()
@@ -5464,6 +5523,10 @@ def _dp_one_rank(d: Path) -> dict:
     ref["moe_shard"] = [_dp_kept(params, cfg, {k: v[r * rows:(r + 1) * rows]
                                                for k, v in batch.items()})
                         for r in range(DP_WORLD)]
+    del params
+    torch.cuda.empty_cache()
+    ref["adaptive"] = _dp_adaptive()
+    torch.cuda.empty_cache()
     return ref
 
 
@@ -5592,7 +5655,49 @@ def _dp_check(d: Path, ranks, ref) -> dict:
     out["moe"] = {"calls": calls, "drops": drops,
                   "kept": int(sum(k.sum() for k in ref["moe_global"])),
                   "sharded_leaves": ranks[0]["moe"]["sharded_leaves"]}
+    out["adaptive"] = _dp_check_adaptive(ranks, ref["adaptive"])
     return out
+
+
+def _dp_check_adaptive(ranks, one) -> dict:
+    """(e): hold the ranks' adaptive step to the one-rank step ``one``."""
+    require(len(one["blocks"]) == 2 * DP_CUT_LAYERS, f"dp_train (e): the "
+            f"one-rank step solved {len(one['blocks'])} blocks")
+    worst = {}
+    for r, got in enumerate(g["adaptive"] for g in ranks):
+        where = f"dp_train (e) rank {r}"
+        require(got["blocks"] == one["blocks"], f"{where}: (accepted, "
+                f"rejected) by block {got['blocks']}, one rank "
+                f"{one['blocks']}")
+        require(got["fevals"] == one["fevals"], f"{where}: f-evals "
+                f"{got['fevals']}, one rank {one['fevals']}")
+        for m in ("loss", "grad_norm"):
+            worst[m] = max(worst.get(m, 0.0), _dp_rel(got[m][0], one[m][0]))
+        require(got["params_equal"], f"{where}: the ranks' parameters "
+                "differ")
+        trials = sum(a + b for a, b in got["blocks"])
+        require(got["error_norm"].get("calls") == trials
+                == got["error_norm_data"].get("calls"), f"{where}: "
+                f"{got['error_norm']} error-norm reductions for {trials} "
+                "trials")
+    require(max(worst.values()) <= DP_TOL["float32"], f"dp_train (e): two "
+            f"ranks against one: {worst} (tolerance {DP_TOL['float32']})")
+    return {
+        "config": {"arch": LM_ARCH, "layers": f"{DP_CUT_LAYERS} of 28",
+                   "d_model": 2048, "dtype": "float32",
+                   "global_batch": DP_ADAPTIVE_BATCH, "seq_len": DP_CUT_SEQ,
+                   "ranks": DP_WORLD, "ode": "MALI, ALF(cuda), "
+                   "AdaptiveController(1e-2, 1e-3, 32), one controller "
+                   "over the global batch"},
+        "blocks": one["blocks"], "rel": worst,
+        "tolerance": DP_TOL["float32"],
+        "two_ranks": {m: ranks[0]["adaptive"][m] for m in
+                      ("loss", "grad_norm", "fevals", "step_ms")},
+        "one_rank": {m: one[m] for m in ("loss", "grad_norm", "fevals",
+                                          "step_ms")},
+        "error_norm": [g["adaptive"]["error_norm"] for g in ranks],
+        "host_staged": [g["adaptive"]["host_staged"] for g in ranks],
+        "part_s": [g["adaptive"]["part_s"] for g in ranks]}
 
 
 def _dp_cli(res) -> dict:
@@ -5611,8 +5716,9 @@ def _dp_cli(res) -> dict:
 def phase_dp_train(card: str, smi: str):
     """Phase 20: data-parallel training over two ranks sharing the card
     (gloo): (a) qwen3-1.7b at full width, (b) recovery and checkpoints
-    across world sizes, (c) the MoE under DP, (d) the CLI. Returns the
-    ALF launches of one step of (a) on a rank."""
+    across world sizes, (c) the MoE under DP, (d) the CLI, (e) one
+    adaptive controller over both ranks. Returns the ALF launches of one
+    step of (a) on a rank."""
     import tempfile
 
     import torch
@@ -5643,12 +5749,13 @@ def phase_dp_train(card: str, smi: str):
 
 # (arch, periods of the f32 check), served in this order, one at a time,
 # each one's weights freed before the next. In f32 granite-20b (112 GB)
-# and deepseek-moe-16b (65.5 GB) do not fit: their f32 checks run 4
-# layers (granite 4 periods; deepseek its dense prelude layer and 3 MoE
-# layers). stablelm-1.6b's and musicgen-large's run 4 layers too (their
-# full depth was cut to keep the script near 1000 s).
-CS_CONFIGS = (("stablelm-1.6b", 4), ("musicgen-large", 4),
-              ("deepseek-moe-16b", 3), ("granite-20b", 4))
+# and deepseek-moe-16b (65.5 GB) do not fit: their f32 checks run 2
+# layers (granite 2 periods; deepseek its dense prelude layer and 1 MoE
+# layer). stablelm-1.6b's and musicgen-large's run 2 layers too (their
+# full depth was cut to keep the script near 1000 s; from 4 layers when
+# phases 20 and 24 gained their adaptive and xLSTM parts).
+CS_CONFIGS = (("stablelm-1.6b", 2), ("musicgen-large", 2),
+              ("deepseek-moe-16b", 1), ("granite-20b", 2))
 CS_F32_FITS = ("stablelm-1.6b", "musicgen-large")
 # per prefill under DEFAULT_ODE (3 f-evals a branch): flash, RMSNorm and
 # each ALF op (tests/test_torch_lm_serve.py, FULL_DEPTH_CALLS: layers x 3;
@@ -5724,8 +5831,7 @@ def phase_configs_serve(card: str, smi: str):
     deepseek-moe-16b and granite-20b at full width, one at a time, each
     with phase 11's checks (``_serve_cell``) and its memory predicted from
     the meta specs first; the kernel path against the plain one in bf16
-    (deepseek route-aware, as phase 12) and in f32 (at full depth, or at
-    4 layers where f32 does not fit). Returns each config's launches per
+    (deepseek route-aware, as phase 12) and in f32 (at 2 layers). Returns each config's launches per
     prefill and per decode step."""
     import torch
     from repro_torch.configs import DEFAULT_ODE, get_config
@@ -6395,11 +6501,20 @@ TPS_PARTS = {
     # weights replicated ('dp')
     "qwen3": dict(arch="qwen3-1.7b", layers=8, dtype="bfloat16",
                   mesh=(2, 1), batch=1, prompt=1024, decode=8),
+    # (d) one mLSTM and the sLSTM layer: the rule splits every LSTM cache
+    # over 'model' on the heads (4 heads, 2 a rank) while the mixers
+    # compute whole from the weights it replicates, so each decode f-eval
+    # gathers its slot's state; a batch of 3 does not divide this pure-DP
+    # config's ('data', 'model'), so the rows are not split
+    "xlstm": dict(arch="xlstm-125m", layers=1, dtype="float32",
+                  mesh=(1, 2), batch=3, prompt=64, decode=4,
+                  period=(("mlstm", "none"), ("slstm", "none")),
+                  tokens_equal=True),
 }
 # the parts one spawn of rank processes serves, one after another (a
 # process takes ~10 s to start and ~10 s more for its first serve plan:
 # the meta specs' first imports)
-TPS_GROUPS = (("granite",), ("jamba", "qwen3"))
+TPS_GROUPS = (("granite",), ("jamba", "qwen3", "xlstm"))
 TPS_SEED = 13
 TPS_TIMEOUT = 240             # seconds the ranks of a part may take
 TPS_PHASE_S = 120.0           # the phase's budget
@@ -6485,10 +6600,11 @@ def _tps_reckon(cfg, sizes: dict, batch: int, s_max: int, kind: str):
     through one all-reduce; layout (c)'s decode gathers q and the output
     and sums the scores over 'model'; layout (d)'s decode gathers the
     partials over 'data'; Mamba gathers its in-projection's columns; the
-    MoE gathers the expert ids over the rows' group; FSDP gathers each
-    leaf split over 'data' once a layer (the embedding, read by tokens,
-    and the head once a step); the logits are gathered over 'model' and
-    over the rows."""
+    MoE gathers the expert ids over the rows' group; an LSTM mixer's
+    decode f-eval gathers each cache leaf the rule splits over 'model';
+    FSDP gathers each leaf split over 'data' once a layer (the embedding,
+    read by tokens, and the head once a step); the logits are gathered
+    over 'model' and over the rows."""
     from collections import Counter
 
     import torch.utils._pytree as _pt
@@ -6498,6 +6614,7 @@ def _tps_reckon(cfg, sizes: dict, batch: int, s_max: int, kind: str):
                                                   param_shardings)
     from repro_torch.launch.specs import param_specs
     from repro_torch.models.transformer import n_cache_slots
+    from repro_torch.models.xlstm import LstmCache
     m = sizes.get("model", 1)
     f = cfg.ode.n_steps + 1 if cfg.ode.mode != "off" else 1
     rows = tuple(a for a in (_cache_batch_axes(cfg, sizes, batch) or ())
@@ -6537,6 +6654,13 @@ def _tps_reckon(cfg, sizes: dict, batch: int, s_max: int, kind: str):
                 n["all_gather@model"] += f * (2 if q_local else 1)
         if spec.mixer == "attn" and kind == "decode" and seq:
             n["all_gather@data"] += f
+        if spec.mixer in ("mlstm", "slstm") and tp_c and kind == "decode":
+            for name, shape in zip(LstmCache._fields, LstmCache.shapes(
+                    cfg, spec.mixer == "mlstm", batch)):
+                leaf = cache_leaf_spec(cfg, sizes, name,
+                                       (n_cache_slots(cfg), *shape), batch)
+                if "model" in leaf:
+                    n["all_gather@model"] += f
         if spec.mixer == "mamba" and tp_c and d_inner % m == 0:
             n["all_reduce@model"] += 2 * f
             if tp_w:
@@ -6754,20 +6878,22 @@ def _tps_kernel_checks(part: str, gen) -> dict:
         h, kv = h // m, (kv // m if kv % m == 0 else 1)
     dtype = getattr(torch, p["dtype"])
     out = {}
-    q = torch.randn(rows, p["prompt"], h, cfg.d_head, generator=gen,
-                    device="cuda").to(dtype)
-    k = torch.randn(rows, p["prompt"], kv, cfg.d_head, generator=gen,
-                    device="cuda").to(dtype)
-    v = torch.randn(rows, p["prompt"], kv, cfg.d_head, generator=gen,
-                    device="cuda").to(dtype)
-    got = fa_ops.flash_attention(q, k, v, causal=True)
-    want = fa_ref.attention_ref(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    rtol, atol = FA_TOL[p["dtype"]]
-    out["flash_attention"] = {
-        "shape": [rows, p["prompt"], h, kv, cfg.d_head],
-        "max_abs_err": _close(got, want, rtol, atol,
-                              f"tp_serve {part} flash at the rank's heads")}
+    if any(s.mixer == "attn" for s in cfg.prelude + cfg.period):
+        q = torch.randn(rows, p["prompt"], h, cfg.d_head, generator=gen,
+                        device="cuda").to(dtype)
+        k = torch.randn(rows, p["prompt"], kv, cfg.d_head, generator=gen,
+                        device="cuda").to(dtype)
+        v = torch.randn(rows, p["prompt"], kv, cfg.d_head, generator=gen,
+                        device="cuda").to(dtype)
+        got = fa_ops.flash_attention(q, k, v, causal=True)
+        want = fa_ref.attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        rtol, atol = FA_TOL[p["dtype"]]
+        out["flash_attention"] = {
+            "shape": [rows, p["prompt"], h, kv, cfg.d_head],
+            "max_abs_err": _close(got, want, rtol, atol,
+                                  f"tp_serve {part} flash at the rank's "
+                                  "heads")}
     if any(s.mixer == "mamba" for s in cfg.period):
         worst = {}
         di = cfg.mamba_expand * cfg.d_model // m
@@ -6848,6 +6974,10 @@ def _tps_check(part: str, d: Path, ref: dict, ranks) -> dict:
     greedy = [int((torch.argmax(g[:, -1], -1) == torch.argmax(w[:, -1],
                                                                -1)).sum())
               for g, w in zip(got, one_logits)]
+    if p.get("tokens_equal"):
+        require(greedy == [p["batch"]] * len(greedy), f"tp_serve {part}: "
+                f"the ranks' greedy tokens agree with one rank's on "
+                f"{greedy} of {p['batch']} rows a step")
     reck = {kind: _tps_reckon(cfg, sizes, p["batch"], s_max, kind)
             for kind in ("prefill", "decode")}
     for r, g in enumerate(ranks):
@@ -6946,8 +7076,9 @@ def _tps_layers(arch: str) -> int:
 def phase_tp_serve(card: str, smi: str):
     """Phase 24: LM serving on meshes, ranks sharing the card (gloo): (a)
     granite-20b on (2, 2), (b) jamba-v0.1-52b on (1, 2), (c) qwen3-1.7b at
-    batch 1 on (2, 1), each against one rank serving the same cut. Each
-    group of rank processes (TPS_GROUPS; (b) and (c) in the same two)
+    batch 1 on (2, 1), (d) xlstm-125m on (1, 2), its LSTM caches split
+    over 'model', each against one rank serving the same cut. Each group
+    of rank processes (TPS_GROUPS; (b), (c) and (d) in the same two)
     starts before it serves: the first while this process runs the
     one-rank references, the next while the one before it serves.
     Returns each part's launches per rank, per prefill and per decode

@@ -127,7 +127,11 @@ class OdeSettings:
 
     def batching(self) -> Optional[Batching]:
         """The Batching object of this block's solves (None: the batch
-        one system, lockstep). ``batch_axis`` names a mesh dimension: the
+        one system, lockstep; in a data-parallel step each rank holds its
+        rows of that system and one controller runs over all of them, its
+        error norm summed over the data ranks:
+        :func:`~repro_torch.core.stepsize.global_error_norm`).
+        ``batch_axis`` names a mesh dimension: the
         block's solve runs as a ``Sharded(axis)`` fleet over the ambient
         ``with mesh:`` context (:mod:`repro_torch.distributed.sharding`).
         Under data parallelism over that axis the rows are already split

@@ -27,11 +27,26 @@ rounding on ~0.6% of inputs on an AVX-512 host, on none with AVX2 and on
 The numeric policy is plain tensor functions over 0-d tensors, computed on
 the state's device; the driving loop lives in
 :mod:`repro_torch.core.integrate`.
+
+**One controller over several ranks.** Inside :func:`global_error_norm`
+(a data-parallel training step whose blocks solve adaptively without a
+batch axis: each rank holds its rows of the global batch) a Lockstep
+solve's error norm is the global batch's, as the JAX package's GSPMD
+computes it: each rank's sum of squares and element count are summed
+over the group (in the controller's accumulation dtype, one collective)
+before the mean and the root. The ranks' parts are gathered and added in
+rank order, the same arithmetic on every rank, so the ratio, and with it
+every accept/reject decision and step size, is bit-equal on the ranks,
+and MALI's backward replays the same ``(t_i, h_i)`` everywhere with no
+collective. Where autograd reaches the norm (Naive differentiates
+through the step sizes) the backward sums the cotangent over the group,
+as ``psum``'s transpose does.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, ClassVar
+from typing import Any, ClassVar, Iterator, List
 
 import numpy as np
 import torch
@@ -53,10 +68,52 @@ def _tol_rows(tol, x: torch.Tensor, rows: bool):
     return tol
 
 
+# The groups a Lockstep solve's error norm is summed over, innermost last
+# (a list, not thread-local state: autograd runs backward functions on its
+# own threads).
+_NORM_GROUPS: List[Any] = []
+
+
+@contextlib.contextmanager
+def global_error_norm(group) -> Iterator[None]:
+    """Inside the block the error norm of every solve that is not per-row
+    (``rows=False``) is summed over ``group`` (a
+    :class:`~repro_torch.distributed.data_parallel.DataGroup` of the ranks
+    that hold the batch's rows; None: nothing changes), module
+    docstring."""
+    if group is None:
+        yield
+        return
+    _NORM_GROUPS.append(group)
+    try:
+        yield
+    finally:
+        _NORM_GROUPS.pop()
+
+
+class _GroupSum(torch.autograd.Function):
+    """The ranks' (sum of squares, count) added in rank order on every
+    rank; the backward sums the cotangent over the group the same way."""
+
+    @staticmethod
+    def forward(part, group):
+        return group.all_gather(part[None], name="error_norm").sum(0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g.contiguous()[None],
+                                    name="error_norm_vjp").sum(0), None
+
+
 def _scaled_rms(err: Any, z0: Any, z1: Any, rtol, atol, rows: bool,
                 acc) -> torch.Tensor:
     """:func:`error_ratio`, its squares summed in ``acc`` (None: the
-    elements' float32)."""
+    elements' float32); inside :func:`global_error_norm` (and not per
+    row) the sum and the count are the group's."""
     total = 0.0
     count = 0
     for e, a, b in zip(pytree.tree_leaves(err), pytree.tree_leaves(z0),
@@ -78,7 +135,12 @@ def _scaled_rms(err: Any, z0: Any, z1: Any, rtol, atol, rows: bool,
     # The root in float64, rounded once: correctly rounded, as XLA's. The
     # CPU's float32 sqrt (MKL's vector kernel) is not, and which inputs it
     # misses moves with the host's instruction set.
-    ms = total / max(count, 1)
+    if _NORM_GROUPS and not rows:
+        part = torch.stack([total, torch.full_like(total, count)])
+        total, n = _GroupSum.apply(part, _NORM_GROUPS[-1]).unbind(0)
+        ms = total / n
+    else:
+        ms = total / max(count, 1)
     pos = ms > 0
     root = torch.sqrt(torch.where(pos, ms, torch.ones_like(ms)).double())
     return root.to(ms.dtype) * torch.where(pos, 1.0, 0.0)

@@ -16,8 +16,17 @@ unsharded step's:
   'data')``, and for the ``'dp'`` configs over ``'model'`` too when it
   divides, block r of each of the n contiguous microbatches. Under
   adaptive step control the rows are never split over ``'model'``: the
-  ranks of a ``'model'`` group then solve their data shard's rows whole
-  (one controller needs no collective; ROADMAP queue 1 item 12).
+  ranks of a ``'model'`` group then solve their data shard's rows whole.
+* **One adaptive controller.** Under adaptive control (``ode_steps=0``)
+  without ``ode.batch_axis`` the JAX package's blocks solve the global
+  batch in lockstep, one controller over every row. Here each rank
+  solves its rows, and the error norm's sum of squares and count are
+  summed over the rows' group every trial before the mean and the root
+  (:func:`repro_torch.core.stepsize.global_error_norm`, opened by
+  :meth:`DataParallel.computing`; counted as ``error_norm@<axes>``), so
+  every rank takes the same decisions and step sizes. With
+  ``ode.batch_axis='data'`` each rank's controller solves its own rows
+  (:func:`solves_per_shard`).
 * **Coupled rows.** The mean cross-entropy's count of labels is summed
   over the rows' group, so each rank's loss is its share of the global
   mean, and the MoE's capacity and buffer positions follow the global
@@ -49,9 +58,9 @@ unsharded step's:
   as ``optim.optimizer.global_norm`` does.
 
 Refused (:func:`check_supported`): adaptive step control over several
-data ranks without ``ode.batch_axis='data'`` (the controller's error norm
-would have to be reduced over the group every trial: ROADMAP queue 1
-item 12).
+data ranks with an ``ode.batch_axis`` whose fleet's blocks of the global
+batch are not the ranks' rows (an axis other than 'data', or 'data'
+beside a 'pod' axis): :data:`ADAPTIVE_ITEM`.
 
 **Serving** (:class:`ServePlan`, :func:`serve_plan_for`): a prefill or
 decode step on a mesh, on the parameter leaves' layout that training
@@ -65,11 +74,13 @@ on every rank where the batch does not divide the data axes). Inside
 (the caches' 'model' group beside the weights',
 :func:`~repro_torch.distributed.tensor_parallel.serving`), the MoE ranks
 its tokens in the global order (:func:`row_split`), and each layer
-gathers its leaves split over 'data' once (:func:`fsdp_gathered`).
-Refused by the serve plan: caches that the rule splits over 'model' where
-the serve path does not split its compute (the xLSTM's LSTM states, whose
-weights the rule replicates; a Mamba cache split on its window or state
-axis): ROADMAP queue 1 item 15.
+gathers its leaves split over 'data' once (:func:`fsdp_gathered`). A
+cache that the rule splits over 'model' where the layer computes whole
+(the xLSTM's LSTM states, whose weights the rule replicates, split on
+the heads or on ``d_head``; a Mamba cache split off d_inner) keeps the
+rank's block at rest: the layer gathers its state over 'model', computes
+every head, and keeps its block of the new state
+(:func:`~repro_torch.distributed.tensor_parallel.relayout`).
 
 Collectives go through :class:`DataGroup`, one for each mesh dimension
 or set of dimensions (:func:`mesh_group`), chosen by the group's
@@ -96,6 +107,7 @@ import torch.utils._pytree as _pt
 
 from repro_torch import tree_util as pytree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.stepsize import global_error_norm
 from repro_torch.kernels import COUNTERS
 
 from .sharding import (_cache_batch_axes, _path_names, axis_group,
@@ -106,8 +118,7 @@ from .tensor_parallel import serving, splitting_model
 
 Pytree = Any
 
-ADAPTIVE_ITEM = "ROADMAP queue 1 item 12"
-SERVE_ITEM = "ROADMAP queue 1 item 15"
+ADAPTIVE_ITEM = "ROADMAP queue 1 item 12b"
 
 # torch 2.13 renamed the tensor-form collectives
 _all_gather = (getattr(dist, "all_gather_single", None)
@@ -155,7 +166,9 @@ class DataGroup:
         self.backend = dist.get_backend(group)
 
     def _call(self, kind: str, fn, out: torch.Tensor, inp: torch.Tensor,
-              whole_bytes: int) -> torch.Tensor:
+              whole_bytes: int, name: Optional[str] = None) -> torch.Tensor:
+        """Run one collective and count it under ``name`` (default its
+        ``kind``) and ``name@axis``."""
         t0 = time.perf_counter()
         if self.backend == "gloo" and inp.is_cuda:
             # through pinned host buffers: the copy down is the host's
@@ -171,7 +184,8 @@ class DataGroup:
         else:
             fn(out, inp)
         seconds = time.perf_counter() - t0
-        for key in (kind, f"{kind}@{self.axis}"):
+        name = name or kind
+        for key in (name, f"{name}@{self.axis}"):
             calls = COLLECTIVES.setdefault(key, [0, 0, 0.0])
             calls[0] += 1
             calls[1] += whole_bytes
@@ -199,14 +213,16 @@ class DataGroup:
             lambda o, i: _reduce_scatter(o, i, group=self.group),
             out, t, t.numel() * t.element_size())
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """The ranks' tensors concatenated along dimension 0."""
+    def all_gather(self, t: torch.Tensor, name: Optional[str] = None
+                   ) -> torch.Tensor:
+        """The ranks' tensors concatenated along dimension 0 (counted
+        under ``name``, default ``"all_gather"``)."""
         t = t.contiguous()
         out = t.new_empty((t.shape[0] * self.size,) + tuple(t.shape[1:]))
         return self._call(
             "all_gather",
             lambda o, i: _all_gather(o, i, group=self.group),
-            out, t, out.numel() * out.element_size())
+            out, t, out.numel() * out.element_size(), name)
 
 
 # (mesh, axes) -> their DataGroup: a flattened group is made with
@@ -286,17 +302,26 @@ def _check_axes(mesh) -> Dict[str, int]:
 
 
 def check_supported(cfg: ModelConfig, mesh) -> None:
-    """Raise ``NotImplementedError`` for what the port does not train on
-    a mesh: adaptive control over several data ranks unless each rank
-    solves its own rows (``ode.batch_axis='data'``)."""
+    """Raise ``ValueError`` for a mesh axis the rules do not name, and
+    ``NotImplementedError`` for adaptive control over several data ranks
+    under an ``ode.batch_axis`` whose fleet (the JAX package's
+    ``shard_map`` over that axis) takes blocks of the global batch that
+    are not the ranks' rows: an axis other than 'data', or 'data' beside
+    a 'pod' axis. Without a batch axis one controller runs over the
+    global batch (module docstring); under 'data' each rank's controller
+    solves its own rows."""
     axes = _check_axes(mesh)
     ranks = math.prod(axes.get(a, 1) for a in ("pod", "data"))
-    if (ranks > 1 and _adaptive(cfg) and cfg.ode.batch_axis != "data"):
+    axis = cfg.ode.batch_axis
+    if (ranks > 1 and _adaptive(cfg) and axis is not None
+            and (axis != "data" or axes.get("pod", 1) > 1)):
         raise NotImplementedError(
-            "adaptive step control (ode_steps=0) over several data ranks "
-            "needs ode_batch_axis='data' (each rank's controller on its "
-            "own rows); one controller over the global batch would reduce "
-            f"the error norm over the group ({ADAPTIVE_ITEM})")
+            f"adaptive step control (ode_steps=0) over several data ranks "
+            f"with ode_batch_axis={axis!r} on the mesh {dict(axes)}: the "
+            f"fleet over {axis!r} would solve blocks of the global batch "
+            f"that are not the ranks' rows; train with no ode_batch_axis "
+            f"(one controller over the global batch) or with 'data' on a "
+            f"mesh without 'pod' ({ADAPTIVE_ITEM})")
 
 
 # ---------------------------------------------------------------------------
@@ -680,10 +705,15 @@ class DataParallel(ParamLayout):
     def computing(self, split) -> Iterator[None]:
         """Where a step computes its loss and gradients from the rank's
         parameter shards: the rows split over ``split``, the layers
-        split over 'model', the 'data' shards gathered per layer."""
+        split over 'model', the 'data' shards gathered per layer, and
+        under one adaptive controller the error norm summed over
+        ``split``."""
+        # one adaptive controller over the global batch: no batch axis
+        norm = (split if _adaptive(self.cfg)
+                and self.cfg.ode.batch_axis is None else None)
         with self._splitting(split, self.model,
                              split is not None and "data" in split.axes,
-                             self.fsdp_dims):
+                             self.fsdp_dims), global_error_norm(norm):
             yield
 
     # -- leaves ---------------------------------------------------------------
@@ -856,43 +886,13 @@ def plan_for(cfg: ModelConfig, mesh, params: Pytree
 # Serving
 # ---------------------------------------------------------------------------
 
-_LSTM_FIELDS = ("c", "n", "m", "h")
-# a Mamba cache leaf's d_inner dimension (without the period dimension):
-# the only one the serve path splits its compute on
-_MAMBA_D_INNER = {"conv": 3, "ssm": 2}
-
-
-def _check_servable(names: Tuple[str, ...], spec, sizes) -> None:
-    """Raise ``NotImplementedError`` for a cache leaf that the rule splits
-    over 'model' (off its batch dimension) where the serve path computes
-    whole (module docstring)."""
-    core = spec[1:] if "period" in names else spec
-    at = [d for d, e in enumerate(core) if d > 1 and sizes.get("model", 1) > 1
-          and "model" in ((e,) if isinstance(e, str) else (e or ()))]
-    if not at:
-        return
-    field = names[-1]
-    if field in _LSTM_FIELDS:
-        raise NotImplementedError(
-            f"serving an xLSTM on a mesh whose 'model' axis splits its LSTM "
-            f"caches ({'/'.join(names)}: {spec}): the rule replicates the "
-            f"LSTM weights, so each rank would compute every head and keep "
-            f"a block of the state ({SERVE_ITEM}); serve it under a data "
-            "split alone")
-    if field in _MAMBA_D_INNER and at != [_MAMBA_D_INNER[field]]:
-        raise NotImplementedError(
-            f"a Mamba cache split over 'model' off its d_inner dimension "
-            f"({'/'.join(names)}: {spec}; {SERVE_ITEM})")
-
-
 class ServePlan(ParamLayout):
     """A serve step's layout on a mesh (module docstring): each parameter
     leaf's block by ``param_shardings`` (:class:`ParamLayout`), each cache
     leaf's by ``cache_shardings`` at the global ``batch``, the rows, and
     the groups that run the layers' collectives. Every rank of the mesh
     builds the same plan. Raises ``ValueError`` where ``cache_shardings``
-    does (a spec naming an axis twice) and ``NotImplementedError`` for the
-    caches of :data:`SERVE_ITEM`."""
+    does (a spec naming an axis twice)."""
 
     def __init__(self, cfg: ModelConfig, mesh, batch: int):
         from repro_torch.launch.specs import META
@@ -900,12 +900,8 @@ class ServePlan(ParamLayout):
         super().__init__(cfg, mesh)
         sizes, self.batch = self.sizes, batch
         # the caches' layout off the sequence dimension does not depend
-        # on its length
-        cache = init_cache(cfg, batch, 1, META)
-        for (path, _), spec in zip(
-                _pt.tree_flatten_with_path(cache)[0],
-                _pt.tree_leaves(cache_shardings(cfg, mesh, cache, batch))):
-            _check_servable(_path_names(path), spec, sizes)
+        # on its length; the rule raises where a spec names an axis twice
+        cache_shardings(cfg, mesh, init_cache(cfg, batch, 1, META), batch)
         lead = _cache_batch_axes(cfg, mesh, batch) or ()
         self.row_axes = tuple(a for a in lead if sizes[a] > 1)
         self._make_groups([self.row_axes])
@@ -1003,4 +999,4 @@ __all__ = ["COLLECTIVES", "HOST_STAGED", "FSDP_GATHERS", "DataGroup",
            "collective_counts",
            "fsdp_gathered", "fsdp_leaves", "fsdp_unbind", "mesh_group",
            "plan_for", "reset_collective_counts", "row_split",
-           "solves_per_shard", "ServePlan", "serve_plan_for", "SERVE_ITEM"]
+           "solves_per_shard", "ServePlan", "serve_plan_for"]

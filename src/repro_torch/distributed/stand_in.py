@@ -57,7 +57,7 @@ class StandInGroup:
         self._record("reduce-scatter", t)
         return t.new_empty((t.shape[0] // self.size,) + tuple(t.shape[1:]))
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, name=None) -> torch.Tensor:
         """The ranks' tensors along dimension 0 (this rank's repeated)."""
         t = t.contiguous()
         out = t.new_empty((t.shape[0] * self.size,) + tuple(t.shape[1:]))

@@ -40,7 +40,9 @@ whole while the rule still splits its caches over 'model'; the MLP, the
 MoE, the embedding and the head read :func:`model_split`, the weights'
 split, as in training. The no-grad collectives they use:
 :func:`gather_dim` (the ranks' blocks of one dimension put together),
-:func:`sum_over` (an all-reduce) and :func:`combine_split_kv`
+:func:`relayout` (a cache's block at rest met with the layer's compute,
+which may be whole: the xLSTM's LSTM states, a Mamba cache split off
+d_inner), :func:`sum_over` (an all-reduce) and :func:`combine_split_kv`
 (flash-decoding's log-sum-exp combine of partial attention over the
 ranks that each hold a block of the positions).
 
@@ -50,7 +52,7 @@ ranks that each hold a block of the positions).
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Iterator, List, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -248,6 +250,31 @@ def gather_dim(group, x: torch.Tensor, dim: int) -> torch.Tensor:
     return group.all_gather(_plain(x).movedim(dim, 0)).movedim(0, dim)
 
 
+def split_dim(block_shape, whole_shape) -> Optional[int]:
+    """The dimension on which a rank's block of shape ``block_shape`` is
+    cut from a leaf of ``whole_shape`` (None: the block is the whole)."""
+    return next((d for d, (b, w) in enumerate(zip(block_shape, whole_shape))
+                 if b != w), None)
+
+
+def relayout(group, x: torch.Tensor, src: Optional[int],
+             dst: Optional[int]) -> torch.Tensor:
+    """``x``, the rank's block of dimension ``src`` split over ``group``
+    (None: whole), as its block of dimension ``dst`` (None: whole): the
+    ranks' blocks gathered and the rank's block of ``dst`` cut, where the
+    two differ (no gradient). A serve cache that the rule splits over
+    'model' on another dimension than the layer's compute keeps its
+    block at rest and meets the compute through this."""
+    if src == dst:
+        return x
+    if src is not None:
+        x = gather_dim(group, x, src)
+    if dst is not None:
+        lo, n = block(group, x.shape[dst])
+        x = x.narrow(dst, lo, n)
+    return x
+
+
 def sum_over(group, x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over ``group`` (no gradient; the identity without a
     group)."""
@@ -272,4 +299,5 @@ def combine_split_kv(group, m: torch.Tensor, l: torch.Tensor,
 __all__ = ["model_split", "splitting_model", "splits", "block", "enter",
            "leave", "enter_leaves", "gather_last", "gather_last_summed",
            "record_state", "recording_states", "serve_model", "serve_data",
-           "serving", "gather_dim", "sum_over", "combine_split_kv"]
+           "serving", "gather_dim", "split_dim", "relayout", "sum_over",
+           "combine_split_kv"]

@@ -39,7 +39,11 @@ a mesh whose caches split d_inner over 'model' (``ServePlan.computing``)
 runs the same split without autograd on its block of the conv and ssm
 caches, the scan kernel on the local d_inner; the whole leaves it cuts
 to its block include every leaf of a config whose weights the rule
-replicates.
+replicates. A cache leaf that the rule splits off d_inner (the conv
+window where it divides first, the state where d_inner does not divide)
+keeps its block at rest and meets the compute's layout through
+``tensor_parallel.relayout`` at each step (``write_prefill_state`` after
+a prompt).
 
 Caches are written in place (the JAX package returns updated copies);
 each function still returns the cache it was given.
@@ -58,7 +62,8 @@ from repro_torch.distributed.tensor_parallel import (block, enter,
                                                      gather_dim,
                                                      gather_last_summed,
                                                      leave, model_split,
-                                                     serve_model, splits,
+                                                     relayout, serve_model,
+                                                     split_dim, splits,
                                                      sum_over)
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
@@ -221,6 +226,26 @@ def apply_mamba_prefill(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     return out, (conv_state, h_last)
 
 
+def _state_dims(cfg: ModelConfig, cache: "MambaCache", blk):
+    """((conv, ssm) dimensions the serve cache's slot holds the rank's
+    block of, (conv, ssm) dimensions the compute does): the rule may
+    split a cache over 'model' off d_inner (the conv window, the state),
+    while the compute splits d_inner (``blk``) or runs whole."""
+    whole = _slot_shapes(cfg, cache.conv.shape[1])
+    at_rest = tuple(None if serve_model() is None else split_dim(
+        t.shape[1:], w) for t, w in zip(cache, whole))
+    return at_rest, ((2, 1) if blk is not None else (None, None))
+
+
+def write_prefill_state(cfg: ModelConfig, params: Pytree,
+                        cache: "MambaCache", slot: int, state) -> None:
+    """Write ``apply_mamba_prefill``'s final (conv, ssm) state at
+    ``slot``: the rank's block of each as the serve cache holds it."""
+    at_rest, compute = _state_dims(cfg, cache, _serve_share(params, cfg)[2])
+    for buf, val, src, dst in zip(cache, state, compute, at_rest):
+        buf[slot] = relayout(serve_model(), val, src, dst)
+
+
 def _discretised(delta, a, b_mat, u):
     """(dA, dBu) [B, S, d_inner, d_state] float32: the JAX package's
     ``_ssm_inputs`` terms from their factors."""
@@ -311,6 +336,12 @@ def apply_mamba_train(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     return out, (conv_state, h)
 
 
+def _slot_shapes(cfg: ModelConfig, batch: int):
+    """The whole (conv, ssm) shapes of one cache slot."""
+    d_inner, _, d_state, d_conv = _dims(cfg)
+    return (batch, d_conv - 1, d_inner), (batch, d_inner, d_state)
+
+
 class MambaCache(NamedTuple):
     conv: torch.Tensor   # [n_slots, B, d_conv-1, d_inner] f32
     ssm: torch.Tensor    # [n_slots, B, d_inner, d_state] f32
@@ -320,9 +351,7 @@ class MambaCache(NamedTuple):
              device, cut=None) -> "MambaCache":
         """Zeros. ``cut(field, shape)`` gives a rank's block of a leaf of
         the whole ``shape`` (a serve plan's ``cache_shape``)."""
-        d_inner, _, d_state, d_conv = _dims(cfg)
-        conv = (n_slots, batch, d_conv - 1, d_inner)
-        ssm = (n_slots, batch, d_inner, d_state)
+        conv, ssm = ((n_slots, *s) for s in _slot_shapes(cfg, batch))
         if cut is not None:
             conv, ssm = cut("conv", conv), cut("ssm", ssm)
         f32 = torch.float32
@@ -337,19 +366,21 @@ def apply_mamba_decode(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     state at ``slot`` in place (in a serve step whose caches split d_inner
     over 'model', the rank's block of both)."""
     tp, params, blk = _serve_share(params, cfg)
+    (conv_at, ssm_at), (conv_dim, ssm_dim) = _state_dims(cfg, cache, blk)
+    group = serve_model()
     ui, res = _in_projection(params, cfg, x[:, 0], tp, blk)     # [B, di]
-    window = torch.cat([cache.conv[slot], ui.float()[:, None]],
-                       dim=1)                                   # [B,d_conv,di]
+    window = torch.cat([relayout(group, cache.conv[slot], conv_at, conv_dim),
+                        ui.float()[:, None]], dim=1)            # [B,d_conv,di]
     u = silu(torch.einsum("bkc,kc->bc", window, params["conv_w"].float())
              + params["conv_b"].float())
     delta, a, b_mat, c_mat = _ssm_inputs(params, cfg, u[:, None], tp)  # S=1
     dA = torch.exp(delta[:, 0, :, None] * a)                       # [B,di,st]
     dBu = (delta[:, 0] * u)[..., None] * b_mat[:, 0, None, :].float()
-    h = dA * cache.ssm[slot] + dBu
+    h = dA * relayout(group, cache.ssm[slot], ssm_at, ssm_dim) + dBu
     y = torch.einsum("bis,bs->bi", h, c_mat[:, 0].float())
     y = y + params["D"] * u
     y = y.to(x.dtype) * silu(res)
     out = sum_over(tp, y @ params["out_proj"])[:, None]
-    cache.conv[slot] = window[:, 1:]
-    cache.ssm[slot] = h
+    cache.conv[slot] = relayout(group, window[:, 1:], conv_dim, conv_at)
+    cache.ssm[slot] = relayout(group, h, ssm_dim, ssm_at)
     return out, cache

@@ -64,10 +64,9 @@ from .common import materialize, rmsnorm, rmsnorm_inits, torch_dtype
 from .mlp import apply_mlp, mlp_inits
 from .moe import apply_moe, moe_inits
 from .ssm import (MambaCache, apply_mamba_decode, apply_mamba_prefill,
-                  apply_mamba_train, mamba_inits)
-from .xlstm import (LstmCache, apply_mlstm_decode, apply_mlstm_train,
-                    apply_slstm_decode, apply_slstm_train, mlstm_inits,
-                    slstm_inits)
+                  apply_mamba_train, mamba_inits, write_prefill_state)
+from .xlstm import (LstmCache, apply_lstm_serve, apply_mlstm_train,
+                    apply_slstm_train, mlstm_inits, slstm_inits)
 
 Pytree = Any
 
@@ -334,22 +333,13 @@ def _mixer_serve(params, cfg, spec, z, cache, slot, pos_info, kind,
                                 backend)
     if spec.mixer == "mamba":
         if kind == "prefill":
-            y, (conv_state, ssm_state) = apply_mamba_prefill(
-                params, cfg, z, return_state=True, backend=backend)
-            cache.conv[slot] = conv_state
-            cache.ssm[slot] = ssm_state
+            y, state = apply_mamba_prefill(params, cfg, z, return_state=True,
+                                           backend=backend)
+            write_prefill_state(cfg, params, cache, slot, state)
             return y, cache
         return apply_mamba_decode(params, cfg, z, cache, slot)
-    mlstm = spec.mixer == "mlstm"
-    if kind == "prefill":
-        apply = apply_mlstm_train if mlstm else apply_slstm_train
-        y, carry = apply(params, cfg, z, return_state=True)
-        # mLSTM: (C, n, m), its cache's h unused; sLSTM: (c, n, m, h)
-        for buf, val in zip(cache, carry):
-            buf[slot] = val
-        return y, cache
-    decode = apply_mlstm_decode if mlstm else apply_slstm_decode
-    return decode(params, cfg, z, cache, slot)
+    return apply_lstm_serve(params, cfg, spec.mixer == "mlstm", z, cache,
+                            slot, kind)
 
 
 def _alf_unroll(f, x: torch.Tensor, n: int, eta: float, h: torch.Tensor,

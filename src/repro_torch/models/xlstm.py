@@ -17,6 +17,9 @@ them as with every other mixer.
   * ``apply_mlstm_decode`` / ``apply_slstm_decode`` — one token against
     the ``LstmCache`` slot, written in place with no host read, so a
     decode step can be captured in a CUDA graph.
+  * ``apply_lstm_serve`` — a serve step's f-eval of either mixer; on a
+    mesh whose 'model' axis splits the LSTM caches it gathers the slot's
+    state, computes every head and keeps the rank's block.
 
 The recurrences stay plain PyTorch, as they stay plain ``jnp`` in the JAX
 package (no Pallas kernel): ``_mlstm_steps`` / ``_slstm_steps`` run the
@@ -38,6 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.tensor_parallel import (relayout, serve_model,
+                                                     split_dim)
 
 from .common import dense_inits, full_inits, materialize, silu, torch_dtype
 
@@ -221,20 +226,30 @@ class LstmCache(NamedTuple):
                          torch.full(m, _M0, **f32), torch.zeros(h, **f32))
 
     @staticmethod
+    def shapes(cfg: ModelConfig, mlstm: bool, batch: int):
+        """The whole (c, n, m, h) shapes of one slot of an mLSTM
+        (``mlstm``) or sLSTM cache."""
+        if mlstm:
+            _, nh, dh = _mlstm_dims(cfg)
+            return [(batch, nh, dh, dh), (batch, nh, dh), (batch, nh),
+                    (batch, 1)]
+        nh, dh = _head_dims(cfg)
+        return [(batch, nh, dh), (batch, nh, dh), (batch, nh),
+                (batch, nh, dh)]
+
+    @staticmethod
     def init_mlstm(cfg: ModelConfig, n_slots: int, batch: int,
                    device, cut=None) -> "LstmCache":
-        _, nh, dh = _mlstm_dims(cfg)
         return LstmCache._filled(
-            [(n_slots, batch, nh, dh, dh), (n_slots, batch, nh, dh),
-             (n_slots, batch, nh), (n_slots, batch, 1)], device, cut)
+            [(n_slots, *s) for s in LstmCache.shapes(cfg, True, batch)],
+            device, cut)
 
     @staticmethod
     def init_slstm(cfg: ModelConfig, n_slots: int, batch: int,
                    device, cut=None) -> "LstmCache":
-        nh, dh = _head_dims(cfg)
         return LstmCache._filled(
-            [(n_slots, batch, nh, dh), (n_slots, batch, nh, dh),
-             (n_slots, batch, nh), (n_slots, batch, nh, dh)], device, cut)
+            [(n_slots, *s) for s in LstmCache.shapes(cfg, False, batch)],
+            device, cut)
 
 
 def apply_mlstm_decode(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
@@ -352,6 +367,45 @@ def apply_slstm_decode(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     return out, cache
 
 
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def apply_lstm_serve(params: Pytree, cfg: ModelConfig, mlstm: bool,
+                     x: torch.Tensor, cache: LstmCache, slot: int,
+                     kind: str) -> Tuple[torch.Tensor, LstmCache]:
+    """One serve f-eval of an mLSTM (``mlstm``) or sLSTM mixer against
+    its cache ``slot``: the prompt (``kind="prefill"``, its final carry
+    written) or one token. In a serve step whose caches the rule splits
+    over 'model' (:func:`~repro_torch.distributed.tensor_parallel.
+    serve_model`: on the heads, or on ``d_head`` where the heads do not
+    divide) each cache leaf holds the rank's block at rest, while the
+    mixer computes whole from the weights the rule replicates: the
+    slot's state is gathered over 'model', every head computed, and the
+    rank's block of the new state kept. One layer's whole state is
+    transient at a time."""
+    tp = serve_model()
+    whole = LstmCache.shapes(cfg, mlstm, x.shape[0])
+    dims = [None if tp is None else split_dim(buf.shape[1:], w)
+            for buf, w in zip(cache, whole)]
+    if kind == "prefill":
+        apply = apply_mlstm_train if mlstm else apply_slstm_train
+        y, carry = apply(params, cfg, x, return_state=True)
+        # mLSTM: (C, n, m), its cache's h unused; sLSTM: (c, n, m, h)
+        for buf, val, d in zip(cache, carry, dims):
+            buf[slot] = relayout(tp, val, None, d)
+        return y, cache
+    decode = apply_mlstm_decode if mlstm else apply_slstm_decode
+    if all(d is None for d in dims):
+        return decode(params, cfg, x, cache, slot)
+    state = LstmCache(*(relayout(tp, buf[slot], d, None)[None]
+                        for buf, d in zip(cache, dims)))
+    y, state = decode(params, cfg, x, state, 0)
+    for buf, val, d in zip(cache, state, dims):
+        buf[slot] = relayout(tp, val[0], None, d)
+    return y, cache
+
+
 __all__ = ["LstmCache", "mlstm_inits", "init_mlstm", "slstm_inits",
            "init_slstm", "apply_mlstm_train", "apply_mlstm_decode",
-           "apply_slstm_train", "apply_slstm_decode"]
+           "apply_slstm_train", "apply_slstm_decode", "apply_lstm_serve"]

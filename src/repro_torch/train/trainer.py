@@ -48,11 +48,14 @@ every rank (a checksum all-gather confirms them equal), and each rank
 keeps its shards. Rank 0 writes each checkpoint, the whole state
 gathered from the shards (the files a one-rank run writes); every rank
 restores the whole state and keeps its shards, so checkpoints move
-between world sizes and mesh shapes. ``ode_batch_axis="data"`` solves
-each rank's rows with its own controller (the JAX package's
+between world sizes and mesh shapes. Under adaptive control
+(``ode_steps=0``) one controller runs over the global batch, as in the
+JAX package: each trial's error norm is summed over the data ranks, so
+every rank takes the same steps; ``ode_batch_axis="data"`` solves each
+rank's rows with its own controller (the JAX package's
 ``Sharded("data")``). Refused, with a ``NotImplementedError`` naming
-ROADMAP queue 1 item 12: adaptive control (``ode_steps=0``) over several
-data ranks without ``ode_batch_axis="data"``.
+ROADMAP queue 1 item 12b: adaptive control over several data ranks with
+an ``ode_batch_axis`` other than 'data', or 'data' beside a 'pod' axis.
 """
 from __future__ import annotations
 

@@ -16,12 +16,17 @@ the oracle is ``jitted_train_step`` without a mesh on the global batch:
 * deepseek-moe's smoke config under its ``fsdp_tp`` strategy with
   capacity drops: each rank's kept masks equal its block of a one-rank
   forward's on the global batch, and two steps equal one-rank steps;
+* adaptive control with one controller over the global batch (no
+  ``ode_batch_axis``; the error norm summed over the ranks every trial):
+  the step against ``jax.value_and_grad`` of the global batch (loss at
+  rtol 1e-5, grad norm at the adaptive bar, f-evals exact), one
+  ``error_norm@data`` reduction a trial, parameters bit-equal on the
+  ranks, and the Trainer under ``ode_steps=0``;
 * adaptive control with ``ode_batch_axis="data"``: the step against the
   per-shard composition (each shard's ``jax.value_and_grad`` alone,
   averaged: the shards hold equal token counts; the grad norm at the
   adaptive batching tests' bar, rtol 2e-5), within rtol 1e-6 of the
-  port's own per-shard composition, and the refusal of adaptive control
-  without it;
+  port's own per-shard composition;
 * the Trainer: a failure injected at step 3 on every rank resumes to the
   clean two-rank trace bit for bit, the two-rank trace within rtol 1e-5
   of the one-rank one, and checkpoints restore across world sizes with
@@ -232,10 +237,37 @@ def test_moe_kept_masks_and_steps(spawned, world):
                   f"W{world} deepseek vs one rank")
 
 
+def test_adaptive_global_controller_matches_jax(spawned):
+    """One adaptive controller over the global batch on two ranks: the
+    JAX package's step on the global batch."""
+    got = spawned(2)[1]["adaptive"]
+    glob = got["global"]
+    jcfg = _jax_cfg(R.ADAPTIVE)
+    vg = jax.jit(jax.value_and_grad(jax_loss_and_stats, has_aux=True),
+                 static_argnums=1)
+    p = _to_jax(_weights(), jnp.float32)
+    b = jax_make_batch(jcfg, JaxDataConfig(**R.BATCH), 0)
+    (loss, stats), g = vg(p, jcfg, {k: jnp.asarray(v) for k, v in b.items()})
+    m = glob["metrics"]
+    np.testing.assert_allclose(m["loss"], float(loss), rtol=RTOL)
+    np.testing.assert_allclose(m["grad_norm"],
+                               _norm([jax.tree_util.tree_leaves(g)]),
+                               **ADAPTIVE_TOL)
+    assert m["ode_fevals"] == int(stats.n_fevals)
+    assert m["ode_accepted"] == int(stats.n_accepted)
+    assert m["ode_rejected"] == int(stats.n_rejected)
+    assert glob["params_equal"]
+    # one reduction over 'data' a trial (MALI's backward replays the
+    # recorded steps and reduces nothing)
+    trials = m["ode_accepted"] + m["ode_rejected"]
+    assert glob["norm_calls"] == glob["norm_data_calls"] == trials > 0
+    assert got["per_shard"]["norm_calls"] == 0
+    assert got["trainer_steps"] == 2 and got["trainer_params_equal"]
+
+
 def test_adaptive_per_shard_matches_jax(spawned):
     world = 2
-    got = spawned(world)[1]["adaptive"]
-    assert "item 12" in got["refused"]
+    got = spawned(world)[1]["adaptive"]["per_shard"]
     jcfg = _jax_cfg(R.ADAPTIVE)
     vg = jax.jit(jax.value_and_grad(jax_loss_and_stats, has_aux=True),
                  static_argnums=1)
@@ -310,21 +342,27 @@ def _assert_state_equal(saved, state):
 
 def test_data_parallel_refusals():
     """Meshes with a 'model' axis (tensor parallelism) or a 'pod' axis
-    are accepted; adaptive control over several data ranks needs each
-    rank's rows solved alone (item 12), and over 'model' alone the
-    ranks solve their rows whole."""
+    are accepted; so is adaptive control over several data ranks, with
+    one controller over the global batch or each rank's rows solved
+    alone (ode_batch_axis='data'). Refused (item 12b): a batch axis
+    whose fleet's blocks are not the ranks' rows."""
     cfg = R.qwen_cfg()
     for axes in ({"data": 2, "model": 2}, {"pod": 2, "data": 2, "model": 1},
                  {"data": 16, "model": 16}):
         check_supported(cfg, axes)
     adaptive = R.qwen_cfg(R.ADAPTIVE)
-    for axes in ({"data": 2, "model": 1}, {"pod": 2, "data": 1, "model": 2}):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            check_supported(adaptive, axes)
-    check_supported(adaptive, {"data": 1, "model": 1})
-    check_supported(adaptive, {"data": 1, "model": 2})
+    for axes in ({"data": 2, "model": 1}, {"pod": 2, "data": 1, "model": 2},
+                 {"data": 1, "model": 1}, {"data": 1, "model": 2},
+                 {"pod": 2, "data": 16, "model": 16}):
+        check_supported(adaptive, axes)
     check_supported(R.qwen_cfg(dict(R.ADAPTIVE, batch_axis="data")),
                     {"data": 4, "model": 1})
+    for ode, axes in ((dict(R.ADAPTIVE, batch_axis="model"),
+                       {"data": 2, "model": 2}),
+                      (dict(R.ADAPTIVE, batch_axis="data"),
+                       {"pod": 2, "data": 2, "model": 1})):
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            check_supported(R.qwen_cfg(ode), axes)
     with pytest.raises(ValueError, match="expert"):
         check_supported(cfg, {"data": 2, "expert": 2})
 

@@ -159,13 +159,18 @@ def test_cli_train_cell(tmp_path):
 
 
 def test_cli_refuses_by_roadmap_items(tmp_path):
-    """xLSTM serving on a 'model' axis that splits its LSTM caches (item
-    15) and training it through its token loops (2b.13): refused, not an
-    error; the CLI exits 0."""
+    """xLSTM serving on a 'model' axis that splits its LSTM caches on
+    d_head: recorded, a rank holding its block of every cache; training
+    it through its token loops (2b.13): refused, not an error; the CLI
+    exits 0."""
     recs = _cli(tmp_path, "--arch", "xlstm-125m", "--shape", "decode_32k",
                 "--mesh", "single")
-    assert recs[0]["status"] == "refused"
-    assert recs[0]["item"] == "ROADMAP queue 1 item 15"
+    assert recs[0]["status"] == "ok"
+    cell = next(c for c in SHAPE_CELLS if c.name == "decode_32k")
+    rules = serve_shard_bytes(get_config("xlstm-125m", DEFAULT_ODE),
+                              production_axes(), cell.global_batch,
+                              cell.seq_len)
+    assert recs[0]["memory"]["cache"] == rules["cache"] > 0
     rec = dryrun.run_cell("xlstm-125m", "train_4k", False,
                           out_dir=str(tmp_path))
     assert rec["status"] == "refused"

@@ -10,7 +10,9 @@ case trains a smoke config under its own strategy or under 'tp' through
 ``init_device_mesh``: deepseek-moe with capacity drops, granite (MQA:
 wk/wv whole on every rank), jamba (Mamba, MoE and attention, one
 period), grok with six experts (at model 4 each expert's d_ff splits),
-qwen3 under 'dp' (the batch over 'model'), qwen3 with adaptive MALI,
+qwen3 under 'dp' (the batch over 'model'), qwen3 with adaptive MALI
+(on (1, 2), and under 'tp' on (pod 2, data 1, model 2): one controller
+over the global batch, its error norm summed over 'pod' every trial),
 gemma2 under 'tp' (its tied head split on D: partial logits summed), and
 granite through the int8 error-feedback loop.
 GSPMD computes the unsharded step's numbers, so the oracle is
@@ -99,7 +101,7 @@ CASES = {2: ["deepseek:own:1x2", "granite:own:1x2", "jamba:own:1x2",
              "deepseek:tp:2x2", "granitec:own:2x2", "grok6:own:1x4",
              "grok6:tp:1x4",
              "jamba:tp:1x4", "deepseek:own:2x1x2", "granite:tp:2x1x2",
-             "checkpoints"]}
+             "qwen3a:tp:2x1x2", "checkpoints"]}
 STEP_CASES = [(w, c) for w, cs in CASES.items() for c in cs if ":" in c]
 
 
@@ -305,6 +307,16 @@ def test_steps_match_jitted_train_step(spawned, world, case):
         if tp:
             assert counts["all_reduce@model"]["calls"] > 0, case
         assert counts["host_staged"]["calls"] == 0      # CPU tensors
+        # one adaptive controller over the data ranks: the error norm is
+        # summed over the rows' axes, never over 'model'
+        rows = "+".join(a for a in ("pod", "data") if sizes.get(a, 1) > 1)
+        norm = {k: v["calls"] for k, v in counts.items()
+                if k.startswith("error_norm@")}
+        if model == "qwen3a" and rows:
+            assert set(norm) == {f"error_norm@{rows}"}, (case, norm)
+            assert norm[f"error_norm@{rows}"] > 0, case
+        else:
+            assert not norm, (case, norm)
     if cfg.sharding == "fsdp_tp" and sizes["data"] * sizes["model"] == 4:
         # the big leaves are cut four ways
         assert got["param_bytes"] < 0.4 * got["whole_param_bytes"], case

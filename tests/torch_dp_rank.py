@@ -128,28 +128,39 @@ def moe(mesh, out):
 
 
 def adaptive(mesh, out):
-    """One step with adaptive control, each rank's rows solved with its
-    own controller (ode.batch_axis='data'); and the refusal without it."""
+    """One step with adaptive control each way: one controller over the
+    global batch (no ode.batch_axis; the error norm summed over the
+    ranks), and each rank's rows solved with its own controller
+    (ode.batch_axis='data'). Then the Trainer under ode_steps=0."""
+    from repro_torch.distributed.data_parallel import (
+        DataParallel, collective_counts, reset_collective_counts)
     from repro_torch.optim import OptimizerConfig, init_opt_state
-    from repro_torch.distributed.data_parallel import DataParallel
     from repro_torch.train import Trainer, TrainerConfig, train_step
-    cfg = qwen_cfg(dict(ADAPTIVE, batch_axis="data"))
-    params = torch.load(out.parent / "weights.pt")
-    plan = DataParallel(cfg, mesh, params)
-    params = plan.param_shards(params)
-    opt_cfg = OptimizerConfig(warmup_steps=1, total_steps=1)
-    with mesh:
-        _, _, _, m = train_step(params,
-                                init_opt_state(opt_cfg,
-                                               plan.param_to_opt(params)),
-                                None, batch(cfg, 0), cfg=cfg,
-                                opt_cfg=opt_cfg, zero1=True)
-    try:
-        Trainer(TrainerConfig(**{**TRAINER, "ode_steps": 0}))
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    return {"metrics": metrics_row(m), "refused": refused}
+    got = {}
+    for name, ode in (("global", ADAPTIVE),
+                      ("per_shard", dict(ADAPTIVE, batch_axis="data"))):
+        cfg = qwen_cfg(ode)
+        params = torch.load(out.parent / "weights.pt")
+        plan = DataParallel(cfg, mesh, params)
+        params = plan.param_shards(params)
+        opt_cfg = OptimizerConfig(warmup_steps=1, total_steps=1)
+        reset_collective_counts()
+        with mesh:
+            params, _, _, m = train_step(
+                params, init_opt_state(opt_cfg, plan.param_to_opt(params)),
+                None, batch(cfg, 0), cfg=cfg, opt_cfg=opt_cfg, zero1=True)
+        counts = collective_counts()
+        got[name] = {
+            "metrics": metrics_row(m),
+            "params_equal": _same_on_every_rank(plan.gather_params(params)),
+            "norm_calls": counts.get("error_norm", {}).get("calls", 0),
+            "norm_data_calls": counts.get("error_norm@data",
+                                          {}).get("calls", 0)}
+    t = Trainer(TrainerConfig(**{**TRAINER, "ode_steps": 0, "steps": 2}),
+                emitter=None, model_cfg=qwen_cfg(ADAPTIVE))
+    got["trainer_steps"] = t.train()
+    got["trainer_params_equal"] = _same_on_every_rank(t.state.params)
+    return got
 
 
 def trainer(mesh, out):

@@ -48,8 +48,13 @@ MODELS = {
     "internvl2": ("internvl2-76b", {}),
     # pure DP: replicated weights, the caches split over 'model'
     "qwen3": ("qwen3-1.7b", {}),
-    # the LSTM caches: served under a data split alone
+    # the LSTM caches: under 'tp' split over 'model' on the heads (1, 2)
     "xlstm": ("xlstm-125m", {}),
+    # two heads: on a 'model' axis of 4 the LSTM caches split on d_head
+    "xlstm2h": ("xlstm-125m", dict(n_heads=2, n_kv_heads=2)),
+    # a conv window of 4: on (1, 2) the conv cache splits on the window,
+    # off d_inner, while the compute splits d_inner
+    "jambaw": ("jamba-v0.1-52b", dict(n_periods=1, mamba_d_conv=5)),
 }
 PROMPT, N_DECODE = 12, 4
 
