@@ -2105,15 +2105,15 @@ def _serve_run(params, cfg, toks, prompt: int, n_decode: int,
 
 def _lm_compare(dtype, batch: int, prompt: int, n_decode: int,
                 arch: str = LM_ARCH, self_prompt: int = 0,
-                floor: bool = False, periods: int = 0):
+                floor: bool = False, periods: int = 0, period=None):
     """``arch`` at full width in ``dtype``: the kernel path against the
     plain path (prefill logits and teacher-forced decode logits), and
     prefill(p+1) against prefill(p) + decode(token p), on both paths, p =
     ``self_prompt`` (default: ``prompt``). With ``floor``, a comparison
     may also lie within FLOOR_FACTOR x the model's own noise floor: the
     plain path with the embedding moved by one rounding (``_moved``)
-    against the plain path. ``periods`` cuts the depth (0: as published).
-    An input_mode="embeds" config is fed the stub frontend's embeddings
+    against the plain path. ``periods`` cuts the depth (0: as published),
+    to periods of ``period`` (None: its own). An input_mode="embeds" config is fed the stub frontend's embeddings
     (``_lm_inputs``)."""
     import dataclasses
     import torch
@@ -2122,7 +2122,8 @@ def _lm_compare(dtype, batch: int, prompt: int, n_decode: int,
     name = str(dtype).split(".")[-1]
     cfg = get_config(arch, DEFAULT_ODE)
     cfg = dataclasses.replace(cfg, param_dtype=name, compute_dtype=name,
-                              n_periods=periods or cfg.n_periods)
+                              n_periods=periods or cfg.n_periods,
+                              period=period or cfg.period)
     params = init_lm(torch.Generator(device="cuda").manual_seed(1), cfg)
     toks = _lm_inputs(cfg, batch, prompt + n_decode, 1)
     p = self_prompt or prompt
@@ -4359,10 +4360,10 @@ LT_SMOKE = (("gemma2-2b", 2, 2304), ("jamba-v0.1-52b", 2, 64),
 
 def _lt_config(backend: str = "cuda", n_steps: int = 2,
                method: str = "mali", layers: int = 0, dtype: str = "",
-               arch: str = LM_ARCH, smoke: bool = False):
+               arch: str = LM_ARCH, smoke: bool = False, period=None):
     """``arch`` with every residual branch an ALF solve (``method``,
     ConstantSteps(n_steps), ``backend``), optionally cut to ``layers``
-    periods and cast to ``dtype``."""
+    periods of ``period`` (None: its own) and cast to ``dtype``."""
     import dataclasses
     from repro_torch.configs import OdeSettings, get_config, smoke_config
     ode = OdeSettings(mode="per_block", method=method, solver="alf",
@@ -4371,6 +4372,8 @@ def _lt_config(backend: str = "cuda", n_steps: int = 2,
     changes = {}
     if layers:
         changes["n_periods"] = layers
+    if period:
+        changes["period"] = period
     if dtype:
         changes.update(param_dtype=dtype, compute_dtype=dtype)
     return dataclasses.replace(cfg, **changes)
@@ -4392,9 +4395,10 @@ def _lt_grads(params, cfg, batch):
 
 def _lt_full_width(arch: str = LM_ARCH, batch: int = LT_BATCH,
                    seq: int = LT_SEQ, per_step_want: dict = LT_PER_STEP,
-                   periods: int = 0):
+                   periods: int = 0, period=None):
     """(a): LT_STEPS Trainer steps of ``arch`` at full width (cut to
-    ``periods`` periods; 0: every one), each launching exactly
+    ``periods`` periods of ``period``, None: its own; 0: every one), each
+    launching exactly
     ``per_step_want``; returns (the trainer, batch 0, per-step launches,
     the results)."""
     import dataclasses
@@ -4410,7 +4414,8 @@ def _lt_full_width(arch: str = LM_ARCH, batch: int = LT_BATCH,
     periods = periods or full.n_periods
     # the Trainer's own config (``train.trainer.build``), cut
     cut = dataclasses.replace(get_config(arch, tc.ode_settings()),
-                              n_periods=periods)
+                              n_periods=periods,
+                              period=period or full.period)
     snaps = []
     # the optimizer's own defaults (warmup over 100 steps): the rule the
     # Trainer derives from 3 steps warms up over 1, and at this width the
@@ -4560,12 +4565,14 @@ def _lt_memory_mali(trainer, batch0, layers: int = 0):
     from repro_torch.optim import init_opt_state
     arch = trainer.cfg.name
     layers = layers or trainer.cfg.n_periods
+    period = trainer.cfg.period
     params = init_lm(torch.Generator(device="cuda").manual_seed(3),
-                     _lt_config("cuda", layers=layers, arch=arch))
+                     _lt_config("cuda", layers=layers, arch=arch,
+                                period=period))
     opt = init_opt_state(trainer.opt_cfg, params)
     mali = {n: _lt_peak(params, opt, _lt_config(
-        "cuda", n, layers=layers, arch=arch), trainer.opt_cfg, batch0)
-        for n in LT_MEM_STEPS}
+        "cuda", n, layers=layers, arch=arch, period=period),
+        trainer.opt_cfg, batch0) for n in LT_MEM_STEPS}
     lo, hi = LT_MEM_STEPS
     ratio = mali[hi] / mali[lo]
     require(ratio <= 1.05, f"{arch} training (c): MALI's peak grows "
@@ -4601,10 +4608,12 @@ def _lt_memory_naive():
 def _lt_kernel_vs_reference(params, batch0, arch: str = LM_ARCH,
                             cut_layers: int = LT_CUT_LAYERS,
                             cut_seq: int = LT_CUT_SEQ,
-                            cut_batch: int = LT_BATCH, periods: int = 0):
+                            cut_batch: int = LT_BATCH, periods: int = 0,
+                            period=None):
     """(b): one step's loss and gradients with backend="cuda" against
-    backend="reference": at full width in bf16 (``periods`` periods, 0:
-    every one; to max(LT_BF16_TOL, 3x the reference's one-rounding floor)
+    backend="reference": at full width in bf16 (``periods`` periods of
+    ``period``, None: its own; 0: every one; to max(LT_BF16_TOL, 3x the
+    reference's one-rounding floor)
     per gradient leaf), and on the f32 cut to ``cut_layers`` periods at
     ``cut_seq`` tokens (LT_F32_TOL; MALI on cuda against Naive on the
     reference backend at GRAD_TOL)."""
@@ -4617,7 +4626,8 @@ def _lt_kernel_vs_reference(params, batch0, arch: str = LM_ARCH,
                               ("reference_moved", "reference",
                                _moved(params, torch.bfloat16))):
         runs[label] = _lt_grads(p, _lt_config(backend, layers=periods,
-                                              arch=arch), batch0)
+                                              arch=arch, period=period),
+                                batch0)
     ref_loss, ref_stats, ref_g = runs["reference"]
     loss_err = _rel(runs["cuda"][0], ref_loss)
     loss_floor = _rel(runs["reference_moved"][0], ref_loss)
@@ -4638,11 +4648,13 @@ def _lt_kernel_vs_reference(params, batch0, arch: str = LM_ARCH,
     del runs
     torch.cuda.empty_cache()
 
-    cut = _lt_config("cuda", layers=cut_layers, dtype="float32", arch=arch)
+    cut = _lt_config("cuda", layers=cut_layers, dtype="float32", arch=arch,
+                     period=period)
     p32 = init_lm(torch.Generator(device="cuda").manual_seed(2), cut)
     batch = _lt_batch(cut, cut_batch, cut_seq)
     got = {label: _lt_grads(p32, _lt_config(backend, 2, method, cut_layers,
-                                            "float32", arch), batch)
+                                            "float32", arch, period=period),
+                            batch)
            for label, backend, method in (
                ("mali_cuda", "cuda", "mali"),
                ("mali_reference", "reference", "mali"),
@@ -4781,24 +4793,34 @@ def phase_lm_train(card: str, smi: str):
 # ---------------------------------------------------------------------------
 
 XL_ARCH = "xlstm-125m"
-# (a) and (b) run one of its two periods (6 of 12 layers: 5 mLSTM, 1
-# sLSTM) at full width: the token loops are host-bound and scale with the
-# layers, and one period holds every layer kind
+# (a) and (b) run one period of one mLSTM and the sLSTM layer (2 of its 12
+# layers; its own period is 5 mLSTM + 1 sLSTM) at full width: the token
+# loops are host-bound and scale with the layers, and the cut keeps both
+# mixer kinds (from one whole period when phase 20 (f) was added)
 XL_PERIODS = 1
+
+
+def _xl_period():
+    """(a) and (b)'s period: one mLSTM layer, then the sLSTM one."""
+    from repro_torch.configs.base import LayerSpec
+    return (LayerSpec(mixer="mlstm", mlp="none"),
+            LayerSpec(mixer="slstm", mlp="none"))
+
+
 # per prefill and per decode step under DEFAULT_ODE (3 f-evals per
-# residual branch, no MLP branch): 6 layers x 3 mixer norms + the final
-# norm; 6 layers x 2 ALF steps, one midpoint and one update each
-XL_PER_PREFILL = {"rmsnorm": 19, "alf_midpoint": 12, "alf_update": 12}
+# residual branch, no MLP branch): 2 layers x 3 mixer norms + the final
+# norm; 2 layers x 2 ALF steps, one midpoint and one update each
+XL_PER_PREFILL = {"rmsnorm": 7, "alf_midpoint": 4, "alf_update": 4}
 XL_PER_DECODE = XL_PER_PREFILL
 # prefill(p) + decode against prefill(p + 1): the chunk rule allows p < 64
 # or a multiple of 64 only, so p = 63 (p + 1 = one 64-token chunk)
 XL_SELF_PROMPT = 63
-# (b): 3 Trainer steps at batch 8 x 256; per step 6 layers x 2 ALF steps
-# of each kernel forward and backward, 18 f-evals
-XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_FEVALS = 8, 256, 18
-XL_PER_STEP = {"alf_midpoint": 12, "alf_update": 12, "alf_bwd_pre": 12,
-               "alf_bwd_post": 12}
-XL_CUT_PERIODS, XL_CUT_SEQ = 1, 128      # (b) f32: one period, 6 layers
+# (b): 3 Trainer steps at batch 8 x 256; per step 2 layers x 2 ALF steps
+# of each kernel forward and backward, 6 f-evals
+XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_FEVALS = 8, 256, 6
+XL_PER_STEP = {"alf_midpoint": 4, "alf_update": 4, "alf_bwd_pre": 4,
+               "alf_bwd_post": 4}
+XL_CUT_PERIODS, XL_CUT_SEQ = 1, 128      # (b) f32: one period, 2 layers
 GM_ARCH = "gemma2-2b"
 # per prefill: 26 layers x 3 flash calls (d 256); 26 layers x 2 branches x
 # 3 norms + the final norm; 26 layers x 2 branches x 2 ALF steps
@@ -4899,15 +4921,16 @@ def _serve_cell(arch, per_prefill: dict, per_decode: dict, what: str):
 
 
 def _compare_cells(arch: str, self_prompt: int = 0, floor: bool = False,
-                   periods: int = 0, f32_periods: int = 0):
+                   periods: int = 0, f32_periods: int = 0, period=None):
     """``_lm_compare`` at phase 11's two cells: bf16 at batch LM_BATCH x
-    LM_PROMPT + 8 decode steps (``periods`` periods; 0: every one), f32
-    at batch 2 x 256 + 4 (``f32_periods``; 0: as the bf16 cell)."""
+    LM_PROMPT + 8 decode steps (``periods`` periods of ``period``; 0:
+    every one), f32 at batch 2 x 256 + 4 (``f32_periods``; 0: as the
+    bf16 cell)."""
     import torch
     return [_lm_compare(torch.bfloat16, LM_BATCH, LM_PROMPT, 8, arch,
-                        self_prompt, floor, periods),
+                        self_prompt, floor, periods, period),
             _lm_compare(torch.float32, 2, 256, 4, arch, self_prompt, floor,
-                        f32_periods or periods)]
+                        f32_periods or periods, period)]
 
 
 def _xl_vjp_bytes(params, cfg, tokens: int):
@@ -4956,8 +4979,8 @@ def _xl_cli(label: str, want: str):
 
 
 def phase_xlstm(card: str, smi: str):
-    """Phase 18: xlstm-125m at full width, one of its two periods (6 of 12
-    layers). (a) served through the decode graph with phase 11's checks;
+    """Phase 18: xlstm-125m at full width, one mLSTM and the sLSTM layer
+    (2 of 12 layers). (a) served through the decode graph with phase 11's checks;
     (b) trained (MALI, ALF cuda, 3 Trainer steps at batch 8 x 256) with
     phase 17's checks and the bytes one mLSTM f-eval VJP holds; (c) the
     two launchers (both periods). Returns the per-prefill,
@@ -4971,17 +4994,21 @@ def phase_xlstm(card: str, smi: str):
 
     import dataclasses
     from repro_torch.configs import get_config
-    cut = dataclasses.replace(get_config(XL_ARCH), n_periods=XL_PERIODS)
+    period = _xl_period()
+    cut = dataclasses.replace(get_config(XL_ARCH), n_periods=XL_PERIODS,
+                              period=period)
     _, serve_fields, params = _serve_cell(cut, XL_PER_PREFILL,
                                           XL_PER_DECODE, "xlstm")
     del params
     torch.cuda.empty_cache()
     lap("a_serve")
     serve_fields["compare"] = _compare_cells(XL_ARCH, XL_SELF_PROMPT,
-                                             floor=True, periods=XL_PERIODS)
+                                             floor=True, periods=XL_PERIODS,
+                                             period=period)
     lap("a_compare")
     trainer, batch0, per_step, full = _lt_full_width(
-        XL_ARCH, XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_PER_STEP, XL_PERIODS)
+        XL_ARCH, XL_TRAIN_BATCH, XL_TRAIN_SEQ, XL_PER_STEP, XL_PERIODS,
+        period)
     require(full["fevals_per_step"] == XL_FEVALS,
             f"xlstm (b): {full['fevals_per_step']} f-evals a step")
     lap("b_train")
@@ -4996,7 +5023,7 @@ def phase_xlstm(card: str, smi: str):
     torch.cuda.empty_cache()
     compare = _lt_kernel_vs_reference(params, batch0, XL_ARCH,
                                       XL_CUT_PERIODS, XL_CUT_SEQ,
-                                      XL_TRAIN_BATCH, XL_PERIODS)
+                                      XL_TRAIN_BATCH, XL_PERIODS, period)
     del params
     torch.cuda.empty_cache()
     lap("b_compare")
@@ -5138,6 +5165,18 @@ DP_TIMEOUT = 420              # seconds the ranks may take together
 # ode_batch_axis), qwen3-1.7b at full width, DP_CUT_LAYERS layers in f32,
 # DP_ADAPTIVE_BATCH rows of DP_CUT_SEQ tokens (2 a rank), one step
 DP_ADAPTIVE_BATCH = 4
+# (f): the fleet of 'data' (ode_batch_axis="data", ode_steps=0) on a
+# (pod 2, data 2, model 1) mesh, four ranks sharing the card: the JAX
+# package's Sharded("data") cuts the global batch into 2 blocks, each the
+# rows of a pod's 2 data ranks, solved with a controller of its own whose
+# error norm is summed over those 2 ranks every trial. qwen3-1.7b at full
+# width, DP_CUT_LAYERS layers in f32, DP_FLEET_BATCH rows of DP_CUT_SEQ
+# tokens (2 a rank), one step; held to one rank's per-block composition
+DP_FLEET_MESH = (2, 2, 1)
+DP_FLEET_WORLD = 4
+DP_FLEET_BLOCKS = 2
+DP_FLEET_BATCH = 8
+DP_FLEET_TIMEOUT = 300        # seconds the four ranks may take together
 
 
 def _dp_checksums(tree):
@@ -5261,6 +5300,29 @@ def _dp_f32_cut() -> dict:
         t.state.params)}
 
 
+@contextlib.contextmanager
+def _dp_noting(log: list):
+    """Inside the block every branch solve's (accepted, rejected) trials
+    are noted in ``log`` (device tensors; a batched solve's first row's,
+    its block's), through a wrapper of ``models.transformer.solve``."""
+    from repro_torch.models import transformer
+    solve = transformer.solve
+
+    def noting(*args, **kw):
+        sol = solve(*args, **kw)
+        per = sol.stats.per_sample
+        log.append((sol.stats.n_accepted, sol.stats.n_rejected)
+                   if per is None else (per.n_accepted[0],
+                                        per.n_rejected[0]))
+        return sol
+
+    transformer.solve = noting
+    try:
+        yield log
+    finally:
+        transformer.solve = solve
+
+
 def _dp_adaptive() -> dict:
     """(e) on one rank, or the one-rank reference: one Trainer step under
     adaptive control, each block's (accepted, rejected) trials in call
@@ -5269,24 +5331,14 @@ def _dp_adaptive() -> dict:
     ranks' parameters are bit-equal after it."""
     import torch
     import torch.distributed as dist
-    from repro_torch.models import transformer
     cfg = _lt_config("cuda", n_steps=0, layers=DP_CUT_LAYERS,
                      dtype="float32")
     t = _dp_trainer(cfg, steps=1, global_batch=DP_ADAPTIVE_BATCH,
                     seq_len=DP_CUT_SEQ)
-    log, solve = [], transformer.solve
-
-    def noting(*args, **kw):
-        sol = solve(*args, **kw)
-        log.append((sol.stats.n_accepted, sol.stats.n_rejected))
-        return sol
-
+    log = []
     before = _dp_counts()
-    transformer.solve = noting
-    try:
+    with _dp_noting(log):
         require(t.train() == 1, "dp_train (e): the step did not finish")
-    finally:
-        transformer.solve = solve
     _, coll = _dp_delta(before, _dp_counts())
     torch.cuda.synchronize()
     return {**_dp_records(t),
@@ -5413,11 +5465,14 @@ def _dp_moe(d: Path, rank: int) -> dict:
     from repro_torch.launch.mesh import make_host_mesh
     cfg = _dp_moe_cfg()
     params = _dp_moe_params(cfg)
-    plan = DataParallel(cfg, make_host_mesh(DP_DEVICE), params)
+    mesh = make_host_mesh(DP_DEVICE)
+    plan = DataParallel(cfg, mesh, params)
     rows, split = plan.local_rows(_lt_batch(cfg, DP_MOE_BATCH, DP_MOE_SEQ))
     require(split, "dp_train (c): the rows are not split")
     kept = _dp_kept(params, cfg, rows, plan)
-    shard = _dp_kept(params, _dp_moe_cfg("data"), rows, plan)
+    shard_cfg = _dp_moe_cfg("data")
+    shard = _dp_kept(params, shard_cfg, rows,
+                     DataParallel(shard_cfg, mesh, params))
     np.savez(d / f"moe_{rank}.npz", **{f"global_{i}": k
                                        for i, k in enumerate(kept)},
              **{f"shard_{i}": k for i, k in enumerate(shard)})
@@ -5453,18 +5508,20 @@ def _dp_rank(argv) -> int:
     return 0
 
 
-def _dp_spawn(d: Path):
-    """Run the ranks; returns their results (raises if any fails or the
-    ranks outlast DP_TIMEOUT)."""
+def _dp_spawn(d: Path, flag: str = "--dp-rank", name: str = "rank",
+              world: int = DP_WORLD, timeout: float = DP_TIMEOUT):
+    """Run the ranks (``chip_smoke.py FLAG RANK DIR``, each writing
+    ``DIR/<name><rank>.json``); returns their results (raises if any
+    fails or the ranks outlast ``timeout``)."""
     import os
     env = {**os.environ, "PYTHONPATH": str(SRC)}
-    logs = [open(d / f"rank{r}.log", "w") for r in range(DP_WORLD)]
+    logs = [open(d / f"{name}{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                               "--dp-rank", str(r), str(d)], cwd=str(HERE),
+                               flag, str(r), str(d)], cwd=str(HERE),
                               env=env, stdout=logs[r],
                               stderr=subprocess.STDOUT)
-             for r in range(DP_WORLD)]
-    deadline = time.monotonic() + DP_TIMEOUT
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -5478,11 +5535,11 @@ def _dp_spawn(d: Path):
         for f in logs:
             f.close()
     for r, p in enumerate(procs):
-        require(p.returncode == 0, f"dp_train: rank {r} failed "
+        require(p.returncode == 0, f"dp_train: {name} {r} failed "
                 f"(exit {p.returncode}): "
-                f"{(d / f'rank{r}.log').read_text()[-3000:]}")
-    return [json.loads((d / f"rank{r}.json").read_text())
-            for r in range(DP_WORLD)]
+                f"{(d / f'{name}{r}.log').read_text()[-3000:]}")
+    return [json.loads((d / f"{name}{r}.json").read_text())
+            for r in range(world)]
 
 
 def _dp_one_rank(d: Path) -> dict:
@@ -5700,6 +5757,170 @@ def _dp_check_adaptive(ranks, one) -> dict:
         "part_s": [g["adaptive"]["part_s"] for g in ranks]}
 
 
+def _dp_fleet_cfg(batch_axis="data"):
+    """(f)'s config: qwen3-1.7b at full width, DP_CUT_LAYERS layers, f32,
+    adaptive, its branches a fleet over ``batch_axis`` (None: one
+    controller over the batch, the one-rank blocks')."""
+    import dataclasses
+    cfg = _lt_config("cuda", n_steps=0, layers=DP_CUT_LAYERS,
+                     dtype="float32")
+    return dataclasses.replace(cfg, ode=dataclasses.replace(
+        cfg.ode, batch_axis=batch_axis))
+
+
+def _dp_fleet_params(cfg):
+    import torch
+    from repro_torch.models import init_lm
+    return init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                   DP_DEVICE)
+
+
+def _dp_fleet_one_rank() -> dict:
+    """(f)'s oracle on one rank: each fleet block's loss and gradients
+    alone (one controller over its rows), its trials branch by branch
+    and its ALF launches, averaged over the blocks (equal token
+    counts)."""
+    import torch
+    from repro_torch import tree_util
+    from repro_torch.train import loss_and_grads
+    cfg = _dp_fleet_cfg(None)
+    params = _dp_fleet_params(cfg)
+    batch = _lt_batch(cfg, DP_FLEET_BATCH, DP_CUT_SEQ)
+    rows = DP_FLEET_BATCH // DP_FLEET_BLOCKS
+    blocks, losses, mean = [], [], None
+    for i in range(DP_FLEET_BLOCKS):
+        log = []
+        before = _dp_counts()
+        with _dp_noting(log):
+            loss, stats, grads = loss_and_grads(
+                params, {k: v[i * rows:(i + 1) * rows]
+                         for k, v in batch.items()}, cfg=cfg)
+        torch.cuda.synchronize()
+        launches, _ = _dp_delta(before, _dp_counts())
+        losses.append(float(loss))
+        g = [t / DP_FLEET_BLOCKS for t in tree_util.tree_leaves(grads)]
+        mean = g if mean is None else [a + b for a, b in zip(mean, g)]
+        blocks.append({"trials": [[int(a), int(r)] for a, r in log],
+                       "fevals": int(stats.n_fevals),
+                       "launches": launches})
+    norm = float(torch.sqrt(sum(torch.sum(torch.square(t.double()))
+                                for t in mean)))
+    return {"loss": float(np.mean(losses)), "grad_norm": norm,
+            "fevals": rows * sum(b["fevals"] for b in blocks),
+            "blocks": blocks}
+
+
+def _dp_fleet_rank(argv) -> int:
+    """One rank of phase 20 (f): ``chip_smoke.py --fleet-rank RANK
+    DIR``."""
+    rank, d = int(argv[0]), Path(argv[1])
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(torch.device(DP_DEVICE))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(d / "fleet_store"), DP_FLEET_WORLD), rank=rank,
+        world_size=DP_FLEET_WORLD)
+    try:
+        from repro_torch.distributed.data_parallel import DataParallel
+        from repro_torch.optim import OptimizerConfig, init_opt_state
+        from repro_torch.train import train_step
+        t0 = time.perf_counter()
+        mesh = init_device_mesh("cuda", DP_FLEET_MESH,
+                                mesh_dim_names=("pod", "data", "model"))
+        cfg = _dp_fleet_cfg()
+        whole = _dp_fleet_params(cfg)
+        plan = DataParallel(cfg, mesh, whole)
+        require(plan.checksum_equal(whole), "dp_train (f): the ranks' "
+                "seeded weights differ")
+        params = plan.param_shards(whole)
+        del whole
+        opt_cfg = OptimizerConfig()
+        opt = init_opt_state(opt_cfg, plan.param_to_opt(params))
+        batch = _lt_batch(cfg, DP_FLEET_BATCH, DP_CUT_SEQ)
+        rows, split = plan.local_rows({"i": torch.arange(DP_FLEET_BATCH)})
+        log = []
+        before = _dp_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with mesh, _dp_noting(log):
+            params, opt, _, m = train_step(params, opt, None, batch,
+                                           cfg=cfg, opt_cfg=opt_cfg,
+                                           zero1=True)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3
+        launches, coll = _dp_delta(before, _dp_counts())
+        out = {"rows": rows["i"].tolist(), "split": split.axes,
+               "coord": dict(zip(mesh.mesh_dim_names,
+                                 mesh.get_coordinate())),
+               "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "fevals": int(m["ode_fevals"]),
+               "trials": [[int(a), int(r)] for a, r in log],
+               "launches": launches,
+               "error_norm": coll.get("error_norm", {}),
+               "error_norm_data": coll.get("error_norm@data", {}),
+               "host_staged": coll["host_staged"],
+               "params_equal": _dp_same_on_ranks(
+                   plan.gather_params(params)),
+               "step_ms": step_ms, "rank_s": time.perf_counter() - t0}
+        (d / f"fleet_rank{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _dp_check_fleet(ranks, one) -> dict:
+    """(f): hold each rank to its block of the one-rank composition."""
+    rows = DP_FLEET_BATCH // DP_FLEET_BLOCKS
+    worst = {}
+    for r, got in enumerate(ranks):
+        where = f"dp_train (f) rank {r}"
+        block = got["rows"][0] // rows
+        want = one["blocks"][block]
+        require(got["split"] == ["pod", "data"] and block
+                == got["coord"]["pod"], f"{where}: rows {got['rows']} over "
+                f"{got['split']} at {got['coord']}")
+        require(got["trials"] == want["trials"], f"{where}: (accepted, "
+                f"rejected) by branch {got['trials']}, block {block} on "
+                f"one rank {want['trials']}")
+        require(got["launches"] == want["launches"], f"{where}: ALF "
+                f"launches {got['launches']}, block {block} on one rank "
+                f"{want['launches']}")
+        trials = sum(a + b for a, b in got["trials"])
+        require(got["error_norm"].get("calls") == trials
+                == got["error_norm_data"].get("calls"), f"{where}: "
+                f"{got['error_norm']} error-norm reductions for {trials} "
+                "trials of its block")
+        require(got["fevals"] == one["fevals"], f"{where}: f-evals "
+                f"{got['fevals']}, the blocks' {one['fevals']}")
+        require(got["params_equal"], f"{where}: the ranks' parameters "
+                "differ")
+        for m in ("loss", "grad_norm"):
+            worst[m] = max(worst.get(m, 0.0), _dp_rel(got[m], one[m]))
+    require(max(worst.values()) <= DP_TOL["float32"], f"dp_train (f): four "
+            f"ranks against the one-rank blocks: {worst} (tolerance "
+            f"{DP_TOL['float32']})")
+    return {
+        "config": {"arch": LM_ARCH, "layers": f"{DP_CUT_LAYERS} of 28",
+                   "d_model": 2048, "dtype": "float32",
+                   "global_batch": DP_FLEET_BATCH, "seq_len": DP_CUT_SEQ,
+                   "mesh": dict(zip(("pod", "data", "model"),
+                                    DP_FLEET_MESH)),
+                   "ode": "MALI, ALF(cuda), AdaptiveController(1e-2, 1e-3, "
+                   "32), ode_batch_axis='data': 2 blocks of 2 ranks"},
+        "blocks": [{k: b[k] for k in ("trials", "fevals", "launches")}
+                   for b in one["blocks"]],
+        "rel": worst, "tolerance": DP_TOL["float32"],
+        "ranks": [{k: g[k] for k in ("loss", "grad_norm", "fevals",
+                                     "step_ms", "rank_s", "error_norm",
+                                     "host_staged")} for g in ranks],
+        "one_rank": {m: one[m] for m in ("loss", "grad_norm", "fevals")},
+        "launches_per_rank": [g["launches"] for g in ranks]}
+
+
 def _dp_cli(res) -> dict:
     """(d), run by phase_clis: the training CLI on two ranks of one
     card."""
@@ -5717,8 +5938,9 @@ def phase_dp_train(card: str, smi: str):
     """Phase 20: data-parallel training over two ranks sharing the card
     (gloo): (a) qwen3-1.7b at full width, (b) recovery and checkpoints
     across world sizes, (c) the MoE under DP, (d) the CLI, (e) one
-    adaptive controller over both ranks. Returns the ALF launches of one
-    step of (a) on a rank."""
+    adaptive controller over both ranks; then (f) the fleet of 'data'
+    over four ranks on (pod 2, data 2). Returns the ALF launches of one
+    step of (a) on a rank and of (f) on each rank."""
     import tempfile
 
     import torch
@@ -5737,9 +5959,18 @@ def phase_dp_train(card: str, smi: str):
         lap("ranks")
         fields = _dp_check(d, ranks, ref)
         lap("check")
+        one = _dp_fleet_one_rank()
+        torch.cuda.empty_cache()
+        lap("fleet_one_rank")
+        fleet = _dp_spawn(d, "--fleet-rank", "fleet_rank", DP_FLEET_WORLD,
+                          DP_FLEET_TIMEOUT)
+        lap("fleet_ranks")
+        fields["fleet"] = _dp_check_fleet(fleet, one)
+        lap("fleet_check")
     emit({"phase": "dp_train", "card": card, "nvidia_smi": smi, **fields,
           "part_s": parts, "phase_s": time.perf_counter() - t0})
-    return ranks[0]["full_width"]["launches_per_step"][0]
+    return {"train": ranks[0]["full_width"]["launches_per_step"][0],
+            "fleet": fields["fleet"]["launches_per_rank"]}
 
 
 
@@ -7827,7 +8058,9 @@ def _new_cell_launches(name: str, xlstm: dict, gemma2: dict,
             "launches_xlstm_train": xlstm["train"].get(name, 0),
             "launches_gemma2_prefill": gemma2["prefill"].get(name, 0),
             # per data-parallel qwen3 training step, on each rank (20)
-            "launches_dp_train": dp.get(name, 0),
+            "launches_dp_train": dp["train"].get(name, 0),
+            # per fleet step of (f), on each of the four ranks (20)
+            "launches_dp_fleet": [per.get(name, 0) for per in dp["fleet"]],
             # per granite-20b training step on a rank of (2, 2) (22)
             "launches_tp_train": tp.get(name, 0),
             # per prefill and per decode step of each config (21)
@@ -8038,6 +8271,8 @@ def _main_phases(card: str, smi: str, rl_helper: dict) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(_dp_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--fleet-rank"]:
+        sys.exit(_dp_fleet_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-rank"]:
         sys.exit(_tp_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["--tps-rank"]:

@@ -131,18 +131,17 @@ class OdeSettings:
         rows of that system and one controller runs over all of them, its
         error norm summed over the data ranks:
         :func:`~repro_torch.core.stepsize.global_error_norm`).
-        ``batch_axis`` names a mesh dimension: the
-        block's solve runs as a ``Sharded(axis)`` fleet over the ambient
-        ``with mesh:`` context (:mod:`repro_torch.distributed.sharding`).
-        Under data parallelism over that axis the rows are already split
-        (:func:`~repro_torch.distributed.data_parallel.solves_per_shard`):
-        this rank's rows are its shard, solved with ``Sharded``'s inner
-        batching and not sliced again."""
+        ``batch_axis`` names a mesh dimension: the block's solve runs as
+        a ``Sharded(axis)`` fleet over the ambient ``with mesh:`` context
+        (:mod:`repro_torch.distributed.sharding`). In a data-parallel
+        step the rows are already the rank's, and ``Sharded`` solves
+        them as the rank's part of the fleet
+        (:func:`~repro_torch.distributed.data_parallel.fleet`: its
+        blocks one after another, a block spanning several ranks with
+        its error norm summed over them)."""
         if self.batch_axis is None:
             return None
-        from repro_torch.distributed.data_parallel import solves_per_shard
-        sharded = Sharded(axis=self.batch_axis)
-        return sharded.inner if solves_per_shard(self) else sharded
+        return Sharded(axis=self.batch_axis)
 
 
 def ode_block(dynamics: Callable[[Pytree, Pytree, Any], Pytree],

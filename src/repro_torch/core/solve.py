@@ -275,6 +275,51 @@ def _solve_per_sample(f, params, z0, grid, solver, controller, gradient,
     return ys, RunStats(*(c.detach() for c in per))
 
 
+def _solve_inner(f, params, z0, grid, nb, solver, controller, gradient,
+                 trajectory, inner: Batching):
+    """A shard's rows solved with ``Sharded``'s ``inner`` batching."""
+    if isinstance(inner, PerSample):
+        return _solve_per_sample(f, params, z0, grid, solver, controller,
+                                 gradient, trajectory)
+    return _solve_lockstep(f, params, z0, grid, nb, solver, controller,
+                           gradient, trajectory)
+
+
+def _solve_fleet_part(f, params, z0, grid, nb, solver, controller, gradient,
+                      trajectory, batching: Sharded, part):
+    """This rank's rows of a data-parallel step's global batch as its
+    part of the ``Sharded`` fleet ``part`` (a
+    :class:`~repro_torch.distributed.data_parallel.Fleet`): the fleet's
+    blocks in these rows solved one after another, each with the inner
+    batching and its own controller, and put back together; a block that
+    spans several ranks' rows has its error norm summed over them every
+    trial (:func:`~repro_torch.core.stepsize.global_error_norm`). The
+    rows stay the rank's: nothing is sliced over a mesh axis (the layers
+    inside ``f`` may be split over one, whose ranks hold the same rows
+    and run the same solves) and nothing is gathered; the parameters'
+    cotangents are summed over the ranks by the step."""
+    from .stepsize import global_error_norm
+    if nb % part.parts:
+        raise ValueError(
+            f"Sharded(axis={batching.axis!r}): batch size "
+            f"{nb * part.ranks} is not divisible by the axis size "
+            f"{part.n}; pad the batch or pick a divisible size")
+    size = nb // part.parts
+    outs = []
+    with global_error_norm(part.group):
+        for i in range(part.parts):
+            z = z0 if part.parts == 1 else _tm(
+                lambda x: x[i * size:(i + 1) * size], z0)
+            outs.append(_solve_inner(f, params, z, grid, size, solver,
+                                     controller, gradient, trajectory,
+                                     batching.inner))
+    if part.parts == 1:
+        return outs[0]
+    ys = _tm(lambda *xs: torch.cat(xs, 0), *[o[0] for o in outs])
+    return ys, RunStats(*(torch.cat(c, 0) for c in zip(*[o[1]
+                                                          for o in outs])))
+
+
 def _solve_sharded(f, params, z0, grid, nb, solver, controller, gradient,
                    trajectory, batching: Sharded):
     """Data parallelism over one axis of the ambient device mesh: each
@@ -282,10 +327,18 @@ def _solve_sharded(f, params, z0, grid, nb, solver, controller, gradient,
     whole batch is gathered back on every rank. ``z0`` and ``params`` are
     replicated, so their cotangents are summed over the ranks (the
     gradient of the JAX package's replicated-in, sharded-out
-    ``shard_map``)."""
+    ``shard_map``). Inside a data-parallel step's :func:`~repro_torch.
+    distributed.data_parallel.fleet` of the axis, ``z0`` is the rank's
+    rows and :func:`_solve_fleet_part` solves them."""
+    from repro_torch.distributed.data_parallel import fleet_for
     from repro_torch.distributed.sharding import (ambient_mesh, axis_group,
                                                   gather_rows,
                                                   mark_replicated)
+    part = fleet_for(batching.axis)
+    if part is not None:
+        return _solve_fleet_part(f, params, z0, grid, nb, solver,
+                                 controller, gradient, trajectory, batching,
+                                 part)
     mesh = ambient_mesh()
     if mesh is None:
         raise ValueError(
@@ -308,12 +361,8 @@ def _solve_sharded(f, params, z0, grid, nb, solver, controller, gradient,
     p_local = _tm(lambda x: mark_replicated(x, group, n_shards), params)
     z_local = _tm(
         lambda x: mark_replicated(x, group, n_shards)[lo:lo + local], z0)
-    if isinstance(batching.inner, PerSample):
-        ys, per = _solve_per_sample(f, p_local, z_local, grid, solver,
-                                    controller, gradient, trajectory)
-    else:
-        ys, per = _solve_lockstep(f, p_local, z_local, grid, local, solver,
-                                  controller, gradient, trajectory)
+    ys, per = _solve_inner(f, p_local, z_local, grid, local, solver,
+                           controller, gradient, trajectory, batching.inner)
 
     def gather(x):
         return gather_rows(x, group, n_shards, rank)

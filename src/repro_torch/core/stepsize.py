@@ -41,6 +41,13 @@ and MALI's backward replays the same ``(t_i, h_i)`` everywhere with no
 collective. Where autograd reaches the norm (Naive differentiates
 through the step sizes) the backward sums the cotangent over the group,
 as ``psum``'s transpose does.
+
+The group is the ranks that hold one system's rows: the whole rows'
+group for one controller over the global batch, or, in a ``Sharded``
+fleet whose blocks span several ranks, the ranks of this rank's block
+(:func:`~repro_torch.distributed.data_parallel.fleet_of`: one group for
+each block, the blocks' reductions running side by side). The
+reduction is counted as ``error_norm@<the group's axes>``.
 """
 from __future__ import annotations
 
@@ -79,8 +86,8 @@ def global_error_norm(group) -> Iterator[None]:
     """Inside the block the error norm of every solve that is not per-row
     (``rows=False``) is summed over ``group`` (a
     :class:`~repro_torch.distributed.data_parallel.DataGroup` of the ranks
-    that hold the batch's rows; None: nothing changes), module
-    docstring."""
+    that hold one system's rows: the global batch's, or one fleet
+    block's; None: nothing changes), module docstring."""
     if group is None:
         yield
         return

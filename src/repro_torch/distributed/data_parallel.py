@@ -24,15 +24,26 @@ unsharded step's:
   summed over the rows' group every trial before the mean and the root
   (:func:`repro_torch.core.stepsize.global_error_norm`, opened by
   :meth:`DataParallel.computing`; counted as ``error_norm@<axes>``), so
-  every rank takes the same decisions and step sizes. With
-  ``ode.batch_axis='data'`` each rank's controller solves its own rows
-  (:func:`solves_per_shard`).
+  every rank takes the same decisions and step sizes.
+* **Fleet blocks.** With ``ode.batch_axis = a`` (an axis of size n) the
+  JAX package's residual branch is a ``shard_map`` over ``a``: each
+  microbatch's rows are cut into n contiguous blocks, and each block is
+  solved alone, with its own controller and MoE token ranking. The
+  ranks hold each microbatch's rows in R contiguous blocks (the rows'
+  group), so :class:`Fleet` maps the fleet's blocks onto the ranks
+  (:func:`fleet`, opened by :meth:`DataParallel.computing`): where n
+  divides R a block spans R / n ranks, whose error norm is summed over
+  them every trial (a group of its own for each block); where R divides
+  n each rank solves its n / R blocks one after another
+  (:func:`repro_torch.core.solve.solve` under ``Sharded``), never
+  slicing its rows over an axis the layers split. Other sizes are
+  refused (:func:`check_supported`).
 * **Coupled rows.** The mean cross-entropy's count of labels is summed
   over the rows' group, so each rank's loss is its share of the global
   mean, and the MoE's capacity and buffer positions follow the global
   token order. Both read :func:`row_split` (:meth:`DataParallel.
-  splitting_rows`); inside a residual branch that solves each rank's rows
-  on its own (:func:`solves_per_shard`) the MoE's tokens are the rank's.
+  splitting_rows`); inside a residual branch solved as a fleet
+  (:func:`solves_per_shard`) the MoE's tokens are its block's.
 * **Parameters.** Each rank holds its block of every leaf by
   ``param_shardings``, on both axes (:meth:`DataParallel.param_shards`).
   A leaf split over ``'model'`` stays split: the layers compute on their
@@ -57,10 +68,10 @@ unsharded step's:
   over the mesh in one collective, then added leaf by leaf in tree order
   as ``optim.optimizer.global_norm`` does.
 
-Refused (:func:`check_supported`): adaptive step control over several
-data ranks with an ``ode.batch_axis`` whose fleet's blocks of the global
-batch are not the ranks' rows (an axis other than 'data', or 'data'
-beside a 'pod' axis): :data:`ADAPTIVE_ITEM`.
+Refused (:func:`check_supported`): an ``ode.batch_axis`` whose fleet's
+blocks neither span whole ranks' rows nor split them (the axis size and
+the number of row blocks divide neither one the other):
+:data:`ADAPTIVE_ITEM`.
 
 **Serving** (:class:`ServePlan`, :func:`serve_plan_for`): a prefill or
 decode step on a mesh, on the parameter leaves' layout that training
@@ -230,36 +241,70 @@ class DataGroup:
 _GROUPS: Dict[tuple, DataGroup] = {}
 
 
-def mesh_group(mesh, axes) -> Optional[DataGroup]:
+def _block_axes(names: Tuple[str, ...], sizes: List[int], idx: int,
+                block: int) -> Tuple[str, ...]:
+    """The axes among ``names`` (of ``sizes``, first axis major) on which
+    the ``block`` consecutive flattened indices holding ``idx`` differ."""
+    start = idx - idx % block
+    out = []
+    for i, a in enumerate(names):
+        inner = math.prod(sizes[i + 1:])
+        if len({(j // inner) % sizes[i]
+                for j in range(start, start + block)}) > 1:
+            out.append(a)
+    return tuple(out)
+
+
+def mesh_group(mesh, axes, block: Optional[int] = None
+               ) -> Optional[DataGroup]:
     """The :class:`DataGroup` over the mesh dimensions ``axes`` of size
     > 1 (one dimension's own group, or the dimensions flattened in the
-    order given), None when there are none. Every rank of the mesh must
-    ask for the same groups in the same order."""
+    order given), None when there are none. With ``block`` (a divisor of
+    the flattened size) the group is the ``block`` consecutive ranks of
+    the flattened order that hold this rank (one group for each run of
+    ``block``, named after the axes its ranks differ on), None for a
+    block of one. Every rank of the mesh must ask for the same groups in
+    the same order."""
     sizes = mesh_axes(mesh)
     axes = tuple(a for a in axes if sizes.get(a, 1) > 1)
-    if not axes:
+    whole = math.prod(sizes[a] for a in axes)
+    block = whole if block is None else block
+    if not axes or block == 1:
         return None
     stand_in = getattr(mesh, "stand_in_group", None)
     if stand_in is not None:
         # one rank's view of a mesh with no process group (the dry run's
         # distributed/stand_in.py): its groups record, and compute nothing
-        return stand_in(axes)
-    key = (mesh, axes)
+        return stand_in(axes, block)
+    key = (mesh, axes, block)
     if key not in _GROUPS:
-        if len(axes) == 1:
+        if len(axes) == 1 and block == whole:
             _GROUPS[key] = DataGroup(axes[0], *axis_group(mesh, axes[0]))
         else:
             names = list(mesh.mesh_dim_names)
             rest = [names.index(a) for a in names if a not in axes]
             ranks = mesh.mesh.permute(rest + [names.index(a) for a in axes])
             me, mine = dist.get_rank(), None
-            for row in ranks.reshape(-1, math.prod(
-                    sizes[a] for a in axes)).tolist():
+            for row in ranks.reshape(-1, block).tolist():
                 pg = dist.new_group(row)
                 if me in row:
                     mine = (pg, len(row), row.index(me))
-            _GROUPS[key] = DataGroup("+".join(axes), *mine, axes=axes)
+            idx, _ = _flat_index(mesh, axes)
+            over = _block_axes(axes, [sizes[a] for a in axes], idx, block)
+            _GROUPS[key] = DataGroup("+".join(over), *mine, axes=over)
     return _GROUPS[key]
+
+
+def _flat_index(mesh, axes) -> Tuple[int, int]:
+    """(this rank's index over the mesh dimensions ``axes`` flattened,
+    first axis major; their number of ranks)."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sizes = mesh_axes(mesh)
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * sizes[a] + coord[a]
+        n *= sizes[a]
+    return idx, n
 
 
 # The groups the rows of the computation now running are split over,
@@ -268,24 +313,96 @@ def mesh_group(mesh, axes) -> Optional[DataGroup]:
 _ROW_SPLITS: List[DataGroup] = []
 
 
-def solves_per_shard(ode) -> bool:
-    """Whether a residual branch under the ODE settings ``ode`` solves
-    this rank's rows on their own: the rows are split over the branch's
-    ``batch_axis`` (the JAX package's ``shard_map``, whose shard is the
-    rank's rows)."""
-    return (bool(_ROW_SPLITS) and ode.mode != "off"
-            and ode.batch_axis in _ROW_SPLITS[-1].axes)
+class Fleet(NamedTuple):
+    """How this rank's rows take part in the ``Sharded(axis)`` fleet of a
+    residual branch: the JAX package's ``shard_map`` over ``axis``, which
+    cuts each microbatch's rows into ``n`` contiguous blocks and solves
+    each alone. The ranks hold each microbatch's rows in ``ranks``
+    contiguous blocks (their rows' group); one of the two counts divides
+    the other."""
+    axis: str
+    n: int                      # the fleet's blocks of a microbatch
+    ranks: int                  # the rows' blocks (1: every row here)
+    parts: int                  # blocks in this rank's rows, n / ranks
+    group: Optional[DataGroup]  # the ranks holding this rank's block's
+    #                             rows where it spans several, else None
+
+
+def fleet_of(mesh, axis: str, rows: Optional[DataGroup]) -> Fleet:
+    """The :class:`Fleet` of ``axis`` on ``mesh`` for rows split over
+    ``rows`` (None: every rank holds every row). Raises ``ValueError`` for
+    an axis the mesh lacks (as the JAX package's ``Sharded`` does) and
+    ``NotImplementedError`` where the fleet's blocks straddle the ranks'
+    rows (:data:`ADAPTIVE_ITEM`). Every rank must call it in the same
+    order: a block spanning several ranks makes its group."""
+    sizes = mesh_axes(mesh)
+    if axis not in sizes:
+        raise ValueError(
+            f"Sharded(axis={axis!r}): the active mesh has axes "
+            f"{tuple(sizes)}; pass one of those (the production mesh "
+            "uses 'data' for batch parallelism)")
+    n, r = sizes[axis], 1 if rows is None else rows.size
+    _check_blocks(axis, sizes, n, r)
+    if n % r == 0:
+        return Fleet(axis, n, r, n // r, None)
+    return Fleet(axis, n, r, 1, mesh_group(mesh, rows.axes, block=r // n))
+
+
+def _check_blocks(axis: str, sizes: Dict[str, int], n: int, r: int) -> None:
+    """Raise ``NotImplementedError`` where ``n`` fleet blocks straddle
+    ``r`` row blocks (neither count divides the other)."""
+    if n % r and r % n:
+        raise NotImplementedError(
+            f"ode_batch_axis={axis!r} on the mesh {dict(sizes)}: its "
+            f"fleet's {n} blocks of each microbatch straddle the rows' {r} "
+            f"blocks; pick an axis whose size divides the data ranks' "
+            f"number or is divided by it ({ADAPTIVE_ITEM})")
+
+
+# The fleets of the computation now running (innermost last).
+_FLEETS: List[Fleet] = []
+
+
+@contextlib.contextmanager
+def fleet(mesh, axis: str, rows: Optional[DataGroup]) -> Iterator[Fleet]:
+    """Inside the block a ``Sharded(axis)`` solve, and the MoE inside its
+    residual branch (:func:`row_split`), takes this rank's rows of a
+    global batch split over ``rows`` as its part of the fleet
+    (:func:`fleet_of`; ``core/solve.py``: its blocks solved one after
+    another, each block's error norm summed over its group)."""
+    _FLEETS.append(fleet_of(mesh, axis, rows))
+    try:
+        yield _FLEETS[-1]
+    finally:
+        _FLEETS.pop()
+
+
+def fleet_for(axis: str) -> Optional[Fleet]:
+    """The open :func:`fleet` of ``axis``, else None."""
+    return _FLEETS[-1] if _FLEETS and _FLEETS[-1].axis == axis else None
+
+
+def solves_per_shard(ode) -> Optional[Fleet]:
+    """The fleet a residual branch under the ODE settings ``ode`` solves
+    this rank's rows in (the JAX package's ``shard_map`` over
+    ``ode.batch_axis``), else None."""
+    if ode.mode == "off" or ode.batch_axis is None:
+        return None
+    return fleet_for(ode.batch_axis)
 
 
 def row_split(ode=None) -> Optional[DataGroup]:
     """The group the current computation's rows are split over (inside
     :meth:`DataParallel.splitting_rows`), else None. Code that runs
     inside a residual branch passes the branch's ODE settings: in a
-    branch that :func:`solves_per_shard` the rows are the shard's own,
-    and this is None too."""
-    if not _ROW_SPLITS or (ode is not None and solves_per_shard(ode)):
-        return None
-    return _ROW_SPLITS[-1]
+    branch solved as a fleet (:func:`solves_per_shard`) the rows are its
+    block's, and this is the block's group (None where the block lies in
+    this rank's rows)."""
+    if ode is not None:
+        part = solves_per_shard(ode)
+        if part is not None:
+            return part.group
+    return _ROW_SPLITS[-1] if _ROW_SPLITS else None
 
 
 def _adaptive(cfg: ModelConfig) -> bool:
@@ -301,27 +418,29 @@ def _check_axes(mesh) -> Dict[str, int]:
     return axes
 
 
+def _rule_row_axes(cfg: ModelConfig, mesh) -> Tuple[str, ...]:
+    """The axes (of size > 1) the rule's first choice splits a batch's
+    rows over (``batch_shardings`` for a batch that divides), without
+    'model' under adaptive control."""
+    axes = dp_axes(mesh) + (("model",) if cfg.sharding == "dp" else ())
+    sizes = mesh_axes(mesh)
+    return tuple(a for a in axes if sizes.get(a, 1) > 1
+                 and not (a == "model" and _adaptive(cfg)))
+
+
 def check_supported(cfg: ModelConfig, mesh) -> None:
     """Raise ``ValueError`` for a mesh axis the rules do not name, and
-    ``NotImplementedError`` for adaptive control over several data ranks
-    under an ``ode.batch_axis`` whose fleet (the JAX package's
-    ``shard_map`` over that axis) takes blocks of the global batch that
-    are not the ranks' rows: an axis other than 'data', or 'data' beside
-    a 'pod' axis. Without a batch axis one controller runs over the
-    global batch (module docstring); under 'data' each rank's controller
-    solves its own rows."""
+    ``NotImplementedError`` for an ``ode.batch_axis`` whose fleet (the
+    JAX package's ``shard_map`` over that axis) cuts each microbatch into
+    blocks that straddle the ranks' rows: the axis size and the number of
+    row blocks divide neither one the other (:func:`fleet_of`). Every
+    other axis runs, under any step controller (module docstring)."""
     axes = _check_axes(mesh)
-    ranks = math.prod(axes.get(a, 1) for a in ("pod", "data"))
     axis = cfg.ode.batch_axis
-    if (ranks > 1 and _adaptive(cfg) and axis is not None
-            and (axis != "data" or axes.get("pod", 1) > 1)):
-        raise NotImplementedError(
-            f"adaptive step control (ode_steps=0) over several data ranks "
-            f"with ode_batch_axis={axis!r} on the mesh {dict(axes)}: the "
-            f"fleet over {axis!r} would solve blocks of the global batch "
-            f"that are not the ranks' rows; train with no ode_batch_axis "
-            f"(one controller over the global batch) or with 'data' on a "
-            f"mesh without 'pod' ({ADAPTIVE_ITEM})")
+    if cfg.ode.mode == "off" or axis not in axes:
+        return
+    _check_blocks(axis, axes, axes[axis],
+                  math.prod(axes[a] for a in _rule_row_axes(cfg, mesh)))
 
 
 # ---------------------------------------------------------------------------
@@ -546,11 +665,7 @@ class ParamLayout:
     def _index(self, names) -> Tuple[int, int]:
         """(this rank's block index, the number of blocks) over the axes
         ``names``, first axis major."""
-        idx, n = 0, 1
-        for a in names:
-            idx = idx * self.sizes[a] + self.coord[a]
-            n *= self.sizes[a]
-        return idx, n
+        return _flat_index(self.mesh, names)
 
     def _narrow(self, t: torch.Tensor, dims: Dims) -> torch.Tensor:
         """The rank's block of ``t`` along each of ``dims`` (a view)."""
@@ -654,16 +769,12 @@ class DataParallel(ParamLayout):
         lead of ``batch_shardings``, without 'model' under adaptive
         control."""
         if batch is None:
-            # the rule's first choice, for a batch that divides
-            axes = dp_axes(self.mesh) + (
-                ("model",) if self.cfg.sharding == "dp" else ())
-        else:
-            lead = _pt.tree_leaves(batch_shardings(self.cfg, self.mesh,
-                                                   batch))[0][0]
-            axes = (lead,) if isinstance(lead, str) else (lead or ())
-        if _adaptive(self.cfg):
-            axes = tuple(a for a in axes if a != "model")
-        return tuple(a for a in axes if self.sizes.get(a, 1) > 1)
+            return _rule_row_axes(self.cfg, self.mesh)
+        lead = _pt.tree_leaves(batch_shardings(self.cfg, self.mesh,
+                                               batch))[0][0]
+        axes = (lead,) if isinstance(lead, str) else (lead or ())
+        return tuple(a for a in axes if self.sizes.get(a, 1) > 1
+                     and not (a == "model" and _adaptive(self.cfg)))
 
     def local_rows(self, batch: Pytree, microbatches: int = 1
                    ) -> Tuple[Pytree, Optional[DataGroup]]:
@@ -691,29 +802,43 @@ class DataParallel(ParamLayout):
     def splitting_rows(self, split=True) -> Iterator[None]:
         """Inside the block (forward and backward), the loss and the MoE
         see rows split over ``split`` (a group from :meth:`local_rows`;
-        True: the plan's rows' group) (:func:`row_split`)."""
+        True: the plan's rows' group) (:func:`row_split`), and the
+        residual branches under ``ode.batch_axis`` solve the rank's part
+        of that axis's fleet (:func:`fleet`)."""
         if not split:
             yield
             return
-        _ROW_SPLITS.append(self.group if split is True else split)
+        group = self.group if split is True else split
+        _ROW_SPLITS.append(group)
         try:
-            yield
+            with self._fleet(group):
+                yield
         finally:
             _ROW_SPLITS.pop()
+
+    def _fleet(self, split):
+        """The :func:`fleet` of the config's ``ode.batch_axis`` for rows
+        split over ``split`` (a null context without one)."""
+        ode = self.cfg.ode
+        if ode.mode == "off" or ode.batch_axis is None:
+            return contextlib.nullcontext()
+        return fleet(self.mesh, ode.batch_axis, split)
 
     @contextlib.contextmanager
     def computing(self, split) -> Iterator[None]:
         """Where a step computes its loss and gradients from the rank's
         parameter shards: the rows split over ``split``, the layers
-        split over 'model', the 'data' shards gathered per layer, and
-        under one adaptive controller the error norm summed over
-        ``split``."""
+        split over 'model', the 'data' shards gathered per layer, under
+        one adaptive controller the error norm summed over ``split``,
+        and with an ``ode.batch_axis`` the residual branches solved as
+        that axis's fleet (:func:`fleet`)."""
         # one adaptive controller over the global batch: no batch axis
         norm = (split if _adaptive(self.cfg)
                 and self.cfg.ode.batch_axis is None else None)
         with self._splitting(split, self.model,
                              split is not None and "data" in split.axes,
-                             self.fsdp_dims), global_error_norm(norm):
+                             self.fsdp_dims), global_error_norm(norm), \
+                self._fleet(split):
             yield
 
     # -- leaves ---------------------------------------------------------------
@@ -995,8 +1120,8 @@ def serve_plan_for(cfg: ModelConfig, mesh, batch: int
 
 
 __all__ = ["COLLECTIVES", "HOST_STAGED", "FSDP_GATHERS", "DataGroup",
-           "DataParallel", "ParamLayout", "check_supported",
-           "collective_counts",
+           "DataParallel", "Fleet", "ParamLayout", "check_supported",
+           "collective_counts", "fleet", "fleet_for", "fleet_of",
            "fsdp_gathered", "fsdp_leaves", "fsdp_unbind", "mesh_group",
            "plan_for", "reset_collective_counts", "row_split",
            "solves_per_shard", "ServePlan", "serve_plan_for"]

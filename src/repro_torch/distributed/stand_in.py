@@ -84,15 +84,23 @@ class StandInMesh:
     def get_coordinate(self):
         return list(self.coordinate)
 
-    def stand_in_group(self, axes: Tuple[str, ...]) -> StandInGroup:
+    def stand_in_group(self, axes: Tuple[str, ...],
+                       block: Optional[int] = None) -> StandInGroup:
         """The group over the mesh dimensions ``axes`` (in that order,
-        first axis major)."""
+        first axis major); with ``block``, the ``block`` consecutive
+        ranks of that order that hold this rank, named after the axes
+        they differ on (``data_parallel.mesh_group``)."""
+        idx = [self.mesh_dim_names.index(a) for a in axes]
+        size, rank = 1, 0
+        for i in idx:
+            size *= self.shape[i]
+            rank = rank * self.shape[i] + self.coordinate[i]
+        if block is not None and block != size:
+            from repro_torch.distributed.data_parallel import _block_axes
+            over = _block_axes(tuple(axes), [self.shape[i] for i in idx],
+                               rank, block)
+            return StandInGroup(over, block, rank % block)
         if axes not in self._groups:
-            idx = [self.mesh_dim_names.index(a) for a in axes]
-            size, rank = 1, 0
-            for i in idx:
-                size *= self.shape[i]
-                rank = rank * self.shape[i] + self.coordinate[i]
             self._groups[axes] = StandInGroup(tuple(axes), size, rank)
         return self._groups[axes]
 

@@ -27,6 +27,12 @@ meta device. Collectives (``DataGroup`` and the dry run's stand-in
 groups) are recorded by kind, mesh axis and bytes in a
 :class:`~repro_torch.launch.roofline.CollectiveStats`.
 
+Work that repeats at the same shapes can be counted once and charged
+again (:func:`marks`, :func:`since`, :func:`charge`): on the meta device
+the xLSTM's chunk loop runs its first chunk and charges the others with
+its ops, forward and backward (``models/xlstm.py``), so a dry-run cell
+of thousands of tokens dispatches one chunk's per-token loop.
+
 :func:`count` runs a function under a counter; :func:`count_kernel_launches`
 (the JAX package's ``count_pallas_launches``) counts the kernel ops one
 call of a function makes, from the ops' ``OP_CALLS``.
@@ -141,6 +147,42 @@ class OpCounter(TorchDispatchMode):
         """One collective over a mesh axis (see ``CollectiveStats.add``)."""
         self.collectives.add(kind, axis, group, nbytes)
 
+    # -- repeated work --------------------------------------------------
+
+    def mark(self) -> tuple:
+        """The counts so far, for :meth:`since`."""
+        return (self.flops, self.flops_bf16, self.bytes, self.n_ops,
+                {k: list(v) for k, v in self.by_op.items()},
+                {k: list(v) for k, v in self.kernels.items()})
+
+    def since(self, mark: tuple) -> tuple:
+        """The ops (aten and kernel ops; not collectives) counted since
+        ``mark``."""
+        def table(now, then):
+            return {k: [a - b for a, b in zip(row, then.get(k, (0, 0, 0)))]
+                    for k, row in now.items()
+                    if list(row) != list(then.get(k, ()))}
+        f, f16, b, n, ops, ks = mark
+        return (self.flops - f, self.flops_bf16 - f16, self.bytes - b,
+                self.n_ops - n, table(self.by_op, ops),
+                table(self.kernels, ks))
+
+    def charge(self, counts: tuple, times: int = 1) -> None:
+        """Count ``times`` more the ops ``counts`` (from :meth:`since`)
+        holds, as if dispatched again."""
+        if times <= 0:
+            return
+        f, f16, b, n, ops, ks = counts
+        self.flops += f * times
+        self.flops_bf16 += f16 * times
+        self.bytes += b * times
+        self.n_ops += n * times
+        for mine, theirs in ((self.by_op, ops), (self.kernels, ks)):
+            for k, row in theirs.items():
+                have = mine.setdefault(k, [0, 0.0, 0.0])
+                for i in range(3):
+                    have[i] += row[i] * times
+
     # -- the dispatch ---------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -189,6 +231,23 @@ class OpCounter(TorchDispatchMode):
         return rows[:top] if top else rows
 
 
+def marks() -> List[Tuple[OpCounter, tuple]]:
+    """Every open counter with its :meth:`OpCounter.mark`."""
+    return [(c, c.mark()) for c in kernels.COUNTERS
+            if isinstance(c, OpCounter)]
+
+
+def since(marked: List[Tuple[OpCounter, tuple]]):
+    """Each counter of :func:`marks` with what it counted since."""
+    return [(c, c.since(m)) for c, m in marked]
+
+
+def charge(counted, times: int = 1) -> None:
+    """Charge each counter of :func:`since` ``times`` more."""
+    for c, counts in counted:
+        c.charge(counts, times)
+
+
 def count(fn: Callable, *args, **kwargs) -> Tuple[Any, OpCounter]:
     """(``fn(*args, **kwargs)``, the counter of what it dispatched)."""
     with OpCounter() as c:
@@ -220,4 +279,5 @@ def count_kernel_launches(fn: Callable, *args, by_op: bool = False,
     return diff if by_op else sum(diff.values())
 
 
-__all__ = ["OpCounter", "count", "count_kernel_launches"]
+__all__ = ["OpCounter", "charge", "count", "count_kernel_launches",
+           "marks", "since"]

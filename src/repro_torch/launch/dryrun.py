@@ -12,7 +12,9 @@ cell (ZeRO-1 over the ambient mesh), ``launch.serve.make_prefill_step``
 or the eager decode step (``launch.serve.make_decode_step``; a CUDA
 graph replay dispatches nothing) for a serve cell. ``launch/cost.py``
 counts it, and ``launch/roofline.py`` turns the count into the H100
-roofline::
+roofline. The xLSTM's chunk loops count their first 64-token chunk and
+charge the others its ops (``models/xlstm.py``), so its train and
+prefill cells dispatch one chunk's token loop a mixer call::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --arch all --shape all --mesh both
@@ -59,10 +61,6 @@ from repro_torch.launch.roofline import analyze
 from repro_torch.launch.specs import (batch_specs, decode_token_specs,
                                       param_specs, tree_bytes)
 
-# The port's xLSTM mixers loop over the tokens of each chunk in Python
-# (models/xlstm.py): a train or prefill cell at thousands of tokens
-# dispatches ~10^7 ops, hours on the meta device.
-XLSTM_LOOP_ITEM = "ROADMAP queue 2 item 2b.13"
 _ITEM_RE = re.compile(r"ROADMAP queue \d+ item \w+(\.\d+)?")
 
 
@@ -104,10 +102,6 @@ def _model_flops(cfg, cell, params_like) -> float:
     n_active = _active_params(cfg, params_like)
     tokens = cell.global_batch * (cell.seq_len if cell.kind != "decode" else 1)
     return _ode_units(cfg, cell.kind) / 2.0 * 2.0 * n_active * tokens
-
-
-def _loops_over_tokens(cfg) -> bool:
-    return any(l.mixer in ("mlstm", "slstm") for l in cfg.layers())
 
 
 def _rank_train(cfg, cell, mesh, microbatches: int):
@@ -192,14 +186,6 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     params_like = param_specs(cfg)
     record["active_params"] = _active_params(cfg, params_like)
     record["model_flops"] = _model_flops(cfg, cell, params_like)
-    if cell.kind in ("train", "prefill") and _loops_over_tokens(cfg):
-        record.update(
-            status="refused", item=XLSTM_LOOP_ITEM,
-            reason=f"{cfg.name}'s xLSTM mixers loop over the "
-                   f"{cell.seq_len} tokens in Python: counting one "
-                   f"{cell.kind} step would dispatch ~10^7 ops on meta "
-                   f"({XLSTM_LOOP_ITEM})")
-        return record
     mesh = StandInMesh(axes)
     try:
         with mesh:

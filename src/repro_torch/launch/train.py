@@ -29,11 +29,14 @@ starts from the environment and the Trainer trains over the host mesh
 The backend is NCCL when the ranks have cards of their own, gloo on the
 CPU or when ``--device`` puts every rank on one card (NCCL refuses two
 ranks on one device); the choice is logged. Only rank 0 prints its
-metrics and ``final_step=``. ``--ode-batch-axis data`` solves each rank's
-rows with its own controller, as the JAX package's ``Sharded("data")``
-does. ``--production-mesh`` (``--multi-pod``) trains on the 16 x 16
-(2 x 16 x 16) mesh, tensor-parallel over its 'model' axis, and needs a
-world of 256 (512) ranks.
+metrics and ``final_step=``. ``--ode-batch-axis {data,pod,model}``
+solves each residual branch as the JAX package's ``Sharded(axis)``
+fleet: one controller for each of the axis's blocks of the global batch,
+mapped onto the ranks that hold its rows (an axis whose blocks straddle
+them is refused, naming ROADMAP item 12b). ``--production-mesh``
+(``--multi-pod``) trains on the 16 x 16 (2 x 16 x 16) mesh,
+tensor-parallel over its 'model' axis, and needs a world of 256 (512)
+ranks.
 
 ``TrainConfig``/``train`` are kept as thin compatibility delegators for
 older callers (the JAX package's field names, same return), plus

@@ -17,7 +17,9 @@ the gather back, under ``torch.func.vjp`` too (MALI's backward).
 the JAX package, no loss calls it. Under data parallelism
 (:func:`~repro_torch.distributed.data_parallel.row_split`; in training and
 in a serve step on a mesh, ``eval_mode``) the capacity
-and each (token, choice)'s rank come from the global batch: the ranks'
+and each (token, choice)'s rank come from the global batch, or inside a
+residual branch solved as an ``ode_batch_axis`` fleet from its block's
+rows, as the JAX package's ``shard_map`` gives them: the ranks'
 expert ids are all-gathered (a kept token's output does not depend on
 the other tokens, so each rank computes its own tokens' outputs).
 
@@ -106,9 +108,10 @@ def apply_moe(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     n = b * s
     factor = (cfg.moe_eval_capacity_factor if eval_mode
               else cfg.moe_capacity_factor)
-    # the data group whose ranks' tokens make this call's batch (None
-    # inside a training branch that solves the rank's rows on their own,
-    # the JAX package's shard_map; its serve path has no such branch)
+    # the data group whose ranks' tokens make this call's batch (inside
+    # a training branch solved as a fleet, the JAX package's shard_map,
+    # its block's group, None where the block lies in this rank's rows;
+    # its serve path has no such branch)
     split = row_split(None if eval_mode else cfg.ode)
     n_all = n if split is None else n * split.size
     cap = _capacity(n_all, cfg, factor)

@@ -13,7 +13,9 @@ them as with every other mixer.
     chunk body does, so a backward holds one chunk's per-token state at a
     time. ``torch.utils.checkpoint`` refuses ``torch.func`` transforms,
     under which MALI's backward runs the mixer; a ``forward`` +
-    ``setup_context`` Function does not.
+    ``setup_context`` Function does not. On the meta device under an op
+    counter (the dry run) the loop runs its first chunk and charges the
+    others with its counts (``_scan_chunks``).
   * ``apply_mlstm_decode`` / ``apply_slstm_decode`` — one token against
     the ``LstmCache`` slot, written in place with no host read, so a
     decode step can be captured in a CUDA graph.
@@ -67,6 +69,41 @@ def _chunks(s: int, chunk: int, return_state: bool):
     return [slice(i, min(i + c, s)) for i in range(0, s, c)]
 
 
+def _by_first_chunk(x: torch.Tensor, chunks) -> bool:
+    """Whether the chunk loop counts its first chunk for all
+    (:func:`_scan_chunks`): meta tensors, several chunks of one length,
+    an op counter open."""
+    from repro_torch import kernels
+    return (x.is_meta and len(chunks) > 1 and bool(kernels.COUNTERS)
+            and len({c.stop - c.start for c in chunks}) == 1)
+
+
+def _scan_chunks(step, fixed, carry, seqs, chunks):
+    """``step(*fixed, *carry, *chunk)`` over the ``chunks`` (slices of
+    each of ``seqs``, time-major), each one :class:`_Recompute` call;
+    returns the final carry and each chunk's outputs after the carry.
+
+    On the meta device with an op counter open (the dry run,
+    ``launch/cost.py``) every chunk of one length dispatches the same
+    ops at the same shapes, so the first chunk runs (:class:`_Metered`)
+    and every other is charged its counts, forward and backward
+    (:class:`_Charged`: its outputs meta tensors of the first's shapes,
+    its saved inputs saved as a real chunk's). Nothing changes on a real
+    device."""
+    metered = _by_first_chunk(carry[0], chunks)
+    meter = _Meter() if metered else None
+    hs = []
+    for i, cs in enumerate(chunks):
+        args = (*fixed, *carry, *(a[cs] for a in seqs))
+        if not metered:
+            *carry, h = _Recompute.apply(step, *args)
+        else:
+            fn = _Metered if i == 0 else _Charged
+            *carry, h = fn.apply(meter, step, *args)
+        hs.append(h)
+    return carry, hs
+
+
 class _Recompute(torch.autograd.Function):
     """``body(*tensors)`` (a tuple of tensors) whose backward recomputes it
     from the saved inputs and backpropagates through the recomputation:
@@ -89,6 +126,78 @@ class _Recompute(torch.autograd.Function):
             outs = ctx.body(*inputs)
         return (None, *torch.autograd.grad(outs, inputs, grads,
                                            allow_unused=True))
+
+
+class _Meter:
+    """One chunk's counts (``launch/cost.py``: forward ``fwd``, backward
+    ``bwd``) and output layouts, and how many chunks' backwards ran
+    before the counted one's (charged once it has: a backward runs the
+    chunks last to first)."""
+
+    def __init__(self):
+        self.fwd = self.bwd = self.outs = None
+        self.pending = 0
+
+
+class _Metered(torch.autograd.Function):
+    """:class:`_Recompute` of the first chunk, its counts noted in the
+    meter."""
+
+    @staticmethod
+    def forward(meter, body, *tensors):
+        from repro_torch.launch import cost
+        marked = cost.marks()
+        out = body(*tensors)
+        meter.fwd = cost.since(marked)
+        meter.outs = [(o.shape, o.stride(), o.dtype) for o in out]
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.meter, ctx.body = inputs[0], inputs[1]
+        ctx.save_for_backward(*inputs[2:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from repro_torch.launch import cost
+        marked = cost.marks()
+        got = _Recompute.backward(ctx, *grads)[1:]
+        meter = ctx.meter
+        meter.bwd = cost.since(marked)
+        cost.charge(meter.bwd, meter.pending)
+        return (None, None, *got)
+
+
+class _Charged(torch.autograd.Function):
+    """A chunk after the first, on meta: its forward and backward
+    charged the first chunk's counts; its outputs and gradients empty
+    meta tensors of their shapes."""
+
+    @staticmethod
+    def forward(meter, body, *tensors):
+        from repro_torch.launch import cost
+        cost.charge(meter.fwd)
+        dev = tensors[0].device
+        return tuple(torch.empty_strided(shape, stride, dtype=dt, device=dev)
+                     for shape, stride, dt in meter.outs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.meter = inputs[0]
+        ctx.like = [(t.shape, t.dtype, t.device) for t in inputs[2:]]
+        # saved as a real chunk's are (saved-tensor hooks see them)
+        ctx.save_for_backward(*inputs[2:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from repro_torch.launch import cost
+        meter = ctx.meter
+        if meter.bwd is None:
+            meter.pending += 1
+        else:
+            cost.charge(meter.bwd)
+        return (None, None, *(torch.empty(shape, dtype=dt, device=dev)
+                              for shape, dt, dev in ctx.like))
 
 
 # ---------------------------------------------------------------------------
@@ -195,11 +304,8 @@ def apply_mlstm_train(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
     carry = (torch.zeros((b, nh, dh, dh), **f32),
              torch.zeros((b, nh, dh), **f32),
              torch.full((b, nh), _M0, **f32))
-    hs = []
-    for cs in _chunks(s, chunk, return_state):
-        *carry, h = _Recompute.apply(_mlstm_steps, *carry,
-                                     *(a[cs] for a in seqs))
-        hs.append(h)
+    carry, hs = _scan_chunks(_mlstm_steps, (), carry, seqs,
+                             _chunks(s, chunk, return_state))
     h = torch.cat(hs).transpose(0, 1).reshape(b, s, nh * dh)
     out = _mlstm_out(params, h, gate, x.dtype)
     if return_state:
@@ -340,11 +446,8 @@ def apply_slstm_train(params: Pytree, cfg: ModelConfig, x: torch.Tensor,
              torch.zeros((b, nh, dh), **f32),
              torch.full((b, nh), _M0, **f32),
              torch.zeros((b, nh, dh), **f32))
-    hs = []
-    for cs in _chunks(s, chunk, return_state):
-        *carry, h = _Recompute.apply(_slstm_steps, params["r_in"],
-                                     params["bias"], *carry, pre[cs])
-        hs.append(h)
+    carry, hs = _scan_chunks(_slstm_steps, (params["r_in"], params["bias"]),
+                             carry, (pre,), _chunks(s, chunk, return_state))
     h = torch.cat(hs).transpose(0, 1).reshape(b, s, d)
     out = (h.to(x.dtype) * params["out_norm"]) @ params["w_down"]
     if return_state:

@@ -156,7 +156,8 @@ def _data_parallel_step(plan: DataParallel, params, opt_state, ef, batch,
     if split is not None:
         loss = split.all_reduce(loss)          # the ranks' shares
         if cfg.ode.batch_axis is not None:
-            # batched solves count per row: the global batch's totals
+            # a fleet's solves count per row (each row its block's
+            # counts): the global batch's totals, summed over the rows
             stats = RunStats(*(split.all_reduce(c) for c in stats))
     grads = plan.reduce_grads(grads, split)
     if compress:

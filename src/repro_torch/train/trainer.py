@@ -51,11 +51,15 @@ restores the whole state and keeps its shards, so checkpoints move
 between world sizes and mesh shapes. Under adaptive control
 (``ode_steps=0``) one controller runs over the global batch, as in the
 JAX package: each trial's error norm is summed over the data ranks, so
-every rank takes the same steps; ``ode_batch_axis="data"`` solves each
-rank's rows with its own controller (the JAX package's
-``Sharded("data")``). Refused, with a ``NotImplementedError`` naming
-ROADMAP queue 1 item 12b: adaptive control over several data ranks with
-an ``ode_batch_axis`` other than 'data', or 'data' beside a 'pod' axis.
+every rank takes the same steps. ``ode_batch_axis`` ('data', 'pod' or
+'model') solves each residual branch as the JAX package's
+``Sharded(axis)`` fleet, one controller for each of the axis's blocks of
+the global batch, under any step controller: a block that spans several
+data ranks sums its error norm over them, and a rank whose rows hold
+several blocks solves them one after another
+(``distributed/data_parallel.py``, ``Fleet``). Refused, with a
+``NotImplementedError`` naming ROADMAP queue 1 item 12b: an axis whose
+blocks straddle the data ranks' rows (neither size divides the other).
 """
 from __future__ import annotations
 

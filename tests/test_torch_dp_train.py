@@ -343,9 +343,10 @@ def _assert_state_equal(saved, state):
 def test_data_parallel_refusals():
     """Meshes with a 'model' axis (tensor parallelism) or a 'pod' axis
     are accepted; so is adaptive control over several data ranks, with
-    one controller over the global batch or each rank's rows solved
-    alone (ode_batch_axis='data'). Refused (item 12b): a batch axis
-    whose fleet's blocks are not the ranks' rows."""
+    one controller over the global batch, and with every
+    ``ode_batch_axis`` whose fleet's blocks span whole ranks' rows or
+    split them (tests/test_torch_fleet_blocks.py). Refused (item 12b):
+    a batch axis whose blocks straddle the ranks' rows."""
     cfg = R.qwen_cfg()
     for axes in ({"data": 2, "model": 2}, {"pod": 2, "data": 2, "model": 1},
                  {"data": 16, "model": 16}):
@@ -355,14 +356,26 @@ def test_data_parallel_refusals():
                  {"data": 1, "model": 1}, {"data": 1, "model": 2},
                  {"pod": 2, "data": 16, "model": 16}):
         check_supported(adaptive, axes)
-    check_supported(R.qwen_cfg(dict(R.ADAPTIVE, batch_axis="data")),
-                    {"data": 4, "model": 1})
-    for ode, axes in ((dict(R.ADAPTIVE, batch_axis="model"),
-                       {"data": 2, "model": 2}),
-                      (dict(R.ADAPTIVE, batch_axis="data"),
-                       {"pod": 2, "data": 2, "model": 1})):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            check_supported(R.qwen_cfg(ode), axes)
+    for axis, axes in (("data", {"data": 4, "model": 1}),
+                       ("data", {"pod": 2, "data": 2, "model": 1}),
+                       ("data", {"pod": 2, "data": 16, "model": 16}),
+                       ("pod", {"pod": 2, "data": 2, "model": 1}),
+                       ("model", {"data": 1, "model": 2}),
+                       ("model", {"data": 2, "model": 2})):
+        for ode in (R.ADAPTIVE, R.MALI):
+            check_supported(R.qwen_cfg(dict(ode, batch_axis=axis)), axes)
+    # 3 blocks of the batch against 2 ranks' rows: block 1 straddles
+    # them (under fixed steps this 'dp' config splits its rows over
+    # 'model' too, 6 blocks of which the fleet's 3 are whole)
+    straddling = {"data": 2, "model": 3}
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        check_supported(R.qwen_cfg(dict(R.ADAPTIVE, batch_axis="model")),
+                        straddling)
+    check_supported(R.qwen_cfg(dict(R.MALI, batch_axis="model")),
+                    straddling)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        check_supported(dataclasses.replace(R.qwen_cfg(dict(
+            R.MALI, batch_axis="model")), sharding="tp"), straddling)
     with pytest.raises(ValueError, match="expert"):
         check_supported(cfg, {"data": 2, "expert": 2})
 

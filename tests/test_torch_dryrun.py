@@ -161,8 +161,9 @@ def test_cli_train_cell(tmp_path):
 def test_cli_refuses_by_roadmap_items(tmp_path):
     """xLSTM serving on a 'model' axis that splits its LSTM caches on
     d_head: recorded, a rank holding its block of every cache; training
-    it through its token loops (2b.13): refused, not an error; the CLI
-    exits 0."""
+    it through its token loops: recorded too (each chunk loop counted by
+    its first chunk on meta, 2b.13's dry-run half), no refusal left; the
+    CLI exits 0."""
     recs = _cli(tmp_path, "--arch", "xlstm-125m", "--shape", "decode_32k",
                 "--mesh", "single")
     assert recs[0]["status"] == "ok"
@@ -173,8 +174,65 @@ def test_cli_refuses_by_roadmap_items(tmp_path):
     assert recs[0]["memory"]["cache"] == rules["cache"] > 0
     rec = dryrun.run_cell("xlstm-125m", "train_4k", False,
                           out_dir=str(tmp_path))
-    assert rec["status"] == "refused"
-    assert rec["item"] == dryrun.XLSTM_LOOP_ITEM
+    assert rec["status"] == "ok" and "item" not in rec
+    assert rec["ops"] > 10 ** 6 and rec["roofline"]["flops"] > 0
+
+
+def _xlstm_meta_step(kind: str, full_loop: bool, monkeypatch):
+    """(ops, FLOPs, bytes, the op table) of one step of xLSTM's smoke
+    config, cut to one mLSTM and the sLSTM layer, at 4 chunks of 64
+    tokens on meta: a train step, or a prefill; ``full_loop`` dispatches
+    every chunk."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import LayerSpec
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.launch.specs import META
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import xlstm
+    from repro_torch.models.lm import init_serve_state
+    from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state
+    if full_loop:
+        monkeypatch.setattr(xlstm, "_by_first_chunk", lambda *a: False)
+    ode = dataclasses.replace(DEFAULT_ODE, backend="cuda")
+    cfg = dataclasses.replace(
+        smoke_config("xlstm-125m", ode), n_periods=1,
+        period=(LayerSpec(mixer="mlstm", mlp="none"),
+                LayerSpec(mixer="slstm", mlp="none")))
+    b, s = 2, 4 * 64
+    params = param_specs(cfg)
+    tokens = torch.empty((b, s), dtype=torch.int32, device=META)
+    if kind == "train":
+        opt_cfg = OptimizerConfig()
+        opt = init_opt_state(opt_cfg, params)
+        step = make_train_step(cfg, opt_cfg)
+        run = lambda: step(params, opt, {"tokens": tokens,      # noqa: E731
+                                         "labels": tokens})
+    else:
+        state = init_serve_state(cfg, b, s, META)
+        step = make_prefill_step(cfg)
+        run = lambda: step(params, {"tokens": tokens}, state)   # noqa: E731
+    grad = torch.enable_grad() if kind == "train" else torch.no_grad()
+    with grad, OpCounter() as c:
+        run()
+    monkeypatch.undo()
+    return c.n_ops, c.flops, c.flops_bf16, c.bytes, sorted(
+        (k, tuple(v)) for k, v in {**c.by_op, **c.kernels}.items())
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_xlstm_first_chunk_counting_equals_the_full_loop(kind, monkeypatch):
+    """On meta the xLSTM's chunk loop runs its first chunk and charges the
+    others its counts (2b.13's dry-run half): the counts of a train step
+    and of a prefill equal the full loop's exactly, op by op."""
+    from repro_torch.models import xlstm
+    calls = []
+    real = xlstm._Charged.forward
+    monkeypatch.setattr(xlstm._Charged, "forward", staticmethod(
+        lambda *a: calls.append(1) or real(*a)))
+    first = _xlstm_meta_step(kind, False, monkeypatch)
+    assert calls                    # the loop ran its chunks as charged
+    full = _xlstm_meta_step(kind, True, monkeypatch)
+    assert first == full
 
 
 def test_cli_exits_1_on_an_error(tmp_path, monkeypatch):
